@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions;
-2. build: ``csrc/paged_attention.cu`` compiled by ``nvcc`` for sm_90a
-   from this checkout;
+2. build: ``csrc/paged_attention.cu``, ``csrc/flash_attention.cu`` and
+   ``csrc/fused_update.cu`` compiled from this checkout by ``nvcc`` for
+   sm_90a, one ``nvcc`` per source, all started together;
 3. kernel: the paged-attention kernel against its plain PyTorch version
    at the serving slice's shapes (N=8, H=12, hd=64, ps=16, P=32,
    Q in {1, 4}; f32 pools within 1e-5, bf16 pools within 2e-2 of the
@@ -23,16 +24,45 @@ Phases, each of which fails the run (non-zero exit) on any error:
    page_size=16, max_context=512)`` in bf16, serving 24 concurrent
    greedy requests; every decode step must have gone through the
    kernel. Then an f32 pass whose engine tokens must equal the dense
-   ``CausalLM.generate()``.
+   ``CausalLM.generate()``;
+5. train kernels: the flash-attention forward kernel against
+   ``blockwise_attention`` (N=4, H=12, hd=64, T in {128, 77}; no mask,
+   padded rows, padded rows plus one fully masked row; causal off and
+   on; f32 within 2e-5, bf16 within 2e-2 of the f32 plain version on the
+   bf16-rounded inputs), the backward kernels against autograd through
+   ``blockwise_attention`` (f32 within 1e-4 of max |grad|, bf16 within
+   2e-2), the fused Adam kernel against ``adam_update_reference`` (step
+   300, loss scale and clip; n = 108,922,170 and an unaligned n; rtol
+   1e-6, atol 1e-7); then, at the training shape (N=96, bf16), the
+   forward and backward kernels against the f32 plain version again
+   (within 2e-2, of max |grad| for the backward) and each kernel's time
+   at the training shapes beside its plain version's, its bound and a
+   library yardstick the port never calls;
+6. train: BERT-base (``bert_base()``, 108.9 M parameters, random weights
+   from a numpy seed in the JAX tree layout) with ``attn_impl="flash"``,
+   bf16 compute and f32 masters in one flat buffer, MLM on a fixed batch
+   of 96 x 128 tokens with 19 masked positions per row,
+   ``masked_capacity=20``, dropout 0.1 from a seeded generator, Adam at
+   lr 1e-4: 2 warm-up and 10 timed steps, every layer through the flash
+   kernels and every step through one fused Adam launch; the loss must
+   start near ln(vocab) and fall. Then a profiled window of 3 steps;
+7. train parity: 2 layers at full width, batch 8 x 128, dropout 0, f32:
+   3 MLM steps on the card (the kernels) and on the CPU (the plain
+   versions) from the same numpy weights must agree (loss 1e-4
+   relative, parameters 2e-5 absolute) and the card's update must have
+   moved a parameter by at least half a step of lr, then one
+   ``BertSequenceClassifier`` fine-tune step with a padding mask alike.
 
-Prints progress lines, then a JSON line with the kernel's numbers, the
+Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -44,10 +74,16 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.join(HERE, "deeplearning4j_tpu_torch")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f32 rate
-# outside the tensor cores, which is what the kernel's arithmetic uses
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+# the training slice: bench.py's BERT-base MLM cell
+TRAIN_BATCH, TRAIN_SEQ, MASKED_PER_ROW, MASKED_CAPACITY = 96, 128, 19, 20
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 3
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_update")
 
 SLOTS, PAGE, HEADS, HEAD_DIM, LAYERS = 8, 16, 12, 64, 12
 MAX_CONTEXT = 512
@@ -86,18 +122,29 @@ def phase_build() -> None:
     from deeplearning4j_tpu_torch.ops import native
 
     t0 = time.perf_counter()
-    paths = native.build(["paged_attention"])
-    say("build", f"{os.path.relpath(paths['paged_attention'], HERE)} in "
-                 f"{time.perf_counter() - t0:.2f} s")
-    log = native.build_logs.get("paged_attention", {}).get("output", "")
-    lines = log.splitlines()
-    # ptxas -v for the instantiations the slice runs (head_dim 64)
-    for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and "Li2E" in ln:
-            kind = "bf16" if "nv_bfloat16" in ln else "f32"
-            info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                    if "Used" in x or "spill" in x]
-            say("build", f"ptxas {kind} hd=64: {'; '.join(info)}")
+    paths = native.build(KERNEL_SOURCES)
+    say("build", f"{len(paths)} sources in {time.perf_counter() - t0:.2f} s")
+    # ptxas -v for the instantiations the slices run: head_dim 64 is the
+    # template argument 2 (vectors of 32) of paged attention and 64 of
+    # flash attention; the Adam kernels have no template
+    marks = {"paged_attention": "Li2E", "flash_attention": "Li64E",
+             "fused_update": ""}
+    for name in KERNEL_SOURCES:
+        log = native.build_logs.get(name, {})
+        say("build", f"{os.path.relpath(paths[name], HERE)}: "
+                     f"{log.get('seconds', 0.0):.2f} s")
+        lines = str(log.get("output", "")).splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and marks[name] in ln:
+                found = re.search(r"(paged_attention_kernel|flash_fwd_kernel"
+                                  r"|flash_bwd_[a-z]+_kernel"
+                                  r"|fused_adam_(?:vec4|scalar))", ln)
+                kind = "bf16" if "nv_bfloat16" in ln else "f32"
+                info = [x.split(":", 1)[-1].strip()
+                        for x in lines[i + 1:i + 4]
+                        if "Used" in x or "spill" in x]
+                say("build", f"  ptxas {found.group(1) if found else ln} "
+                             f"({kind}): {'; '.join(info)}")
 
 
 # ---------------------------------------------------------------- kernel
@@ -293,23 +340,22 @@ def serve_config():
                              d_ff=3072, dropout=0.0)
 
 
-def profile_window(eng, jobs) -> None:
-    """Device busy share over one batch (prefill and decode) served by a
-    running engine, from a torch.profiler trace: the kernels' device
-    times summed over the window's wall time (one stream, so kernels do
-    not overlap), and the largest kernels by device time."""
+def device_profile(phase: str, what: str, run, focus) -> float:
+    """Device busy share over ``run()`` from a torch.profiler trace: the
+    kernels' device times summed over the window's wall time (one
+    stream, so kernels do not overlap), the share of the kernels whose
+    names hold each string of ``focus``, and the largest kernels by
+    device time. Returns the busy milliseconds (0 when the profiler saw
+    no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = eng.n_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in [eng.submit(p, n) for p, n in jobs]:
-            r.result(timeout=600)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    steps = eng.n_steps - steps0
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -317,18 +363,33 @@ def profile_window(eng, jobs) -> None:
                 + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     if busy_us == 0:
-        say("profile", "torch.profiler saw no device time: device idle "
-                       "share not measured")
-        return
-    attn_us = sum(t for n, t in by_name.items() if "paged_attention" in n)
-    say("profile", f"{len(jobs)} requests, {steps} decode steps in "
-                   f"{wall_us / 1e3:.1f} ms: device busy {busy_us / 1e3:.1f} "
-                   f"ms ({busy_us / wall_us:.3f} of the window, idle "
-                   f"{1 - busy_us / wall_us:.3f}); paged_attention "
-                   f"{attn_us / 1e3:.2f} ms ({attn_us / busy_us:.3f} of "
+        say(phase, "torch.profiler saw no device time: device idle share "
+                   "not measured")
+        return 0.0
+    say(phase, f"{what} in {wall_us / 1e3:.1f} ms: device busy "
+               f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of the "
+               f"window, idle {1 - busy_us / wall_us:.3f})")
+    for key in focus:
+        t = sum(v for n, v in by_name.items() if key in n)
+        say(phase, f"  {key}*: {t / 1e3:.2f} ms ({t / busy_us:.3f} of "
                    f"device time)")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say("profile", f"  {t / 1e3:9.2f} ms  {name[:100]}")
+        say(phase, f"  {t / 1e3:9.2f} ms  {name[:100]}")
+    return busy_us / 1e3
+
+
+def profile_window(eng, jobs) -> None:
+    """The device profile of one batch (prefill and decode) served by a
+    running engine."""
+    steps0 = eng.n_steps
+
+    def run():
+        for r in [eng.submit(p, n) for p, n in jobs]:
+            r.result(timeout=600)
+
+    device_profile("profile", f"{len(jobs)} requests", run,
+                   ("paged_attention",))
+    say("profile", f"  ({eng.n_steps - steps0} decode steps)")
 
 
 def phase_serve(kernel_row: dict) -> None:
@@ -413,6 +474,468 @@ def phase_serve(kernel_row: dict) -> None:
                  f"requests ({sum(n for _, n in jobs32)} tokens)")
 
 
+# --------------------------------------------------------- train kernels
+BERT_BASE_PARAMS = 108_922_170
+
+
+def bound(nbytes: int, flops: int, peak_flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate
+    and the operations over ``peak_flops``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_case(N: int, T: int, dtype, mask_kind: str, seed: int):
+    """q, k, v [N, 12, T, 64] and a key mask: none, padded (row n keeps
+    its first T - 7n keys), or padded with the last row fully masked."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v = (torch.randn(N, HEADS, T, HEAD_DIM, generator=g,
+                           device=DEVICE).to(dtype) for _ in range(3))
+    mask = None
+    if mask_kind != "none":
+        keep = torch.tensor([max(1, T - 7 * n) for n in range(N)],
+                            device=DEVICE)
+        mask = (torch.arange(T, device=DEVICE)[None, :]
+                < keep[:, None]).float()
+        if mask_kind == "full_row":
+            mask[-1] = 0.0
+    return q, k, v, mask
+
+
+def flash_plain(q, k, v, mask, causal):
+    """The kernels' plain version at f32: ``blockwise_attention`` with one
+    block spanning the keys, so that a fully masked row is the mean of v
+    as in the kernel (a padded block would let its padding in)."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        blockwise_attention)
+
+    return blockwise_attention(q.float(), k.float(), v.float(), mask,
+                               causal=causal, block_k=k.shape[2])
+
+
+def flash_bound(q, backward: bool):
+    """(bound_ms, bound_by, bytes, flops) of one unmasked, non-causal call
+    (the training path's): the forward reads q, k, v and writes out and
+    the row statistics; the backward reads q, k, v, out, dout and the
+    statistics and writes dq, dk, dv. Matmul operations only: 2 (QK^T,
+    PV) or 5 (QK^T again, dV, dP, dQ, dK) products of 2 * T * T * hd per
+    (sequence, head), at the tensor-core rate of the inputs' type."""
+    N, H, T, hd = q.shape
+    one = q.numel() * q.element_size()
+    stats = 2 * N * H * T * 4
+    products = 5 if backward else 2
+    nbytes = (8 if backward else 4) * one + stats
+    flops = products * 2 * N * H * T * T * hd
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    return (*bound(nbytes, flops, peak), nbytes, flops)
+
+
+def flash_grads(q, k, v, mask, causal, dout, dtype, kernel: bool):
+    """dq, dk, dv of attention at ``dtype``: through the kernels'
+    autograd Function, or through the plain version at f32."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    work = torch.float32 if not kernel else dtype
+    leaves = [t.to(dtype).to(work).clone().requires_grad_(True)
+              for t in (q, k, v)]
+    out = (fa.attention(*leaves, mask, causal) if kernel
+           else flash_plain(*leaves, mask, causal))
+    return torch.autograd.grad(out, leaves, dout.to(dtype).to(work))
+
+
+def phase_flash() -> tuple:
+    """Rows of ``flash_attention_fwd`` and ``flash_attention_bwd``:
+    checks against the plain version, then times at the training shape."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    fwd_err = bwd_err = 0.0
+    for T in (128, 77):
+        for mask_kind in ("none", "padded", "full_row"):
+            for causal in (False, True):
+                q, k, v, m = flash_case(4, T, torch.float32, mask_kind,
+                                        seed=T)
+                dout = torch.randn_like(q)
+                line = []
+                for dtype, tol in ((torch.float32, 2e-5),
+                                   (torch.bfloat16, 2e-2)):
+                    lq, lk, lv = (x.to(dtype) for x in (q, k, v))
+                    out, stats = fa.flash_attention_fwd(lq, lk, lv, m, causal)
+                    want = flash_plain(lq, lk, lv, m, causal)
+                    torch.cuda.synchronize()
+                    check(out.dtype == dtype and out.shape == q.shape
+                          and stats.shape == (2, 4 * HEADS, T),
+                          f"forward output {out.dtype} {tuple(out.shape)}")
+                    check(bool(torch.isfinite(out).all()),
+                          "forward output not finite")
+                    err = float((out.float() - want).abs().max())
+                    fwd_err = max(fwd_err, err)
+                    check(err <= tol, f"flash forward {dtype} T={T} "
+                                      f"{mask_kind} causal={causal}: "
+                                      f"{err:.3e} > {tol:g}")
+                    line.append(f"fwd {str(dtype)[6:]} {err:.2e}")
+                for dtype, tol in ((torch.float32, 1e-4),
+                                   (torch.bfloat16, 2e-2)):
+                    got = flash_grads(q, k, v, m, causal, dout, dtype, True)
+                    want = flash_grads(q, k, v, m, causal, dout, dtype, False)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip("qkv", got, want):
+                        check(a.dtype == dtype and a.shape == b.shape,
+                              f"d{name} {a.dtype} {tuple(a.shape)}")
+                        err = float((a.float() - b).abs().max())
+                        scale = float(b.abs().max())
+                        bwd_err = max(bwd_err, err)
+                        check(err <= tol * scale,
+                              f"flash backward d{name} {dtype} T={T} "
+                              f"{mask_kind} causal={causal}: {err:.3e} > "
+                              f"{tol:g} x max |grad| {scale:.3e}")
+                        line.append(f"d{name} {str(dtype)[6:]} "
+                                    f"{err / scale:.2e}")
+                say("flash", f"T={T} mask={mask_kind} causal={causal}: "
+                             f"max abs err {', '.join(line[:2])}; bwd err "
+                             f"/ max |grad| {', '.join(line[2:])}")
+
+    # the training shape: bf16, N=96, H=12, T=128, hd=64, no key mask
+    q, k, v, _ = flash_case(TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, "none",
+                            seed=5)
+    dout = torch.randn_like(q)
+    out, stats = fa.flash_attention_fwd(q, k, v)
+    err = float((out.float() - flash_plain(q, k, v, None, False)).abs().max())
+    fwd_err = max(fwd_err, err)
+    check(err <= 2e-2, f"flash forward bf16 at the training shape: "
+                       f"{err:.3e} > 0.02")
+    line = [f"fwd {err:.2e}"]
+    got = flash_grads(q, k, v, None, False, dout, torch.bfloat16, True)
+    want = flash_grads(q, k, v, None, False, dout, torch.bfloat16, False)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, want):
+        err = float((a.float() - b).abs().max())
+        scale = float(b.abs().max())
+        bwd_err = max(bwd_err, err)
+        check(err <= 2e-2 * scale, f"flash backward d{name} bf16 at the "
+                                   f"training shape: {err:.3e} > 0.02 x max "
+                                   f"|grad| {scale:.3e}")
+        line.append(f"d{name} {err / scale:.2e}")
+    del got, want
+    say("flash", f"training shape N={TRAIN_BATCH} bf16 against the f32 plain "
+                 f"version: max abs err {line[0]}; bwd err / max |grad| "
+                 f"{', '.join(line[1:])}")
+    key_mask = torch.ones(TRAIN_BATCH, 1, 1, TRAIN_SEQ, dtype=torch.bool,
+                          device=DEVICE)
+    plain_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = fa.blockwise_attention(*plain_in)
+    lib_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=key_mask)
+    lib_err = float((lib_out.detach().float() - out.float()).abs().max())
+    say("flash", f"yardstick SDPA vs kernel at the training shape: max abs "
+                 f"err {lib_err:.3e}")
+    iters = 50
+
+    def times():
+        return (cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v), iters),
+                cuda_ms(lambda i: fa.flash_attention_bwd(
+                    q, k, v, out, dout, stats), iters))
+
+    kern1 = times()
+    plain = (cuda_ms(lambda i: fa.blockwise_attention(q, k, v), iters),
+             cuda_ms(lambda i: torch.autograd.grad(
+                 plain_out, plain_in, dout, retain_graph=True), iters))
+    lib = (cuda_ms(lambda i: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=key_mask), iters),
+           cuda_ms(lambda i: torch.autograd.grad(
+               lib_out, lib_in, dout, retain_graph=True), iters))
+    kern2 = times()
+    rows = []
+    for j, (name, err) in enumerate((("flash_attention_fwd", fwd_err),
+                                     ("flash_attention_bwd", bwd_err))):
+        bound_ms, bound_by, nbytes, flops = flash_bound(q, backward=j == 1)
+        ms = min(kern1[j], kern2[j])
+        say("flash", f"{name} at N={TRAIN_BATCH} H={HEADS} T={TRAIN_SEQ} "
+                     f"hd={HEAD_DIM} bf16: kernel {kern1[j]:.4f} / "
+                     f"{kern2[j]:.4f} ms, plain {plain[j]:.4f} ms, library "
+                     f"(SDPA with a boolean key mask, never called by the "
+                     f"port) {lib[j]:.4f} ms; bound {bound_ms:.4f} ms by "
+                     f"{bound_by} ({nbytes} B, {flops} flop at 989 TFLOP/s "
+                     f"bf16); kernel at {nbytes / (ms * 1e-3) / 1e9:.1f} "
+                     f"GB/s, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "deeplearning4j_tpu_torch/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "deeplearning4j_tpu/ops/flash_attention.py:"
+                                 + ("181" if j == 0 else "208"),
+                     "launches": 0, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain[j], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib[j]})
+    return tuple(rows)
+
+
+def adam_case(n: int, offset: int, seed: int, fresh: bool = False):
+    """Flat f32 master, m, v and grad of n elements at the JAX golden's
+    scales, or with m = v = 0 (``fresh``, the first step's state);
+    ``offset`` 1 starts every buffer one element into its allocation,
+    which takes the kernel off its 16-byte vector path."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    bufs = []
+    for scale, positive in ((1.0, False), (0.01, False), (1e-4, True),
+                            (2.0 ** 12, False)):
+        x = torch.randn(n + offset, generator=g, device=DEVICE)
+        x = (x.abs() if positive else x).mul_(0.0 if fresh and scale < 1
+                                                else scale)
+        bufs.append(x[offset:])
+    return bufs
+
+
+def phase_adam() -> dict:
+    """Row of ``fused_adam_update``: checks against the plain version at
+    step 300 with a loss scale and a clip, and at step 0 from zero
+    moments, then times at the full flat buffer of BERT-base."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+
+    upd = Adam(3e-4)
+    hyper = dict(beta1=upd.beta1, beta2=upd.beta2, eps=upd.epsilon)
+    max_err = 0.0
+    for n, offset, it in ((BERT_BASE_PARAMS, 0, 300), (1_000_003, 1, 300),
+                          (1_000_003, 0, 0)):
+        master, m, v, grad = adam_case(n, offset, seed=offset, fresh=it == 0)
+        sc = fu.adam_update_scalars(upd, it, inv_scale=2.0 ** -12,
+                                    clip_norm=0.5,
+                                    grad_norm=torch.linalg.vector_norm(grad))
+        want = fu.adam_update_reference(master, m, v, grad, sc[0], sc[1],
+                                        upd.beta1, upd.beta2, upd.epsilon)
+        got = fu.adam_segment_update(master, m, v, grad, sc, **hyper)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("master", "m", "v"), got, want):
+            err = (a - b).abs()
+            worst = float((err - 1e-6 * b.abs()).max())
+            max_err = max(max_err, float(err.max()))
+            check(worst <= 1e-7, f"fused Adam {name} n={n} step {it}: "
+                                 f"|err| exceeds 1e-7 + 1e-6 |want| by "
+                                 f"{worst:.3e}")
+        say("adam", f"n={n} offset={offset} step {it}: kernel == plain "
+                    f"within rtol 1e-6, atol 1e-7 (max abs err so far "
+                    f"{max_err:.3e})")
+        del master, m, v, grad, want, got
+
+    # the train step's call: the whole BERT-base flat buffer, scalars
+    # from the host
+    n = BERT_BASE_PARAMS
+    master, m, v, grad = adam_case(n, 0, seed=2)
+    gscale, alpha = fu.adam_update_scalars(Adam(1e-4), 300).tolist()
+    iters = 20
+
+    def kernel_ms():
+        return cuda_ms(lambda i: fu.fused_adam_update(
+            master, m, v, grad, gscale, alpha, **hyper), iters, warmup=3)
+
+    kern1 = kernel_ms()
+    plain_ms = cuda_ms(lambda i: fu.adam_update_reference(
+        master, m, v, grad, gscale, alpha, upd.beta1, upd.beta2,
+        upd.epsilon), iters, warmup=3)
+    p = torch.nn.Parameter(master.clone())
+    p.grad = grad.clone()
+    opt = torch.optim.Adam([p], lr=1e-4, fused=True)
+    lib_ms = cuda_ms(lambda i: opt.step(), iters, warmup=3)
+    del p, opt
+    kern2 = kernel_ms()
+    ms = min(kern1, kern2)
+    nbytes, flops = 28 * n, 12 * n    # reads 4 f32, writes 3; ~12 flop each
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+    say("adam", f"fused_adam_update at n={n}: kernel {kern1:.4f} / "
+                f"{kern2:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"(torch.optim.Adam(fused=True), not the same function: its "
+                f"eps comes after the bias correction) {lib_ms:.4f} ms; "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B); kernel "
+                f"at {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    del master, m, v, grad
+    torch.cuda.empty_cache()
+    return {"name": "fused_adam_update", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
+            "replaces": "deeplearning4j_tpu/ops/fused_update_pallas.py:147",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# ----------------------------------------------------------------- train
+def mlm_batch(vocab: int, batch: int, seq: int, seed: int):
+    """bench.py's MLM batch from a numpy seed: random ids and labels,
+    MASKED_PER_ROW masked positions per row."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, seq))
+    labels = rng.integers(0, vocab, (batch, seq))
+    mask_pos = np.zeros((batch, seq), np.float32)
+    for r in range(batch):
+        mask_pos[r, rng.choice(seq, MASKED_PER_ROW, replace=False)] = 1.0
+    return ids, labels, mask_pos
+
+
+def reset_train_counts() -> None:
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+
+    fa.fwd_launches = fa.bwd_launches = fu.launches = 0
+
+
+def train_counts() -> tuple:
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+
+    return fa.fwd_launches, fa.bwd_launches, fu.launches
+
+
+def phase_train(rows: dict) -> None:
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerEncoder, bert_base, init_params_numpy)
+    from deeplearning4j_tpu_torch.params import FlatParams, params_from_jax
+
+    cfg = bert_base()
+    model = TransformerEncoder(cfg, attn_impl="flash")
+    t0 = time.perf_counter()
+    flat = FlatParams(params_from_jax(init_params_numpy(cfg, seed=0),
+                                      device=DEVICE))
+    check(flat.numel == BERT_BASE_PARAMS,
+          f"bert_base() has {flat.numel} parameters")
+    upd = Adam(1e-4)
+    opt = upd.init_state(flat.master)
+    step = model.make_train_step(upd, masked_capacity=MASKED_CAPACITY)
+    batch = [torch.from_numpy(a).to(DEVICE) for a in
+             mlm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    say("train", f"bert_base(): {flat.numel} parameters in one flat f32 "
+                 f"master, {cfg.compute_dtype} compute, attn_impl=flash, "
+                 f"dropout {cfg.dropout}; batch {TRAIN_BATCH} x "
+                 f"{TRAIN_SEQ}, {MASKED_PER_ROW} masked per row, "
+                 f"masked_capacity {MASKED_CAPACITY}, Adam lr "
+                 f"{upd.learning_rate}; set up in "
+                 f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    losses = [step(flat, opt, i, *batch, generator=gen)
+              for i in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP_STEPS, WARMUP_STEPS + TIMED_STEPS):
+        losses.append(step(flat, opt, i, *batch, generator=gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd, adam = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    check((fwd, bwd, adam) == (cfg.n_layers * steps, cfg.n_layers * steps,
+                               steps),
+          f"launches fwd {fwd}, bwd {bwd}, adam {adam} over {steps} steps "
+          f"of {cfg.n_layers} layers")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 1.0,
+          f"first loss {losses[0]:.4f} is not within 1.0 of ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_s = wall / TIMED_STEPS
+    say("train", f"{TIMED_STEPS} timed steps: {step_s * 1e3:.2f} ms/step, "
+                 f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; peak "
+                 f"memory {peak} B ({peak / 2 ** 30:.2f} GiB); launches "
+                 f"over {steps} steps: flash fwd {fwd}, flash bwd {bwd}, "
+                 f"fused Adam {adam}")
+    say("train", "losses " + " ".join(f"{x:.4f}" for x in losses))
+    rows["flash_attention_fwd"]["launches"] = fwd
+    rows["flash_attention_bwd"]["launches"] = bwd
+    rows["fused_adam_update"]["launches"] = adam
+
+    def run():
+        for i in range(steps, steps + PROFILED_STEPS):
+            step(flat, opt, i, *batch, generator=gen)
+
+    busy_ms = device_profile("train", f"{PROFILED_STEPS} more steps", run,
+                             ("flash_fwd", "flash_bwd", "fused_adam"))
+    if busy_ms:
+        per_step = busy_ms / PROFILED_STEPS
+        say("train", f"device busy {per_step:.2f} ms per profiled step "
+                     f"against {step_s * 1e3:.2f} ms per timed step "
+                     f"(unprofiled): idle about "
+                     f"{1 - per_step / (step_s * 1e3):.3f} of a step")
+
+
+def run_steps(step, updater, tree, arrays, n_steps: int, device: str):
+    """``n_steps`` of a flat train step from the numpy parameter tree on
+    ``device``: the losses, the final flat master on the CPU, and the
+    largest distance a parameter moved."""
+    from deeplearning4j_tpu_torch.params import FlatParams, params_from_jax
+
+    flat = FlatParams(params_from_jax(tree, device=device))
+    start = flat.master.detach().cpu().clone()
+    opt = updater.init_state(flat.master)
+    args = [torch.from_numpy(a).to(device) for a in arrays]
+    losses = [float(step(flat, opt, i, *args)) for i in range(n_steps)]
+    final = flat.master.detach().cpu()
+    return losses, final, float((final - start).abs().max())
+
+
+#: card-vs-CPU parameter limit: the sound runs differ by 1e-6 to 2e-6,
+#: while one Adam step moves a parameter by up to lr = 1e-4, so a skipped
+#: or wrong update fails it
+PARITY_PARAM_ATOL = 2e-5
+
+
+def compare_runs(what: str, card, cpu, lr: float) -> None:
+    (lc, mc, moved), (lh, mh, _) = card, cpu
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    err = float((mc - mh).abs().max())
+    say("parity", f"{what}: card losses {' '.join(f'{x:.6f}' for x in lc)}, "
+                  f"CPU {' '.join(f'{x:.6f}' for x in lh)} (max relative "
+                  f"diff {rel:.2e}, tolerance 1e-4); parameters max abs diff "
+                  f"{err:.2e} (tolerance {PARITY_PARAM_ATOL:g}); the card "
+                  f"moved a parameter by up to {moved:.3e}")
+    check(rel <= 1e-4, f"{what}: card and CPU losses differ by {rel:.3e}")
+    check(err <= PARITY_PARAM_ATOL,
+          f"{what}: card and CPU parameters differ by {err:.3e}")
+    check(moved >= 0.5 * lr, f"{what}: the card's update moved no parameter "
+                             f"by half a step of lr {lr:g} ({moved:.3e})")
+
+
+def phase_parity() -> None:
+    """The training path through the kernels on the card against the
+    same path through the plain versions on the CPU."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.models.bert_classifier import (
+        BertSequenceClassifier)
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerEncoder, bert_base, init_params_numpy)
+
+    cfg = bert_base()
+    cfg.n_layers, cfg.dropout, cfg.compute_dtype = 2, 0.0, "float32"
+    tree = init_params_numpy(cfg, seed=3)
+    batch = mlm_batch(cfg.vocab_size, 8, TRAIN_SEQ, seed=4)
+    upd = Adam(1e-4)
+    step = TransformerEncoder(cfg, attn_impl="flash").make_train_step(
+        upd, masked_capacity=MASKED_CAPACITY)
+    reset_train_counts()
+    card = run_steps(step, upd, tree, batch, 3, DEVICE)
+    check(train_counts() == (6, 6, 3),
+          f"card MLM steps launched {train_counts()}, not (6, 6, 3)")
+    cpu = run_steps(step, upd, tree, batch, 3, "cpu")
+    check(train_counts() == (6, 6, 3), "the CPU steps launched a kernel")
+    compare_runs("MLM, 2 layers, 3 steps", card, cpu, upd.learning_rate)
+
+    clf = BertSequenceClassifier(cfg, 3, attn_impl="flash")
+    ctree = clf.init_params_numpy(seed=5, encoder_params=tree)
+    lens = np.array([128, 100, 77, 64, 33, 16, 5, 1])
+    pad = (np.arange(TRAIN_SEQ)[None, :] < lens[:, None]).astype(np.float32)
+    arrays = (batch[0], np.array([0, 1, 2, 0, 1, 2, 0, 1]), pad)
+    cstep = clf.make_train_step(upd)
+    reset_train_counts()
+    card = run_steps(cstep, upd, ctree, arrays, 1, DEVICE)
+    check(train_counts() == (2, 2, 1),
+          f"card fine-tune step launched {train_counts()}, not (2, 2, 1)")
+    compare_runs("BertSequenceClassifier, padding mask, 1 step", card,
+                 run_steps(cstep, upd, ctree, arrays, 1, "cpu"),
+                 upd.learning_rate)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -425,10 +948,13 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    row = phase_kernel()
-    phase_serve(row)
+    paged = phase_kernel()
+    phase_serve(paged)
+    rows = {r["name"]: r for r in (paged, *phase_flash(), phase_adam())}
+    phase_train(rows)
+    phase_parity()
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

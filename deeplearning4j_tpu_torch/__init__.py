@@ -4,13 +4,22 @@ The JAX package stays the reference; this package imports ``torch`` and
 ``numpy`` and never JAX or anything of ``deeplearning4j_tpu``. Its entry
 points run on the CUDA card unless the caller passes ``device="cpu"``.
 
-Ported so far (slice 1, GPT decode serving):
+Ported so far:
 
-- ``models.transformer``: ``TransformerConfig``, ``tiny_config``;
-- ``models.gpt``: ``CausalLM`` (forward, ``lm_loss``, ``generate``) and
-  the parameter-tree bridges ``params_from_jax`` / ``params_to_numpy``;
-- ``ops.paged_attention``: the paged-attention kernel
-  (``csrc/paged_attention.cu``) and its plain PyTorch reference;
-- ``serving.kv_pages`` and ``serving.engine``: the page pool and the
-  continuous-batching ``DecodeEngine``.
+- slice 1, GPT decode serving:
+  ``models.gpt`` (``CausalLM``: forward, ``lm_loss``, ``generate``),
+  ``ops.paged_attention`` (the paged-attention kernel
+  ``csrc/paged_attention.cu`` and its plain PyTorch reference),
+  ``serving.kv_pages`` and ``serving.engine`` (the page pool and the
+  continuous-batching ``DecodeEngine``);
+- slice 2, BERT training:
+  ``models.transformer`` (``TransformerConfig``, ``bert_base``,
+  ``tiny_config``, ``TransformerEncoder`` with its MLM loss and flat
+  train step), ``models.bert_classifier`` (the fine-tune recipe),
+  ``learning.updaters`` (``Adam`` with a float learning rate),
+  ``ops.flash_attention`` (forward and backward kernels
+  ``csrc/flash_attention.cu``) and ``ops.fused_update`` (the fused Adam
+  master update ``csrc/fused_update.cu``);
+- ``params``: parameter trees in the JAX layout (``params_from_jax``,
+  ``params_to_numpy``) and ``FlatParams``, the flat f32 master buffer.
 """

@@ -35,8 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+from deeplearning4j_tpu_torch.params import (  # noqa: F401 (re-exported)
+    _leaves, params_from_jax, params_to_numpy, tree_map)
 
 #: layer-norm epsilon of the JAX model, independent of ``cfg.eps``
 LN_EPS = 1e-5
@@ -198,42 +199,6 @@ class CausalLM:
 
 
 # ------------------------------------------------------ parameter trees
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def tree_map(fn, tree):
-    """``fn`` over every leaf of a nested dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def params_from_jax(np_tree, device=None,
-                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Torch parameter tree from the JAX ``CausalLM.init_params()`` tree
-    after ``jax.device_get`` (numpy leaves; any array-like works), on
-    ``device`` (default: the CUDA card)."""
-    dev = resolve_device(device)
-    return tree_map(
-        lambda a: torch.tensor(np.asarray(a, np.float32)).to(dev, dtype),
-        np_tree)
-
-
-def params_to_numpy(tree) -> Dict[str, Any]:
-    """The inverse of :func:`params_from_jax`: f32 numpy leaves."""
-    return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
-
-
 def init_params_numpy(cfg: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
     """Random parameters in the JAX tree layout, drawn with numpy at the
     JAX model's init scales (gpt.py:45-76). The JAX model draws with

@@ -52,7 +52,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.models.gpt import gumbel_noise, tree_map
+from deeplearning4j_tpu_torch.models.gpt import gumbel_noise
+from deeplearning4j_tpu_torch.params import tree_map
 from deeplearning4j_tpu_torch.ops.paged_attention import paged_attention
 from deeplearning4j_tpu_torch.serving import kv_pages
 
