@@ -9,9 +9,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions;
-2. build: ``csrc/paged_attention.cu``, ``csrc/flash_attention.cu`` and
-   ``csrc/fused_update.cu`` compiled from this checkout by ``nvcc`` for
-   sm_90a, one ``nvcc`` per source, all started together;
+2. build: ``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``,
+   ``csrc/fused_update.cu`` and ``csrc/lstm_recurrence.cu`` compiled from
+   this checkout by ``nvcc`` for sm_90a, one ``nvcc`` per source, all
+   started together;
 3. kernel: the paged-attention kernel against its plain PyTorch version
    at the serving slice's shapes (N=8, H=12, hd=64, ps=16, P=32,
    Q in {1, 4}; f32 pools within 1e-5, bf16 pools within 2e-2 of the
@@ -51,7 +52,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions) from the same numpy weights must agree (loss 1e-4
    relative, parameters 2e-5 absolute) and the card's update must have
    moved a parameter by at least half a step of lr, then one
-   ``BertSequenceClassifier`` fine-tune step with a padding mask alike.
+   ``BertSequenceClassifier`` fine-tune step with a padding mask alike;
+8. LSTM kernels: the recurrence forward and backward kernels against
+   their plain versions (H=256, N in {1, 256}, T in {1, 50, 200}, and
+   the sampling shapes T in {1, 64} at N=4; non-zero h0 and c0, with and
+   without the cell stream; f32 within 1e-5, bf16 within 2e-2 of the f32
+   plain version on the bf16-rounded inputs; the backward's d x_proj,
+   d w_hh, dh0 and dc0 within 1e-4 (f32) and 2e-2 (bf16) of max |grad|,
+   and the bf16 d w_hh within 2^-8 of max |grad| of the f32 sum over the
+   kernel's own stored ys and cs), one shape outside the envelope that
+   must raise, then at the char-LSTM training shape (N=256, T=200,
+   H=256, bf16) each kernel's time beside its plain version's, its bound
+   and a ``torch.nn.LSTM`` (cuDNN) yardstick the port never calls, with
+   the port's projection matmul plus the kernel beside it (like with
+   like);
+9. char-LSTM training: ``TextGenerationLSTM(vocab_size=77, hidden=256)``
+   (887,117 parameters, random weights from a numpy seed in the JAX
+   layout) through ``MultiLayerNetwork.fit`` at ``bench_common.
+   build_char_lstm``'s shape (batch 256 x 200 one-hot characters, labels
+   the next character, bf16, standard BPTT, Adam 1e-3): 2 warm-up and 10
+   timed steps, exactly 2 forward and 2 backward kernel launches per
+   step, the per-character loss starting within 0.5 of ln 77 and falling;
+   a profiled window of 3 steps; then the zoo's own tBPTT 50 at f32 on the
+   same batch: one ``fit`` is 4 segments, 8 + 8 launches, 4 iterations;
+10. LSTM parity: the zoo model (hidden 256, tBPTT 50, f32), 3 minibatches
+   of 8 x 100 on the card (the kernels) and on the CPU (the plain
+   versions) from the same numpy weights (loss 1e-5 relative, parameters
+   2e-5 absolute, some parameter moved by at least lr/2); then, on the
+   card, ``rnnTimeStep`` fed 64 characters one at a time (batch 4) equals
+   ``output()`` over the sequence, and both equal the same network's
+   ``output()`` on the CPU (the plain versions), within 1e-5; a changed
+   batch size with stored state raises.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -83,7 +114,8 @@ BF16_FLOPS = 989e12
 # the training slice: bench.py's BERT-base MLM cell
 TRAIN_BATCH, TRAIN_SEQ, MASKED_PER_ROW, MASKED_CAPACITY = 96, 128, 19, 20
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 3
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_update")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_update",
+                  "lstm_recurrence")
 
 SLOTS, PAGE, HEADS, HEAD_DIM, LAYERS = 8, 16, 12, 64, 12
 MAX_CONTEXT = 512
@@ -126,9 +158,10 @@ def phase_build() -> None:
     say("build", f"{len(paths)} sources in {time.perf_counter() - t0:.2f} s")
     # ptxas -v for the instantiations the slices run: head_dim 64 is the
     # template argument 2 (vectors of 32) of paged attention and 64 of
-    # flash attention; the Adam kernels have no template
+    # flash attention; the Adam kernels have no template; the LSTM
+    # kernels at one row per thread (the char-LSTM shape's plan)
     marks = {"paged_attention": "Li2E", "flash_attention": "Li64E",
-             "fused_update": ""}
+             "fused_update": "", "lstm_recurrence": "Li1E"}
     for name in KERNEL_SOURCES:
         log = native.build_logs.get(name, {})
         say("build", f"{os.path.relpath(paths[name], HERE)}: "
@@ -138,7 +171,8 @@ def phase_build() -> None:
             if "Compiling entry function" in ln and marks[name] in ln:
                 found = re.search(r"(paged_attention_kernel|flash_fwd_kernel"
                                   r"|flash_bwd_[a-z]+_kernel"
-                                  r"|fused_adam_(?:vec4|scalar))", ln)
+                                  r"|fused_adam_(?:vec4|scalar)"
+                                  r"|lstm_(?:fwd|bwd)_kernel)", ln)
                 kind = "bf16" if "nv_bfloat16" in ln else "f32"
                 info = [x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]
@@ -935,6 +969,462 @@ def phase_parity() -> None:
                  run_steps(cstep, upd, ctree, arrays, 1, "cpu"),
                  upd.learning_rate)
 
+# ------------------------------------------------------------ LSTM kernels
+LSTM_HIDDEN, LSTM_VOCAB, LSTM_BATCH, LSTM_SEQ = 256, 77, 256, 200
+
+
+def lstm_case(T: int, N: int, H: int, seed: int):
+    """x_proj [T, N, 4H], w_hh [H, 4H] and non-zero h0, c0 [N, H] at the
+    scales of a trained layer (f32, on the card)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x_proj = 0.5 * torch.randn(T, N, 4 * H, generator=g, device=DEVICE)
+    w_hh = torch.randn(H, 4 * H, generator=g, device=DEVICE) / math.sqrt(H)
+    h0 = 0.5 * torch.randn(N, H, generator=g, device=DEVICE)
+    c0 = 0.5 * torch.randn(N, H, generator=g, device=DEVICE)
+    return x_proj, w_hh, h0, c0
+
+
+def lstm_bound(T: int, N: int, H: int, nbytes_el: int, backward: bool):
+    """(bound_ms, bound_by, bytes, flops) of one call at the training
+    shape: the forward reads x_proj, w_hh, h0, c0 and writes ys, the cell
+    stream, hT, cT; its matmul is T steps of [N, H] @ [H, 4H]. The backward
+    call reads x_proj, w_hh, h0, c0, ys, cs, dys, dhT, dcT and writes
+    d x_proj, d w_hh, dh0, dc0; its matmuls are the gate recompute,
+    da @ w_hh^T and the weight gradient, three of the forward's size."""
+    xp = T * N * 4 * H * nbytes_el
+    seq = T * N * H * nbytes_el
+    w = H * 4 * H * nbytes_el
+    state = N * H * nbytes_el
+    one = 2 * T * N * H * 4 * H
+    if backward:
+        nbytes, flops = 2 * xp + 3 * seq + 2 * w + 6 * state, 3 * one
+    else:
+        nbytes, flops = xp + 2 * seq + w + 4 * state, one
+    return (*bound(nbytes, flops, BF16_FLOPS), nbytes, flops)
+
+
+def phase_lstm_kernels() -> tuple:
+    """Rows of the LSTM forward and backward kernels: checks against the
+    plain versions, one refused shape, then times at the training shape."""
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+
+    H = LSTM_HIDDEN
+    fwd_err = bwd_err = 0.0
+    # the training shapes, then phase 10's sampling shapes: rnnTimeStep
+    # (T=1) and output() over 64 characters, both at batch 4
+    shapes = [(T, N) for T in (1, 50, 200) for N in (1, 256)]
+    for T, N in shapes + [(1, 4), (64, 4)]:
+        x_proj, w_hh, h0, c0 = lstm_case(T, N, H, seed=T + N)
+        g = torch.Generator(device=DEVICE).manual_seed(T * N)
+        dys = torch.randn(T, N, H, generator=g, device=DEVICE)
+        dhT = torch.randn(N, H, generator=g, device=DEVICE)
+        dcT = torch.randn(N, H, generator=g, device=DEVICE)
+        line = []
+        for dtype, tol, gtol in ((torch.float32, 1e-5, 1e-4),
+                                 (torch.bfloat16, 2e-2, 2e-2)):
+            ins = [t.to(dtype) for t in (x_proj, w_hh, h0, c0)]
+            f32 = [t.float() for t in ins]
+            want = lr.lstm_recurrence_reference(*f32, collect_cell=True)
+            for cells in (False, True):
+                got = lr.lstm_recurrence_fwd(*ins, collect_cell=cells)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    check(a.dtype == dtype and a.shape == b.shape,
+                          f"LSTM forward output {a.dtype} "
+                          f"{tuple(a.shape)}")
+                    check(bool(torch.isfinite(a).all()),
+                          "LSTM forward output not finite")
+                    err = float((a.float() - b).abs().max())
+                    fwd_err = max(fwd_err, err)
+                    check(err <= tol, f"LSTM forward {dtype} T={T} N={N} "
+                                      f"cells={cells}: {err:.3e} > "
+                                      f"{tol:g}")
+            line.append(f"fwd {str(dtype)[6:]} {err:.2e}")
+            ys_k, _, _, cs_k = lr.lstm_recurrence_fwd(*ins,
+                                                      collect_cell=True)
+            up = [t.to(dtype) for t in (dys, dhT, dcT)]
+            got = lr.lstm_recurrence_bwd(*ins, ys_k, cs_k, *up)
+            ref = lr.lstm_recurrence_backward_reference(
+                *f32, want[0], want[3], *(t.float() for t in up))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dx_proj", "dw_hh", "dh0", "dc0"),
+                                  got, ref):
+                check(a.dtype == dtype and a.shape == b.shape,
+                      f"LSTM {name} {a.dtype} {tuple(a.shape)}")
+                err = float((a.float() - b).abs().max())
+                scale = float(b.abs().max())
+                bwd_err = max(bwd_err, err)
+                check(err <= gtol * scale,
+                      f"LSTM backward {name} {dtype} T={T} N={N}: "
+                      f"{err:.3e} > {gtol:g} x max |grad| {scale:.3e}")
+                line.append(f"{name} {str(dtype)[6:]} {err / scale:.2e}")
+            if dtype == torch.bfloat16:
+                # d w_hh against the f32 sum over the kernel's own stored
+                # ys and cs: the f32 da it sums must stay within the final
+                # bf16 rounding; the sum of bf16-rounded da is printed
+                # beside it
+                same = lr.lstm_recurrence_backward_reference(
+                    *f32, ys_k.float(), cs_k.float(),
+                    *(t.float() for t in up))[1]
+                h_prev = torch.cat([ins[2][None], ys_k[:-1]])
+                rounded = (h_prev.reshape(T * N, H).T
+                           @ got[0].reshape(T * N, 4 * H))
+                scale = float(same.abs().max())
+                e_f32 = float((got[1].float() - same).abs().max()) / scale
+                e_bf16 = float((rounded.float() - same).abs().max()) / scale
+                check(e_f32 <= 2 ** -8, f"LSTM bf16 dw_hh T={T} N={N} off "
+                                        f"its f32 sum by {e_f32:.3e}")
+                line.append(f"dw_hh bf16 on its own ys {e_f32:.2e} (from "
+                            f"bf16 da {e_bf16:.2e})")
+        say("lstm", f"H={H} T={T} N={N}: {', '.join(line)} (fwd: max "
+                    f"abs err; bwd: err / max |grad|; plan "
+                    f"{lr.last_plan})")
+    try:
+        lr.lstm_recurrence(*lstm_case(3, 257, H, seed=1))
+    except ValueError as e:
+        say("lstm", f"N=257 refused: {e}")
+    else:
+        raise RuntimeError("the LSTM wrapper took N=257, outside its "
+                           "envelope")
+
+    # the training shape: bf16, T=200, N=256, H=256
+    T, N = LSTM_SEQ, LSTM_BATCH
+    x_proj, w_hh, h0, c0 = (t.to(torch.bfloat16) for t in
+                            lstm_case(T, N, H, seed=11))
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    dys = torch.randn(T, N, H, generator=g, device=DEVICE).to(torch.bfloat16)
+    ys, hT, cT, cs = lr.lstm_recurrence_fwd(x_proj, w_hh, h0, c0,
+                                            collect_cell=True)
+    fwd_plan = lr.last_plan
+    lr.lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys)
+    bwd_plan = lr.last_plan
+    iters = 20
+
+    def kernels():
+        return (cuda_ms(lambda i: lr.lstm_recurrence_fwd(
+                    x_proj, w_hh, h0, c0, collect_cell=True), iters, 3),
+                cuda_ms(lambda i: lr.lstm_recurrence_bwd(
+                    x_proj, w_hh, h0, c0, ys, cs, dys), iters, 3))
+
+    kern1 = kernels()
+    plain = (cuda_ms(lambda i: lr.lstm_recurrence_reference(
+                 x_proj, w_hh, h0, c0, collect_cell=True), 3, 1),
+             cuda_ms(lambda i: lr.lstm_recurrence_backward_reference(
+                 x_proj, w_hh, h0, c0, ys, cs, dys), 3, 1))
+    lib, port_layer = lstm_yardstick(x_proj.shape, iters)
+    kern2 = kernels()
+    rows = []
+    for j, (name, err, plan) in enumerate((("B5", fwd_err, fwd_plan),
+                                           ("B5 bwd", bwd_err, bwd_plan))):
+        bound_ms, bound_by, nbytes, flops = lstm_bound(T, N, H, 2, j == 1)
+        ms = min(kern1[j], kern2[j])
+        say("lstm", f"{name} at T={T} N={N} H={H} bf16 (plan {plan}): kernel "
+                    f"{kern1[j]:.4f} / {kern2[j]:.4f} ms ({ms / T * 1e3:.2f} "
+                    f"us per step), plain {plain[j]:.4f} ms, library "
+                    f"(torch.nn.LSTM on cuDNN, projection included, never "
+                    f"called by the port) {lib[j]:.4f} ms against the port's "
+                    f"projection + kernel {port_layer[j]:.4f} ms; bound "
+                    f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} "
+                    f"flop at 989 TFLOP/s bf16); kernel at "
+                    f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+                    f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "deeplearning4j_tpu_torch/csrc/"
+                               "lstm_recurrence.cu",
+                     "replaces": "deeplearning4j_tpu/ops/lstm_pallas.py:123",
+                     "launches": 0, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain[j], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib[j]})
+    return tuple(rows)
+
+
+def lstm_yardstick(shape, iters: int):
+    """``torch.nn.LSTM`` (cuDNN) forward and backward over one layer with
+    the port's weights transposed (``weight_ih = W^T``, ``weight_hh =
+    RW^T``, ``bias_ih = b``, ``bias_hh = 0``), input width H, bf16 (f32 if
+    cuDNN refuses bf16), and the port's own layer (projection matmul +
+    kernels) on the same inputs: ``((lib_fwd, lib_bwd), (port_fwd,
+    port_bwd))`` in ms. The two outputs' difference is printed first."""
+    from deeplearning4j_tpu_torch.ops.nn import lstm_layer
+
+    T, N, four_h = shape
+    H = four_h // 4
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    bf = torch.bfloat16
+    x = torch.randn(N, T, H, generator=g, device=DEVICE).to(bf)
+    W = (torch.randn(H, 4 * H, generator=g, device=DEVICE)
+         / math.sqrt(H)).to(bf)
+    RW = (torch.randn(H, 4 * H, generator=g, device=DEVICE)
+          / math.sqrt(H)).to(bf)
+    b = (0.1 * torch.randn(4 * H, generator=g, device=DEVICE)).to(bf)
+    dy = torch.randn(N, T, H, generator=g, device=DEVICE).to(bf)
+    leaves = [t.clone().requires_grad_(True) for t in (x, W, RW, b)]
+    port_out, _ = lstm_layer(*leaves)
+    for lib_dtype in (bf, torch.float32):
+        # cuDNN's RNN may refuse bf16; then the yardstick runs at f32
+        cudnn = torch.nn.LSTM(H, H, batch_first=True).to(DEVICE, lib_dtype)
+        with torch.no_grad():
+            cudnn.weight_ih_l0.copy_(W.T)
+            cudnn.weight_hh_l0.copy_(RW.T)
+            cudnn.bias_ih_l0.copy_(b)
+            cudnn.bias_hh_l0.zero_()
+        cudnn.flatten_parameters()    # one weight buffer, as cuDNN wants
+        lib_x = x.to(lib_dtype).requires_grad_(True)
+        try:
+            lib_out, _ = cudnn(lib_x)
+            torch.cuda.synchronize()
+            break
+        except RuntimeError as e:
+            say("lstm", f"cuDNN LSTM refused {lib_dtype}: {e}")
+    lib_dy = dy.to(lib_dtype)
+    err = float((lib_out.detach().float() - port_out.detach().float())
+                .abs().max())
+    say("lstm", f"yardstick cuDNN LSTM ({lib_dtype}) vs the port's bf16 "
+                f"layer: max abs err {err:.3e}")
+    lib = (cuda_ms(lambda i: cudnn(lib_x), iters, 3),
+           cuda_ms(lambda i: torch.autograd.grad(
+               lib_out, [lib_x, *cudnn.parameters()], lib_dy,
+               retain_graph=True), iters, 3))
+    port = (cuda_ms(lambda i: lstm_layer(*leaves), iters, 3),
+            cuda_ms(lambda i: torch.autograd.grad(
+                port_out, leaves, dy, retain_graph=True), iters, 3))
+    return lib, port
+
+
+# -------------------------------------------------------- char-LSTM train
+def textgen_params_numpy(vocab: int, hidden: int, seed: int):
+    """TextGenerationLSTM's parameters in the JAX layout from a numpy
+    seed: Xavier-normal W [in, 4H], RW [H, 4H], zero b with the forget
+    gate's slice at 1, and the head's W [H, vocab], b."""
+    rng = np.random.default_rng(seed)
+
+    def xavier(n_in, n_out):
+        return (rng.standard_normal((n_in, n_out))
+                * math.sqrt(2.0 / (n_in + n_out))).astype(np.float32)
+
+    layers = []
+    for n_in in (vocab, hidden):
+        b = np.zeros(4 * hidden, np.float32)
+        b[hidden:2 * hidden] = 1.0
+        layers.append({"W": xavier(n_in, 4 * hidden),
+                       "RW": xavier(hidden, 4 * hidden), "b": b})
+    layers.append({"W": xavier(hidden, vocab),
+                   "b": np.zeros(vocab, np.float32)})
+    return layers
+
+
+def char_batch(vocab: int, batch: int, seq: int, seed: int, dtype, device):
+    """bench_common.build_char_lstm's batch: one-hot ids from
+    ``np.random.default_rng(seed)``, labels the next character (rolled
+    by one)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, seq))
+    eye = np.eye(vocab, dtype=np.float32)
+    return (torch.from_numpy(eye[ids]).to(device, dtype),
+            torch.from_numpy(eye[np.roll(ids, -1, 1)]).to(device, dtype))
+
+
+def textgen_net(dtype: str, tbptt: int, device, seed: int = 0):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.params import mln_params_from_numpy
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    conf = TextGenerationLSTM(vocab_size=LSTM_VOCAB, hidden=LSTM_HIDDEN,
+                              tbptt_length=tbptt).conf()
+    conf.dtype = dtype
+    net = MultiLayerNetwork(conf, device=device).init()
+    net.params_list = mln_params_from_numpy(
+        textgen_params_numpy(LSTM_VOCAB, LSTM_HIDDEN, seed), device=device,
+        dtype=net._dtype)
+    return net
+
+
+def eval_loss_f32(params_list, x, y) -> float:
+    """The network loss of ``params_list`` (cast to f32) on ``(x, y)`` at
+    f32, through an f32 twin of the training network."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    net = textgen_net("float32", 0, x.device)
+    net.params_list = [{k: v.float() for k, v in p.items()}
+                       for p in params_list]
+    return net.score(DataSet(x.float(), y.float()))
+
+
+def lstm_counts() -> tuple:
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+
+    return lr.fwd_launches, lr.bwd_launches
+
+
+def reset_lstm_counts() -> None:
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+
+    lr.fwd_launches = lr.bwd_launches = 0
+
+
+def phase_lstm_train(rows: dict) -> None:
+    net = textgen_net("bfloat16", 0, DEVICE)
+    H, V = LSTM_HIDDEN, LSTM_VOCAB
+    want = 4 * H * (V + H + 1) + 4 * H * (2 * H + 1) + H * V + V
+    check(net.numParams() == want,     # 887,117 at V=77, H=256
+          f"{net.numParams()} parameters, not {want}")
+    x, y = char_batch(LSTM_VOCAB, LSTM_BATCH, LSTM_SEQ, 0, torch.bfloat16,
+                      DEVICE)
+    ln_v = math.log(LSTM_VOCAB)
+    say("lstm-train", f"TextGenerationLSTM(vocab_size={LSTM_VOCAB}, hidden="
+                      f"{LSTM_HIDDEN}): {net.numParams()} parameters, bf16, "
+                      f"standard BPTT, Adam lr 1e-3; batch {LSTM_BATCH} x "
+                      f"{LSTM_SEQ} one-hot characters")
+    start = [dict(p) for p in net.params_list]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lstm_counts()
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        net.fit(x, y)
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        net.fit(x, y)
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = lstm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    per_char = [float(l) / LSTM_SEQ for l in losses]
+    check((fwd, bwd) == (2 * steps, 2 * steps),
+          f"LSTM launches fwd {fwd}, bwd {bwd} over {steps} steps of 2 "
+          f"layers")
+    check(all(math.isfinite(v) for v in per_char), f"losses {per_char}")
+    check(abs(per_char[0] - ln_v) <= 0.5,
+          f"first loss per character {per_char[0]:.4f} is not within 0.5 of "
+          f"ln {LSTM_VOCAB} = {ln_v:.4f}")
+    # the bf16 loss sums 200 steps (~870), where bf16 resolves only 4
+    # (0.02 per character): the fall is held on an f32 evaluation of the
+    # first and the last parameters on the same batch
+    evals = [eval_loss_f32(p, x, y) / LSTM_SEQ
+             for p in (start, net.params_list)]
+    say("lstm-train", f"f32 evaluation of the batch, per character: before "
+                      f"{evals[0]:.6f}, after {steps} steps {evals[1]:.6f}")
+    check(evals[1] < evals[0], f"loss did not fall: {evals}")
+    step_s = wall / TIMED_STEPS
+    tokens_s = LSTM_BATCH * LSTM_SEQ / step_s
+    say("lstm-train", f"{TIMED_STEPS} timed steps: {step_s * 1e3:.2f} "
+                      f"ms/step, {tokens_s:.1f} tokens/s; peak memory {peak} "
+                      f"B ({peak / 2 ** 30:.2f} GiB); launches over {steps} "
+                      f"steps: fwd {fwd}, bwd {bwd}")
+    say("lstm-train", "loss per character (the network's loss sums over "
+                      "the 200 steps): " + " ".join(f"{v:.4f}"
+                                                    for v in per_char))
+    rows["B5"]["launches"] = fwd
+    rows["B5 bwd"]["launches"] = bwd
+
+    def run():
+        for _ in range(PROFILED_STEPS):
+            net.fit(x, y)
+
+    busy_ms = device_profile("lstm-train", f"{PROFILED_STEPS} more steps", run,
+                             ("lstm_fwd", "lstm_bwd"))
+    if busy_ms:
+        per_step = busy_ms / PROFILED_STEPS
+        say("lstm-train", f"device busy {per_step:.2f} ms per profiled step "
+                          f"against {step_s * 1e3:.2f} ms per timed step "
+                          f"(unprofiled): idle about "
+                          f"{1 - per_step / (step_s * 1e3):.3f} of a step")
+    del net
+
+    # the zoo's own truncated BPTT (50) at f32 on the same batch
+    net = textgen_net("float32", 50, DEVICE)
+    reset_lstm_counts()
+    it0 = net.getIterationCount()
+    net.fit(x.float(), y.float())
+    torch.cuda.synchronize()
+    counts = lstm_counts()
+    check(counts == (8, 8), f"tBPTT 50 over 200 steps launched {counts}, "
+                            f"not 4 segments x 2 layers (8, 8)")
+    check(net.getIterationCount() - it0 == 4,
+          f"tBPTT advanced {net.getIterationCount() - it0} iterations")
+    say("lstm-train", f"tBPTT 50, f32: one fit = 4 segments, launches "
+                      f"{counts}, iterations {it0} -> "
+                      f"{net.getIterationCount()}, last segment loss per "
+                      f"character {float(net._score) / 50:.4f}")
+
+
+def phase_lstm_parity() -> None:
+    """The zoo model on the card (the kernels) against the CPU (the plain
+    versions), then stateful sampling against the full forward."""
+    lr_ = 1e-3
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        net = textgen_net("float32", 50, dev, seed=5)
+        start = [{k: v.detach().cpu().clone() for k, v in p.items()}
+                 for p in net.params_list]
+        reset_lstm_counts()
+        losses = []
+        for b in range(3):
+            x, y = char_batch(LSTM_VOCAB, 8, 100, 10 + b, torch.float32, dev)
+            net.fit(x, y)
+            losses.append(float(net._score))
+        counts = lstm_counts()
+        final = [{k: v.detach().cpu() for k, v in p.items()}
+                 for p in net.params_list]
+        moved = max(float((final[i][k] - start[i][k]).abs().max())
+                    for i in range(len(final)) for k in final[i])
+        out[dev] = (losses, final, moved, counts)
+    (lc, pc, moved, kc), (lh, ph, _, hc) = out[DEVICE], out["cpu"]
+    check(kc == (12, 12) and hc == (0, 0),
+          f"launches card {kc} (want 3 x 2 segments x 2 layers), CPU {hc}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    err = max(float((pc[i][k] - ph[i][k]).abs().max())
+              for i in range(len(pc)) for k in pc[i])
+    say("lstm-parity", f"3 minibatches of 8 x 100, tBPTT 50, f32: card "
+                       f"losses {' '.join(f'{x:.6f}' for x in lc)}, CPU "
+                       f"{' '.join(f'{x:.6f}' for x in lh)} (max relative "
+                       f"diff {rel:.2e}, tolerance 1e-5); parameters max abs "
+                       f"diff {err:.2e} (tolerance {PARITY_PARAM_ATOL:g}); "
+                       f"the card moved a parameter by up to {moved:.3e}")
+    check(rel <= 1e-5, f"card and CPU losses differ by {rel:.3e}")
+    check(err <= PARITY_PARAM_ATOL,
+          f"card and CPU parameters differ by {err:.3e}")
+    check(moved >= 0.5 * lr_, f"the card's updates moved no parameter by "
+                              f"half a step of lr {lr_:g} ({moved:.3e})")
+
+    net = textgen_net("float32", 50, DEVICE, seed=6)
+    x, _ = char_batch(LSTM_VOCAB, 4, 64, 20, torch.float32, DEVICE)
+    reset_lstm_counts()
+    full = net.output(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = torch.stack([net.rnnTimeStep(x[:, t]) for t in range(64)], 1)
+    torch.cuda.synchronize()
+    per_char = (time.perf_counter() - t0) / 64 * 1e3
+    counts = lstm_counts()
+    err = float((steps - full).abs().max())
+    # the same network on the CPU (the plain versions): both card paths
+    # run the kernels at N=4, so only this twin can tell a fault there
+    plain = textgen_net("float32", 50, "cpu", seed=6).output(x.cpu())
+    err_plain = max(float((a.cpu() - plain).abs().max())
+                    for a in (full, steps))
+    say("lstm-parity", f"rnnTimeStep x 64 (batch 4) vs output(): max abs err "
+                       f"{err:.3e}; both vs the CPU twin's output() "
+                       f"{err_plain:.3e} (tolerance 1e-5); {per_char:.3f} "
+                       f"ms per character (host clock, 2 layers + head); "
+                       f"launches {counts}")
+    check(counts == (2 * 65, 0),
+          f"sampling launched {counts}, not 2 layers x 65 calls")
+    check(err <= 1e-5, f"rnnTimeStep differs from output() by {err:.3e}")
+    check(err_plain <= 1e-5, f"card sampling differs from the CPU's plain "
+                             f"versions by {err_plain:.3e}")
+    try:
+        net.rnnTimeStep(x[:2, 0])
+    except ValueError as e:
+        say("lstm-parity", f"batch 4 -> 2 with stored state refused: {e}")
+    else:
+        raise RuntimeError("rnnTimeStep took a new batch size with stored "
+                           "state")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -953,6 +1443,9 @@ def main() -> int:
     rows = {r["name"]: r for r in (paged, *phase_flash(), phase_adam())}
     phase_train(rows)
     phase_parity()
+    rows.update((r["name"], r) for r in phase_lstm_kernels())
+    phase_lstm_train(rows)
+    phase_lstm_parity()
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -3,10 +3,13 @@
 Same contract: ``apply(state, grads, step) -> (updates, new_state)`` over
 a parameter tree (nested dicts and lists of tensors, or one flat
 tensor), and the caller subtracts the updates. State leaves parallel the
-parameter leaves and are f32.
+parameter leaves and are f32. :func:`apply_updater` is the layer
+framework's entry point (grads cast up to f32 on the way in, updates cast
+to each parameter's dtype on the way out).
 
-Only :class:`Adam` with a float learning rate is ported. A learning-rate
-schedule (an ``ISchedule`` in the JAX package) raises
+Only :class:`Adam` and :class:`Sgd` with a float learning rate are
+ported, registered for the config JSON like the JAX classes. A
+learning-rate schedule (an ``ISchedule`` in the JAX package) raises
 ``NotImplementedError`` until ``learning/schedules.py`` is ported; the
 other updaters are not ported yet.
 """
@@ -19,6 +22,7 @@ from typing import Any
 
 import torch
 
+from deeplearning4j_tpu_torch.common.serde import serializable
 from deeplearning4j_tpu_torch.params import tree_map
 
 
@@ -62,6 +66,17 @@ class IUpdater:
             f"{type(lr).__name__}); pass a float learning rate")
 
 
+@serializable
+@dataclasses.dataclass
+class Sgd(IUpdater):
+    learning_rate: Any = 0.1
+
+    def apply(self, state, grads, step):
+        lr = self._lr(step)
+        return tree_map(lambda g: lr * g, grads), state
+
+
+@serializable
 @dataclasses.dataclass
 class Adam(IUpdater):
     learning_rate: Any = 1e-3
@@ -106,3 +121,14 @@ def tree_map2(fn, a, b):
     if isinstance(a, (list, tuple)):
         return [tree_map2(fn, x, y) for x, y in zip(a, b)]
     return fn(a, b)
+
+
+def apply_updater(updater: IUpdater, state, grads, params, step):
+    """``updater.apply`` with the gradients cast up to at least f32 on the
+    way in and the updates cast to each parameter's dtype on the way out
+    (updaters.py:283-298): the update math runs in f32 while bf16
+    parameters stay bf16."""
+    grads = tree_map(
+        lambda g: g.to(torch.promote_types(g.dtype, torch.float32)), grads)
+    updates, new_state = updater.apply(state, grads, step)
+    return tree_map2(lambda u, p: u.to(p.dtype), updates, params), new_state

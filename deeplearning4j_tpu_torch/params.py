@@ -6,6 +6,8 @@ so its leaves are numpy arrays) carries over with :func:`params_from_jax`
 and back with :func:`params_to_numpy`. :class:`FlatParams` holds a
 tree's f32 leaves in one flat buffer, the port's counterpart of the flat
 master layout in ``deeplearning4j_tpu/parallel/zero.py``.
+:func:`mln_params_from_numpy` carries a JAX ``MultiLayerNetwork``'s
+``params_list`` (a list of per-layer dicts) across.
 """
 
 from __future__ import annotations
@@ -47,6 +49,37 @@ def params_from_jax(np_tree, device=None,
     return tree_map(
         lambda a: torch.tensor(np.asarray(a, np.float32)).to(dev, dtype),
         np_tree)
+
+
+def numpy_to_tensor(a) -> torch.Tensor:
+    """A CPU tensor of numpy array ``a``'s dtype. A bfloat16 array (the
+    ``ml_dtypes`` type that JAX hands back) goes across as its 16 bits,
+    viewed as ``torch.bfloat16``, so no ``ml_dtypes`` is needed here."""
+    a = np.asarray(a)
+    if a.dtype.kind not in "biufc":
+        if a.dtype.name != "bfloat16":
+            raise TypeError(f"unsupported numpy dtype {a.dtype}")
+        return bfloat16_from_bits(a)
+    return torch.from_numpy(np.array(a))
+
+
+def bfloat16_from_bits(a) -> torch.Tensor:
+    """A CPU ``torch.bfloat16`` tensor of the 16-bit patterns in numpy
+    array ``a`` (an ``ml_dtypes`` bfloat16 array, or the uint16 view that
+    the JAX side's npz writer stores)."""
+    return torch.from_numpy(np.array(np.asarray(a).view(np.int16))).view(
+        torch.bfloat16)
+
+
+def mln_params_from_numpy(layers, device=None,
+                          dtype: torch.dtype = None) -> List[Dict[str, Any]]:
+    """A ``MultiLayerNetwork.params_list`` from a JAX network's
+    ``params_list`` after ``jax.device_get`` (one dict of numpy arrays per
+    layer), on ``device`` (default: the CUDA card), each leaf in its own
+    dtype unless ``dtype`` is given."""
+    dev = resolve_device(device)
+    return [{k: numpy_to_tensor(a).to(dev, dtype) for k, a in layer.items()}
+            for layer in layers]
 
 
 def params_to_numpy(tree) -> Dict[str, Any]:

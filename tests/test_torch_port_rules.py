@@ -156,3 +156,46 @@ def test_training_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     loss = enc.make_train_step(upd)(flat, opt, 0, ids, ids, mask_pos)
     assert loss.device == torch.device("cpu") and torch.isfinite(loss)
     assert clf.init_params(device="cpu")["classifier"]["W"].shape == (16, 2)
+
+
+def test_layer_framework_entry_points_refuse_the_cpu_unless_asked(
+        monkeypatch, tmp_path):
+    """``MultiLayerNetwork``, the zoo, the zip reader and the weight bridge
+    land on the card unless the caller names the CPU; ``lstm_layer`` runs
+    where its tensors are, the plain version on CPU tensors (no launch),
+    and refuses any other device."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+    from deeplearning4j_tpu_torch.ops.nn import lstm_layer
+    from deeplearning4j_tpu_torch.params import mln_params_from_numpy
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer)
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    zoo = TextGenerationLSTM(vocab_size=5, hidden=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(zoo.conf())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zoo.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mln_params_from_numpy([{"W": np.zeros((2, 2), np.float32)}])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelSerializer.restoreMultiLayerNetwork(
+            str(tmp_path / "absent.zip"))
+    net = zoo.init(device="cpu")
+    assert net.device == torch.device("cpu")
+    before = (lr.fwd_launches, lr.bwd_launches)
+    x = np.eye(5, dtype=np.float32)[np.arange(6).reshape(2, 3) % 5]
+    net.fit(x, x)
+    assert net.output(x).device == torch.device("cpu")
+    assert net.rnnTimeStep(x[:, 0]).shape == (2, 5)
+    ys, _ = lstm_layer(torch.zeros(2, 3, 5), torch.zeros(5, 16),
+                       torch.zeros(4, 16), torch.zeros(16))
+    assert ys.shape == (2, 3, 4)
+    assert (lr.fwd_launches, lr.bwd_launches) == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        lstm_layer(torch.zeros(2, 3, 5, device="meta"),
+                   torch.zeros(5, 16, device="meta"),
+                   torch.zeros(4, 16, device="meta"),
+                   torch.zeros(16, device="meta"))
