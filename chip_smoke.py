@@ -14,18 +14,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
    this checkout by ``nvcc`` for sm_90a, one ``nvcc`` per source, all
    started together;
 3. kernel: the paged-attention kernel against its plain PyTorch version
-   at the serving slice's shapes (N=8, H=12, hd=64, ps=16, P=32,
-   Q in {1, 4}; f32 pools within 1e-5, bf16 pools within 2e-2 of the
-   reference run at f32), then its time beside the plain version's,
-   a page gather + ``scaled_dot_product_attention`` yardstick and the
-   bound from the bytes it must move;
+   at every shape the serving paths give it (H=12, hd=64, ps=16, P=32):
+   the decode step (N=8, Q=1; float pools and fp8 pools with f32 scale
+   planes), the speculative verify (N=8, Q in {3, 5, 9}) and the prefix
+   prefill (N=1, Q in {32, 64, 128, 512}, qbase page-aligned and
+   mid-page), under f32 and bf16 queries; f32 queries within 1e-5, bf16
+   within 2e-2 of the reference run at f32 on the same (dequantized)
+   values; then its time at the decode (float and fp8), verify (Q=5) and
+   prefix (N=1, Q=128) shapes beside the plain version's, a page gather
+   (+ dequantization) + ``scaled_dot_product_attention`` yardstick and
+   the bound from the bytes it must move;
 4. serve: the GPT-2-small-like model (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32000, max_len 512; random weights from a numpy
    seed in the JAX tree layout) behind ``DecodeEngine(slots=8,
    page_size=16, max_context=512)`` in bf16, serving 24 concurrent
    greedy requests; every decode step must have gone through the
    kernel. Then an f32 pass whose engine tokens must equal the dense
-   ``CausalLM.generate()``;
+   ``CausalLM.generate()``. The serving phases that follow use the same
+   model and engine shape, and each checks that every decode step,
+   verify pass and suffix prefill launched the kernel once per layer
+   and that its pool drains:
+   - fp8: phase 4's requests with ``kv_dtype="fp8_e4m3"`` (tokens/s,
+     TTFT, bytes per page, agreement with the float engine, reported);
+     at f32 the fp8 pages after prefill (within one e4m3 step at a
+     rounding boundary) and the greedy tokens (equal) on the card
+     against a CPU twin;
+   - prefix: bench_gpt_decode.py's prefix_ab traffic (16 users, a
+     192-token system prompt, 32-token user suffixes, 64 new tokens, one
+     after another) cold and warm, then a second turn per user adding 80
+     tokens, resumed from its sticky session (suffix bucket 128); at f32
+     warm and resumed tokens equal cold ones;
+   - spec: phase 4's requests with ``spec_decode`` k in {2, 4, 8}
+     against plain (acceptance, tokens per verify, tokens/s); at f32 the
+     tokens equal plain;
+   - int8: phase 4's requests with ``quantization="int8"``; at f32 the
+     card's tokens equal a CPU twin's;
 5. train kernels: the flash-attention forward kernel against
    ``blockwise_attention`` (N=4, H=12, hd=64, T in {128, 77}; no mask,
    padded rows, padded rows plus one fully masked row; causal off and
@@ -173,7 +196,8 @@ def phase_build() -> None:
                                   r"|flash_bwd_[a-z]+_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
                                   r"|lstm_(?:fwd|bwd)_kernel)", ln)
-                kind = "bf16" if "nv_bfloat16" in ln else "f32"
+                kind = ("bf16" if "nv_bfloat16" in ln else "f32") \
+                    + (" queries, fp8 pools" if "Fp8E4M3" in ln else "")
                 info = [x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
@@ -182,55 +206,98 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------- kernel
-def kernel_case(Q: int, dtype: torch.dtype, seed: int, full: bool = False):
-    """Pools [L, n_pages, H, ps, hd], queries and page tables at the
-    slice's decode shapes. Mixed case: rows 0-1 share their first four
-    pages (a shared prompt prefix), rows 2-3 end in null-page tails,
-    row 0 attends at full context and row 1 at position 0. Full case:
-    every row owns 32 distinct pages and attends at full context (the
-    steady state of the timing)."""
+#: (pool kind, query dtype) of the paged-attention checks: float pools in
+#: the query's dtype, or fp8 pools with f32 scale planes under f32 or
+#: bf16 queries
+KINDS = {"f32": ("float", torch.float32), "bf16": ("float", torch.bfloat16),
+         "fp8-f32": ("fp8", torch.float32),
+         "fp8-bf16": ("fp8", torch.bfloat16)}
+#: tolerance against the plain version run at f32 on the same (dequantized)
+#: values: f32 queries 1e-5, bf16 queries 2e-2 (the bf16 output rounding)
+KIND_TOL = {"f32": 1e-5, "bf16": 2e-2, "fp8-f32": 1e-5, "fp8-bf16": 2e-2}
+
+
+def kernel_case(Q: int, kind: str, seed: int, full: bool = False,
+                N: int = SLOTS, qbase=None):
+    """Pools [L, n_pages, H, ps, hd] (fp8 kinds: quantized per page and
+    head with the port's helpers, plus the scale planes), queries and
+    page tables at the slice's shapes. With ``qbase`` given, N rows of
+    32 distinct pages each query from that position (the prefix-prefill
+    shape at N=1). Mixed case: rows 0-1 share their first four pages (a
+    shared prompt prefix), rows 2-3 end in null-page tails, row 0 attends
+    at full context and row 1 at position 0. Full case: every row owns 32
+    distinct pages and attends at full context (the steady state of the
+    timing)."""
+    from deeplearning4j_tpu_torch.nn.precision import fp8_scale, quantize_fp8
+
+    pool, qdtype = KINDS[kind]
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
     n_pages = 1 + SLOTS * PAGES_PER_SLOT
     shape = (LAYERS, n_pages, HEADS, PAGE, HEAD_DIM)
-    kv = {n: torch.randn(shape, generator=g, device=dev).to(dtype)
-          for n in ("k", "v")}
-    q = torch.randn(SLOTS, HEADS, Q, HEAD_DIM, generator=g,
-                    device=dev).to(dtype)
-    tables = 1 + np.arange(SLOTS * PAGES_PER_SLOT, dtype=np.int32) \
-        .reshape(SLOTS, PAGES_PER_SLOT)
+    kv = {}
+    for n in ("k", "v"):
+        x = torch.randn(shape, generator=g, device=dev)
+        if pool == "fp8":
+            sc = fp8_scale(x.abs().amax(dim=(3, 4)))
+            kv[n], kv[n + "_scale"] = quantize_fp8(x, sc[..., None, None]), sc
+        else:
+            kv[n] = x.to(qdtype)
+    q = torch.randn(N, HEADS, Q, HEAD_DIM, generator=g,
+                    device=dev).to(qdtype)
+    tables = 1 + np.arange(N * PAGES_PER_SLOT, dtype=np.int32) \
+        .reshape(N, PAGES_PER_SLOT)
     full_pos = PAGES_PER_SLOT * PAGE - Q
-    if full:
-        qbase = np.full((SLOTS,), full_pos, np.int32)
+    if qbase is not None:
+        qbase = np.full((N,), qbase, np.int32)
+    elif full:
+        qbase = np.full((N,), full_pos, np.int32)
     else:
         rng = np.random.default_rng(seed)
         tables[1, :4] = tables[0, :4]
         real = {2: 5, 3: 1}
         for n, r in real.items():
             tables[n, r:] = 0
-        qbase = rng.integers(0, full_pos + 1, SLOTS).astype(np.int32)
+        qbase = rng.integers(0, full_pos + 1, N).astype(np.int32)
         qbase[0], qbase[1] = full_pos, 0
         for n, r in real.items():
-            qbase[n] = rng.integers(0, r * PAGE - Q + 1)
+            qbase[n] = rng.integers(0, max(1, r * PAGE - Q + 1))
     return (q, kv, torch.from_numpy(tables).to(dev),
             torch.from_numpy(qbase).to(dev))
 
 
+def f32_tree(kv):
+    """The pools at f32 on the same values: fp8 pages dequantized in f32
+    (what the kernel computes on), float pools widened."""
+    if "k_scale" in kv:
+        return {n: kv[n].float() * kv[n + "_scale"][..., None, None]
+                for n in ("k", "v")}
+    return {n: t.float() for n, t in kv.items()}
+
+
 def library_attention(q, kv, layer, tables, qbase):
-    """Yardstick only, never called by the port: a page gather followed
-    by ``scaled_dot_product_attention`` with the flat-position mask (two
-    PyTorch calls, since no one library call walks a page table)."""
+    """Yardstick only, never called by the port: a page gather (and, for
+    fp8 pools, the dequantization in the query's dtype) followed by
+    ``scaled_dot_product_attention`` with the flat-position mask (no one
+    library call walks a page table)."""
     N, H, Q, hd = q.shape
     P, ps = tables.shape[1], kv["k"].shape[3]
+    t = tables.long()
 
-    def flat(pool):
-        return pool[layer][tables.long()].permute(0, 2, 1, 3, 4) \
-            .reshape(N, H, P * ps, hd)
+    def flat(name):
+        pool = kv[name]
+        if "k_scale" in kv:
+            pages = pool.view(torch.uint8)[layer][t].view(pool.dtype) \
+                .to(q.dtype) * kv[name + "_scale"][layer][t][..., None, None] \
+                .to(q.dtype)
+        else:
+            pages = pool[layer][t]
+        return pages.permute(0, 2, 1, 3, 4).reshape(N, H, P * ps, hd)
 
     qpos = qbase.long()[:, None] + torch.arange(Q, device=q.device)
     mask = (torch.arange(P * ps, device=q.device)[None, None, None, :]
             <= qpos[:, None, :, None])
-    return F.scaled_dot_product_attention(q, flat(kv["k"]), flat(kv["v"]),
+    return F.scaled_dot_product_attention(q, flat("k"), flat("v"),
                                           attn_mask=mask)
 
 
@@ -250,10 +317,12 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
 
 def attention_bound(q, kv, tables, qbase):
     """(bound_ms, bound_by, bytes, flops) for one layer call on these
-    inputs: each live K/V page read once (pages past the last query's
-    position are masked and need not be read), q/tables/qbase read and
-    the output written once; 4 * hd flops per admitted (query, key,
-    head) in f32."""
+    inputs: each live K/V page read once (pages past a row's last query
+    position are masked and need not be read) with its two scales when
+    fp8, q/tables/qbase read and the output written once; 4 * hd flops
+    per admitted (query, key, head), plus one multiply per dequantized
+    fp8 element, at the tensor-core rate of the queries' type (bf16) or
+    the f32 rate, as :func:`flash_bound` counts."""
     N, H, Q, hd = q.shape
     ps = kv["k"].shape[3]
     tab = tables.cpu().numpy()
@@ -266,51 +335,57 @@ def attention_bound(q, kv, tables, qbase):
         admitted += sum(min(int(qb[n]) + i + 1, tab.shape[1] * ps)
                         for i in range(Q))
     page_bytes = H * ps * hd * kv["k"].element_size()
+    if "k_scale" in kv:
+        page_bytes += H * 4
     nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + qbase.numel() * 4)
     flops = 4 * hd * H * admitted
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, flops)
+    if "k_scale" in kv:
+        flops += 2 * len(live) * H * ps * hd
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    return (*bound(nbytes, flops, peak), nbytes, flops)
 
 
-def phase_kernel() -> dict:
+def check_kernel(label: str, kind: str, q, kv, tables, qbase) -> float:
+    """The kernel against the plain version at f32 on the same
+    (dequantized) values, at a middle layer; returns the max abs
+    error."""
     from deeplearning4j_tpu_torch.ops import paged_attention as pa
 
-    max_err = 0.0
-    layer = 5
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for Q in (1, 4):
-            for full in (False, True):
-                q, kv, tables, qbase = kernel_case(Q, dtype, seed=Q,
-                                                   full=full)
-                got = pa.paged_attention(q, kv, layer, tables, qbase)
-                want = pa.paged_attention_reference(
-                    q.float(), {n: t.float() for n, t in kv.items()},
-                    layer, tables, qbase)
-                torch.cuda.synchronize()
-                check(got.dtype == dtype and got.shape == q.shape,
-                      f"kernel output {got.dtype} {tuple(got.shape)}")
-                check(bool(torch.isfinite(got).all()),
-                      "kernel output not finite")
-                err = float((got.float() - want).abs().max())
-                max_err = max(max_err, err)
-                say("kernel", f"{str(dtype)[6:]} Q={Q} "
-                              f"{'full' if full else 'mixed'}: max abs err "
-                              f"{err:.3e} (tolerance {tol:g})")
-                check(err <= tol, f"kernel disagrees with the reference: "
-                                  f"{err:.3e} > {tol:g}")
-    # the decode step's shape: bf16, Q=1, every slot at full context.
-    # Launches cycle over the 12 layers (151 MB of pools, more than the
-    # 50 MB L2) so each one reads its pages from HBM as a decode step does
-    q, kv, tables, qbase = kernel_case(1, torch.bfloat16, seed=7, full=True)
+    layer = LAYERS // 2
+    got = pa.paged_attention(q, kv, layer, tables, qbase)
+    want = pa.paged_attention_reference(q.float(), f32_tree(kv), layer,
+                                        tables, qbase)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"kernel output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    err = float((got.float() - want).abs().max())
+    tol = KIND_TOL[kind]
+    say("kernel", f"{label} {kind}: max abs err {err:.3e} (tolerance "
+                  f"{tol:g})")
+    check(err <= tol, f"kernel disagrees with the reference at {label} "
+                      f"{kind}: {err:.3e} > {tol:g}")
+    return err
+
+
+#: N=1 query positions of the prefix-prefill checks: page-aligned and
+#: mid-page (a copy-on-write or session resume point)
+PREFIX_QBASE = {32: (192, 200), 64: (192, 200), 128: (224, 287), 512: (0,)}
+
+
+def time_row(name: str, label: str, q, kv, tables, qbase,
+             max_err: float) -> dict:
+    """The kernel's time at one shape beside its plain version's, the
+    library yardstick's and the bound; launches cycle over the 12 layers
+    (151 MB of float pools, more than the 50 MB L2) so each one reads its
+    pages from HBM as the serving path does."""
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+
     lib = library_attention(q, kv, 0, tables, qbase)
-    ref = pa.paged_attention_reference(
-        q.float(), {n: t.float() for n, t in kv.items()}, 0, tables, qbase)
+    ref = pa.paged_attention_reference(q.float(), f32_tree(kv), 0, tables,
+                                       qbase)
     lib_err = float((lib.float() - ref).abs().max())
-    say("kernel", f"yardstick gather+SDPA vs reference: max abs err "
-                  f"{lib_err:.3e}")
     iters = 240
     kern_ms = cuda_ms(lambda i: pa.paged_attention_kernel(
         q, kv, i % LAYERS, tables, qbase), iters)
@@ -321,21 +396,70 @@ def phase_kernel() -> dict:
     kern_ms2 = cuda_ms(lambda i: pa.paged_attention_kernel(
         q, kv, i % LAYERS, tables, qbase), iters)
     bound_ms, bound_by, nbytes, flops = attention_bound(q, kv, tables, qbase)
-    say("kernel", f"decode shape N={SLOTS} H={HEADS} Q=1 hd={HEAD_DIM} "
-                  f"ps={PAGE} P={PAGES_PER_SLOT} bf16, full context: "
-                  f"kernel {kern_ms:.4f} / {kern_ms2:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library (gather + SDPA, two-call "
-                  f"yardstick the port never calls) {lib_ms:.4f} ms")
-    say("kernel", f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
-                  f"3.35 TB/s, {flops} flop at 67 TFLOP/s f32); kernel at "
+    say("kernel", f"{label}: kernel {kern_ms:.4f} / {kern_ms2:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (yardstick the port never "
+                  f"calls; max abs err {lib_err:.3e} vs the reference) "
+                  f"{lib_ms:.4f} ms")
+    peak = "989 TFLOP/s bf16" if q.dtype == torch.bfloat16 \
+        else "67 TFLOP/s f32"
+    say("kernel", f"  bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B at "
+                  f"3.35 TB/s, {flops} flop at {peak}); kernel at "
                   f"{nbytes / (min(kern_ms, kern_ms2) * 1e-3) / 1e9:.1f} GB/s")
-    return {"name": "paged_attention", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
             "replaces": "deeplearning4j_tpu/ops/paged_attention_pallas.py:203",
             "launches": 0, "max_abs_err": max_err,
             "ms": min(kern_ms, kern_ms2), "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms}
+
+
+def phase_kernel() -> dict:
+    """Every shape the serving paths give the kernel, then its times at
+    the decode (float and fp8 pools), verify and prefix shapes. Returns
+    the kernel rows by name."""
+    errs = {"float": 0.0, "fp8": 0.0, "verify": 0.0, "prefix": 0.0}
+    # decode: N=8, Q=1 (and the old Q=4 case), float and fp8 pools
+    for kind in KINDS:
+        for Q in ((1, 4) if kind in ("f32", "bf16") else (1,)):
+            for full in (False, True):
+                args = kernel_case(Q, kind, seed=Q, full=full)
+                err = check_kernel(f"decode N={SLOTS} Q={Q} "
+                                   f"{'full' if full else 'mixed'}", kind,
+                                   *args)
+                key = "fp8" if kind.startswith("fp8") else "float"
+                errs[key] = max(errs[key], err)
+    # verify: N=8, Q = k + 1 for k in {2, 4, 8}
+    for Q in (3, 5, 9):
+        for kind in KINDS:
+            err = check_kernel(f"verify N={SLOTS} Q={Q}", kind,
+                               *kernel_case(Q, kind, seed=10 + Q))
+            errs["verify"] = max(errs["verify"], err)
+    # prefix prefill: N=1, Q = the suffix bucket, page-aligned and mid-page
+    for Q, bases in PREFIX_QBASE.items():
+        for qb in bases:
+            for kind in KINDS:
+                err = check_kernel(f"prefix N=1 Q={Q} qbase={qb}", kind,
+                                   *kernel_case(Q, kind, seed=20 + Q, N=1,
+                                                qbase=qb))
+                errs["prefix"] = max(errs["prefix"], err)
+    rows = {}
+    rows["paged_attention"] = time_row(
+        "paged_attention", f"decode N={SLOTS} H={HEADS} Q=1 hd={HEAD_DIM} "
+        f"ps={PAGE} P={PAGES_PER_SLOT} bf16, full context",
+        *kernel_case(1, "bf16", seed=7, full=True), errs["float"])
+    rows["paged_attention_fp8"] = time_row(
+        "paged_attention_fp8", f"decode N={SLOTS} Q=1 fp8 pools, bf16 "
+        f"queries, full context", *kernel_case(1, "fp8-bf16", seed=8,
+                                               full=True), errs["fp8"])
+    rows["paged_attention_verify"] = time_row(
+        "paged_attention_verify", f"verify N={SLOTS} Q=5 bf16, full context",
+        *kernel_case(5, "bf16", seed=9, full=True), errs["verify"])
+    rows["paged_attention_prefix"] = time_row(
+        "paged_attention_prefix", "prefix N=1 Q=128 qbase=287 bf16 (a "
+        "resumed second turn)", *kernel_case(128, "bf16", seed=11, N=1,
+                                             qbase=287), errs["prefix"])
+    return rows
 
 
 # ----------------------------------------------------------------- serve
@@ -412,29 +536,94 @@ def device_profile(phase: str, what: str, run, focus) -> float:
     return busy_us / 1e3
 
 
-def profile_window(eng, jobs) -> None:
+def profile_window(eng, jobs, phase: str = "profile",
+                   sequential: bool = False) -> None:
     """The device profile of one batch (prefill and decode) served by a
     running engine."""
     steps0 = eng.n_steps
 
     def run():
-        for r in [eng.submit(p, n) for p, n in jobs]:
-            r.result(timeout=600)
+        run_jobs(eng, jobs, sequential=sequential)
 
-    device_profile("profile", f"{len(jobs)} requests", run,
+    device_profile(phase, f"{len(jobs)} requests", run,
                    ("paged_attention",))
-    say("profile", f"  ({eng.n_steps - steps0} decode steps)")
+    say(phase, f"  ({eng.n_steps - steps0} decode steps and verify passes)")
 
 
-def phase_serve(kernel_row: dict) -> None:
+def reset_launches(eng) -> tuple:
+    """Zero the kernel's counts just before a driven run; returns the
+    engine's (decode steps, warm admissions, verify passes) so far."""
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+
+    torch.cuda.synchronize()
+    pa.launches = pa.multi_row_launches = 0
+    return eng.n_steps, eng.n_warm_admissions, eng.n_verify_dispatches
+
+
+def launch_check(tag: str, eng, since: tuple) -> tuple:
+    """Every decode step, verify pass and suffix prefill since ``since``
+    (from :func:`reset_launches`) went through the kernel, one launch
+    per layer each: one-row launches are the decode steps (the engine
+    counts a verify pass as a step too), multi-row ones the verify
+    passes and warm admissions. Returns (launches, one-row launches,
+    multi-row launches)."""
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+
+    launches, multi = pa.launches, pa.multi_row_launches
+    steps = eng.n_steps - since[0]
+    warm = eng.n_warm_admissions - since[1]
+    verify = eng.n_verify_dispatches - since[2]
+    L = eng.model.cfg.n_layers
+    check(steps > 0 and launches - multi == L * (steps - verify)
+          and multi == L * (warm + verify),
+          f"{tag}: kernel launches {launches - multi} one-row + {multi} "
+          f"multi-row != {L} layers x ({steps - verify} decode steps) + "
+          f"{L} x ({verify} verify passes + {warm} warm admissions)")
+    return launches, launches - multi, multi
+
+
+def run_jobs(eng, jobs, sequential: bool = False, **kw):
+    """Serve ``jobs`` (prompt, max_new[, session_id]); returns (tokens,
+    requests, wall seconds)."""
+    t0 = time.perf_counter()
+    if sequential:
+        reqs = []
+        for j in jobs:
+            reqs.append(eng.submit(j[0], j[1], session_id=(
+                j[2] if len(j) > 2 else None), **kw))
+            reqs[-1].result(timeout=600)
+    else:
+        reqs = [eng.submit(j[0], j[1], **kw) for j in jobs]
+    outs = [r.result(timeout=600) for r in reqs]
+    return outs, reqs, time.perf_counter() - t0
+
+
+def ttft_ms(reqs, q: float) -> float:
+    return float(np.percentile([r.ttft_s for r in reqs], q) * 1e3)
+
+
+def agreement(outs, ref) -> str:
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(outs, ref))
+    agree = sum(common_prefix(a, b) for a, b in zip(outs, ref))
+    return (f"{same}/{len(ref)} requests identical, common prefix "
+            f"{agree}/{sum(len(b) for b in ref)} tokens")
+
+
+def check_same(tag: str, outs, ref) -> None:
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        check(np.array_equal(a, b), f"{tag}, request {i}: {a.tolist()} != "
+                                    f"{b.tolist()}")
+
+
+def phase_serve(rows: dict) -> dict:
     from deeplearning4j_tpu_torch.models.gpt import (
         CausalLM, init_params_numpy, params_from_jax)
-    from deeplearning4j_tpu_torch.ops import paged_attention as pa
     from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
 
     cfg = serve_config()
     t0 = time.perf_counter()
-    params = params_from_jax(init_params_numpy(cfg, seed=0), device=DEVICE)
+    tree = init_params_numpy(cfg, seed=0)
+    params = params_from_jax(tree, device=DEVICE)
     model = CausalLM(cfg, compute_dtype=torch.bfloat16)
     say("serve", f"{CausalLM.num_params(params) / 1e6:.1f} M parameters "
                  f"(f32 master, bf16 compute) in "
@@ -447,17 +636,13 @@ def phase_serve(kernel_row: dict) -> None:
     eng = DecodeEngine(model, params, slots=SLOTS, page_size=PAGE,
                        max_context=MAX_CONTEXT, device=DEVICE)
     with eng:
-        say("serve", f"pool {eng.pool.n_pages} pages of "
-                     f"{eng.pool.bytes_per_page()} B")
+        page_bytes = eng.pool.bytes_per_page()
+        say("serve", f"pool {eng.pool.n_pages} pages of {page_bytes} B")
         eng.generate(jobs[0][0][:16], 4)          # first CUDA calls
         steps0, dec0 = eng.n_steps, eng.decode_seconds
-        torch.cuda.synchronize()
-        pa.launches = 0
-        t0 = time.perf_counter()
-        reqs = [eng.submit(p, n) for p, n in jobs]
-        outs = [r.result(timeout=600) for r in reqs]
-        wall = time.perf_counter() - t0
-        launches = pa.launches
+        since = reset_launches(eng)
+        outs, reqs, wall = run_jobs(eng, jobs)
+        launches, _, _ = launch_check("serve", eng, since)
         steps = eng.n_steps - steps0
         dec_s = eng.decode_seconds - dec0
         occupancy = eng.stats()["avg_occupancy"]
@@ -468,44 +653,320 @@ def phase_serve(kernel_row: dict) -> None:
         check(len(out) == n, f"request returned {len(out)} of {n} tokens")
         check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
               "token outside the vocabulary")
-    check(steps > 0 and launches == cfg.n_layers * steps,
-          f"kernel launches {launches} != {cfg.n_layers} layers x "
-          f"{steps} decode steps")
-    kernel_row["launches"] = launches
+    rows["paged_attention"]["launches"] = launches
     tokens = sum(len(o) for o in outs)
-    ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     say("serve", f"{tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} "
-                 f"tokens/s; TTFT p50 {np.percentile(ttft, 50):.1f} ms, "
-                 f"p99 {np.percentile(ttft, 99):.1f} ms; decode "
+                 f"tokens/s; TTFT p50 {ttft_ms(reqs, 50):.1f} ms, "
+                 f"p99 {ttft_ms(reqs, 99):.1f} ms; decode "
                  f"{dec_s / steps * 1e3:.3f} ms/step over {steps} steps "
                  f"(avg occupancy {occupancy:.3f}); kernel launches "
                  f"{launches} = {cfg.n_layers} x {steps}")
     # bf16: agreement with the dense generate() is reported, not required
     # (one-ulp argmax ties on random weights are expected at bf16)
-    same = agree = total = 0
-    for (p, n), out in list(zip(jobs, outs))[:8]:
-        dense = model.generate(params, p[None], n)[0].cpu().numpy()
-        agree += common_prefix(out, dense)
-        total += n
-        same += int(np.array_equal(out, dense))
-    say("serve", f"bf16 engine vs dense generate(): {same}/8 requests "
-                 f"identical, common prefix {agree}/{total} tokens")
+    dense = [model.generate(params, p[None], n)[0].cpu().numpy()
+             for p, n in jobs[:8]]
+    say("serve", f"bf16 engine vs dense generate(): "
+                 f"{agreement(outs[:8], dense)}")
 
     # f32: engine tokens must equal the dense generate() exactly
     model32 = CausalLM(cfg, compute_dtype=torch.float32)
     jobs32 = [(p, min(n, 32)) for p, n in jobs[:4]]
     with DecodeEngine(model32, params, slots=SLOTS, page_size=PAGE,
                       max_context=MAX_CONTEXT, device=DEVICE) as eng32:
-        outs32 = [r.result(timeout=600)
-                  for r in [eng32.submit(p, n) for p, n in jobs32]]
+        outs32, _, _ = run_jobs(eng32, jobs32)
     check(eng32.pool.allocated == 0, "f32 pool did not drain")
-    for i, ((p, n), out) in enumerate(zip(jobs32, outs32)):
-        dense = model32.generate(params, p[None], n)[0].cpu().numpy()
-        check(np.array_equal(out, dense),
-              f"f32 request {i}: engine {out.tolist()} != generate() "
-              f"{dense.tolist()}")
+    check_same("f32 engine vs generate()", outs32, [
+        model32.generate(params, p[None], n)[0].cpu().numpy()
+        for p, n in jobs32])
     say("serve", f"f32 engine == dense generate() for {len(jobs32)} "
                  f"requests ({sum(n for _, n in jobs32)} tokens)")
+    return {"cfg": cfg, "tree": tree, "params": params, "jobs": jobs,
+            "outs": outs, "tokens_per_s": tokens / wall,
+            "page_bytes": page_bytes, "cpu_params": None}
+
+
+def cpu_params(ctx: dict):
+    """The same numpy weights on the CPU, for the twin engines (built
+    once)."""
+    from deeplearning4j_tpu_torch.models.gpt import params_from_jax
+
+    if ctx["cpu_params"] is None:
+        ctx["cpu_params"] = params_from_jax(ctx["tree"], device="cpu")
+    return ctx["cpu_params"]
+
+
+def fp8_code_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Steps between two float8_e4m3fn byte patterns along the number
+    line (sign-magnitude: the low 7 bits order the magnitudes)."""
+    sa, sb = (a >> 7).astype(np.int64), (b >> 7).astype(np.int64)
+    ma, mb = (a & 0x7F).astype(np.int64), (b & 0x7F).astype(np.int64)
+    va = np.where(sa == 1, -ma, ma)
+    vb = np.where(sb == 1, -mb, mb)
+    return np.abs(va - vb)
+
+
+def phase_fp8(ctx: dict, rows: dict) -> None:
+    """fp8 KV pages: phase 4's traffic at bf16 with kv_dtype="fp8_e4m3",
+    then at f32 the pools after prefill and the greedy tokens on the card
+    against a CPU twin (the plain versions)."""
+    from deeplearning4j_tpu_torch.models.gpt import CausalLM
+    from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, params, jobs = ctx["cfg"], ctx["params"], ctx["jobs"]
+    model = CausalLM(cfg, compute_dtype=torch.bfloat16)
+    eng = DecodeEngine(model, params, slots=SLOTS, page_size=PAGE,
+                       max_context=MAX_CONTEXT, device=DEVICE,
+                       kv_dtype="fp8_e4m3")
+    with eng:
+        eng.generate(jobs[0][0][:16], 4)
+        steps0 = eng.n_steps
+        since = reset_launches(eng)
+        outs, reqs, wall = run_jobs(eng, jobs)
+        launches, _, _ = launch_check("fp8", eng, since)
+        steps = eng.n_steps - steps0
+        fp8_bytes = eng.pool.bytes_per_page()
+        profile_window(eng, serving_jobs(cfg.vocab_size, 8, seed=2), "fp8")
+    check(eng.pool.allocated == 0, "fp8 pool did not drain")
+    rows["paged_attention_fp8"]["launches"] = launches
+    tokens = sum(len(o) for o in outs)
+    say("fp8", f"{tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} "
+               f"tokens/s (float pools {ctx['tokens_per_s']:.1f}); TTFT p50 "
+               f"{ttft_ms(reqs, 50):.1f} ms, p99 {ttft_ms(reqs, 99):.1f} ms; "
+               f"page {fp8_bytes} B against {ctx['page_bytes']} B bf16 "
+               f"({fp8_bytes / ctx['page_bytes']:.4f}); kernel launches "
+               f"{launches} = {cfg.n_layers} x {steps}")
+    say("fp8", f"bf16 fp8 engine vs float engine (reported, not a gate): "
+               f"{agreement(outs, ctx['outs'])}")
+
+    # f32: the card against the CPU twin. Sessions pin each prompt's
+    # pages after its prefill (one new token), so the pools hold them
+    model32 = CausalLM(cfg, compute_dtype=torch.float32)
+    jobs32 = [(p, 24) for p, _ in jobs[:4]]
+    snap, toks, pages = {}, {}, {}
+    for dev, prm in ((DEVICE, params), ("cpu", cpu_params(ctx))):
+        kw = dict(slots=SLOTS, page_size=PAGE, max_context=MAX_CONTEXT,
+                  device=dev, kv_dtype="fp8_e4m3")
+        with DecodeEngine(model32, prm, session_capacity=4, **kw) as e:
+            run_jobs(e, [(p, 1, f"u{i}") for i, (p, _) in
+                         enumerate(jobs32)], sequential=True)
+            pages[dev] = sorted(e.pool._refs)
+            snap[dev] = {n: (t.view(torch.uint8) if t.dtype ==
+                             torch.float8_e4m3fn else t)[:, pages[dev]]
+                         .cpu().numpy() for n, t in e.pool.tree().items()}
+        check(e.pool.allocated == 0, f"f32 fp8 pool on {dev} did not drain")
+        with DecodeEngine(model32, prm, **kw) as e:
+            toks[dev], _, _ = run_jobs(e, jobs32)
+    check(pages[DEVICE] == pages["cpu"] and len(pages["cpu"]) > 0,
+          f"pinned pages differ: {pages[DEVICE]} / {pages['cpu']}")
+    card, cpu = snap[DEVICE], snap["cpu"]
+    for n in ("k", "v"):
+        dist = fp8_code_distance(card[n], cpu[n])
+        frac = float((dist > 0).mean())
+        rel = float(np.abs(card[n + "_scale"] / cpu[n + "_scale"] - 1).max())
+        say("fp8", f"f32 {n} pages after prefill, card vs CPU: "
+                   f"{int((dist > 0).sum())} of {dist.size} bytes differ "
+                   f"({frac:.2e}), at most {int(dist.max())} e4m3 step(s); "
+                   f"scales max relative diff {rel:.2e}")
+        check(dist.max() <= 1 and frac <= 1e-3,
+              f"fp8 {n} bytes: card and CPU differ beyond one e4m3 step "
+              f"at a rounding boundary")
+        check(rel <= 1e-5, f"fp8 {n} scales differ by {rel:.2e}")
+    check_same("f32 fp8 card vs CPU", toks[DEVICE], toks["cpu"])
+    say("fp8", f"f32 fp8 card tokens == CPU twin for {len(jobs32)} requests "
+               f"({sum(n for _, n in jobs32)} tokens)")
+
+
+def shared_prefix_requests(vocab: int, n_users: int, system_len: int,
+                           user_len: int, seed: int = 0):
+    """bench_gpt_decode.py's prefix_ab traffic: one shared system
+    prompt, distinct user suffixes."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(0, vocab, (system_len,)).astype(np.int32)
+    return [np.concatenate(
+        [sys_p, rng.integers(0, vocab, (user_len,)).astype(np.int32)])
+        for _ in range(n_users)]
+
+
+def prefix_turns(eng, prompts, new: int, new2: int, added: int):
+    """Each user's first turn, submitted one after another, then one
+    second turn per user that adds ``added`` tokens to the whole first
+    turn (a sticky-session resume when the engine has sessions). Returns
+    (turn-1 tokens, turn-1 requests, turn-2 prompts, turn-2 tokens,
+    turn-2 requests)."""
+    rng = np.random.default_rng(5)
+    outs1, reqs1, _ = run_jobs(eng, [(p, new, f"user{i}")
+                                     for i, p in enumerate(prompts)],
+                               sequential=True)
+    second = [np.concatenate([p, o, rng.integers(
+        0, eng.model.cfg.vocab_size, (added,)).astype(np.int32)])
+        for p, o in zip(prompts, outs1)]
+    outs2, reqs2, _ = run_jobs(eng, [(p, new2, f"user{i}")
+                                     for i, p in enumerate(second)],
+                               sequential=True)
+    return outs1, reqs1, second, outs2, reqs2
+
+
+def phase_prefix(ctx: dict, rows: dict) -> None:
+    """prefix_ab's traffic (16 users, a 192-token system prompt, 32-token
+    suffixes, 64 new tokens, one after another) cold and then warm at
+    bf16, plus a second turn per user that adds 80 tokens: a session
+    resume whose suffix bucket is 128, Q > 32 through the kernel. At f32
+    warm and resumed tokens must equal cold ones."""
+    from deeplearning4j_tpu_torch.models.gpt import CausalLM
+    from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, params = ctx["cfg"], ctx["params"]
+    users, system, user, new, added, new2 = 16, 192, 32, 64, 80, 32
+    prompts = shared_prefix_requests(cfg.vocab_size, users, system, user)
+    kw = dict(slots=SLOTS, page_size=PAGE, max_context=MAX_CONTEXT,
+              device=DEVICE)
+    model = CausalLM(cfg, compute_dtype=torch.bfloat16)
+    # request 0 fills the cache and pays each engine's first calls: the
+    # turn-1 TTFT medians leave it out on both sides, as prefix_ab does
+    with DecodeEngine(model, params, **kw) as cold:
+        c1, creqs1, second, c2, creqs2 = prefix_turns(cold, prompts, new,
+                                                      new2, added)
+    warm = DecodeEngine(model, params, prefix_cache=True,
+                        session_capacity=users, **kw)
+    with warm:
+        steps0, warm0 = warm.n_steps, warm.n_warm_admissions
+        since = reset_launches(warm)
+        w1, wreqs1, second_w, w2, wreqs2 = prefix_turns(warm, prompts, new,
+                                                        new2, added)
+        launches, one_row, multi = launch_check("prefix", warm, since)
+        n_warm = warm.n_warm_admissions - warm0
+        n_steps = warm.n_steps - steps0
+        st = warm.prefix_stats()
+        more = shared_prefix_requests(cfg.vocab_size, users + 4, system,
+                                      user)[users:]
+        profile_window(warm, [(p, new) for p in more], "prefix",
+                       sequential=True)
+    check(warm.pool.allocated == 0, "prefix pool did not drain")
+    # a user's second turn extends its own first turn, so at bf16 the
+    # cold and warm second prompts differ where the first turns did
+    same2 = [i for i in range(users)
+             if np.array_equal(second[i], second_w[i])]
+    hits1 = [r.cache_hit_tokens for r in wreqs1[1:]]
+    hits2 = [r.cache_hit_tokens for r in wreqs2]
+    check(min(hits1) >= system and min(hits2) >= system + user + new - 1,
+          f"warm hits {hits1} / resumed hits {hits2}")
+    rows["paged_attention_prefix"]["launches"] = multi
+    say("prefix", f"{users} users, system {system} + user {user} tokens, "
+                  f"{new} new, one after another: TTFT p50 cold "
+                  f"{np.median([r.ttft_s for r in creqs1[1:]]) * 1e3:.2f} ms, "
+                  f"warm {np.median([r.ttft_s for r in wreqs1[1:]]) * 1e3:.2f} "
+                  f"ms; mean hit tokens {np.mean(hits1):.1f}")
+    say("prefix", f"second turn (+{added} tokens, suffix bucket 128, "
+                  f"{new2} new): TTFT p50 cold "
+                  f"{np.median([r.ttft_s for r in creqs2]) * 1e3:.2f} ms, "
+                  f"resumed {np.median([r.ttft_s for r in wreqs2]) * 1e3:.2f}"
+                  f" ms; mean hit tokens {np.mean(hits2):.1f}; "
+                  f"{st['sessions']['resumed_total']} resumes")
+    say("prefix", f"kernel launches {launches}: {one_row} one-row = "
+                  f"{cfg.n_layers} x {n_steps} decode steps, {multi} at "
+                  f"N=1 Q = suffix bucket = {cfg.n_layers} x {n_warm} warm "
+                  f"admissions; bf16 warm vs cold: {agreement(w1, c1)}; "
+                  f"resumed vs cold, over the {len(same2)} users whose "
+                  f"second prompts agree: "
+                  f"{agreement([w2[i] for i in same2], [c2[i] for i in same2])}")
+
+    model32 = CausalLM(cfg, compute_dtype=torch.float32)
+    few = prompts[:4]
+    with DecodeEngine(model32, params, **kw) as cold:
+        c1, _, _, c2, _ = prefix_turns(cold, few, new, new2, added)
+    with DecodeEngine(model32, params, prefix_cache=True,
+                      session_capacity=users, **kw) as warm:
+        w1, r1, _, w2, r2 = prefix_turns(warm, few, new, new2, added)
+    check(all(r.cache_hit_tokens > 0 for r in r1[1:] + r2),
+          "f32 warm run reused nothing")
+    check_same("f32 warm vs cold", w1, c1)
+    check_same("f32 resumed vs cold", w2, c2)
+    say("prefix", f"f32: warm == cold and resumed == cold for {len(few)} "
+                  f"users ({len(few) * (new + new2)} tokens)")
+
+
+def phase_spec(ctx: dict, rows: dict) -> None:
+    """Speculative decoding on phase 4's mixed traffic, k in {2, 4, 8},
+    against plain decoding in the same phase; at f32 the tokens must
+    equal plain."""
+    from deeplearning4j_tpu_torch.models.gpt import CausalLM
+    from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, params, jobs = ctx["cfg"], ctx["params"], ctx["jobs"]
+    kw = dict(slots=SLOTS, page_size=PAGE, max_context=MAX_CONTEXT,
+              device=DEVICE)
+    model = CausalLM(cfg, compute_dtype=torch.bfloat16)
+    with DecodeEngine(model, params, **kw) as eng:
+        eng.generate(jobs[0][0][:16], 4)
+        plain, _, plain_s = run_jobs(eng, jobs)
+    tokens = sum(len(o) for o in plain)
+    say("spec", f"plain: {tokens / plain_s:.1f} tokens/s")
+    total = 0
+    for k in (2, 4, 8):
+        eng = DecodeEngine(model, params, spec_decode=k, **kw)
+        with eng:
+            eng.generate(jobs[0][0][:16], 4)
+            since = reset_launches(eng)
+            outs, _, wall = run_jobs(eng, jobs)
+            _, _, multi = launch_check(f"spec k={k}", eng, since)
+            sp = eng.stats()["spec"]
+            if k == 4:
+                profile_window(eng, serving_jobs(cfg.vocab_size, 8, seed=2),
+                               "spec")
+        total += multi
+        check(eng.pool.allocated == 0, f"spec k={k} pool did not drain")
+        check(sp["verify_dispatches"] > 0, f"spec k={k} never verified")
+        say("spec", f"k={k}: {tokens / wall:.1f} tokens/s "
+                    f"({plain_s / wall:.3f}x plain); acceptance "
+                    f"{sp['acceptance']:.3f}, {sp['tokens_per_dispatch']:.3f}"
+                    f" tokens per verify per lane over "
+                    f"{sp['verify_dispatches']} verify passes; bf16 vs "
+                    f"plain: {agreement(outs, plain)}")
+    rows["paged_attention_verify"]["launches"] = total
+
+    model32 = CausalLM(cfg, compute_dtype=torch.float32)
+    jobs32 = [(p, min(n, 32)) for p, n in jobs[:6]]
+    with DecodeEngine(model32, params, **kw) as eng:
+        plain32, _, _ = run_jobs(eng, jobs32)
+    for k in (2, 4, 8):
+        with DecodeEngine(model32, params, spec_decode=k, **kw) as eng:
+            outs32, _, _ = run_jobs(eng, jobs32)
+        check_same(f"f32 spec k={k} vs plain", outs32, plain32)
+    say("spec", f"f32: spec k in (2, 4, 8) == plain for {len(jobs32)} "
+                f"requests")
+
+
+def phase_int8(ctx: dict) -> None:
+    """int8 decode weights: phase 4's traffic at bf16, then at f32 the
+    card's tokens against a CPU twin."""
+    from deeplearning4j_tpu_torch.models.gpt import CausalLM
+    from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, params, jobs = ctx["cfg"], ctx["params"], ctx["jobs"]
+    kw = dict(slots=SLOTS, page_size=PAGE, max_context=MAX_CONTEXT,
+              quantization="int8")
+    model = CausalLM(cfg, compute_dtype=torch.bfloat16)
+    eng = DecodeEngine(model, params, device=DEVICE, **kw)
+    with eng:
+        eng.generate(jobs[0][0][:16], 4)
+        since = reset_launches(eng)
+        outs, reqs, wall = run_jobs(eng, jobs)
+        launch_check("int8", eng, since)
+    check(eng.pool.allocated == 0, "int8 pool did not drain")
+    tokens = sum(len(o) for o in outs)
+    say("int8", f"{tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} "
+                f"tokens/s (float weights {ctx['tokens_per_s']:.1f}); TTFT "
+                f"p50 {ttft_ms(reqs, 50):.1f} ms; vs float weights "
+                f"(reported): {agreement(outs, ctx['outs'])}")
+    model32 = CausalLM(cfg, compute_dtype=torch.float32)
+    jobs32 = [(p, 24) for p, _ in jobs[:4]]
+    toks = {}
+    for dev, prm in ((DEVICE, params), ("cpu", cpu_params(ctx))):
+        with DecodeEngine(model32, prm, device=dev, **kw) as e:
+            toks[dev], _, _ = run_jobs(e, jobs32)
+    check_same("f32 int8 card vs CPU", toks[DEVICE], toks["cpu"])
+    say("int8", f"f32 int8 card tokens == CPU twin for {len(jobs32)} "
+                f"requests")
 
 
 # --------------------------------------------------------- train kernels
@@ -1438,9 +1899,14 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    paged = phase_kernel()
-    phase_serve(paged)
-    rows = {r["name"]: r for r in (paged, *phase_flash(), phase_adam())}
+    rows = phase_kernel()
+    ctx = phase_serve(rows)
+    phase_fp8(ctx, rows)
+    phase_prefix(ctx, rows)
+    phase_spec(ctx, rows)
+    phase_int8(ctx)
+    del ctx
+    rows.update((r["name"], r) for r in (*phase_flash(), phase_adam()))
     phase_train(rows)
     phase_parity()
     rows.update((r["name"], r) for r in phase_lstm_kernels())

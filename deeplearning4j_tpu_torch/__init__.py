@@ -30,6 +30,13 @@ Ported so far:
   zips), ``zoo.TextGenerationLSTM`` and ``ops.nn.lstm_layer`` over
   ``ops.lstm_recurrence`` (the persistent LSTM recurrence kernels
   ``csrc/lstm_recurrence.cu``, forward and backward);
+- slice 4, the rest of the serving engine (all but the fleet and the
+  HTTP/telemetry plane): ``nn.precision`` (int8 decode weights, the fp8
+  KV format), fp8 pools in ``serving.kv_pages``, ``serving.prefix_cache``,
+  ``serving.sessions``, ``serving.spec_decode``, and the engine's prefix
+  prefill, session resume, speculative verify, int8 decode and
+  cancellation, with the paged-attention kernel's fp8 branch and query
+  tiles of any width;
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
   ``mln_params_from_numpy``, ``params_to_numpy``) and ``FlatParams``, the
   flat f32 master buffer.

@@ -11,22 +11,25 @@ same signature and layout:
 - ``tables`` ``[N, P]`` int32, ``qbase`` ``[N]`` int32;
 - output ``[N, H, Q, hd]`` in ``q.dtype``.
 
+fp8 KV trees carry ``"k_scale"``/``"v_scale"`` planes ``[L, n_pages, H]``
+beside ``float8_e4m3fn`` pools: the plain version dequantizes the
+gathered pages in the compute dtype (as the JAX package's XLA reference
+does), the kernel in f32 as it stages each page (as the Pallas kernel
+does). At f32 the two agree exactly on the dequantized values.
+
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 take :func:`paged_attention_reference`, a plain PyTorch copy of the JAX
 package's einsum reference; CUDA tensors take the hand-written Hopper
 kernel ``csrc/paged_attention.cu`` (:func:`paged_attention_kernel`),
 which either launches or raises. There is no fallback from one to the
-other, and no mode switch.
-
-fp8 KV trees (``k_scale``/``v_scale`` planes) are not ported yet: both
-paths raise ``NotImplementedError`` on them.
+other, and no mode switch. The kernel takes any query width: it tiles
+the queries 32 rows to a block.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
 
 import torch
 
@@ -35,28 +38,37 @@ from deeplearning4j_tpu_torch.ops import native
 #: kernel launches since the last reset; incremented only where
 #: :func:`paged_attention_kernel` launches the CUDA kernel
 launches = 0
+#: the part of ``launches`` with more than one query row (verify passes
+#: and suffix prefills; decode steps have one)
+multi_row_launches = 0
 
 #: shared memory aimed at per block for one tile of staged K/V pages (f32)
 _TILE_BYTES = 32 * 1024
 _MAX_SMEM = 227 * 1024
+#: query rows the kernel's grid can tile (65535 tiles of 32 rows)
+_MAX_Q = 65535 * 32
 
 
-def _check_float_tree(kv: Dict[str, torch.Tensor]) -> None:
-    if "k_scale" in kv:
-        raise NotImplementedError(
-            "fp8 KV pools (k_scale/v_scale planes) are not ported yet")
+def _gather(pool, layer: int, tables):
+    """``pool[layer][tables]``; an fp8 pool is gathered as bytes."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return pool.view(torch.uint8)[layer][tables].view(pool.dtype)
+    return pool[layer][tables]
 
 
 def paged_attention_reference(q, kv, layer: int, tables, qbase):
     """Plain PyTorch version: page gather, the page-major contraction,
     the ``finfo(dtype).min`` mask on flat position ``<= qbase[n] + i``,
-    softmax. Op for op ``_xla_paged_attention``
-    (paged_attention_pallas.py:85-111)."""
-    _check_float_tree(kv)
+    softmax; fp8 pages are dequantized in the query's dtype first. Op
+    for op ``_xla_paged_attention`` (paged_attention_pallas.py:85-111)."""
     N, H, Q, hd = q.shape
     tables = tables.long()
-    ck = kv["k"][layer][tables]                 # [N, P, H, ps, hd]
-    cv = kv["v"][layer][tables]
+    ck = _gather(kv["k"], layer, tables)         # [N, P, H, ps, hd]
+    cv = _gather(kv["v"], layer, tables)
+    if "k_scale" in kv:
+        cd = q.dtype
+        ck = ck.to(cd) * kv["k_scale"][layer][tables][..., None, None].to(cd)
+        cv = cv.to(cd) * kv["v_scale"][layer][tables][..., None, None].to(cd)
     P, ps = ck.shape[1], ck.shape[3]
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=q.dtype,
                                           device=q.device))
@@ -78,19 +90,33 @@ def _lib():
     fn = lib.dl4j_paged_attention
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i,
-                       i, ctypes.c_float, vp]
+        fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                       i, i, i, i, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_kernel_args(q, k, v, layer, tables, qbase) -> None:
+def _check_kernel_args(q, k, v, layer, tables, qbase, k_scale=None,
+                       v_scale=None) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
                         f"queries, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    fp8 = k_scale is not None or v_scale is not None
+    if fp8:
+        if k.dtype != torch.float8_e4m3fn or v.dtype != torch.float8_e4m3fn:
+            raise TypeError(f"fp8 K/V pools must be float8_e4m3fn, got "
+                            f"{k.dtype}, {v.dtype}")
+        if k_scale is None or v_scale is None:
+            raise ValueError("an fp8 tree needs both k_scale and v_scale")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != tuple(k.shape[:3]):
+                raise ValueError(f"{name} must be float32 {tuple(k.shape[:3])}"
+                                 f", got {t.dtype} {tuple(t.shape)}")
+            if not t.is_contiguous() or t.device != q.device:
+                raise ValueError(f"{name} must be contiguous on {q.device}")
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"K/V pools ({k.dtype}, {v.dtype}) must match the "
                         f"query dtype {q.dtype}")
     if tables.dtype != torch.int32 or qbase.dtype != torch.int32:
@@ -110,8 +136,8 @@ def _check_kernel_args(q, k, v, layer, tables, qbase) -> None:
     if hd % 32 or not 32 <= hd <= 256:
         raise ValueError(f"head_dim must be a multiple of 32 up to 256, "
                          f"got {hd}")
-    if not 1 <= Q <= 32:
-        raise ValueError(f"the kernel takes 1..32 query rows, got {Q}")
+    if not 1 <= Q <= _MAX_Q:
+        raise ValueError(f"the kernel takes 1..{_MAX_Q} query rows, got {Q}")
     if tables.dim() != 2 or tables.shape[0] != N or tuple(qbase.shape) != (N,):
         raise ValueError(f"need tables [N,P] and qbase [N] with N={N}, got "
                          f"{tuple(tables.shape)} / {tuple(qbase.shape)}")
@@ -133,12 +159,13 @@ def paged_attention_kernel(q, kv, layer: int, tables, qbase):
     current stream. Raises on any argument the kernel does not take, on
     a failed build and on a refused launch; never computes the result
     another way."""
-    global launches
-    _check_float_tree(kv)
+    global launches, multi_row_launches
     k, v = kv["k"], kv["v"]
+    ksc, vsc = kv.get("k_scale"), kv.get("v_scale")
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
-    _check_kernel_args(q, k, v, layer, tables, qbase)
+    _check_kernel_args(q, k, v, layer, tables, qbase, ksc, vsc)
+    fp8 = ksc is not None
     N, H, Q, hd = q.shape
     n_pages, ps = k.shape[1], k.shape[3]
     P = tables.shape[1]
@@ -148,8 +175,10 @@ def paged_attention_kernel(q, kv, layer: int, tables, qbase):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dl4j_paged_attention(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), tables.data_ptr(), qbase.data_ptr(),
+            int(q.dtype == torch.bfloat16), int(fp8), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), ksc.data_ptr() if fp8 else None,
+            vsc.data_ptr() if fp8 else None, tables.data_ptr(),
+            qbase.data_ptr(),
             out.data_ptr(), N, H, Q, hd, ps, P, n_pages, int(layer),
             tile_pages, 1.0 / math.sqrt(hd), stream)
     if err != 0:
@@ -157,6 +186,7 @@ def paged_attention_kernel(q, kv, layer: int, tables, qbase):
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} "
                            f"(cudaError {err})")
     launches += 1
+    multi_row_launches += int(Q > 1)
     return out
 
 

@@ -9,6 +9,10 @@ package's own tests run it on the CPU. Tolerance: 1e-5 absolute and
 relative — the same formula in f32, only the summation order differs
 (the kernel's online softmax reduces page by page).
 
+fp8 trees (``float8_e4m3fn`` pools with f32 scale planes, quantized by
+the JAX package's own helpers) and query widths past one 32-row tile
+are held the same way.
+
 The CUDA kernel itself runs only on the card: its test carries the
 ``cuda`` marker and skips without one. JAX is imported inside the tests
 that compare with it, so the card's tests run where JAX is not
@@ -113,14 +117,24 @@ def test_first_position_only_returns_that_value():
 
 
 def test_fp8_tree_raises():
+    """An fp8 tree the kernel cannot take is refused before any launch:
+    pools that are not float8_e4m3fn, a missing or misshapen scale
+    plane, CPU tensors."""
     q, k, v, tables, qbase = _case(0, 1, 1)
     tq, tkv, tt, tb = _torch_args(q, k, v, tables, qbase)
-    tkv["k_scale"] = torch.ones(k.shape[:3])
-    tkv["v_scale"] = torch.ones(k.shape[:3])
-    with pytest.raises(NotImplementedError, match="fp8"):
-        pa.paged_attention(tq, tkv, 0, tt, tb)
-    with pytest.raises(NotImplementedError, match="fp8"):
-        pa.paged_attention_kernel(tq, tkv, 0, tt, tb)
+    ones = torch.ones(k.shape[:3])
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        pa._check_kernel_args(tq, tkv["k"], tkv["v"], 0, tt, tb, ones, ones)
+    k8, v8 = (tkv[n].to(torch.float8_e4m3fn) for n in ("k", "v"))
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        pa._check_kernel_args(tq, k8, v8, 0, tt, tb, ones, None)
+    with pytest.raises(ValueError, match="k_scale must be float32"):
+        pa._check_kernel_args(tq, k8, v8, 0, tt, tb, ones[:, :1], ones)
+    before = pa.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pa.paged_attention_kernel(tq, {"k": k8, "v": v8, "k_scale": ones,
+                                       "v_scale": ones}, 0, tt, tb)
+    assert pa.launches == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -138,14 +152,19 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (dict(pool_dtype=torch.bfloat16), "must match"),
     (dict(tables_dtype=torch.int64), "int32"),
     (dict(hd=48), "multiple of 32"),
-    (dict(Q=33), "1..32 query rows"),
+    (dict(Q=0), "query rows"),
     (dict(layer=2), "outside the pool"),
     (dict(qbase_len=3), "qbase"),
     (dict(q_noncontig=True, Q=2), "contiguous"),
+    (dict(Q=pa._MAX_Q + 1), "query rows"),
 ])
 def test_kernel_argument_checks(bad, match):
     hd, Q = bad.get("hd", 32), bad.get("Q", 1)
-    q = torch.zeros(2, 2, Q, hd, dtype=bad.get("q_dtype", torch.float32))
+    if Q > pa._MAX_Q:
+        # a broadcast view: the width check comes before the layout one
+        q = torch.zeros(()).expand(2, 2, Q, hd)
+    else:
+        q = torch.zeros(2, 2, Q, hd, dtype=bad.get("q_dtype", torch.float32))
     if bad.get("q_noncontig"):
         q = torch.zeros(2, 2, hd, Q).transpose(2, 3)
     k = torch.zeros(2, 3, 2, 4, hd, dtype=bad.get("pool_dtype", q.dtype))
@@ -196,4 +215,118 @@ def test_cuda_kernel_matches_reference(Q, dtype, tol):
     assert pa.launches == before + 1 and got.dtype == dtype
     want = pa.paged_attention_reference(
         lq.float(), {n: t.float() for n, t in lkv.items()}, 1, tt, tb)
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+# ------------------------------------------------ fp8 trees and wide Q
+def _fp8_tree(k, v):
+    """Quantize float pools per page and head with the JAX package's
+    helpers: (JAX tree, torch tree with the same bytes and scales)."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.nn import precision as jprec
+
+    jtree, ttree = {}, {}
+    for name, x in (("k", k), ("v", v)):
+        sc = jprec.fp8_scale(jnp.asarray(np.abs(x).max(axis=(3, 4))))
+        qx = jprec.quantize_fp8(jnp.asarray(x), sc[..., None, None])
+        jtree[name], jtree[name + "_scale"] = qx, sc
+        ttree[name] = torch.from_numpy(
+            np.asarray(qx).view(np.uint8).copy()).view(torch.float8_e4m3fn)
+        ttree[name + "_scale"] = torch.from_numpy(np.asarray(sc).copy())
+    return jtree, ttree
+
+
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+@pytest.mark.parametrize("Q", [1, 3])
+def test_fp8_reference_matches_jax(Q, mode):
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops.paged_attention_pallas import (
+        paged_attention as jax_paged_attention)
+
+    q, k, v, tables, qbase = _case(40 + Q, Q, 3)
+    k *= 30.0                        # a range well past the e4m3 max
+    jtree, ttree = _fp8_tree(k, v)
+    want = np.asarray(jax_paged_attention(
+        jnp.asarray(q), jtree, 1, jnp.asarray(tables), jnp.asarray(qbase),
+        mode=mode))
+    tq, _, tt, tb = _torch_args(q, k, v, tables, qbase)
+    got = pa.paged_attention_reference(tq, ttree, 1, tt, tb)
+    assert got.dtype == torch.float32 and got.shape == (3, 2, Q, 8)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert pa.paged_attention(tq, ttree, 1, tt, tb).equal(got)
+
+
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+@pytest.mark.parametrize("Q", [33, 64])
+def test_wide_query_reference_matches_jax(Q, mode):
+    """Query widths past one 32-row tile, as the prefix-prefill program
+    gives the kernel (N=1 with qbase mid-page, plus two more rows)."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops.paged_attention_pallas import (
+        paged_attention as jax_paged_attention)
+
+    q, k, v, tables, qbase = _case(50 + Q, Q, 20)
+    qbase = np.array([2, 0, 6], np.int32)
+    tables[2, 20 - 1:] = 0
+    want = np.asarray(jax_paged_attention(
+        jnp.asarray(q), {"k": jnp.asarray(k), "v": jnp.asarray(v)}, 0,
+        jnp.asarray(tables), jnp.asarray(qbase), mode=mode))
+    tq, tkv, tt, tb = _torch_args(q, k, v, tables, qbase)
+    got = pa.paged_attention_reference(tq, tkv, 0, tt, tb)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _cuda_tree(k, v, kind):
+    if kind == "fp8":
+        return {n: t.cuda() for n, t in _fp8_tree(k, v)[1].items()}
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[kind]
+    return {"k": torch.from_numpy(k).to(dtype).cuda(),
+            "v": torch.from_numpy(v).to(dtype).cuda()}
+
+
+def _f32_tree(tree):
+    """The same values at f32: fp8 pages dequantized in f32 (what the
+    kernel computes on), float pools widened."""
+    if "k_scale" in tree:
+        return {n: (tree[n].float() * tree[n + "_scale"][..., None, None])
+                for n in ("k", "v")}
+    return {n: t.float() for n, t in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, qdtype, tol", [
+    ("fp8", torch.float32, 1e-5), ("fp8", torch.bfloat16, 2e-2),
+    ("f32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Q, qbase", [(1, None), (5, None), (33, 7),
+                                      (64, 16), (512, 0)])
+def test_cuda_kernel_fp8_and_wide_queries(Q, qbase, kind, qdtype, tol):
+    """On the card: the fp8 branch (f32 and bf16 queries) and query
+    widths of one tile, 33, 64 and 512 rows (N=1 at qbase mid-page and
+    page-aligned, as the prefix-prefill program runs) against the plain
+    version at f32 on the same dequantized values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    P = (Q + 31) // 16 + 2
+    N = 3 if qbase is None else 1
+    q, k, v, tables, qb = _case(60 + Q, Q, P, N=3, H=4, hd=64, ps=16)
+    # K past the e4m3 range (fp8 scales well above the floor), logits of
+    # unit scale as in serving
+    k *= 20.0
+    q /= 20.0
+    if qbase is not None:
+        q, tables, qb = q[:1], tables[:1], np.array([qbase], np.int32)
+    tree = _cuda_tree(k, v, kind)
+    tq = torch.from_numpy(q).to(qdtype).cuda()
+    tt, tb = torch.from_numpy(tables).cuda(), torch.from_numpy(qb).cuda()
+    before, multi = pa.launches, pa.multi_row_launches
+    got = pa.paged_attention(tq, tree, 1, tt, tb)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1 and got.dtype == qdtype
+    assert pa.multi_row_launches == multi + int(Q > 1)
+    assert got.shape == (N, 4, Q, 64)
+    want = pa.paged_attention_reference(tq.float(), _f32_tree(tree), 1, tt,
+                                        tb)
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
