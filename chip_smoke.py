@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. device: the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions;
 2. build: ``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``,
-   ``csrc/fused_update.cu`` and ``csrc/lstm_recurrence.cu`` compiled from
+   ``csrc/fused_update.cu``, ``csrc/lstm_recurrence.cu``,
+   ``csrc/conv_bn_stats.cu`` and ``csrc/residual_tail.cu`` compiled from
    this checkout by ``nvcc`` for sm_90a, one ``nvcc`` per source, all
    started together;
 3. kernel: the paged-attention kernel against its plain PyTorch version
@@ -105,7 +106,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card, ``rnnTimeStep`` fed 64 characters one at a time (batch 4) equals
    ``output()`` over the sequence, and both equal the same network's
    ``output()`` on the CPU (the plain versions), within 1e-5; a changed
-   batch size with stored state raises.
+   batch size with stored state raises;
+11. conv / tail kernels: through ``Nd4j.exec`` by name, at batch 256 in
+   bf16, the conv + BN-stats kernel (``csrc/conv_bn_stats.cu``) at the 9
+   1x1 and 4 3x3 stride-1 shapes of ResNet-50's bottleneck stacks
+   (bench_conv_pallas.py:23-37) and the residual-tail kernel
+   (``csrc/residual_tail.cu``) at its 4 residual joins
+   (bench_residual_tail.py:31-36), each against its plain version at f32
+   on the same bf16 values (y and the tail within one bf16 rounding, 2^-8
+   of the largest value; means within 1e-5 of max |y|, variances within
+   1e-4 of max E[y^2]: f32 sums in another order), then each one's time
+   beside its plain version's, a library yardstick the port never calls
+   (``torch.matmul`` or ``F.conv2d`` + ``torch.var_mean``; ``F.batch_norm``
+   + add + ``relu``) and its bound;
+12. ResNet-50 blocks by name: the four identity bottleneck blocks
+   (256->64->256 at 56x56, 512->128 at 28x28, 1024->256 at 14x14,
+   2048->512 at 7x7; numpy He-normal weights from a seed) as ``SameDiff``
+   graphs of ``conv1x1_bn_stats``, ``batch_norm``, ``relu``, ``cast``,
+   ``conv3x3_bn_stats`` and ``bn_relu_residual``, at batch 256 in bf16:
+   one ``output`` of each graph launches B4a 8, B4b 4 and B3 4 times in
+   all; ms per block; a device profile; ``calculateGradients`` of the
+   first block's last gamma and beta through B3 against the plain
+   formula's f32 autograd (1e-4 of max |grad|); a gradient through B4
+   must raise; the 7x7 graph saved and loaded gives the same output;
+13. block parity: the four blocks at f32, batch 8, on the card (the
+   kernels) against the CPU (the plain versions), within 1e-4 of max(1,
+   max |out|).
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -117,8 +143,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -138,7 +166,7 @@ BF16_FLOPS = 989e12
 TRAIN_BATCH, TRAIN_SEQ, MASKED_PER_ROW, MASKED_CAPACITY = 96, 128, 19, 20
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 3
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_update",
-                  "lstm_recurrence")
+                  "lstm_recurrence", "conv_bn_stats", "residual_tail")
 
 SLOTS, PAGE, HEADS, HEAD_DIM, LAYERS = 8, 16, 12, 64, 12
 MAX_CONTEXT = 512
@@ -184,7 +212,8 @@ def phase_build() -> None:
     # flash attention; the Adam kernels have no template; the LSTM
     # kernels at one row per thread (the char-LSTM shape's plan)
     marks = {"paged_attention": "Li2E", "flash_attention": "Li64E",
-             "fused_update": "", "lstm_recurrence": "Li1E"}
+             "fused_update": "", "lstm_recurrence": "Li1E",
+             "conv_bn_stats": "nv_bfloat16", "residual_tail": "nv_bfloat16Lb1"}
     for name in KERNEL_SOURCES:
         log = native.build_logs.get(name, {})
         say("build", f"{os.path.relpath(paths[name], HERE)}: "
@@ -195,7 +224,9 @@ def phase_build() -> None:
                 found = re.search(r"(paged_attention_kernel|flash_fwd_kernel"
                                   r"|flash_bwd_[a-z]+_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
-                                  r"|lstm_(?:fwd|bwd)_kernel)", ln)
+                                  r"|lstm_(?:fwd|bwd)_kernel"
+                                  r"|conv_bn_stats_kernel"
+                                  r"|residual_tail_kernel)", ln)
                 kind = ("bf16" if "nv_bfloat16" in ln else "f32") \
                     + (" queries, fp8 pools" if "Fp8E4M3" in ln else "")
                 info = [x.split(":", 1)[-1].strip()
@@ -1887,6 +1918,422 @@ def phase_lstm_parity() -> None:
                            "state")
 
 
+# ------------------------------------------------- conv / tail kernels (B4, B3)
+# (kind, N, H, W, Cin, Cout): every stride-1 conv class of ResNet-50's
+# bottleneck stacks at batch 256 (bench_conv_pallas.py:23-37)
+CONV_SHAPES = [
+    ("1x1", 256, 56, 56, 64, 64),
+    ("1x1", 256, 56, 56, 64, 256),
+    ("1x1", 256, 56, 56, 256, 64),
+    ("1x1", 256, 28, 28, 512, 128),
+    ("1x1", 256, 28, 28, 128, 512),
+    ("1x1", 256, 14, 14, 1024, 256),
+    ("1x1", 256, 14, 14, 256, 1024),
+    ("1x1", 256, 7, 7, 2048, 512),
+    ("1x1", 256, 7, 7, 512, 2048),
+    ("3x3", 256, 56, 56, 64, 64),
+    ("3x3", 256, 28, 28, 128, 128),
+    ("3x3", 256, 14, 14, 256, 256),
+    ("3x3", 256, 7, 7, 512, 512),
+]
+#: (N, H, W, C): the four residual joins of batch-256 ResNet-50
+#: (bench_residual_tail.py:31-36)
+TAIL_SHAPES = [(256, 56, 56, 256), (256, 28, 28, 512), (256, 14, 14, 1024),
+               (256, 7, 7, 2048)]
+#: the shape of each kernel's row in the kernels line
+CONV_ROW_SHAPES = {"1x1": ("1x1", 256, 56, 56, 64, 256),
+                   "3x3": ("3x3", 256, 56, 56, 64, 64)}
+TAIL_ROW_SHAPE = (256, 56, 56, 256)
+#: ResNet-50's identity bottleneck stages (zoo/resnet50.py:46-56): (H = W,
+#: block width C, bottleneck width)
+RESNET_STAGES = [(56, 256, 64), (28, 512, 128), (14, 1024, 256),
+                 (7, 2048, 512)]
+RESNET_BATCH, RESNET_PARITY_BATCH = 256, 8
+
+
+def conv_bound(x, w, y, taps: int):
+    """(bound_ms, bound_by, bytes, flops) of one conv + BN-stats call: x
+    and w read once, y and the two f32 [Cout] vectors written once; 2 flops
+    per product of the implicit GEMM, at the tensor-core rate of the
+    inputs' type."""
+    rows, cin, cout = y.numel() // y.shape[-1], x.shape[-1], y.shape[-1]
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + y.numel() * y.element_size() + 2 * cout * 4)
+    flops = 2 * rows * taps * cin * cout
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    return (*bound(nbytes, flops, peak), nbytes, flops)
+
+
+def tail_bound(x):
+    """(bound_ms, bound_by, bytes, flops) of one residual-tail call: x and
+    res read once, out written once, four f32 [C] vectors read once; 6
+    f32 operations per element."""
+    c = x.shape[-1]
+    nbytes = 3 * x.numel() * x.element_size() + 4 * c * 4
+    flops = 6 * x.numel()
+    return (*bound(nbytes, flops, F32_FLOPS), nbytes, flops)
+
+
+def conv_errors(y, m, v, ry, rm, rv) -> tuple:
+    """(y err / max |y|, mean err / max |y|, var err / max E[y^2]) of a
+    kernel result against its plain version at f32."""
+    ymax = float(ry.abs().max())
+    e2 = float((rv + rm * rm).max())
+    return (float((y.float() - ry).abs().max()) / ymax,
+            float((m - rm).abs().max()) / ymax,
+            float((v - rv).abs().max()) / e2)
+
+
+#: tolerances of the bf16 conv checks against the plain version's f32
+#: product of the same bf16 values: y one bf16 rounding (2^-8 of max |y|);
+#: the statistics come from f32 accumulators on both sides and differ only
+#: in summation order over up to 802,816 rows
+CONV_TOL = (2 ** -8, 1e-5, 1e-4)
+
+
+def phase_conv_kernels() -> tuple:
+    """Rows of B4a, B4b and B3: each shape through ``Nd4j.exec`` at bf16
+    against the plain version at f32 on the same bf16 values, then each
+    kernel's time beside its plain version's, a library yardstick the port
+    never calls, and its bound."""
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.ops import conv_bn_stats as cb
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    bf = torch.bfloat16
+    rows = {}
+    errs = {"1x1": 0.0, "3x3": 0.0}
+    for shape in CONV_SHAPES:
+        kind, n, h, w_, cin, cout = shape
+        g = torch.Generator(device=DEVICE).manual_seed(cin * cout + h)
+        x = torch.randn(n, h, w_, cin, generator=g, device=DEVICE).relu_() \
+            .to(bf)
+        taps = 1 if kind == "1x1" else 9
+        wshape = (cin, cout) if taps == 1 else (3, 3, cin, cout)
+        w = (torch.randn(wshape, generator=g, device=DEVICE)
+             * math.sqrt(2.0 / (taps * cin))).to(bf)
+        name = "conv1x1_bn_stats" if taps == 1 else "conv3x3_bn_stats"
+        ref = (cb.conv1x1_bn_stats_reference if taps == 1
+               else cb.conv3x3_bn_stats_reference)
+        y, m, v = Nd4j.exec(name, x, w)
+        ry, rm, rv = ref(x.float(), w.float())
+        torch.cuda.synchronize()
+        check(y.dtype == bf and y.shape == ry.shape,
+              f"{name} output {y.dtype} {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(v).all()),
+              f"{name} output not finite")
+        e = conv_errors(y, m, v, ry, rm, rv)
+        errs[kind] = max(errs[kind], float((y.float() - ry).abs().max()))
+        check(all(a <= t for a, t in zip(e, CONV_TOL)),
+              f"{name} at {shape[1:]}: errors {e} above {CONV_TOL}")
+        del ry, rm, rv
+        iters = 20
+        kern1 = cuda_ms(lambda i: Nd4j.exec(name, x, w), iters, 3)
+        plain = cuda_ms(lambda i: ref(x, w), 5, 1)
+        if taps == 1:
+            x2 = x.reshape(-1, cin)
+
+            def library(i):
+                out = torch.matmul(x2, w)
+                return torch.var_mean(out, dim=0, correction=0)
+        else:
+            x_nchw = x.permute(0, 3, 1, 2)          # a channels-last view
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library(i):
+                out = F.conv2d(x_nchw, w_oihw, padding=1)
+                return torch.var_mean(out, dim=(0, 2, 3), correction=0)
+        lib = cuda_ms(library, iters, 3)
+        kern2 = cuda_ms(lambda i: Nd4j.exec(name, x, w), iters, 3)
+        ms = min(kern1, kern2)
+        bound_ms, bound_by, nbytes, flops = conv_bound(x, w, y, taps)
+        say("conv", f"{name} {h}x{w_} {cin}->{cout} N={n} bf16: err/max|y| "
+                    f"{e[0]:.2e}, mean {e[1]:.2e}, var/max E[y^2] {e[2]:.2e}; "
+                    f"kernel {kern1:.4f} / {kern2:.4f} ms, plain {plain:.4f} "
+                    f"ms, library {lib:.4f} ms; bound {bound_ms:.4f} ms by "
+                    f"{bound_by} ({nbytes} B, {flops} flop); kernel at "
+                    f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+                    f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+                    f"{bound_ms / ms:.3f} of its bound")
+        if shape == CONV_ROW_SHAPES[kind]:
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/csrc/conv_bn_stats.cu",
+                "replaces": "deeplearning4j_tpu/ops/conv_pallas.py:"
+                            + ("88" if taps == 1 else "167"),
+                "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib}
+        del x, w, y, m, v
+    rows["conv1x1_bn_stats"]["max_abs_err"] = errs["1x1"]
+    rows["conv3x3_bn_stats"]["max_abs_err"] = errs["3x3"]
+    say("conv", "library yardsticks (never called by the port): torch.matmul "
+                "+ torch.var_mean (1x1), F.conv2d on a channels-last view + "
+                "torch.var_mean (3x3), all bf16; plain versions at f32")
+
+    tail_err = 0.0
+    for shape in TAIL_SHAPES:
+        n, h, w_, c = shape
+        g = torch.Generator(device=DEVICE).manual_seed(c + h)
+        x = torch.randn(n, h, w_, c, generator=g, device=DEVICE).to(bf)
+        res = torch.randn(n, h, w_, c, generator=g, device=DEVICE).relu_() \
+            .to(bf)
+        mean = 0.1 * torch.randn(c, generator=g, device=DEVICE)
+        var = torch.rand(c, generator=g, device=DEVICE) + 0.5
+        gamma = torch.rand(c, generator=g, device=DEVICE) + 0.5
+        beta = 0.1 * torch.randn(c, generator=g, device=DEVICE)
+        args = (x, res, mean, var, gamma, beta)
+        out = Nd4j.exec("bn_relu_residual", *args)
+        want = rt.residual_tail_reference(x.float(), res.float(), mean, var,
+                                          gamma, beta)
+        torch.cuda.synchronize()
+        check(out.dtype == bf and out.shape == x.shape,
+              f"bn_relu_residual output {out.dtype} {tuple(out.shape)}")
+        err = float((out.float() - want).abs().max())
+        scale = float(want.abs().max())
+        tail_err = max(tail_err, err)
+        # the same f32 value, rounded once to bf16
+        check(err <= 2 ** -8 * scale, f"bn_relu_residual at {shape}: "
+                                      f"{err:.3e} > 2^-8 x {scale:.3e}")
+        del want
+        iters = 20
+        kern1 = cuda_ms(lambda i: Nd4j.exec("bn_relu_residual", *args), iters,
+                        3)
+        plain = cuda_ms(lambda i: rt.residual_tail_reference(*args), 5, 1)
+        x_nchw, r_nchw = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
+        lib_kind = "F.batch_norm + add + relu"
+        try:
+            F.batch_norm(x_nchw, mean, var, gamma, beta, False, 0.0, 1e-5)
+        except RuntimeError as e:
+            say("tail", f"F.batch_norm refused bf16 input with f32 "
+                        f"statistics: {e}")
+            lib_kind = None
+        if lib_kind:
+            def library(i):
+                return torch.relu(F.batch_norm(x_nchw, mean, var, gamma, beta,
+                                               False, 0.0, 1e-5) + r_nchw)
+        else:
+            lib_kind = "eager composition"
+
+            def library(i):
+                return torch.relu((x - mean) * torch.rsqrt(var + 1e-5)
+                                  * gamma + beta + res)
+        lib = cuda_ms(library, iters, 3)
+        kern2 = cuda_ms(lambda i: Nd4j.exec("bn_relu_residual", *args), iters,
+                        3)
+        ms = min(kern1, kern2)
+        bound_ms, bound_by, nbytes, flops = tail_bound(x)
+        say("tail", f"bn_relu_residual {h}x{w_}x{c} N={n} bf16: max abs err "
+                    f"{err:.3e} (max |out| {scale:.2f}); kernel {kern1:.4f} / "
+                    f"{kern2:.4f} ms, plain {plain:.4f} ms, library "
+                    f"({lib_kind}) {lib:.4f} ms; bound {bound_ms:.4f} ms by "
+                    f"{bound_by} ({nbytes} B); kernel at "
+                    f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+                    f"{bound_ms / ms:.3f} of its bound")
+        if shape == TAIL_ROW_SHAPE:
+            rows["bn_relu_residual"] = {
+                "name": "bn_relu_residual", "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/csrc/residual_tail.cu",
+                "replaces": "deeplearning4j_tpu/ops/residual_tail_pallas.py:63",
+                "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib}
+        del x, res, out, args
+    rows["bn_relu_residual"]["max_abs_err"] = tail_err
+    return tuple(rows.values())
+
+
+# ------------------------------------------------------ ResNet-50 blocks by name
+def resnet_block_weights(c: int, mid: int, seed: int) -> dict:
+    """An identity bottleneck block's parameters from a numpy seed, in the
+    JAX layout: He-normal 1x1 [C, mid], 3x3 HWIO [3, 3, mid, mid], 1x1
+    [mid, C], f32; batch-norm gamma near 1 and beta near 0 per conv."""
+    rng = np.random.default_rng(seed)
+    p = {"w2a": rng.standard_normal((c, mid)) * math.sqrt(2.0 / c),
+         "w2b": rng.standard_normal((3, 3, mid, mid))
+         * math.sqrt(2.0 / (9 * mid)),
+         "w2c": rng.standard_normal((mid, c)) * math.sqrt(2.0 / mid)}
+    for tag, width in (("2a", mid), ("2b", mid), ("2c", c)):
+        p[f"g{tag}"] = 1.0 + 0.1 * rng.standard_normal(width)
+        p[f"b{tag}"] = 0.1 * rng.standard_normal(width)
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def resnet_block(weights: dict, c: int, dtype: str, device):
+    """A SameDiff graph of ResNet-50's identity bottleneck block: conv1x1
+    + stats -> batch_norm -> relu -> cast, conv3x3 + stats -> batch_norm
+    -> relu -> cast, conv1x1 + stats -> bn_relu_residual with the block
+    input as the residual. Convolution weights in ``dtype``, batch-norm
+    parameters f32 (bf16 y with f32 statistics promotes to f32; each cast
+    brings the next conv's input back to ``dtype``)."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    sd = SameDiff.create(device=device)
+    x = sd.placeholder("x", shape=(None, None, None, c), dtype=dtype)
+    v = {}
+    for k, a in weights.items():
+        t = torch.from_numpy(a)
+        v[k] = sd.var(k, t.to(getattr(torch, dtype)) if k[0] == "w" else t)
+    h = x
+    for tag, op in (("2a", "conv1x1_bn_stats"), ("2b", "conv3x3_bn_stats")):
+        y, m, var = sd.invoke_op(op, [h, v[f"w{tag}"]], n_out=3,
+                                 name=f"conv{tag}")
+        a = sd.nn.batch_norm(y, v[f"g{tag}"], v[f"b{tag}"], m, var,
+                             name=f"bn{tag}")
+        h = sd.math.cast(sd.nn.relu(a, name=f"relu{tag}"), dtype=dtype,
+                         name=f"cast{tag}")
+    y, m, var = sd.invoke_op("conv1x1_bn_stats", [h, v["w2c"]], n_out=3,
+                             name="conv2c")
+    out = sd.nn.bn_relu_residual(y, x, m, var, v["g2c"], v["b2c"], name="out")
+    sd.setLossVariables(out)
+    return sd
+
+
+def conv_counts() -> tuple:
+    from deeplearning4j_tpu_torch.ops import conv_bn_stats as cb
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    return cb.launches_1x1, cb.launches_3x3, rt.launches
+
+
+def reset_conv_counts() -> None:
+    from deeplearning4j_tpu_torch.ops import conv_bn_stats as cb
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    cb.launches_1x1 = cb.launches_3x3 = rt.launches = 0
+
+
+def phase_resnet_blocks(rows: dict) -> None:
+    """The four identity bottleneck blocks of ResNet-50 as SameDiff graphs
+    at batch 256 in bf16, run by name; launches, a gradient through B3, a
+    refused gradient through B4, and a save / load round trip."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    graphs, inputs = [], []
+    for i, (hw, c, mid) in enumerate(RESNET_STAGES):
+        graphs.append(resnet_block(resnet_block_weights(c, mid, seed=i), c,
+                                   "bfloat16", DEVICE))
+        g = torch.Generator(device=DEVICE).manual_seed(100 + i)
+        inputs.append(torch.randn(RESNET_BATCH, hw, hw, c, generator=g,
+                                  device=DEVICE).relu_().to(torch.bfloat16))
+    for sd, x in zip(graphs, inputs):       # warm-up, untimed
+        sd.output({"x": x}, ["out"])
+    torch.cuda.synchronize()
+    reset_conv_counts()
+    outs = [sd.output({"x": x}, ["out"])["out"] for sd, x in
+            zip(graphs, inputs)]
+    torch.cuda.synchronize()
+    counts = conv_counts()
+    check(counts == (8, 4, 4), f"launches per output of the four block graphs "
+                               f"(B4a, B4b, B3): {counts}, not (8, 4, 4)")
+    rows["conv1x1_bn_stats"]["launches"] = counts[0]
+    rows["conv3x3_bn_stats"]["launches"] = counts[1]
+    rows["bn_relu_residual"]["launches"] = counts[2]
+    for (hw, c, mid), x, out in zip(RESNET_STAGES, inputs, outs):
+        check(out.dtype == torch.bfloat16 and out.shape == x.shape,
+              f"block output {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()) and float(out.min()) >= 0.0,
+              f"block {hw}x{hw}x{c} output not finite or negative")
+    say("resnet", f"one output of each block graph launched B4a, B4b, B3 "
+                  f"{counts} times (2, 1, 1 per block)")
+    for (hw, c, mid), sd, x in zip(RESNET_STAGES, graphs, inputs):
+        reps = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sd.output({"x": x}, ["out"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        say("resnet", f"block {hw}x{hw} {c}->{mid}->{c} N={RESNET_BATCH} "
+                      f"bf16: {ms:.3f} ms per output ({reps} timed, host "
+                      f"clock, synchronised)")
+    device_profile("resnet", "one output of each of the four blocks",
+                   lambda: [sd.output({"x": x}, ["out"])
+                            for sd, x in zip(graphs, inputs)],
+                   ("conv_bn_stats", "reduce_stats", "residual_tail"))
+
+    # a gradient through B3: the first stage's 2c gamma and beta, against
+    # autograd of the plain formula at f32 on the same tail inputs
+    sd, x = graphs[0], inputs[0]
+    grads = sd.calculateGradients({"x": x}, wrt=["g2c", "b2c"])
+    tail_in = sd.output({"x": x}, [f"conv2c:{j}" for j in range(3)])
+    y, m, var = (tail_in[f"conv2c:{j}"] for j in range(3))
+    leaves = [sd.getVariable(n).getArr().detach().clone().requires_grad_(True)
+              for n in ("g2c", "b2c")]
+    with torch.enable_grad():
+        plain = rt.residual_tail_reference(y.float(), x.float(), m, var,
+                                           *leaves)
+        want = torch.autograd.grad(plain.sum(), leaves)
+    for n, w in zip(("g2c", "b2c"), want):
+        got = grads[n]
+        err = float((got.float() - w).abs().max())
+        scale = float(w.abs().max())
+        check(got.shape == w.shape and err <= 1e-4 * scale,
+              f"d{n} through B3: {err:.3e} > 1e-4 x {scale:.3e}")
+        say("resnet", f"calculateGradients d{n} ({RESNET_STAGES[0][0]}x"
+                      f"{RESNET_STAGES[0][0]} block, through B3's "
+                      f"autograd Function): max abs err {err:.3e} against the "
+                      f"plain formula's f32 autograd (max |grad| {scale:.3e})")
+    try:
+        graphs[-1].calculateGradients({"x": inputs[-1]}, wrt=["w2a"])
+    except RuntimeError as e:
+        check("forward-only" in str(e), f"unexpected error: {e}")
+        say("resnet", f"a gradient through B4 raises: {e}")
+    else:
+        raise RuntimeError("calculateGradients through conv1x1_bn_stats "
+                           "returned instead of raising")
+
+    # save and load the 7x7 block's graph (bf16 weights), same output; the
+    # zip goes to the git-ignored build directory inside the checkout
+    tmp = tempfile.mkdtemp(dir=os.path.join(PKG, "_build"))
+    try:
+        path = os.path.join(tmp, "block.zip")
+        graphs[-1].save(path)
+        loaded = SameDiff.load(path, device=DEVICE)
+        again = loaded.output({"x": inputs[-1]}, ["out"])["out"]
+        check(torch.equal(again, outs[-1]), "the loaded graph's output differs")
+        say("resnet", f"save / load of the 7x7 block ({os.path.getsize(path)} "
+                      f"B zip, bf16 weights): the same output, bit for bit")
+    finally:
+        shutil.rmtree(tmp)
+
+
+#: card (kernels) vs CPU (plain versions), f32 blocks at batch 8: each
+#: block's output after three convolutions and batch norms with batch
+#: statistics, where the f32 sums differ in order between the two devices
+BLOCK_PARITY_TOL = 1e-4
+
+
+def phase_resnet_parity() -> None:
+    """The four blocks at f32, batch 8, full width: the card's graphs (the
+    kernels) against the same graphs on the CPU (the plain versions)."""
+    for i, (hw, c, mid) in enumerate(RESNET_STAGES):
+        weights = resnet_block_weights(c, mid, seed=i)
+        rng = np.random.default_rng(200 + i)
+        x = np.maximum(rng.standard_normal(
+            (RESNET_PARITY_BATCH, hw, hw, c)), 0).astype(np.float32)
+        outs = []
+        for dev in (DEVICE, "cpu"):
+            reset_conv_counts()
+            sd = resnet_block(weights, c, "float32", dev)
+            outs.append(sd.output({"x": x}, ["out"])["out"].cpu())
+            check(conv_counts() == ((2, 1, 1) if dev == DEVICE
+                                    else (0, 0, 0)),
+                  f"{dev}: launches {conv_counts()}")
+        err = float((outs[0] - outs[1]).abs().max())
+        scale = float(outs[1].abs().max())
+        check(err <= BLOCK_PARITY_TOL * max(1.0, scale),
+              f"block {hw}x{hw}x{c} card vs CPU: {err:.3e} > "
+              f"{BLOCK_PARITY_TOL:g} x max(1, {scale:.3e})")
+        say("resnet-parity", f"block {hw}x{hw} {c}->{mid}->{c} N="
+                             f"{RESNET_PARITY_BATCH} f32: card vs CPU max abs "
+                             f"err {err:.3e} (max |out| {scale:.3f}, "
+                             f"tolerance {BLOCK_PARITY_TOL:g} x max(1, max "
+                             f"|out|))")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1912,6 +2359,9 @@ def main() -> int:
     rows.update((r["name"], r) for r in phase_lstm_kernels())
     phase_lstm_train(rows)
     phase_lstm_parity()
+    rows.update((r["name"], r) for r in phase_conv_kernels())
+    phase_resnet_blocks(rows)
+    phase_resnet_parity()
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

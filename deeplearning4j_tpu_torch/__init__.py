@@ -37,6 +37,14 @@ Ported so far:
   prefill, session resume, speculative verify, int8 decode and
   cancellation, with the paged-attention kernel's fp8 branch and query
   tiles of any width;
+- slice 5, ops by name: ``ops.registry`` (the port's own op registry),
+  ``ndarray`` (``DataType``, ``NDArray``, ``Nd4j`` with ``exec``),
+  ``autodiff`` (``SameDiff``: graphs of registered ops run eagerly, torch
+  autograd gradients, the JAX side's zip), ``ops.transforms.relu``,
+  ``ops.nn.batch_norm``, and the kernels that only this path reaches:
+  ``ops.conv_bn_stats`` (conv 1x1 and 3x3 + batch-norm statistics,
+  ``csrc/conv_bn_stats.cu``) and ``ops.residual_tail`` (batch-norm apply +
+  residual + ReLU, ``csrc/residual_tail.cu``);
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
   ``mln_params_from_numpy``, ``params_to_numpy``) and ``FlatParams``, the
   flat f32 master buffer.

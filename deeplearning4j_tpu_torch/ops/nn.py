@@ -1,8 +1,9 @@
 """Neural-net ops the layer framework calls: counterpart of the part of
 ``deeplearning4j_tpu/ops/nn.py`` that the ported layers reach.
 
-Only :func:`lstm_layer` (``:592-651``) and :func:`dropout` (``:558-564``)
-are ported. Layouts stay the JAX package's: ``x`` ``[N, T, in]``,
+Only :func:`lstm_layer` (``:592-651``), :func:`dropout` (``:558-564``)
+and :func:`batch_norm` (``:383-387``, registered under its JAX name) are
+ported. Layouts stay the JAX package's: ``x`` ``[N, T, in]``,
 ``w_ih`` ``[in, 4H]``, ``w_hh`` ``[H, 4H]``, ``b`` ``[4H]``, gates i, f, g,
 o, so a parameter tree from the JAX side loads unchanged.
 """
@@ -14,6 +15,15 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+from deeplearning4j_tpu_torch.ops.registry import register_op
+
+
+@register_op("batch_norm")
+def batch_norm(x, gamma, beta, mean, var, eps=1e-5):
+    """Inference-mode batch norm over the trailing channel axis, in the
+    JAX op's order: ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
+    inv = torch.rsqrt(var + eps)
+    return (x - mean) * inv * gamma + beta
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):

@@ -53,14 +53,23 @@ def params_from_jax(np_tree, device=None,
 
 def numpy_to_tensor(a) -> torch.Tensor:
     """A CPU tensor of numpy array ``a``'s dtype. A bfloat16 array (the
-    ``ml_dtypes`` type that JAX hands back) goes across as its 16 bits,
+    ``ml_dtypes`` type that JAX hands back, or the 2-byte void that numpy
+    reads back from a file holding one) goes across as its 16 bits,
     viewed as ``torch.bfloat16``, so no ``ml_dtypes`` is needed here."""
     a = np.asarray(a)
     if a.dtype.kind not in "biufc":
-        if a.dtype.name != "bfloat16":
+        if a.dtype.name != "bfloat16" and not (a.dtype.kind == "V"
+                                               and a.dtype.itemsize == 2):
             raise TypeError(f"unsupported numpy dtype {a.dtype}")
         return bfloat16_from_bits(a)
     return torch.from_numpy(np.array(a))
+
+
+def bfloat16_bits(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`bfloat16_from_bits` for files: a bfloat16
+    tensor's 16-bit patterns as numpy's 2-byte void, the bytes numpy writes
+    for an ``ml_dtypes`` bfloat16 array."""
+    return t.detach().cpu().view(torch.int16).numpy().view("V2")
 
 
 def bfloat16_from_bits(a) -> torch.Tensor:

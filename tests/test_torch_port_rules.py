@@ -199,3 +199,34 @@ def test_layer_framework_entry_points_refuse_the_cpu_unless_asked(
                    torch.zeros(5, 16, device="meta"),
                    torch.zeros(4, 16, device="meta"),
                    torch.zeros(16, device="meta"))
+
+
+def test_by_name_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
+                                                          tmp_path):
+    """``Nd4j``'s constructors and ``SameDiff`` (built or loaded) land on
+    the card unless the caller names the CPU; an op by name runs where its
+    tensors are, the plain version on CPU tensors (no launch)."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.ops import conv_bn_stats as cb
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Nd4j.zeros(2), lambda: Nd4j.ones(2),
+                 lambda: Nd4j.create([1.0]), lambda: Nd4j.rand(2),
+                 lambda: Nd4j.randn(2), SameDiff, SameDiff.create):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    sd = SameDiff.create(device="cpu")
+    sd.var("w", np.ones((2, 2), np.float32))
+    path = str(tmp_path / "g.zip")
+    sd.save(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SameDiff.load(path)
+    assert SameDiff.load(path, device="cpu").device == torch.device("cpu")
+    before = (cb.launches_1x1, cb.launches_3x3, rt.launches)
+    y, _, _ = Nd4j.exec("conv1x1_bn_stats", torch.ones(2, 4), torch.ones(4, 3))
+    c = torch.ones(3)
+    out = Nd4j.exec("bn_relu_residual", y, y, c, c, c, c)
+    assert out.device == torch.device("cpu")
+    assert (cb.launches_1x1, cb.launches_3x3, rt.launches) == before
