@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``csrc/fused_update.cu``, ``csrc/lstm_recurrence.cu``,
    ``csrc/conv_bn_stats.cu`` and ``csrc/residual_tail.cu`` compiled from
    this checkout by ``nvcc`` for sm_90a, one ``nvcc`` per source, all
-   started together;
+   started together; ``ptxas`` registers and spills of the kernels the
+   slices run, and ``cuobjdump -sass`` of the flash-attention library:
+   each head-dim instance of the three bf16 flash kernels (forward,
+   dk/dv, dq) must hold tensor-core instructions (``HMMA``/``HGMMA``);
 3. kernel: the paged-attention kernel against its plain PyTorch version
    at every shape the serving paths give it (H=12, hd=64, ps=16, P=32):
    the decode step (N=8, Q=1; float pools and fp8 pools with f32 scale
@@ -58,11 +61,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``blockwise_attention`` (f32 within 1e-4 of max |grad|, bf16 within
    2e-2), the fused Adam kernel against ``adam_update_reference`` (step
    300, loss scale and clip; n = 108,922,170 and an unaligned n; rtol
-   1e-6, atol 1e-7); then, at the training shape (N=96, bf16), the
+   1e-6, atol 1e-7); the bf16 (tensor-core) flash kernels at hd 32, 64,
+   96 and 128, T in {1, 16, 77, 128, 200} and Tq != Tk, no mask or a
+   fully masked row, causal off and on (forward within 2e-2, backward
+   within 2e-2 of max |grad| with a 1e-5 floor where the gradient is 0
+   in exact arithmetic); then, at the training shape (N=96, bf16), the
    forward and backward kernels against the f32 plain version again
-   (within 2e-2, of max |grad| for the backward) and each kernel's time
-   at the training shapes beside its plain version's, its bound and a
-   library yardstick the port never calls;
+   (within 2e-2, of max |grad| for the backward), two backward calls
+   bit-equal, each kernel's time at the training shapes beside its plain
+   version's, its bound and a library yardstick the port never calls,
+   and each call's device time from the profiler (the backward's split
+   between its three kernels);
 6. train: BERT-base (``bert_base()``, 108.9 M parameters, random weights
    from a numpy seed in the JAX tree layout) with ``attn_impl="flash"``,
    bf16 compute and f32 masters in one flat buffer, MLM on a fixed batch
@@ -70,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``masked_capacity=20``, dropout 0.1 from a seeded generator, Adam at
    lr 1e-4: 2 warm-up and 10 timed steps, every layer through the flash
    kernels and every step through one fused Adam launch; the loss must
-   start near ln(vocab) and fall. Then a profiled window of 3 steps;
+   start near ln(vocab) and fall. Then a profiled window of 3 steps:
+   device busy per step and the flash kernels' share of it;
 7. train parity: 2 layers at full width, batch 8 x 128, dropout 0, f32:
    3 MLM steps on the card (the kernels) and on the CPU (the plain
    versions) from the same numpy weights must agree (loss 1e-4
@@ -209,31 +219,70 @@ def phase_build() -> None:
     say("build", f"{len(paths)} sources in {time.perf_counter() - t0:.2f} s")
     # ptxas -v for the instantiations the slices run: head_dim 64 is the
     # template argument 2 (vectors of 32) of paged attention and 64 of
-    # flash attention; the Adam kernels have no template; the LSTM
-    # kernels at one row per thread (the char-LSTM shape's plan)
-    marks = {"paged_attention": "Li2E", "flash_attention": "Li64E",
-             "fused_update": "", "lstm_recurrence": "Li1E",
-             "conv_bn_stats": "nv_bfloat16", "residual_tail": "nv_bfloat16Lb1"}
+    # flash attention (and 128, where the bf16 dk/dv accumulators are the
+    # spill risk); the Adam kernels have no template; the LSTM kernels at
+    # one row per thread (the char-LSTM shape's plan)
+    marks = {"paged_attention": ("Li2E",),
+             "flash_attention": ("Li64E", "Li128E"),
+             "fused_update": ("",), "lstm_recurrence": ("Li1E",),
+             "conv_bn_stats": ("nv_bfloat16",),
+             "residual_tail": ("nv_bfloat16Lb1",)}
     for name in KERNEL_SOURCES:
         log = native.build_logs.get(name, {})
         say("build", f"{os.path.relpath(paths[name], HERE)}: "
                      f"{log.get('seconds', 0.0):.2f} s")
         lines = str(log.get("output", "")).splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and marks[name] in ln:
-                found = re.search(r"(paged_attention_kernel|flash_fwd_kernel"
-                                  r"|flash_bwd_[a-z]+_kernel"
+            mark = next((m for m in marks[name] if m in ln), None)
+            if "Compiling entry function" in ln and mark is not None:
+                found = re.search(r"(paged_attention_kernel"
+                                  r"|flash_(?:fwd|bwd_[a-z]+)(?:_tc)?_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
                                   r"|lstm_(?:fwd|bwd)_kernel"
                                   r"|conv_bn_stats_kernel"
                                   r"|residual_tail_kernel)", ln)
-                kind = ("bf16" if "nv_bfloat16" in ln else "f32") \
-                    + (" queries, fp8 pools" if "Fp8E4M3" in ln else "")
+                kind = ("bf16" if "nv_bfloat16" in ln or "_tc_" in ln
+                        else "f32") \
+                    + (" queries, fp8 pools" if "Fp8E4M3" in ln else "") \
+                    + (", tensor cores" if any(k in ln for k in
+                                               FLASH_TC_KERNELS) else "") \
+                    + (", hd 128" if mark == "Li128E" else "")
                 info = [x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
                 say("build", f"  ptxas {found.group(1) if found else ln} "
                              f"({kind}): {'; '.join(info)}")
+    check_tensor_core_sass(paths["flash_attention"])
+
+
+#: the bf16 flash-attention kernels, which must run on the tensor cores
+FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                    "flash_bwd_dq_tc_kernel")
+
+
+def check_tensor_core_sass(lib_path: str) -> None:
+    """``cuobjdump -sass`` of the built flash-attention library: every
+    instantiation of each bf16 kernel must hold tensor-core instructions
+    (``HMMA`` or ``HGMMA``), or the run fails."""
+    from deeplearning4j_tpu_torch.ops import native
+
+    tool = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        kernel = next((k for k in FLASH_TC_KERNELS if k in name), None)
+        if kernel is not None:
+            hmma = len(re.findall(r"\bH(?:G)?MMA\b", fn))
+            counts.setdefault(kernel, []).append(hmma)
+    for kernel in FLASH_TC_KERNELS:
+        found = counts.get(kernel, [])
+        check(len(found) == 4 and min(found) > 0,
+              f"{kernel}: tensor-core instructions per head-dim instance "
+              f"{found} (cuobjdump -sass); need 4 instances, each > 0")
+        say("build", f"  SASS {kernel}: HMMA/HGMMA per head-dim instance "
+                     f"{found}")
 
 
 # ---------------------------------------------------------------- kernel
@@ -1012,11 +1061,12 @@ def bound(nbytes: int, flops: int, peak_flops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_case(N: int, T: int, dtype, mask_kind: str, seed: int):
-    """q, k, v [N, 12, T, 64] and a key mask: none, padded (row n keeps
+def flash_case(N: int, T: int, dtype, mask_kind: str, seed: int,
+               hd: int = HEAD_DIM):
+    """q, k, v [N, 12, T, hd] and a key mask: none, padded (row n keeps
     its first T - 7n keys), or padded with the last row fully masked."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    q, k, v = (torch.randn(N, HEADS, T, HEAD_DIM, generator=g,
+    q, k, v = (torch.randn(N, HEADS, T, hd, generator=g,
                            device=DEVICE).to(dtype) for _ in range(3))
     mask = None
     if mask_kind != "none":
@@ -1070,6 +1120,103 @@ def flash_grads(q, k, v, mask, causal, dout, dtype, kernel: bool):
     return torch.autograd.grad(out, leaves, dout.to(dtype).to(work))
 
 
+def flash_bf16_case(label: str, q, k, v, m, causal) -> tuple:
+    """The bf16 kernels on one case against the f32 plain version: the
+    forward within 2e-2, each gradient within 2e-2 of its max |grad|.
+    Returns (forward err, backward err / max |grad|)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    lq, lk, lv = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, _ = fa.flash_attention_fwd(lq, lk, lv, m, causal)
+    err = float((out.float() - flash_plain(lq, lk, lv, m, causal))
+                .abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= 2e-2,
+          f"flash forward bf16 {label}: {err:.3e} > 0.02")
+    dout = torch.randn_like(q)
+    got = flash_grads(q, k, v, m, causal, dout, torch.bfloat16, True)
+    want = flash_grads(q, k, v, m, causal, dout, torch.bfloat16, False)
+    worst = 0.0
+    for name, a, b in zip("qkv", got, want):
+        e = float((a.float() - b).abs().max())
+        scale = float(b.abs().max())
+        # where the gradient is 0 in exact arithmetic (one key, no mask)
+        # both sides hold f32 round-off only: an absolute floor of 1e-5
+        check(a.dtype == torch.bfloat16 and e <= max(2e-2 * scale, 1e-5),
+              f"flash backward d{name} bf16 {label}: {e:.3e} > 0.02 x max "
+              f"|grad| {scale:.3e} (floor 1e-5)")
+        if scale > 5e-4:
+            worst = max(worst, e / scale)
+    return err, worst
+
+
+def flash_bf16_shapes() -> tuple:
+    """The bf16 (tensor-core) kernels at every head dim, at lengths that
+    fit one tile (1, 16), end in a ragged tile (77, 200) or fill two
+    (128), with no mask or a fully masked row, causal off and on, and Tq
+    != Tk both ways. Returns the largest forward error and backward
+    error / max |grad|."""
+    fwd = bwd = 0.0
+    n_cases = 0
+    for hd in (32, 64, 96, 128):
+        for T in (1, 16, 77, 128, 200):
+            if hd == HEAD_DIM and T in (77, 128):
+                continue  # the T x mask x causal grid above
+            for mask_kind in ("none", "full_row"):
+                for causal in (False, True):
+                    q, k, v, m = flash_case(2, T, torch.float32, mask_kind,
+                                            seed=hd + T, hd=hd)
+                    e = flash_bf16_case(f"hd={hd} T={T} {mask_kind} "
+                                        f"causal={causal}", q, k, v, m,
+                                        causal)
+                    fwd, bwd = max(fwd, e[0]), max(bwd, e[1])
+                    n_cases += 1
+        for tq, tk in ((50, 77), (200, 64)):
+            q, k, v, m = flash_case(2, tk, torch.float32, "full_row",
+                                    seed=hd + tq, hd=hd)
+            q = torch.randn(2, HEADS, tq, hd, device=DEVICE)
+            for causal in (False, True):
+                e = flash_bf16_case(f"hd={hd} Tq={tq} Tk={tk} full_row "
+                                    f"causal={causal}", q, k, v, m, causal)
+                fwd, bwd = max(fwd, e[0]), max(bwd, e[1])
+                n_cases += 1
+    torch.cuda.synchronize()
+    say("flash", f"bf16 (tensor cores) at hd 32, 64, 96, 128, T 1, 16, 77, "
+                 f"128, 200 and Tq != Tk, {n_cases} cases: forward max abs "
+                 f"err {fwd:.3e} (tolerance 0.02), backward err / max |grad| "
+                 f"{bwd:.3e} (tolerance 0.02)")
+    return fwd, bwd
+
+
+def device_split(what: str, run, calls: int = 20) -> None:
+    """Device time per call of each flash kernel that ``run`` launches,
+    from a torch.profiler trace of ``calls`` calls. Beside the CUDA-event
+    time per call, which also holds the gaps between launches when the
+    host enqueues more slowly than the card runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"flash_\w+?_kernel", e.name)
+            if m:
+                split[m.group(0)] = split.get(m.group(0), 0.0) \
+                    + e.time_range.elapsed_us()
+    if not split:
+        say("flash", f"torch.profiler saw no device time: {what} split not "
+                     f"measured")
+        return
+    say("flash", f"{what} device time per call at the training shape "
+                 f"(profiler): {sum(split.values()) / calls:.1f} us = "
+                 + " + ".join(f"{n} {t / calls:.1f} us"
+                              for n, t in sorted(split.items())))
+
+
 def phase_flash() -> tuple:
     """Rows of ``flash_attention_fwd`` and ``flash_attention_bwd``:
     checks against the plain version, then times at the training shape."""
@@ -1121,6 +1268,9 @@ def phase_flash() -> tuple:
                              f"max abs err {', '.join(line[:2])}; bwd err "
                              f"/ max |grad| {', '.join(line[2:])}")
 
+    more = flash_bf16_shapes()
+    fwd_err = max(fwd_err, more[0])
+
     # the training shape: bf16, N=96, H=12, T=128, hd=64, no key mask
     q, k, v, _ = flash_case(TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, "none",
                             seed=5)
@@ -1143,6 +1293,14 @@ def phase_flash() -> tuple:
                                    f"|grad| {scale:.3e}")
         line.append(f"d{name} {err / scale:.2e}")
     del got, want
+    first = fa.flash_attention_bwd(q, k, v, out, dout, stats)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, stats)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "two backward calls on the same inputs differ")
+    del first, again
+    say("flash", "two backward calls at the training shape: dq, dk, dv "
+                 "bit-equal")
     say("flash", f"training shape N={TRAIN_BATCH} bf16 against the f32 plain "
                  f"version: max abs err {line[0]}; bwd err / max |grad| "
                  f"{', '.join(line[1:])}")
@@ -1171,6 +1329,9 @@ def phase_flash() -> tuple:
            cuda_ms(lambda i: torch.autograd.grad(
                lib_out, lib_in, dout, retain_graph=True), iters))
     kern2 = times()
+    device_split("forward", lambda: fa.flash_attention_fwd(q, k, v))
+    device_split("backward", lambda: fa.flash_attention_bwd(
+        q, k, v, out, dout, stats))
     rows = []
     for j, (name, err) in enumerate((("flash_attention_fwd", fwd_err),
                                      ("flash_attention_bwd", bwd_err))):
@@ -1377,7 +1538,8 @@ def phase_train(rows: dict) -> None:
             step(flat, opt, i, *batch, generator=gen)
 
     busy_ms = device_profile("train", f"{PROFILED_STEPS} more steps", run,
-                             ("flash_fwd", "flash_bwd", "fused_adam"))
+                             ("flash_", "flash_fwd", "flash_bwd",
+                              "fused_adam"))
     if busy_ms:
         per_step = busy_ms / PROFILED_STEPS
         say("train", f"device busy {per_step:.2f} ms per profiled step "

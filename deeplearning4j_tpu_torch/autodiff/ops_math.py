@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.ndarray.dtypes import DataType
+from deeplearning4j_tpu_torch.ndarray.ndarray import (jax_float_input,
+                                                      jax_int_result)
 from deeplearning4j_tpu_torch.ops.registry import register_op
 
 
@@ -96,12 +98,20 @@ def cast(x, dtype):
 
 # ---------------------------------------------------------------- reduce
 def _reduce(fn, x, dimensions, keep_dims, **kw):
-    """``fn(x, dim=..., keepdim=...)`` over ``dimensions`` (None: all)."""
+    """``fn(x, dim=..., keepdim=...)`` over ``dimensions``, read as JAX's
+    ``_axes`` reads them: None is every axis, an empty list or tuple is
+    none (torch would take an empty ``dim`` as every axis, so ``fn`` then
+    reduces an added axis of one element). An integer sum comes back in
+    JAX's type (:func:`jax_int_result`)."""
     if dimensions is None:
         dimensions = tuple(range(x.dim()))
     elif isinstance(dimensions, int):
         dimensions = (dimensions,)
-    return fn(x, dim=tuple(dimensions), keepdim=keep_dims, **kw)
+    if len(dimensions) == 0:
+        out = fn(x.unsqueeze(-1), dim=-1, keepdim=False, **kw)
+    else:
+        out = fn(x, dim=tuple(dimensions), keepdim=keep_dims, **kw)
+    return jax_int_result(out, x)
 
 
 @register_op("reduce_sum")
@@ -111,7 +121,7 @@ def reduce_sum(x, dimensions=None, keep_dims=False):
 
 @register_op("reduce_mean")
 def reduce_mean(x, dimensions=None, keep_dims=False):
-    return _reduce(torch.mean, x, dimensions, keep_dims)
+    return _reduce(torch.mean, jax_float_input(x), dimensions, keep_dims)
 
 
 @register_op("reduce_max")
@@ -126,7 +136,7 @@ def reduce_min(x, dimensions=None, keep_dims=False):
 
 @register_op("reduce_std")
 def reduce_std(x, dimensions=None, keep_dims=False, bias_corrected=True):
-    return _reduce(torch.std, x, dimensions, keep_dims,
+    return _reduce(torch.std, jax_float_input(x), dimensions, keep_dims,
                    correction=1 if bias_corrected else 0)
 
 
@@ -137,7 +147,7 @@ def reduce_norm2(x, dimensions=None, keep_dims=False):
 
 @register_op("argmax")
 def argmax(x, dimensions=0, keep_dims=False):
-    return torch.argmax(x, dim=dimensions, keepdim=keep_dims)
+    return torch.argmax(x, dim=dimensions, keepdim=keep_dims).to(torch.int32)
 
 
 # ----------------------------------------------------------------- shape

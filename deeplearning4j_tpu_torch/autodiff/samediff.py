@@ -32,7 +32,7 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ndarray.dtypes import DataType
 from deeplearning4j_tpu_torch.ndarray.ndarray import _unwrap
 from deeplearning4j_tpu_torch.ops.registry import get_op
-from deeplearning4j_tpu_torch.params import numpy_to_tensor
+from deeplearning4j_tpu_torch.params import numpy_to_tensor_narrowed
 
 
 class VariableType(enum.Enum):
@@ -60,12 +60,7 @@ def as_tensor(value, device) -> torch.Tensor:
     value = _unwrap(value)
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    a = np.asarray(value)
-    narrow = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
-              np.dtype(np.uint64): np.uint32}
-    if a.dtype in narrow:
-        a = a.astype(narrow[a.dtype])
-    return numpy_to_tensor(a).to(device)
+    return numpy_to_tensor_narrowed(value).to(device)
 
 
 def _attrs_to_json(obj):

@@ -14,10 +14,28 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ndarray.dtypes import DataType
+from deeplearning4j_tpu_torch.params import numpy_to_tensor_narrowed
 
 
 def _unwrap(x):
     return x._buf if isinstance(x, NDArray) else x
+
+
+def jax_int_result(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A reduction's result in the type JAX gives it without x64: torch
+    sums and multiplies integers and booleans into int64, JAX into int32.
+    The cast back keeps the low 32 bits, so an int32 sum that overflows
+    wraps as JAX's does."""
+    if out.dtype == torch.int64 and x.dtype != torch.int64:
+        return out.to(torch.int32)
+    return out
+
+
+def jax_float_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32 when it is an integer or boolean tensor: JAX takes
+    the mean and the standard deviation of integers in float32, torch
+    refuses them."""
+    return x if x.is_floating_point() else x.to(torch.float32)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -44,10 +62,11 @@ class NDArray:
 
     def _o(self, other):
         """A binary operand: NDArrays unwrapped, numpy arrays as tensors on
-        this array's device, Python numbers as they are."""
+        this array's device (64-bit numbers made 32-bit, as JAX makes
+        them), Python numbers as they are."""
         other = _unwrap(other)
         if isinstance(other, np.ndarray):
-            return torch.as_tensor(other, device=self._buf.device)
+            return numpy_to_tensor_narrowed(other).to(self._buf.device)
         return other
 
     # ------------------------------------------------------------ structure
@@ -229,20 +248,25 @@ class NDArray:
                                * self._o(other).reshape(-1)))
 
     # ------------------------------------------------------------ reductions
-    def _reduce(self, fn, dims, keepdims=False):
+    def _reduce(self, fn, dims, keepdims=False, x=None):
+        """``fn`` over ``dims`` (none given: every axis) of ``x`` (default:
+        this array), with an integer result in JAX's type."""
+        x = self._buf if x is None else x
         if not dims:
-            out = fn(self._buf)
+            out = fn(x)
             if keepdims:
                 out = out.reshape((1,) * self.rank())
-            return NDArray(out)
-        return NDArray(fn(self._buf, dim=tuple(dims), keepdim=keepdims))
+        else:
+            out = fn(x, dim=tuple(dims), keepdim=keepdims)
+        return NDArray(jax_int_result(out, x))
 
     def sum(self, *dims, keepdims=False):
         r = self._reduce(torch.sum, dims, keepdims)
         return r if dims or keepdims else r.item()
 
     def mean(self, *dims, keepdims=False):
-        r = self._reduce(torch.mean, dims, keepdims)
+        r = self._reduce(torch.mean, dims, keepdims,
+                         jax_float_input(self._buf))
         return r if dims or keepdims else r.item()
 
     def max(self, *dims, keepdims=False):
@@ -264,8 +288,8 @@ class NDArray:
         return r if dims or keepdims else r.item()
 
     def std(self, *dims, ddof: int = 1):
-        out = torch.std(self._buf, dim=(dims if dims else None),
-                        correction=ddof)
+        out = torch.std(jax_float_input(self._buf),
+                        dim=(dims if dims else None), correction=ddof)
         return NDArray(out) if dims else float(out)
 
     def item(self):

@@ -65,6 +65,21 @@ def numpy_to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+#: numpy's 64-bit types and the 32-bit ones ``jnp.asarray`` gives them (JAX
+#: runs without x64)
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32}
+
+
+def numpy_to_tensor_narrowed(a) -> torch.Tensor:
+    """:func:`numpy_to_tensor` of ``a`` with 64-bit numbers made 32-bit,
+    as ``jnp.asarray`` makes them."""
+    a = np.asarray(a)
+    if a.dtype in _NARROW:
+        a = a.astype(_NARROW[a.dtype])
+    return numpy_to_tensor(a)
+
+
 def bfloat16_bits(t: torch.Tensor) -> np.ndarray:
     """The inverse of :func:`bfloat16_from_bits` for files: a bfloat16
     tensor's 16-bit patterns as numpy's 2-byte void, the bytes numpy writes

@@ -16,7 +16,11 @@ compare with it, so the card's tests run where JAX is not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
 On the card each kernel is held against the plain version on the same
 inputs: f32 within 2e-5 (forward) and 1e-4 of max |grad| (backward),
-bf16 within 2e-2 of the f32 plain version on the bf16-rounded inputs.
+bf16 within 2e-2 of the f32 plain version on the bf16-rounded inputs
+(forward) and within 2e-2 of max |grad| (backward). bf16 runs the
+tensor-core kernels at every head dim, at lengths inside one tile (1,
+16), with a ragged tile (77, 200) or two whole tiles (128), Tq != Tk,
+and every mask; two backward calls on the same inputs are bit-equal.
 """
 
 import numpy as np
@@ -278,3 +282,106 @@ def test_cuda_backward_bf16_is_close():
         assert x.dtype == torch.bfloat16
         tol = 2e-2 * float(y.abs().max())
         torch.testing.assert_close(x.float(), y, atol=tol, rtol=0)
+
+
+#: absolute floor of the bf16 gradient tolerance: where a gradient is 0 in
+#: exact arithmetic (one key and no mask: dS = P (dP - D) with dP = D) both
+#: sides hold only f32 round-off of order 1e-7, and 2e-2 of that is no scale
+GRAD_FLOOR = 1e-5
+
+
+def _bf16_grads(q, k, v, m, causal, g):
+    """(out, dq, dk, dv) of the bf16 kernels and of the f32 plain version
+    on the bf16-rounded inputs."""
+    a = [t.bfloat16().requires_grad_(True) for t in (q, k, v)]
+    out = fa.attention(*a, m, causal)
+    got = torch.autograd.grad(out, a, g.bfloat16())
+    b = [t.bfloat16().float().requires_grad_(True) for t in (q, k, v)]
+    ref = _plain(*b, m, causal)
+    want = torch.autograd.grad(ref, b, g.bfloat16().float())
+    return (out, *got), (ref.detach(), *want)
+
+
+def _check_bf16(got, want):
+    out, ref = got[0], want[0]
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    for x, y in zip(got[1:], want[1:]):
+        assert x.dtype == torch.bfloat16 and x.shape == y.shape
+        tol = max(2e-2 * float(y.abs().max()), GRAD_FLOOR)
+        torch.testing.assert_close(x.float(), y, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask", ["none", "padded", "full"])
+@pytest.mark.parametrize("T", [1, 16, 77, 128, 200])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+def test_cuda_bf16_tensor_core_kernels_match_plain(hd, T, mask, causal):
+    """The bf16 (tensor-core) forward and backward against the f32 plain
+    version: forward within 2e-2, each gradient within 2e-2 of its max
+    |grad|."""
+    _cuda()
+    q, k, v, m = (None if x is None else x.cuda()
+                  for x in _t(*_case(hd + T, T, N=2, H=3, hd=hd, mask=mask)))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(T))
+    _check_bf16(*_bf16_grads(q, k, v, m, causal, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Tq, Tk", [(50, 77), (200, 64), (1, 130), (130, 1)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_bf16_tq_differs_from_tk(hd, Tq, Tk, causal):
+    """Tq != Tk keeps causal as row >= key with no offset, in the kernels'
+    tile skip too."""
+    _cuda()
+    q, k, v, m = (x.cuda() for x in _t(*_case(Tq + Tk, Tk, N=2, H=2, hd=hd,
+                                                mask="full", Tq=Tq)))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(Tq))
+    _check_bf16(*_bf16_grads(q, k, v, m, causal, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_is_bit_equal_across_calls(dtype):
+    """No atomics: two backward calls on the same inputs give the same
+    bits."""
+    _cuda()
+    q, k, v, m = (x.cuda().to(dtype) if x.dim() == 4 else x.cuda()
+                  for x in _t(*_case(4, 200, N=3, H=4, hd=64,
+                                     mask="padded")))
+    out, stats = fa.flash_attention_fwd(q, k, v, m, True)
+    dout = torch.randn_like(q.float()).to(dtype)
+    first = fa.flash_attention_bwd(q, k, v, out, dout, stats, m, True)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, stats, m, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_bf16_fully_masked_row_through_the_backward(causal):
+    """A row whose every key is masked: its output is the mean of v over
+    the Tk keys, its stats hold m = -1e30 and l = Tk, its dq is exactly 0
+    (every dS is masked), and dv carries its dout / Tk to every key."""
+    _cuda()
+    q, k, v, m = (x.cuda() for x in _t(*_case(8, 77, N=2, H=2, hd=64,
+                                                mask="full")))
+    bq, bk, bv = (x.bfloat16() for x in (q, k, v))
+    out, stats = fa.flash_attention_fwd(bq, bk, bv, m, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out[1].float(), bv[1].float().mean(dim=1, keepdim=True).expand(
+            2, 77, 64), atol=2e-2, rtol=2e-2)
+    st = stats.view(2, 2, 2, 77)[:, 1]
+    assert bool((st[0] == -1e30).all())
+    torch.testing.assert_close(st[1], torch.full_like(st[1], 77.0))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    got, want = _bf16_grads(q, k, v, m, causal, g)
+    assert bool((got[1][1] == 0).all())
+    _check_bf16(got, want)

@@ -106,6 +106,110 @@ def test_exec_cast_to_bfloat16_rounds_like_jax():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+# ------------------------------------------- reductions: axes and JAX's types
+def _exact(got, want):
+    """Same dtype, shape and values (NaN where JAX has NaN)."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_array_equal(got, want)
+
+
+_REDUCE_OPS = ["reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+               "reduce_std", "reduce_norm2"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("name", _REDUCE_OPS)
+def test_exec_reduce_over_no_axis_matches_jax(name, dtype):
+    """An empty ``dimensions`` reduces no axis, as JAX's ``_axes`` keeps
+    ``()``: the sum is x itself, the norm2 sqrt(x * x), the bias-corrected
+    std NaN (one element, one degree of freedom taken)."""
+    JaxNd4j = _jax_nd4j()
+    import deeplearning4j_tpu.ops  # noqa: F401
+
+    x = np.arange(12, dtype=dtype).reshape(3, 4)
+    for dims in ([], ()):
+        want = JaxNd4j.exec(name, x, dimensions=dims)
+        _exact(Nd4j.exec(name, torch.from_numpy(x), dimensions=dims), want)
+    want = JaxNd4j.exec(name, x, dimensions=[], keep_dims=True)
+    _exact(Nd4j.exec(name, torch.from_numpy(x), dimensions=[],
+                     keep_dims=True), want)
+
+
+@pytest.mark.parametrize("dims", [None, [0], (0, 1), 1])
+@pytest.mark.parametrize("name", _REDUCE_OPS + ["argmax"])
+def test_exec_reduce_int32_follows_jax_types(name, dims):
+    """int32 input without x64: sums, max, min and argmax stay int32, the
+    mean, std and norm2 are float32, with JAX's values."""
+    JaxNd4j = _jax_nd4j()
+    import deeplearning4j_tpu.ops  # noqa: F401
+
+    if name == "argmax" and not isinstance(dims, int):
+        dims = 0 if dims is None else dims[0]
+    x = np.arange(12, dtype=np.int32).reshape(3, 4)
+    want = JaxNd4j.exec(name, x, dimensions=dims)
+    _exact(Nd4j.exec(name, torch.from_numpy(x), dimensions=dims), want)
+
+
+def test_int32_sum_wraps_like_jax():
+    """torch sums int32 into int64; the port casts back, so an overflowing
+    int32 sum keeps its low 32 bits as ``jnp.sum`` does: 4 x 2^30 is 0,
+    3 x 2^30 is -2^30, and so is 7 x 2^30."""
+    import jax.numpy as jnp
+
+    JaxNd4j = _jax_nd4j()
+    import deeplearning4j_tpu.ops  # noqa: F401
+
+    x = np.full((2, 4), 2 ** 30, np.int32)
+    x[1, 3] = 0
+    for dims in (None, [1]):
+        want = jnp.sum(jnp.asarray(x), axis=None if dims is None
+                       else tuple(dims))
+        _exact(Nd4j.exec("reduce_sum", torch.from_numpy(x),
+                         dimensions=dims), want)
+        _exact(Nd4j.exec("reduce_sum", torch.from_numpy(x), dimensions=dims),
+               JaxNd4j.exec("reduce_sum", x, dimensions=dims))
+    np.testing.assert_array_equal(
+        Nd4j.exec("reduce_sum", torch.from_numpy(x), dimensions=[1]).numpy(),
+        [0, -2 ** 30])
+    assert (Nd4j.create(x, device="cpu").sum() == JaxNd4j.create(x).sum()
+            == -2 ** 30)
+
+
+@pytest.mark.parametrize("method", ["sum", "mean", "prod", "max", "min",
+                                    "std"])
+def test_ndarray_int32_reductions_follow_jax_types(method):
+    """``NDArray`` reductions of an int32 array, over an axis and over
+    all: JAX's dtype and values (mean and std in float32)."""
+    JaxNd4j = _jax_nd4j()
+    x = np.arange(1, 13, dtype=np.int32).reshape(3, 4)
+    ja, ta = JaxNd4j.create(x), Nd4j.create(x, device="cpu")
+    for dims in ((0,), (1,)):
+        _exact(getattr(ta, method)(*dims).toNumpy(),
+               getattr(ja, method)(*dims).toNumpy())
+    whole = getattr(ta, method)()
+    assert type(whole) is type(getattr(ja, method)())
+    assert whole == getattr(ja, method)()
+
+
+@pytest.mark.parametrize("a_dtype, b", [
+    ("float32", np.ones((3, 4))),
+    ("float32", np.arange(4, dtype=np.int64)),
+    ("int32", np.ones((3, 4), np.int64)),
+    ("int32", np.full((3, 4), 0.5)),
+])
+@pytest.mark.parametrize("method", ["add", "sub", "mul", "rsub"])
+def test_ndarray_numpy_operand_is_narrowed_like_jax(method, a_dtype, b):
+    """A 64-bit numpy operand counts as its 32-bit type, as ``jnp.asarray``
+    makes it: f32 + float64 ones is float32, int32 + int64 is int32."""
+    JaxNd4j = _jax_nd4j()
+    x = (np.arange(12) - 4).reshape(3, 4).astype(a_dtype)
+    want = getattr(JaxNd4j.create(x), method)(b).toNumpy()
+    _exact(getattr(Nd4j.create(x, device="cpu"), method)(b).toNumpy(), want)
+
+
 # ------------------------------------------------------------------ NDArray
 def test_ndarray_arithmetic_and_reductions_match_jax():
     JaxNd4j = _jax_nd4j()

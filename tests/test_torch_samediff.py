@@ -226,6 +226,41 @@ def test_operators_and_reductions_match_jax():
         _close_rel(tg[n], jg[n], 1e-5)
 
 
+def _reduce_graph(SD, dtype, **kw):
+    """Reductions of an int32 or f32 placeholder as a loaded graph holds
+    them: by name, with ``dimensions=[]`` (no axis), an axis, or None."""
+    sd = SD.create(**kw)
+    x = sd.placeholder("x", shape=(3, 4), dtype=dtype)
+    outs = {}
+    for op in ("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+               "reduce_std", "reduce_norm2"):
+        for tag, dims in (("none", []), ("ax0", [0]), ("all", None)):
+            outs[f"{op}_{tag}"] = getattr(sd.math, op)(
+                x, dimensions=dims, name=f"{op}_{tag}").name
+    outs["argmax"] = sd.math.argmax(x, dimensions=1, name="argmax").name
+    outs["add64"] = (x + sd.constant("c", np.ones((3, 4), np.int64))).name
+    return sd, outs
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_graph_reductions_keep_jax_axes_and_types(dtype):
+    """A graph's reductions on the CPU against the JAX graph's: dtype,
+    shape and values exactly. ``dimensions=[]`` reduces nothing; int32
+    sums, max, min and argmax stay int32, the mean, std and norm2 are
+    float32; an int64 constant is held as int32."""
+    JSD = _jax_sd()
+    x = (np.arange(12).reshape(3, 4) - 3).astype(dtype)
+    jsd, jn = _reduce_graph(JSD, dtype)
+    tsd, tn = _reduce_graph(SameDiff, dtype, device="cpu")
+    assert jn == tn
+    want = jsd.output({"x": x}, list(jn.values()))
+    got = tsd.output({"x": x}, list(tn.values()))
+    for k, n in tn.items():
+        g, w = got[n].numpy(), np.asarray(want[n])
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
 def test_unreached_variables_get_zero_gradients_as_in_jax():
     JSD = _jax_sd()
     x = np.ones((2, 3), np.float32)
