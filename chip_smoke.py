@@ -14,9 +14,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``csrc/conv_bn_stats.cu`` and ``csrc/residual_tail.cu`` compiled from
    this checkout by ``nvcc`` for sm_90a, one ``nvcc`` per source, all
    started together; ``ptxas`` registers and spills of the kernels the
-   slices run, and ``cuobjdump -sass`` of the flash-attention library:
-   each head-dim instance of the three bf16 flash kernels (forward,
-   dk/dv, dq) must hold tensor-core instructions (``HMMA``/``HGMMA``);
+   slices run (and any ptxas note that it serialized wgmma), and
+   ``cuobjdump -sass``: each head-dim instance of the three bf16 flash
+   kernels (forward, dk/dv, dq) must hold tensor-core instructions
+   (``HMMA``/``HGMMA``), and each of the four (taps, BN) instances of
+   the bf16 tensor-core conv route ``conv_bn_stats_tc_kernel`` must hold
+   ``HGMMA``;
 3. kernel: the paged-attention kernel against its plain PyTorch version
    at every shape the serving paths give it (H=12, hd=64, ps=16, P=32):
    the decode step (N=8, Q=1; float pools and fp8 pools with f32 scale
@@ -125,10 +128,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (bench_residual_tail.py:31-36), each against its plain version at f32
    on the same bf16 values (y and the tail within one bf16 rounding, 2^-8
    of the largest value; means within 1e-5 of max |y|, variances within
-   1e-4 of max E[y^2]: f32 sums in another order), then each one's time
-   beside its plain version's, a library yardstick the port never calls
-   (``torch.matmul`` or ``F.conv2d`` + ``torch.var_mean``; ``F.batch_norm``
-   + add + ``relu``) and its bound;
+   1e-4 of max E[y^2]: f32 sums in another order), every conv shape on
+   the tensor-core route, then each one's time beside the first bf16
+   design's (the route odd shapes still take), its plain version's, a
+   library yardstick the port never calls (``torch.matmul`` or
+   ``F.conv2d`` + ``torch.var_mean``; ``F.batch_norm`` + add + ``relu``)
+   and its bound; at each conv row shape two calls bit-equal and the
+   profiler's device time per call of the conv and reduction kernels;
 12. ResNet-50 blocks by name: the four identity bottleneck blocks
    (256->64->256 at 56x56, 512->128 at 28x28, 1024->256 at 14x14,
    2048->512 at 7x7; numpy He-normal weights from a seed) as ``SameDiff``
@@ -239,31 +245,44 @@ def phase_build() -> None:
                                   r"|flash_(?:fwd|bwd_[a-z]+)(?:_tc)?_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
                                   r"|lstm_(?:fwd|bwd)_kernel"
-                                  r"|conv_bn_stats_kernel"
+                                  r"|conv_bn_stats(?:_tc)?_kernel"
                                   r"|residual_tail_kernel)", ln)
+                tc_conv = re.search(
+                    r"conv_bn_stats_tc_kernelILi(\d+)ELi(\d+)E", ln)
                 kind = ("bf16" if "nv_bfloat16" in ln or "_tc_" in ln
                         else "f32") \
                     + (" queries, fp8 pools" if "Fp8E4M3" in ln else "") \
                     + (", tensor cores" if any(k in ln for k in
                                                FLASH_TC_KERNELS) else "") \
+                    + (f", wgmma, taps {tc_conv.group(1)}, BN "
+                       f"{tc_conv.group(2)}" if tc_conv else "") \
                     + (", hd 128" if mark == "Li128E" else "")
                 info = [x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
                 say("build", f"  ptxas {found.group(1) if found else ln} "
                              f"({kind}): {'; '.join(info)}")
-    check_tensor_core_sass(paths["flash_attention"])
+            if "wgmma" in ln and "serialized" in ln:
+                say("build", f"  ptxas warning: {ln.strip()}")
+    check_tensor_core_sass(paths["flash_attention"], FLASH_TC_KERNELS,
+                           r"\bH(?:G)?MMA\b", "head-dim", 4)
+    check_tensor_core_sass(paths["conv_bn_stats"], CONV_TC_KERNELS,
+                           r"\bHGMMA\b", "(taps, BN)", 4)
 
 
 #: the bf16 flash-attention kernels, which must run on the tensor cores
 FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                     "flash_bwd_dq_tc_kernel")
+#: the bf16 conv + BN-stats route that must issue wgmma (HGMMA in SASS)
+CONV_TC_KERNELS = ("conv_bn_stats_tc_kernel",)
 
 
-def check_tensor_core_sass(lib_path: str) -> None:
-    """``cuobjdump -sass`` of the built flash-attention library: every
-    instantiation of each bf16 kernel must hold tensor-core instructions
-    (``HMMA`` or ``HGMMA``), or the run fails."""
+def check_tensor_core_sass(lib_path: str, kernels, pattern: str, per: str,
+                           instances: int) -> None:
+    """``cuobjdump -sass`` of a built library: each of the ``instances``
+    instantiations of every kernel in ``kernels`` must hold tensor-core
+    instructions matching ``pattern`` (``HMMA``/``HGMMA`` for flash
+    attention, ``HGMMA`` for the conv route), or the run fails."""
     from deeplearning4j_tpu_torch.ops import native
 
     tool = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
@@ -272,16 +291,16 @@ def check_tensor_core_sass(lib_path: str) -> None:
     counts: dict = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        kernel = next((k for k in FLASH_TC_KERNELS if k in name), None)
+        kernel = next((k for k in kernels if k in name), None)
         if kernel is not None:
-            hmma = len(re.findall(r"\bH(?:G)?MMA\b", fn))
-            counts.setdefault(kernel, []).append(hmma)
-    for kernel in FLASH_TC_KERNELS:
+            counts.setdefault(kernel, []).append(
+                len(re.findall(pattern, fn)))
+    for kernel in kernels:
         found = counts.get(kernel, [])
-        check(len(found) == 4 and min(found) > 0,
-              f"{kernel}: tensor-core instructions per head-dim instance "
-              f"{found} (cuobjdump -sass); need 4 instances, each > 0")
-        say("build", f"  SASS {kernel}: HMMA/HGMMA per head-dim instance "
+        check(len(found) == instances and min(found) > 0,
+              f"{kernel}: {pattern} per {per} instance {found} (cuobjdump "
+              f"-sass); need {instances} instances, each > 0")
+        say("build", f"  SASS {kernel}: {pattern} per {per} instance "
                      f"{found}")
 
 
@@ -578,13 +597,16 @@ def serve_config():
                              d_ff=3072, dropout=0.0)
 
 
-def device_profile(phase: str, what: str, run, focus) -> float:
+def device_profile(phase: str, what: str, run, focus,
+                   expect: dict = None) -> float:
     """Device busy share over ``run()`` from a torch.profiler trace: the
     kernels' device times summed over the window's wall time (one
     stream, so kernels do not overlap), the share of the kernels whose
-    names hold each string of ``focus``, and the largest kernels by
-    device time. Returns the busy milliseconds (0 when the profiler saw
-    no device time)."""
+    names hold each string of ``focus`` with the launches the trace holds
+    of them (against ``expect[key]`` launches where given: a long process
+    can lose records, and then the sums undercount), and the largest
+    kernels by device time. Returns the busy milliseconds (0 when the
+    profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,10 +617,12 @@ def device_profile(phase: str, what: str, run, focus) -> float:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
+    launches: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
+            launches[e.name] = launches.get(e.name, 0) + 1
     busy_us = sum(by_name.values())
     if busy_us == 0:
         say(phase, "torch.profiler saw no device time: device idle share "
@@ -609,8 +633,12 @@ def device_profile(phase: str, what: str, run, focus) -> float:
                f"window, idle {1 - busy_us / wall_us:.3f})")
     for key in focus:
         t = sum(v for n, v in by_name.items() if key in n)
+        k = sum(v for n, v in launches.items() if key in n)
+        want = (expect or {}).get(key)
+        lost = (f" of {want} launched: the trace is incomplete, so is this "
+                f"sum" if want is not None and k != want else "")
         say(phase, f"  {key}*: {t / 1e3:.2f} ms ({t / busy_us:.3f} of "
-                   f"device time)")
+                   f"device time, {k} launches traced{lost})")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         say(phase, f"  {t / 1e3:9.2f} ms  {name[:100]}")
     return busy_us / 1e3
@@ -1187,11 +1215,17 @@ def flash_bf16_shapes() -> tuple:
     return fwd, bwd
 
 
-def device_split(what: str, run, calls: int = 20) -> None:
-    """Device time per call of each flash kernel that ``run`` launches,
-    from a torch.profiler trace of ``calls`` calls. Beside the CUDA-event
-    time per call, which also holds the gaps between launches when the
-    host enqueues more slowly than the card runs."""
+def device_split(what: str, run, calls: int = 20,
+                 pattern: str = r"flash_\w+?_kernel",
+                 phase: str = "flash", shape: str = "the training shape"
+                 ) -> None:
+    """Device time per call of each kernel matching ``pattern`` that
+    ``run`` launches, from a torch.profiler trace of ``calls`` calls:
+    each kernel's mean over the launch records the trace holds, and how
+    many it holds (a long process can lose records; a sum over lost ones
+    divided by ``calls`` would read low). Beside the CUDA-event time per
+    call, which also holds the gaps between launches when the host
+    enqueues more slowly than the card runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1203,18 +1237,18 @@ def device_split(what: str, run, calls: int = 20) -> None:
     split: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            m = re.search(r"flash_\w+?_kernel", e.name)
+            m = re.search(pattern, e.name)
             if m:
-                split[m.group(0)] = split.get(m.group(0), 0.0) \
-                    + e.time_range.elapsed_us()
+                t, n = split.get(m.group(0), (0.0, 0))
+                split[m.group(0)] = (t + e.time_range.elapsed_us(), n + 1)
     if not split:
-        say("flash", f"torch.profiler saw no device time: {what} split not "
-                     f"measured")
+        say(phase, f"torch.profiler saw no device time: {what} split not "
+                   f"measured")
         return
-    say("flash", f"{what} device time per call at the training shape "
-                 f"(profiler): {sum(split.values()) / calls:.1f} us = "
-                 + " + ".join(f"{n} {t / calls:.1f} us"
-                              for n, t in sorted(split.items())))
+    say(phase, f"{what} device time per call at {shape} (profiler): "
+               f"{sum(t / n for t, n in split.values()):.1f} us = "
+               + " + ".join(f"{k} {t / n:.1f} us ({n} of {calls} launches "
+                            f"traced)" for k, (t, n) in sorted(split.items())))
 
 
 def phase_flash() -> tuple:
@@ -2177,6 +2211,9 @@ def phase_conv_kernels() -> tuple:
         name = "conv1x1_bn_stats" if taps == 1 else "conv3x3_bn_stats"
         ref = (cb.conv1x1_bn_stats_reference if taps == 1
                else cb.conv3x3_bn_stats_reference)
+        route = cb.kernel_route(x, w, taps)
+        check(route == "tc", f"{name} at {shape[1:]} takes the {route!r} "
+                             f"route, not the tensor-core route")
         y, m, v = Nd4j.exec(name, x, w)
         ry, rm, rv = ref(x.float(), w.float())
         torch.cuda.synchronize()
@@ -2207,18 +2244,35 @@ def phase_conv_kernels() -> tuple:
                 out = F.conv2d(x_nchw, w_oihw, padding=1)
                 return torch.var_mean(out, dim=(0, 2, 3), correction=0)
         lib = cuda_ms(library, iters, 3)
+        # the first bf16 design, still the route of odd shapes
+        first = cuda_ms(lambda i: cb.conv_bn_stats_kernel(x, w, taps,
+                                                          route="wmma"),
+                        iters, 3)
         kern2 = cuda_ms(lambda i: Nd4j.exec(name, x, w), iters, 3)
         ms = min(kern1, kern2)
         bound_ms, bound_by, nbytes, flops = conv_bound(x, w, y, taps)
         say("conv", f"{name} {h}x{w_} {cin}->{cout} N={n} bf16: err/max|y| "
                     f"{e[0]:.2e}, mean {e[1]:.2e}, var/max E[y^2] {e[2]:.2e}; "
-                    f"kernel {kern1:.4f} / {kern2:.4f} ms, plain {plain:.4f} "
-                    f"ms, library {lib:.4f} ms; bound {bound_ms:.4f} ms by "
-                    f"{bound_by} ({nbytes} B, {flops} flop); kernel at "
+                    f"kernel {kern1:.4f} / {kern2:.4f} ms, first bf16 design "
+                    f"{first:.4f} ms, plain {plain:.4f} ms, library "
+                    f"{lib:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+                    f"({nbytes} B, {flops} flop); kernel at "
                     f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
                     f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
                     f"{bound_ms / ms:.3f} of its bound")
         if shape == CONV_ROW_SHAPES[kind]:
+            again = Nd4j.exec(name, x, w)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(again, (y, m, v))),
+                  f"{name} at {shape[1:]}: two calls differ")
+            say("conv", f"{name} at {shape[1:]}: two calls give the same y, "
+                        f"mean and var, bit for bit")
+            device_split(f"{name} {h}x{w_} {cin}->{cout}",
+                         lambda: Nd4j.exec(name, x, w),
+                         pattern=r"conv_bn_stats(?:_tc)?_kernel"
+                                 r"|reduce_stats_kernel",
+                         phase="conv", shape=f"N={n}")
+            del again
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": "deeplearning4j_tpu_torch/csrc/conv_bn_stats.cu",
@@ -2414,7 +2468,9 @@ def phase_resnet_blocks(rows: dict) -> None:
     device_profile("resnet", "one output of each of the four blocks",
                    lambda: [sd.output({"x": x}, ["out"])
                             for sd, x in zip(graphs, inputs)],
-                   ("conv_bn_stats", "reduce_stats", "residual_tail"))
+                   ("conv_bn_stats", "reduce_stats", "residual_tail"),
+                   {"conv_bn_stats": 12, "reduce_stats": 12,
+                    "residual_tail": 4})
 
     # a gradient through B3: the first stage's 2c gamma and beta, against
     # autograd of the plain formula at f32 on the same tail inputs

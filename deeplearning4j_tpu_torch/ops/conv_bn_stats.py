@@ -13,13 +13,21 @@ take the plain versions (:func:`conv1x1_bn_stats_reference`,
 :func:`conv3x3_bn_stats_reference`); CUDA tensors take the hand-written
 Hopper kernel ``csrc/conv_bn_stats.cu``, which launches or raises. Layouts
 are the JAX package's: x NHWC (or ``[rows, Cin]`` for 1x1), w ``[Cin,
-Cout]`` or HWIO ``[3, 3, Cin, Cout]``.
+Cout]`` or HWIO ``[3, 3, Cin, Cout]``. Inside the kernel source,
+:func:`kernel_route` picks one of three routes by dtype, shape and
+alignment (never by retrying after a failure): ``"tc"``, the tensor-core
+implicit GEMM, for bf16 with Cin and Cout multiples of 8 (Cin of 64 for the
+3x3) on 16-byte aligned tensors; ``"wmma"``, the first bf16 design, for
+the other bf16 shapes; ``"f32"`` for float32. x and w of different
+dtypes are computed as the reference computes them, an f32 product cast
+to x's dtype, on the ``"f32"`` route.
 
 The reference is forward-only: interpret-mode ``pallas_call`` has no
-transpose, so a gradient through these ops raises there. Here both ops
-run inside an autograd ``Function`` whose backward raises too, so a
-gradient that would cross them fails loudly and never comes back as a
-silent zero or ``None``.
+transpose, so a gradient through these ops raises there. Here a call
+whose x or w requires grad runs inside an autograd ``Function`` whose
+backward raises too, so a gradient that would cross them fails loudly and
+never comes back as a silent zero or ``None``; other calls skip the
+``Function`` (its host cost) and give the same tensors.
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ launches_3x3 = 0
 #: :154-162), kept as the op's contract on every device
 ENVELOPE_BYTES = 24 * 1024 * 1024
 
-#: output tile rows of the kernel (its stats partials are per row tile)
-TILE_ROWS = 64
+#: the kernel's routes, by the number its C entry point takes
+ROUTES = {"f32": 0, "wmma": 1, "tc": 2}
 
 
 def _stats(acc: torch.Tensor, rows: int):
@@ -101,25 +109,17 @@ def _lib():
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i,
                        i, i, i, vp]
         fn.restype = ctypes.c_int
+        lib.dl4j_conv_bn_stats_scratch.argtypes = [ctypes.c_longlong, i, i,
+                                                   i, i, i, i]
+        lib.dl4j_conv_bn_stats_scratch.restype = ctypes.c_longlong
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def conv_bn_stats_kernel(x, w, taps: int):
-    """Launch ``csrc/conv_bn_stats.cu`` on CUDA tensors, on PyTorch's
-    current stream: ``taps`` 1 (x ``[..., Cin]``, w ``[Cin, Cout]``) or 9
-    (x ``[N, H, W, Cin]``, w ``[3, 3, Cin, Cout]``). Returns ``(y, mean,
-    var)``. Raises on any argument the kernel does not take, on a failed
-    build and on a refused launch; never computes the result another
-    way."""
-    global launches_1x1, launches_3x3
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"the CUDA kernel needs x and w on one CUDA device, "
-                         f"got {x.device} and {w.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
-        raise TypeError(f"x and w must both be float32 or bfloat16, got "
-                        f"{x.dtype} and {w.dtype}")
+def _geometry(x, w, taps: int):
+    """(rows, h, wd, cin, cout) of a call, after checking that x and w
+    fit the op."""
     if taps == 1:
         if w.dim() != 2 or x.shape[-1] != w.shape[0]:
             raise ValueError(f"1x1: x {tuple(x.shape)} and w "
@@ -134,51 +134,121 @@ def conv_bn_stats_kernel(x, w, taps: int):
     else:
         raise ValueError(f"taps must be 1 or 9, got {taps}")
     cin, cout = int(x.shape[-1]), int(w.shape[-1])
-    rows = x.numel() // cin
+    rows = x.numel() // cin if cin else 0
     if rows == 0 or cout == 0:
         raise ValueError(f"empty conv: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}")
+    return rows, h, wd, cin, cout
+
+
+def kernel_route(x, w, taps: int) -> str:
+    """The kernel route a call takes, from dtypes, shapes and alignment
+    alone (any device): ``"tc"`` for bf16 x and w whose Cin and Cout are
+    multiples of 8 (Cin a multiple of 64 for the 3x3, so that a 64-deep K
+    stage never crosses a tap), both 16-byte aligned, with fewer than 2^31
+    rows; ``"wmma"`` for the other bf16 calls; ``"f32"`` otherwise
+    (float32, or mixed dtypes, computed at f32)."""
+    rows, _, _, cin, cout = _geometry(x, w, taps)
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return "f32"
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if (cin % 8 == 0 and cout % 8 == 0 and aligned and rows < 2 ** 31
+            and (taps == 1 or cin % 64 == 0)):
+        return "tc"
+    return "wmma"
+
+
+def scratch_floats(rows: int, h: int, wd: int, cin: int, cout: int,
+                   taps: int, route: str) -> int:
+    """Floats of partial statistics the kernel needs for this shape and
+    route on the current CUDA device, as the kernel source works it out
+    (``dl4j_conv_bn_stats_scratch``)."""
+    lib = _lib()
+    n = lib.dl4j_conv_bn_stats_scratch(rows, h, wd, cin, cout, taps,
+                                       ROUTES[route])
+    if n < 0:
+        msg = lib.dl4j_cuda_error_string(int(-n)).decode()
+        raise RuntimeError(f"conv + BN-stats scratch size refused: {msg}")
+    return int(n)
+
+
+def conv_bn_stats_kernel(x, w, taps: int, route: str | None = None):
+    """Launch ``csrc/conv_bn_stats.cu`` on CUDA tensors, on PyTorch's
+    current stream: ``taps`` 1 (x ``[..., Cin]``, w ``[Cin, Cout]``) or 9
+    (x ``[N, H, W, Cin]``, w ``[3, 3, Cin, Cout]``). Returns ``(y, mean,
+    var)``. ``route`` defaults to :func:`kernel_route`; a route the call
+    does not fit is refused by the kernel source. x and w of different
+    dtypes (float32 or bfloat16) are multiplied at f32 and y is cast to
+    x's dtype, as the reference's ``preferred_element_type=f32`` product
+    and ``astype(x.dtype)`` do. Raises on any argument the kernel does not
+    take, on a failed build and on a refused launch; never computes the
+    result another way."""
+    global launches_1x1, launches_3x3
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"the CUDA kernel needs x and w on one CUDA device, "
+                         f"got {x.device} and {w.device}")
+    kinds = (torch.float32, torch.bfloat16)
+    if x.dtype not in kinds or w.dtype not in kinds:
+        raise TypeError(f"x and w must be float32 or bfloat16, got "
+                        f"{x.dtype} and {w.dtype}")
+    rows, h, wd, cin, cout = _geometry(x, w, taps)
+    out_dtype = x.dtype
+    if w.dtype != x.dtype:
+        x, w = x.float(), w.float()
     x = x.contiguous()
     w = w.contiguous()
+    if route is None:
+        route = kernel_route(x, w, taps)
+    if (route == "f32") != (x.dtype == torch.float32):
+        raise ValueError(f"route {route!r} does not take {x.dtype}")
     y = torch.empty(tuple(x.shape[:-1]) + (cout,), dtype=x.dtype,
                     device=x.device)
-    tiles = (rows + TILE_ROWS - 1) // TILE_ROWS
-    partial = torch.empty(2 * tiles * cout, dtype=torch.float32,
-                          device=x.device)
     mean = torch.empty(cout, dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
     lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        partial = torch.empty(
+            scratch_floats(rows, h, wd, cin, cout, taps, route),
+            dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.dl4j_conv_bn_stats(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), partial.data_ptr(),
             mean.data_ptr(), var.data_ptr(), rows, h, wd, cin, cout, taps,
-            int(x.dtype == torch.bfloat16), stream)
+            ROUTES[route], stream)
     if err != 0:
         msg = lib.dl4j_cuda_error_string(err).decode()
-        raise RuntimeError(f"conv + BN-stats kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"conv + BN-stats kernel launch failed ({route} "
+                           f"route): {msg} (cudaError {err})")
     if taps == 1:
         launches_1x1 += 1
     else:
         launches_3x3 += 1
-    return y, mean, var
+    return y.to(out_dtype), mean, var
+
+
+def _op_name(taps: int) -> str:
+    return "conv1x1_bn_stats" if taps == 1 else "conv3x3_bn_stats"
+
+
+def _forward(x, w, taps: int):
+    """The plain version on the CPU, the kernel on the card."""
+    if x.device.type == "cpu":
+        ref = (conv1x1_bn_stats_reference if taps == 1
+               else conv3x3_bn_stats_reference)
+        return ref(x, w)
+    if x.device.type == "cuda":
+        return conv_bn_stats_kernel(x, w, taps)
+    raise ValueError(f"{_op_name(taps)} runs on cpu or cuda, not {x.device}")
 
 
 class _ConvBnStats(torch.autograd.Function):
-    """Forward: the plain version on the CPU, the kernel on the card.
-    Backward: raises, as the reference does (forward-only)."""
+    """Forward: :func:`_forward`. Backward: raises, as the reference does
+    (forward-only)."""
 
     @staticmethod
     def forward(ctx, x, w, taps):
-        ctx.op = "conv1x1_bn_stats" if taps == 1 else "conv3x3_bn_stats"
-        if x.device.type == "cpu":
-            ref = (conv1x1_bn_stats_reference if taps == 1
-                   else conv3x3_bn_stats_reference)
-            return ref(x, w)
-        if x.device.type == "cuda":
-            return conv_bn_stats_kernel(x, w, taps)
-        raise ValueError(f"{ctx.op} runs on cpu or cuda, not {x.device}")
+        ctx.op = _op_name(taps)
+        return _forward(x, w, taps)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -192,7 +262,7 @@ def conv1x1_bn_stats(x, w, bm: int = 512, bn: int = 256):
     ``(y, mean [Cout], var [Cout])``. ``bm`` and ``bn`` are the
     reference's block caps; they are accepted and change nothing (the
     kernel masks ragged tiles instead of choosing divisors)."""
-    return _ConvBnStats.apply(x, w, 1)
+    return _apply(x, w, 1)
 
 
 def conv3x3_bn_stats(x, w):
@@ -200,7 +270,13 @@ def conv3x3_bn_stats(x, w):
     ``[3, 3, Cin, Cout]`` -> ``(y [N, H, W, Cout], mean, var)``. Shapes
     outside the reference's envelope raise ``ValueError``."""
     check_envelope(x, w)
-    return _ConvBnStats.apply(x, w, 9)
+    return _apply(x, w, 9)
+
+
+def _apply(x, w, taps: int):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ConvBnStats.apply(x, w, taps)
+    return _forward(x, w, taps)
 
 
 @register_op("conv1x1_bn_stats")

@@ -20,6 +20,10 @@ output, summed in another order), means within 1e-5 of max |y|, variances
 within 1e-4 of max E[y^2]; bf16 inputs against the plain version's f32
 product of the same bf16 values, y within one bf16 rounding (2^-8 of
 max |y|), the statistics as at f32 (both come from f32 accumulators).
+Those tolerances hold every route: the tensor-core route (``"tc"``) at
+every ResNet-50 stride-1 conv class and at ragged row counts, the first
+bf16 design (``"wmma"``) at the odd shapes it still takes, and the f32
+route, which also takes mixed bf16 / f32 inputs.
 """
 
 import numpy as np
@@ -246,6 +250,99 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():
                             torch.zeros(4, 4, device="meta"))
 
 
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("xdt, wdt", [("bfloat16", "float32"),
+                                      ("float32", "bfloat16")])
+def test_mixed_dtypes_match_jax_interpret(k, xdt, wdt):
+    """x and w of different dtypes: the reference multiplies at f32
+    (``preferred_element_type=f32`` over the promoted operands) and casts y
+    to x's dtype; the port's plain version does the same."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops import conv_pallas as jcp
+
+    x, w = _case((2, 6, 6, 16), 8, seed=16, k=k)
+    xt = torch.from_numpy(x).to(getattr(torch, xdt))
+    wt = torch.from_numpy(w).to(getattr(torch, wdt))
+    fn = cb.conv1x1_bn_stats if k == 1 else cb.conv3x3_bn_stats
+    y, m, v = fn(xt, wt)
+    assert y.dtype == xt.dtype
+    jfn = jcp.conv1x1_bn_stats if k == 1 else jcp.conv3x3_bn_stats
+    jy, jm, jv = jfn(jnp.asarray(xt.float().numpy(), getattr(jnp, xdt)),
+                     jnp.asarray(wt.float().numpy(), getattr(jnp, wdt)),
+                     interpret=True)
+    assert str(jy.dtype) == xdt
+    yf = y.float().numpy()
+    scale = float(np.abs(yf).max())
+    tol = 2 ** -8 * scale if xdt == "bfloat16" else 1e-5
+    _close(yf, np.asarray(jy, np.float32), tol, what="y")
+    _close(m.numpy(), jm, 1e-5, what="mean")
+    _close(v.numpy(), jv, 1e-5, 1e-4, what="var")
+
+
+def _bf16(shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+#: (x shape, w shape, taps, the route the kernel takes)
+ROUTE_CASES = [
+    ((2, 56, 56, 64), (64, 256), 1, "tc"),
+    ((130, 16), (16, 72), 1, "tc"),           # K and Cout not tile multiples
+    ((2, 7, 7, 8), (8, 24), 1, "tc"),
+    ((2, 14, 14, 64), (3, 3, 64, 64), 9, "tc"),
+    ((2, 7, 7, 8), (3, 3, 8, 8), 9, "wmma"),   # Cin not a multiple of 64
+    ((1, 4, 4, 72), (3, 3, 72, 8), 9, "wmma"),
+    ((3, 5, 5, 3), (3, 5), 1, "wmma"),         # Cin not a multiple of 8
+    ((2, 7, 7, 64), (64, 5), 1, "wmma"),       # Cout not a multiple of 8
+]
+
+
+@pytest.mark.parametrize("xs, ws, taps, route", ROUTE_CASES)
+def test_kernel_route_by_shape(xs, ws, taps, route):
+    assert cb.kernel_route(_bf16(xs), _bf16(ws), taps) == route
+
+
+@pytest.mark.parametrize("xdt, wdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.bfloat16)])
+def test_kernel_route_f32_and_mixed_dtypes(xdt, wdt):
+    x = torch.empty((2, 56, 56, 64), dtype=xdt)
+    w = torch.empty((64, 256), dtype=wdt)
+    assert cb.kernel_route(x, w, 1) == "f32"
+
+
+def test_kernel_route_needs_16_byte_alignment():
+    """A view that starts 2 bytes into its storage keeps the first bf16
+    design (16-byte copies need aligned rows)."""
+    base = _bf16(2 * 7 * 7 * 64 + 1)
+    x = base[1:].view(2, 7, 7, 64)
+    w = _bf16((64, 64))
+    assert x.data_ptr() % 16 != 0
+    assert cb.kernel_route(x, w, 1) == "wmma"
+    assert cb.kernel_route(x.clone(), w, 1) == "tc"
+
+
+#: every stride-1 conv class of ResNet-50's bottleneck stacks (the
+#: benches' shapes, chip_smoke.py CONV_SHAPES), at N=2
+RESNET_CLASSES = [
+    (1, 56, 64, 64), (1, 56, 64, 256), (1, 56, 256, 64), (1, 28, 512, 128),
+    (1, 28, 128, 512), (1, 14, 1024, 256), (1, 14, 256, 1024),
+    (1, 7, 2048, 512), (1, 7, 512, 2048),
+    (3, 56, 64, 64), (3, 28, 128, 128), (3, 14, 256, 256), (3, 7, 512, 512)]
+
+
+def _resnet_tensors(k, hw, cin, cout, n=2):
+    xs = (n, hw, hw, cin)
+    ws = (cin, cout) if k == 1 else (3, 3, cin, cout)
+    return xs, ws
+
+
+@pytest.mark.parametrize("k, hw, cin, cout", RESNET_CLASSES)
+def test_resnet_classes_take_the_tensor_core_route(k, hw, cin, cout):
+    xs, ws = _resnet_tensors(k, hw, cin, cout)
+    assert cb.kernel_route(_bf16(xs), _bf16(ws), 1 if k == 1 else 9) == "tc"
+
+
 # ---------------------------------------------------------------- on the card
 def _need_card():
     if not torch.cuda.is_available():
@@ -254,11 +351,11 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _card_check(x, w, k, dtype):
+def _card_check(x, w, k, dtype, route=None):
     xc = torch.from_numpy(x).cuda().to(dtype)
     wc = torch.from_numpy(w).cuda().to(dtype)
     taps = 1 if k == 1 else 9
-    y, m, v = cb.conv_bn_stats_kernel(xc, wc, taps)
+    y, m, v = cb.conv_bn_stats_kernel(xc, wc, taps, route=route)
     ref = (cb.conv1x1_bn_stats_reference if k == 1
            else cb.conv3x3_bn_stats_reference)
     ry, rm, rv = ref(xc.float(), wc.float())
@@ -334,3 +431,131 @@ def test_cuda_gradient_through_the_kernel_raises():
     y, _, _ = cb.conv1x1_bn_stats(torch.from_numpy(x).cuda(), wt)
     with pytest.raises(RuntimeError, match="forward-only"):
         y.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, hw, cin, cout", RESNET_CLASSES)
+def test_cuda_resnet_classes_on_the_tensor_core_route(k, hw, cin, cout):
+    """Every ResNet-50 stride-1 conv class at N=2 through the tensor-core
+    route, against the f32 plain version on the same bf16 values."""
+    _need_card()
+    xs, ws = _resnet_tensors(k, hw, cin, cout)
+    x, w = _case(xs, cout, seed=cin + cout + hw, k=k,
+                 scale=float(np.sqrt(2.0 / (cin * (1 if k == 1 else 9)))))
+    x = np.maximum(x, 0)
+    assert cb.kernel_route(torch.from_numpy(x).to(torch.bfloat16),
+                           torch.from_numpy(w).to(torch.bfloat16),
+                           1 if k == 1 else 9) == "tc"
+    _card_check(x, w, k, torch.bfloat16, route="tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, cout, k", [
+    ((2, 7, 7, 64), 256, 1),       # 98 rows: one ragged 128-row tile
+    ((12545, 64), 64, 1),          # 98 tiles and one row
+    ((2, 7, 7, 64), 64, 3),
+    ((5, 13, 193, 64), 64, 3),     # 12,545 rows of 193-pixel image rows
+    ((1, 3, 5, 128), 136, 3)])     # an image smaller than a tile, Cout 136
+def test_cuda_ragged_rows_on_the_tensor_core_route(shape, cout, k):
+    _need_card()
+    x, w = _case(shape, cout, seed=17, k=k, scale=0.1)
+    _card_check(x, w, k, torch.bfloat16, route="tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, cout, k", [
+    ((2, 7, 7, 8), 8, 3), ((3, 5, 6, 3), 5, 3), ((3, 5, 5, 3), 5, 1),
+    ((2, 7, 7, 64), 5, 1)])
+def test_cuda_odd_shapes_keep_the_first_bf16_design(shape, cout, k):
+    """Shapes the tensor-core route does not take go to the first bf16
+    design, by shape, and it still matches the plain version."""
+    _need_card()
+    x, w = _case(shape, cout, seed=18, k=k)
+    xb = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    wb = torch.from_numpy(w).cuda().to(torch.bfloat16)
+    taps = 1 if k == 1 else 9
+    assert cb.kernel_route(xb, wb, taps) == "wmma"
+    _card_check(x, w, k, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="tc route"):
+        cb.conv_bn_stats_kernel(xb, wb, taps, route="tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, shape, cout", [(1, (4, 56, 56, 64), 256),
+                                            (3, (4, 28, 28, 128), 128)])
+def test_cuda_two_calls_are_bit_equal(k, shape, cout):
+    """No atomics: the persistent schedule and every sum's order depend on
+    the shape and the card only."""
+    _need_card()
+    x, w = _case(shape, cout, seed=19, k=k, scale=0.1)
+    xb = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    wb = torch.from_numpy(w).cuda().to(torch.bfloat16)
+    taps = 1 if k == 1 else 9
+    first = cb.conv_bn_stats_kernel(xb, wb, taps, route="tc")
+    again = cb.conv_bn_stats_kernel(xb, wb, taps, route="tc")
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_scratch_size_comes_from_the_kernel_source():
+    """The partial buffer is sized by ``dl4j_conv_bn_stats_scratch``:
+    [2, row tiles of 64, Cout] on the first designs, [2, G, Cout] on the
+    tensor-core route with 1 <= G <= the 128-row tiles."""
+    _need_card()
+    rows, cout = 802816, 256
+    for route in ("f32", "wmma"):
+        assert cb.scratch_floats(rows, 1, 1, 64, cout, 1, route) \
+            == 2 * (rows // 64) * cout
+    n = cb.scratch_floats(rows, 1, 1, 64, cout, 1, "tc")
+    assert n % (2 * cout) == 0 and 2 * cout <= n <= 2 * (rows // 128) * cout
+    n3 = cb.scratch_floats(98, 7, 7, 64, 64, 9, "tc")
+    assert n3 == 2 * 1 * 64          # one 128-row tile: one walker
+    with pytest.raises(RuntimeError, match="refused"):
+        cb.scratch_floats(0, 7, 7, 64, 64, 9, "tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("xdt, wdt", [(torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.bfloat16)])
+def test_cuda_mixed_dtypes_are_computed_at_f32(k, xdt, wdt):
+    """bf16 x with f32 w (and the other way round): the f32 product cast to
+    x's dtype, as the reference and the CPU path compute it."""
+    _need_card()
+    x, w = _case((2, 6, 6, 16), 24, seed=20, k=k)
+    before = (cb.launches_1x1, cb.launches_3x3)
+    fn = cb.conv1x1_bn_stats if k == 1 else cb.conv3x3_bn_stats
+    xc = torch.from_numpy(x).cuda().to(xdt)
+    wc = torch.from_numpy(w).cuda().to(wdt)
+    y, m, v = fn(xc, wc)
+    ry, rm, rv = fn(xc.cpu(), wc.cpu())
+    torch.cuda.synchronize()
+    assert y.dtype == xdt and m.dtype == torch.float32
+    launched = (cb.launches_1x1 - before[0], cb.launches_3x3 - before[1])
+    assert launched == ((1, 0) if k == 1 else (0, 1))
+    ymax = float(ry.float().abs().max())
+    ytol = 2 ** -8 if xdt == torch.bfloat16 else 2e-5
+    assert float((y.cpu().float() - ry.float()).abs().max()) <= ytol * ymax
+    assert float((m.cpu() - rm).abs().max()) <= 1e-5 * ymax
+    assert float((v.cpu() - rv).abs().max()) \
+        <= 1e-4 * float((rv + rm * rm).max())
+
+
+def _probe_copies():
+    from deeplearning4j_tpu_torch.tools import conv_probe
+
+    return [("split", conv_probe.SPLIT)] + list(conv_probe.VARIANTS.items())
+
+
+@pytest.mark.parametrize("name, subs", _probe_copies(),
+                         ids=[n for n, _ in _probe_copies()])
+def test_conv_probe_edits_find_their_anchors(name, subs):
+    """``tools/conv_probe.py`` measures edited copies of the kernel source:
+    every text substitution must still find its anchor, once."""
+    from deeplearning4j_tpu_torch.ops import native
+
+    src = open(native._source("conv_bn_stats")).read()
+    for old, new in subs:
+        assert old in src, f"{name}: {old!r}"
+        src = src.replace(old, new)
