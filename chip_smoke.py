@@ -17,9 +17,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    slices run (and any ptxas note that it serialized wgmma), and
    ``cuobjdump -sass``: each head-dim instance of the three bf16 flash
    kernels (forward, dk/dv, dq) must hold tensor-core instructions
-   (``HMMA``/``HGMMA``), and each of the four (taps, BN) instances of
-   the bf16 tensor-core conv route ``conv_bn_stats_tc_kernel`` must hold
-   ``HGMMA``;
+   (``HMMA``/``HGMMA``), each of the four (taps, BN) instances of the
+   bf16 tensor-core conv route ``conv_bn_stats_tc_kernel`` must hold
+   ``HGMMA``, each of the six (H, rows) instances of the LSTM
+   backward's cluster route ``lstm_bwd_cluster_kernel`` and each of the
+   eight bf16-query 8-row-tile instances of ``paged_attention_kernel``
+   (bf16 or fp8 pools, head_dim 32-128) must hold ``HMMA``;
 3. kernel: the paged-attention kernel against its plain PyTorch version
    at every shape the serving paths give it (H=12, hd=64, ps=16, P=32):
    the decode step (N=8, Q=1; float pools and fp8 pools with f32 scale
@@ -27,10 +30,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    prefill (N=1, Q in {32, 64, 128, 512}, qbase page-aligned and
    mid-page), under f32 and bf16 queries; f32 queries within 1e-5, bf16
    within 2e-2 of the reference run at f32 on the same (dequantized)
-   values; then its time at the decode (float and fp8), verify (Q=5) and
-   prefix (N=1, Q=128) shapes beside the plain version's, a page gather
-   (+ dequantization) + ``scaled_dot_product_attention`` yardstick and
-   the bound from the bytes it must move;
+   values, the largest error by kind on single rows and 8-row tiles, and
+   every warp count per block (1-8) at a mixed decode and a verify case
+   in every pool kind; then at the decode (float and fp8), verify (Q=5)
+   and prefix (N=1, Q=128) shapes: two calls bit-equal, the kernel's time
+   beside the plain version's, a page gather (+ dequantization) +
+   ``scaled_dot_product_attention`` yardstick and the bound from the
+   bytes it must move, the profiler's device time per call and the
+   host's cost per call of the wrapper and of the C entry alone
+   (``tools/attention_probe.py``), and those at the f32 engine's decode
+   shape;
 4. serve: the GPT-2-small-like model (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32000, max_len 512; random weights from a numpy
    seed in the JAX tree layout) behind ``DecodeEngine(slots=8,
@@ -99,10 +108,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and the bf16 d w_hh within 2^-8 of max |grad| of the f32 sum over the
    kernel's own stored ys and cs), one shape outside the envelope that
    must raise, then at the char-LSTM training shape (N=256, T=200,
-   H=256, bf16) each kernel's time beside its plain version's, its bound
-   and a ``torch.nn.LSTM`` (cuDNN) yardstick the port never calls, with
-   the port's projection matmul plus the kernel beside it (like with
-   like);
+   H=256, bf16): the backward on its cluster route (``bwd_route``), two
+   calls bit-equal, the first (grid) design against the plain version
+   too, each kernel's time (the backward's two designs in turns in the
+   same call) beside its plain version's, its bound and a
+   ``torch.nn.LSTM`` (cuDNN) yardstick the port never calls, with the
+   port's projection matmul plus the kernel beside it (like with like);
 9. char-LSTM training: ``TextGenerationLSTM(vocab_size=77, hidden=256)``
    (887,117 parameters, random weights from a numpy seed in the JAX
    layout) through ``MultiLayerNetwork.fit`` at ``bench_common.
@@ -227,10 +238,12 @@ def phase_build() -> None:
     # template argument 2 (vectors of 32) of paged attention and 64 of
     # flash attention (and 128, where the bf16 dk/dv accumulators are the
     # spill risk); the Adam kernels have no template; the LSTM kernels at
-    # one row per thread (the char-LSTM shape's plan)
+    # one row per thread (the char-LSTM shape's plan) and the backward's
+    # cluster route at H=256 (both row tiles)
     marks = {"paged_attention": ("Li2E",),
              "flash_attention": ("Li64E", "Li128E"),
-             "fused_update": ("",), "lstm_recurrence": ("Li1E",),
+             "fused_update": ("",),
+             "lstm_recurrence": ("Li1E", "cluster_kernelILi4E"),
              "conv_bn_stats": ("nv_bfloat16",),
              "residual_tail": ("nv_bfloat16Lb1",)}
     for name in KERNEL_SOURCES:
@@ -244,19 +257,23 @@ def phase_build() -> None:
                 found = re.search(r"(paged_attention_kernel"
                                   r"|flash_(?:fwd|bwd_[a-z]+)(?:_tc)?_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
-                                  r"|lstm_(?:fwd|bwd)_kernel"
+                                  r"|lstm_(?:fwd|bwd|bwd_cluster)_kernel"
                                   r"|conv_bn_stats(?:_tc)?_kernel"
                                   r"|residual_tail_kernel)", ln)
                 tc_conv = re.search(
                     r"conv_bn_stats_tc_kernelILi(\d+)ELi(\d+)E", ln)
-                kind = ("bf16" if "nv_bfloat16" in ln or "_tc_" in ln
+                cl = re.search(r"cluster_kernelILi(\d)ELi(\d)E", ln)
+                kind = ("bf16" if "nv_bfloat16" in ln or "_tc_" in ln or cl
                         else "f32") \
                     + (" queries, fp8 pools" if "Fp8E4M3" in ln else "") \
                     + (", tensor cores" if any(k in ln for k in
                                                FLASH_TC_KERNELS) else "") \
                     + (f", wgmma, taps {tc_conv.group(1)}, BN "
                        f"{tc_conv.group(2)}" if tc_conv else "") \
-                    + (", hd 128" if mark == "Li128E" else "")
+                    + (", hd 128" if mark == "Li128E" else "") \
+                    + (f", mma.sync, H {64 * int(cl.group(1))}, "
+                       f"{16 * int(cl.group(2))} rows per cluster"
+                       if cl else "")
                 info = [x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
@@ -268,6 +285,13 @@ def phase_build() -> None:
                            r"\bH(?:G)?MMA\b", "head-dim", 4)
     check_tensor_core_sass(paths["conv_bn_stats"], CONV_TC_KERNELS,
                            r"\bHGMMA\b", "(taps, BN)", 4)
+    check_tensor_core_sass(paths["lstm_recurrence"], LSTM_TC_KERNELS,
+                           r"\bHMMA\b", "(H, rows)", 6)
+    # paged attention's 8-row tiles under bf16 queries (pools bf16 or fp8,
+    # head_dim 32, 64, 96, 128: template arguments 1-4 and rows 8)
+    check_tensor_core_sass(paths["paged_attention"], PAGED_TC_KERNELS,
+                           r"\bHMMA\b", "(pool, head_dim)", 8,
+                           select=r"kernelI13__nv_bfloat16.*?Li[1234]ELi8EE")
 
 
 #: the bf16 flash-attention kernels, which must run on the tensor cores
@@ -275,14 +299,22 @@ FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                     "flash_bwd_dq_tc_kernel")
 #: the bf16 conv + BN-stats route that must issue wgmma (HGMMA in SASS)
 CONV_TC_KERNELS = ("conv_bn_stats_tc_kernel",)
+#: the LSTM backward's cluster route, whose dh and gate products must run
+#: on the tensor cores (HMMA in SASS)
+LSTM_TC_KERNELS = ("lstm_bwd_cluster_kernel",)
+#: the paged-attention kernel, whose multi-row bf16 tiles must run on the
+#: tensor cores
+PAGED_TC_KERNELS = ("paged_attention_kernel",)
 
 
 def check_tensor_core_sass(lib_path: str, kernels, pattern: str, per: str,
-                           instances: int) -> None:
+                           instances: int, select: str = "") -> None:
     """``cuobjdump -sass`` of a built library: each of the ``instances``
-    instantiations of every kernel in ``kernels`` must hold tensor-core
-    instructions matching ``pattern`` (``HMMA``/``HGMMA`` for flash
-    attention, ``HGMMA`` for the conv route), or the run fails."""
+    instantiations of every kernel in ``kernels`` (those whose mangled name
+    matches ``select``, where given) must hold tensor-core instructions
+    matching ``pattern`` (``HMMA``/``HGMMA`` for flash attention, ``HGMMA``
+    for the conv route, ``HMMA`` for the LSTM and paged-attention routes),
+    or the run fails."""
     from deeplearning4j_tpu_torch.ops import native
 
     tool = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
@@ -292,7 +324,7 @@ def check_tensor_core_sass(lib_path: str, kernels, pattern: str, per: str,
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0].strip()
         kernel = next((k for k in kernels if k in name), None)
-        if kernel is not None:
+        if kernel is not None and re.search(select, name):
             counts.setdefault(kernel, []).append(
                 len(re.findall(pattern, fn)))
     for kernel in kernels:
@@ -305,64 +337,11 @@ def check_tensor_core_sass(lib_path: str, kernels, pattern: str, per: str,
 
 
 # ---------------------------------------------------------------- kernel
-#: (pool kind, query dtype) of the paged-attention checks: float pools in
-#: the query's dtype, or fp8 pools with f32 scale planes under f32 or
-#: bf16 queries
-KINDS = {"f32": ("float", torch.float32), "bf16": ("float", torch.bfloat16),
-         "fp8-f32": ("fp8", torch.float32),
-         "fp8-bf16": ("fp8", torch.bfloat16)}
 #: tolerance against the plain version run at f32 on the same (dequantized)
-#: values: f32 queries 1e-5, bf16 queries 2e-2 (the bf16 output rounding)
+#: values, by the kinds of ``tools/attention_probe.py`` (pool kind and
+#: query dtype): f32 queries 1e-5, bf16 queries 2e-2 (the bf16 output
+#: rounding)
 KIND_TOL = {"f32": 1e-5, "bf16": 2e-2, "fp8-f32": 1e-5, "fp8-bf16": 2e-2}
-
-
-def kernel_case(Q: int, kind: str, seed: int, full: bool = False,
-                N: int = SLOTS, qbase=None):
-    """Pools [L, n_pages, H, ps, hd] (fp8 kinds: quantized per page and
-    head with the port's helpers, plus the scale planes), queries and
-    page tables at the slice's shapes. With ``qbase`` given, N rows of
-    32 distinct pages each query from that position (the prefix-prefill
-    shape at N=1). Mixed case: rows 0-1 share their first four pages (a
-    shared prompt prefix), rows 2-3 end in null-page tails, row 0 attends
-    at full context and row 1 at position 0. Full case: every row owns 32
-    distinct pages and attends at full context (the steady state of the
-    timing)."""
-    from deeplearning4j_tpu_torch.nn.precision import fp8_scale, quantize_fp8
-
-    pool, qdtype = KINDS[kind]
-    dev = torch.device(DEVICE)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    n_pages = 1 + SLOTS * PAGES_PER_SLOT
-    shape = (LAYERS, n_pages, HEADS, PAGE, HEAD_DIM)
-    kv = {}
-    for n in ("k", "v"):
-        x = torch.randn(shape, generator=g, device=dev)
-        if pool == "fp8":
-            sc = fp8_scale(x.abs().amax(dim=(3, 4)))
-            kv[n], kv[n + "_scale"] = quantize_fp8(x, sc[..., None, None]), sc
-        else:
-            kv[n] = x.to(qdtype)
-    q = torch.randn(N, HEADS, Q, HEAD_DIM, generator=g,
-                    device=dev).to(qdtype)
-    tables = 1 + np.arange(N * PAGES_PER_SLOT, dtype=np.int32) \
-        .reshape(N, PAGES_PER_SLOT)
-    full_pos = PAGES_PER_SLOT * PAGE - Q
-    if qbase is not None:
-        qbase = np.full((N,), qbase, np.int32)
-    elif full:
-        qbase = np.full((N,), full_pos, np.int32)
-    else:
-        rng = np.random.default_rng(seed)
-        tables[1, :4] = tables[0, :4]
-        real = {2: 5, 3: 1}
-        for n, r in real.items():
-            tables[n, r:] = 0
-        qbase = rng.integers(0, full_pos + 1, N).astype(np.int32)
-        qbase[0], qbase[1] = full_pos, 0
-        for n, r in real.items():
-            qbase[n] = rng.integers(0, max(1, r * PAGE - Q + 1))
-    return (q, kv, torch.from_numpy(tables).to(dev),
-            torch.from_numpy(qbase).to(dev))
 
 
 def f32_tree(kv):
@@ -478,32 +457,43 @@ def time_row(name: str, label: str, q, kv, tables, qbase,
     """The kernel's time at one shape beside its plain version's, the
     library yardstick's and the bound; launches cycle over the 12 layers
     (151 MB of float pools, more than the 50 MB L2) so each one reads its
-    pages from HBM as the serving path does."""
+    pages from HBM as the serving path does. Two calls must be bit-equal.
+    Then the profiler's device time per call and the host's cost per call
+    (``tools/attention_probe.py``)."""
     from deeplearning4j_tpu_torch.ops import paged_attention as pa
+    from deeplearning4j_tpu_torch.tools import attention_probe as ap
 
+    a = pa.paged_attention_kernel(q, kv, 0, tables, qbase)
+    b = pa.paged_attention_kernel(q, kv, 0, tables, qbase)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{label}: two kernel calls differ")
+    plan = ap.plan_of(q, kv, tables)
     lib = library_attention(q, kv, 0, tables, qbase)
     ref = pa.paged_attention_reference(q.float(), f32_tree(kv), 0, tables,
                                        qbase)
     lib_err = float((lib.float() - ref).abs().max())
     iters = 240
-    kern_ms = cuda_ms(lambda i: pa.paged_attention_kernel(
-        q, kv, i % LAYERS, tables, qbase), iters)
+
+    def kernel(i):
+        pa.paged_attention_kernel(q, kv, i % LAYERS, tables, qbase)
+
+    kern_ms = cuda_ms(kernel, iters)
     plain_ms = cuda_ms(lambda i: pa.paged_attention_reference(
         q, kv, i % LAYERS, tables, qbase), iters)
     lib_ms = cuda_ms(lambda i: library_attention(
         q, kv, i % LAYERS, tables, qbase), iters)
-    kern_ms2 = cuda_ms(lambda i: pa.paged_attention_kernel(
-        q, kv, i % LAYERS, tables, qbase), iters)
+    kern_ms2 = cuda_ms(kernel, iters)
     bound_ms, bound_by, nbytes, flops = attention_bound(q, kv, tables, qbase)
-    say("kernel", f"{label}: kernel {kern_ms:.4f} / {kern_ms2:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library (yardstick the port never "
-                  f"calls; max abs err {lib_err:.3e} vs the reference) "
-                  f"{lib_ms:.4f} ms")
+    say("kernel", f"{label}: kernel {kern_ms:.4f} / {kern_ms2:.4f} ms "
+                  f"({plan}), plain {plain_ms:.4f} ms, library (yardstick "
+                  f"the port never calls; max abs err {lib_err:.3e} vs the "
+                  f"reference) {lib_ms:.4f} ms")
     peak = "989 TFLOP/s bf16" if q.dtype == torch.bfloat16 \
         else "67 TFLOP/s f32"
     say("kernel", f"  bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B at "
                   f"3.35 TB/s, {flops} flop at {peak}); kernel at "
                   f"{nbytes / (min(kern_ms, kern_ms2) * 1e-3) / 1e9:.1f} GB/s")
+    say_times(q, kv, tables, qbase)
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
             "replaces": "deeplearning4j_tpu/ops/paged_attention_pallas.py:203",
@@ -513,51 +503,132 @@ def time_row(name: str, label: str, q, kv, tables, qbase,
             "library_ms": lib_ms}
 
 
+def say_times(q, kv, tables, qbase) -> None:
+    """The profiler's device time, the event time and the host's cost per
+    call at one shape (``tools/attention_probe.py``'s ``shape_times``)."""
+    from deeplearning4j_tpu_torch.tools import attention_probe as ap
+
+    r = ap.shape_times(q, kv, tables, qbase)
+    say("kernel", f"  event {r['event_ms'] * 1e3:.1f} us per call, device "
+                  f"{r['device_us']:.1f} us per call (profiler, "
+                  f"{r['traced']} of 48 launches traced), host "
+                  f"{r['host_us']:.1f} us per wrapper call, the C entry "
+                  f"alone {r['c_entry_us']:.1f} us")
+
+
+def check_warp_counts() -> dict:
+    """The kernel at every warp count a block takes (1-8 where their rings
+    fit one block's shared memory, so warps that get no chunk, and warps
+    whose chunks a tile's early rows cannot see),
+    at a mixed decode case (shared pages, null-page tails, qbase 0 and
+    full context) and a two-tile verify case, in every pool kind, against
+    the plain version at f32; at the planned count it must equal the
+    wrapper's output bit for bit. Returns the largest error by pool kind
+    ("float", "fp8")."""
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+    from deeplearning4j_tpu_torch.tools import attention_probe as ap
+
+    worst = {"float": 0.0, "fp8": 0.0}
+    for Q in (1, 9):
+        for kind in ap.KINDS:
+            q, kv, tables, qbase = ap.kernel_case(Q, kind, seed=30 + Q)
+            layer = LAYERS // 2
+            want = pa.paged_attention_reference(q.float(), f32_tree(kv),
+                                                layer, tables, qbase)
+            plan = ap.plan_of(q, kv, tables)
+            wrapped = pa.paged_attention_kernel(q, kv, layer, tables, qbase)
+            rows = 1 if Q == 1 else 8
+            for warps in (w for w in range(1, 9) if pa.block_smem(
+                    rows, HEAD_DIM, kv["k"].element_size(), tables.shape[1],
+                    w) <= pa.SMEM_PER_SM - 1024):
+                ints = pa.pack_ints(q, kv["k"], tables,
+                                    plan._replace(warps=warps), 0,
+                                    "k_scale" in kv)
+                got = pa.launch(q, kv, layer, tables, qbase, 0, ints)
+                err = float((got.float() - want).abs().max())
+                check(err <= KIND_TOL[kind],
+                      f"Q={Q} {kind} at {warps} warps: {err:.3e} > "
+                      f"{KIND_TOL[kind]:g}")
+                check(warps != plan.warps or torch.equal(got, wrapped),
+                      f"Q={Q} {kind}: the wrapper's call differs from a "
+                      f"launch at its planned {warps} warps")
+                pool = "fp8" if kind.startswith("fp8") else "float"
+                worst[pool] = max(worst[pool], err)
+    torch.cuda.synchronize()
+    say("kernel", f"1-8 warps per block where they fit (Q 1 and 9; f32, "
+                  f"bf16, fp8 under "
+                  f"bf16 and f32 queries): max abs err {worst['float']:.3e} "
+                  f"(float pools), {worst['fp8']:.3e} (fp8 pools)")
+    return worst
+
+
 def phase_kernel() -> dict:
     """Every shape the serving paths give the kernel, then its times at
     the decode (float and fp8 pools), verify and prefix shapes. Returns
     the kernel rows by name."""
+    from deeplearning4j_tpu_torch.tools import attention_probe as ap
+
     errs = {"float": 0.0, "fp8": 0.0, "verify": 0.0, "prefix": 0.0}
+    # the largest error by kind on single rows (the CUDA cores) and 8-row
+    # tiles (under bf16 queries up to head_dim 128, the tensor cores, with
+    # the probabilities and fp8's dequantized K and V rounded to bf16)
+    by_path = {}
+
+    def note(kind, Q, err):
+        key = (kind, "1-row" if Q == 1 else "8-row")
+        by_path[key] = max(by_path.get(key, 0.0), err)
+
     # decode: N=8, Q=1 (and the old Q=4 case), float and fp8 pools
-    for kind in KINDS:
+    for kind in ap.KINDS:
         for Q in ((1, 4) if kind in ("f32", "bf16") else (1,)):
             for full in (False, True):
-                args = kernel_case(Q, kind, seed=Q, full=full)
+                args = ap.kernel_case(Q, kind, seed=Q, full=full)
                 err = check_kernel(f"decode N={SLOTS} Q={Q} "
                                    f"{'full' if full else 'mixed'}", kind,
                                    *args)
                 key = "fp8" if kind.startswith("fp8") else "float"
                 errs[key] = max(errs[key], err)
+                note(kind, Q, err)
     # verify: N=8, Q = k + 1 for k in {2, 4, 8}
     for Q in (3, 5, 9):
-        for kind in KINDS:
+        for kind in ap.KINDS:
             err = check_kernel(f"verify N={SLOTS} Q={Q}", kind,
-                               *kernel_case(Q, kind, seed=10 + Q))
+                               *ap.kernel_case(Q, kind, seed=10 + Q))
             errs["verify"] = max(errs["verify"], err)
+            note(kind, Q, err)
     # prefix prefill: N=1, Q = the suffix bucket, page-aligned and mid-page
     for Q, bases in PREFIX_QBASE.items():
         for qb in bases:
-            for kind in KINDS:
+            for kind in ap.KINDS:
                 err = check_kernel(f"prefix N=1 Q={Q} qbase={qb}", kind,
-                                   *kernel_case(Q, kind, seed=20 + Q, N=1,
-                                                qbase=qb))
+                                   *ap.kernel_case(Q, kind, seed=20 + Q, N=1,
+                                                   qbase=qb))
                 errs["prefix"] = max(errs["prefix"], err)
+                note(kind, Q, err)
+    say("kernel", "max abs err by kind and tile: " + ", ".join(
+        f"{kind} {rows} {err:.3e} (of {KIND_TOL[kind]:g})"
+        for (kind, rows), err in sorted(by_path.items())))
+    for pool, err in check_warp_counts().items():
+        errs[pool] = max(errs[pool], err)
     rows = {}
     rows["paged_attention"] = time_row(
         "paged_attention", f"decode N={SLOTS} H={HEADS} Q=1 hd={HEAD_DIM} "
         f"ps={PAGE} P={PAGES_PER_SLOT} bf16, full context",
-        *kernel_case(1, "bf16", seed=7, full=True), errs["float"])
+        *ap.kernel_case(1, "bf16", seed=7, full=True), errs["float"])
     rows["paged_attention_fp8"] = time_row(
         "paged_attention_fp8", f"decode N={SLOTS} Q=1 fp8 pools, bf16 "
-        f"queries, full context", *kernel_case(1, "fp8-bf16", seed=8,
-                                               full=True), errs["fp8"])
+        f"queries, full context", *ap.kernel_case(1, "fp8-bf16", seed=8,
+                                                  full=True), errs["fp8"])
     rows["paged_attention_verify"] = time_row(
         "paged_attention_verify", f"verify N={SLOTS} Q=5 bf16, full context",
-        *kernel_case(5, "bf16", seed=9, full=True), errs["verify"])
+        *ap.kernel_case(5, "bf16", seed=9, full=True), errs["verify"])
     rows["paged_attention_prefix"] = time_row(
         "paged_attention_prefix", "prefix N=1 Q=128 qbase=287 bf16 (a "
-        "resumed second turn)", *kernel_case(128, "bf16", seed=11, N=1,
-                                             qbase=287), errs["prefix"])
+        "resumed second turn)", *ap.kernel_case(128, "bf16", seed=11, N=1,
+                                                qbase=287), errs["prefix"])
+    say("kernel", f"decode N={SLOTS} Q=1 f32 pools (the f32 engine's "
+                  f"shape), full context:")
+    say_times(*ap.kernel_case(1, "f32", seed=12, full=True))
     return rows
 
 
@@ -1784,15 +1855,42 @@ def phase_lstm_kernels() -> tuple:
     ys, hT, cT, cs = lr.lstm_recurrence_fwd(x_proj, w_hh, h0, c0,
                                             collect_cell=True)
     fwd_plan = lr.last_plan
-    lr.lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys)
+    check(lr.bwd_route(x_proj, w_hh, h0, ys) == "cluster",
+          "the training shape must take the backward's cluster route")
+    got = lr.lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys)
     bwd_plan = lr.last_plan
+    again = lr.lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys)
+    first = lr.lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys,
+                                   route="grid")
+    grid_plan = lr.last_plan
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "two cluster-route backward calls differ")
+    ref = lr.lstm_recurrence_backward_reference(
+        *(t.float() for t in (x_proj, w_hh, h0, c0, ys, cs, dys)))
+    line = []
+    for name, a, b, c in zip(("dx_proj", "dw_hh", "dh0", "dc0"), got, first,
+                             ref):
+        scale = float(c.abs().max())
+        e_cl = float((a.float() - c).abs().max()) / scale
+        e_gr = float((b.float() - c).abs().max()) / scale
+        check(e_cl <= 2e-2 and e_gr <= 2e-2,
+              f"LSTM backward {name} at the training shape: cluster "
+              f"{e_cl:.3e}, grid {e_gr:.3e} of max |grad| > 0.02")
+        line.append(f"{name} {e_cl:.2e} / {e_gr:.2e}")
+    say("lstm", f"backward at T={T} N={N} H={H} bf16, err / max |grad|, "
+                f"cluster route / first (grid) design: {', '.join(line)}; "
+                f"two cluster-route calls bit-equal")
     iters = 20
 
     def kernels():
         return (cuda_ms(lambda i: lr.lstm_recurrence_fwd(
                     x_proj, w_hh, h0, c0, collect_cell=True), iters, 3),
                 cuda_ms(lambda i: lr.lstm_recurrence_bwd(
-                    x_proj, w_hh, h0, c0, ys, cs, dys), iters, 3))
+                    x_proj, w_hh, h0, c0, ys, cs, dys), iters, 3),
+                cuda_ms(lambda i: lr.lstm_recurrence_bwd(
+                    x_proj, w_hh, h0, c0, ys, cs, dys, route="grid"),
+                    iters, 3))
 
     kern1 = kernels()
     plain = (cuda_ms(lambda i: lr.lstm_recurrence_reference(
@@ -1801,6 +1899,9 @@ def phase_lstm_kernels() -> tuple:
                  x_proj, w_hh, h0, c0, ys, cs, dys), 3, 1))
     lib, port_layer = lstm_yardstick(x_proj.shape, iters)
     kern2 = kernels()
+    say("lstm", f"B5 bwd, first (grid) design at T={T} N={N} H={H} bf16 "
+                f"(plan {grid_plan}), in turns with the cluster route: "
+                f"{kern1[2]:.4f} / {kern2[2]:.4f} ms")
     rows = []
     for j, (name, err, plan) in enumerate((("B5", fwd_err, fwd_plan),
                                            ("B5 bwd", bwd_err, bwd_plan))):

@@ -58,6 +58,45 @@
 // against 53.7 GFLOP (54 us). These kernels do their arithmetic on the CUDA
 // cores in f32 (67 TFLOP/s) and pay one grid barrier (a few us) per step, so
 // both sit far above those bounds.
+//
+// The backward's cluster route (namespace cl; bf16, H in {64, 128, 256}, the
+// training path). The design above spends ~34 us a step at the training
+// shape: it recomputes the gates on the chain, waits at a grid-wide barrier,
+// and streams every da row through shared memory for 8 units. But the batch
+// rows of an LSTM never exchange anything, so:
+// - A cluster of H / 32 blocks owns 16 batch rows and all H units; a block
+//   owns 32 units (128 gate columns). Clusters never wait on each other, so
+//   the launch (cudaLaunchKernelEx with a cluster dimension) needs no
+//   co-residency and there is no grid barrier. Where the card cannot hold all
+//   the 16-row clusters at once (cudaOccupancyMaxActiveClusters: 15 clusters
+//   of 8 on the H100, against 16 at N = 256), a cluster owns 32 rows instead,
+//   two m16 tiles: one wave of 8 clusters rather than two waves of 16.
+// - dh_{t-1} = da_t w_hh^T is split by columns: each block forms the partial
+//   product of its 128 da columns with all H rows of w_hh ([16, H], f32) on
+//   the tensor cores (mma.sync m16n8k16), puts it in its own shared memory,
+//   arrives at barrier.cluster (release), and after the wait (acquire) sums
+//   the H / 32 partials of its own 32 units over DSMEM (mapa +
+//   ld.shared::cluster) in rank order, so two calls are bit-equal. Partials
+//   alternate between two slots: a peer may still read step t's slot while
+//   this block writes step t-1's. (Storing each share into its owner's
+//   shared memory instead was measured slower: the arrive's release then
+//   waits for the remote stores.) w_hh is exact in bf16; the f32 da is split
+//   into three bf16 terms (hi + mid + lo, 24 bits), whose three products are
+//   accumulated in f32: the reference's f32 da @ w_hh^T to about f32 rounding.
+//   The block's B fragments of w_hh live in registers for all T.
+// - The gate recompute h_{t-2} w_hh for step t-1 depends only on forward
+//   outputs, so it runs between the arrive and the wait, on the tensor cores,
+//   from the block's columns of w_hh resident in shared memory and an h tile
+//   prefetched one step ahead by cp.async; the cell-update inputs of step t-1
+//   (x_proj, dys, cs) are loaded into registers there too.
+// - The cell update stays in f32 registers, in the __fmul_rn / __fadd_rn
+//   order of the kernel above, one thread per (2 or 4 rows, unit). da goes to
+//   global memory once per step in f32 (the caller's weight gradient) and in
+//   bf16 (d x_proj), after the arrive, so that the barrier's release does not
+//   wait for those stores. Rows past N are zero and never stored.
+// What is left on its chain per step: the cell update, one __syncthreads, the
+// partial product (96 mma per warp and m16 tile at H = 256), the cluster
+// barrier and 2 x H / 32 DSMEM loads per thread and m16 tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -452,6 +491,450 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(Args a) {
   }
 }
 
+// ------------------------------------------------- backward, cluster route
+namespace cl {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kRows = 16;         // batch rows per cluster: one m16 tile
+constexpr int kUnits = 32;        // hidden units per block
+constexpr int kCols = 4 * kUnits; // the block's gate columns
+constexpr int kPadH = 8;          // bf16 row padding (16 bytes: ldmatrix without bank conflicts)
+constexpr int kPadF = 4;          // f32 row padding
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// c += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators. Fragment
+// layout (lane = 4 g + t): c[0], c[1] row g, columns 2t, 2t+1; c[2], c[3] row
+// g + 8; b0 holds k = 2t, 2t+1 of column g, b1 k = 2t+8, 2t+9.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of `addr` (this block's shared memory) in block `rank`
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float bf(const bf16* p) {
+  const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned int>(b) << 16);
+}
+// the raw bits of a bf16 element, and those bits widened to f32 (0 where
+// the row is masked): a load into raw bits is not waited for until the
+// bits are widened, a step later
+__device__ __forceinline__ unsigned short raw(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float widen(unsigned short b, bool ok) {
+  return ok ? __uint_as_float(static_cast<unsigned int>(b) << 16) : 0.0f;
+}
+
+// x = hi + mid + lo in bf16, to within 2^-24 of |x| (each difference is exact)
+__device__ __forceinline__ void split3(float x, bf16* hi, bf16* mid, bf16* lo) {
+  const bf16 h = __float2bfloat16_rn(x);
+  const float r1 = __fsub_rn(x, __bfloat162float(h));
+  const bf16 m = __float2bfloat16_rn(r1);
+  const float r2 = __fsub_rn(r1, __bfloat162float(m));
+  *hi = h;
+  *mid = m;
+  *lo = __float2bfloat16_rn(r2);
+}
+
+// Shared memory, with H = 64 NT, CS = H / 32 blocks per cluster and R = 16
+// MT batch rows per cluster:
+//   wc   [H][kCols + kPadH] bf16   the block's columns of w_hh (gate product B)
+//   hb   [2][R][H + kPadH] bf16    h_{s-1} tiles of the gate product (A)
+//   dsp  [3][R][kCols + kPadH]     da_t split in three bf16 terms (partial product A)
+//   gts  [R][kCols + kPadF] f32    h_{s-1} w_hh for the block's columns
+//   part [2][R][H + kPadF] f32     partial dh over the block's columns, read by the cluster
+__host__ __device__ constexpr size_t smem_bytes(int H, int MT) {
+  return 2 * ((size_t)H * (kCols + kPadH) +
+              (size_t)MT * kRows * (2 * (H + kPadH) + 3 * (kCols + kPadH))) +
+         4 * (size_t)MT * kRows * ((kCols + kPadF) + 2 * (H + kPadF));
+}
+
+// Grid: H / 32 blocks per cluster, one cluster per 16 MT batch rows; 256
+// threads. Warp w forms gate columns [16 w, 16 w + 16) of the gate product and
+// output units [8 NT w, 8 NT (w + 1)) of the partial product, for each of the
+// MT m16 tiles; thread (warp r0, lane u) owns unit u of the block for rows
+// r0 + 8 p, p < 2 MT, in the cell update.
+template <int NT, int MT>
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_cluster_kernel(Args a) {
+  constexpr int H = 64 * NT, H4 = 4 * H, CS = H / kUnits, R = kRows * MT, NP = 2 * MT;
+  constexpr int WP = kCols + kPadH, HP = H + kPadH, GP = kCols + kPadF, PP = H + kPadF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* wc = reinterpret_cast<bf16*>(smem_raw);
+  bf16* hb = wc + H * WP;
+  bf16* dsp = hb + 2 * R * HP;
+  float* gts = reinterpret_cast<float*>(dsp + 3 * R * WP);
+  float* part = gts + R * GP;
+
+  const int N = a.N, steps = a.steps;
+  const int rank = (int)cluster_rank(), row_base = (int)cluster_id() * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int u = lane, r0 = warp, unit = rank * kUnits + u;
+  const bf16* whh = static_cast<const bf16*>(a.whh);
+  const bf16* xp = static_cast<const bf16*>(a.xp);
+  const bf16* ys = static_cast<const bf16*>(a.ys);
+  const bf16* cs = static_cast<const bf16*>(a.cs);
+  const bf16* dys = static_cast<const bf16*>(a.dys);
+  bf16* dxp = static_cast<bf16*>(a.dxp);
+  // column of w_hh behind local gate column lc (gate lc / 32, unit lc % 32)
+  auto col = [&](int lc) { return (lc / kUnits) * H + rank * kUnits + lc % kUnits; };
+
+  // h_{s-1} for the gate product of step s (h0 at s = 0), 16 bytes a copy
+  auto load_h = [&](int s) {
+    const bf16* src = s == 0 ? static_cast<const bf16*>(a.h0) : ys + (size_t)(s - 1) * N * H;
+    bf16* dst = hb + (s & 1) * R * HP;
+    for (int c = threadIdx.x; c < R * H / 8; c += kThreads) {
+      const int r = c / (H / 8), k = (c % (H / 8)) * 8;
+      const bool ok = row_base + r < N;
+      cp16(dst + r * HP + k, src + (size_t)(ok ? row_base + r : 0) * H + k, ok);
+    }
+  };
+  // gts = h_{s-1} w_hh[:, block columns]; warp w forms columns [16 w, 16 w + 16)
+  auto gate_product = [&](int s) {
+    const bf16* pa = hb + (s & 1) * R * HP + (lane & 15) * HP + (lane >> 4) * 8;
+    const bf16* pb = wc + ((lane & 7) + ((lane >> 3) & 1) * 8) * WP + (lane >> 4) * 8 + 16 * warp;
+    float c[MT][2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      unsigned r[4];
+      ldsm4t(r, pb + kk * 16 * WP);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        unsigned af[4];
+        ldsm4(af, pa + m * kRows * HP + kk * 16);
+        mma(c[m][0], af, r[0], r[1]);
+        mma(c[m][1], af, r[2], r[3]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        float* d = gts + (m * kRows) * GP + 16 * warp + 8 * nb + 2 * t4;
+        *reinterpret_cast<float2*>(d + g * GP) = make_float2(c[m][nb][0], c[m][nb][1]);
+        *reinterpret_cast<float2*>(d + (g + 8) * GP) = make_float2(c[m][nb][2], c[m][nb][3]);
+      }
+  };
+
+  // the cell-update inputs of step s for the thread's rows
+  bool ok[NP];
+  size_t rowo[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int row = row_base + r0 + 8 * p;
+    ok[p] = row < N;
+    rowo[p] = ok[p] ? (size_t)row : 0;
+  }
+  // raw bf16 bits, loaded a step ahead (masked rows read row 0 and are
+  // zeroed when widened)
+  unsigned short x[NP][4], dy[NP], ct[NP], cp[NP];
+  auto load_inputs = [&](int s) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const size_t o = ((size_t)s * N + rowo[p]) * H + unit;
+      const size_t ox = ((size_t)s * N + rowo[p]) * H4 + unit;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[p][q] = raw(xp + ox + q * H);
+      dy[p] = raw(dys + o);
+      ct[p] = raw(cs + o);
+      cp[p] = s == 0 ? raw(static_cast<const bf16*>(a.c0) + rowo[p] * H + unit)
+                     : raw(cs + o - (size_t)N * H);
+    }
+  };
+
+  // prologue: w_hh's block columns (shared) and its B fragments of the
+  // partial product (registers), the first h tiles, the first gates
+  for (int c = threadIdx.x; c < H * kCols / 8; c += kThreads) {
+    const int k = c / (kCols / 8), lc = (c % (kCols / 8)) * 8;
+    cp16(wc + k * WP + lc, whh + (size_t)k * H4 + col(lc), true);
+  }
+  load_h(steps - 1);
+  if (steps >= 2) load_h(steps - 2);
+  cp_commit();
+  // B of the partial product: k = local column, n = unit; b0 = w_hh[n, col(k)],
+  // w_hh[n, col(k + 1)] for k = 16 kk + 2 t (b1: k + 8), one 32-bit load each
+  unsigned wb[NT][8][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const unsigned* base =
+        reinterpret_cast<const unsigned*>(whh + (size_t)(8 * (NT * warp + j) + g) * H4);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wb[j][kk][0] = __ldg(base + col(16 * kk + 2 * t4) / 2);
+      wb[j][kk][1] = __ldg(base + col(16 * kk + 2 * t4 + 8) / 2);
+    }
+  }
+  float dh[NP], dc[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const size_t o = rowo[p] * H + unit;
+    dh[p] = (ok[p] && a.dhT != nullptr) ? bf(static_cast<const bf16*>(a.dhT) + o) : 0.0f;
+    dc[p] = (ok[p] && a.dcT != nullptr) ? bf(static_cast<const bf16*>(a.dcT) + o) : 0.0f;
+  }
+  load_inputs(steps - 1);
+  cp_wait_all();
+  __syncthreads();
+  gate_product(steps - 1);
+  __syncthreads();
+
+  const unsigned part_u32 = smem_u32(part);
+  for (int t = steps - 1; t >= 0; --t) {
+    // 1. the cell update of step t, in f32 registers; da into the split tiles
+    float da[NP][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int r = r0 + 8 * p;
+      const float* gr = gts + r * GP + u;
+      const float gi = sigmoidf(gr[0] + widen(x[p][0], ok[p]));
+      const float gf = sigmoidf(gr[kUnits] + widen(x[p][1], ok[p]));
+      const float gg = tanhf(gr[2 * kUnits] + widen(x[p][2], ok[p]));
+      const float go = sigmoidf(gr[3 * kUnits] + widen(x[p][3], ok[p]));
+      dh[p] = __fadd_rn(dh[p], widen(dy[p], ok[p]));
+      const float tc = tanhf(widen(ct[p], ok[p]));
+      const float d_o = __fmul_rn(dh[p], tc);
+      dc[p] = __fadd_rn(dc[p], __fmul_rn(__fmul_rn(dh[p], go), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+      const float d_i = __fmul_rn(dc[p], gg), d_f = __fmul_rn(dc[p], widen(cp[p], ok[p]));
+      const float d_g = __fmul_rn(dc[p], gi);
+      da[p][0] = __fmul_rn(__fmul_rn(d_i, gi), __fsub_rn(1.0f, gi));
+      da[p][1] = __fmul_rn(__fmul_rn(d_f, gf), __fsub_rn(1.0f, gf));
+      da[p][2] = __fmul_rn(d_g, __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+      da[p][3] = __fmul_rn(__fmul_rn(d_o, go), __fsub_rn(1.0f, go));
+      dc[p] = __fmul_rn(dc[p], gf);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!ok[p]) da[p][q] = 0.0f;
+        bf16* d = dsp + r * WP + q * kUnits + u;
+        split3(da[p][q], d, d + R * WP, d + 2 * R * WP);
+      }
+    }
+    cp_wait_all();  // the h tile of the next gate product
+    __syncthreads();
+
+    // 2. this block's partial of dh_{t-1} = da_t w_hh^T, into slot t & 1
+    {
+      // with one m16 tile, even and odd k steps in two accumulators (more
+      // mma chains in flight), summed at the end
+      constexpr int KS = MT == 1 ? 2 : 1;
+      float acc[KS][MT][NT][4] = {};
+      const bf16* pa = dsp + (lane & 15) * WP + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          unsigned af[3][4];
+#pragma unroll
+          for (int s = 0; s < 3; ++s) ldsm4(af[s], pa + (s * R + m * kRows) * WP + kk * 16);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int s = 2; s >= 0; --s)
+              mma(acc[kk % KS][m][j], af[s], wb[j][kk][0], wb[j][kk][1]);
+        }
+      float* slot = part + (t & 1) * R * PP;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float c[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[i] = KS == 2 ? acc[0][m][j][i] + acc[KS - 1][m][j][i]
+                                                     : acc[0][m][j][i];
+          float* d = slot + (m * kRows) * PP + 8 * (NT * warp + j) + 2 * t4;
+          *reinterpret_cast<float2*>(d + g * PP) = make_float2(c[0], c[1]);
+          *reinterpret_cast<float2*>(d + (g + 8) * PP) = make_float2(c[2], c[3]);
+        }
+    }
+    cluster_arrive();
+
+    // 3. off the chain: da to global memory (after the arrive, so that its
+    // release need not wait for these stores), step t-1's gates and inputs,
+    // step t-2's h tile
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      if (!ok[p]) continue;
+      const size_t ox = ((size_t)t * N + rowo[p]) * H4 + unit;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a.da[ox + q * H] = da[p][q];
+        dxp[ox + q * H] = __float2bfloat16_rn(da[p][q]);
+      }
+    }
+    if (t > 0) {
+      load_inputs(t - 1);
+      gate_product(t - 1);
+      if (t >= 2) {
+        load_h(t - 2);
+        cp_commit();
+      }
+    }
+    cluster_wait();
+
+    // 4. dh_{t-1} for the thread's unit: the cluster's partials in rank order
+    {
+      const unsigned slot = part_u32 + (unsigned)((t & 1) * R * PP) * 4u;
+      float v[CS][NP];
+#pragma unroll
+      for (int q = 0; q < CS; ++q)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          v[q][p] = ld_cluster(map_rank(slot + (unsigned)((r0 + 8 * p) * PP + unit) * 4u, q));
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float s = v[0][p];
+#pragma unroll
+        for (int q = 1; q < CS; ++q) s = __fadd_rn(s, v[q][p]);
+        dh[p] = s;
+      }
+    }
+    __syncthreads();  // the gates of step t-1 before its cell update
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    if (!ok[p]) continue;
+    const size_t o = rowo[p] * H + unit;
+    static_cast<bf16*>(a.dh0)[o] = __float2bfloat16_rn(dh[p]);
+    static_cast<bf16*>(a.dc0)[o] = __float2bfloat16_rn(dc[p]);
+  }
+  // no block leaves while a peer may still read its partials
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The clusters of cluster route instance (NT, MT) that the card holds at
+// once, with its shared-memory opt-in set first; per device, once.
+template <int NT, int MT>
+cudaError_t active_clusters(int dev, int* clusters) {
+  constexpr int CS = 64 * NT / kUnits;
+  static std::mutex mu;
+  static std::map<int, int> active;
+  const std::lock_guard<std::mutex> lock(mu);
+  auto it = active.find(dev);
+  if (it == active.end()) {
+    auto fn = lstm_bwd_cluster_kernel<NT, MT>;
+    const size_t smem = smem_bytes(64 * NT, MT);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CS);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // leave no stale error for a later launch's check
+      return err;
+    }
+    it = active.emplace(dev, n).first;
+  }
+  *clusters = it->second;
+  return cudaSuccess;
+}
+
+template <int NT, int MT>
+cudaError_t launch_mt(const Args& a, cudaStream_t stream, int clusters, int* plan_out) {
+  constexpr int CS = 64 * NT / kUnits;
+  const size_t smem = smem_bytes(64 * NT, MT);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS * ((a.N + kRows * MT - 1) / (kRows * MT)));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (plan_out != nullptr) {
+    plan_out[0] = (int)cfg.gridDim.x;
+    plan_out[1] = CS;
+    plan_out[2] = kRows * MT;
+    plan_out[3] = (int)smem;
+    plan_out[4] = clusters;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<NT, MT>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// 16 batch rows per cluster while the card holds all the clusters at once,
+// else 32 (one wave of half as many clusters rather than two)
+template <int NT>
+cudaError_t launch(const Args& a, cudaStream_t stream, int* plan_out) {
+  int dev = 0, one = 0, two = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = active_clusters<NT, 1>(dev, &one);
+  if (err == cudaSuccess) err = active_clusters<NT, 2>(dev, &two);
+  if (err != cudaSuccess) return err;
+  if (one < 1 && two < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (a.N + kRows - 1) / kRows;
+  if (one >= 1 && (tiles <= one || two < 1))
+    return launch_mt<NT, 1>(a, stream, one, plan_out);
+  return launch_mt<NT, 2>(a, stream, two, plan_out);
+}
+
+}  // namespace cl
+
 // ---------------------------------------------------------------- launch plan
 template <typename T, int RB, bool BWD>
 const void* kernel_ptr() {
@@ -591,12 +1074,24 @@ int dl4j_lstm_fwd(int is_bf16, const void* xp, const void* whh, const void* h0, 
 // forward (with the cell stream); dys [T, N, H]; dhT and dcT [N, H] or null
 // (zero). da [T, N, 4H] f32 (d x_proj in f32), dh0 and dc0 [N, H] are written,
 // and dxp [T, N, 4H] in the storage type unless it is null (f32, where da is
-// d x_proj itself).
-int dl4j_lstm_bwd(int is_bf16, const void* xp, const void* whh, const void* h0, const void* c0,
-                  const void* ys, const void* cs, const void* dys, const void* dhT,
-                  const void* dcT, void* dxp, void* da, void* dh0, void* dc0, void* bar,
-                  int steps, int N, int H, int* plan_out, void* stream) {
-  if (bad_shape(steps, N, H) || cs == nullptr) return (int)cudaErrorInvalidValue;
+// d x_proj itself). route 0 is the cooperative grid design (bar: two zeroed
+// uint32), route 1 the cluster route, which takes bf16 with H in {64, 128,
+// 256} and 16-byte aligned whh, ys and h0, and refuses anything else.
+// plan_out receives {blocks, rows per thread, chunk, shared bytes, blocks per
+// SM} (route 0) or {blocks, cluster size, rows per cluster, shared bytes,
+// clusters the card holds at once} (route 1).
+int dl4j_lstm_bwd(int is_bf16, int route, const void* xp, const void* whh, const void* h0,
+                  const void* c0, const void* ys, const void* cs, const void* dys,
+                  const void* dhT, const void* dcT, void* dxp, void* da, void* dh0, void* dc0,
+                  void* bar, int steps, int N, int H, int* plan_out, void* stream) {
+  if (bad_shape(steps, N, H) || cs == nullptr || route < 0 || route > 1)
+    return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(whh) | reinterpret_cast<uintptr_t>(ys) |
+                           reinterpret_cast<uintptr_t>(h0)) & 15) == 0;
+    if (!is_bf16 || !aligned || (H != 64 && H != 128 && H != 256) || dxp == nullptr)
+      return (int)cudaErrorInvalidValue;
+  }
   Args a{};
   a.xp = xp;
   a.whh = whh;
@@ -616,6 +1111,13 @@ int dl4j_lstm_bwd(int is_bf16, const void* xp, const void* whh, const void* h0, 
   a.N = N;
   a.H = H;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    switch (H) {
+      case 64: return (int)cl::launch<1>(a, s, plan_out);
+      case 128: return (int)cl::launch<2>(a, s, plan_out);
+      default: return (int)cl::launch<4>(a, s, plan_out);
+    }
+  }
   return (int)(is_bf16 ? launch<__nv_bfloat16, true>(a, s, plan_out)
                        : launch<float, true>(a, s, plan_out));
 }

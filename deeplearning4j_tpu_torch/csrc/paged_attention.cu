@@ -13,23 +13,33 @@
 // tables[n, p], h] for fp8 pools). Same formula as the plain version
 // paged_attention_reference() in ops/paged_attention.py.
 //
-// Design (simple and correct first):
-// - Grid (N * H, query tiles). A tile holds up to 32 query rows, so any Q runs:
-//   the decode step (Q = 1), the speculative verify (Q = k + 1) and the
+// Design:
+// - One block per (sequence, head, query tile of 1 row at Q = 1, else 8), so any
+//   Q runs: the decode step (Q = 1), the speculative verify (Q = k + 1) and the
 //   prefix-prefill suffix (Q = the suffix bucket, up to max_context) alike. The
 //   TPU kernel's sequential page grid dimension is a loop inside the block; the
-//   block reads tables[n, p] itself and walks only the pages its last row can
-//   see, (qbase + last row) / page_size + 1, which is exact: later pages are
-//   masked for every row of the tile.
-// - A tile of whole K/V pages [tile_pages * page_size, head_dim] is staged in
-//   shared memory, widened to f32, with 16-byte vector loads from the pool: four
-//   f32, eight bf16 or sixteen fp8 elements per load. fp8 pages are dequantised
-//   as they are staged, each element times its page-and-head scale in f32 (the
-//   Pallas kernel's k_ref.astype(f32) * ks), so HBM traffic stays fp8.
-// - One warp per query row; lanes split head_dim (lane owns d = lane + 32 * c),
-//   scores are reduced with warp shuffles. Online-softmax m, l and the context
-//   accumulator stay in registers in f32; the output is acc / l cast to the
-//   query's type.
+//   block reads its sequence's page-table row into shared memory and walks only
+//   the keys its last row can see, which is exact: later keys are masked for
+//   every row of the tile.
+// - Every warp shares the block's keys, even at Q = 1: the warps take the
+//   visible keys' 32-key chunks in turn, each through its own two-stage
+//   cp.async ring of whole key rows in the pool's storage type (16 bytes a copy,
+//   the K and V scales of fp8 pages by 4-byte copies), so loads overlap the math.
+//   Rows are widened in registers (fp8 times its scale) as they are read.
+// - A single row (decode), f32 queries and head widths past 128 run on the CUDA
+//   cores: lane j scores key j against every row of the tile, so a score needs
+//   no shuffles, and the probabilities go through shared memory to the context
+//   product, where lane j owns dims j + 32 c. Tiles of 8 rows under bf16 queries
+//   (verify, prefix) at head widths up to 128 run both products on the tensor
+//   cores (mma.sync m16n8k16 through ldmatrix, rows 8-15 of the m16 tile zero,
+//   the online softmax on the C fragments); fp8 chunks are dequantized to bf16
+//   in shared memory first. That path rounds the probabilities, and fp8 pools'
+//   dequantized K and V, to bf16 before the products, where the Pallas kernel
+//   keeps f32: within the bf16 output's 2e-2 contract, not exact.
+// - Online-softmax m, l and the context accumulator stay in f32. The warps'
+//   states merge in shared memory in warp order, so two calls are bit-equal. A
+//   warp that saw no key of a row (l = 0) weighs exactly 0 there, without an exp
+//   of a -FLT_MAX difference.
 // - Masked lanes contribute an explicit zero (paged_attention_pallas.py:154-157):
 //   without it an all-masked chunk would add exp(0) = 1 per lane.
 //
@@ -37,11 +47,7 @@
 // page_size 16 and 512 positions of context in bf16, one layer call must read
 // 8 * 32 * 12 * 16 * 64 * 2 B * 2 = 12.6 MB, about 3.8 us at 3.35 TB/s (half of
 // that for fp8 pools); the arithmetic (4 flops per key and head element) is far
-// below the f32 rate. N * H = 96 blocks do not fill the card's 132 SMs, and the
-// page loads are not overlapped with compute, so the decode call is set by
-// latency, not bytes. Splitting a sequence's pages over several blocks
-// (flash-decoding), TMA loads into a ring of shared-memory stages and wgmma for
-// the wide prefix tiles are the next steps; they are not done here.
+// below the f32 rate.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,12 +57,16 @@
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <map>
+#include <mutex>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kTileRows = 32;  // query rows per block: one warp each
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = 32;     // keys per warp chunk: lane j scores key j
+constexpr int kStages = 2;     // cp.async ring depth per warp
+constexpr int kMaxWarps = 8;
 
 // Storage tag of an fp8 e4m3 pool element (one byte).
 struct Fp8E4M3 {
@@ -115,6 +125,14 @@ struct Widen<Fp8E4M3> {
   }
 };
 
+// one pool element (storage type) widened to f32
+__device__ __forceinline__ float elem(const float* p) { return *p; }
+__device__ __forceinline__ float elem(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float elem(const Fp8E4M3* p) {
+  const __half h(__nv_cvt_fp8_to_halfraw(p->bits, __NV_E4M3));
+  return __half2float(h);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -127,124 +145,425 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Grid: (N * H, ceil(Q / tile_rows)). Block: 32 * n_warps threads,
-// n_warps >= tile_rows. T is the query/output type, KV the pool element type.
-// DPL = head_dim / 32 elements of a row per lane. kscale/vscale are the fp8
-// scale planes [L, n_pages, H] (unused for float pools).
-template <typename T, typename KV, int DPL>
-__global__ void paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
-                                       const KV* __restrict__ vpool,
-                                       const float* __restrict__ kscale,
-                                       const float* __restrict__ vscale,
-                                       const int* __restrict__ tables,
-                                       const int* __restrict__ qbase, T* __restrict__ out,
-                                       int H, int Q, int tile_rows, int ps, int P, int n_pages,
-                                       int layer, int tile_pages, float scale) {
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// c += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators. Fragment
+// layout (lane = 4 g + t): c[0], c[1] row g, columns 2t and 2t+1; c[2], c[3]
+// row g + 8; a[0] row g, k 2t..2t+1; a[1] row g + 8; a[2], a[3] k + 8.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
+
+// Shared memory of a block (the host sizes it with the same functions, and
+// ops/paged_attention.py's launch_plan() mirrors them): the tile's query rows
+// in f32 [rows][hd] and the sequence's page ids [P]; then per warp a ring of
+// kStages chunks (K and V [32][hd + 16 bytes] in the storage type, rows padded
+// so that lanes and ldmatrix read them without bank conflicts, and for fp8 the
+// 32 keys' K and V scales), the chunk's probabilities [32][rows], and for fp8
+// pools under 8-row tiles the chunk's K and V dequantized to bf16 [32][hd + 8]
+// for the tensor cores. After the walk the rings hold the warps' states.
+__host__ __device__ constexpr size_t stage_bytes(int hd, int kvb) {
+  return 2 * (size_t)kChunk * (hd * kvb + 16) + 2 * kChunk * 4;
+}
+__host__ __device__ constexpr size_t conv_bytes(int hd, int kvb, int rows) {
+  return kvb == 1 && rows == 8 ? 2 * (size_t)kChunk * (hd + 8) * 2 : 0;
+}
+__host__ __device__ constexpr size_t warp_bytes(int hd, int kvb, int rows) {
+  return kStages * stage_bytes(hd, kvb) + (size_t)kChunk * rows * 4 + conv_bytes(hd, kvb, rows);
+}
+__host__ __device__ constexpr size_t head_bytes(int hd, int rows, int P) {
+  return align16((size_t)rows * hd * 4 + (size_t)P * 4);
+}
+__host__ __device__ constexpr size_t smem_bytes(int hd, int kvb, int rows, int warps, int P) {
+  return head_bytes(hd, rows, P) + (size_t)warps * warp_bytes(hd, kvb, rows);
+}
+
+// Grid (N * H * tiles): one block per (sequence n, head h, query tile); 32 *
+// warps threads. The block takes the query rows [tile * RM, tile * RM + rows)
+// and the keys those rows can see. Its warps take the keys' 32-key chunks in
+// turn, each through its own cp.async ring; the warps' (m, l, acc) merge in
+// shared memory in warp order and the block writes the tile's output. T is
+// the query/output type, KV the pool element type, DPL = head_dim / 32
+// elements of a row per lane, RM the rows of a tile (1 or 8). kscale/vscale are
+// the fp8 scale planes [L, n_pages, H] (unused for float pools).
+template <typename T, typename KV, int DPL, int RM>
+__global__ void __launch_bounds__(kMaxWarps* kWarp)
+    paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
+                           const KV* __restrict__ vpool, const float* __restrict__ kscale,
+                           const float* __restrict__ vscale, const int* __restrict__ tables,
+                           const int* __restrict__ qbase, T* __restrict__ out, int H, int Q,
+                           int ps, int P, int n_pages, int layer, int tiles, float scale) {
   constexpr int hd = DPL * kWarp;
-  constexpr bool kFp8 = sizeof(KV) == 1;
-  constexpr int kVec = Widen<KV>::kVec;  // pool elements per 16-byte load
-  extern __shared__ __align__(16) float smem[];
-  const int page_elems = ps * hd;
-  float* ks = smem;                                   // [tile_pages * ps, hd]
-  float* vs = smem + (size_t)tile_pages * page_elems;  // [tile_pages * ps, hd]
+  constexpr int kvb = sizeof(KV);
+  constexpr int kVec = Widen<KV>::kVec;   // elements per 16 bytes
+  constexpr int RB = hd * kvb;            // bytes of one key row
+  constexpr int KP = RB + 16;             // padded K and V row pitch in bytes
+  constexpr int kPieces = RB / 16;
+  constexpr bool kFp8 = kvb == 1;
+  constexpr size_t kStage = stage_bytes(hd, kvb);
+  // 8-row tiles under bf16 queries take the tensor cores (mma.sync m16n8k16,
+  // rows 8-15 of the m16 tile zero) up to head_dim 128, where the context
+  // accumulators still fit the registers; f32 queries, whose 1e-5 contract
+  // bf16 operands cannot keep, single rows and wider heads take the CUDA cores
+  constexpr bool kMma = RM == 8 && sizeof(T) == 2 && DPL <= 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int tile = blockIdx.x % tiles, nh = blockIdx.x / tiles;
+  const int n = nh / H, h = nh - n * H;
+  const int row0 = tile * RM, R = min(RM, Q - row0);
 
-  const int n = blockIdx.x / H;
-  const int h = blockIdx.x - n * H;
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int row0 = blockIdx.y * tile_rows;
-  const int row = row0 + warp;  // the query row this warp owns
-  const bool has_row = warp < tile_rows && row < Q;
+  float* qs = reinterpret_cast<float*>(smem);  // [RM][hd]
+  int* pg = reinterpret_cast<int*>(qs + RM * hd);
+  unsigned char* ring = smem + head_bytes(hd, RM, P);
+  unsigned char* mine = ring + (size_t)warp * warp_bytes(hd, kvb, RM);
+  float* pbuf = reinterpret_cast<float*>(mine + kStages * kStage);
+
+  // the page table row, the query rows and qbase, loaded side by side
+  for (int i = threadIdx.x; i < P; i += blockDim.x)
+    pg[i] = min(max(tables[(size_t)n * P + i], 0), n_pages - 1);  // clamp like the XLA gather
+  // rows past the tile's R are zero: the chunk loops run all RM rows
+  // without branches, those rows masked
+  for (int e = threadIdx.x; e < RM * hd; e += blockDim.x)
+    qs[e] = e < R * hd ? to_f32(q[((size_t)nh * Q + row0) * hd + e]) : 0.f;
   const int base = qbase[n];
-  const int qpos = base + row;
-  // pages past the tile's last row's position are masked for every row
-  const int last_pos = base + min(Q, row0 + tile_rows) - 1;
-  const int n_live = last_pos < 0 ? 0 : min(P, last_pos / ps + 1);
+  const int last_pos = base + row0 + R - 1;
+  // keys [0, ke): those the tile's last row can see, within the table
+  const int ke = last_pos < 0 ? 0 : min(P * ps, last_pos + 1);
+  const int n_chunks = (ke + kChunk - 1) / kChunk;
+  __syncthreads();
 
-  float qv[DPL];
-  float acc[DPL];
-  float m = -FLT_MAX;
-  float l = 0.f;
-  if (has_row) {
-    const T* qrow = q + (((size_t)n * H + h) * Q + row) * hd;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      qv[c] = to_f32(qrow[lane + kWarp * c]);
-      acc[c] = 0.f;
-    }
-  }
-
-  const size_t page_stride = (size_t)H * page_elems;  // one page, all heads
+  const size_t page_stride = (size_t)H * ps * hd;  // one page, all heads, in elements
   const size_t layer_off = (size_t)layer * n_pages * page_stride;
-  const size_t head_off = (size_t)h * page_elems;
+  const size_t head_off = (size_t)h * ps * hd;
   const size_t scale_off = (size_t)layer * n_pages * H + h;
+  // chunk c into stage st: 16-byte copies of whole key rows, rows past ke
+  // zero-filled. Lane j finds key j's row (one page lookup and one division
+  // per lane), and the warp copies the rows piece by piece with the row
+  // offsets shuffled across, so that neighbouring lanes copy neighbouring 16
+  // bytes
+  auto prefetch = [&](int c, int st) {
+    unsigned char* ks = mine + st * kStage;
+    unsigned char* vs = ks + kChunk * KP;
+    const int f0 = c * kChunk, fl = f0 + lane;
+    const int fp = fl < ke ? fl : 0;
+    const int page = pg[fp / ps];
+    const long long row =
+        (long long)(layer_off + (size_t)page * page_stride + head_off + (size_t)(fp % ps) * hd);
+#pragma unroll
+    for (int i0 = 0; i0 < kChunk * kPieces; i0 += kWarp) {
+      const int i = i0 + lane, j = i / kPieces, pc = i - j * kPieces;
+      const long long src = __shfl_sync(kFull, row, j);
+      const bool ok = f0 + j < ke;
+      cp16(ks + j * KP + pc * 16, reinterpret_cast<const unsigned char*>(kpool + src) + pc * 16, ok);
+      cp16(vs + j * KP + pc * 16, reinterpret_cast<const unsigned char*>(vpool + src) + pc * 16, ok);
+    }
+    if constexpr (kFp8) {
+      float* sc = reinterpret_cast<float*>(vs + kChunk * KP);
+      const bool ok = fl < ke;
+      const size_t so = scale_off + (size_t)page * H;
+      cp4(sc + lane, kscale + so, ok);
+      cp4(sc + kChunk + lane, vscale + so, ok);
+    }
+  };
 
-  for (int p0 = 0; p0 < n_live; p0 += tile_pages) {
-    const int tp = min(tile_pages, n_live - p0);
-    __syncthreads();  // every warp is done with the previous tile
-    const int tile_elems = tp * page_elems;
-    for (int e = threadIdx.x * kVec; e < tile_elems; e += blockDim.x * kVec) {
-      const int t = e / page_elems;
-      const int r = e - t * page_elems;
-      int page = tables[(size_t)n * P + p0 + t];
-      page = min(max(page, 0), n_pages - 1);  // clamp like the XLA gather
-      const size_t src = layer_off + (size_t)page * page_stride + head_off + r;
-      const uint4 kraw = *reinterpret_cast<const uint4*>(kpool + src);
-      const uint4 vraw = *reinterpret_cast<const uint4*>(vpool + src);
-      float ksc = 1.f, vsc = 1.f;
+  float m[RM], l[RM], acc[RM][DPL];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = -FLT_MAX;
+    l[r] = 0.f;  // this lane's part of the row sum
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+  }
+  // the tensor-core path's state: the query rows as A fragments (row g =
+  // lane / 4, k 2t..2t+1 and 2t+8..2t+9; rows 8-15 zero), the context
+  // accumulators in the C layout, and row g's m and (this lane's part of) l
+  const int g = lane >> 2, t4 = lane & 3;
+  constexpr int KQ = kMma ? hd / 16 : 1, ND = kMma ? hd / 8 : 1;
+  unsigned qa[KQ][2];
+  float o[ND][4];
+  float mg = -FLT_MAX, lg = 0.f;
+  if constexpr (kMma) {
+#pragma unroll
+    for (int k = 0; k < KQ; ++k) {
+      const float* qr = qs + g * hd + 16 * k + 2 * t4;
+      qa[k][0] = pack(qr[0], qr[1]);
+      qa[k][1] = pack(qr[8], qr[9]);
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  }
+  const int mine_n = n_chunks > warp ? (n_chunks - warp + W - 1) / W : 0;
+  if (mine_n > 0) prefetch(warp, 0);
+  cp_commit();
+  for (int i = 0; i < mine_n; ++i) {
+    const int c = warp + i * W, st = i & 1;
+    if (i + 1 < mine_n) prefetch(c + W, st ^ 1);
+    cp_commit();
+    cp_wait_one();  // this lane's copies of chunk i have landed
+    __syncwarp();   // and every lane's
+    const unsigned char* ks = mine + st * kStage;
+    const unsigned char* vs = ks + kChunk * KP;
+    const float* sc = reinterpret_cast<const float*>(vs + kChunk * KP);
+    const int f0 = c * kChunk, f = f0 + lane;
+    if constexpr (kMma) {
+      // bf16 rows for ldmatrix: the pool's own (bf16 pools), or lane j's
+      // key j dequantized (fp8 pools: times its page's K or V scale, in f32,
+      // then rounded to bf16)
+      const __nv_bfloat16* kr = reinterpret_cast<const __nv_bfloat16*>(ks);
+      const __nv_bfloat16* vr = reinterpret_cast<const __nv_bfloat16*>(vs);
+      constexpr int RP = hd + 8;  // bf16 row pitch (KP / 2 for bf16 pools)
       if constexpr (kFp8) {
-        ksc = kscale[scale_off + (size_t)page * H];
-        vsc = vscale[scale_off + (size_t)page * H];
-      }
-      float kf[kVec], vf[kVec];
-      Widen<KV>::run(kraw, ksc, kf);
-      Widen<KV>::run(vraw, vsc, vf);
+        __nv_bfloat16* kc =
+            reinterpret_cast<__nv_bfloat16*>(mine + kStages * kStage + kChunk * RM * 4);
+        __nv_bfloat16* vc = kc + kChunk * RP;
 #pragma unroll
-      for (int u = 0; u < kVec; u += 4) {
-        *reinterpret_cast<float4*>(ks + e + u) = make_float4(kf[u], kf[u + 1], kf[u + 2], kf[u + 3]);
-        *reinterpret_cast<float4*>(vs + e + u) = make_float4(vf[u], vf[u + 1], vf[u + 2], vf[u + 3]);
+        for (int pc = 0; pc < kPieces; ++pc) {
+          float kf[kVec], vf[kVec];
+          Widen<KV>::run(*reinterpret_cast<const uint4*>(ks + lane * KP + pc * 16), sc[lane], kf);
+          Widen<KV>::run(*reinterpret_cast<const uint4*>(vs + lane * KP + pc * 16),
+                         sc[kChunk + lane], vf);
+#pragma unroll
+          for (int h8 = 0; h8 < kVec; h8 += 8) {
+            uint4 kw, vw;
+            kw.x = pack(kf[h8], kf[h8 + 1]);
+            kw.y = pack(kf[h8 + 2], kf[h8 + 3]);
+            kw.z = pack(kf[h8 + 4], kf[h8 + 5]);
+            kw.w = pack(kf[h8 + 6], kf[h8 + 7]);
+            vw.x = pack(vf[h8], vf[h8 + 1]);
+            vw.y = pack(vf[h8 + 2], vf[h8 + 3]);
+            vw.z = pack(vf[h8 + 4], vf[h8 + 5]);
+            vw.w = pack(vf[h8 + 6], vf[h8 + 7]);
+            *reinterpret_cast<uint4*>(kc + lane * RP + pc * kVec + h8) = kw;
+            *reinterpret_cast<uint4*>(vc + lane * RP + pc * kVec + h8) = vw;
+          }
+        }
+        __syncwarp();
+        kr = kc;
+        vr = vc;
+      }
+      // scores S = Q K^T for the chunk's 32 keys (4 n8 tiles)
+      float sc4[4][4] = {};
+      const __nv_bfloat16* pk = kr + ((lane & 7) + (lane >> 4) * 8) * RP + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int k = 0; k < KQ; ++k) {
+        const unsigned a[4] = {qa[k][0], 0u, qa[k][1], 0u};
+#pragma unroll
+        for (int nb = 0; nb < 4; nb += 2) {
+          unsigned r[4];
+          ldsm4(r, pk + nb * 8 * RP + k * 16);
+          mma(sc4[nb], a, r[0], r[1]);
+          mma(sc4[nb + 1], a, r[2], r[3]);
+        }
+      }
+      // row g's online softmax over its 8 scores here and its quad's; masked
+      // keys (and rows past R) contribute an explicit zero
+      const int qpos = base + row0 + g;
+      float mx = -FLT_MAX;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int fk = f0 + 8 * nb + 2 * t4 + e;
+          const bool valid = g < R && fk < ke && fk <= qpos;
+          sc4[nb][e] = valid ? sc4[nb][e] * scale : -FLT_MAX;
+          mx = fmaxf(mx, sc4[nb][e]);
+        }
+      const float m_new = fmaxf(mg, quad_max(mx));
+      const float alpha = expf(mg - m_new);
+      float ls = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int fk = f0 + 8 * nb + 2 * t4 + e;
+          const bool valid = g < R && fk < ke && fk <= qpos;
+          sc4[nb][e] = valid ? expf(sc4[nb][e] - m_new) : 0.f;
+          ls += sc4[nb][e];
+        }
+      lg = lg * alpha + ls;
+      mg = m_new;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][0] *= alpha;
+        o[d][1] *= alpha;
+      }
+      // context O += P V: P from the C fragments (rows 8-15 zero), V through
+      // transposed ldmatrix
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const unsigned a[4] = {pack(sc4[2 * kk][0], sc4[2 * kk][1]), 0u,
+                               pack(sc4[2 * kk + 1][0], sc4[2 * kk + 1][1]), 0u};
+        const __nv_bfloat16* pv =
+            vr + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RP + (lane >> 4) * 8;
+#pragma unroll
+        for (int d = 0; d < ND; d += 2) {
+          unsigned r[4];
+          ldsm4t(r, pv + d * 8);
+          mma(o[d], a, r[0], r[1]);
+          mma(o[d + 1], a, r[2], r[3]);
+        }
+      }
+    } else {
+      // scores of key f against the tile's rows (fp8: times its page's K scale)
+      float sco[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) sco[r] = 0.f;
+      const float ksc = kFp8 ? sc[lane] : 1.f;
+#pragma unroll
+      for (int pc = 0; pc < kPieces; ++pc) {
+        float kf[kVec];
+        Widen<KV>::run(*reinterpret_cast<const uint4*>(ks + lane * KP + pc * 16), ksc, kf);
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          const float4* qr = reinterpret_cast<const float4*>(qs + r * hd + pc * kVec);
+#pragma unroll
+          for (int e4 = 0; e4 < kVec / 4; ++e4) {
+            const float4 qv = qr[e4];
+            sco[r] += qv.x * kf[4 * e4] + qv.y * kf[4 * e4 + 1] + qv.z * kf[4 * e4 + 2] +
+                      qv.w * kf[4 * e4 + 3];
+          }
+        }
+      }
+      // online softmax per row; masked lanes contribute an explicit zero
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const bool valid = r < R && f < ke && f <= base + row0 + r;
+        const float sv = valid ? sco[r] * scale : -FLT_MAX;
+        const float m_new = fmaxf(m[r], warp_max(sv));
+        const float alpha = expf(m[r] - m_new);
+        const float p = valid ? expf(sv - m_new) : 0.f;
+        l[r] = l[r] * alpha + p;
+#pragma unroll
+        for (int c2 = 0; c2 < DPL; ++c2) acc[r][c2] *= alpha;
+        m[r] = m_new;
+        pbuf[lane * RM + r] = p;
+      }
+      __syncwarp();
+      // context: lane owns dims lane + 32 c. Keys past ke have p = 0 and
+      // zero-filled rows (scale 0 for fp8), so the loop runs over the whole
+      // chunk, unrolled, with the probabilities read 4 rows at a time
+#pragma unroll 8
+      for (int j = 0; j < kChunk; ++j) {
+        const KV* vrow = reinterpret_cast<const KV*>(vs + j * KP);
+        const float vsc = kFp8 ? sc[kChunk + j] : 1.f;
+        float v[DPL];
+#pragma unroll
+        for (int c2 = 0; c2 < DPL; ++c2) v[c2] = elem(vrow + lane + kWarp * c2) * vsc;
+        float pj[RM];
+        if constexpr (RM % 4 == 0) {
+#pragma unroll
+          for (int r4 = 0; r4 < RM; r4 += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pbuf + j * RM + r4);
+            pj[r4] = p4.x;
+            pj[r4 + 1] = p4.y;
+            pj[r4 + 2] = p4.z;
+            pj[r4 + 3] = p4.w;
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < RM; ++r) pj[r] = pbuf[j * RM + r];
+        }
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+#pragma unroll
+          for (int c2 = 0; c2 < DPL; ++c2) acc[r][c2] += pj[r] * v[c2];
       }
     }
-    __syncthreads();
-    if (!has_row) continue;
-    const int keys = tp * ps;
-    const int flat0 = p0 * ps;
-    for (int j0 = 0; j0 < keys; j0 += kWarp) {
-      const int jn = min(kWarp, keys - j0);
-      // scores of keys j0 .. j0 + jn - 1; lane jj keeps key j0 + jj's score
-      float s_mine = -FLT_MAX;
-      for (int jj = 0; jj < jn; ++jj) {
-        const float* krow = ks + (size_t)(j0 + jj) * hd;
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) part += qv[c] * krow[lane + kWarp * c];
-        const float s = warp_sum(part) * scale;
-        if (lane == jj) s_mine = s;
-      }
-      const bool valid = lane < jn && flat0 + j0 + lane <= qpos;
-      if (!valid) s_mine = -FLT_MAX;
-      const float m_new = fmaxf(m, warp_max(s_mine));
-      const float alpha = expf(m - m_new);
-      const float pexp = valid ? expf(s_mine - m_new) : 0.f;
-      l = l * alpha + warp_sum(pexp);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[c] *= alpha;
-      for (int jj = 0; jj < jn; ++jj) {
-        const float pj = __shfl_sync(kFull, pexp, jj);
-        const float* vrow = vs + (size_t)(j0 + jj) * hd;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[c] += pj * vrow[lane + kWarp * c];
-      }
-      m = m_new;
-    }
+    __syncwarp();  // every lane is done with stage st before it is refilled
   }
 
-  if (has_row) {
-    // every row admits flat position 0 (qbase >= 0), so l >= 1 here
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* orow = out + (((size_t)n * H + h) * Q + row) * hd;
+  // the block's merge of its warps, in warp order, through the spent rings
+  __syncthreads();
+  float* racc = reinterpret_cast<float*>(ring);  // [W][RM][hd]
+  float* rml = racc + (size_t)W * RM * hd;       // [W][RM][2]
+  if constexpr (kMma) {
+    lg = quad_sum(lg);
+    if (g < R) {
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) orow[lane + kWarp * c] = from_f32<T>(acc[c] * inv);
+      for (int d = 0; d < ND; ++d)
+        *reinterpret_cast<float2*>(racc + (warp * RM + g) * hd + 8 * d + 2 * t4) =
+            make_float2(o[d][0], o[d][1]);
+      if (t4 == 0) {
+        rml[(warp * RM + g) * 2] = mg;
+        rml[(warp * RM + g) * 2 + 1] = lg;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      const float lr = warp_sum(l[r]);
+#pragma unroll
+      for (int c2 = 0; c2 < DPL; ++c2) racc[(warp * RM + r) * hd + lane + kWarp * c2] = acc[r][c2];
+      if (lane == 0) {
+        rml[(warp * RM + r) * 2] = m[r];
+        rml[(warp * RM + r) * 2 + 1] = lr;
+      }
+    }
+  }
+  __syncthreads();
+  const size_t prow = (size_t)nh * Q + row0;  // the tile's first (n, h, row)
+  for (int e = threadIdx.x; e < R * hd; e += blockDim.x) {
+    const int r = e / hd, d = e - r * hd;
+    float M = -FLT_MAX;
+    for (int w = 0; w < W; ++w)
+      if (rml[(w * RM + r) * 2 + 1] > 0.f) M = fmaxf(M, rml[(w * RM + r) * 2]);
+    float A = 0.f, L = 0.f;
+    for (int w = 0; w < W; ++w) {
+      const float lw = rml[(w * RM + r) * 2 + 1];
+      if (lw > 0.f) {
+        const float wt = expf(rml[(w * RM + r) * 2] - M);
+        A += wt * racc[(w * RM + r) * hd + d];
+        L += wt * lw;
+      }
+    }
+    // every row admits flat position 0 (qbase >= 0), so L >= 1 here
+    out[(prow + r) * hd + d] = from_f32<T>(L > 0.f ? A / L : 0.f);
   }
 }
 
@@ -257,37 +576,57 @@ struct Args {
   const int* tables;
   const int* qbase;
   void* out;
-  int N, H, Q, ps, P, n_pages, layer, tile_pages;
+  int N, H, Q, ps, P, n_pages, layer, rows, warps;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, typename KV, int DPL>
+template <typename T, typename KV, int DPL, int RM>
 cudaError_t launch(const Args& a) {
-  const int tile_rows = a.Q < kTileRows ? a.Q : kTileRows;
-  const int n_tiles = (a.Q + tile_rows - 1) / tile_rows;
-  const int n_warps = tile_rows < 4 ? 4 : tile_rows;
-  const size_t smem = 2 * (size_t)a.tile_pages * a.ps * DPL * kWarp * sizeof(float);
-  auto kernel = paged_attention_kernel<T, KV, DPL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  constexpr int hd = DPL * kWarp;
+  const int tiles = (a.Q + RM - 1) / RM;
+  const size_t smem = smem_bytes(hd, sizeof(KV), RM, a.warps, a.P);
+  auto kernel = paged_attention_kernel<T, KV, DPL, RM>;
+  // the shared-memory opt-in, per device, once: all the card lets a block
+  // take beside the kernel's static shared memory, so every plan of this
+  // instance launches
+  static std::mutex mu;
+  static std::map<int, int> opt_in;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    const std::lock_guard<std::mutex> lock(mu);
+    auto it = opt_in.find(dev);
+    if (it == opt_in.end()) {
+      int max_smem = 0;
+      cudaFuncAttributes fa{};
+      err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+      const int dyn = max_smem - (int)fa.sharedSizeBytes;
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+      if (err != cudaSuccess) {
+        cudaGetLastError();  // leave no stale error for a later launch's check
+        return err;
+      }
+      it = opt_in.emplace(dev, dyn).first;
+    }
+    if (smem > (size_t)it->second) return cudaErrorInvalidValue;
   }
-  const dim3 grid(a.N * a.H, n_tiles);
-  kernel<<<grid, n_warps * kWarp, smem, a.stream>>>(
+  kernel<<<a.N * a.H * tiles, a.warps * kWarp, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
-      a.kscale, a.vscale, a.tables, a.qbase, static_cast<T*>(a.out), a.H, a.Q, tile_rows, a.ps,
-      a.P, a.n_pages, a.layer, a.tile_pages, a.scale);
+      a.kscale, a.vscale, a.tables, a.qbase, static_cast<T*>(a.out), a.H, a.Q, a.ps, a.P,
+      a.n_pages, a.layer, tiles, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV>
-cudaError_t dispatch(int hd, const Args& a) {
+template <typename T, typename KV, int RM>
+cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
 #define DL4J_PA_CASE(D) \
   case D * kWarp:       \
-    return launch<T, KV, D>(a);
+    return launch<T, KV, D, RM>(a);
     DL4J_PA_CASE(1)
     DL4J_PA_CASE(2)
     DL4J_PA_CASE(3)
@@ -302,31 +641,48 @@ cudaError_t dispatch(int hd, const Args& a) {
   }
 }
 
+template <typename T, typename KV>
+cudaError_t dispatch(int hd, const Args& a) {
+  return a.rows == 1 ? dispatch_hd<T, KV, 1>(hd, a) : dispatch_hd<T, KV, 8>(hd, a);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success). Pointers
-// are device pointers to contiguous tensors: q and out [N, H, Q, hd]; k and v
-// pools [L, n_pages, H, ps, hd]; tables [N, P] int32; qbase [N] int32.
-// is_bf16 selects the element type of q and out (else float32). is_fp8 says the
-// pools hold float8_e4m3fn with f32 scale planes k_scale and v_scale
-// [L, n_pages, H]; otherwise the pools have q's type and the planes are unused.
-int dl4j_paged_attention(int is_bf16, int is_fp8, const void* q, const void* k, const void* v,
-                         const void* k_scale, const void* v_scale, const void* tables,
-                         const void* qbase, void* out, int N, int H, int Q, int hd, int ps, int P,
-                         int n_pages, int layer, int tile_pages, float scale, void* stream) {
-  if (N < 1 || H < 1 || Q < 1 || (Q + kTileRows - 1) / kTileRows > 65535 || ps < 1 || P < 1 ||
-      tile_pages < 1 || layer < 0 || n_pages < 1 || (is_fp8 && (!k_scale || !v_scale)))
+// Launches on the given stream and returns cudaGetLastError() (0 on success).
+// The arguments come packed, so that the wrapper's call converts four values
+// instead of twenty-odd. ptrs holds device pointers to contiguous tensors and
+// the stream: q, k, v, k_scale, v_scale, tables, qbase, out, stream, where q
+// and out are [N, H, Q, hd], the k and v pools [L, n_pages, H, ps, hd], tables
+// [N, P] int32 and qbase [N] int32. ints holds is_bf16 (the element type of q
+// and out, else float32), is_fp8 (the pools hold float8_e4m3fn with f32 scale
+// planes k_scale and v_scale [L, n_pages, H]; otherwise the pools have q's
+// type and the planes are unused), N, H, Q, hd, ps, P, n_pages, rows per tile
+// (1 or 8), warps (1-8) and the device to launch on.
+int dl4j_paged_attention(void* const* ptrs, const int* ints, int layer, float scale) {
+  const int is_bf16 = ints[0], is_fp8 = ints[1], N = ints[2], H = ints[3], Q = ints[4],
+            hd = ints[5], ps = ints[6], P = ints[7], n_pages = ints[8], rows = ints[9],
+            warps = ints[10], device = ints[11];
+  void* const k_scale = ptrs[3];
+  void* const v_scale = ptrs[4];
+  if (N < 1 || H < 1 || Q < 1 || ps < 1 || P < 1 || layer < 0 || n_pages < 1 ||
+      (rows != 1 && rows != 8) || warps < 1 || warps > kMaxWarps ||
+      (is_fp8 && (!k_scale || !v_scale)) ||
+      (long long)N * H * ((Q + rows - 1) / rows) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,
-               k,
-               v,
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Args a{ptrs[0],
+               ptrs[1],
+               ptrs[2],
                static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
-               static_cast<const int*>(tables),
-               static_cast<const int*>(qbase),
-               out,
+               static_cast<const int*>(ptrs[5]),
+               static_cast<const int*>(ptrs[6]),
+               ptrs[7],
                N,
                H,
                Q,
@@ -334,14 +690,15 @@ int dl4j_paged_attention(int is_bf16, int is_fp8, const void* q, const void* k, 
                P,
                n_pages,
                layer,
-               tile_pages,
+               rows,
+               warps,
                scale,
-               static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (is_bf16)
-    err = is_fp8 ? dispatch<__nv_bfloat16, Fp8E4M3>(hd, a) : dispatch<__nv_bfloat16, __nv_bfloat16>(hd, a);
+               static_cast<cudaStream_t>(ptrs[8])};
+  if (is_fp8)
+    err = is_bf16 ? dispatch<__nv_bfloat16, Fp8E4M3>(hd, a) : dispatch<float, Fp8E4M3>(hd, a);
   else
-    err = is_fp8 ? dispatch<float, Fp8E4M3>(hd, a) : dispatch<float, float>(hd, a);
+    err = is_bf16 ? dispatch<__nv_bfloat16, __nv_bfloat16>(hd, a) : dispatch<float, float>(hd, a);
+  if (cur != device) cudaSetDevice(cur);
   return (int)err;
 }
 

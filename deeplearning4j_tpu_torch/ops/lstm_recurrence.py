@@ -16,7 +16,11 @@ kernel does (``_kernel``, lstm_pallas.py:43-81).
   persistent launch each); the backward's weight gradient is one f32
   ``torch.matmul`` over all ``T * N`` rows of the kernel's f32 ``da``
   after the kernel, as the JAX backward leaves that sum to XLA and casts
-  only its result.
+  only its result. The backward has two routes, chosen by
+  :func:`bwd_route` from dtype, shape and alignment: ``"cluster"``
+  (bf16 at H in {64, 128, 256}: thread-block clusters per batch tile with
+  a DSMEM exchange and tensor-core products) and ``"grid"`` (the first
+  design, a cooperative launch with a grid-wide barrier, for the rest).
 - :class:`LSTMRecurrence` joins a forward and a backward into one
   differentiable op; its forward streams the cell states ``cs`` only when
   a gradient is needed (``collect_cell``, lstm_pallas.py:51-55, 161-164).
@@ -47,8 +51,16 @@ ENVELOPE = (f"the LSTM kernels take T >= 1, 1 <= N <= {MAX_BATCH} and "
             f"1 <= H <= {MAX_HIDDEN}")
 
 #: the launch plan of the last kernel call: blocks, rows per thread,
-#: chunk, shared bytes, blocks per SM
+#: chunk, shared bytes, blocks per SM (grid route); blocks, cluster size,
+#: rows per cluster, shared bytes, clusters the card holds at once
+#: (cluster route)
 last_plan: Tuple[int, ...] = ()
+
+#: the backward's routes, by the number the C entry takes
+BWD_ROUTES = {"grid": 0, "cluster": 1}
+#: hidden widths of the cluster route (a block owns 32 units; clusters of
+#: H / 32 blocks, at most the portable 8)
+CLUSTER_HIDDEN = (64, 128, 256)
 
 
 # ------------------------------------------------------------ plain versions
@@ -115,6 +127,17 @@ def lstm_recurrence_backward_reference(x_proj, w_hh, h0, c0, ys, cs, dys,
             dc.to(c0.dtype))
 
 
+def bf16_split3(x):
+    """``x`` (f32) as three bf16 terms ``hi + mid + lo``, each the bf16
+    rounding of what the terms before it leave (every difference is exact
+    in f32): the cluster route's operands of ``da @ w_hh^T``, whose three
+    products with a bf16 ``w_hh`` it sums in f32."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
 # ------------------------------------------------------------------ kernels
 def _lib():
     lib = native.load("lstm_recurrence")
@@ -123,8 +146,9 @@ def _lib():
         lib.dl4j_lstm_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                       i, i, i, vp, vp]
         lib.dl4j_lstm_fwd.restype = ctypes.c_int
-        lib.dl4j_lstm_bwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                      vp, vp, vp, vp, vp, i, i, i, vp, vp]
+        lib.dl4j_lstm_bwd.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp,
+                                      vp, vp, vp, vp, vp, vp, i, i, i, vp,
+                                      vp]
         lib.dl4j_lstm_bwd.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -212,13 +236,27 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False):
     return out + (cs,) if collect_cell else out
 
 
+def bwd_route(x_proj, w_hh, h0, ys) -> str:
+    """The backward kernel route a call takes, from dtypes, shapes and
+    alignment alone (any device): ``"cluster"`` for bf16 ``x_proj`` and
+    ``w_hh`` with H in :data:`CLUSTER_HIDDEN` and ``w_hh``, ``h0`` and
+    ``ys`` 16-byte aligned (the route's 16-byte copies), any T >= 1 and N
+    in the envelope; ``"grid"`` otherwise (float32, other widths)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (w_hh, h0, ys))
+    if (x_proj.dtype == torch.bfloat16 and w_hh.dtype == torch.bfloat16
+            and w_hh.shape[0] in CLUSTER_HIDDEN and aligned):
+        return "cluster"
+    return "grid"
+
+
 def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
-                        dcT=None):
+                        dcT=None, route: Optional[str] = None):
     """Launch the backward kernel on CUDA tensors, then take the weight
     gradient as one f32 ``[H, T*N] @ [T*N, 4H]`` matmul of ``h_{t-1}`` and
     the kernel's f32 ``da``: ``(d x_proj, d w_hh, dh0, dc0)`` in the primal
-    dtypes. ``dhT`` / ``dcT`` of None are zero. Raises like
-    :func:`lstm_recurrence_fwd`."""
+    dtypes. ``dhT`` / ``dcT`` of None are zero. ``route`` (default
+    :func:`bwd_route`'s) forces a route; the C entry refuses one the call
+    does not fit. Raises like :func:`lstm_recurrence_fwd`."""
     global bwd_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
     steps, n, four_h = x_proj.shape
@@ -234,23 +272,30 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
                               or t.device != h0.device):
             raise ValueError(f"{name} must match h0 ({h0.dtype} "
                              f"{tuple(h0.shape)})")
+    route = bwd_route(x_proj, w_hh, h0, ys) if route is None else route
+    if route not in BWD_ROUTES:
+        raise ValueError(f"route must be one of {sorted(BWD_ROUTES)}, got "
+                         f"{route!r}")
     # da: f32 d x_proj, which is the result itself at f32
     da = torch.empty(x_proj.shape, dtype=torch.float32, device=x_proj.device)
     dxp = da if x_proj.dtype == torch.float32 else torch.empty_like(x_proj)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    bar = torch.zeros(2, dtype=torch.int32, device=x_proj.device)
+    # the grid route's barrier words (the cluster route has none)
+    bar = (torch.zeros(2, dtype=torch.int32, device=x_proj.device)
+           if route == "grid" else None)
     plan = (ctypes.c_int * 5)()
     lib = _lib()
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         err = lib.dl4j_lstm_bwd(
-            int(x_proj.dtype == torch.bfloat16), x_proj.data_ptr(),
+            int(x_proj.dtype == torch.bfloat16), BWD_ROUTES[route],
+            x_proj.data_ptr(),
             w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
             cs.data_ptr(), dys.data_ptr(), _ptr(dhT), _ptr(dcT),
             None if dxp is da else dxp.data_ptr(), da.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(), bar.data_ptr(), steps, n, hidden,
+            dh0.data_ptr(), dc0.data_ptr(), _ptr(bar), steps, n, hidden,
             plan, stream)
-    _raise_on(lib, err, "backward")
+    _raise_on(lib, err, f"backward ({route} route)")
     bwd_launches += 1
     last_plan = tuple(plan)
     h_prev = torch.cat([h0[None], ys[:-1]]).to(torch.float32)

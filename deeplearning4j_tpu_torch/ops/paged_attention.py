@@ -14,39 +14,47 @@ same signature and layout:
 fp8 KV trees carry ``"k_scale"``/``"v_scale"`` planes ``[L, n_pages, H]``
 beside ``float8_e4m3fn`` pools: the plain version dequantizes the
 gathered pages in the compute dtype (as the JAX package's XLA reference
-does), the kernel in f32 as it stages each page (as the Pallas kernel
-does). At f32 the two agree exactly on the dequantized values.
+does), the kernel in f32 as it reads each page (as the Pallas kernel
+does; its tensor-core tiles under bf16 queries then round the values to
+bf16). At f32 the two agree exactly on the dequantized values.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 take :func:`paged_attention_reference`, a plain PyTorch copy of the JAX
 package's einsum reference; CUDA tensors take the hand-written Hopper
 kernel ``csrc/paged_attention.cu`` (:func:`paged_attention_kernel`),
 which either launches or raises. There is no fallback from one to the
-other, and no mode switch. The kernel takes any query width: it tiles
-the queries 32 rows to a block.
+other, and no mode switch. The kernel takes any query width, every pool
+type and every head width that is a multiple of 32 up to 256: one block
+per sequence, head and query tile (1 row at Q=1, else 8), its warps
+sharing the visible keys in 32-key chunks, planned by
+:func:`launch_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from typing import NamedTuple
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import native
 
 #: kernel launches since the last reset; incremented only where
-#: :func:`paged_attention_kernel` launches the CUDA kernel
+#: :func:`paged_attention_kernel` launches the CUDA kernel (one per call)
 launches = 0
 #: the part of ``launches`` with more than one query row (verify passes
 #: and suffix prefills; decode steps have one)
 multi_row_launches = 0
 
-#: shared memory aimed at per block for one tile of staged K/V pages (f32)
-_TILE_BYTES = 32 * 1024
-_MAX_SMEM = 227 * 1024
-#: query rows the kernel's grid can tile (65535 tiles of 32 rows)
-_MAX_Q = 65535 * 32
+#: query rows the kernel takes and blocks its grid takes (C ints)
+_MAX_Q = _MAX_BLOCKS = 2 ** 31 - 1
+#: shared memory of one H100 SM that the kernel's blocks may share (228
+#: KB; the card reserves 1 KB of it per block, so one block may take 227
+#: KB), and the keys of a warp's chunk (one per lane)
+SMEM_PER_SM = 233472
+_CHUNK = 32
 
 
 def _gather(pool, layer: int, tables):
@@ -85,13 +93,63 @@ def paged_attention_reference(q, kv, layer: int, tables, qbase):
     return torch.einsum("nhqpo,nphod->nhqd", w, cv)
 
 
+class LaunchPlan(NamedTuple):
+    """The kernel's launch plan: query rows per block tile (1 at Q=1,
+    else 8), tiles, warps per block, and the block's shared memory in
+    bytes."""
+    rows: int
+    tiles: int
+    warps: int
+    smem: int
+
+
+def block_smem(rows: int, hd: int, kv_bytes: int, P: int,
+               warps: int) -> int:
+    """Shared memory of one block in bytes, as the kernel lays it out
+    (``head_bytes``, ``warp_bytes``): the query rows in f32 and the page
+    ids, then per warp two stages of K and V rows padded by 16 bytes plus
+    the fp8 scales, the probabilities, and for fp8 pools under 8-row tiles
+    the chunk dequantized to bf16."""
+    stage = 2 * _CHUNK * (hd * kv_bytes + 16) + 2 * _CHUNK * 4
+    conv = 2 * _CHUNK * (hd + 8) * 2 if kv_bytes == 1 and rows == 8 else 0
+    per_warp = 2 * stage + _CHUNK * rows * 4 + conv
+    head = -(-(rows * hd * 4 + P * 4) // 16) * 16
+    return head + warps * per_warp
+
+
+def launch_plan(N: int, H: int, Q: int, P: int, ps: int, hd: int,
+                kv_bytes: int, sms: int,
+                smem_per_sm: int = SMEM_PER_SM) -> LaunchPlan:
+    """The kernel's plan, in plain Python: as many warps, up to 8, as have
+    their two-stage rings of 32-key chunks fit beside the block's query
+    rows and page-table row in ``smem_per_sm``, or in half of it where the
+    grid has more (sequence, head, tile) blocks than the card has SMs (two
+    blocks per SM: one wave); at least one. Raises where one warp does not
+    fit a block's shared memory (a page table too wide)."""
+    rows = 1 if Q == 1 else 8
+    tiles = -(-Q // rows)
+    blocks = N * H * tiles
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"{blocks} blocks (N * H * query tiles) exceed the "
+                         f"kernel's grid of {_MAX_BLOCKS}")
+    head = block_smem(rows, hd, kv_bytes, P, 0)
+    per_warp = block_smem(rows, hd, kv_bytes, P, 1) - head
+    per_block = smem_per_sm // (1 if blocks <= sms else 2) - 1024
+    warps = max(1, min(8, (per_block - head) // per_warp))
+    smem = head + warps * per_warp
+    if smem > smem_per_sm - 1024:
+        raise ValueError(f"one warp's ring at head_dim {hd} beside a page "
+                         f"table of {P} pages needs {smem} bytes of shared "
+                         f"memory, more than a block's {smem_per_sm - 1024}")
+    return LaunchPlan(rows, tiles, warps, smem)
+
+
 def _lib():
     lib = native.load("paged_attention")
     fn = lib.dl4j_paged_attention
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                       i, i, i, i, ctypes.c_float, vp]
+        fn.argtypes = [vp, vp, i, ctypes.c_float]
         fn.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -143,9 +201,6 @@ def _check_kernel_args(q, k, v, layer, tables, qbase, k_scale=None,
                          f"{tuple(tables.shape)} / {tuple(qbase.shape)}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside the pool's {L} layers")
-    if 2 * ps * hd * 4 > _MAX_SMEM:
-        raise ValueError(f"one page [{ps}, {hd}] of K and V in f32 exceeds "
-                         f"a block's shared memory")
     for name, t in (("q", q), ("k", k), ("v", v), ("tables", tables),
                     ("qbase", qbase)):
         if not t.is_contiguous():
@@ -154,39 +209,103 @@ def _check_kernel_args(q, k, v, layer, tables, qbase, k_scale=None,
         raise ValueError("K/V pools must be 16-byte aligned")
 
 
-def paged_attention_kernel(q, kv, layer: int, tables, qbase):
-    """Launch ``csrc/paged_attention.cu`` on CUDA tensors, on PyTorch's
-    current stream. Raises on any argument the kernel does not take, on
-    a failed build and on a refused launch; never computes the result
-    another way."""
-    global launches, multi_row_launches
-    k, v = kv["k"], kv["v"]
-    ksc, vsc = kv.get("k_scale"), kv.get("v_scale")
+#: validated calls: a key of every property the checks read (shapes,
+#: dtypes, devices, layouts, alignment, layer) -> the device index and the
+#: packed int arguments, so a repeated call skips the checks' branches and
+#: the planning
+_plans: dict = {}
+_MAX_PLANS = 4096
+_raw_stream = None
+#: per thread, the packed pointer arguments
+_local = threading.local()
+
+
+def _current_stream(index: int) -> int:
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
+
+
+def _call_key(q, k, v, layer, tables, qbase, ksc, vsc):
+    # get_device() (an int, -1 on the CPU) costs less than .device
+    def props(t):
+        return (None if t is None else
+                (t.shape, t.dtype, t.get_device(), t.is_contiguous()))
+    return (props(q), props(k), k.data_ptr() % 16, props(v),
+            v.data_ptr() % 16, props(tables), props(qbase), props(ksc),
+            props(vsc), layer)
+
+
+def pack_ints(q, k, tables, plan: LaunchPlan, index: int, fp8: bool):
+    """The C entry's int arguments for a call planned by ``plan``."""
+    N, H, Q, hd = q.shape
+    return (ctypes.c_int * 12)(
+        int(q.dtype == torch.bfloat16), int(fp8), N, H, Q, hd, k.shape[3],
+        tables.shape[1], k.shape[1], plan.rows, plan.warps, index)
+
+
+def _plan_call(q, k, v, layer, tables, qbase, ksc, vsc):
+    """Check a call the first time its key is seen and plan it: (device
+    index, packed int arguments)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     _check_kernel_args(q, k, v, layer, tables, qbase, ksc, vsc)
-    fp8 = ksc is not None
     N, H, Q, hd = q.shape
-    n_pages, ps = k.shape[1], k.shape[3]
-    P = tables.shape[1]
-    tile_pages = max(1, min(P, _TILE_BYTES // (2 * ps * hd * 4)))
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    plan = launch_plan(N, H, Q, tables.shape[1], k.shape[3], hd,
+                       k.element_size(), sms)
+    return index, pack_ints(q, k, tables, plan, index, ksc is not None)
+
+
+def launch(q, kv, layer: int, tables, qbase, index: int, ints):
+    """One launch of the kernel with packed int arguments (see
+    :func:`pack_ints`) on PyTorch's current stream; the output, or a
+    RuntimeError. No checks and no count: :func:`paged_attention_kernel`
+    checks, plans and counts."""
+    k, v = kv["k"], kv["v"]
+    ksc, vsc = kv.get("k_scale"), kv.get("v_scale")
+    fp8 = ksc is not None
     out = torch.empty_like(q)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dl4j_paged_attention(
-            int(q.dtype == torch.bfloat16), int(fp8), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), ksc.data_ptr() if fp8 else None,
-            vsc.data_ptr() if fp8 else None, tables.data_ptr(),
-            qbase.data_ptr(),
-            out.data_ptr(), N, H, Q, hd, ps, P, n_pages, int(layer),
-            tile_pages, 1.0 / math.sqrt(hd), stream)
+    ptrs = getattr(_local, "ptrs", None)
+    if ptrs is None:
+        ptrs = _local.ptrs = (ctypes.c_void_p * 9)()
+    ptrs[:] = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               ksc.data_ptr() if fp8 else 0, vsc.data_ptr() if fp8 else 0,
+               tables.data_ptr(), qbase.data_ptr(), out.data_ptr(),
+               _current_stream(index))
+    err = lib.dl4j_paged_attention(ptrs, ints, int(layer),
+                                   1.0 / math.sqrt(q.shape[-1]))
     if err != 0:
         msg = lib.dl4j_cuda_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} "
                            f"(cudaError {err})")
+    return out
+
+
+def paged_attention_kernel(q, kv, layer: int, tables, qbase):
+    """Launch ``csrc/paged_attention.cu`` on CUDA tensors, on PyTorch's
+    current stream, as :func:`launch_plan` plans it. Raises on any
+    argument the kernel does not take, on a failed build and on a refused
+    launch; never computes the result another way. The checks run once per
+    distinct call key (:data:`_plans`)."""
+    global launches, multi_row_launches
+    k, v = kv["k"], kv["v"]
+    ksc, vsc = kv.get("k_scale"), kv.get("v_scale")
+    key = _call_key(q, k, v, layer, tables, qbase, ksc, vsc)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plan_call(q, k, v, layer, tables, qbase, ksc, vsc)
+        if len(_plans) >= _MAX_PLANS:
+            _plans.clear()
+        _plans[key] = plan
+    out = launch(q, kv, layer, tables, qbase, *plan)
     launches += 1
-    multi_row_launches += int(Q > 1)
+    multi_row_launches += int(q.shape[2] > 1)
     return out
 
 

@@ -289,6 +289,82 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
     assert lr.fwd_launches == before
 
 
+# ------------------------------------------- backward routes (plain Python)
+@pytest.mark.parametrize("h", [64, 128, 256])
+def test_bf16_split3_gives_the_f32_product(h):
+    """The cluster route's dh product: f32 da split into three bf16 terms,
+    each term times a bf16 w_hh exactly, the three products summed in f32,
+    is ``da @ w_hh.float().T`` to f32 rounding (against float64: within
+    a few f32 ulps of the row's sum of |terms|, as the f32 product is)."""
+    rs = np.random.RandomState(h)
+    # da over several binades, as the recurrence's da is
+    da = (rs.randn(16, 4 * h) * np.exp2(rs.randint(-12, 4, (16, 4 * h)))) \
+        .astype(np.float32)
+    w = torch.from_numpy((rs.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    t_da = torch.from_numpy(da)
+    hi, mid, lo = lr.bf16_split3(t_da)
+    # the split is exact to 2^-24 of |da| element by element
+    rest = t_da.double() - hi.double() - mid.double() - lo.double()
+    assert float((rest.abs() - 2.0 ** -24 * t_da.double().abs()).max()) <= 0
+    wf = w.float()
+    got = (hi.float() @ wf.T) + (mid.float() @ wf.T) + (lo.float() @ wf.T)
+    f32 = t_da @ wf.T
+    exact = t_da.double() @ wf.double().T
+    mag = t_da.double().abs() @ wf.double().abs().T
+    eps = 2.0 ** -24
+    assert float(((got.double() - exact).abs() - 8 * 4 * h * eps * mag)
+                 .max()) <= 0
+    assert float(((got.double() - f32.double()).abs()
+                  - 16 * 4 * h * eps * mag).max()) <= 0
+    # one bf16 term alone is far off: the split is what carries f32
+    single = hi.float() @ wf.T
+    assert float((single.double() - exact).abs().max()) \
+        > 100 * float((got.double() - exact).abs().max())
+
+
+def _route_case(dtype, h, n=4, offset=False):
+    x = torch.zeros(3, n, 4 * h, dtype=dtype)
+    w = torch.zeros(h, 4 * h, dtype=dtype)
+    h0 = torch.zeros(n, h, dtype=dtype)
+    ys = torch.zeros(3 * n * h + 1, dtype=dtype)
+    ys = (ys[1:] if offset else ys[:-1]).view(3, n, h)
+    return x, w, h0, ys
+
+
+@pytest.mark.parametrize("dtype, h, offset, want", [
+    (torch.bfloat16, 256, False, "cluster"),   # the training shape's width
+    (torch.bfloat16, 128, False, "cluster"),
+    (torch.bfloat16, 64, False, "cluster"),
+    (torch.bfloat16, 512, False, "grid"),      # clusters of 16: not portable
+    (torch.bfloat16, 200, False, "grid"),      # not a multiple of 64
+    (torch.bfloat16, 40, False, "grid"),
+    (torch.float32, 256, False, "grid"),       # f32 keeps the first design
+    (torch.bfloat16, 256, True, "grid"),       # ys off a 16-byte boundary
+])
+def test_bwd_route(dtype, h, offset, want):
+    assert lr.bwd_route(*_route_case(dtype, h, offset=offset)) == want
+
+
+def _probe_copies():
+    from deeplearning4j_tpu_torch.tools import lstm_probe
+
+    return [("split", lstm_probe.SPLIT)] + list(lstm_probe.VARIANTS.items())
+
+
+@pytest.mark.parametrize("name, subs", _probe_copies(),
+                         ids=[n for n, _ in _probe_copies()])
+def test_lstm_probe_edits_find_their_anchors(name, subs):
+    """``tools/lstm_probe.py`` measures edited copies of the kernel
+    source: every text substitution must still find its anchor, once."""
+    from deeplearning4j_tpu_torch.ops import native
+
+    src = open(native._source("lstm_recurrence")).read()
+    for old, new in subs:
+        assert src.count(old) == 1, f"{name}: {old!r}"
+        src = src.replace(old, new)
+
+
 # ------------------------------------------------------------- on the card
 def _need_card():
     if not torch.cuda.is_available():
@@ -418,3 +494,119 @@ def test_cuda_out_of_envelope_raises(shape):
     with pytest.raises(ValueError, match="the LSTM kernels take"):
         lr.lstm_recurrence_fwd(x, w, s, s)
     assert lr.fwd_launches == before
+
+
+# ------------------------------------------- backward cluster route (card)
+def _bwd_case(t, n, h, seed, finals=True, dtype=torch.bfloat16):
+    case = [a.cuda().to(dtype) for a in _t(*_case(t, n, h, seed=seed))]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dys = torch.randn(t, n, h, generator=g, device="cuda").to(dtype)
+    finals = [torch.randn(n, h, generator=g, device="cuda").to(dtype)
+              if finals else None for _ in range(2)]
+    ys, _, _, cs = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    return case, ys, cs, dys, finals
+
+
+def _assert_bwd_matches_plain(case, ys, cs, dys, finals, got, tol):
+    want = lr.lstm_recurrence_backward_reference(
+        *[a.float() for a in (*case, ys, cs, dys)],
+        *[None if f is None else f.float() for f in finals])
+    for name, a, b in zip(("dx_proj", "dw_hh", "dh0", "dc0"), got, want):
+        assert a.dtype == case[0].dtype and a.shape == b.shape, name
+        err = float((a.float() - b).abs().max())
+        scale = float(b.abs().max())
+        assert err <= tol * scale, f"{name}: {err:.3e} > {tol:g} x {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finals", [True, False])
+@pytest.mark.parametrize("n", [1, 17, 256])
+@pytest.mark.parametrize("t", [1, 2, 200])
+def test_cuda_cluster_backward_matches_plain(t, n, finals):
+    """The cluster route (bf16, H=256) against the f32 plain backward on
+    the kernel's own ys and cs, within 2e-2 of max |grad|: the first and
+    last steps (T=1, 2), ragged rows (N=1, 17) and the training shape,
+    dhT and dcT given or None; d w_hh within 2^-8 of its f32 sum."""
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(t, n, 256, seed=t + n, finals=finals)
+    assert lr.bwd_route(case[0], case[1], case[2], ys) == "cluster"
+    before = lr.bwd_launches
+    got = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    torch.cuda.synchronize()
+    assert lr.bwd_launches == before + 1
+    assert lr.last_plan[1] == 8          # clusters of 8 blocks
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, got, 2e-2)
+    same = lr.lstm_recurrence_backward_reference(
+        *[a.float() for a in (*case, ys, cs, dys)],
+        *[None if f is None else f.float() for f in fin])[1]
+    err = float((got[1].float() - same).abs().max())
+    assert err <= 2 ** -8 * float(same.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, n, h", [(5, 20, 128), (3, 33, 64),
+                                     (9, 240, 256), (4, 250, 128)])
+def test_cuda_cluster_backward_other_widths(t, n, h):
+    """H=64 and 128 (clusters of 2 and 4), and batches on either side of
+    what the card holds as 16-row clusters at once."""
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(t, n, h, seed=t * n)
+    got = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin, route="cluster")
+    torch.cuda.synchronize()
+    assert lr.last_plan[1] == h // 32
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, got, 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_backward_is_bit_equal():
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(200, 256, 256, seed=5)
+    a = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    b = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, h, want", [
+    (torch.float32, 256, "grid"), (torch.bfloat16, 512, "grid"),
+    (torch.bfloat16, 256, "cluster")])
+def test_cuda_route_chosen(dtype, h, want):
+    """f32 and H=512 take the first design; the training shape (bf16,
+    H=256) the cluster route; each launches and matches the plain
+    version."""
+    _need_card()
+    n = 256 if h == 256 else 5
+    case, ys, cs, dys, fin = _bwd_case(3, n, h, seed=h, dtype=dtype)
+    assert lr.bwd_route(case[0], case[1], case[2], ys) == want
+    got = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    torch.cuda.synchronize()
+    assert (lr.last_plan[1] == 8) == (want == "cluster")
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, got,
+                              1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_route_still_right_at_the_training_shape():
+    """The first design stays reachable by route and right."""
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(200, 256, 256, seed=9)
+    got = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin, route="grid")
+    torch.cuda.synchronize()
+    assert lr.last_plan[1] in (1, 2, 4)  # rows per thread of that design
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, got, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route, err", [("cluster", RuntimeError),
+                                        ("warp", ValueError)])
+def test_cuda_cluster_route_refuses_what_it_does_not_take(route, err):
+    """f32 forced onto the cluster route is refused by the C entry (a
+    RuntimeError naming the route), an unknown route by the wrapper;
+    neither counts a launch."""
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(3, 4, 256, seed=1,
+                                       dtype=torch.float32)
+    before = lr.bwd_launches
+    with pytest.raises(err, match="route"):
+        lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin, route=route)
+    assert lr.bwd_launches == before

@@ -330,3 +330,201 @@ def test_cuda_kernel_fp8_and_wide_queries(Q, qbase, kind, qdtype, tol):
     want = pa.paged_attention_reference(tq.float(), _f32_tree(tree), 1, tt,
                                         tb)
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+# ------------------------------------------------- the launch plan (CPU)
+@pytest.mark.parametrize("args, want", [
+    # decode N=8 H=12 Q=1 hd=64 ps=16 P=32 on 132 SMs: 96 one-row blocks
+    # of 8 warps
+    ((8, 12, 1, 32, 16, 64, 2, 132), (1, 1, 8)),
+    ((8, 12, 1, 32, 16, 64, 1, 132), (1, 1, 8)),        # fp8 pools
+    ((8, 12, 1, 32, 16, 64, 4, 132), (1, 1, 6)),        # f32 pools
+    ((8, 12, 5, 32, 16, 64, 2, 132), (8, 1, 8)),        # verify k=4
+    # prefix: 192 tiles > 132 SMs, so two blocks per SM: 5 warps
+    ((1, 12, 128, 32, 16, 64, 2, 132), (8, 16, 5)),
+    ((1, 12, 512, 32, 16, 64, 2, 132), (8, 64, 5)),
+    ((1, 1, 1, 3, 16, 64, 2, 132), (1, 1, 8)),          # few pages
+    ((8, 12, 1, 32, 16, 256, 2, 132), (1, 1, 3)),       # wide heads
+    ((8, 12, 9, 32, 16, 256, 4, 132), (8, 2, 1)),       # f32, widest
+    ((8, 12, 9, 32, 16, 96, 1, 132), (8, 2, 3)),        # fp8, 8-row tiles
+])
+def test_launch_plan(args, want):
+    """Tiles of 1 row at Q=1, else 8; as many warps, up to 8, as fit an
+    SM's shared memory beside the block's head (half of it where there
+    are more blocks than SMs), at least one; the block's bytes are those
+    of that many warps and fit."""
+    plan = pa.launch_plan(*args)
+    assert (plan.rows, plan.tiles, plan.warps) == want
+    N, H, Q, P, ps, hd, kvb, sms = args
+    budget = pa.SMEM_PER_SM // (1 if N * H * plan.tiles <= sms else 2) - 1024
+    per_warp = (2 * (2 * 32 * (hd * kvb + 16) + 256) + 32 * plan.rows * 4
+                + (2 * 32 * (hd + 8) * 2 if kvb == 1 and plan.rows == 8
+                   else 0))
+    head = -(-(plan.rows * hd * 4 + P * 4) // 16) * 16
+    assert plan.smem == head + plan.warps * per_warp
+    assert plan.smem == pa.block_smem(plan.rows, hd, kvb, P, plan.warps)
+    assert plan.smem <= pa.SMEM_PER_SM - 1024
+    assert plan.warps == 8 or plan.warps == 1 or \
+        plan.smem + per_warp > budget
+
+
+def test_launch_plan_takes_a_budget_and_refuses_what_does_not_fit():
+    """Half an SM's shared memory plans fewer warps; a page table that
+    leaves no room for one warp, or a grid past a C int, raises."""
+    full = pa.launch_plan(8, 12, 1, 32, 16, 64, 2, 132)
+    half = pa.launch_plan(8, 12, 1, 32, 16, 64, 2, 132,
+                          smem_per_sm=pa.SMEM_PER_SM // 2)
+    assert half.warps < full.warps and half.smem < pa.SMEM_PER_SM // 2
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.launch_plan(1, 1, 1, 60000, 16, 64, 2, 132)
+    with pytest.raises(ValueError, match="grid"):
+        pa.launch_plan(2 ** 16, 2 ** 8, 2 ** 17, 32, 16, 64, 2, 132)
+
+
+def test_pack_ints_in_the_c_entry_order():
+    """The packed ints in the order the C entry reads them: is_bf16,
+    is_fp8, N, H, Q, hd, ps, P, n_pages, rows, warps, device."""
+    q = torch.zeros(3, 2, 5, 64, dtype=torch.bfloat16)
+    k = torch.zeros(2, 7, 2, 16, 64, dtype=torch.bfloat16)
+    tables = torch.zeros(3, 4, dtype=torch.int32)
+    plan = pa.launch_plan(3, 2, 5, 4, 16, 64, 2, 132)
+    ints = pa.pack_ints(q, k, tables, plan, 1, False)
+    assert list(ints) == [1, 0, 3, 2, 5, 64, 16, 4, 7, 8, plan.warps, 1]
+    src = open(native._source("paged_attention")).read()
+    names = ("is_bf16", "is_fp8", "N", "H", "Q", "hd", "ps", "P", "n_pages",
+             "rows", "warps", "device")
+    for i, name in enumerate(names):
+        assert f"{name} = ints[{i}]" in src, name
+
+
+def test_attention_probe_edits_find_their_anchors():
+    """``tools/attention_probe.py``'s cycles mode measures an edited copy
+    of the kernel source: every text substitution must still find its
+    anchor, once."""
+    from deeplearning4j_tpu_torch.tools import attention_probe
+
+    src = open(native._source("paged_attention")).read()
+    for old, new in attention_probe.CYCLES:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+
+
+# --------------------------------------------------------- on the card
+def _card_case(seed, Q, P, kind, qdtype, qbase=None, hd=64):
+    """_case's three rows at H=4, ps=16, or with ``qbase`` given, its
+    first row alone from that position."""
+    q, k, v, tables, qb = _case(seed, Q, P, H=4, hd=hd, ps=16)
+    k *= 20.0
+    q /= 20.0
+    if qbase is not None:
+        q, tables = q[:1], tables[:1]
+        qb = np.array(qbase, np.int32)
+    tree = _cuda_tree(k, v, kind)
+    return (torch.from_numpy(q).to(qdtype).cuda(), tree,
+            torch.from_numpy(tables).cuda(), torch.from_numpy(qb).cuda())
+
+
+CARD_KINDS = [("bf16", torch.bfloat16, 2e-2), ("fp8", torch.bfloat16, 2e-2),
+              ("fp8", torch.float32, 1e-5), ("f32", torch.float32, 1e-5)]
+
+
+def _fits(q, tree, tt, warps):
+    """Whether ``warps`` warps' rings fit one block's shared memory."""
+    rows = 1 if q.shape[2] == 1 else 8
+    return pa.block_smem(rows, q.shape[3], tree["k"].element_size(),
+                         tt.shape[1], warps) <= pa.SMEM_PER_SM - 1024
+
+
+def _at_warps(q, tree, tt, tb, layer, warps):
+    """One launch at a given warp count, with the wrapper's plan
+    otherwise."""
+    N, H, Q, hd = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.launch_plan(N, H, Q, tt.shape[1], tree["k"].shape[3], hd,
+                          tree["k"].element_size(), sms)
+    ints = pa.pack_ints(q, tree["k"], tt, plan._replace(warps=warps), 0,
+                        "k_scale" in tree)
+    return pa.launch(q, tree, layer, tt, tb, 0, ints)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, qdtype, tol", CARD_KINDS)
+@pytest.mark.parametrize("Q", [1, 5, 33])
+def test_cuda_kernel_every_warp_count(Q, kind, qdtype, tol):
+    """The kernel against the plain version at f32 on the same
+    (dequantized) values at every warp count a block takes (1-8 where
+    their rings fit, 1-6 for f32 pools: warps with no chunk among them),
+    with a shared page, a null-page tail, qbase 0 and full context; two
+    calls bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, tree, tt, tb = _card_case(90 + Q, Q, 6, kind, qdtype)
+    want = pa.paged_attention_reference(q.float(), _f32_tree(tree), 1, tt, tb)
+    counts = [w for w in range(1, 9) if _fits(q, tree, tt, w)]
+    assert counts[-1] >= 6
+    for warps in counts:
+        got = _at_warps(q, tree, tt, tb, 1, warps)
+        again = _at_warps(q, tree, tt, tb, 1, warps)
+        torch.cuda.synchronize()
+        assert got.dtype == qdtype and torch.equal(got, again), warps
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, qdtype, tol", CARD_KINDS)
+@pytest.mark.parametrize("warps", [2, 3, "most"])
+def test_cuda_warps_masked_for_early_rows(warps, kind, qdtype, tol):
+    """N=1, Q=9 from qbase 30 over 3 pages of 16: rows 0-1 (positions 30
+    and 31) see the first 32-key chunk only, rows 2-7 the second too, so
+    the warp that takes the second chunk has l = 0 for the tile's first
+    rows and must weigh exactly 0 there; row 8 is a second tile. "most":
+    as many warps as fit (8, or 6 for f32 pools)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, tree, tt, tb = _card_case(7, 9, 3, kind, qdtype, qbase=[30])
+    if warps == "most":
+        warps = max(w for w in range(1, 9) if _fits(q, tree, tt, w))
+    want = pa.paged_attention_reference(q.float(), _f32_tree(tree), 0, tt, tb)
+    got = _at_warps(q, tree, tt, tb, 0, warps)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, qdtype, tol", CARD_KINDS)
+@pytest.mark.parametrize("hd", [32, 96, 160, 256])
+@pytest.mark.parametrize("Q", [1, 9])
+def test_cuda_kernel_every_pool_and_head_width(Q, hd, kind, qdtype, tol):
+    """Every pool kind (f32 at 1e-5) at head widths the serving shape does
+    not use, single rows and 8-row tiles (the tensor cores under bf16
+    queries up to 128, the CUDA cores past it), through the wrapper: one
+    launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, tree, tt, tb = _card_case(11 + hd + Q, Q, 5, kind, qdtype, hd=hd)
+    want = pa.paged_attention_reference(q.float(), _f32_tree(tree), 1, tt, tb)
+    before = pa.launches
+    got = pa.paged_attention_kernel(q, tree, 1, tt, tb)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_calls_in_a_row_stay_right():
+    """Many calls of several shapes and pool kinds in a row on one stream
+    (plans cached, packed arguments reused): each still matches the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [(_card_case(s, Q, 6, kind, dt), tol)
+             for s, (Q, (kind, dt, tol)) in enumerate(
+                 ((1, CARD_KINDS[0]), (5, CARD_KINDS[1]),
+                  (33, CARD_KINDS[3]), (1, CARD_KINDS[2])))]
+    wants = [pa.paged_attention_reference(q.float(), _f32_tree(t), 1, tt, tb)
+             for (q, t, tt, tb), _ in cases]
+    for _ in range(5):
+        for ((q, t, tt, tb), tol), want in zip(cases, wants):
+            got = pa.paged_attention_kernel(q, t, 1, tt, tb)
+            torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)

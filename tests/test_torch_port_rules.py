@@ -58,6 +58,17 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", [p for p in _port_sources()
+                                  if p.startswith(PKG + os.sep)],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_package_never_imports_chip_smoke(path):
+    """Imports run one way: ``chip_smoke.py`` drives the package (and its
+    probes), never the reverse."""
+    bad = [m for m in _imports(path)
+           if m == "chip_smoke" or m.startswith("chip_smoke.")]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
 def test_ast_scan_sees_every_import_form(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import os\nimport jax.numpy as jnp\n"
