@@ -20,7 +20,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``HMMA``/``HGMMA``), each of the four (taps, BN) instances of the
    bf16 tensor-core conv route ``conv_bn_stats_tc_kernel`` must hold
    ``HGMMA``, each of the six (H, rows) instances of the LSTM
-   backward's cluster route ``lstm_bwd_cluster_kernel`` and each of the
+   cluster routes ``lstm_fwd_cluster_kernel`` and
+   ``lstm_bwd_cluster_kernel`` and each of the
    eight bf16-query 8-row-tile instances of ``paged_attention_kernel``
    (bf16 or fp8 pools, head_dim 32-128) must hold ``HMMA``;
 3. kernel: the paged-attention kernel against its plain PyTorch version
@@ -107,13 +108,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    d w_hh, dh0 and dc0 within 1e-4 (f32) and 2e-2 (bf16) of max |grad|,
    and the bf16 d w_hh within 2^-8 of max |grad| of the f32 sum over the
    kernel's own stored ys and cs), one shape outside the envelope that
-   must raise, then at the char-LSTM training shape (N=256, T=200,
-   H=256, bf16): the backward on its cluster route (``bwd_route``), two
-   calls bit-equal, the first (grid) design against the plain version
-   too, each kernel's time (the backward's two designs in turns in the
-   same call) beside its plain version's, its bound and a
-   ``torch.nn.LSTM`` (cuDNN) yardstick the port never calls, with the
-   port's projection matmul plus the kernel beside it (like with like);
+   must raise; at every one of those shapes the bf16 forward on its
+   cluster route (``fwd_route``) and on the first (grid) design, both
+   against the plain version and each other within 2e-2, two cluster
+   calls bit-equal; the three mixes of f32 and bf16 among x_proj, w_hh
+   and the state (C6: the grid route over widened inputs), forward and
+   backward against the plain versions on the same mixed inputs (dtypes
+   equal, values within 1e-5 (2e-3 under a bf16 w_hh, where the
+   recurrence rounds h) or one bf16 step, gradients within 1e-4 of max
+   |grad| or one bf16 step); then at the char-LSTM training shape
+   (N=256, T=200, H=256, bf16): both directions on their cluster routes
+   (``fwd_route``, ``bwd_route``), two calls bit-equal, the first (grid)
+   designs against the plain version too, each kernel's time (each
+   direction's two designs in turns with cuDNN in the same call) beside
+   its plain version's, its bound and a ``torch.nn.LSTM`` (cuDNN)
+   yardstick the port never calls, with the port's projection matmul
+   plus the kernel beside it (like with like), and the profiler's device
+   time per call of each cluster route and the forward's grid design;
 9. char-LSTM training: ``TextGenerationLSTM(vocab_size=77, hidden=256)``
    (887,117 parameters, random weights from a numpy seed in the JAX
    layout) through ``MultiLayerNetwork.fit`` at ``bench_common.
@@ -123,6 +134,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step, the per-character loss starting within 0.5 of ln 77 and falling;
    a profiled window of 3 steps; then the zoo's own tBPTT 50 at f32 on the
    same batch: one ``fit`` is 4 segments, 8 + 8 launches, 4 iterations;
+   every bf16 launch on the cluster routes (``fwd_cluster_launches``,
+   ``bwd_cluster_launches``);
 10. LSTM parity: the zoo model (hidden 256, tBPTT 50, f32), 3 minibatches
    of 8 x 100 on the card (the kernels) and on the CPU (the plain
    versions) from the same numpy weights (loss 1e-5 relative, parameters
@@ -130,22 +143,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card, ``rnnTimeStep`` fed 64 characters one at a time (batch 4) equals
    ``output()`` over the sequence, and both equal the same network's
    ``output()`` on the CPU (the plain versions), within 1e-5; a changed
-   batch size with stored state raises;
+   batch size with stored state raises; then the same sampling at bf16,
+   every launch on the forward's cluster route, within 2e-2 of bf16
+   ``output()``, its ms per character beside f32's;
 11. conv / tail kernels: through ``Nd4j.exec`` by name, at batch 256 in
    bf16, the conv + BN-stats kernel (``csrc/conv_bn_stats.cu``) at the 9
    1x1 and 4 3x3 stride-1 shapes of ResNet-50's bottleneck stacks
    (bench_conv_pallas.py:23-37) and the residual-tail kernel
    (``csrc/residual_tail.cu``) at its 4 residual joins
-   (bench_residual_tail.py:31-36), each against its plain version at f32
-   on the same bf16 values (y and the tail within one bf16 rounding, 2^-8
-   of the largest value; means within 1e-5 of max |y|, variances within
-   1e-4 of max E[y^2]: f32 sums in another order), every conv shape on
-   the tensor-core route, then each one's time beside the first bf16
+   (bench_residual_tail.py:31-36), each conv against its plain version at
+   f32 on the same bf16 values (y within one bf16 rounding, 2^-8 of the
+   largest value; means within 1e-5 of max |y|, variances within 1e-4 of
+   max E[y^2]: f32 sums in another order), every conv shape on the
+   tensor-core route, then each one's time beside the first bf16
    design's (the route odd shapes still take), its plain version's, a
    library yardstick the port never calls (``torch.matmul`` or
-   ``F.conv2d`` + ``torch.var_mean``; ``F.batch_norm`` + add + ``relu``)
-   and its bound; at each conv row shape two calls bit-equal and the
-   profiler's device time per call of the conv and reduction kernels;
+   ``F.conv2d`` + ``torch.var_mean``) and its bound; at each conv row
+   shape two calls bit-equal and the profiler's device time per call of
+   the conv and reduction kernels; the tail in f32, bf16 and both mixes
+   of x and res (C5) against its plain version at f32 on the same values
+   (f32 within 1e-5, a bf16 output within one bf16 rounding, 2^-8 of the
+   largest value), two
+   calls bit-equal, each one's time beside its plain version's, the
+   library's (``F.batch_norm`` + add + ``relu``) and its byte bound, with
+   its share of that bound;
 12. ResNet-50 blocks by name: the four identity bottleneck blocks
    (256->64->256 at 56x56, 512->128 at 28x28, 1024->256 at 14x14,
    2048->512 at 7x7; numpy He-normal weights from a seed) as ``SameDiff``
@@ -162,6 +183,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
+
+``python3 chip_smoke.py tail-times TAG``, run from the root of any tree of
+the port (this file given by its path), prints only the residual-tail
+kernel's times at the four joins in bf16 and f32 (tagged TAG), for the
+port found from the current directory: an earlier design can be timed in
+the same chip call as this one.
 """
 
 from __future__ import annotations
@@ -245,7 +272,7 @@ def phase_build() -> None:
              "fused_update": ("",),
              "lstm_recurrence": ("Li1E", "cluster_kernelILi4E"),
              "conv_bn_stats": ("nv_bfloat16",),
-             "residual_tail": ("nv_bfloat16Lb1",)}
+             "residual_tail": ("residual_tail_kernelI",)}
     for name in KERNEL_SOURCES:
         log = native.build_logs.get(name, {})
         say("build", f"{os.path.relpath(paths[name], HERE)}: "
@@ -257,7 +284,7 @@ def phase_build() -> None:
                 found = re.search(r"(paged_attention_kernel"
                                   r"|flash_(?:fwd|bwd_[a-z]+)(?:_tc)?_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
-                                  r"|lstm_(?:fwd|bwd|bwd_cluster)_kernel"
+                                  r"|lstm_(?:fwd|bwd)(?:_cluster)?_kernel"
                                   r"|conv_bn_stats(?:_tc)?_kernel"
                                   r"|residual_tail_kernel)", ln)
                 tc_conv = re.search(
@@ -273,7 +300,9 @@ def phase_build() -> None:
                     + (", hd 128" if mark == "Li128E" else "") \
                     + (f", mma.sync, H {64 * int(cl.group(1))}, "
                        f"{16 * int(cl.group(2))} rows per cluster"
-                       if cl else "")
+                       if cl else "") \
+                    + (f", template <{tail.group(1)}>" if (tail := re.search(
+                        r"residual_tail_kernelI(\w+?)EEv", ln)) else "")
                 info = [x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
@@ -299,9 +328,9 @@ FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                     "flash_bwd_dq_tc_kernel")
 #: the bf16 conv + BN-stats route that must issue wgmma (HGMMA in SASS)
 CONV_TC_KERNELS = ("conv_bn_stats_tc_kernel",)
-#: the LSTM backward's cluster route, whose dh and gate products must run
-#: on the tensor cores (HMMA in SASS)
-LSTM_TC_KERNELS = ("lstm_bwd_cluster_kernel",)
+#: the LSTM cluster routes, whose gate (forward) and dh and gate
+#: (backward) products must run on the tensor cores (HMMA in SASS)
+LSTM_TC_KERNELS = ("lstm_fwd_cluster_kernel", "lstm_bwd_cluster_kernel")
 #: the paged-attention kernel, whose multi-row bf16 tiles must run on the
 #: tensor cores
 PAGED_TC_KERNELS = ("paged_attention_kernel",)
@@ -1289,14 +1318,15 @@ def flash_bf16_shapes() -> tuple:
 def device_split(what: str, run, calls: int = 20,
                  pattern: str = r"flash_\w+?_kernel",
                  phase: str = "flash", shape: str = "the training shape"
-                 ) -> None:
+                 ):
     """Device time per call of each kernel matching ``pattern`` that
     ``run`` launches, from a torch.profiler trace of ``calls`` calls:
     each kernel's mean over the launch records the trace holds, and how
     many it holds (a long process can lose records; a sum over lost ones
     divided by ``calls`` would read low). Beside the CUDA-event time per
     call, which also holds the gaps between launches when the host
-    enqueues more slowly than the card runs."""
+    enqueues more slowly than the card runs. Returns the sum of the
+    means in us (None where the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1315,11 +1345,13 @@ def device_split(what: str, run, calls: int = 20,
     if not split:
         say(phase, f"torch.profiler saw no device time: {what} split not "
                    f"measured")
-        return
+        return None
+    total = sum(t / n for t, n in split.values())
     say(phase, f"{what} device time per call at {shape} (profiler): "
-               f"{sum(t / n for t, n in split.values()):.1f} us = "
+               f"{total:.1f} us = "
                + " + ".join(f"{k} {t / n:.1f} us ({n} of {calls} launches "
                             f"traced)" for k, (t, n) in sorted(split.items())))
+    return total
 
 
 def phase_flash() -> tuple:
@@ -1784,21 +1816,45 @@ def phase_lstm_kernels() -> tuple:
             ins = [t.to(dtype) for t in (x_proj, w_hh, h0, c0)]
             f32 = [t.float() for t in ins]
             want = lr.lstm_recurrence_reference(*f32, collect_cell=True)
-            for cells in (False, True):
-                got = lr.lstm_recurrence_fwd(*ins, collect_cell=cells)
+            # bf16 takes the cluster route, held against the plain version
+            # and against the first (grid) design on the same inputs
+            routes = ("cluster", "grid") if dtype == torch.bfloat16 \
+                else ("grid",)
+            check(lr.fwd_route(*ins) == routes[0],
+                  f"LSTM forward {dtype} T={T} N={N} takes the "
+                  f"{lr.fwd_route(*ins)} route, not {routes[0]}")
+            outs = {}
+            for route in routes:
+                for cells in (False, True):
+                    got = lr.lstm_recurrence_fwd(*ins, collect_cell=cells,
+                                                 route=route)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        check(a.dtype == dtype and a.shape == b.shape,
+                              f"LSTM forward output {a.dtype} "
+                              f"{tuple(a.shape)}")
+                        check(bool(torch.isfinite(a).all()),
+                              "LSTM forward output not finite")
+                        err = float((a.float() - b).abs().max())
+                        if route == routes[0]:
+                            fwd_err = max(fwd_err, err)
+                        check(err <= tol, f"LSTM forward {dtype} {route} "
+                                          f"T={T} N={N} cells={cells}: "
+                                          f"{err:.3e} > {tol:g}")
+                    outs[route] = got
+                line.append(f"fwd {str(dtype)[6:]} {route} {err:.2e}")
+            if dtype == torch.bfloat16:
+                again = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
                 torch.cuda.synchronize()
-                for a, b in zip(got, want):
-                    check(a.dtype == dtype and a.shape == b.shape,
-                          f"LSTM forward output {a.dtype} "
-                          f"{tuple(a.shape)}")
-                    check(bool(torch.isfinite(a).all()),
-                          "LSTM forward output not finite")
-                    err = float((a.float() - b).abs().max())
-                    fwd_err = max(fwd_err, err)
-                    check(err <= tol, f"LSTM forward {dtype} T={T} N={N} "
-                                      f"cells={cells}: {err:.3e} > "
-                                      f"{tol:g}")
-            line.append(f"fwd {str(dtype)[6:]} {err:.2e}")
+                check(all(torch.equal(a, b) for a, b in
+                          zip(again, outs["cluster"])),
+                      f"LSTM forward T={T} N={N}: two cluster-route calls "
+                      f"differ")
+                gap = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(outs["cluster"], outs["grid"]))
+                check(gap <= tol, f"LSTM forward T={T} N={N}: cluster and "
+                                  f"grid routes {gap:.3e} apart > {tol:g}")
+                line.append(f"cluster vs grid {gap:.2e} (bit-equal twice)")
             ys_k, _, _, cs_k = lr.lstm_recurrence_fwd(*ins,
                                                       collect_cell=True)
             up = [t.to(dtype) for t in (dys, dhT, dcT)]
@@ -1845,6 +1901,7 @@ def phase_lstm_kernels() -> tuple:
     else:
         raise RuntimeError("the LSTM wrapper took N=257, outside its "
                            "envelope")
+    check_lstm_mixed(lr, H)
 
     # the training shape: bf16, T=200, N=256, H=256
     T, N = LSTM_SEQ, LSTM_BATCH
@@ -1852,9 +1909,14 @@ def phase_lstm_kernels() -> tuple:
                             lstm_case(T, N, H, seed=11))
     g = torch.Generator(device=DEVICE).manual_seed(12)
     dys = torch.randn(T, N, H, generator=g, device=DEVICE).to(torch.bfloat16)
+    check(lr.fwd_route(x_proj, w_hh, h0, c0) == "cluster",
+          "the training shape must take the forward's cluster route")
     ys, hT, cT, cs = lr.lstm_recurrence_fwd(x_proj, w_hh, h0, c0,
                                             collect_cell=True)
     fwd_plan = lr.last_plan
+    lr.lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell=True,
+                           route="grid")
+    fwd_grid_plan = lr.last_plan
     check(lr.bwd_route(x_proj, w_hh, h0, ys) == "cluster",
           "the training shape must take the backward's cluster route")
     got = lr.lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys)
@@ -1890,6 +1952,9 @@ def phase_lstm_kernels() -> tuple:
                     x_proj, w_hh, h0, c0, ys, cs, dys), iters, 3),
                 cuda_ms(lambda i: lr.lstm_recurrence_bwd(
                     x_proj, w_hh, h0, c0, ys, cs, dys, route="grid"),
+                    iters, 3),
+                cuda_ms(lambda i: lr.lstm_recurrence_fwd(
+                    x_proj, w_hh, h0, c0, collect_cell=True, route="grid"),
                     iters, 3))
 
     kern1 = kernels()
@@ -1902,6 +1967,28 @@ def phase_lstm_kernels() -> tuple:
     say("lstm", f"B5 bwd, first (grid) design at T={T} N={N} H={H} bf16 "
                 f"(plan {grid_plan}), in turns with the cluster route: "
                 f"{kern1[2]:.4f} / {kern2[2]:.4f} ms")
+    say("lstm", f"B5 fwd, first (grid) design at T={T} N={N} H={H} bf16 "
+                f"(plan {fwd_grid_plan}), in turns with the cluster route "
+                f"and cuDNN: {kern1[3]:.4f} / {kern2[3]:.4f} ms "
+                f"({min(kern1[3], kern2[3]) / T * 1e3:.2f} us per step)")
+    # the sampling shape (rnnTimeStep: T=1, N=4) at bf16, each route in
+    # turns: a call there is the launch and the prologue
+    one = [t.to(torch.bfloat16) for t in lstm_case(1, 4, H, seed=41)]
+    samp = [cuda_ms(lambda i: lr.lstm_recurrence_fwd(*one, route=r), 200)
+            for r in ("cluster", "grid", "cluster", "grid")]
+    say("lstm", f"B5 fwd at the sampling shape T=1 N=4 H={H} bf16, in turns: "
+                f"cluster route {samp[0] * 1e3:.1f} / {samp[2] * 1e3:.1f} us, "
+                f"grid route {samp[1] * 1e3:.1f} / {samp[3] * 1e3:.1f} us per "
+                f"call (CUDA events)")
+    for what, run in (
+            ("B5 fwd, cluster route", lambda: lr.lstm_recurrence_fwd(
+                x_proj, w_hh, h0, c0, collect_cell=True)),
+            ("B5 fwd, grid route", lambda: lr.lstm_recurrence_fwd(
+                x_proj, w_hh, h0, c0, collect_cell=True, route="grid")),
+            ("B5 bwd, cluster route", lambda: lr.lstm_recurrence_bwd(
+                x_proj, w_hh, h0, c0, ys, cs, dys))):
+        device_split(what, run, calls=10, pattern=r"lstm_\w+?_kernel",
+                     phase="lstm", shape=f"T={T} N={N} H={H} bf16")
     rows = []
     for j, (name, err, plan) in enumerate((("B5", fwd_err, fwd_plan),
                                            ("B5 bwd", bwd_err, bwd_plan))):
@@ -1925,6 +2012,71 @@ def phase_lstm_kernels() -> tuple:
                      "plain_ms": plain[j], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib[j]})
     return tuple(rows)
+
+
+#: (x_proj, w_hh, h0 and c0) dtypes of the mixed LSTM calls (C6)
+LSTM_MIXES = ((torch.float32, torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16, torch.float32))
+
+
+#: f32 forward outputs of a mixed call with a bf16 w_hh: the recurrence
+#: rounds h to bf16 before every product, so a 1-ulp change in f32 can flip
+#: a rounding and moves the outputs by up to 6.6e-4 at T=200, N=256 in the
+#: plain version itself (x_proj scaled by 1 + 2^-23)
+MIXED_ROUNDED_TOL = 2e-3
+
+
+def mixed_tol(t, scale: float, f32_tol: float) -> float:
+    """f32 results within ``f32_tol`` (of ``scale`` for gradients); bf16
+    ones within one bf16 step of the largest value."""
+    return f32_tol * scale if t.dtype == torch.float32 else 2 ** -7 * scale
+
+
+def check_lstm_mixed(lr, H: int) -> None:
+    """C6: the three mixes, forward and backward on the card (the grid
+    route at f32 over widened inputs) against the plain versions on the
+    same mixed inputs: output and gradient dtypes equal, values within
+    1e-5 (f32) or one bf16 step, gradients within 1e-4 of max |grad|
+    (f32) or one bf16 step."""
+    T, N = 50, 64
+    x_proj, w_hh, h0, c0 = lstm_case(T, N, H, seed=31)
+    g = torch.Generator(device=DEVICE).manual_seed(32)
+    for mix in LSTM_MIXES:
+        ins = [t.to(d) for t, d in zip((x_proj, w_hh, h0, c0),
+                                       (mix[0], mix[1], mix[2], mix[2]))]
+        check(lr.fwd_route(*ins) == "grid", f"mixed {mix} not on the grid "
+                                            f"route")
+        want = lr.lstm_recurrence_reference(*ins, collect_cell=True)
+        got = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+        ys, cs = want[0], want[3]
+        dys, dhT, dcT = (torch.randn(shape, generator=g, device=DEVICE)
+                         .to(mix[0]) for shape in ((T, N, H), (N, H), (N, H)))
+        ref = lr.lstm_recurrence_backward_reference(*ins, ys, cs, dys, dhT,
+                                                    dcT)
+        grads = lr.lstm_recurrence_bwd(*ins, ys, cs, dys, dhT, dcT)
+        torch.cuda.synchronize()
+        worst = []
+        for name, a, b, absolute in (
+                *((n, a, b, True) for n, a, b in
+                  zip(("ys", "hT", "cT", "cs"), got, want)),
+                *((n, a, b, False) for n, a, b in
+                  zip(("dx_proj", "dw_hh", "dh0", "dc0"), grads, ref))):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"mixed {mix} {name}: {a.dtype} {tuple(a.shape)} against "
+                  f"{b.dtype} {tuple(b.shape)}")
+            err = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max())
+            f32_tol = ((MIXED_ROUNDED_TOL if mix[1] == torch.bfloat16
+                        else 1e-5) if absolute else 1e-4)
+            tol = mixed_tol(a, max(1.0, scale) if absolute else scale,
+                            f32_tol)
+            check(err <= tol, f"mixed {mix} {name}: {err:.3e} > {tol:.3e}")
+            worst.append(f"{name} {str(a.dtype)[6:]} {err:.2e}")
+        say("lstm", f"mixed (x_proj, w_hh, state) "
+                    f"{tuple(str(d)[6:] for d in mix)} at T={T} N={N} H={H}, "
+                    f"grid route over widened inputs, max abs err against "
+                    f"the plain versions: {', '.join(worst)}")
 
 
 def lstm_yardstick(shape, iters: int):
@@ -2045,10 +2197,18 @@ def lstm_counts() -> tuple:
     return lr.fwd_launches, lr.bwd_launches
 
 
+def lstm_cluster_counts() -> tuple:
+    """The launches of :func:`lstm_counts` that took the cluster route."""
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+
+    return lr.fwd_cluster_launches, lr.bwd_cluster_launches
+
+
 def reset_lstm_counts() -> None:
     from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
 
     lr.fwd_launches = lr.bwd_launches = 0
+    lr.fwd_cluster_launches = lr.bwd_cluster_launches = 0
 
 
 def phase_lstm_train(rows: dict) -> None:
@@ -2080,12 +2240,13 @@ def phase_lstm_train(rows: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = lstm_counts()
+    cluster = lstm_cluster_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = WARMUP_STEPS + TIMED_STEPS
     per_char = [float(l) / LSTM_SEQ for l in losses]
-    check((fwd, bwd) == (2 * steps, 2 * steps),
-          f"LSTM launches fwd {fwd}, bwd {bwd} over {steps} steps of 2 "
-          f"layers")
+    check((fwd, bwd) == (2 * steps, 2 * steps) == cluster,
+          f"LSTM launches fwd {fwd}, bwd {bwd} (cluster route {cluster}) "
+          f"over {steps} steps of 2 layers")
     check(all(math.isfinite(v) for v in per_char), f"losses {per_char}")
     check(abs(per_char[0] - ln_v) <= 0.5,
           f"first loss per character {per_char[0]:.4f} is not within 0.5 of "
@@ -2103,7 +2264,8 @@ def phase_lstm_train(rows: dict) -> None:
     say("lstm-train", f"{TIMED_STEPS} timed steps: {step_s * 1e3:.2f} "
                       f"ms/step, {tokens_s:.1f} tokens/s; peak memory {peak} "
                       f"B ({peak / 2 ** 30:.2f} GiB); launches over {steps} "
-                      f"steps: fwd {fwd}, bwd {bwd}")
+                      f"steps: fwd {fwd}, bwd {bwd}, all on the cluster "
+                      f"routes")
     say("lstm-train", "loss per character (the network's loss sums over "
                       "the 200 steps): " + " ".join(f"{v:.4f}"
                                                     for v in per_char))
@@ -2214,6 +2376,34 @@ def phase_lstm_parity() -> None:
         raise RuntimeError("rnnTimeStep took a new batch size with stored "
                            "state")
 
+    # sampling at bf16, the training dtype: every rnnTimeStep on the
+    # forward's cluster route (T=1, N=4); the state goes back to the
+    # network in bf16 between characters, so output() over the sequence
+    # (h and c carried in f32 inside one launch) differs by the roundings
+    net = textgen_net("bfloat16", 50, DEVICE, seed=6)
+    xb = x.to(torch.bfloat16)
+    full = net.output(xb)
+    net.rnnTimeStep(xb[:, 0])                 # warm-up, then a fresh state
+    net.rnnClearPreviousState()
+    reset_lstm_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = torch.stack([net.rnnTimeStep(xb[:, t]) for t in range(64)], 1)
+    torch.cuda.synchronize()
+    per_char_bf16 = (time.perf_counter() - t0) / 64 * 1e3
+    counts, cluster = lstm_counts(), lstm_cluster_counts()
+    err = float((steps.float() - full.float()).abs().max())
+    say("lstm-parity", f"bf16 rnnTimeStep x 64 (batch 4): {per_char_bf16:.3f} "
+                       f"ms per character (host clock, 2 layers + head; f32 "
+                       f"above: {per_char:.3f}); launches {counts}, on the "
+                       f"cluster route {cluster}; max abs diff from bf16 "
+                       f"output() {err:.3e} (tolerance 2e-2)")
+    check(counts == cluster == (2 * 64, 0),
+          f"bf16 sampling launched {counts}, cluster route {cluster}, not "
+          f"2 layers x 64 calls on the cluster route")
+    check(err <= 2e-2, f"bf16 rnnTimeStep differs from output() by "
+                       f"{err:.3e}")
+
 
 # ------------------------------------------------- conv / tail kernels (B4, B3)
 # (kind, N, H, W, Cin, Cout): every stride-1 conv class of ResNet-50's
@@ -2261,14 +2451,102 @@ def conv_bound(x, w, y, taps: int):
     return (*bound(nbytes, flops, peak), nbytes, flops)
 
 
-def tail_bound(x):
+def tail_bound(x, res):
     """(bound_ms, bound_by, bytes, flops) of one residual-tail call: x and
-    res read once, out written once, four f32 [C] vectors read once; 6
-    f32 operations per element."""
+    res read once, out (x's dtype) written once, four f32 [C] vectors read
+    once; 6 f32 operations per element."""
     c = x.shape[-1]
-    nbytes = 3 * x.numel() * x.element_size() + 4 * c * 4
+    nbytes = (2 * x.numel() * x.element_size()
+              + res.numel() * res.element_size() + 4 * c * 4)
     flops = 6 * x.numel()
     return (*bound(nbytes, flops, F32_FLOPS), nbytes, flops)
+
+
+#: (x, res) dtypes of the tail checks: f32, bf16 and both mixes (C5)
+TAIL_DTYPES = ((torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16))
+
+
+def tail_case(shape, mix):
+    """(x, res, mean, var, gamma, beta) of one residual join: x and res
+    in the dtypes of ``mix`` from the same seeded values whatever the
+    dtypes, f32 statistics and parameters."""
+    n, h, w_, c = shape
+    g = torch.Generator(device=DEVICE).manual_seed(c + h)
+    x = torch.randn(n, h, w_, c, generator=g, device=DEVICE).to(mix[0])
+    res = torch.randn(n, h, w_, c, generator=g, device=DEVICE).relu_() \
+        .to(mix[1])
+    mean = 0.1 * torch.randn(c, generator=g, device=DEVICE)
+    var = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    gamma = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    beta = 0.1 * torch.randn(c, generator=g, device=DEVICE)
+    return x, res, mean, var, gamma, beta
+
+
+def tail_times(args, iters: int = 20) -> dict:
+    """The residual-tail kernel's time through ``Nd4j.exec`` (two runs,
+    in turns with the library yardstick), the plain version's, the
+    library's (``F.batch_norm`` + add + ``relu`` on channels-last views,
+    never called by the port; an eager composition where ``F.batch_norm``
+    refuses the dtypes) and the bound. Needs only the op by name and its
+    plain version, so it also times an earlier tree's kernel."""
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    x, res, mean, var, gamma, beta = args
+    kern1 = cuda_ms(lambda i: Nd4j.exec("bn_relu_residual", *args), iters, 3)
+    plain = cuda_ms(lambda i: rt.residual_tail_reference(*args), 5, 1)
+    x_nchw, r_nchw = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
+    kind = "F.batch_norm + add + relu"
+    try:
+        F.batch_norm(x_nchw, mean, var, gamma, beta, False, 0.0, 1e-5)
+
+        def library(i):
+            return torch.relu(F.batch_norm(x_nchw, mean, var, gamma, beta,
+                                           False, 0.0, 1e-5) + r_nchw)
+    except RuntimeError:
+        kind = "eager composition"
+
+        def library(i):
+            return torch.relu((x - mean) * torch.rsqrt(var + 1e-5) * gamma
+                              + beta + res)
+    lib = cuda_ms(library, iters, 3)
+    kern2 = cuda_ms(lambda i: Nd4j.exec("bn_relu_residual", *args), iters, 3)
+    ms = min(kern1, kern2)
+    bound_ms, bound_by, nbytes, _ = tail_bound(x, res)
+    kinds = "/".join(str(t.dtype)[6:] for t in (x, res))
+    device = device_split(
+        "bn_relu_residual", lambda: Nd4j.exec("bn_relu_residual", *args),
+        pattern=r"residual_tail\w*?_kernel", phase="tail",
+        shape=f"{'x'.join(map(str, x.shape[1:]))} N={x.shape[0]} {kinds}")
+    return {"kernel": (kern1, kern2), "plain": plain, "library": lib,
+            "library_kind": kind, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "gbs": nbytes / (ms * 1e-3) / 1e9,
+            "share": bound_ms / ms,
+            "device_share": (bound_ms * 1e3 / device) if device else None}
+
+
+def fmt_share(share) -> str:
+    return "not measured" if share is None else f"{share:.3f}"
+
+
+def say_tail_times(tag: str) -> None:
+    """The residual tail's times (:func:`tail_times`) at the four joins in
+    bf16 and f32, one line each: run from the root of an earlier tree of
+    the port, with this file's functions loaded, it times that tree's
+    kernel, so two designs can be compared in one chip call."""
+    for shape in TAIL_SHAPES:
+        for mix in TAIL_DTYPES[:2]:
+            t = tail_times(tail_case(shape, mix))
+            say("tail-times", f"{tag} {'x'.join(map(str, shape[1:]))} "
+                              f"N={shape[0]} {str(mix[0])[6:]}: kernel "
+                              f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} "
+                              f"ms, library {t['library']:.4f} ms, bound "
+                              f"{t['bound_ms']:.4f} ms, {t['share']:.3f} of "
+                              f"the bound ({fmt_share(t['device_share'])} "
+                              f"by device time)")
 
 
 def conv_errors(y, m, v, ry, rm, rv) -> tuple:
@@ -2392,71 +2670,52 @@ def phase_conv_kernels() -> tuple:
     tail_err = 0.0
     for shape in TAIL_SHAPES:
         n, h, w_, c = shape
-        g = torch.Generator(device=DEVICE).manual_seed(c + h)
-        x = torch.randn(n, h, w_, c, generator=g, device=DEVICE).to(bf)
-        res = torch.randn(n, h, w_, c, generator=g, device=DEVICE).relu_() \
-            .to(bf)
-        mean = 0.1 * torch.randn(c, generator=g, device=DEVICE)
-        var = torch.rand(c, generator=g, device=DEVICE) + 0.5
-        gamma = torch.rand(c, generator=g, device=DEVICE) + 0.5
-        beta = 0.1 * torch.randn(c, generator=g, device=DEVICE)
-        args = (x, res, mean, var, gamma, beta)
-        out = Nd4j.exec("bn_relu_residual", *args)
-        want = rt.residual_tail_reference(x.float(), res.float(), mean, var,
-                                          gamma, beta)
-        torch.cuda.synchronize()
-        check(out.dtype == bf and out.shape == x.shape,
-              f"bn_relu_residual output {out.dtype} {tuple(out.shape)}")
-        err = float((out.float() - want).abs().max())
-        scale = float(want.abs().max())
-        tail_err = max(tail_err, err)
-        # the same f32 value, rounded once to bf16
-        check(err <= 2 ** -8 * scale, f"bn_relu_residual at {shape}: "
-                                      f"{err:.3e} > 2^-8 x {scale:.3e}")
-        del want
-        iters = 20
-        kern1 = cuda_ms(lambda i: Nd4j.exec("bn_relu_residual", *args), iters,
-                        3)
-        plain = cuda_ms(lambda i: rt.residual_tail_reference(*args), 5, 1)
-        x_nchw, r_nchw = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
-        lib_kind = "F.batch_norm + add + relu"
-        try:
-            F.batch_norm(x_nchw, mean, var, gamma, beta, False, 0.0, 1e-5)
-        except RuntimeError as e:
-            say("tail", f"F.batch_norm refused bf16 input with f32 "
-                        f"statistics: {e}")
-            lib_kind = None
-        if lib_kind:
-            def library(i):
-                return torch.relu(F.batch_norm(x_nchw, mean, var, gamma, beta,
-                                               False, 0.0, 1e-5) + r_nchw)
-        else:
-            lib_kind = "eager composition"
-
-            def library(i):
-                return torch.relu((x - mean) * torch.rsqrt(var + 1e-5)
-                                  * gamma + beta + res)
-        lib = cuda_ms(library, iters, 3)
-        kern2 = cuda_ms(lambda i: Nd4j.exec("bn_relu_residual", *args), iters,
-                        3)
-        ms = min(kern1, kern2)
-        bound_ms, bound_by, nbytes, flops = tail_bound(x)
-        say("tail", f"bn_relu_residual {h}x{w_}x{c} N={n} bf16: max abs err "
-                    f"{err:.3e} (max |out| {scale:.2f}); kernel {kern1:.4f} / "
-                    f"{kern2:.4f} ms, plain {plain:.4f} ms, library "
-                    f"({lib_kind}) {lib:.4f} ms; bound {bound_ms:.4f} ms by "
-                    f"{bound_by} ({nbytes} B); kernel at "
-                    f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
-                    f"{bound_ms / ms:.3f} of its bound")
-        if shape == TAIL_ROW_SHAPE:
-            rows["bn_relu_residual"] = {
-                "name": "bn_relu_residual", "route": "cuda",
-                "source": "deeplearning4j_tpu_torch/csrc/residual_tail.cu",
-                "replaces": "deeplearning4j_tpu/ops/residual_tail_pallas.py:63",
-                "launches": 0, "max_abs_err": 0.0, "ms": ms,
-                "plain_ms": plain, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib}
-        del x, res, out, args
+        for mix in TAIL_DTYPES:
+            args = tail_case(shape, mix)
+            x = args[0]
+            out = Nd4j.exec("bn_relu_residual", *args)
+            # the plain version at f32 on the same values
+            want = rt.residual_tail_reference(x.float(), args[1].float(),
+                                              *args[2:])
+            torch.cuda.synchronize()
+            check(out.dtype == mix[0] and out.shape == x.shape,
+                  f"bn_relu_residual output {out.dtype} {tuple(out.shape)}")
+            again = Nd4j.exec("bn_relu_residual", *args)
+            torch.cuda.synchronize()
+            check(torch.equal(again, out), f"bn_relu_residual at {shape} "
+                                           f"{mix}: two calls differ")
+            err = float((out.float() - want).abs().max())
+            scale = float(want.abs().max())
+            # f32: the same operations in the same order (rsqrt rounded
+            # apart); a bf16 output: the same f32 value rounded once
+            tol = 1e-5 if mix[0] == torch.float32 else 2 ** -8 * scale
+            check(err <= tol, f"bn_relu_residual at {shape} {mix}: "
+                              f"{err:.3e} > {tol:.3e}")
+            if mix == (bf, bf):
+                tail_err = max(tail_err, err)
+            del out, want, again
+            t = tail_times(args)
+            kinds = "/".join(str(d)[6:] for d in mix)
+            say("tail", f"bn_relu_residual {h}x{w_}x{c} N={n} x/res {kinds}: "
+                        f"max abs err {err:.3e} (max |out| {scale:.2f}, "
+                        f"tolerance {tol:.2e}); two calls bit-equal; kernel "
+                        f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms, "
+                        f"plain {t['plain']:.4f} ms, library "
+                        f"({t['library_kind']}) {t['library']:.4f} ms; bound "
+                        f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+                        f"({t['bytes']} B); kernel at {t['gbs']:.1f} GB/s, "
+                        f"{t['share']:.3f} of its bound ("
+                        f"{fmt_share(t['device_share'])} by device time)")
+            if shape == TAIL_ROW_SHAPE and mix == (bf, bf):
+                rows["bn_relu_residual"] = {
+                    "name": "bn_relu_residual", "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/csrc/residual_tail.cu",
+                    "replaces": "deeplearning4j_tpu/ops/residual_tail_pallas.py"
+                                ":63",
+                    "launches": 0, "max_abs_err": 0.0, "ms": min(t["kernel"]),
+                    "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library"]}
+            del args, x
     rows["bn_relu_residual"]["max_abs_err"] = tail_err
     return tuple(rows.values())
 
@@ -2653,10 +2912,17 @@ def phase_resnet_parity() -> None:
                              f"|out|))")
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if argv[:1] == ["tail-times"]:
+        # the residual tail's times alone, of the port found from the
+        # current directory (an earlier tree, to compare designs)
+        sys.path.insert(0, os.getcwd())
+        phase_device()
+        say_tail_times(argv[1] if len(argv) > 1 else os.getcwd())
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -2691,4 +2957,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -8,7 +8,9 @@
 //
 // What it computes, for x_proj [T, N, 4H] (the input projection plus bias, gate
 // order i, f, g, o), w_hh [H, 4H] and h0, c0 [N, H], all of one element type
-// (f32 or bf16), with h and c carried in f32:
+// (f32 or bf16; the wrapper runs a call that mixes the two on the f32 grid
+// design over widened inputs, with h rounded to bf16 before the product where
+// w_hh is bf16: Args::round_h), with h and c carried in f32:
 //   a_t = f32(h_{t-1}) @ w_hh + x_proj[t]      (h rounded to the storage type
 //   i, f, o = sigmoid(a_i, a_f, a_o)            first, as the Pallas kernel
 //   g = tanh(a_g)                               casts h to w_hh's dtype)
@@ -97,6 +99,38 @@
 // What is left on its chain per step: the cell update, one __syncthreads, the
 // partial product (96 mma per warp and m16 tile at H = 256), the cluster
 // barrier and 2 x H / 32 DSMEM loads per thread and m16 tile.
+//
+// The forward's cluster route (lstm_fwd_cluster_kernel; bf16, H in {64, 128,
+// 256}: the training and sampling paths). The grid design spends ~14 us a
+// step on the H100 at the training shape on its grid barrier and on f32
+// FMAs over h staged through shared memory. Here, as in the backward:
+// - A cluster of H / 32 blocks owns a tile of 16 (or 32) batch rows and all H
+//   units, a block 32 units (128 gate columns) with 8 warps per m16 tile of
+//   rows (256 or 512 threads); the tile size follows the backward's choice
+//   from cudaOccupancyMaxActiveClusters.
+// - The gates h_{t-1} w_hh of the block's columns are one tensor-core product
+//   per step (mma.sync m16n8k16 through ldmatrix, f32 accumulators): h is
+//   exact in bf16 (the reference rounds h to w_hh's type before the dot), so
+//   one term suffices, a third of the backward's split product. The block's
+//   B fragments of w_hh stay in registers for all T. The columns are ordered
+//   so that each thread's accumulators hold all four gates of its (row, unit)
+//   pairs, and the cell update (f32 registers, the grid design's order of
+//   operations) follows without a shuffle.
+// - h_t (bf16) goes into the block's own shared-memory slot (two,
+//   alternating); after a block barrier one thread copies the slot with the
+//   bulk-copy engine (cp.async.bulk, shared::cta to shared::cluster) into
+//   chunk `rank` of every block's next A tile, each copy completing on the
+//   receiver's mbarrier, which waits for all H / 32 slices. There is no
+//   cluster barrier per step. (Pulling the peers' slices over DSMEM after a
+//   barrier.cluster arrive and wait was the first design: on an H100 80GB
+//   HBM3 at 700 W, 0.75 ms per call at the training shape against 0.53,
+//   the exchange 0.34 of its step; tools/lstm_probe.py split and compare.)
+// - Off the chain, while the copies fly: ys and cs in 16-byte stores from
+//   the slot and a c tile, hT and cT, and x_proj two steps ahead copied by
+//   cp.async into a ring of three shared-memory tiles.
+// Rows past N are zero and never stored. What is left on its chain per step:
+// the product (2 H / 16 mma per warp and m16 tile), the cell update, a block
+// barrier, the copies' flight and the mbarrier wait, and one __syncthreads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,6 +216,7 @@ struct Args {
   int hpad;          // H rounded up to the chunk
   int kc;            // chunk length (a multiple of 32 that divides hpad)
   int unit_tiles;    // ceil(H / kU)
+  int round_h;       // f32 storage under a bf16 w_hh: h rounded to bf16 before the product
 };
 
 // Shared memory: w columns [hpad][kU] float4 (gates i, f, g, o of one unit in
@@ -211,13 +246,19 @@ __device__ void load_w_rows(float* w_s, const Args& a, int ut) {
   }
 }
 
-// 16 bytes of the storage type widened to f32 into dst (16-byte aligned).
-__device__ __forceinline__ void widen_store(float* dst, uint4 v, const float*) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
-                  __uint_as_float(v.w));
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
-__device__ __forceinline__ void widen_store(float* dst, uint4 v, const __nv_bfloat16*) {
+
+// 16 bytes of the storage type widened to f32 into dst (16-byte aligned); f32
+// values rounded to bf16 first where `round`.
+__device__ __forceinline__ void widen_store(float* dst, uint4 v, const float*, bool round) {
+  float4 f = make_float4(__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
+                         __uint_as_float(v.w));
+  if (round) f = make_float4(round_bf16(f.x), round_bf16(f.y), round_bf16(f.z), round_bf16(f.w));
+  *reinterpret_cast<float4*>(dst) = f;
+}
+__device__ __forceinline__ void widen_store(float* dst, uint4 v, const __nv_bfloat16*, bool) {
   // little-endian: the low half of each word is the first element
   *reinterpret_cast<float4*>(dst) =
       make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
@@ -228,7 +269,9 @@ __device__ __forceinline__ void widen_store(float* dst, uint4 v, const __nv_bflo
 }
 
 // Stage src[row, c0 + c) for the block's rows and c < kc into the chunk,
-// zero past n_rows or past `width` columns. Where every row starts on a
+// zero past n_rows or past `width` columns, f32 values rounded to bf16 where
+// `round` (h under a bf16 w_hh, as the Pallas kernel casts h to w_hh's type
+// before the dot). Where every row starts on a
 // 16-byte boundary (width a multiple of 16 bytes' elements, src aligned), a
 // warp reads whole 16-byte pieces of one row and each thread issues kBatch
 // loads before it stores any, so a chunk pays the memory latency a few times
@@ -237,7 +280,7 @@ constexpr int kBatch = 8;
 
 template <typename T, int RB>
 __device__ __forceinline__ void stage(float* ch_s, const T* src, int row0, int n_rows, int width,
-                                      int c0, int kc) {
+                                      int c0, int kc, bool round) {
   constexpr int NB = kRG * RB;
   constexpr int V = 16 / sizeof(T);       // elements per 16-byte piece
   constexpr int kWarps = kThreads / 32;
@@ -262,7 +305,7 @@ __device__ __forceinline__ void stage(float* ch_s, const T* src, int row0, int n
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k)
-        if (dst[k] >= 0) widen_store(ch_s + dst[k], v[k], src);
+        if (dst[k] >= 0) widen_store(ch_s + dst[k], v[k], src, round);
     }
     return;
   }
@@ -271,7 +314,8 @@ __device__ __forceinline__ void stage(float* ch_s, const T* src, int row0, int n
   for (int e = threadIdx.x; e < n; e += kThreads) {
     const int r = e / kc, c = e - r * kc;
     const int row = row0 + r, col = c0 + c;
-    ch_s[r * hs + c] = (row < n_rows && col < width) ? ld(src + (size_t)row * width + col) : 0.0f;
+    const float v = (row < n_rows && col < width) ? ld(src + (size_t)row * width + col) : 0.0f;
+    ch_s[r * hs + c] = round ? round_bf16(v) : v;
   }
 }
 
@@ -291,7 +335,7 @@ __device__ __forceinline__ void gates_matmul(float (&acc)[RB][4], const float* w
 #pragma unroll
   for (int j = 0; j < RB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
   for (int k0 = 0; k0 < a.hpad; k0 += kc) {
-    stage<T, RB>(ch_s, hp, row0, a.N, a.H, k0, kc);
+    stage<T, RB>(ch_s, hp, row0, a.N, a.H, k0, kc, a.round_h != 0);
     __syncthreads();
     const float4* wp = reinterpret_cast<const float4*>(w_s) + (size_t)k0 * kU + u;
     for (int k = 0; k < kc; k += 4, wp += 4 * kU) {
@@ -463,7 +507,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < RB; ++j) acc_h[j] = 0.0f;
     for (int j0 = 0; j0 < H4; j0 += kc) {
-      stage<float, RB>(ch_s, da, row0, N, H4, j0, kc);
+      stage<float, RB>(ch_s, da, row0, N, H4, j0, kc, false);
       __syncthreads();
       const float4* wp = reinterpret_cast<const float4*>(wr_s) + (size_t)(j0 / 4) * kU + u;
       for (int k = 0; k < kc; k += 4, wp += kU) {
@@ -853,9 +897,288 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_cluster_kernel(Args a) {
   cluster_wait();
 }
 
-// The clusters of cluster route instance (NT, MT) that the card holds at
-// once, with its shared-memory opt-in set first; per device, once.
+
+// ------------------------------------------------- forward, cluster route
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ unsigned pack2(unsigned short lo, unsigned short hi) {
+  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+__device__ __forceinline__ void mbar_init(unsigned addr, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned addr, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(addr), "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `parity` of this block's mbarrier to complete
+// (the bytes of every peer's copy landed); trap after the barrier timeout.
+__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
+  const long long t0 = global_ns();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
+  }
+}
+// `bytes` of this block's shared memory at src into dst of a peer (a
+// shared::cluster address), completing on that peer's mbarrier
+__device__ __forceinline__ void copy_to_peer(unsigned dst, unsigned src, unsigned bytes,
+                                             unsigned mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+// Shared memory of the forward, with H = 64 NT, CS = H / 32 blocks per
+// cluster and R = 16 MT batch rows per cluster (rows of SP = 40 bf16, 80
+// bytes: ldmatrix without bank conflicts):
+//   ha  [2][CS][R][SP] bf16  h_{t-1} for all H units, the A tile of the gate
+//                            product: chunk q holds units [32 q, 32 q + 32),
+//                            written by block q's copy (double-buffered)
+//   hs  [2][R][SP] bf16      h_t of the block's 32 units: the copies' source
+//   cst [R][SP] bf16         c_t of the block's 32 units, for 16-byte stores
+//   xs  [3][R][kCols + kPadH] bf16  x_proj[t] for the block's 128 columns,
+//                            copied two steps ahead
+//   mbar[2]                  one mbarrier per A buffer
+__host__ __device__ constexpr size_t fwd_smem_bytes(int H, int MT) {
+  return 2 * (size_t)MT * kRows *
+             (2 * (H / kUnits) * (kUnits + kPadH) + 3 * (kUnits + kPadH) + 3 * (kCols + kPadH)) +
+         16;
+}
+
+// Grid: H / 32 blocks per cluster, one cluster per R = 16 MT batch rows; 256
+// threads per m16 tile (8 warps each). Block `rank` owns units [32 rank,
+// 32 rank + 32). Warp w of the warps of tile m forms 16 gate columns of the
+// tile's rows, ordered so that lane (g, t4) of the m16n8 accumulators ends up
+// holding all four gates of unit u = 4 (w % 8) + t4: n-tile j, column n is
+// gate 2 j + (n & 1) of unit 4 (w % 8) + (n >> 1), so c[0], c[1] of tile 0
+// are i and f, of tile 1 g and o, for row g (c[2], c[3]: row g + 8). The
+// thread then runs the cell update of unit u for its 2 rows, no shuffle
+// needed. (With both tiles in one set of 8 warps, a thread's cell update
+// has 4 rows and takes 0.37 of a step at N = 256 on an H100:
+// tools/lstm_probe.py split.)
+//
+// The exchange: after the cell update every block copies its [R][32] slice
+// of h_t with the bulk-copy engine into chunk `rank` of each peer's next A
+// buffer (its own included), each copy completing on the receiver's
+// mbarrier, which waits for the bytes of all CS copies. No cluster barrier
+// per step. Buffer reuse needs no more than the data: a peer writes step
+// t+1's slice into this block's buffer t & 1 only after it has this block's
+// h_t, which this block copies only after its product of step t has read
+// that buffer; and this block's source slot of step t is rewritten at step
+// t+2 only after the wait for step t+2's A tile, which needs every peer's
+// h_{t+1}, which needs this block's copies of h_t to have landed.
 template <int NT, int MT>
+__global__ void __launch_bounds__(kThreads * MT, 1) lstm_fwd_cluster_kernel(Args a) {
+  constexpr int H = 64 * NT, H4 = 4 * H, CS = H / kUnits, R = kRows * MT, KK = H / 16;
+  constexpr int SP = kUnits + kPadH, XP = kCols + kPadH;
+  constexpr int THREADS = kThreads * MT;
+  constexpr int XPIECES = R * (kCols / 8);              // 16-byte pieces of one x tile
+  constexpr unsigned kSlice = R * SP * 2;               // bytes of one block's h slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ha = reinterpret_cast<bf16*>(smem_raw);
+  bf16* hs = ha + 2 * CS * R * SP;
+  bf16* cst = hs + 2 * R * SP;
+  bf16* xs = cst + R * SP;
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(xs + 3 * R * XP);
+
+  const int N = a.N, steps = a.steps;
+  const int rank = (int)cluster_rank(), row_base = (int)cluster_id() * R;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int mt = threadIdx.x / kThreads, warp = (threadIdx.x % kThreads) >> 5;
+  const int u = 4 * warp + t4, unit = rank * kUnits + u;
+  const bf16* whh = static_cast<const bf16*>(a.whh);
+  const bf16* xp = static_cast<const bf16*>(a.xp);
+  bf16* ys = static_cast<bf16*>(a.ys);
+  bf16* cs = static_cast<bf16*>(a.cs);
+  const unsigned ha_u32 = smem_u32(ha), hs_u32 = smem_u32(hs), mbar_u32 = smem_u32(mbar);
+
+  // x_proj[s] for the block's columns into buffer s % 3, 16 bytes a copy:
+  // local column 32 q + v is gate q of unit v
+  auto load_x = [&](int s) {
+    bf16* dst = xs + (s % 3) * R * XP;
+    for (int c = threadIdx.x; c < XPIECES; c += THREADS) {
+      const int r = c / (kCols / 8), lc = (c % (kCols / 8)) * 8;
+      const bool ok = row_base + r < N;
+      const size_t row = ok ? (size_t)row_base + r : 0;
+      cp16(dst + r * XP + lc,
+           xp + ((size_t)s * N + row) * H4 + (lc / kUnits) * H + rank * kUnits + lc % kUnits, ok);
+    }
+  };
+
+  // prologue: the mbarriers (one arrival each: this block's expect_tx), seen
+  // by the whole cluster before any copy; h0 into A buffer 0 and x_proj[0]
+  // (one group), x_proj[1] (the next); the B fragments of w_hh in registers;
+  // c0
+  if (threadIdx.x == 0) {
+    mbar_init(mbar_u32, 1);
+    mbar_init(mbar_u32 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = threadIdx.x; c < R * H / 8; c += THREADS) {
+    const int r = c / (H / 8), k = (c % (H / 8)) * 8;
+    const bool ok = row_base + r < N;
+    cp16(ha + ((k / kUnits) * R + r) * SP + k % kUnits,
+         static_cast<const bf16*>(a.h0) + (size_t)(ok ? row_base + r : 0) * H + k, ok);
+  }
+  load_x(0);
+  cp_commit();
+  if (steps > 1) load_x(1);
+  cp_commit();
+  // B (k = hidden input, n = gate column): b0 holds k = 16 kk + 2 t4, + 1 of
+  // column n = g, b1 k + 8, + 9; column g of n-tile j is w_hh's column
+  // (2 j + (g & 1)) H + 32 rank + 4 warp + (g >> 1)
+  unsigned wb[2][KK][2];
+  {
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(whh);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = (2 * j + (g & 1)) * H + rank * kUnits + 4 * warp + (g >> 1);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const int k = 16 * kk + 2 * t4;
+        wb[j][kk][0] = pack2(__ldg(w + (size_t)k * H4 + col), __ldg(w + (size_t)(k + 1) * H4 + col));
+        wb[j][kk][1] =
+            pack2(__ldg(w + (size_t)(k + 8) * H4 + col), __ldg(w + (size_t)(k + 9) * H4 + col));
+      }
+    }
+  }
+  // the thread's rows: p is row 16 mt + 8 p + g of the cluster's tile
+  bool ok[2];
+  size_t rowo[2];
+  float c[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int row = row_base + 16 * mt + 8 * p + g;
+    ok[p] = row < N;
+    rowo[p] = ok[p] ? (size_t)row : 0;
+    c[p] = ok[p] ? bf(static_cast<const bf16*>(a.c0) + rowo[p] * H + unit) : 0.0f;
+  }
+  cp_wait<1>();
+  cluster_arrive();   // the mbarriers initialised, and the block's A buffer 0
+  cluster_wait();
+
+  // the thread's 16-byte store of ys or cs per step: piece q < 4 R is row
+  // q / 4, units 8 (q % 4) + [0, 8) of the block's slice
+  const int sq = threadIdx.x % (4 * R);
+  const bool store_cs = threadIdx.x >= 4 * R;
+  const bool stores = threadIdx.x < 8 * R && (!store_cs || cs != nullptr) &&
+                      row_base + sq / 4 < N;
+  const int sr = sq / 4, sk = 8 * (sq % 4);
+  for (int t = 0; t < steps; ++t) {
+    const int buf = t & 1;
+    // 1. the gates h_{t-1} w_hh of the block's columns for the warp's m16
+    // tile on the tensor cores, even and odd k steps in two accumulators
+    // (more mma chains in flight); k step kk reads chunk kk / 2 of the A tile
+    float acc[2][2][4] = {};
+    {
+      const bf16* pa = ha + (size_t)buf * CS * R * SP + (16 * mt + (lane & 15)) * SP +
+                       (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        unsigned af[4];
+        ldsm4(af, pa + (kk >> 1) * R * SP + (kk & 1) * 16);
+        mma(acc[kk & 1][0], af, wb[0][kk][0], wb[0][kk][1]);
+        mma(acc[kk & 1][1], af, wb[1][kk][0], wb[1][kk][1]);
+      }
+    }
+
+    // 2. the cell update in f32 registers; h_t (bf16) into slot t & 1, c_t
+    // into the store tile
+    const bf16* xt = xs + (t % 3) * R * XP + u;
+    bf16* slot = hs + buf * R * SP + u;
+    float h[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int e = 2 * p, r = 16 * mt + 8 * p + g;
+      const bf16* xr = xt + r * XP;
+      const float gi = sigmoidf(acc[0][0][e] + acc[1][0][e] + __bfloat162float(xr[0]));
+      const float gf = sigmoidf(acc[0][0][e + 1] + acc[1][0][e + 1] + __bfloat162float(xr[kUnits]));
+      const float gg = tanhf(acc[0][1][e] + acc[1][1][e] + __bfloat162float(xr[2 * kUnits]));
+      const float go =
+          sigmoidf(acc[0][1][e + 1] + acc[1][1][e + 1] + __bfloat162float(xr[3 * kUnits]));
+      c[p] = ok[p] ? __fadd_rn(__fmul_rn(gf, c[p]), __fmul_rn(gi, gg)) : 0.0f;
+      h[p] = ok[p] ? __fmul_rn(go, tanhf(c[p])) : 0.0f;
+      slot[r * SP] = __float2bfloat16_rn(h[p]);
+      cst[r * SP + u] = __float2bfloat16_rn(c[p]);
+    }
+    // the slot is read by the bulk-copy engine (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // 3. h_t to every block of the cluster (one thread issues the copies),
+    // then, off the chain, ys and cs from the tiles (16 bytes a store),
+    // hT and cT, x_proj[t+2]
+    if (t + 1 < steps && threadIdx.x == 0) {
+      const unsigned nb = (unsigned)(buf ^ 1);
+      mbar_expect_tx(mbar_u32 + 8 * nb, CS * kSlice);
+      const unsigned src = hs_u32 + (unsigned)buf * kSlice;
+      const unsigned dst = ha_u32 + (nb * CS + (unsigned)rank) * kSlice;
+#pragma unroll
+      for (int q = 0; q < CS; ++q)
+        copy_to_peer(map_rank(dst, q), src, kSlice, map_rank(mbar_u32 + 8 * nb, q));
+    }
+    if (stores) {
+      const bf16* tile = store_cs ? cst : hs + buf * R * SP;
+      bf16* out = store_cs ? cs : ys;
+      *reinterpret_cast<uint4*>(out + ((size_t)t * N + row_base + sr) * H + rank * kUnits + sk) =
+          *reinterpret_cast<const uint4*>(tile + sr * SP + sk);
+    }
+    if (t == steps - 1) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (!ok[p]) continue;
+        static_cast<bf16*>(a.hT)[rowo[p] * H + unit] = __float2bfloat16_rn(h[p]);
+        static_cast<bf16*>(a.cT)[rowo[p] * H + unit] = __float2bfloat16_rn(c[p]);
+      }
+    }
+    if (t + 2 < steps) load_x(t + 2);
+    cp_commit();
+
+    // 4. the next A tile: every block's copy landed
+    if (t + 1 < steps) {
+      mbar_wait(mbar_u32 + 8 * (buf ^ 1), (unsigned)(t >> 1) & 1u);
+      cp_wait<1>();  // x_proj[t+1]
+      __syncthreads();
+    }
+  }
+  // no block leaves while a peer's copy from it may still be in flight
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The cluster kernel of the forward (FWD) or the backward at (NT, MT), and
+// its shared memory.
+using ClusterKernel = void (*)(Args);
+template <int NT, int MT, bool FWD>
+ClusterKernel cluster_kernel() {
+  return FWD ? lstm_fwd_cluster_kernel<NT, MT> : lstm_bwd_cluster_kernel<NT, MT>;
+}
+template <int NT, int MT, bool FWD>
+size_t cluster_smem() {
+  return FWD ? fwd_smem_bytes(64 * NT, MT) : smem_bytes(64 * NT, MT);
+}
+// threads per block: the forward runs 8 warps per m16 tile
+template <int MT, bool FWD>
+constexpr int cluster_threads() {
+  return FWD ? kThreads * MT : kThreads;
+}
+
+// The clusters of cluster route instance (NT, MT, FWD) that the card holds at
+// once, with its shared-memory opt-in set first; per device, once.
+template <int NT, int MT, bool FWD>
 cudaError_t active_clusters(int dev, int* clusters) {
   constexpr int CS = 64 * NT / kUnits;
   static std::mutex mu;
@@ -863,11 +1186,11 @@ cudaError_t active_clusters(int dev, int* clusters) {
   const std::lock_guard<std::mutex> lock(mu);
   auto it = active.find(dev);
   if (it == active.end()) {
-    auto fn = lstm_bwd_cluster_kernel<NT, MT>;
-    const size_t smem = smem_bytes(64 * NT, MT);
+    const ClusterKernel fn = cluster_kernel<NT, MT, FWD>();
+    const size_t smem = cluster_smem<NT, MT, FWD>();
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CS);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(cluster_threads<MT, FWD>());
     cfg.dynamicSmemBytes = smem;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -889,13 +1212,13 @@ cudaError_t active_clusters(int dev, int* clusters) {
   return cudaSuccess;
 }
 
-template <int NT, int MT>
+template <int NT, int MT, bool FWD>
 cudaError_t launch_mt(const Args& a, cudaStream_t stream, int clusters, int* plan_out) {
   constexpr int CS = 64 * NT / kUnits;
-  const size_t smem = smem_bytes(64 * NT, MT);
+  const size_t smem = cluster_smem<NT, MT, FWD>();
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CS * ((a.N + kRows * MT - 1) / (kRows * MT)));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(cluster_threads<MT, FWD>());
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -912,25 +1235,34 @@ cudaError_t launch_mt(const Args& a, cudaStream_t stream, int clusters, int* pla
     plan_out[3] = (int)smem;
     plan_out[4] = clusters;
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<NT, MT>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_kernel<NT, MT, FWD>(), a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // 16 batch rows per cluster while the card holds all the clusters at once,
 // else 32 (one wave of half as many clusters rather than two)
-template <int NT>
+template <int NT, bool FWD>
 cudaError_t launch(const Args& a, cudaStream_t stream, int* plan_out) {
   int dev = 0, one = 0, two = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = active_clusters<NT, 1>(dev, &one);
-  if (err == cudaSuccess) err = active_clusters<NT, 2>(dev, &two);
+  if (err == cudaSuccess) err = active_clusters<NT, 1, FWD>(dev, &one);
+  if (err == cudaSuccess) err = active_clusters<NT, 2, FWD>(dev, &two);
   if (err != cudaSuccess) return err;
   if (one < 1 && two < 1) return cudaErrorInvalidConfiguration;
   const int tiles = (a.N + kRows - 1) / kRows;
   if (one >= 1 && (tiles <= one || two < 1))
-    return launch_mt<NT, 1>(a, stream, one, plan_out);
-  return launch_mt<NT, 2>(a, stream, two, plan_out);
+    return launch_mt<NT, 1, FWD>(a, stream, one, plan_out);
+  return launch_mt<NT, 2, FWD>(a, stream, two, plan_out);
+}
+
+template <bool FWD>
+cudaError_t launch_h(const Args& a, cudaStream_t stream, int* plan_out) {
+  switch (a.H) {
+    case 64: return launch<1, FWD>(a, stream, plan_out);
+    case 128: return launch<2, FWD>(a, stream, plan_out);
+    default: return launch<4, FWD>(a, stream, plan_out);
+  }
 }
 
 }  // namespace cl
@@ -1038,6 +1370,19 @@ bool bad_shape(int steps, int N, int H) {
   return steps < 1 || N < 1 || N > 256 || H < 1 || H > 512;
 }
 
+bool aligned16(std::initializer_list<const void*> ps) {
+  uintptr_t bits = 0;
+  for (const void* p : ps) bits |= reinterpret_cast<uintptr_t>(p);
+  return (bits & 15) == 0;
+}
+
+// What the routes take: round_h only with f32 storage (0, the first grid
+// design); route 1 (clusters) bf16 with H in {64, 128, 256}.
+bool bad_route(int is_bf16, int route, int round_h, int H) {
+  if (route < 0 || route > 1 || (round_h && (is_bf16 || route == 1))) return true;
+  return route == 1 && (!is_bf16 || (H != 64 && H != 128 && H != 256));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1045,13 +1390,20 @@ extern "C" {
 // Forward. Launches on `stream` and returns the CUDA error (0 on success).
 // Device pointers to contiguous tensors of one element type (bf16 if is_bf16,
 // else f32): xp [T, N, 4H], whh [H, 4H], h0 and c0 [N, H]; ys [T, N, H], cs
-// [T, N, H] or null, hT and cT [N, H] are written. bar is two zeroed uint32.
-// plan_out, if not null, receives {blocks, rows per thread, chunk, shared
-// bytes, blocks per SM}.
-int dl4j_lstm_fwd(int is_bf16, const void* xp, const void* whh, const void* h0, const void* c0,
-                  void* ys, void* cs, void* hT, void* cT, void* bar, int steps, int N, int H,
-                  int* plan_out, void* stream) {
-  if (bad_shape(steps, N, H)) return (int)cudaErrorInvalidValue;
+// [T, N, H] or null, hT and cT [N, H] are written. route 0 is the cooperative
+// grid design (bar: two zeroed uint32; round_h rounds h to bf16 before the
+// product, for f32 storage of a bf16 w_hh), route 1 the cluster route, which
+// takes bf16 with H in {64, 128, 256} and 16-byte aligned xp, whh and h0, and
+// refuses anything else. plan_out, if not null, receives {blocks, rows per
+// thread, chunk, shared bytes, blocks per SM} (route 0) or {blocks, cluster
+// size, rows per cluster, shared bytes, clusters the card holds at once}
+// (route 1).
+int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const void* whh,
+                  const void* h0, const void* c0, void* ys, void* cs, void* hT, void* cT,
+                  void* bar, int steps, int N, int H, int* plan_out, void* stream) {
+  if (bad_shape(steps, N, H) || bad_route(is_bf16, route, round_h, H))
+    return (int)cudaErrorInvalidValue;
+  if (route == 1 && !aligned16({xp, whh, h0})) return (int)cudaErrorInvalidValue;
   Args a{};
   a.xp = xp;
   a.whh = whh;
@@ -1065,7 +1417,9 @@ int dl4j_lstm_fwd(int is_bf16, const void* xp, const void* whh, const void* h0, 
   a.steps = steps;
   a.N = N;
   a.H = H;
+  a.round_h = round_h;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (route == 1) return (int)cl::launch_h<true>(a, s, plan_out);
   return (int)(is_bf16 ? launch<__nv_bfloat16, false>(a, s, plan_out)
                        : launch<float, false>(a, s, plan_out));
 }
@@ -1075,23 +1429,21 @@ int dl4j_lstm_fwd(int is_bf16, const void* xp, const void* whh, const void* h0, 
 // (zero). da [T, N, 4H] f32 (d x_proj in f32), dh0 and dc0 [N, H] are written,
 // and dxp [T, N, 4H] in the storage type unless it is null (f32, where da is
 // d x_proj itself). route 0 is the cooperative grid design (bar: two zeroed
-// uint32), route 1 the cluster route, which takes bf16 with H in {64, 128,
-// 256} and 16-byte aligned whh, ys and h0, and refuses anything else.
+// uint32; round_h as in the forward), route 1 the cluster route, which takes
+// bf16 with H in {64, 128, 256} and 16-byte aligned whh, ys and h0, and
+// refuses anything else.
 // plan_out receives {blocks, rows per thread, chunk, shared bytes, blocks per
 // SM} (route 0) or {blocks, cluster size, rows per cluster, shared bytes,
 // clusters the card holds at once} (route 1).
-int dl4j_lstm_bwd(int is_bf16, int route, const void* xp, const void* whh, const void* h0,
-                  const void* c0, const void* ys, const void* cs, const void* dys,
-                  const void* dhT, const void* dcT, void* dxp, void* da, void* dh0, void* dc0,
-                  void* bar, int steps, int N, int H, int* plan_out, void* stream) {
-  if (bad_shape(steps, N, H) || cs == nullptr || route < 0 || route > 1)
+int dl4j_lstm_bwd(int is_bf16, int route, int round_h, const void* xp, const void* whh,
+                  const void* h0, const void* c0, const void* ys, const void* cs,
+                  const void* dys, const void* dhT, const void* dcT, void* dxp, void* da,
+                  void* dh0, void* dc0, void* bar, int steps, int N, int H, int* plan_out,
+                  void* stream) {
+  if (bad_shape(steps, N, H) || cs == nullptr || bad_route(is_bf16, route, round_h, H))
     return (int)cudaErrorInvalidValue;
-  if (route == 1) {
-    const bool aligned = ((reinterpret_cast<uintptr_t>(whh) | reinterpret_cast<uintptr_t>(ys) |
-                           reinterpret_cast<uintptr_t>(h0)) & 15) == 0;
-    if (!is_bf16 || !aligned || (H != 64 && H != 128 && H != 256) || dxp == nullptr)
-      return (int)cudaErrorInvalidValue;
-  }
+  if (route == 1 && (!aligned16({whh, ys, h0}) || dxp == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a{};
   a.xp = xp;
   a.whh = whh;
@@ -1110,14 +1462,9 @@ int dl4j_lstm_bwd(int is_bf16, int route, const void* xp, const void* whh, const
   a.steps = steps;
   a.N = N;
   a.H = H;
+  a.round_h = round_h;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
-    switch (H) {
-      case 64: return (int)cl::launch<1>(a, s, plan_out);
-      case 128: return (int)cl::launch<2>(a, s, plan_out);
-      default: return (int)cl::launch<4>(a, s, plan_out);
-    }
-  }
+  if (route == 1) return (int)cl::launch_h<false>(a, s, plan_out);
   return (int)(is_bf16 ? launch<__nv_bfloat16, true>(a, s, plan_out)
                        : launch<float, true>(a, s, plan_out));
 }

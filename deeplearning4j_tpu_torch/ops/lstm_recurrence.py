@@ -16,11 +16,15 @@ kernel does (``_kernel``, lstm_pallas.py:43-81).
   persistent launch each); the backward's weight gradient is one f32
   ``torch.matmul`` over all ``T * N`` rows of the kernel's f32 ``da``
   after the kernel, as the JAX backward leaves that sum to XLA and casts
-  only its result. The backward has two routes, chosen by
-  :func:`bwd_route` from dtype, shape and alignment: ``"cluster"``
+  only its result. Each has two routes, chosen by :func:`fwd_route` and
+  :func:`bwd_route` from dtypes, shape and alignment: ``"cluster"``
   (bf16 at H in {64, 128, 256}: thread-block clusters per batch tile with
   a DSMEM exchange and tensor-core products) and ``"grid"`` (the first
   design, a cooperative launch with a grid-wide barrier, for the rest).
+  A call that mixes f32 and bf16 among its inputs (as the Pallas kernel
+  takes them) runs the grid route at f32 over widened inputs, with h
+  rounded to bf16 before the product where ``w_hh`` is bf16, and casts
+  its outputs to the plain versions' dtypes.
 - :class:`LSTMRecurrence` joins a forward and a backward into one
   differentiable op; its forward streams the cell states ``cs`` only when
   a gradient is needed (``collect_cell``, lstm_pallas.py:51-55, 161-164).
@@ -40,9 +44,12 @@ from deeplearning4j_tpu_torch.ops import native
 
 #: launches of the forward / backward kernels since the last reset;
 #: incremented only where :func:`lstm_recurrence_fwd` /
-#: :func:`lstm_recurrence_bwd` launch them (one per call)
+#: :func:`lstm_recurrence_bwd` launch them (one per call), and of those the
+#: launches that took the cluster route
 fwd_launches = 0
 bwd_launches = 0
+fwd_cluster_launches = 0
+bwd_cluster_launches = 0
 
 #: the kernels' envelope (``bad_shape`` in the CUDA source)
 MAX_HIDDEN = 512
@@ -56,8 +63,10 @@ ENVELOPE = (f"the LSTM kernels take T >= 1, 1 <= N <= {MAX_BATCH} and "
 #: (cluster route)
 last_plan: Tuple[int, ...] = ()
 
-#: the backward's routes, by the number the C entry takes
-BWD_ROUTES = {"grid": 0, "cluster": 1}
+#: the kernels' routes, by the number the C entries take
+ROUTES = {"grid": 0, "cluster": 1}
+#: the dtypes the kernels take, in any mix
+DTYPES = (torch.float32, torch.bfloat16)
 #: hidden widths of the cluster route (a block owns 32 units; clusters of
 #: H / 32 blocks, at most the portable 8)
 CLUSTER_HIDDEN = (64, 128, 256)
@@ -102,8 +111,10 @@ def lstm_recurrence_backward_reference(x_proj, w_hh, h0, c0, ys, cs, dys,
     f32 = torch.float32
     steps, n, _ = x_proj.shape
     w32 = w_hh.to(f32)
-    h_prev = torch.cat([h0[None].to(ys.dtype), ys[:-1]])
-    c_prev = torch.cat([c0[None].to(cs.dtype), cs[:-1]])
+    # the states entering each step; a mixed h0 / ys pair promotes, as
+    # jnp.concatenate does
+    h_prev = torch.cat([h0[None], ys[:-1]])
+    c_prev = torch.cat([c0[None], cs[:-1]])
     dh = (torch.zeros_like(h0, dtype=f32) if dhT is None else dhT.to(f32))
     dc = (torch.zeros_like(c0, dtype=f32) if dcT is None else dcT.to(f32))
     dw = torch.zeros(w_hh.shape, dtype=f32, device=w_hh.device)
@@ -143,12 +154,10 @@ def _lib():
     lib = native.load("lstm_recurrence")
     if lib.dl4j_lstm_fwd.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dl4j_lstm_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                      i, i, i, vp, vp]
+        lib.dl4j_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i, i, i, vp, vp]
         lib.dl4j_lstm_fwd.restype = ctypes.c_int
-        lib.dl4j_lstm_bwd.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp,
-                                      vp, vp, vp, vp, vp, vp, i, i, i, vp,
-                                      vp]
+        lib.dl4j_lstm_bwd.argtypes = [i, i, i] + [vp] * 14 + [i, i, i, vp,
+                                                              vp]
         lib.dl4j_lstm_bwd.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -163,14 +172,11 @@ def check_envelope(steps: int, n: int, hidden: int) -> None:
 
 
 def _check_kernel_args(x_proj, w_hh, h0, c0) -> None:
-    if x_proj.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the LSTM kernels take float32 or bfloat16, got "
-                        f"{x_proj.dtype}")
     ts = (("x_proj", x_proj), ("w_hh", w_hh), ("h0", h0), ("c0", c0))
     for name, t in ts:
-        if t.dtype != x_proj.dtype:
-            raise TypeError(f"{name} is {t.dtype}; the kernels take one "
-                            f"dtype, x_proj's {x_proj.dtype}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"the LSTM kernels take float32 or bfloat16, got "
+                            f"{name} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if x_proj.dim() != 3 or w_hh.dim() != 2:
@@ -205,48 +211,93 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False):
+def _storage(*ts) -> Optional[torch.dtype]:
+    """The one dtype of the given tensors (None entries skipped), or None
+    where they mix float32 and bfloat16."""
+    dtypes = {t.dtype for t in ts if t is not None}
+    return dtypes.pop() if len(dtypes) == 1 else None
+
+
+def _cluster_fits(w_hh, storage, *aligned) -> bool:
+    return (storage == torch.bfloat16 and w_hh.shape[0] in CLUSTER_HIDDEN
+            and all(t.data_ptr() % 16 == 0 for t in aligned))
+
+
+def fwd_route(x_proj, w_hh, h0, c0=None) -> str:
+    """The forward kernel route a call takes, from dtypes, shapes and
+    alignment alone (any device): ``"cluster"`` where ``x_proj``, ``w_hh``
+    and ``h0`` (and ``c0``, where given) are all bf16, H is in
+    :data:`CLUSTER_HIDDEN` and ``x_proj``, ``w_hh`` and ``h0`` are 16-byte
+    aligned (the route's 16-byte copies), any T >= 1 and N in the
+    envelope; ``"grid"`` otherwise (float32, mixed dtypes, other
+    widths)."""
+    storage = _storage(x_proj, w_hh, h0, c0)
+    return ("cluster" if _cluster_fits(w_hh, storage, x_proj, w_hh, h0)
+            else "grid")
+
+
+def bwd_route(x_proj, w_hh, h0, ys, c0=None) -> str:
+    """The backward kernel route a call takes, from dtypes, shapes and
+    alignment alone (any device): ``"cluster"`` for bf16 ``x_proj``,
+    ``w_hh``, ``h0`` and ``ys`` (and ``c0``, where given) with H in
+    :data:`CLUSTER_HIDDEN` and ``w_hh``, ``h0`` and ``ys`` 16-byte aligned
+    (the route's 16-byte copies), any T >= 1 and N in the envelope;
+    ``"grid"`` otherwise (float32, mixed dtypes, other widths)."""
+    storage = _storage(x_proj, w_hh, h0, ys, c0)
+    return "cluster" if _cluster_fits(w_hh, storage, w_hh, h0, ys) else "grid"
+
+
+def _route_number(route: str) -> int:
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {sorted(ROUTES)}, got "
+                         f"{route!r}")
+    return ROUTES[route]
+
+
+def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
+                        route: Optional[str] = None):
     """Launch the forward kernel on CUDA tensors, on PyTorch's current
-    stream: ``(ys, hT, cT)``, plus ``cs`` when ``collect_cell``. Raises on
-    any argument the kernel does not take (``ValueError`` naming the
-    envelope outside it), on a failed build and on a refused launch;
-    never computes the result another way."""
-    global fwd_launches, last_plan
+    stream: ``(ys, hT, cT)``, plus ``cs`` when ``collect_cell``, all in
+    ``x_proj``'s dtype. ``route`` (default :func:`fwd_route`'s) forces a
+    route; the C entry refuses one the call does not fit. A call that
+    mixes f32 and bf16 runs the grid route at f32 over widened inputs
+    (h rounded to bf16 before the product where ``w_hh`` is bf16) and
+    casts its outputs. Raises on any argument the kernel does not take
+    (``ValueError`` naming the envelope outside it), on a failed build and
+    on a refused launch; never computes the result another way."""
+    global fwd_launches, fwd_cluster_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
+    out_dtype = x_proj.dtype
+    round_h = 0
+    if _storage(x_proj, w_hh, h0, c0) is None:
+        round_h = int(w_hh.dtype == torch.bfloat16)
+        x_proj, w_hh, h0, c0 = (t.float() for t in (x_proj, w_hh, h0, c0))
+    route = fwd_route(x_proj, w_hh, h0, c0) if route is None else route
+    number = _route_number(route)
     steps, n, _ = x_proj.shape
     hidden = w_hh.shape[0]
     ys = torch.empty((steps, n, hidden), dtype=x_proj.dtype,
                      device=x_proj.device)
     cs = torch.empty_like(ys) if collect_cell else None
     hT, cT = torch.empty_like(h0), torch.empty_like(c0)
-    bar = torch.zeros(2, dtype=torch.int32, device=x_proj.device)
+    # the grid route's barrier words (the cluster route has none)
+    bar = (torch.zeros(2, dtype=torch.int32, device=x_proj.device)
+           if route == "grid" else None)
     plan = (ctypes.c_int * 5)()
     lib = _lib()
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         err = lib.dl4j_lstm_fwd(
-            int(x_proj.dtype == torch.bfloat16), x_proj.data_ptr(),
-            w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
-            _ptr(cs), hT.data_ptr(), cT.data_ptr(), bar.data_ptr(), steps, n,
-            hidden, plan, stream)
-    _raise_on(lib, err, "forward")
+            int(x_proj.dtype == torch.bfloat16), number, round_h,
+            x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            ys.data_ptr(), _ptr(cs), hT.data_ptr(), cT.data_ptr(), _ptr(bar),
+            steps, n, hidden, plan, stream)
+    _raise_on(lib, err, f"forward ({route} route)")
     fwd_launches += 1
+    fwd_cluster_launches += route == "cluster"
     last_plan = tuple(plan)
-    out = (ys, hT, cT)
-    return out + (cs,) if collect_cell else out
-
-
-def bwd_route(x_proj, w_hh, h0, ys) -> str:
-    """The backward kernel route a call takes, from dtypes, shapes and
-    alignment alone (any device): ``"cluster"`` for bf16 ``x_proj`` and
-    ``w_hh`` with H in :data:`CLUSTER_HIDDEN` and ``w_hh``, ``h0`` and
-    ``ys`` 16-byte aligned (the route's 16-byte copies), any T >= 1 and N
-    in the envelope; ``"grid"`` otherwise (float32, other widths)."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in (w_hh, h0, ys))
-    if (x_proj.dtype == torch.bfloat16 and w_hh.dtype == torch.bfloat16
-            and w_hh.shape[0] in CLUSTER_HIDDEN and aligned):
-        return "cluster"
-    return "grid"
+    out = (ys, hT, cT) + ((cs,) if collect_cell else ())
+    return tuple(t.to(out_dtype) for t in out)
 
 
 def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
@@ -256,31 +307,36 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     the kernel's f32 ``da``: ``(d x_proj, d w_hh, dh0, dc0)`` in the primal
     dtypes. ``dhT`` / ``dcT`` of None are zero. ``route`` (default
     :func:`bwd_route`'s) forces a route; the C entry refuses one the call
-    does not fit. Raises like :func:`lstm_recurrence_fwd`."""
-    global bwd_launches, last_plan
+    does not fit. Mixed dtypes run as in :func:`lstm_recurrence_fwd`.
+    Raises like :func:`lstm_recurrence_fwd`."""
+    global bwd_launches, bwd_cluster_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
     steps, n, four_h = x_proj.shape
     hidden = w_hh.shape[0]
     for name, t in (("ys", ys), ("cs", cs), ("dys", dys)):
-        if (tuple(t.shape) != (steps, n, hidden) or t.dtype != x_proj.dtype
+        if (tuple(t.shape) != (steps, n, hidden) or t.dtype not in DTYPES
                 or t.device != x_proj.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous {x_proj.dtype} "
+            raise ValueError(f"{name} must be contiguous float32 or bfloat16 "
                              f"{(steps, n, hidden)} on {x_proj.device}")
     for name, t in (("dhT", dhT), ("dcT", dcT)):
-        if t is not None and (t.shape != h0.shape or t.dtype != h0.dtype
+        if t is not None and (t.shape != h0.shape or t.dtype not in DTYPES
                               or not t.is_contiguous()
                               or t.device != h0.device):
-            raise ValueError(f"{name} must match h0 ({h0.dtype} "
-                             f"{tuple(h0.shape)})")
+            raise ValueError(f"{name} must be contiguous float32 or bfloat16 "
+                             f"{tuple(h0.shape)} on {h0.device}")
+    primal = [t.dtype for t in (x_proj, w_hh, h0, c0)]
+    ins = [x_proj, w_hh, h0, c0, ys, cs, dys, dhT, dcT]
+    round_h = 0
+    if _storage(*ins) is None:
+        round_h = int(w_hh.dtype == torch.bfloat16)
+        ins = [None if t is None else t.float() for t in ins]
+    x_proj, w_hh, h0, c0, ys, cs, dys, dhT, dcT = ins
     route = bwd_route(x_proj, w_hh, h0, ys) if route is None else route
-    if route not in BWD_ROUTES:
-        raise ValueError(f"route must be one of {sorted(BWD_ROUTES)}, got "
-                         f"{route!r}")
+    number = _route_number(route)
     # da: f32 d x_proj, which is the result itself at f32
     da = torch.empty(x_proj.shape, dtype=torch.float32, device=x_proj.device)
     dxp = da if x_proj.dtype == torch.float32 else torch.empty_like(x_proj)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    # the grid route's barrier words (the cluster route has none)
     bar = (torch.zeros(2, dtype=torch.int32, device=x_proj.device)
            if route == "grid" else None)
     plan = (ctypes.c_int * 5)()
@@ -288,7 +344,7 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         err = lib.dl4j_lstm_bwd(
-            int(x_proj.dtype == torch.bfloat16), BWD_ROUTES[route],
+            int(x_proj.dtype == torch.bfloat16), number, round_h,
             x_proj.data_ptr(),
             w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
             cs.data_ptr(), dys.data_ptr(), _ptr(dhT), _ptr(dcT),
@@ -297,11 +353,12 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
             plan, stream)
     _raise_on(lib, err, f"backward ({route} route)")
     bwd_launches += 1
+    bwd_cluster_launches += route == "cluster"
     last_plan = tuple(plan)
     h_prev = torch.cat([h0[None], ys[:-1]]).to(torch.float32)
     dw = torch.matmul(h_prev.reshape(steps * n, hidden).T,
                       da.reshape(steps * n, four_h))
-    return dxp, dw.to(w_hh.dtype), dh0, dc0
+    return tuple(t.to(d) for t, d in zip((dxp, dw, dh0, dc0), primal))
 
 
 # -------------------------------------------------------------- autograd op

@@ -3,8 +3,9 @@
 ``bn_relu_residual``.
 
 ``relu((x - mean) * rsqrt(var + eps) * gamma + beta + res)`` in one pass
-over ``[..., C]``: x and res in f32 or bf16, the per-channel vectors in
-f32, the output in x's dtype.
+over ``[..., C]``: x and res each in f32 or bf16, in any mix (each is
+widened to f32 before the arithmetic, as ``_k_tail`` casts them), the
+per-channel vectors in f32, the output in x's dtype.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 take :func:`residual_tail_reference` (``_ref_formula``,
@@ -29,8 +30,8 @@ from deeplearning4j_tpu_torch.ops.registry import register_op
 #: :func:`residual_tail_kernel` launches the CUDA kernel
 launches = 0
 
-#: channels the kernel stages in shared memory (16 bytes each, within the
-#: 227 KB a block may use)
+#: the widest channel dimension the wrapper takes (ResNet-50's widest is
+#: 2048)
 MAX_CHANNELS = 12288
 
 
@@ -47,7 +48,8 @@ def _lib():
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int, vp]
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, vp]
         fn.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -56,17 +58,19 @@ def _lib():
 
 def residual_tail_kernel(x, res, mean, var, gamma, beta, eps=1e-5):
     """Launch ``csrc/residual_tail.cu`` on CUDA tensors, on PyTorch's
-    current stream. The per-channel vectors are taken as f32 (as
-    ``_tail_kernel`` casts them). Raises on any argument the kernel does
-    not take, on a failed build and on a refused launch; never computes
-    the result another way."""
+    current stream. x and res may differ in dtype (f32 or bf16 each: the
+    kernel is instantiated for each pair); the output is in x's dtype. The
+    per-channel vectors are taken as f32 (as ``_tail_kernel`` casts them).
+    Raises on any argument the kernel does not take, on a failed build and
+    on a refused launch; never computes the result another way."""
     global launches
+    kinds = (torch.float32, torch.bfloat16)
+    if x.dtype not in kinds or res.dtype not in kinds:
+        raise TypeError(f"x and res must each be float32 or bfloat16, got "
+                        f"{x.dtype} and {res.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or res.dtype != x.dtype:
-        raise TypeError(f"x and res must both be float32 or bfloat16, got "
-                        f"{x.dtype} and {res.dtype}")
     if res.shape != x.shape or x.dim() == 0:
         raise ValueError(f"x {tuple(x.shape)} and res {tuple(res.shape)} "
                          f"must share one shape [..., C]")
@@ -89,7 +93,8 @@ def residual_tail_kernel(x, res, mean, var, gamma, beta, eps=1e-5):
         err = lib.dl4j_residual_tail(
             x.data_ptr(), res.data_ptr(), *(t.data_ptr() for t in vecs),
             out.data_ptr(), x.numel(), c, float(eps),
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), int(res.dtype == torch.bfloat16),
+            stream)
     if err != 0:
         msg = lib.dl4j_cuda_error_string(err).decode()
         raise RuntimeError(f"residual tail kernel launch failed: {msg} "

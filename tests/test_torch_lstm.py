@@ -12,13 +12,20 @@ on the same numpy inputs at f32.
   max |grad|.
 - ``lstm_layer`` forward and gradients, ``reverse`` on and off, against
   the JAX layer: 1e-5 of max |grad| (1e-5 absolute for values).
+- Mixed f32 / bf16 inputs (x_proj, w_hh, h0 and c0 in the three mixes
+  the Pallas kernel is called with) through ``lstm_recurrence``: outputs
+  and gradients in the JAX dtypes, within 1e-6 of the JAX values (of
+  max |grad| for gradients; the same roundings on both sides).
 
 The CUDA kernels run only on the card: their tests carry the ``cuda``
 marker, skip without one and import no JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_lstm.py``.
 There f32 agrees with the plain version within 1e-5 (values) and 1e-4 of
 max |grad| (gradients); bf16 within 2e-2 of the f32 plain version on the
-bf16-rounded inputs.
+bf16-rounded inputs; mixed calls (the f32 grid route over widened inputs)
+within 1e-5 of the plain version on the same mixed inputs (values; 2e-3
+where a bf16 w_hh makes the recurrence round h, one bf16 step for bf16
+values) and 1e-4 of max |grad|.
 """
 
 import numpy as np
@@ -257,6 +264,60 @@ def test_plain_bf16_carries_state_in_f32():
         assert float((a.float() - b).abs().max()) <= 2e-2
 
 
+#: (x_proj, w_hh, h0 and c0) dtypes of the mixed calls
+MIXES = [("f32", "bf16", "f32"), ("bf16", "f32", "bf16"),
+         ("bf16", "bf16", "f32")]
+_TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _mixed(case, mix, **kw):
+    kinds = (mix[0], mix[1], mix[2], mix[2])
+    return [torch.from_numpy(a).to(_TORCH[k]).to(**kw)
+            for a, k in zip(case, kinds)]
+
+
+@pytest.mark.parametrize("mix", MIXES, ids=["-".join(m) for m in MIXES])
+def test_mixed_dtypes_match_jax(mix):
+    """x_proj, w_hh and the state in different dtypes: the port's
+    dispatcher (the plain versions on the CPU) against the Pallas kernel
+    through the interpreter and ``jax.vjp`` through ``_recurrence``:
+    output dtypes x_proj's, gradient dtypes their primals', values within
+    1e-6 (of max |grad| for the gradients)."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops.lstm_pallas import (_recurrence,
+                                                     pallas_lstm_recurrence)
+
+    jt = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+    t, n, h = 6, 3, 16
+    case = _case(t, n, h, seed=21)
+    rs = np.random.RandomState(22)
+    cots = [rs.randn(t, n, h), rs.randn(n, h), rs.randn(n, h)]
+    kinds = (mix[0], mix[1], mix[2], mix[2])
+    jins = [jnp.asarray(a).astype(jt[k]) for a, k in zip(case, kinds)]
+    want = pallas_lstm_recurrence(*jins, interpret=True)
+    _, vjp = jax.vjp(lambda *a: _recurrence(1, True, *a), *jins)
+    jcots = [jnp.asarray(c, jnp.float32).astype(jt[mix[0]]) for c in cots]
+    want_grads = vjp(tuple(jcots))
+
+    leaves = [a.requires_grad_(True) for a in _mixed(case, mix)]
+    got = lr.lstm_recurrence(*leaves)
+    for name, a, b in zip(("ys", "hT", "cT"), got, want):
+        assert a.dtype == _TORCH[mix[0]], name
+        np.testing.assert_allclose(a.detach().float().numpy(),
+                                   np.asarray(b, np.float32), atol=1e-6,
+                                   rtol=0, err_msg=name)
+    torch.autograd.backward(got, [
+        torch.from_numpy(np.asarray(c, np.float32)).to(a.dtype)
+        for c, a in zip(jcots, got)])
+    for name, leaf, g in zip(("x_proj", "w_hh", "h0", "c0"), leaves,
+                             want_grads):
+        assert leaf.grad.dtype == leaf.dtype, name
+        _assert_rel(leaf.grad.float().numpy(), np.asarray(g, np.float32),
+                    1e-6, name)
+
+
 # ------------------------------------------------------------ wrapper rules
 @pytest.mark.parametrize("steps, n, h", [(0, 4, 8), (3, 0, 8), (3, 257, 8),
                                          (3, 4, 0), (3, 4, 513)])
@@ -271,9 +332,12 @@ def test_envelope_edges_are_inside():
 
 
 @pytest.mark.parametrize("bad, err", [
-    ("cpu", ValueError), ("f16", TypeError), ("mixed", TypeError),
+    ("cpu", ValueError), ("f16", TypeError), ("mixed", ValueError),
     ("noncontig", ValueError), ("shape", ValueError)])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
+    """Every refusal raises before a launch. Mixed f32 / bf16 inputs are
+    taken (the Pallas kernel takes them), so on CPU tensors that call is
+    refused for the device (ValueError); f16 is refused for its dtype."""
     x, w, h0, c0 = _t(*_case(3, 2, 8, seed=0))
     if bad == "f16":
         x, w, h0, c0 = (a.half() for a in (x, w, h0, c0))
@@ -344,6 +408,43 @@ def _route_case(dtype, h, n=4, offset=False):
 ])
 def test_bwd_route(dtype, h, offset, want):
     assert lr.bwd_route(*_route_case(dtype, h, offset=offset)) == want
+
+
+def _fwd_route_case(dtype, h, n=4, offset=False):
+    x = torch.zeros(3 * n * 4 * h + 8, dtype=dtype)
+    x = (x[1:1 + 3 * n * 4 * h] if offset else x[:3 * n * 4 * h]) \
+        .view(3, n, 4 * h)
+    return (x, torch.zeros(h, 4 * h, dtype=dtype),
+            torch.zeros(n, h, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype, h, offset, want", [
+    (torch.bfloat16, 256, False, "cluster"),   # the training shape's width
+    (torch.bfloat16, 128, False, "cluster"),
+    (torch.bfloat16, 64, False, "cluster"),
+    (torch.bfloat16, 512, False, "grid"),      # clusters of 16: not portable
+    (torch.bfloat16, 200, False, "grid"),      # not a multiple of 64
+    (torch.bfloat16, 40, False, "grid"),
+    (torch.float32, 256, False, "grid"),       # f32 keeps the first design
+    (torch.bfloat16, 256, True, "grid"),       # x_proj off a 16-byte boundary
+])
+def test_fwd_route(dtype, h, offset, want):
+    assert lr.fwd_route(*_fwd_route_case(dtype, h, offset=offset)) == want
+
+
+@pytest.mark.parametrize("mix", MIXES, ids=["-".join(m) for m in MIXES])
+def test_mixed_calls_take_the_grid_route(mix):
+    """A call that mixes dtypes runs the grid route over widened inputs,
+    in both directions, whatever its width."""
+    x, w, h0, c0 = _mixed(_case(3, 4, 256, seed=1), mix)
+    ys = torch.zeros(3, 4, 256, dtype=x.dtype)
+    assert lr.fwd_route(x, w, h0, c0) == "grid"
+    assert lr.bwd_route(x, w, h0, ys, c0) == "grid"
+    # a bf16 call whose c0 alone is f32 is mixed too
+    bf = [a.to(torch.bfloat16) for a in (x, w, h0)]
+    assert lr.fwd_route(*bf) == "cluster"
+    assert lr.fwd_route(*bf, c0.float()) == "grid"
+    assert lr.bwd_route(*bf, ys.to(torch.bfloat16), c0.float()) == "grid"
 
 
 def _probe_copies():
@@ -610,3 +711,141 @@ def test_cuda_cluster_route_refuses_what_it_does_not_take(route, err):
     with pytest.raises(err, match="route"):
         lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin, route=route)
     assert lr.bwd_launches == before
+
+
+# -------------------------------------------- forward cluster route (card)
+def _fwd_case(t, n, h, seed, dtype=torch.bfloat16):
+    return [a.cuda().to(dtype) for a in _t(*_case(t, n, h, seed=seed))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [64, 128, 256])
+@pytest.mark.parametrize("n", [1, 4, 16, 17, 240, 256])
+@pytest.mark.parametrize("t", [1, 50, 200])
+def test_cuda_cluster_forward_matches_plain(t, n, h):
+    """The forward's cluster route (bf16) against the f32 plain version on
+    the bf16-rounded inputs, within 2e-2, with and without the cell
+    stream: the first step (T=1), ragged rows (N=1, 17), both row tiles
+    (N=240: 16-row clusters; 256: 32-row) and every cluster width."""
+    _need_card()
+    case = _fwd_case(t, n, h, seed=t + n + h)
+    assert lr.fwd_route(*case) == "cluster"
+    want = lr.lstm_recurrence_reference(*[a.float() for a in case],
+                                        collect_cell=True)
+    for cells in (False, True):
+        before = lr.fwd_launches
+        got = lr.lstm_recurrence_fwd(*case, collect_cell=cells)
+        torch.cuda.synchronize()
+        assert lr.fwd_launches == before + 1
+        assert lr.last_plan[1] == h // 32          # blocks per cluster
+        assert len(got) == (4 if cells else 3)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            err = float((a.float() - b).abs().max())
+            assert err <= 2e-2, f"{err:.3e} > 2e-2"
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_forward_is_bit_equal_and_agrees_with_grid():
+    """Two cluster-route calls at the training shape are bit-equal; the
+    grid route (forced) on the same inputs stays within 2e-2 of both the
+    plain version and the cluster route."""
+    _need_card()
+    case = _fwd_case(200, 256, 256, seed=3)
+    a = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    b = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    grid = lr.lstm_recurrence_fwd(*case, collect_cell=True, route="grid")
+    torch.cuda.synchronize()
+    assert lr.last_plan[1] in (1, 2, 4)   # rows per thread of that design
+    want = lr.lstm_recurrence_reference(*[x.float() for x in case],
+                                        collect_cell=True)
+    for x, y, w in zip(a, grid, want):
+        assert float((y.float() - w).abs().max()) <= 2e-2
+        assert float((x.float() - y.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route, err", [("cluster", RuntimeError),
+                                        ("warp", ValueError)])
+def test_cuda_cluster_forward_refuses_what_it_does_not_take(route, err):
+    """f32 and mixed calls forced onto the cluster route are refused by
+    the C entry (a RuntimeError naming the route), an unknown route by the
+    wrapper; none counts a launch."""
+    _need_card()
+    f32 = _fwd_case(3, 4, 256, seed=1, dtype=torch.float32)
+    mixed = [f32[0].to(torch.bfloat16)] + f32[1:]
+    before = lr.fwd_launches
+    for case in (f32, mixed):
+        with pytest.raises(err, match="route"):
+            lr.lstm_recurrence_fwd(*case, route=route)
+    assert lr.fwd_launches == before
+
+
+# -------------------------------------------------- mixed dtypes (C6, card)
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, n, h", [(7, 5, 256), (50, 256, 256),
+                                     (4, 3, 40)])
+@pytest.mark.parametrize("mix", MIXES, ids=["-".join(m) for m in MIXES])
+def test_cuda_mixed_dtypes_match_plain(mix, t, n, h):
+    """x_proj, w_hh and the state in different dtypes on the card (the
+    grid route at f32 over widened inputs): forward outputs, their dtypes
+    and the backward's gradients against the plain versions on the same
+    mixed inputs, within 1e-5 (values; 2e-3 for f32 values under a bf16
+    w_hh, one bf16 step for bf16 values) and 1e-4 of max |grad| (one bf16
+    step for bf16 gradients)."""
+    _need_card()
+    case = _mixed(_case(t, n, h, seed=t + n), mix, device="cuda")
+    assert lr.fwd_route(*case) == "grid"
+    want = lr.lstm_recurrence_reference(*case, collect_cell=True)
+    got = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == case[0].dtype and a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        # at bf16 storage an output may sit one bf16 step off; under a
+        # bf16 w_hh the recurrence rounds h to bf16 before each product, so
+        # a 1-ulp f32 difference can flip a rounding (up to 6.6e-4 at
+        # T=200 in the plain version itself)
+        if a.dtype == torch.bfloat16:
+            tol = 2 ** -7 * max(1.0, float(b.float().abs().max()))
+        else:
+            tol = 2e-3 if case[1].dtype == torch.bfloat16 else 1e-5
+        assert err <= tol, f"{err:.3e} > {tol:.3e}"
+    ys, _, _, cs = want
+    g = torch.Generator(device="cuda").manual_seed(t)
+    dys, dhT, dcT = (torch.randn(s, generator=g, device="cuda").to(ys.dtype)
+                     for s in ((t, n, h), (n, h), (n, h)))
+    ref = lr.lstm_recurrence_backward_reference(*case, ys, cs, dys, dhT, dcT)
+    before = lr.bwd_launches
+    grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, dhT, dcT)
+    torch.cuda.synchronize()
+    assert lr.bwd_launches == before + 1
+    for name, a, b, p in zip(("dx_proj", "dw_hh", "dh0", "dc0"), grads, ref,
+                             case):
+        assert a.dtype == b.dtype == p.dtype, name
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        tol = 1e-4 if a.dtype == torch.float32 else 2 ** -7
+        assert err <= tol * scale, f"{name}: {err:.3e} > {tol:g} x {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", MIXES, ids=["-".join(m) for m in MIXES])
+def test_cuda_mixed_dtypes_through_autograd(mix):
+    """``lstm_layer``'s dispatcher on the card with mixed inputs: the
+    kernels launch once each way and the gradients reach every input in
+    its own dtype."""
+    _need_card()
+    leaves = [a.requires_grad_(True) for a in
+              _mixed(_case(9, 6, 64, seed=4), mix, device="cuda")]
+    before = (lr.fwd_launches, lr.bwd_launches)
+    ys, hT, cT = lr.lstm_recurrence(*leaves)
+    (ys.float().square().sum() + hT.float().sum() + cT.float().sum()) \
+        .backward()
+    torch.cuda.synchronize()
+    assert (lr.fwd_launches, lr.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for leaf in leaves:
+        assert leaf.grad.dtype == leaf.dtype
+        assert bool(torch.isfinite(leaf.grad.float()).all())

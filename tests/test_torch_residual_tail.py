@@ -10,16 +10,19 @@ interpret=True)``). The port's side runs its plain version (the CPU
 path). Tolerances at f32: 1e-6 against the formula (the same operations
 in the same order), 1e-5 against the interpreted kernel and for
 gradients (sums over rows in another order); bf16 within one bf16
-rounding.
+rounding; x and res in different dtypes (either order) within 1e-6 of the
+JAX values, in x's dtype.
 
 The CUDA kernel runs only on the card: its tests carry the ``cuda``
 marker, skip without one and import no JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_residual_tail.py``.
 There it is held against the plain version on the same inputs: f32
 within 1e-5 (the same order of operations; rsqrt rounded apart), bf16
-within one bf16 step of the plain version's bf16 output, gradients
-through its autograd Function within 1e-5 of max |grad| of the plain
-formula's.
+(and a bf16 x with an f32 res) within one bf16 step of the plain
+version's bf16 output (at the join shapes and by name: within one bf16
+rounding, 2^-8 of the largest value, of the plain version at f32 on the
+same values), gradients through its autograd Function within 1e-5 of
+max |grad| of the plain formula's.
 """
 
 import numpy as np
@@ -46,6 +49,17 @@ def _t(arrays, dtype=None, **kw):
     out = [torch.from_numpy(a).to(**kw) for a in arrays]
     if dtype is not None:
         out[0], out[1] = out[0].to(dtype), out[1].to(dtype)
+    return out
+
+
+#: (x, res) dtypes of the mixed calls
+MIXES = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+MIX_IDS = ["x-bf16-res-f32", "x-f32-res-bf16"]
+
+
+def _mixed(arrays, mix, **kw):
+    out = _t(arrays, **kw)
+    out[0], out[1] = out[0].to(mix[0]), out[1].to(mix[1])
     return out
 
 
@@ -89,6 +103,34 @@ class TestForward:
         # the same f32 value rounded once to bf16 on both sides
         np.testing.assert_allclose(gotf, want,
                                    atol=2 ** -8 * float(np.abs(want).max()))
+
+    @pytest.mark.parametrize("mix", MIXES, ids=MIX_IDS)
+    def test_mixed_dtypes_match_jax(self, mix):
+        """x and res in different dtypes: each is widened to f32 before
+        the arithmetic and the result takes x's dtype, as ``_ref_formula``,
+        the off-TPU ``bn_relu_residual`` and the Pallas body (interpreted)
+        compute it."""
+        import jax.numpy as jnp
+
+        from deeplearning4j_tpu.ops.residual_tail_pallas import (
+            _ref_formula, _tail_kernel, bn_relu_residual)
+
+        jt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+        args = _inputs(seed=11)
+        c = args[0].shape[-1]
+        jx = jnp.asarray(args[0]).astype(jt[mix[0]])
+        jr = jnp.asarray(args[1]).astype(jt[mix[1]])
+        got = rt.bn_relu_residual(*_mixed(args, mix))
+        assert got.dtype == mix[0]
+        gotf = got.float().numpy()
+        for want in (_ref_formula(jx, jr, *args[2:], 1e-5),
+                     bn_relu_residual(jx, jr, *args[2:]),
+                     _tail_kernel(jx.reshape(-1, c), jr.reshape(-1, c),
+                                  *args[2:], 1e-5,
+                                  interpret=True).reshape(jx.shape)):
+            assert want.dtype == jt[mix[0]]
+            np.testing.assert_allclose(gotf, np.asarray(want, np.float32),
+                                       rtol=1e-6, atol=1e-6)
 
     def test_eps_is_passed_through(self):
         from deeplearning4j_tpu.ops.residual_tail_pallas import _ref_formula
@@ -167,6 +209,13 @@ class TestRegistryDispatch:
         args = _t(_inputs(seed=8, c=4))
         with pytest.raises(ValueError, match="CUDA"):
             rt.residual_tail_kernel(*args)
+        # mixed f32 / bf16 x and res pass the dtype check (refused for the
+        # device here); f16 does not
+        with pytest.raises(ValueError, match="CUDA"):
+            rt.residual_tail_kernel(*_mixed(_inputs(seed=8, c=4), MIXES[0]))
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            rt.residual_tail_kernel(*_mixed(_inputs(seed=8, c=4),
+                                            (torch.float32, torch.float16)))
         with pytest.raises(ValueError, match="cpu or cuda"):
             rt.bn_relu_residual(*(a.to("meta") for a in args))
 
@@ -230,3 +279,61 @@ def test_cuda_autograd_matches_plain_formula():
     for ga, gb in zip(a, b):
         scale = float(gb.grad.abs().max())
         assert float((ga.grad - gb.grad).abs().max()) <= 1e-5 * scale
+
+
+#: the four residual joins of ResNet-50 (H, W, C) at batch 8, and ragged C
+#: (not a multiple of the 8- or 4-channel groups: the scalar kernel)
+JOIN_SHAPES = [(8, 56, 56, 256), (8, 28, 28, 512), (8, 14, 14, 1024),
+               (8, 7, 7, 2048), (8, 7, 7, 2050), (3, 5, 5, 12)]
+ALL_DTYPES = [(torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16)] + MIXES
+ALL_IDS = ["f32", "bf16"] + MIX_IDS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", JOIN_SHAPES)
+@pytest.mark.parametrize("mix", ALL_DTYPES, ids=ALL_IDS)
+def test_cuda_kernel_at_the_joins(shape, mix):
+    """The kernel at the four join shapes and at ragged C, in f32, bf16
+    and both mixes, against the plain version at f32 on the same values:
+    f32 x within 1e-5, bf16 x within one bf16 rounding (2^-8 of the
+    largest output); the output in x's dtype. Two calls are bit-equal."""
+    _need_card()
+    n, h, w, c = shape
+    args = _mixed(_inputs(seed=c + h, n=n, h=h, w=w, c=c), mix,
+                  device="cuda")
+    before = rt.launches
+    got = rt.residual_tail_kernel(*args)
+    again = rt.residual_tail_kernel(*args)
+    want = rt.residual_tail_reference(args[0].float(), args[1].float(),
+                                      *args[2:])
+    torch.cuda.synchronize()
+    assert rt.launches == before + 2
+    assert got.dtype == mix[0] and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = float((got.float() - want).abs().max())
+    tol = 1e-5 if mix[0] == torch.float32 else \
+        2 ** -8 * float(want.abs().max())
+    assert err <= tol, f"{err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", MIXES, ids=MIX_IDS)
+def test_cuda_mixed_dtypes_by_name(mix):
+    """``bn_relu_residual`` by name on the card takes x and res in
+    different dtypes (the plain version and the JAX package take them)
+    and launches the kernel: the output in x's dtype, as the plain
+    version's."""
+    _need_card()
+    args = _mixed(_inputs(seed=12), mix, device="cuda")
+    before = rt.launches
+    got = Nd4j.exec("bn_relu_residual", *args)
+    want = rt.residual_tail_reference(*args)
+    want32 = rt.residual_tail_reference(args[0].float(), args[1].float(),
+                                        *args[2:])
+    torch.cuda.synchronize()
+    assert rt.launches == before + 1
+    assert got.dtype == want.dtype == mix[0]
+    tol = 1e-5 if mix[0] == torch.float32 else \
+        2 ** -8 * float(want32.abs().max())
+    assert float((got.float() - want32).abs().max()) <= tol
