@@ -179,7 +179,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    must raise; the 7x7 graph saved and loaded gives the same output;
 13. block parity: the four blocks at f32, batch 8, on the card (the
    kernels) against the CPU (the plain versions), within 1e-4 of max(1,
-   max |out|).
+   max |out|);
+14. LeNet: ``zoo.LeNet`` through ``MultiLayerNetwork`` (Nesterovs 0.01,
+   0.9) from one numpy tree on the card (cuDNN at f32, TF32 off)
+   and on the CPU, three ``fit`` steps at batch 64 on 28x28x1 data:
+   losses within 1e-5 relative, parameters within 2e-5, the inference
+   output within 2e-5 of max(1, max |out|);
+15. ResNet-50 training at full width: ``zoo.ResNet50(num_classes=1000)``
+   (25.6 M parameters) through ``ComputationGraph.fit`` at bench.py's
+   cell (batch 256, 224x224x3, bf16, ``Nesterovs(0.1, 0.9)``,
+   ``RandomState(0)`` images and one-hot labels), ``cudnn.benchmark`` on
+   for this phase only: 2 warm-up and 10 timed steps, a finite loss at
+   every step; ms per step, images/s, peak memory, the FLOPs per step
+   counted from the graph's conv and dense shapes (2 x MACs, x3 for the
+   backward) over the step time and the bf16 peak, each beside the card's
+   ``nvidia-smi`` line; a profiled step: device busy and idle share,
+   device time by group (conv, batch-norm elementwise, ReLU/add, updater,
+   other), the ten largest device operations and cuDNN's layout
+   transposes; then 5 steps with ``F.batch_norm`` in place of the batch
+   norm's formula, a yardstick the port never calls. No hand kernel runs
+   here: the image layers reach no Pallas
+   kernel in the reference;
+16. graph parity: the cut ResNet (``zoo.resnet50.cut_resnet_conf``: the
+   stem, a projection block, an identity block, 32x32x3, 4 classes) at
+   f32, three ``Nesterovs`` steps on the card and on the CPU from one
+   numpy tree (losses 1e-5 relative, parameters 2e-5, BN running state
+   2e-5 of max(1, |value|)), then one inference ``output`` alike.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -698,15 +723,22 @@ def serve_config():
 
 
 def device_profile(phase: str, what: str, run, focus,
-                   expect: dict = None) -> float:
+                   expect: dict = None, group=None, top: int = 8) -> float:
     """Device busy share over ``run()`` from a torch.profiler trace: the
     kernels' device times summed over the window's wall time (one
     stream, so kernels do not overlap), the share of the kernels whose
     names hold each string of ``focus`` with the launches the trace holds
     of them (against ``expect[key]`` launches where given: a long process
-    can lose records, and then the sums undercount), and the largest
-    kernels by device time. Returns the busy milliseconds (0 when the
-    profiler saw no device time)."""
+    can lose records, and then the sums undercount), and the ``top``
+    largest kernels by device time. With ``group`` (a function from the
+    names of the CPU op that launched a kernel and of its parents,
+    innermost first, to a group's name), also the device time by group,
+    and each of the largest kernels' group. Record ranges
+    (``dl4j::...``) show on the device's timeline too and are not
+    kernels. Returns the busy milliseconds (0 when the profiler saw no
+    device time)."""
+    from collections import Counter, defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -716,13 +748,13 @@ def device_profile(phase: str, what: str, run, focus,
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    launches: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
-            launches[e.name] = launches.get(e.name, 0) + 1
+    events = prof.events()
+    by_name, launches = Counter(), Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                "dl4j::"):
+            by_name[e.name] += e.time_range.elapsed_us()
+            launches[e.name] += 1
     busy_us = sum(by_name.values())
     if busy_us == 0:
         say(phase, "torch.profiler saw no device time: device idle share "
@@ -730,7 +762,8 @@ def device_profile(phase: str, what: str, run, focus,
         return 0.0
     say(phase, f"{what} in {wall_us / 1e3:.1f} ms: device busy "
                f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of the "
-               f"window, idle {1 - busy_us / wall_us:.3f})")
+               f"window, idle {1 - busy_us / wall_us:.3f}), "
+               f"{sum(launches.values())} kernels")
     for key in focus:
         t = sum(v for n, v in by_name.items() if key in n)
         k = sum(v for n, v in launches.items() if key in n)
@@ -739,8 +772,30 @@ def device_profile(phase: str, what: str, run, focus,
                 f"sum" if want is not None and k != want else "")
         say(phase, f"  {key}*: {t / 1e3:.2f} ms ({t / busy_us:.3f} of "
                    f"device time, {k} launches traced{lost})")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say(phase, f"  {t / 1e3:9.2f} ms  {name[:100]}")
+    of_name = defaultdict(Counter)
+    if group is not None:
+        groups = Counter()
+        for e in events:
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            chain, q = [], e
+            while q is not None:
+                chain.append(q.name)
+                q = q.cpu_parent
+            g = group(chain)
+            for k in e.kernels:
+                groups[g] += k.duration
+                of_name[k.name][g] += k.duration
+        groups["not traced to an op"] = max(busy_us - sum(groups.values()),
+                                            0)
+        say(phase, "device time by group: " + ", ".join(
+            f"{g} {t / 1e3:.2f} ms ({t / busy_us:.3f})"
+            for g, t in groups.most_common()))
+    for name, t in by_name.most_common(top):
+        g = (f" [{of_name[name].most_common(1)[0][0]}]" if of_name[name]
+             else "")
+        say(phase, f"  {t / 1e3:9.2f} ms {t / busy_us:.3f} "
+                   f"x{launches[name]:<5d}{g} {name[:90]}")
     return busy_us / 1e3
 
 
@@ -2912,6 +2967,344 @@ def phase_resnet_parity() -> None:
                              f"|out|))")
 
 
+# ------------------------------------------------------- image models
+LENET_BATCH, LENET_CLASSES = 64, 10
+RESNET50_BATCH, RESNET50_HW, RESNET50_CLASSES = 256, 224, 1000
+GRAPH_PARITY_BATCH = 8
+PARITY_STEPS = 3
+#: card (cuDNN, TF32 off) vs CPU at f32 after three steps: losses 1e-5
+#: relative, BN running state and outputs 2e-5 of max(1, max |value|)
+#: (conv sums in another order); parameters PARITY_PARAM_ATOL absolute
+IMAGE_LOSS_RTOL, IMAGE_STATE_TOL = 1e-5, 2e-5
+
+
+def numpy_tree(named_params, seed: int, scheme: str = "relu") -> dict:
+    """Normal weights ``W`` from a numpy seed (``scheme`` "relu": He,
+    sqrt(2 / fan_in); "xavier": sqrt(2 / (fan_in + fan_out)); fan_in the
+    product of all but the last axis of HWIO or [in, out], fan_out the
+    product of all but the next to last), ``gamma`` ones and every other
+    leaf zero, at the shapes of ``named_params`` ((key, {name: tensor})
+    pairs)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, p in named_params:
+        out[key] = {}
+        for k in sorted(p):
+            shape = tuple(p[k].shape)
+            if k == "W":
+                fan_in = int(np.prod(shape[:-1]))
+                fan_out = int(np.prod(shape[:-2])) * shape[-1]
+                a = rng.standard_normal(shape) * math.sqrt(2.0 / (
+                    fan_in if scheme == "relu" else fan_in + fan_out))
+            else:
+                a = np.full(shape, 1.0 if k == "gamma" else 0.0)
+            out[key][k] = a.astype(np.float32)
+    return out
+
+
+def image_batch(n: int, hw: int, c: int, classes: int, seed: int):
+    """bench.py's synthetic data: ``RandomState(seed)`` normal images
+    [n, hw, hw, c] and one-hot labels."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, (n, hw, hw, c)).astype(np.float32)
+    return x, np.eye(classes, dtype=np.float32)[rng.randint(0, classes, n)]
+
+
+def close_card_cpu(what: str, card, cpu, tol: float) -> float:
+    """Max abs difference of two tensors, held to ``tol`` of max(1, max
+    |cpu|)."""
+    card, cpu = card.detach().float().cpu(), cpu.detach().float().cpu()
+    check(card.shape == cpu.shape, f"{what}: {tuple(card.shape)} vs "
+                                   f"{tuple(cpu.shape)}")
+    err = float((card - cpu).abs().max()) if cpu.numel() else 0.0
+    scale = max(1.0, float(cpu.abs().max())) if cpu.numel() else 1.0
+    check(err <= tol * scale, f"{what}: card vs CPU {err:.3e} > {tol:g} x "
+                              f"{scale:.3e}")
+    return err
+
+
+def check_losses(phase: str, card, cpu) -> None:
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    check(all(math.isfinite(v) for v in card + cpu),
+          f"{phase}: losses {card} {cpu}")
+    check(rel <= IMAGE_LOSS_RTOL, f"{phase}: card and CPU losses differ by "
+                                  f"{rel:.3e} relative")
+    say(phase, f"losses card {' '.join(f'{v:.7f}' for v in card)}, CPU "
+               f"{' '.join(f'{v:.7f}' for v in cpu)} (max relative diff "
+               f"{rel:.2e}, tolerance {IMAGE_LOSS_RTOL:g})")
+
+
+def phase_lenet() -> None:
+    """LeNet through MultiLayerNetwork, three Nesterovs steps on the card
+    (cuDNN at f32, TF32 off) and on the CPU from one numpy tree. Nesterovs
+    moves a parameter by lr times its gradient, so the gradients' rounding
+    differences reach the parameters unamplified (Adam divides each
+    gradient by its own size: where one cancels to near its epsilon, a
+    rounding difference moves the update by up to lr)."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.params import mln_params_from_numpy
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    t0 = time.perf_counter()
+    lr = 1e-2
+    zoo = LeNet(num_classes=LENET_CLASSES, updater=Nesterovs(lr, 0.9))
+    x, y = image_batch(LENET_BATCH, 28, 1, LENET_CLASSES, seed=0)
+    tree, runs = None, []
+    for dev in (DEVICE, "cpu"):
+        net = zoo.init(device=dev)
+        if tree is None:
+            tree = numpy_tree(enumerate(net.params_list), seed=13,
+                              scheme="xavier")
+        net.params_list = mln_params_from_numpy(
+            [tree[i] for i in range(len(tree))], device=dev)
+        start = net.params().cpu()
+        losses = []
+        for _ in range(PARITY_STEPS):
+            net.fit(x, y)
+            losses.append(net.score())
+        runs.append((losses, net, float((net.params().cpu() - start)
+                                        .abs().max())))
+    (lc, card, moved), (lh, cpu, _) = runs
+    check_losses("lenet", lc, lh)
+    err, where = max((float((p[k].cpu() - q[k]).abs().max()), f"{i}/{k}")
+                     for i, (p, q) in enumerate(zip(card.params_list,
+                                                    cpu.params_list))
+                     for k in q)
+    check(err <= PARITY_PARAM_ATOL,
+          f"lenet: parameters differ by {err:.3e} (layer {where})")
+    check(moved >= 100 * PARITY_PARAM_ATOL,
+          f"lenet: the card's updates moved no parameter by 100 x the "
+          f"tolerance ({moved:.3e})")
+    out = close_card_cpu("lenet output", card.output(x), cpu.output(x),
+                         IMAGE_STATE_TOL)
+    say("lenet", f"LeNet ({card.numParams()} parameters, conv 5x5 x20, pool, "
+                 f"conv 5x5 x50, pool, dense 500, softmax {LENET_CLASSES}) at "
+                 f"batch {LENET_BATCH} x 28x28x1, f32, Nesterovs({lr:g}, "
+                 f"0.9): {PARITY_STEPS} steps, parameters max abs diff "
+                 f"{err:.2e} at layer {where} (tolerance "
+                 f"{PARITY_PARAM_ATOL:g}; the card moved one by up to "
+                 f"{moved:.3e}), inference output {out:.2e}; "
+                 f"{time.perf_counter() - t0:.1f} s")
+
+
+def graph_macs(conf) -> int:
+    """Multiply-adds per example of a graph's convolutions and dense
+    layers, from the shapes its configuration gives them."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
+                                                         DenseLayer)
+
+    types = dict(zip(conf.network_inputs, conf.input_types))
+    macs = 0
+    for node in conf.nodes:
+        out = node.vertex.output_type([types[s] for s in node.inputs])
+        layer = getattr(node.vertex, "layer", None)
+        if isinstance(layer, ConvolutionLayer):
+            kh, kw = layer.kernel_size
+            macs += out.height * out.width * out.channels * kh * kw \
+                * layer.n_in
+        elif isinstance(layer, DenseLayer):
+            macs += layer.n_in * layer.n_out
+        types[node.name] = out
+    return macs
+
+
+def kernel_group(chain) -> str:
+    """The group of a kernel (conv, batch-norm elementwise, ReLU/add,
+    updater or other) from the names of the CPU op that launched it and of
+    its parents, innermost first: in the forward and the update, the
+    record range that ``ComputationGraph`` puts around each vertex
+    (``dl4j::<layer or vertex class>``) and around the update
+    (``dl4j::updater``); in the backward, the autograd function."""
+    text = " | ".join(chain)
+    if any(k in text for k in ("relu", "clamp_min", "threshold_backward",
+                               "ReluBackward", "dl4j::ActivationLayer",
+                               "dl4j::ElementWiseVertex")):
+        return "ReLU/add"
+    if "dl4j::updater" in text:
+        return "updater"
+    if "dl4j::ConvolutionLayer" in text or "onvolution" in text \
+            or "aten::mm" in text or "aten::addmm" in text \
+            or "MmBackward" in text:
+        return "conv"
+    # the batch norm's own forward, and in the backward the functions of
+    # its formula (the l2 term's and the global pool's share them, small)
+    if "dl4j::BatchNormalization" in text or any(k in text for k in (
+            "MulBackward", "SubBackward", "MeanBackward", "ToCopyBackward",
+            "MaximumBackward", "RsqrtBackward", "AddBackward",
+            "SelectBackward")):
+        return "batch-norm elementwise"
+    return "other"
+
+
+def library_batch_norm_train(x, gamma, beta, eps=1e-5, axes=None):
+    """``F.batch_norm`` in training mode on an NHWC ``x`` (cuDNN's fused
+    kernels, two-pass statistics and an unbiased running variance: not
+    the reference's formula). A yardstick the port never calls."""
+    c = x.shape[-1]
+    mean = torch.zeros(c, device=x.device)
+    var = torch.ones(c, device=x.device)
+    y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, gamma.float(),
+                     beta.float(), True, 1.0, eps)
+    return y.permute(0, 2, 3, 1), mean.to(x.dtype), var.to(x.dtype)
+
+
+def library_bn_step(phase: str, net, x, y, step_ms: float, smi: str,
+                    steps: int = 5) -> None:
+    """The same training step with every batch norm through
+    :func:`library_batch_norm_train`, timed after one warm-up step: how
+    much of the step the eager batch-norm formula costs."""
+    from deeplearning4j_tpu_torch.ops import nn as nnops
+
+    plain = nnops.batch_norm_train
+    nnops.batch_norm_train = library_batch_norm_train
+    try:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+    finally:
+        nnops.batch_norm_train = plain
+    check(math.isfinite(net.score()), "the yardstick's loss is not finite")
+    say(phase, f"yardstick: the step with F.batch_norm (cuDNN) in place of "
+               f"the reference's batch-norm formula, {steps} timed: "
+               f"{ms:.2f} ms/step ({ms / step_ms:.3f} of the port's "
+               f"{step_ms:.2f}); {smi}")
+
+
+def phase_resnet50_train(smi: str) -> None:
+    """ResNet-50 through ComputationGraph at full width: bench.py's cell
+    (batch 256, 224x224x3, bf16, Nesterovs(0.1, 0.9), RandomState(0)
+    data); cuDNN autotuning (``cudnn.benchmark``) on for this phase
+    only."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    t_phase = time.perf_counter()
+    B, HW = RESNET50_BATCH, RESNET50_HW
+    conf = ResNet50(num_classes=RESNET50_CLASSES, in_shape=(HW, HW, 3),
+                    updater=Nesterovs(learning_rate=1e-1,
+                                      momentum=0.9)).conf()
+    conf.dtype = "bfloat16"
+    net = ComputationGraph(conf, device=DEVICE).init()
+    n_params = net.numParams()
+    if (HW, RESNET50_CLASSES) == (224, 1000):
+        check(25_000_000 < n_params < 26_500_000,
+              f"ResNet-50 has {n_params} parameters")
+    x, y = image_batch(B, HW, 3, RESNET50_CLASSES, seed=0)
+    x = torch.from_numpy(x).to(DEVICE, torch.bfloat16)
+    y = torch.from_numpy(y).to(DEVICE)
+    macs = graph_macs(conf)
+    flops = 6 * macs * B        # 2 x MACs, x3 for the backward
+    say("resnet50", f"ResNet50(num_classes={RESNET50_CLASSES}): {n_params} "
+                    f"parameters, {len(conf.nodes)} nodes, bf16, "
+                    f"Nesterovs(0.1, 0.9), batch {B} x {HW}x{HW}x3; "
+                    f"{macs / 1e9:.3f} GMAC per image forward, "
+                    f"{flops / 1e12:.3f} TFLOP per training step")
+    torch.backends.cudnn.benchmark = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(WARMUP_STEPS):
+            net.fit(x, y)
+            losses.append(net._score)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            net.fit(x, y)
+            losses.append(net._score)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        vals = [float(v) for v in losses]
+        check(all(math.isfinite(v) for v in vals), f"losses {vals}")
+        check({t.dtype for p in net.params_map.values()
+               for t in p.values()} == {torch.bfloat16},
+              "a parameter left bf16")
+        step_s = wall / TIMED_STEPS
+        say("resnet50", f"{WARMUP_STEPS} warm-up steps in {warm_s:.2f} s "
+                        f"(cuDNN autotuning included); losses "
+                        + " ".join(f"{v:.4f}" for v in vals))
+        say("resnet50", f"{TIMED_STEPS} timed steps: {step_s * 1e3:.2f} "
+                        f"ms/step, {B / step_s:.1f} images/s; {smi}")
+        say("resnet50", f"peak memory {peak} B ({peak / 2 ** 30:.2f} GiB, "
+                        f"torch.cuda.max_memory_allocated); {smi}")
+        say("resnet50", f"{flops / step_s / 1e12:.1f} TFLOP/s counted, "
+                        f"{flops / step_s / BF16_FLOPS:.4f} of the bf16 "
+                        f"tensor-core peak {BF16_FLOPS / 1e12:.0f} TFLOP/s; "
+                        f"{smi}")
+
+        def one_step():
+            net.fit(x, y)
+
+        # the layout transposes cuDNN would add around an NCHW kernel
+        device_profile("resnet50", f"one profiled training step "
+                                   f"(unprofiled {step_s * 1e3:.2f} ms; "
+                                   f"{smi})", one_step,
+                       ("nchwToNhwc", "nhwcToNchw"), group=kernel_group,
+                       top=10)
+        library_bn_step("resnet50", net, x, y, step_s * 1e3, smi)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    del net, x, y
+    torch.cuda.empty_cache()
+    say("resnet50", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_graph_parity() -> None:
+    """The cut ResNet (``zoo.resnet50.cut_resnet_conf``) at f32: three
+    Nesterovs steps on the card (cuDNN, TF32 off) and on the CPU from one
+    numpy tree, then one ``output`` in inference mode."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.params import cg_params_from_numpy
+    from deeplearning4j_tpu_torch.zoo.resnet50 import cut_resnet_conf
+
+    t0 = time.perf_counter()
+    conf = cut_resnet_conf()
+    tree = numpy_tree(ComputationGraph(conf, device="cpu").init()
+                      .params_map.items(), seed=21)
+    x, y = image_batch(GRAPH_PARITY_BATCH, 32, 3, 4, seed=1)
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        g = ComputationGraph(conf, device=dev).init()
+        g.params_map = cg_params_from_numpy(conf.nodes, tree, device=dev)
+        start = g.params().cpu()
+        losses = []
+        for _ in range(PARITY_STEPS):
+            g.fit(x, y)
+            losses.append(g.score())
+        runs.append((losses, g, float((g.params().cpu() - start)
+                                      .abs().max())))
+    (lc, card, moved), (lh, cpu, _) = runs
+    check_losses("graph-parity", lc, lh)
+    err = float((card.params().cpu() - cpu.params()).abs().max())
+    check(err <= PARITY_PARAM_ATOL,
+          f"graph-parity: parameters differ by {err:.3e}")
+    check(moved >= 100 * PARITY_PARAM_ATOL,
+          f"graph-parity: the card's updates moved no parameter by 100 x "
+          f"the tolerance ({moved:.3e})")
+    state = max(close_card_cpu(f"BN state {n}/{k}", card.states_map[n][k],
+                               cpu.states_map[n][k], IMAGE_STATE_TOL)
+                for n in cpu.states_map for k in cpu.states_map[n])
+    out = close_card_cpu("inference output", card.outputSingle(x),
+                         cpu.outputSingle(x), IMAGE_STATE_TOL)
+    say("graph-parity", f"cut ResNet ({cpu.numParams()} parameters; stem, "
+                        f"a projection and an identity block, 32x32x3, 4 "
+                        f"classes) at batch {GRAPH_PARITY_BATCH}, f32, "
+                        f"Nesterovs(0.05, 0.9), l2 1e-4: parameters max abs "
+                        f"diff {err:.2e} (tolerance {PARITY_PARAM_ATOL:g}; the "
+                        f"card moved one by up to {moved:.3e}), BN running "
+                        f"state {state:.2e} and inference output {out:.2e} "
+                        f"(tolerance {IMAGE_STATE_TOL:g} of max(1, |value|)); "
+                        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2947,6 +3340,9 @@ def main(argv) -> int:
     rows.update((r["name"], r) for r in phase_conv_kernels())
     phase_resnet_blocks(rows)
     phase_resnet_parity()
+    phase_lenet()
+    phase_resnet50_train(smi)
+    phase_graph_parity()
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

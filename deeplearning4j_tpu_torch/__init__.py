@@ -45,7 +45,14 @@ Ported so far:
   ``ops.conv_bn_stats`` (conv 1x1 and 3x3 + batch-norm statistics,
   ``csrc/conv_bn_stats.cu``) and ``ops.residual_tail`` (batch-norm apply +
   residual + ReLU, ``csrc/residual_tail.cu``);
+- slice 10, image models: ``ops.nn`` convolution (cuDNN through
+  ``F.conv2d`` on NHWC tensors), pools and training batch norm,
+  ``nn.conf`` image layers, ``InputType.convolutional`` and the
+  preprocessor tags, ``Nesterovs``, ``nn.graph`` (``ComputationGraph``,
+  its configuration and vertices), ``zoo.LeNet`` and ``zoo.ResNet50``, and
+  ``ModelSerializer.restoreComputationGraph`` / ``restore``; the image
+  layers reach no Pallas kernel in the reference, so no hand kernel;
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
-  ``mln_params_from_numpy``, ``params_to_numpy``) and ``FlatParams``, the
-  flat f32 master buffer.
+  ``mln_params_from_numpy``, ``cg_params_from_numpy``,
+  ``params_to_numpy``) and ``FlatParams``, the flat f32 master buffer.
 """

@@ -87,3 +87,8 @@ def to_json(obj: Any, indent: int | None = 2) -> str:
 
 def from_json(s: str) -> Any:
     return from_dict(json.loads(s))
+
+
+def tuplify(v):
+    """JSON turns tuples into lists; configs that need tuples call this."""
+    return tuple(v) if isinstance(v, list) else v

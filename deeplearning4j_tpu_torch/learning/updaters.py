@@ -7,8 +7,8 @@ parameter leaves and are f32. :func:`apply_updater` is the layer
 framework's entry point (grads cast up to f32 on the way in, updates cast
 to each parameter's dtype on the way out).
 
-Only :class:`Adam` and :class:`Sgd` with a float learning rate are
-ported, registered for the config JSON like the JAX classes. A
+Only :class:`Adam`, :class:`Nesterovs` and :class:`Sgd` with a float
+learning rate are ported, registered for the config JSON like the JAX classes. A
 learning-rate schedule (an ``ISchedule`` in the JAX package) raises
 ``NotImplementedError`` until ``learning/schedules.py`` is ported; the
 other updaters are not ported yet.
@@ -74,6 +74,29 @@ class Sgd(IUpdater):
     def apply(self, state, grads, step):
         lr = self._lr(step)
         return tree_map(lambda g: lr * g, grads), state
+
+
+@serializable
+@dataclasses.dataclass
+class Nesterovs(IUpdater):
+    """SGD with Nesterov momentum, the reference's formulation:
+    ``v' = mu * v - lr * g`` and ``update = -(mu * v' - lr * g)``."""
+
+    learning_rate: Any = 0.1
+    momentum: float = 0.9
+
+    def has_state(self):
+        return True
+
+    def init_state(self, params):
+        return {"v": tree_map(zeros_f32, params)}
+
+    def apply(self, state, grads, step):
+        lr = self._lr(step)
+        mu = self.momentum
+        v_new = tree_map2(lambda v, g: mu * v - lr * g, state["v"], grads)
+        updates = tree_map2(lambda vn, g: -(mu * vn - lr * g), v_new, grads)
+        return updates, {"v": v_new}
 
 
 @serializable

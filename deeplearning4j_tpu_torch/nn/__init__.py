@@ -1,2 +1,3 @@
 """The layer framework: configurations (``nn.conf``), weight init
-(``nn.weights``) and ``nn.multilayer.MultiLayerNetwork``."""
+(``nn.weights``), ``nn.multilayer.MultiLayerNetwork`` and
+``nn.graph.ComputationGraph``."""

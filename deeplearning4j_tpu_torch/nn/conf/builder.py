@@ -4,28 +4,33 @@ of ``deeplearning4j_tpu/nn/conf/builder.py`` for the ported layers.
 The fluent builder with the same names (``NeuralNetConfiguration
 .builder().seed(...).updater(...).list().layer(...).setInputType(...)
 .build()``), global defaults cloned into the layers, ``n_in`` inferred
-from the input type, truncated-BPTT settings, and the JSON round-trip
-(``to_json`` / ``from_json``) that reads what the JAX side writes.
+from the input type, the preprocessor tags placed where the
+representation changes (``"flatten"`` from an image to a dense layer,
+``"to_conv:H,W,C"`` from a flat image to an image layer; resolved by
+:func:`apply_preprocessor`), truncated-BPTT settings, and the JSON
+round-trip (``to_json`` / ``from_json``) that reads what the JAX side
+writes.
 
-Not ported: preprocessors (no ported layer changes the representation;
-a configuration that carries one raises), and ``precision(...)`` with a
-mixed policy (``nn/precision.py`` comes with ROADMAP item A2), which
-raises ``NotImplementedError``.
+Not ported: ``precision(...)`` with a mixed policy (``nn/precision.py``
+comes with ROADMAP item A2), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.common import serde
 from deeplearning4j_tpu_torch.common.serde import serializable
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    LSTM, DenseLayer, Layer, RnnOutputLayer)
+    LSTM, ConvolutionLayer, DenseLayer, Layer, RnnOutputLayer,
+    SubsamplingLayer, ZeroPaddingLayer)
 
+#: ported layers that consume image [N, H, W, C] input
+_CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer)
 #: ported layers that consume sequence [N, T, F] input
 _RNN_LAYERS = (LSTM, RnnOutputLayer)
 
@@ -57,7 +62,7 @@ class MultiLayerConfiguration:
     dtype: str = "float32"
     precision: Optional[Any] = None
     input_type: Optional[InputType] = None
-    #: layer index -> preprocessor tag; none of the ported layers needs one
+    #: layer index -> preprocessor tag ("flatten" | "to_conv:H,W,C")
     preprocessors: Dict = dataclasses.field(default_factory=dict)
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
@@ -66,10 +71,6 @@ class MultiLayerConfiguration:
 
     def __post_init__(self):
         self.preprocessors = {int(k): v for k, v in self.preprocessors.items()}
-        if self.preprocessors:
-            raise NotImplementedError(
-                f"input preprocessors {self.preprocessors} are not ported to "
-                f"deeplearning4j_tpu_torch yet")
         _check_precision(self.precision, self.dtype)
 
     def to_json(self) -> str:
@@ -188,11 +189,13 @@ class ListBuilder:
 
     def build(self) -> MultiLayerConfiguration:
         """Clone the global defaults into the layers, infer each
-        ``n_in`` from the input type, resolve the tBPTT lengths."""
+        ``n_in`` from the input type, place the preprocessors, resolve
+        the tBPTT lengths."""
         p = self._p
         layers = self._layers
         if not layers:
             raise ValueError("No layers added")
+        preprocessors: Dict[int, str] = {}
         it = self._input_type
         for i, layer in enumerate(layers):
             if layer.activation is None and p._activation is not None:
@@ -205,17 +208,31 @@ class ListBuilder:
                 layer.l2 = p._l2
             if it is None:
                 continue  # no shape inference: the user set n_in
-            if isinstance(layer, _RNN_LAYERS) and it.kind != "recurrent":
-                raise ValueError(
-                    f"Layer {i} ({type(layer).__name__}) needs recurrent "
-                    f"input, got {it.kind}")
-            if isinstance(layer, DenseLayer) and it.kind not in (
-                    "feedforward", "recurrent"):
-                raise NotImplementedError(
-                    f"Layer {i} ({type(layer).__name__}) on {it.kind} input "
-                    f"needs a preprocessor, not ported yet")
-            if getattr(layer, "n_in", 0) in (0, None):
-                layer.n_in = it.size
+            if isinstance(layer, _CNN2D_LAYERS):
+                if it.kind == "convolutionalFlat":
+                    preprocessors[i] = (f"to_conv:{it.height},{it.width},"
+                                        f"{it.channels}")
+                    it = InputType.convolutional(it.height, it.width,
+                                                 it.channels)
+                elif it.kind != "convolutional":
+                    raise ValueError(
+                        f"Layer {i} ({type(layer).__name__}) needs image "
+                        f"input, got {it.kind}")
+            elif isinstance(layer, _RNN_LAYERS):
+                if it.kind != "recurrent":
+                    raise ValueError(
+                        f"Layer {i} ({type(layer).__name__}) needs recurrent "
+                        f"input, got {it.kind}")
+            elif isinstance(layer, DenseLayer):
+                if it.kind in ("convolutional", "convolutional3d"):
+                    preprocessors[i] = "flatten"
+                    it = InputType.feedForward(it.flat_size())
+                elif it.kind == "convolutionalFlat":
+                    it = InputType.feedForward(it.flat_size())
+            if getattr(layer, "n_in", 0) in (0, None) and hasattr(layer,
+                                                                   "n_in"):
+                layer.n_in = (it.channels if it.kind in (
+                    "convolutional", "convolutional3d") else it.size)
             it = layer.output_type(it)
 
         # explicit backpropType wins; a length without backpropType
@@ -238,10 +255,36 @@ class ListBuilder:
             layers=layers, seed=p._seed, updater=p._updater,
             weight_init=p._weight_init, l1=p._l1, l2=p._l2, dtype=p._dtype,
             precision=p._precision, input_type=self._input_type,
-            preprocessors={}, gradient_normalization=p._grad_norm,
+            preprocessors=preprocessors, gradient_normalization=p._grad_norm,
             gradient_normalization_threshold=p._grad_norm_threshold,
             tbptt_fwd_length=tbptt_fwd, tbptt_back_length=tbptt_back)
 
 
+def _image_shape(tag: str) -> Tuple[int, int, int]:
+    """(H, W, C) of a ``"to_conv:H,W,C"`` tag."""
+    h, w, c = (int(v) for v in tag.split(":", 1)[1].split(","))
+    return h, w, c
+
+
+def apply_preprocessor(tag: str, x):
+    """A preprocessor tag's reshape of ``x``."""
+    if tag == "flatten":
+        return x.reshape(x.shape[0], -1)
+    if tag.startswith("to_conv:"):
+        return x.reshape(x.shape[0], *_image_shape(tag))
+    if tag == "to_rnn":
+        return x
+    raise ValueError(f"Unknown preprocessor: {tag}")
+
+
+def preprocessor_output_type(tag: str, it: InputType) -> InputType:
+    """The input type that a preprocessor tag's reshape of ``it`` gives."""
+    if tag == "flatten":
+        return InputType.feedForward(it.flat_size())
+    if tag.startswith("to_conv:"):
+        return InputType.convolutional(*_image_shape(tag))
+    return it
+
+
 __all__ = ["MultiLayerConfiguration", "NeuralNetConfiguration", "Builder",
-           "ListBuilder"]
+           "ListBuilder", "apply_preprocessor", "preprocessor_output_type"]

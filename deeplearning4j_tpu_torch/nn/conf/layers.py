@@ -1,6 +1,5 @@
 """Layer configurations and their functions: the part of
-``deeplearning4j_tpu/nn/conf/layers.py`` that the MultiLayerNetwork slice
-runs.
+``deeplearning4j_tpu/nn/conf/layers.py`` that the ported networks run.
 
 A layer is a ``@serializable`` dataclass with the JAX class's name and
 fields (so a ``configuration.json`` from the JAX side parses) and plain
@@ -12,9 +11,14 @@ functions of tensors:
 
 Parameter names and layouts follow the JAX package (``W`` ``[in, out]``,
 ``b``; the LSTM's ``W`` ``[in, 4H]``, ``RW`` ``[H, 4H]``, ``b`` ``[4H]``
-with gates i, f, g, o). Ported: :class:`DenseLayer`,
-:class:`OutputLayer`, :class:`LSTM` (and its alias :class:`GravesLSTM`)
-and :class:`RnnOutputLayer`. Dropout is a float rate; an ``IDropout``
+with gates i, f, g, o; conv ``W`` HWIO ``[kh, kw, C_in, C_out]``; batch
+norm ``gamma``, ``beta`` and the state ``mean``, ``var``). Ported:
+:class:`DenseLayer`, :class:`OutputLayer`, :class:`LSTM` (and its alias
+:class:`GravesLSTM`), :class:`RnnOutputLayer`, :class:`ActivationLayer`,
+and the image layers :class:`ConvolutionLayer`,
+:class:`SubsamplingLayer`, :class:`ZeroPaddingLayer`,
+:class:`GlobalPoolingLayer` and :class:`BatchNormalization` (NHWC).
+Dropout is a float rate; an ``IDropout``
 config, weight noise and constraints are not ported and raise
 ``NotImplementedError``. Every other layer class of the JAX package is
 not registered here, so a configuration naming one raises
@@ -24,17 +28,26 @@ not registered here, so a configuration naming one raises
 from __future__ import annotations
 
 import dataclasses
+import enum
 import numbers
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.activations import Activation
-from deeplearning4j_tpu_torch.common.serde import serializable
+from deeplearning4j_tpu_torch.common.serde import serializable, tuplify
 from deeplearning4j_tpu_torch.loss import LossFunction, compute_loss
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.weights import WeightInit, init_weights
 from deeplearning4j_tpu_torch.ops import nn as nnops
+
+
+class PoolingType(enum.Enum):
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+    PNORM = "pnorm"
 
 
 def _act(a) -> Activation:
@@ -165,6 +178,25 @@ class RnnOutputLayer(OutputLayer):
 
 @serializable
 @dataclasses.dataclass
+class ActivationLayer(Layer):
+    """An activation alone. ``alpha`` parametrises leakyrelu, elu and
+    thresholdedrelu, none of which is ported yet."""
+
+    alpha: Optional[float] = None
+
+    def apply(self, params, state, x, train, generator):
+        a = _act(self.activation or "identity")
+        if self.alpha is not None and a in (Activation.LEAKYRELU,
+                                            Activation.ELU,
+                                            Activation.THRESHOLDEDRELU):
+            raise NotImplementedError(
+                f"activation {a.value!r} with alpha is not ported to "
+                f"deeplearning4j_tpu_torch yet (ROADMAP.md A1)")
+        return a.fn(x), state
+
+
+@serializable
+@dataclasses.dataclass
 class LSTM(Layer):
     """LSTM, gates i, f, g, o; weights ``W`` (input), ``RW`` (recurrent)
     and ``b``, the forget-gate slice ``b[H:2H]`` set to
@@ -219,5 +251,201 @@ class GravesLSTM(LSTM):
     """Alias of :class:`LSTM`, without peepholes, as in the JAX package."""
 
 
+# ---------------------------------------------------------------- images
+def _conv_out(size, k, s, mode, pad, dilation=1):
+    if mode == "Same":
+        return -(-size // s)
+    k_eff = (k - 1) * dilation + 1
+    return (size - k_eff + 2 * pad) // s + 1
+
+
+@serializable
+@dataclasses.dataclass
+class ConvolutionLayer(Layer):
+    """2D convolution through ``ops.nn.conv2d`` (NHWC x HWIO).
+    ``convolution_mode`` "Same" pads as ``lax``'s SAME does; "Truncate"
+    takes ``padding`` symmetric pixels a side."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel_size: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "Truncate"
+    dilation: Tuple[int, int] = (1, 1)
+    has_bias: bool = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.kernel_size = tuplify(self.kernel_size)
+        self.stride = tuplify(self.stride)
+        self.padding = tuplify(self.padding)
+        self.dilation = tuplify(self.dilation)
+
+    def output_type(self, it: InputType) -> InputType:
+        h = _conv_out(it.height, self.kernel_size[0], self.stride[0],
+                      self.convolution_mode, self.padding[0], self.dilation[0])
+        w = _conv_out(it.width, self.kernel_size[1], self.stride[1],
+                      self.convolution_mode, self.padding[1], self.dilation[1])
+        return InputType.convolutional(h, w, self.n_out)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        kh, kw = self.kernel_size
+        p = {"W": init_weights(self.weight_init or WeightInit.XAVIER,
+                               generator, (kh, kw, self.n_in, self.n_out),
+                               kh * kw * self.n_in, kh * kw * self.n_out,
+                               dtype, device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, state, x, train, generator):
+        x = self._maybe_dropout(x, train, generator)
+        pad = "SAME" if self.convolution_mode == "Same" else self.padding
+        out = nnops.conv2d(x, params["W"], params.get("b"),
+                           strides=self.stride, padding=pad,
+                           dilation=self.dilation)
+        return _act(self.activation or "identity").fn(out), state
+
+
+@serializable
+@dataclasses.dataclass
+class SubsamplingLayer(Layer):
+    """Pooling (max, avg, sum or pnorm) over NHWC windows."""
+
+    pooling_type: str = "max"
+    kernel_size: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "Truncate"
+    pnorm: int = 2
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.kernel_size = tuplify(self.kernel_size)
+        self.stride = tuplify(self.stride)
+        self.padding = tuplify(self.padding)
+
+    def output_type(self, it: InputType) -> InputType:
+        h = _conv_out(it.height, self.kernel_size[0], self.stride[0],
+                      self.convolution_mode, self.padding[0])
+        w = _conv_out(it.width, self.kernel_size[1], self.stride[1],
+                      self.convolution_mode, self.padding[1])
+        return InputType.convolutional(h, w, it.channels)
+
+    def apply(self, params, state, x, train, generator):
+        pad = "SAME" if self.convolution_mode == "Same" else (
+            "VALID" if self.padding == (0, 0) else self.padding)
+        k, s = self.kernel_size, self.stride
+        pt = PoolingType(self.pooling_type)
+        if pt is PoolingType.MAX:
+            return nnops.maxpool2d(x, k, s, pad), state
+        if pt is PoolingType.AVG:
+            return nnops.avgpool2d(x, k, s, pad), state
+        if pt is PoolingType.PNORM:
+            return nnops.pnormpool2d(x, k, s, pad, self.pnorm), state
+        return nnops.sumpool2d(x, k, s, pad), state
+
+
+@serializable
+@dataclasses.dataclass
+class ZeroPaddingLayer(Layer):
+    """``pad`` zero pixels on each side of H and of W."""
+
+    pad: Tuple[int, int] = (1, 1)
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.pad = tuplify(self.pad)
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.convolutional(it.height + 2 * self.pad[0],
+                                       it.width + 2 * self.pad[1],
+                                       it.channels)
+
+    def apply(self, params, state, x, train, generator):
+        p = self.pad
+        return F.pad(x, (0, 0, p[1], p[1], p[0], p[0])), state
+
+
+@serializable
+@dataclasses.dataclass
+class GlobalPoolingLayer(Layer):
+    """Pooling over every axis between the batch and the last (the
+    spatial axes of an image, the time axis of a sequence)."""
+
+    pooling_type: str = "max"
+
+    def output_type(self, it: InputType) -> InputType:
+        if it.kind == "recurrent":
+            return InputType.feedForward(it.size)
+        return InputType.feedForward(it.channels)
+
+    def apply(self, params, state, x, train, generator):
+        axes = tuple(range(1, x.dim() - 1))
+        pt = PoolingType(self.pooling_type)
+        if pt is PoolingType.MAX:
+            return torch.amax(x, dim=axes), state
+        if pt is PoolingType.SUM:
+            return torch.sum(x, dim=axes), state
+        if pt is PoolingType.PNORM:
+            return torch.sum(torch.abs(x) ** 2, dim=axes) ** 0.5, state
+        return torch.mean(x, dim=axes), state
+
+    def apply_masked(self, params, state, x, mask, train, generator):
+        raise NotImplementedError(
+            "masked global pooling is not ported to deeplearning4j_tpu_torch "
+            "yet (nn/masking.py, ROADMAP.md A3)")
+
+
+def _weak(c: float, like: torch.Tensor) -> float:
+    """A Python float as JAX takes it beside an array (a weak type):
+    rounded to the array's dtype. PyTorch would keep it at f32 beside a
+    bf16 tensor."""
+    return torch.tensor(c, dtype=like.dtype).item()
+
+
+@serializable
+@dataclasses.dataclass
+class BatchNormalization(Layer):
+    """Batch norm over the last (channel) axis. Training normalises with
+    the batch statistics (``ops.nn.batch_norm_train``) and moves the
+    running state by ``decay * state + (1 - decay) * batch`` in the
+    state's dtype (the parameter dtype); inference uses the running
+    state (``ops.nn.batch_norm``)."""
+
+    eps: float = 1e-5
+    decay: float = 0.9
+    use_log_std: bool = False
+
+    def _nf(self, it: InputType) -> int:
+        return it.channels if it.kind == "convolutional" else it.size
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        n = self._nf(it)
+        return {"gamma": torch.ones((n,), dtype=dtype, device=device),
+                "beta": torch.zeros((n,), dtype=dtype, device=device)}
+
+    def init_state(self, it, dtype, device) -> dict:
+        n = self._nf(it)
+        return {"mean": torch.zeros((n,), dtype=dtype, device=device),
+                "var": torch.ones((n,), dtype=dtype, device=device)}
+
+    def apply(self, params, state, x, train, generator):
+        if train:
+            out, m, v = nnops.batch_norm_train(x, params["gamma"],
+                                               params["beta"], self.eps)
+            d = self.decay
+            state = {k: _weak(d, state[k]) * state[k]
+                     + _weak(1 - d, b) * b.detach()
+                     for k, b in (("mean", m), ("var", v))}
+        else:
+            out = nnops.batch_norm(x, params["gamma"], params["beta"],
+                                   state["mean"], state["var"], self.eps)
+        return _act(self.activation or "identity").fn(out), state
+
+
 __all__ = ["Layer", "DenseLayer", "OutputLayer", "RnnOutputLayer", "LSTM",
-           "GravesLSTM"]
+           "GravesLSTM", "ActivationLayer", "PoolingType", "ConvolutionLayer",
+           "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
+           "BatchNormalization"]

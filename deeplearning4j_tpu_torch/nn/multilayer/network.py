@@ -12,7 +12,8 @@ Ported: ``init``, ``fit`` (arrays or a ``DataSet``; standard BPTT and
 truncated BPTT, one update per segment with the carries detached between
 segments and reset at each minibatch), ``output``, ``rnnTimeStep`` and its
 state accessors, ``score``, ``params``, ``numParams``, ``paramTable``,
-l1/l2 regularization and gradient normalization. Not ported yet, and
+l1/l2 regularization, gradient normalization and the preprocessor tags
+between image and dense layers (``nn.conf.builder.apply_preprocessor``). Not ported yet, and
 raising ``NotImplementedError`` with the ROADMAP item:
 listeners, the health monitor, fault tolerance, evaluation and
 ``DataSetIterator`` (A9), layerwise pretraining (A3), mixed precision
@@ -33,7 +34,8 @@ import torch
 from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, apply_updater
-from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf.builder import (
+    MultiLayerConfiguration, apply_preprocessor, preprocessor_output_type)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.params import tree_map
 
@@ -65,6 +67,50 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to deeplearning4j_tpu_torch yet "
         f"(ROADMAP.md {item})")
+
+
+def as_device_tensor(a, device, dtype=None) -> torch.Tensor:
+    """``a`` (numpy or tensor) on ``device``; float64 numpy arrays arrive
+    as float32, as ``jnp.asarray`` gives them."""
+    if not torch.is_tensor(a):
+        a = np.asarray(a)
+        if a.dtype == np.float64 and dtype is None:
+            a = a.astype(np.float32)
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
+def weight_penalty(layers_params, reg: torch.Tensor) -> torch.Tensor:
+    """``reg`` plus each layer's l1 and ``0.5 * l2 * sum(W * W)`` over its
+    weights (``_REGULARIZED_KEYS``), for ``(layer, params)`` pairs."""
+    for layer, p in layers_params:
+        l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
+        if l1 == 0.0 and l2 == 0.0:
+            continue
+        for k, v in p.items():
+            if k in _REGULARIZED_KEYS:
+                if l1:
+                    reg = reg + l1 * torch.sum(torch.abs(v))
+                if l2:
+                    reg = reg + 0.5 * l2 * torch.sum(v * v)
+    return reg
+
+
+def normalize_gradients(mode: Optional[str], t: float, g: dict) -> dict:
+    """One layer's gradients under the configuration's gradient
+    normalization (``mode`` None leaves them); the L2 norms are summed in
+    the gradients' dtype, as the JAX step does."""
+    if not mode or not g:
+        return g
+    if mode == "ClipElementWiseAbsoluteValue":
+        return tree_map(lambda l: torch.clamp(l, -t, t), g)
+    if mode not in ("ClipL2PerLayer", "RenormalizeL2PerLayer"):
+        raise ValueError(f"Unknown gradient normalization: {mode}")
+    norm = torch.sqrt(sum(torch.sum(l * l) for l in g.values()) + 1e-12)
+    if mode == "ClipL2PerLayer":
+        scale = torch.clamp(t / norm, max=1.0)
+        return tree_map(lambda l: l * scale, g)
+    return tree_map(lambda l: l / norm, g)
 
 
 class MultiLayerNetwork:
@@ -99,7 +145,12 @@ class MultiLayerNetwork:
         it = conf.input_type or self._infer_input_type()
         self.params_list, self.states_list, self._updaters = [], [], []
         self.opt_states = []
-        for layer in conf.layers:
+        for i, layer in enumerate(conf.layers):
+            tag = conf.preprocessors.get(i)
+            if tag:
+                it = preprocessor_output_type(tag, it)
+            elif it.kind == "convolutionalFlat":
+                it = InputType.feedForward(it.flat_size())
             p = layer.init_params(gen, it, self._dtype, self.device)
             s = layer.init_state(it, self._dtype, self.device)
             upd = layer.updater if layer.updater is not None else conf.updater
@@ -130,14 +181,7 @@ class MultiLayerNetwork:
             raise RuntimeError("Call init() first")
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
-        """``a`` (numpy or tensor) on this network's device; float64 numpy
-        arrays arrive as float32, as ``jnp.asarray`` gives them."""
-        if not torch.is_tensor(a):
-            a = np.asarray(a)
-            if a.dtype == np.float64 and dtype is None:
-                a = a.astype(np.float32)
-            a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(device=self.device, dtype=dtype)
+        return as_device_tensor(a, self.device, dtype)
 
     # ------------------------------------------------------------------
     # forward and loss
@@ -150,10 +194,16 @@ class MultiLayerNetwork:
             a = a * fmask[..., None].to(a.dtype)
         new_states = []
         for i, layer in enumerate(self.conf.layers):
+            a = self._preprocess(i, a)
             a, ns = layer.apply(params_list[i], states_list[i], a, train,
                                 generator)
             new_states.append(ns)
         return a, new_states
+
+    def _preprocess(self, i: int, a):
+        """Layer ``i``'s input after its preprocessor, if it has one."""
+        tag = self.conf.preprocessors.get(i)
+        return apply_preprocessor(tag, a) if tag else a
 
     def _loss_carries(self, params_list, states_list, carries, x, y, mask,
                       generator, fmask=None):
@@ -166,6 +216,7 @@ class MultiLayerNetwork:
             a = a * fmask[..., None].to(a.dtype)
         new_states, new_carries = [], []
         for i, layer in enumerate(conf.layers[:-1]):
+            a = self._preprocess(i, a)
             if carries is not None and layer.is_recurrent:
                 a, ns, c = layer.apply_with_carry(
                     params_list[i], states_list[i], carries[i], a, True,
@@ -180,44 +231,19 @@ class MultiLayerNetwork:
         last = conf.layers[-1]
         if not hasattr(last, "loss_value"):
             raise ValueError("Last layer must be an OutputLayer to fit()")
+        a = self._preprocess(len(conf.layers) - 1, a)
         data_loss = last.loss_value(params_list[-1], states_list[-1], a, y,
                                     mask)
         new_states.append(states_list[-1])
-        reg = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
-        for layer, p in zip(conf.layers, params_list):
-            l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
-            if l1 == 0.0 and l2 == 0.0:
-                continue
-            for k, v in p.items():
-                if k in _REGULARIZED_KEYS:
-                    if l1:
-                        reg = reg + l1 * torch.sum(torch.abs(v))
-                    if l2:
-                        reg = reg + 0.5 * l2 * torch.sum(v * v)
+        reg = weight_penalty(zip(conf.layers, params_list), torch.zeros(
+            (), dtype=data_loss.dtype, device=data_loss.device))
         return data_loss + reg, (new_states, data_loss, new_carries)
 
     def _clip_grads(self, grads_list):
-        mode = self.conf.gradient_normalization
-        if not mode:
-            return grads_list
-        t = self.conf.gradient_normalization_threshold
-        if mode == "ClipElementWiseAbsoluteValue":
-            return [tree_map(lambda g: torch.clamp(g, -t, t), g)
-                    for g in grads_list]
-        if mode not in ("ClipL2PerLayer", "RenormalizeL2PerLayer"):
-            raise ValueError(f"Unknown gradient normalization: {mode}")
-        out = []
-        for g in grads_list:
-            # summed in the gradients' dtype, as the JAX step does
-            sq = sum(torch.sum(leaf * leaf) for leaf in g.values())
-            norm = torch.sqrt(torch.as_tensor(sq + 1e-12,
-                                              device=self.device))
-            if mode == "ClipL2PerLayer":
-                scale = torch.clamp(t / norm, max=1.0)
-                out.append(tree_map(lambda l, s=scale: l * s, g))
-            else:
-                out.append(tree_map(lambda l, n=norm: l / n, g))
-        return out
+        conf = self.conf
+        return [normalize_gradients(conf.gradient_normalization,
+                                    conf.gradient_normalization_threshold, g)
+                for g in grads_list]
 
     def _apply_updates(self, params_list, opt_states, grads, step):
         """One ``apply_updater`` per layer; ``p - u`` in the parameter's
@@ -375,6 +401,7 @@ class MultiLayerNetwork:
         carries = []
         with torch.no_grad():
             for i, layer in enumerate(self.conf.layers):
+                a = self._preprocess(i, a)
                 if layer.is_recurrent:
                     a, _, c = layer.apply_with_carry(
                         self.params_list[i], self.states_list[i],
@@ -466,4 +493,5 @@ class MultiLayerNetwork:
         return self._epoch
 
 
-__all__ = ["MultiLayerNetwork", "torch_dtype"]
+__all__ = ["MultiLayerNetwork", "torch_dtype", "as_device_tensor",
+           "weight_penalty", "normalize_gradients"]

@@ -1,11 +1,23 @@
 """Neural-net ops the layer framework calls: counterpart of the part of
 ``deeplearning4j_tpu/ops/nn.py`` that the ported layers reach.
 
-Only :func:`lstm_layer` (``:592-651``), :func:`dropout` (``:558-564``)
-and :func:`batch_norm` (``:383-387``, registered under its JAX name) are
-ported. Layouts stay the JAX package's: ``x`` ``[N, T, in]``,
-``w_ih`` ``[in, 4H]``, ``w_hh`` ``[H, 4H]``, ``b`` ``[4H]``, gates i, f, g,
-o, so a parameter tree from the JAX side loads unchanged.
+Ported: :func:`conv2d` (``:36-79``), the four pools (``:198-253``),
+:func:`global_avg_pool` (``:370-373``), :func:`batch_norm` (``:383-387``),
+:func:`batch_norm_train` with its shifted one-pass statistics
+(``:390-428``), :func:`lstm_layer` (``:592-651``) and :func:`dropout`
+(``:558-564``); every one but the last two is registered under its JAX
+name. Layouts stay the JAX package's, so a parameter tree from the JAX
+side loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
+``[kh, kw, C_in, C_out]``; ``x`` ``[N, T, in]``, ``w_ih`` ``[in, 4H]``,
+``w_hh`` ``[H, 4H]``, ``b`` ``[4H]`` with gates i, f, g, o.
+
+The convolutions and pools are the library's (``F.conv2d``, the pooling
+functions), as ``lax.conv`` and ``lax.reduce_window`` are outside any
+Pallas kernel in the reference. An NHWC tensor permuted to NCHW is a
+``channels_last`` view, so cuDNN runs its NHWC kernels on it without a
+copy. ``lax``'s SAME padding puts the odd pixel on the high side, which
+the library's symmetric ``padding=`` cannot say: such a pad is applied
+with ``F.pad`` (``-inf`` for max pooling) before an unpadded call.
 """
 
 from __future__ import annotations
@@ -13,17 +25,191 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 from deeplearning4j_tpu_torch.ops.registry import register_op
 
 
+# ---------------------------------------------------------- convolution
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _conv_padding(padding, kernel, strides, dilation):
+    """The reference's padding argument in ``lax`` terms: "SAME" or
+    "VALID", or a ``(lo, hi)`` pair per spatial axis (an int or a pair of
+    ints is symmetric; a pair of pairs passes through)."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if (isinstance(padding, (tuple, list)) and len(padding) == 2
+            and all(isinstance(q, (tuple, list)) and len(q) == 2
+                    for q in padding)):
+        return [tuple(int(v) for v in q) for q in padding]
+    p = _pair(padding)
+    return [(p[0], p[0]), (p[1], p[1])]
+
+
+def _same_pads(sizes, kernel, strides, dilation=(1, 1)):
+    """``lax``'s SAME pads: ``ceil(n / s)`` outputs, the odd pixel of the
+    total pad on the high side."""
+    pads = []
+    for n, k, s, d in zip(sizes, kernel, strides, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _spatial_pads(pad, x, kernel, strides, dilation=(1, 1)):
+    """``(lo, hi)`` per spatial axis of an NHWC ``x`` for a resolved
+    ``lax`` padding (a string or a list of pairs)."""
+    if pad == "SAME":
+        return _same_pads(x.shape[1:3], kernel, strides, dilation)
+    if pad == "VALID":
+        return [(0, 0), (0, 0)]
+    return [tuple(q) for q in pad]
+
+
+def _pad_nhwc(x, pads, value=0.0):
+    (hl, hh), (wl, wh) = pads
+    if hl == hh == wl == wh == 0:
+        return x
+    return F.pad(x, (0, 0, wl, wh, hl, hh), value=value)
+
+
+def _nchw(x):
+    """An NHWC tensor as the NCHW view the library takes (``channels_last``
+    strides when ``x`` is contiguous)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y):
+    return y.permute(0, 2, 3, 1)
+
+
+@register_op("conv2d")
+def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
+           groups=1):
+    """2D convolution, NHWC x HWIO -> NHWC (``w`` ``[kh, kw, C_in/groups,
+    C_out]``, ``b`` ``[C_out]`` or None) through ``F.conv2d``. Symmetric
+    pads go to the library; asymmetric ones (SAME with an odd total, or
+    explicit pairs) are applied first."""
+    s, d = _pair(strides), _pair(dilation)
+    pads = _spatial_pads(_conv_padding(padding, w.shape[:2], s, d), x,
+                         w.shape[:2], s, d)
+    (hl, hh), (wl, wh) = pads
+    if hl == hh >= 0 and wl == wh >= 0:
+        sym = (hl, wl)
+    else:
+        x, sym = _pad_nhwc(x, pads), (0, 0)
+    out = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), None, s, sym, d,
+                         int(groups)))
+    if b is not None:
+        out = out + b
+    return out
+
+
+# -------------------------------------------------------------- pooling
+def _pool_pad(padding):
+    """Pooling padding: "SAME"/"VALID", or per-axis symmetric (pH, pW)."""
+    if isinstance(padding, str):
+        return padding.upper()
+    p = _pair(padding)
+    return [(p[0], p[0]), (p[1], p[1])]
+
+
+def _window(kernel, strides):
+    k = _pair(kernel)
+    return k, (_pair(strides) if strides is not None else k)
+
+
+def _sum_windows(x, k, s, pads):
+    """The sum over each window of the zero-padded ``x``."""
+    return _nhwc(F.avg_pool2d(_nchw(_pad_nhwc(x, pads)), k, s,
+                              divisor_override=1))
+
+
+@register_op("maxpool2d")
+def maxpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    k, s = _window(kernel, strides)
+    pads = _spatial_pads(_pool_pad(padding), x, k, s)
+    return _nhwc(F.max_pool2d(_nchw(_pad_nhwc(x, pads, float("-inf"))), k,
+                              s))
+
+
+@register_op("sumpool2d")
+def sumpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    k, s = _window(kernel, strides)
+    return _sum_windows(x, k, s, _spatial_pads(_pool_pad(padding), x, k, s))
+
+
+@register_op("avgpool2d")
+def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    """The window mean; with padding, over the window's real pixels only
+    (the reference divides by the edge-clipped window sizes)."""
+    k, s = _window(kernel, strides)
+    pad = _pool_pad(padding)
+    pads = _spatial_pads(pad, x, k, s)
+    summed = _sum_windows(x, k, s, pads)
+    if pad == "VALID":
+        return summed / (k[0] * k[1])
+    ones = torch.ones((1, x.shape[1], x.shape[2], 1), dtype=x.dtype,
+                      device=x.device)
+    return summed / _sum_windows(ones, k, s, pads)
+
+
+@register_op("pnormpool2d")
+def pnormpool2d(x, kernel=(2, 2), strides=None, padding="VALID", p=2):
+    k, s = _window(kernel, strides)
+    summed = _sum_windows(torch.abs(x) ** p, k, s,
+                          _spatial_pads(_pool_pad(padding), x, k, s))
+    return summed ** (1.0 / p)
+
+
+@register_op("global_avg_pool")
+def global_avg_pool(x, spatial_axes=(1, 2)):
+    return torch.mean(x, dim=tuple(spatial_axes))
+
+
+# -------------------------------------------------------- normalization
 @register_op("batch_norm")
 def batch_norm(x, gamma, beta, mean, var, eps=1e-5):
     """Inference-mode batch norm over the trailing channel axis, in the
     JAX op's order: ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
     inv = torch.rsqrt(var + eps)
     return (x - mean) * inv * gamma + beta
+
+
+def _bn_stats(x, axes):
+    """One-pass f32 batch statistics over ``axes``: ``(mean, var)``.
+
+    The reference's formula: a per-channel shift (the first sample,
+    outside the gradient as ``stop_gradient`` keeps it) keeps
+    ``E[d^2] - E[d]^2`` free of cancellation where the mean is large
+    against the spread."""
+    xf = x.float()
+    shift = xf[tuple(0 for _ in axes)].detach()
+    d = xf - shift
+    md = torch.mean(d, dim=axes)
+    v = torch.mean(d * d, dim=axes) - md * md
+    return shift + md, torch.maximum(v, v.new_zeros(()))
+
+
+@register_op("batch_norm_train")
+def batch_norm_train(x, gamma, beta, eps=1e-5, axes=None):
+    """Training-mode batch norm: ``(y, batch_mean, batch_var)``, the
+    statistics over ``axes`` (default: all but the last, the channel
+    axis) in f32, scale and shift cast to x's dtype before the
+    multiply-add, mean and variance returned in x's dtype. The gradient
+    is autograd's through the same formula, as the reference's is
+    ``jax.grad``'s."""
+    if axes is None:
+        axes = tuple(range(x.dim() - 1))
+    m, v = _bn_stats(x, tuple(axes))
+    scale = torch.rsqrt(v + eps) * gamma.float()
+    shift = beta.float() - m * scale
+    y = x * scale.to(x.dtype) + shift.to(x.dtype)
+    return y, m.to(x.dtype), v.to(x.dtype)
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):

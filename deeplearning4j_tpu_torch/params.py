@@ -7,7 +7,9 @@ and back with :func:`params_to_numpy`. :class:`FlatParams` holds a
 tree's f32 leaves in one flat buffer, the port's counterpart of the flat
 master layout in ``deeplearning4j_tpu/parallel/zero.py``.
 :func:`mln_params_from_numpy` carries a JAX ``MultiLayerNetwork``'s
-``params_list`` (a list of per-layer dicts) across.
+``params_list`` (a list of per-layer dicts) across, and
+:func:`cg_params_from_numpy` a JAX ``ComputationGraph``'s ``params_map``,
+``states_map`` or ``opt_states`` (dicts keyed by node name).
 """
 
 from __future__ import annotations
@@ -104,6 +106,27 @@ def mln_params_from_numpy(layers, device=None,
     dev = resolve_device(device)
     return [{k: numpy_to_tensor(a).to(dev, dtype) for k, a in layer.items()}
             for layer in layers]
+
+
+def cg_params_from_numpy(conf_nodes, np_tree, device=None,
+                         dtype: torch.dtype = None) -> Dict[str, Any]:
+    """A ``ComputationGraph`` tree keyed by node name (``params_map``,
+    ``states_map`` or ``opt_states``) from the JAX graph's after
+    ``jax.device_get``, in the order of ``conf_nodes`` (the
+    configuration's nodes, or their names), on ``device`` (default: the
+    CUDA card), each leaf in its own dtype (bfloat16 through its bits)
+    unless ``dtype`` is given. A node of ``conf_nodes`` missing from the
+    tree, or a name in the tree that is no node, raises."""
+    dev = resolve_device(device)
+    names = [getattr(n, "name", n) for n in conf_nodes]
+    unknown = sorted(set(np_tree) - set(names))
+    if unknown:
+        raise ValueError(f"the tree names nodes the graph lacks: {unknown}")
+    missing = [n for n in names if n not in np_tree]
+    if missing:
+        raise KeyError(f"the tree lacks nodes {missing}")
+    return {n: tree_map(lambda a: numpy_to_tensor(a).to(dev, dtype),
+                        np_tree[n]) for n in names}
 
 
 def params_to_numpy(tree) -> Dict[str, Any]:

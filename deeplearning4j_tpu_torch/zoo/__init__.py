@@ -1,6 +1,9 @@
-"""Model zoo (the ported subset): ``TextGenerationLSTM``."""
+"""Model zoo (the ported subset): ``TextGenerationLSTM``, ``LeNet`` and
+``ResNet50``."""
 
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
+from deeplearning4j_tpu_torch.zoo.lenet import LeNet
+from deeplearning4j_tpu_torch.zoo.resnet50 import ResNet50
 from deeplearning4j_tpu_torch.zoo.textgen_lstm import TextGenerationLSTM
 
-__all__ = ["ZooModel", "TextGenerationLSTM"]
+__all__ = ["ZooModel", "TextGenerationLSTM", "LeNet", "ResNet50"]

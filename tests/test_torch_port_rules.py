@@ -241,3 +241,40 @@ def test_by_name_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
     out = Nd4j.exec("bn_relu_residual", y, y, c, c, c, c)
     assert out.device == torch.device("cpu")
     assert (cb.launches_1x1, cb.launches_3x3, rt.launches) == before
+
+
+def test_graph_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
+                                                        tmp_path):
+    """``ComputationGraph``, the image zoo models, ``restore*`` and the
+    graph weight bridge land on the card unless the caller names the CPU;
+    the image ops run where their tensors are."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.nn import batch_norm_train, conv2d
+    from deeplearning4j_tpu_torch.params import cg_params_from_numpy
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer)
+    from deeplearning4j_tpu_torch.zoo import LeNet, ResNet50
+    from deeplearning4j_tpu_torch.zoo.resnet50 import cut_resnet_conf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = cut_resnet_conf()
+    absent = str(tmp_path / "absent.zip")
+    for make in (lambda: ComputationGraph(conf), LeNet().init,
+                 ResNet50(num_classes=2, in_shape=(32, 32, 3)).init,
+                 lambda: cg_params_from_numpy(conf.nodes, {}),
+                 lambda: ModelSerializer.restoreComputationGraph(absent),
+                 lambda: ModelSerializer.restore(absent)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    g = ComputationGraph(conf, device="cpu").init()
+    assert {t.device for p in g.params_map.values() for t in p.values()} \
+        == {torch.device("cpu")}
+    x = np.zeros((2, 32, 32, 3), np.float32)
+    g.fit(x, np.eye(4, dtype=np.float32)[[0, 1]])
+    assert g.output(x)[0].device == torch.device("cpu")
+    assert LeNet(in_shape=(12, 12, 1)).init(device="cpu").device \
+        == torch.device("cpu")
+    y = conv2d(torch.zeros(1, 4, 4, 2), torch.zeros(3, 3, 2, 5))
+    assert y.shape == (1, 4, 4, 5)
+    assert batch_norm_train(y, torch.ones(5), torch.zeros(5))[0].device \
+        == torch.device("cpu")
