@@ -78,7 +78,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    96 and 128, T in {1, 16, 77, 128, 200} and Tq != Tk, no mask or a
    fully masked row, causal off and on (forward within 2e-2, backward
    within 2e-2 of max |grad| with a 1e-5 floor where the gradient is 0
-   in exact arithmetic); then, at the training shape (N=96, bf16), the
+   in exact arithmetic); f16 and head dims 16, 48 and 160 (C9, C10:
+   zero-padded or widened copies; f16 within 2e-3), forward and backward;
+   then, at the training shape (N=96, bf16), the
    forward and backward kernels against the f32 plain version again
    (within 2e-2, of max |grad| for the backward), two backward calls
    bit-equal, each kernel's time at the training shapes beside its plain
@@ -107,8 +109,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    plain version on the bf16-rounded inputs; the backward's d x_proj,
    d w_hh, dh0 and dc0 within 1e-4 (f32) and 2e-2 (bf16) of max |grad|,
    and the bf16 d w_hh within 2^-8 of max |grad| of the f32 sum over the
-   kernel's own stored ys and cs), one shape outside the envelope that
-   must raise; at every one of those shapes the bf16 forward on its
+   kernel's own stored ys and cs); both directions at wide shapes (C10:
+   N=512 at H=1024 and at H=256, and H=2048) at f32 and bf16, and f16
+   calls (C9) against the plain versions; at every one of those shapes the bf16 forward on its
    cluster route (``fwd_route``) and on the first (grid) design, both
    against the plain version and each other within 2e-2, two cluster
    calls bit-equal; the three mixes of f32 and bf16 among x_proj, w_hh
@@ -135,7 +138,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    a profiled window of 3 steps; then the zoo's own tBPTT 50 at f32 on the
    same batch: one ``fit`` is 4 segments, 8 + 8 launches, 4 iterations;
    every bf16 launch on the cluster routes (``fwd_cluster_launches``,
-   ``bwd_cluster_launches``);
+   ``bwd_cluster_launches``); then the JAX bench's wide model (hidden
+   1024, C10) on the same batch: a few steps on the grid route, ms/step,
+   and B5 at T=200, N=256, H=1024 against its plain version;
 10. LSTM parity: the zoo model (hidden 256, tBPTT 50, f32), 3 minibatches
    of 8 x 100 on the card (the kernels) and on the CPU (the plain
    versions) from the same numpy weights (loss 1e-5 relative, parameters
@@ -166,7 +171,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    largest value), two
    calls bit-equal, each one's time beside its plain version's, the
    library's (``F.batch_norm`` + add + ``relu``) and its byte bound, with
-   its share of that bound;
+   its share of that bound; f16 by name (C9) for both ops;
+11b. batch-norm kernels (``csrc/batch_norm.cu``): the statistics, the
+   apply (with and without the ReLU) and the backward at the 9 distinct
+   batch-norm shapes of ResNet-50 at batch 256 in bf16 against their
+   plain versions (the statistics within 1e-4, the apply bit for bit on
+   the same statistics, dx within one bf16 rounding), two calls
+   bit-equal, each kernel's time beside its plain version's, the
+   library's (``torch.var_mean``, ``F.batch_norm`` forward in inference
+   mode, the backward of ``F.batch_norm`` in training mode) and its byte
+   bound; the f16 instances at one shape;
 12. ResNet-50 blocks by name: the four identity bottleneck blocks
    (256->64->256 at 56x56, 512->128 at 28x28, 1024->256 at 14x14,
    2048->512 at 7x7; numpy He-normal weights from a seed) as ``SameDiff``
@@ -190,21 +204,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    cell (batch 256, 224x224x3, bf16, ``Nesterovs(0.1, 0.9)``,
    ``RandomState(0)`` images and one-hot labels), ``cudnn.benchmark`` on
    for this phase only: 2 warm-up and 10 timed steps, a finite loss at
-   every step; ms per step, images/s, peak memory, the FLOPs per step
-   counted from the graph's conv and dense shapes (2 x MACs, x3 for the
-   backward) over the step time and the bf16 peak, each beside the card's
-   ``nvidia-smi`` line; a profiled step: device busy and idle share,
-   device time by group (conv, batch-norm elementwise, ReLU/add, updater,
-   other), the ten largest device operations and cuDNN's layout
-   transposes; then 5 steps with ``F.batch_norm`` in place of the batch
-   norm's formula, a yardstick the port never calls. No hand kernel runs
-   here: the image layers reach no Pallas
-   kernel in the reference;
+   every step; run twice, with ``FUSED_BN_RELU_BWD`` off (the
+   reference's default) and on (``batch_norm_relu_train``); each run:
+   the batch-norm kernels launched once per BN layer per step (53), ms
+   per step, images/s, peak memory, the FLOPs per step counted from the
+   graph's conv and dense shapes (2 x MACs, x3 for the backward) over the
+   step time and the bf16 peak, each beside the card's ``nvidia-smi``
+   line; a profiled step: device busy and idle share, device time by
+   group (conv, batch norm, ReLU/add, updater, other), the ten largest
+   device operations (no batch-norm work among them outside the kernels)
+   and cuDNN's layout transposes; then 5 steps with ``F.batch_norm`` in
+   place of the batch norm, a yardstick the port never calls;
 16. graph parity: the cut ResNet (``zoo.resnet50.cut_resnet_conf``: the
    stem, a projection block, an identity block, 32x32x3, 4 classes) at
    f32, three ``Nesterovs`` steps on the card and on the CPU from one
    numpy tree (losses 1e-5 relative, parameters 2e-5, BN running state
-   2e-5 of max(1, |value|)), then one inference ``output`` alike.
+   2e-5 of max(1, |value|)), then one inference ``output`` alike; with
+   ``FUSED_BN_RELU_BWD`` off and on.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -245,7 +261,8 @@ BF16_FLOPS = 989e12
 TRAIN_BATCH, TRAIN_SEQ, MASKED_PER_ROW, MASKED_CAPACITY = 96, 128, 19, 20
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 3
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_update",
-                  "lstm_recurrence", "conv_bn_stats", "residual_tail")
+                  "lstm_recurrence", "conv_bn_stats", "residual_tail",
+                  "batch_norm")
 
 SLOTS, PAGE, HEADS, HEAD_DIM, LAYERS = 8, 16, 12, 64, 12
 MAX_CONTEXT = 512
@@ -297,7 +314,8 @@ def phase_build() -> None:
              "fused_update": ("",),
              "lstm_recurrence": ("Li1E", "cluster_kernelILi4E"),
              "conv_bn_stats": ("nv_bfloat16",),
-             "residual_tail": ("residual_tail_kernelI",)}
+             "residual_tail": ("residual_tail_kernelI",),
+             "batch_norm": ("nv_bfloat16Li8E",)}
     for name in KERNEL_SOURCES:
         log = native.build_logs.get(name, {})
         say("build", f"{os.path.relpath(paths[name], HERE)}: "
@@ -311,7 +329,9 @@ def phase_build() -> None:
                                   r"|fused_adam_(?:vec4|scalar)"
                                   r"|lstm_(?:fwd|bwd)(?:_cluster)?_kernel"
                                   r"|conv_bn_stats(?:_tc)?_kernel"
-                                  r"|residual_tail_kernel)", ln)
+                                  r"|residual_tail_kernel"
+                                  r"|bn_(?:stats_partial|apply|bwd_partial"
+                                  r"|dx)_kernel)", ln)
                 tc_conv = re.search(
                     r"conv_bn_stats_tc_kernelILi(\d+)ELi(\d+)E", ln)
                 cl = re.search(r"cluster_kernelILi(\d)ELi(\d)E", ln)
@@ -723,7 +743,8 @@ def serve_config():
 
 
 def device_profile(phase: str, what: str, run, focus,
-                   expect: dict = None, group=None, top: int = 8) -> float:
+                   expect: dict = None, group=None, top: int = 8,
+                   out: dict = None) -> float:
     """Device busy share over ``run()`` from a torch.profiler trace: the
     kernels' device times summed over the window's wall time (one
     stream, so kernels do not overlap), the share of the kernels whose
@@ -735,8 +756,9 @@ def device_profile(phase: str, what: str, run, focus,
     innermost first, to a group's name), also the device time by group,
     and each of the largest kernels' group. Record ranges
     (``dl4j::...``) show on the device's timeline too and are not
-    kernels. Returns the busy milliseconds (0 when the profiler saw no
-    device time)."""
+    kernels. ``out``, where given, receives the ``top`` largest kernels as
+    (name, us, group or None). Returns the busy milliseconds (0 when the
+    profiler saw no device time)."""
     from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
@@ -791,11 +813,15 @@ def device_profile(phase: str, what: str, run, focus,
         say(phase, "device time by group: " + ", ".join(
             f"{g} {t / 1e3:.2f} ms ({t / busy_us:.3f})"
             for g, t in groups.most_common()))
+    largest = []
     for name, t in by_name.most_common(top):
-        g = (f" [{of_name[name].most_common(1)[0][0]}]" if of_name[name]
-             else "")
+        grp = of_name[name].most_common(1)[0][0] if of_name[name] else None
+        g = f" [{grp}]" if grp else ""
         say(phase, f"  {t / 1e3:9.2f} ms {t / busy_us:.3f} "
                    f"x{launches[name]:<5d}{g} {name[:90]}")
+        largest.append((name, t, grp))
+    if out is not None:
+        out["largest"] = largest
     return busy_us / 1e3
 
 
@@ -1409,6 +1435,64 @@ def device_split(what: str, run, calls: int = 20,
     return total
 
 
+#: (dtype, head dim) the kernels are not built for, run on zero-padded or
+#: widened copies (C9: f16; C10: head dims 16, 48, 160 of 32, 64, 96, 128,
+#: 256 tiles), with their tolerances against the f32 plain version on the
+#: same rounded inputs: (forward, backward of max |grad|)
+FLASH_WIDE = ((torch.float16, 64, (2e-3, 2e-3)), (torch.float32, 16,
+                                                   (2e-5, 1e-4)),
+              (torch.bfloat16, 16, (2e-2, 2e-2)),
+              (torch.float32, 48, (2e-5, 1e-4)),
+              (torch.float16, 160, (2e-3, 2e-3)),
+              (torch.bfloat16, 160, (2e-2, 2e-2)))
+
+
+def check_flash_wide(fa) -> None:
+    """C9 and C10 on the card: f16, and head dims outside 32/64/96/128,
+    through ``fa.attention`` forward and backward (N=4, H=12, Tq=77, Tk=128,
+    padded keys, causal off and on) against autograd through the plain
+    version at f32 on the same rounded inputs."""
+    g = torch.Generator(device=DEVICE).manual_seed(77)
+    for dtype, hd, tol in FLASH_WIDE:
+        q = torch.randn(4, HEADS, 77, hd, generator=g, device=DEVICE)
+        k, v = (torch.randn(4, HEADS, 128, hd, generator=g, device=DEVICE)
+                for _ in range(2))
+        m = torch.ones(4, 128, device=DEVICE)
+        m[0, 90:] = 0.0
+        dout = torch.randn(q.shape, generator=g, device=DEVICE).to(dtype)
+        errs = []
+        for causal in (False, True):
+            a = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+            before = (fa.fwd_launches, fa.bwd_launches)
+            out = fa.attention(*a, m, causal)
+            got = torch.autograd.grad(out, a, dout)
+            b = [t.to(dtype).float().requires_grad_(True) for t in (q, k, v)]
+            ref = flash_plain(*b, m, causal)
+            want = torch.autograd.grad(ref, b, dout.float())
+            torch.cuda.synchronize()
+            check((fa.fwd_launches - before[0], fa.bwd_launches - before[1])
+                  == (1, 1), f"flash {dtype} hd={hd}: not one launch each")
+            check(out.dtype == dtype and out.shape == q.shape,
+                  f"flash {dtype} hd={hd}: output {out.dtype} "
+                  f"{tuple(out.shape)}")
+            err = float((out.detach().float() - ref.detach()).abs().max())
+            check(err <= tol[0], f"flash forward {dtype} hd={hd} causal="
+                                 f"{causal}: {err:.3e} > {tol[0]:g}")
+            errs.append(err)
+            for name, x, y in zip("qkv", got, want):
+                e = float((x.float() - y).abs().max()) / float(
+                    y.abs().max())
+                check(x.dtype == dtype and e <= tol[1],
+                      f"flash backward d{name} {dtype} hd={hd} causal="
+                      f"{causal}: {e:.3e} > {tol[1]:g} of max |grad|")
+                errs.append(e)
+        tile = fa.kernel_layout(dtype, hd)
+        say("flash", f"{str(dtype)[6:]} hd={hd} (kernel tile {tile[0]} at "
+                     f"{str(tile[1])[6:]}): forward max abs err "
+                     f"{max(errs[0], errs[4]):.2e}, backward err / max "
+                     f"|grad| {max(errs[1:4] + errs[5:]):.2e}")
+
+
 def phase_flash() -> tuple:
     """Rows of ``flash_attention_fwd`` and ``flash_attention_bwd``:
     checks against the plain version, then times at the training shape."""
@@ -1462,6 +1546,7 @@ def phase_flash() -> tuple:
 
     more = flash_bf16_shapes()
     fwd_err = max(fwd_err, more[0])
+    check_flash_wide(fa)
 
     # the training shape: bf16, N=96, H=12, T=128, hd=64, no key mask
     q, k, v, _ = flash_case(TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, "none",
@@ -1949,13 +2034,8 @@ def phase_lstm_kernels() -> tuple:
         say("lstm", f"H={H} T={T} N={N}: {', '.join(line)} (fwd: max "
                     f"abs err; bwd: err / max |grad|; plan "
                     f"{lr.last_plan})")
-    try:
-        lr.lstm_recurrence(*lstm_case(3, 257, H, seed=1))
-    except ValueError as e:
-        say("lstm", f"N=257 refused: {e}")
-    else:
-        raise RuntimeError("the LSTM wrapper took N=257, outside its "
-                           "envelope")
+    check_lstm_wide(lr)
+    check_lstm_f16(lr, H)
     check_lstm_mixed(lr, H)
 
     # the training shape: bf16, T=200, N=256, H=256
@@ -2067,6 +2147,106 @@ def phase_lstm_kernels() -> tuple:
                      "plain_ms": plain[j], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib[j]})
     return tuple(rows)
+
+
+#: wide (T, N, H) (C10): N=512 at the JAX bench's width (a forward block walks 4 batch tiles with w_hh in shared
+#: memory; the backward reads w_hh from L2), a width whose w_hh no block
+#: can keep (both directions read it from L2), and N=512 at the training
+#: width (bf16 there takes the cluster routes, two waves of clusters)
+LSTM_WIDE = ((5, 512, 1024), (3, 8, 2048), (5, 512, 256))
+
+
+def lstm_pair(lr, ins, up, dtype):
+    """Forward (with the cell stream) and backward kernels on ``ins`` and
+    the upstream ``up``, against the plain versions at f32 on the same
+    rounded values: (forward max abs err, backward max err / max |grad|,
+    the forward's plan, the backward's plan)."""
+    f32 = [t.float() for t in ins]
+    want = lr.lstm_recurrence_reference(*f32, collect_cell=True)
+    got = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+    fplan = lr.last_plan
+    torch.cuda.synchronize()
+    ferr = max(float((a.float() - b).abs().max()) for a, b in zip(got, want))
+    grads = lr.lstm_recurrence_bwd(*ins, got[0], got[3], *up)
+    bplan = lr.last_plan
+    ref = lr.lstm_recurrence_backward_reference(
+        *f32, got[0].float(), got[3].float(), *(t.float() for t in up))
+    torch.cuda.synchronize()
+    for a, t in zip((*got, *grads), (*ins[:1],) * 4 + tuple(ins)):
+        check(a.dtype == t.dtype, f"LSTM {dtype} output {a.dtype}")
+    berr = max(float((a.float() - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(grads, ref))
+    return ferr, berr, fplan, bplan
+
+
+def check_lstm_wide(lr) -> None:
+    """C10: wide shapes, both directions at f32 and bf16 on the routes
+    they take, against the plain versions (f32 within
+    1e-5 and 1e-4 of max |grad|; bf16 within 2e-2 of the f32 plain
+    version on the bf16-rounded inputs)."""
+    for T, N, H in LSTM_WIDE:
+        g = torch.Generator(device=DEVICE).manual_seed(N + H)
+        base = lstm_case(T, N, H, seed=N + H)
+        up = [torch.randn(shape, generator=g, device=DEVICE)
+              for shape in ((T, N, H), (N, H), (N, H))]
+        for dtype, tol, gtol in ((torch.float32, 1e-5, 1e-4),
+                                 (torch.bfloat16, 2e-2, 2e-2)):
+            ins = [t.to(dtype) for t in base]
+            route = lr.fwd_route(*ins)
+            ferr, berr, fplan, bplan = lstm_pair(
+                lr, ins, [t.to(dtype) for t in up], dtype)
+            check(ferr <= tol and berr <= gtol,
+                  f"LSTM {dtype} T={T} N={N} H={H}: forward {ferr:.3e} > "
+                  f"{tol:g} or backward {berr:.3e} > {gtol:g}")
+            say("lstm", f"wide shape, {str(dtype)[6:]} T={T} "
+                        f"N={N} H={H}, {route} route: forward max abs err "
+                        f"{ferr:.2e} (plan "
+                        f"{fplan}), backward err / max |grad| {berr:.2e} "
+                        f"(plan {bplan}); grid plan: blocks, rows per "
+                        f"thread, chunk, shared bytes, blocks per SM, tiles "
+                        f"per block, w_hh in shared memory")
+
+
+def check_lstm_f16(lr, H: int) -> None:
+    """C9: f16 x_proj and state with an f16 or a bf16 w_hh, the grid route
+    at f32 over widened inputs, outputs and gradients in the primal
+    dtypes, against the plain versions on the same values: values within
+    2e-3, gradients within 2e-3 of max |grad| (the f16 ones) or one bf16
+    step (a bf16 w_hh's)."""
+    T, N = 50, 64
+    base = lstm_case(T, N, H, seed=51)
+    g = torch.Generator(device=DEVICE).manual_seed(52)
+    f16 = torch.float16
+    for w_dtype in (f16, torch.bfloat16):
+        ins = [base[0].to(f16), base[1].to(w_dtype), base[2].to(f16),
+               base[3].to(f16)]
+        check(lr.fwd_route(*ins) == "grid", "f16 LSTM not on the grid route")
+        want = lr.lstm_recurrence_reference(*ins, collect_cell=True)
+        got = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+        up = [torch.randn(shape, generator=g, device=DEVICE).to(f16)
+              for shape in ((T, N, H), (N, H), (N, H))]
+        ref = lr.lstm_recurrence_backward_reference(*ins, want[0], want[3],
+                                                    *up)
+        grads = lr.lstm_recurrence_bwd(*ins, want[0], want[3], *up)
+        torch.cuda.synchronize()
+        worst = []
+        for name, a, b, grad in (
+                *((n, a, b, False) for n, a, b in
+                  zip(("ys", "hT", "cT", "cs"), got, want)),
+                *((n, a, b, True) for n, a, b in
+                  zip(("dx_proj", "dw_hh", "dh0", "dc0"), grads, ref))):
+            check(a.dtype == b.dtype, f"f16 LSTM {name}: {a.dtype} against "
+                                      f"{b.dtype}")
+            err = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max()) if grad else 1.0
+            tol = (2e-3 if a.dtype == f16 else 2 ** -7) * scale
+            check(err <= tol, f"f16 LSTM (w_hh {w_dtype}) {name}: {err:.3e}"
+                              f" > {tol:.3e}")
+            worst.append(f"{name} {err / scale:.2e}")
+        say("lstm", f"f16 x_proj and state, w_hh {str(w_dtype)[6:]}, T={T} "
+                    f"N={N} H={H}, grid route over widened inputs, against "
+                    f"the plain versions (values abs, gradients / max "
+                    f"|grad|): {', '.join(worst)}")
 
 
 #: (x_proj, w_hh, h0 and c0) dtypes of the mixed LSTM calls (C6)
@@ -2220,17 +2400,18 @@ def char_batch(vocab: int, batch: int, seq: int, seed: int, dtype, device):
             torch.from_numpy(eye[np.roll(ids, -1, 1)]).to(device, dtype))
 
 
-def textgen_net(dtype: str, tbptt: int, device, seed: int = 0):
+def textgen_net(dtype: str, tbptt: int, device, seed: int = 0,
+                hidden: int = LSTM_HIDDEN):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.params import mln_params_from_numpy
     from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
 
-    conf = TextGenerationLSTM(vocab_size=LSTM_VOCAB, hidden=LSTM_HIDDEN,
+    conf = TextGenerationLSTM(vocab_size=LSTM_VOCAB, hidden=hidden,
                               tbptt_length=tbptt).conf()
     conf.dtype = dtype
     net = MultiLayerNetwork(conf, device=device).init()
     net.params_list = mln_params_from_numpy(
-        textgen_params_numpy(LSTM_VOCAB, LSTM_HIDDEN, seed), device=device,
+        textgen_params_numpy(LSTM_VOCAB, hidden, seed), device=device,
         dtype=net._dtype)
     return net
 
@@ -2356,6 +2537,70 @@ def phase_lstm_train(rows: dict) -> None:
                       f"{counts}, iterations {it0} -> "
                       f"{net.getIterationCount()}, last segment loss per "
                       f"character {float(net._score) / 50:.4f}")
+    del net
+    lstm_wide_train(x, y)
+
+
+#: the JAX bench's wide char-LSTM (bench.py:654, lstm1024_tokens_per_sec_chip;
+#: bench_common.py:279): hidden 1024 at batch 256 x 200, bf16
+LSTM_WIDE_HIDDEN, LSTM_WIDE_STEPS = 1024, 3
+
+
+def lstm_wide_train(x, y) -> None:
+    """C10 on the training path: TextGenerationLSTM at hidden 1024 through
+    ``MultiLayerNetwork.fit`` at phase 9's batch (bf16, standard BPTT):
+    one warm-up and a few timed steps, two grid-route launches per
+    direction per step, finite losses; then B5 at that width (T=200,
+    N=256, H=1024, bf16) against its plain version (forward within 2e-2,
+    backward within 2e-2 of max |grad|)."""
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+
+    H = LSTM_WIDE_HIDDEN
+    net = textgen_net("bfloat16", 0, DEVICE, hidden=H)
+    reset_lstm_counts()
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(LSTM_WIDE_STEPS):
+        net.fit(x, y)
+        losses.append(float(net._score) / LSTM_SEQ)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LSTM_WIDE_STEPS
+    steps = 1 + LSTM_WIDE_STEPS
+    counts, cluster = lstm_counts(), lstm_cluster_counts()
+    check(counts == (2 * steps, 2 * steps) and cluster == (0, 0),
+          f"hidden {H}: launches {counts} (cluster {cluster}) over {steps} "
+          f"steps of 2 layers, all on the grid route")
+    check(all(math.isfinite(v) for v in losses), f"hidden {H}: losses "
+                                                 f"{losses}")
+    say("lstm-train", f"TextGenerationLSTM(hidden={H}) ({net.numParams()} "
+                      f"parameters), bf16, batch {LSTM_BATCH} x {LSTM_SEQ}: "
+                      f"{LSTM_WIDE_STEPS} timed steps {step_s * 1e3:.2f} "
+                      f"ms/step, {LSTM_BATCH * LSTM_SEQ / step_s:.1f} "
+                      f"tokens/s; launches {counts} on the grid route; loss "
+                      f"per character " + " ".join(f"{v:.4f}"
+                                                   for v in losses))
+    del net
+    T, N = LSTM_SEQ, LSTM_BATCH
+    ins = [t.to(torch.bfloat16) for t in lstm_case(T, N, H, seed=61)]
+    g = torch.Generator(device=DEVICE).manual_seed(62)
+    up = [torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+          for shape in ((T, N, H), (N, H), (N, H))]
+    ferr, berr, fplan, bplan = lstm_pair(lr, ins, up, torch.bfloat16)
+    check(ferr <= 2e-2 and berr <= 2e-2,
+          f"B5 at T={T} N={N} H={H} bf16: forward {ferr:.3e}, backward "
+          f"{berr:.3e} of max |grad| > 0.02")
+    fwd_ms = cuda_ms(lambda i: lr.lstm_recurrence_fwd(*ins,
+                                                      collect_cell=True), 3, 1)
+    ys, _, _, cs = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+    bwd_ms = cuda_ms(lambda i: lr.lstm_recurrence_bwd(*ins, ys, cs, *up), 3,
+                     1)
+    say("lstm-train", f"B5 at T={T} N={N} H={H} bf16 (grid route): forward "
+                      f"max abs err {ferr:.2e} against the plain version, "
+                      f"{fwd_ms:.3f} ms a call (plan {fplan}); backward err "
+                      f"/ max |grad| {berr:.2e}, {bwd_ms:.3f} ms a call with "
+                      f"the f32 dw matmul (plan {bplan})")
 
 
 def phase_lstm_parity() -> None:
@@ -2772,7 +3017,254 @@ def phase_conv_kernels() -> tuple:
                     "bound_by": t["bound_by"], "library_ms": t["library"]}
             del args, x
     rows["bn_relu_residual"]["max_abs_err"] = tail_err
+    check_conv_tail_f16(cb, rt)
     return tuple(rows.values())
+
+
+def check_conv_tail_f16(cb, rt) -> None:
+    """C9: f16 by name on the card, at ResNet-50's first stage (batch 8):
+    the conv ops (f16 x with an f16 or an f32 w) on the f32 route over
+    widened copies, y in x's dtype within one f16 rounding (2^-10 of max
+    |y|) of the plain version at f32 on the same values and the
+    statistics as at f32 (``CONV_TOL``); the tail with an f16 x or res
+    within one rounding of x's dtype (2^-10 of max |out| at f16, 1e-5 at
+    f32)."""
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+
+    f16 = torch.float16
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    x = torch.randn(8, 56, 56, 64, generator=g, device=DEVICE).relu_()
+    for taps, cout in ((1, 256), (9, 64)):
+        wshape = (64, cout) if taps == 1 else (3, 3, 64, cout)
+        w = torch.randn(wshape, generator=g, device=DEVICE) * math.sqrt(
+            2.0 / (taps * 64))
+        name = "conv1x1_bn_stats" if taps == 1 else "conv3x3_bn_stats"
+        ref = (cb.conv1x1_bn_stats_reference if taps == 1
+               else cb.conv3x3_bn_stats_reference)
+        for w_dtype in (f16, torch.float32):
+            xh, wh = x.to(f16), w.to(w_dtype)
+            check(cb.kernel_route(xh, wh, taps) == "f32",
+                  f"{name} f16 not on the f32 route")
+            y, m, v = Nd4j.exec(name, xh, wh)
+            ry, rm, rv = ref(xh.float(), wh.float())
+            torch.cuda.synchronize()
+            check(y.dtype == f16, f"{name} f16 output {y.dtype}")
+            e = conv_errors(y, m, v, ry, rm, rv)
+            tol = (2 ** -10,) + CONV_TOL[1:]
+            check(all(a <= t for a, t in zip(e, tol)),
+                  f"{name} f16 x, {w_dtype} w: errors {e} above {tol}")
+            say("conv", f"{name} 56x56 64->{cout} N=8, x f16, w "
+                        f"{str(w_dtype)[6:]} (f32 route over widened "
+                        f"copies): err/max|y| {e[0]:.2e}, mean {e[1]:.2e}, "
+                        f"var/max E[y^2] {e[2]:.2e}")
+    for mix in ((f16, f16), (f16, torch.float32), (torch.float32, f16)):
+        args = tail_case((8, 56, 56, 256), mix)
+        out = Nd4j.exec("bn_relu_residual", *args)
+        want = rt.residual_tail_reference(args[0].float(), args[1].float(),
+                                          *args[2:])
+        torch.cuda.synchronize()
+        err = float((out.float() - want).abs().max())
+        tol = 1e-5 if mix[0] == torch.float32 else \
+            2 ** -10 * float(want.abs().max())
+        check(out.dtype == mix[0] and err <= tol,
+              f"bn_relu_residual x/res {mix}: {out.dtype}, {err:.3e} > "
+              f"{tol:.3e}")
+        say("tail", f"bn_relu_residual 56x56x256 N=8 x/res "
+                    f"{'/'.join(str(d)[6:] for d in mix)} (the f32 kernel "
+                    f"over widened copies): max abs err {err:.2e} "
+                    f"(tolerance {tol:.2e})")
+
+
+# ------------------------------------------------------- batch-norm kernels
+#: the distinct batch-norm shapes of ResNet-50 (H = W, C) at batch 256
+BN_SHAPES = [(112, 64), (56, 64), (56, 256), (28, 128), (28, 512),
+             (14, 256), (14, 1024), (7, 512), (7, 2048)]
+BN_BATCH = 256
+#: the shape of the three batch-norm rows in the kernels line
+BN_ROW_SHAPE = (56, 256)
+#: the kernels line's batch-norm rows: name, the reference formula each
+#: replaces (no Pallas kernel stands behind them), f32 operations per
+#: element
+BN_ROWS = (("bn_stats_kernel", "deeplearning4j_tpu/ops/nn.py:390", 3),
+           ("bn_apply_kernel", "deeplearning4j_tpu/ops/nn.py:426", 2),
+           ("bn_backward_kernel", "deeplearning4j_tpu/ops/nn.py:460", 14))
+#: tolerances against the plain versions on the card: the statistics
+#: (f32 sums of up to 3.2 M terms in another order) of max(1, |value|);
+#: dx one bf16 rounding of max |dx|; dgamma, dbeta of the largest sum of
+#: |terms| they add
+BN_STATS_TOL, BN_DX_TOL, BN_SUM_TOL = 1e-4, 2 ** -8, 1e-5
+
+
+def bn_bounds(x) -> tuple:
+    """(bound_ms, bound_by, bytes) of each kernel on ``x`` [rows, C]: (a)
+    reads x and writes the f32 mean and var; (b) reads x and the four f32
+    vectors and writes y; (c) reads x, g and the four vectors and writes
+    dx, dgamma and dbeta; their f32 operations per element (BN_ROWS) at
+    67 TFLOP/s."""
+    n, c = x.numel() * x.element_size(), x.shape[1] * 4
+    out = []
+    for nbytes, (_, _, ops) in zip((n + 2 * c, 2 * n + 4 * c,
+                                    3 * n + 6 * c), BN_ROWS):
+        out.append((*bound(nbytes, ops * x.numel(), F32_FLOPS), nbytes))
+    return tuple(out)
+
+
+def phase_bn_kernels() -> tuple:
+    """Phase 11b: the batch-norm kernels (``csrc/batch_norm.cu``) at every
+    distinct ResNet-50 shape at batch 256 in bf16, against their plain
+    versions on the card: (a) within ``BN_STATS_TOL``, (b) bit for bit on
+    the same statistics, with and without the ReLU, (c) within
+    ``BN_DX_TOL`` / ``BN_SUM_TOL`` with and without the ReLU; two calls
+    bit-equal; each kernel's time (CUDA events, in turns) beside its plain
+    version's, the library's (never called by the port: ``torch.var_mean``
+    for (a), ``F.batch_norm`` in inference mode for (b), the backward of
+    ``F.batch_norm`` in training mode for (c), cuDNN's NHWC kernels on a
+    channels-last view) and its byte bound; then the f16 kernels (C9) at
+    one shape. Returns the three rows of the kernels line at
+    ``BN_ROW_SHAPE``."""
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+
+    bf = torch.bfloat16
+    errs = [0.0, 0.0, 0.0]
+    rows = {}
+    for hw, c in BN_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(hw * c)
+        x4 = (torch.randn(BN_BATCH, hw, hw, c, generator=g, device=DEVICE)
+              * 2 + 0.5).to(bf)
+        x = x4.reshape(-1, c)
+        dy = torch.randn(x.shape, generator=g, device=DEVICE).to(bf)
+        gamma = torch.rand(c, generator=g, device=DEVICE) + 0.5
+        beta = torch.randn(c, generator=g, device=DEVICE)
+        m, v = bn.bn_stats_kernel(x)
+        rm, rv = bn.bn_stats_reference(x, (0,))
+        e_stats = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in ((m, rm), (v, rv)))
+        check(e_stats <= BN_STATS_TOL, f"bn statistics {hw}x{hw}x{c}: "
+                                       f"{e_stats:.3e} > {BN_STATS_TOL:g}")
+        errs[0] = max(errs[0], max(float((m - rm).abs().max()),
+                                   float((v - rv).abs().max())))
+        del rm, rv
+        line = [f"stats {e_stats:.2e}"]
+        for relu in (False, True):
+            y = bn.bn_apply_kernel(x, m, v, gamma, beta, 1e-5, relu)
+            check(torch.equal(y, bn.bn_apply_reference(
+                x, m, v, gamma, beta, 1e-5, relu)),
+                f"bn apply {hw}x{hw}x{c} relu={relu}: not bit-equal to the "
+                f"plain version")
+            dx, dg, db = bn.bn_backward_kernel(x, dy, m, v, gamma, beta,
+                                               1e-5, relu)
+            wx, wg, wb = bn.bn_backward_reference(x, dy, gamma, beta, m, v,
+                                                  1e-5, relu, (0,))
+            torch.cuda.synchronize()
+            e_dx = float((dx.float() - wx.float()).abs().max()) / float(
+                wx.float().abs().max())
+            gsum = float(dy.float().abs().sum(0).max())
+            e_db = float((db - wb).abs().max()) / gsum
+            e_dg = float((dg - wg).abs().max()) / gsum / float(
+                ((x.float() - m).abs().amax(0) * torch.rsqrt(v + 1e-5)).max())
+            check(e_dx <= BN_DX_TOL and max(e_db, e_dg) <= BN_SUM_TOL,
+                  f"bn backward {hw}x{hw}x{c} relu={relu}: dx {e_dx:.3e}, "
+                  f"dbeta {e_db:.3e}, dgamma {e_dg:.3e}")
+            errs[2] = max(errs[2], float((dx.float() - wx.float()).abs()
+                                         .max()))
+            line.append(f"relu={relu}: apply bit-equal, dx {e_dx:.2e}, "
+                        f"dgamma {e_dg:.2e}, dbeta {e_db:.2e}")
+            del y, dx, wx
+        first = (*bn.bn_stats_kernel(x),
+                 bn.bn_apply_kernel(x, m, v, gamma, beta, 1e-5, True),
+                 *bn.bn_backward_kernel(x, dy, m, v, gamma, beta, 1e-5, True))
+        again = (*bn.bn_stats_kernel(x),
+                 bn.bn_apply_kernel(x, m, v, gamma, beta, 1e-5, True),
+                 *bn.bn_backward_kernel(x, dy, m, v, gamma, beta, 1e-5, True))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"bn kernels at {hw}x{hw}x{c}: two calls differ")
+        del first, again
+        kernels = (lambda i: bn.bn_stats_kernel(x),
+                   lambda i: bn.bn_apply_kernel(x, m, v, gamma, beta),
+                   lambda i: bn.bn_backward_kernel(x, dy, m, v, gamma, beta))
+        plains = (lambda i: bn.bn_stats_reference(x, (0,)),
+                  lambda i: bn.bn_apply_reference(x, m, v, gamma, beta),
+                  lambda i: bn.bn_backward_reference(x, dy, gamma, beta, m,
+                                                     v))
+        x_nchw = x4.permute(0, 3, 1, 2)        # a channels-last view
+        lib_in = x_nchw.detach().clone(
+            memory_format=torch.channels_last).requires_grad_(True)
+        lib_g = gamma.clone().requires_grad_(True)
+        lib_b = beta.clone().requires_grad_(True)
+        lib_out = F.batch_norm(lib_in, None, None, lib_g, lib_b, True, 0.0,
+                               1e-5)
+        lib_dy = dy.reshape(x4.shape).permute(0, 3, 1, 2)
+        libs = (lambda i: torch.var_mean(x, dim=0, correction=0),
+                lambda i: F.batch_norm(x_nchw, m, v, gamma, beta, False,
+                                       0.0, 1e-5),
+                lambda i: torch.autograd.grad(lib_out, (lib_in, lib_g, lib_b),
+                                              lib_dy, retain_graph=True))
+        kern1 = [cuda_ms(f, 10, 2) for f in kernels]
+        plain = [cuda_ms(f, 3, 1) for f in plains]
+        lib = [cuda_ms(f, 10, 2) for f in libs]
+        kern2 = [cuda_ms(f, 10, 2) for f in kernels]
+        del lib_in, lib_out
+        bounds = bn_bounds(x)
+        times = []
+        for j, (name, replaces, _) in enumerate(BN_ROWS):
+            ms = min(kern1[j], kern2[j])
+            bound_ms, bound_by, nbytes = bounds[j]
+            times.append(f"{name} {kern1[j]:.4f} / {kern2[j]:.4f} ms "
+                         f"({bound_ms / ms:.3f} of its bound {bound_ms:.4f} "
+                         f"ms by {bound_by}, {nbytes} B), plain "
+                         f"{plain[j]:.4f}, library {lib[j]:.4f}")
+            if (hw, c) == BN_ROW_SHAPE:
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/csrc/batch_norm.cu",
+                    "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+                    "ms": ms, "plain_ms": plain[j], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib[j]}
+        say("bn", f"{hw}x{hw}x{c} N={BN_BATCH} bf16 ({x.shape[0]} rows): "
+                  f"{'; '.join(line)}; two calls bit-equal")
+        say("bn", f"  {'; '.join(times)}")
+        del x4, x, dy, m, v
+    for name, err in zip((r[0] for r in BN_ROWS), errs):
+        rows[name]["max_abs_err"] = err
+    say("bn", "library yardsticks (never called by the port): "
+              "torch.var_mean (a), F.batch_norm in inference mode (b), the "
+              "backward of F.batch_norm in training mode (c), on cuDNN's "
+              "NHWC kernels; plain versions: the reference's formulas in "
+              "eager PyTorch at f32")
+    check_bn_f16(bn)
+    return tuple(rows.values())
+
+
+def check_bn_f16(bn) -> None:
+    """The f16 instances of the batch-norm kernels at 56x56x64, batch 8:
+    (a) within ``BN_STATS_TOL``, (b) bit for bit, (c) dx within one f16
+    rounding (2^-10) of max |dx|."""
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    x = (torch.randn(8 * 56 * 56, 64, generator=g, device=DEVICE) + 1).half()
+    dy = torch.randn(x.shape, generator=g, device=DEVICE).half()
+    gamma = torch.rand(64, generator=g, device=DEVICE) + 0.5
+    beta = torch.randn(64, generator=g, device=DEVICE)
+    m, v = bn.bn_stats_kernel(x)
+    rm, rv = bn.bn_stats_reference(x, (0,))
+    e = max(float((a - b).abs().max()) for a, b in ((m, rm), (v, rv)))
+    check(e <= BN_STATS_TOL * max(1.0, float(rv.max()), float(rm.abs().max())),
+          f"f16 bn statistics: {e:.3e}")
+    for relu in (False, True):
+        check(torch.equal(bn.bn_apply_kernel(x, m, v, gamma, beta, 1e-5, relu),
+                          bn.bn_apply_reference(x, m, v, gamma, beta, 1e-5,
+                                                relu)),
+              f"f16 bn apply relu={relu}: not bit-equal")
+        dx = bn.bn_backward_kernel(x, dy, m, v, gamma, beta, 1e-5, relu)[0]
+        wx = bn.bn_backward_reference(x, dy, gamma, beta, m, v, 1e-5,
+                                      relu, (0,))[0]
+        torch.cuda.synchronize()
+        e_dx = float((dx.float() - wx.float()).abs().max()) / float(
+            wx.float().abs().max())
+        check(dx.dtype == torch.float16 and e_dx <= 2 ** -10,
+              f"f16 bn backward relu={relu}: {e_dx:.3e}")
+    say("bn", f"f16 at 56x56x64 N=8: statistics {e:.2e}, apply bit-equal, "
+              f"dx within {e_dx:.2e} of max |dx| (relu on)")
 
 
 # ------------------------------------------------------ ResNet-50 blocks by name
@@ -3109,13 +3601,16 @@ def graph_macs(conf) -> int:
 
 
 def kernel_group(chain) -> str:
-    """The group of a kernel (conv, batch-norm elementwise, ReLU/add,
-    updater or other) from the names of the CPU op that launched it and of
-    its parents, innermost first: in the forward and the update, the
-    record range that ``ComputationGraph`` puts around each vertex
+    """The group of a kernel (conv, batch norm, ReLU/add, updater or
+    other) from the names of the CPU op that launched it and of its
+    parents, innermost first: in the forward and the update, the record
+    range that ``ComputationGraph`` puts around each vertex
     (``dl4j::<layer or vertex class>``) and around the update
-    (``dl4j::updater``); in the backward, the autograd function."""
+    (``dl4j::updater``); in the backward, the autograd function (the
+    batch-norm kernels' ``BatchNormKernelsBackward``)."""
     text = " | ".join(chain)
+    if "BatchNormKernels" in text:
+        return BN_GROUP
     if any(k in text for k in ("relu", "clamp_min", "threshold_backward",
                                "ReluBackward", "dl4j::ActivationLayer",
                                "dl4j::ElementWiseVertex")):
@@ -3126,14 +3621,19 @@ def kernel_group(chain) -> str:
             or "aten::mm" in text or "aten::addmm" in text \
             or "MmBackward" in text:
         return "conv"
-    # the batch norm's own forward, and in the backward the functions of
-    # its formula (the l2 term's and the global pool's share them, small)
+    # the batch norm's own forward, and in the backward its kernels'
+    # function or the functions of an eager formula (the l2 term's and the
+    # global pool's share them, small)
     if "dl4j::BatchNormalization" in text or any(k in text for k in (
             "MulBackward", "SubBackward", "MeanBackward", "ToCopyBackward",
             "MaximumBackward", "RsqrtBackward", "AddBackward",
             "SelectBackward")):
-        return "batch-norm elementwise"
+        return BN_GROUP
     return "other"
+
+
+#: the batch norm's group in the device profile
+BN_GROUP = "batch norm"
 
 
 def library_batch_norm_train(x, gamma, beta, eps=1e-5, axes=None):
@@ -3174,12 +3674,33 @@ def library_bn_step(phase: str, net, x, y, step_ms: float, smi: str,
                f"{step_ms:.2f}); {smi}")
 
 
-def phase_resnet50_train(smi: str) -> None:
+def bn_counts() -> tuple:
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+
+    return bn.stats_launches, bn.apply_launches, bn.bwd_launches
+
+
+def reset_bn_counts() -> None:
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+
+    bn.stats_launches = bn.apply_launches = bn.bwd_launches = 0
+
+
+def set_fused(on: bool) -> None:
+    from deeplearning4j_tpu_torch.ops import nn as nnops
+
+    nnops.FUSED_BN_RELU_BWD = on
+
+
+def phase_resnet50_train(smi: str, rows: dict) -> None:
     """ResNet-50 through ComputationGraph at full width: bench.py's cell
     (batch 256, 224x224x3, bf16, Nesterovs(0.1, 0.9), RandomState(0)
-    data); cuDNN autotuning (``cudnn.benchmark``) on for this phase
-    only."""
+    data), twice: with ``FUSED_BN_RELU_BWD`` off (the reference's
+    default: batch norm, then the ReLU) and on (``batch_norm_relu_train``
+    in every BN layer with a ReLU); cuDNN autotuning
+    (``cudnn.benchmark``) on for this phase only."""
     from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.zoo import ResNet50
 
@@ -3191,76 +3712,128 @@ def phase_resnet50_train(smi: str) -> None:
     conf.dtype = "bfloat16"
     net = ComputationGraph(conf, device=DEVICE).init()
     n_params = net.numParams()
+    n_bn = sum(isinstance(getattr(n.vertex, "layer", None),
+                          BatchNormalization) for n in conf.nodes)
     if (HW, RESNET50_CLASSES) == (224, 1000):
         check(25_000_000 < n_params < 26_500_000,
               f"ResNet-50 has {n_params} parameters")
+        check(n_bn == 53, f"ResNet-50 has {n_bn} batch-norm layers")
     x, y = image_batch(B, HW, 3, RESNET50_CLASSES, seed=0)
     x = torch.from_numpy(x).to(DEVICE, torch.bfloat16)
     y = torch.from_numpy(y).to(DEVICE)
     macs = graph_macs(conf)
     flops = 6 * macs * B        # 2 x MACs, x3 for the backward
     say("resnet50", f"ResNet50(num_classes={RESNET50_CLASSES}): {n_params} "
-                    f"parameters, {len(conf.nodes)} nodes, bf16, "
-                    f"Nesterovs(0.1, 0.9), batch {B} x {HW}x{HW}x3; "
-                    f"{macs / 1e9:.3f} GMAC per image forward, "
+                    f"parameters, {len(conf.nodes)} nodes ({n_bn} batch "
+                    f"norms), bf16, Nesterovs(0.1, 0.9), batch {B} x "
+                    f"{HW}x{HW}x3; {macs / 1e9:.3f} GMAC per image forward, "
                     f"{flops / 1e12:.3f} TFLOP per training step")
     torch.backends.cudnn.benchmark = True
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses = []
-        t0 = time.perf_counter()
-        for _ in range(WARMUP_STEPS):
-            net.fit(x, y)
-            losses.append(net._score)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
-            net.fit(x, y)
-            losses.append(net._score)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        vals = [float(v) for v in losses]
-        check(all(math.isfinite(v) for v in vals), f"losses {vals}")
-        check({t.dtype for p in net.params_map.values()
-               for t in p.values()} == {torch.bfloat16},
-              "a parameter left bf16")
-        step_s = wall / TIMED_STEPS
-        say("resnet50", f"{WARMUP_STEPS} warm-up steps in {warm_s:.2f} s "
-                        f"(cuDNN autotuning included); losses "
-                        + " ".join(f"{v:.4f}" for v in vals))
-        say("resnet50", f"{TIMED_STEPS} timed steps: {step_s * 1e3:.2f} "
-                        f"ms/step, {B / step_s:.1f} images/s; {smi}")
-        say("resnet50", f"peak memory {peak} B ({peak / 2 ** 30:.2f} GiB, "
-                        f"torch.cuda.max_memory_allocated); {smi}")
-        say("resnet50", f"{flops / step_s / 1e12:.1f} TFLOP/s counted, "
-                        f"{flops / step_s / BF16_FLOPS:.4f} of the bf16 "
-                        f"tensor-core peak {BF16_FLOPS / 1e12:.0f} TFLOP/s; "
-                        f"{smi}")
-
-        def one_step():
-            net.fit(x, y)
-
-        # the layout transposes cuDNN would add around an NCHW kernel
-        device_profile("resnet50", f"one profiled training step "
-                                   f"(unprofiled {step_s * 1e3:.2f} ms; "
-                                   f"{smi})", one_step,
-                       ("nchwToNhwc", "nhwcToNchw"), group=kernel_group,
-                       top=10)
-        library_bn_step("resnet50", net, x, y, step_s * 1e3, smi)
+        step_ms = {}
+        for fused in (False, True):
+            set_fused(fused)
+            step_ms[fused], launches = resnet50_run(net, x, y, fused, flops,
+                                                    n_bn, smi)
+            if not fused:
+                for name, k in zip((r[0] for r in BN_ROWS), launches):
+                    rows[name]["launches"] = k
+        set_fused(False)
+        say("resnet50", f"step with the fused ReLU {step_ms[True]:.2f} ms "
+                        f"against {step_ms[False]:.2f} ms without "
+                        f"({step_ms[True] / step_ms[False]:.3f}); {smi}")
+        library_bn_step("resnet50", net, x, y, step_ms[False], smi)
     finally:
+        set_fused(False)
         torch.backends.cudnn.benchmark = False
     del net, x, y
     torch.cuda.empty_cache()
     say("resnet50", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def resnet50_run(net, x, y, fused: bool, flops: int, n_bn: int,
+                 smi: str) -> tuple:
+    """Warm-up and timed steps of phase 15 with the toggle as set: a
+    finite loss at every step, one launch of each batch-norm kernel per
+    BN layer per step, ms per step, images/s, peak memory, FLOP share,
+    then one profiled step whose largest batch-norm operations must be the
+    kernels (the eager formula gone). Returns (ms per step, the kernels'
+    launches over the warm-up and timed steps)."""
+    tag = ("fused ReLU on" if fused
+           else "fused ReLU off, the reference's default")
+    B = x.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_bn_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_STEPS):
+        net.fit(x, y)
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        net.fit(x, y)
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = bn_counts()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    vals = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"losses {vals}")
+    check({t.dtype for p in net.params_map.values()
+           for t in p.values()} == {torch.bfloat16}, "a parameter left bf16")
+    check(launches == (n_bn * steps,) * 3,
+          f"batch-norm kernel launches {launches} over {steps} steps, not "
+          f"one of each per BN layer per step ({n_bn * steps})")
+    step_s = wall / TIMED_STEPS
+    say("resnet50", f"[{tag}] {WARMUP_STEPS} warm-up steps in {warm_s:.2f} "
+                    f"s (cuDNN autotuning included); losses "
+                    + " ".join(f"{v:.4f}" for v in vals))
+    say("resnet50", f"[{tag}] {TIMED_STEPS} timed steps: "
+                    f"{step_s * 1e3:.2f} ms/step, {B / step_s:.1f} images/s; "
+                    f"{smi}")
+    say("resnet50", f"[{tag}] batch-norm kernel launches over {steps} steps "
+                    f"(statistics, apply, backward): {launches}, "
+                    f"{n_bn} BN layers x {steps}")
+    say("resnet50", f"[{tag}] peak memory {peak} B ({peak / 2 ** 30:.2f} "
+                    f"GiB, torch.cuda.max_memory_allocated); {smi}")
+    say("resnet50", f"[{tag}] {flops / step_s / 1e12:.1f} TFLOP/s counted, "
+                    f"{flops / step_s / BF16_FLOPS:.4f} of the bf16 "
+                    f"tensor-core peak {BF16_FLOPS / 1e12:.0f} TFLOP/s; {smi}")
+
+    def one_step():
+        net.fit(x, y)
+
+    out = {}
+    # the layout transposes cuDNN would add around an NCHW kernel
+    device_profile("resnet50", f"[{tag}] one profiled training step "
+                               f"(unprofiled {step_s * 1e3:.2f} ms; {smi})",
+                   one_step, ("nchwToNhwc", "nhwcToNchw", "bn_"),
+                   group=kernel_group, top=10, out=out)
+    eager = [n for n, _, g in out.get("largest", ())
+             if g == BN_GROUP and "bn_" not in n]
+    check(not eager, f"[{tag}] batch-norm work outside the kernels among "
+                     f"the largest device operations: {eager}")
+    return step_s * 1e3, launches
+
+
 def phase_graph_parity() -> None:
     """The cut ResNet (``zoo.resnet50.cut_resnet_conf``) at f32: three
-    Nesterovs steps on the card (cuDNN, TF32 off) and on the CPU from one
-    numpy tree, then one ``output`` in inference mode."""
+    Nesterovs steps on the card (cuDNN, TF32 off; the batch-norm kernels)
+    and on the CPU from one numpy tree, then one ``output`` in inference
+    mode; with ``FUSED_BN_RELU_BWD`` off and on."""
+    try:
+        for fused in (False, True):
+            set_fused(fused)
+            graph_parity(fused)
+    finally:
+        set_fused(False)
+
+
+def graph_parity(fused: bool) -> None:
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.params import cg_params_from_numpy
     from deeplearning4j_tpu_torch.zoo.resnet50 import cut_resnet_conf
@@ -3276,32 +3849,39 @@ def phase_graph_parity() -> None:
         g.params_map = cg_params_from_numpy(conf.nodes, tree, device=dev)
         start = g.params().cpu()
         losses = []
+        reset_bn_counts()
         for _ in range(PARITY_STEPS):
             g.fit(x, y)
             losses.append(g.score())
+        launched = bn_counts()
         runs.append((losses, g, float((g.params().cpu() - start)
-                                      .abs().max())))
-    (lc, card, moved), (lh, cpu, _) = runs
-    check_losses("graph-parity", lc, lh)
+                                      .abs().max()), launched))
+    (lc, card, moved, launched), (lh, cpu, _, none) = runs
+    check(min(launched) > 0 and none == (0, 0, 0),
+          f"graph-parity: batch-norm kernel launches card {launched}, CPU "
+          f"{none}")
+    tag = "fused ReLU " + ("on" if fused else "off")
+    check_losses(f"graph-parity [{tag}]", lc, lh)
     err = float((card.params().cpu() - cpu.params()).abs().max())
     check(err <= PARITY_PARAM_ATOL,
-          f"graph-parity: parameters differ by {err:.3e}")
+          f"graph-parity [{tag}]: parameters differ by {err:.3e}")
     check(moved >= 100 * PARITY_PARAM_ATOL,
-          f"graph-parity: the card's updates moved no parameter by 100 x "
-          f"the tolerance ({moved:.3e})")
+          f"graph-parity [{tag}]: the card's updates moved no parameter by "
+          f"100 x the tolerance ({moved:.3e})")
     state = max(close_card_cpu(f"BN state {n}/{k}", card.states_map[n][k],
                                cpu.states_map[n][k], IMAGE_STATE_TOL)
                 for n in cpu.states_map for k in cpu.states_map[n])
     out = close_card_cpu("inference output", card.outputSingle(x),
                          cpu.outputSingle(x), IMAGE_STATE_TOL)
-    say("graph-parity", f"cut ResNet ({cpu.numParams()} parameters; stem, "
-                        f"a projection and an identity block, 32x32x3, 4 "
-                        f"classes) at batch {GRAPH_PARITY_BATCH}, f32, "
+    say("graph-parity", f"[{tag}] cut ResNet ({cpu.numParams()} parameters; "
+                        f"stem, a projection and an identity block, 32x32x3, "
+                        f"4 classes) at batch {GRAPH_PARITY_BATCH}, f32, "
                         f"Nesterovs(0.05, 0.9), l2 1e-4: parameters max abs "
                         f"diff {err:.2e} (tolerance {PARITY_PARAM_ATOL:g}; the "
                         f"card moved one by up to {moved:.3e}), BN running "
                         f"state {state:.2e} and inference output {out:.2e} "
                         f"(tolerance {IMAGE_STATE_TOL:g} of max(1, |value|)); "
+                        f"batch-norm kernel launches {launched}; "
                         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -3338,10 +3918,11 @@ def main(argv) -> int:
     phase_lstm_train(rows)
     phase_lstm_parity()
     rows.update((r["name"], r) for r in phase_conv_kernels())
+    rows.update((r["name"], r) for r in phase_bn_kernels())
     phase_resnet_blocks(rows)
     phase_resnet_parity()
     phase_lenet()
-    phase_resnet50_train(smi)
+    phase_resnet50_train(smi, rows)
     phase_graph_parity()
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -78,7 +78,11 @@
 //   shared memory serves kGroup of them: shared-memory bandwidth, not the
 //   FMAs, is what these loops run out of.
 // Every tile is bounds-checked, so any Tq and Tk >= 1 work; hd is 32, 64, 96
-// or 128.
+// or 128 on both routes, or 256 on the f32 one (there each thread's rows live
+// mostly in local memory: right, and slow). The wrapper (ops/flash_attention.py)
+// zero-pads any head dim up to 256 to the next of these, with the softmax scale
+// of the real one: the padded columns add nothing to q.k and give zero output
+// and gradient columns, which it slices off.
 //
 // What bounds it on the H100 at the BERT-base training shape (N=96, H=12,
 // T=128, hd=64, bf16): bytes. The forward must read q, k, v and write out,
@@ -1232,6 +1236,9 @@ cudaError_t dispatch(int is_bf16, int hd, const Args& a) {
     DL4J_FA_CASE(96)
     DL4J_FA_CASE(128)
 #undef DL4J_FA_CASE
+    case 256:  // the wide tile, f32 only: the wrapper widens bf16 and f16
+      if (is_bf16) return cudaErrorInvalidValue;
+      return kBackward ? backward<256>(a) : forward<256>(a);
     default:
       return cudaErrorInvalidValue;
   }

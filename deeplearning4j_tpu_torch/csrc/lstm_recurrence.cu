@@ -8,9 +8,10 @@
 //
 // What it computes, for x_proj [T, N, 4H] (the input projection plus bias, gate
 // order i, f, g, o), w_hh [H, 4H] and h0, c0 [N, H], all of one element type
-// (f32 or bf16; the wrapper runs a call that mixes the two on the f32 grid
-// design over widened inputs, with h rounded to bf16 before the product where
-// w_hh is bf16: Args::round_h), with h and c carried in f32:
+// (f32 or bf16; the wrapper runs a call that mixes the two, or holds any f16,
+// on the f32 grid design over widened inputs, with h rounded to w_hh's type
+// before the product where w_hh is bf16 or f16: Args::round_h), with h and c
+// carried in f32:
 //   a_t = f32(h_{t-1}) @ w_hh + x_proj[t]      (h rounded to the storage type
 //   i, f, o = sigmoid(a_i, a_f, a_o)            first, as the Pallas kernel
 //   g = tanh(a_g)                               casts h to w_hh's dtype)
@@ -49,8 +50,13 @@
 //   no block can clobber what a slower one still reads. The backward exchanges
 //   da the same way, through an f32 buffer [T, N, 4H] with one plane per step,
 //   which is also the f32 da the caller takes the weight gradient from.
-// - Every tile is bounds-checked: any T >= 1, any N (envelope 1-256), any
-//   H (envelope 1-512; the wrapper raises outside it).
+// - Every tile is bounds-checked: any T, N and H >= 1 (N * 4H below 2^31).
+//   Where the tiles outnumber the blocks the card holds at once (N past 256,
+//   or H past 512), a block walks several tiles a step and each tile's c (dh
+//   and dc) waits in an f32 scratch between steps; where a block's columns
+//   (and rows) of w_hh do not fit its shared memory (the backward past
+//   H=832), or one block per unit tile does not fit the card (H past 1056 on
+//   the H100), blocks read w_hh from L2 each step (make_plan's three passes).
 //
 // What bounds it on the H100 at the char-LSTM training shape (T=200, N=256,
 // H=256, bf16): bytes, then the recurrence's latency. The forward must read
@@ -133,8 +139,10 @@
 // barrier, the copies' flight and the mbarrier wait, and one __syncthreads.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <initializer_list>
 #include <map>
@@ -212,11 +220,15 @@ struct Args {
   void* dh0;         // [N, H] (backward)
   void* dc0;         // [N, H] (backward)
   unsigned int* bar; // [2] zeroed barrier words
+  float* st;         // [2, N, H] f32: a tile's c (forward) or dh, dc (backward)
+                     // between steps, where a block walks several tiles
   int steps, N, H;
   int hpad;          // H rounded up to the chunk
   int kc;            // chunk length (a multiple of 32 that divides hpad)
   int unit_tiles;    // ceil(H / kU)
-  int round_h;       // f32 storage under a bf16 w_hh: h rounded to bf16 before the product
+  int btiles;        // ceil(N / rows per block tile)
+  int round_h;       // f32 storage under a bf16 (kRoundBf16) or f16 (kRoundF16) w_hh: h
+                     // rounded to that type before the product, else 0
 };
 
 // Shared memory: w columns [hpad][kU] float4 (gates i, f, g, o of one unit in
@@ -250,15 +262,51 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// x rounded to w_hh's type under f32 storage: kRoundBf16 or kRoundF16 (round_h)
+constexpr int kRoundBf16 = 1, kRoundF16 = 2;
+__device__ __forceinline__ float round_w(float x, int mode) {
+  if (mode == kRoundBf16) return round_bf16(x);
+  if (mode == kRoundF16) return __half2float(__float2half_rn(x));
+  return x;
+}
+
+// w_hh read from L2 where no plan keeps it in shared memory (read-only path:
+// no block writes it)
+__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
+  const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned int>(b) << 16);
+}
+
+// Gates i, f, g, o of unit `col` at row k of w_hh (zero past H): one float4
+// of the shared column layout.
+template <typename T>
+__device__ __forceinline__ float4 w_col4(const Args& a, int k, int col) {
+  if (col >= a.H || k >= a.H) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* p = static_cast<const T*>(a.whh) + (size_t)k * 4 * a.H + col;
+  return make_float4(ldw(p), ldw(p + a.H), ldw(p + 2 * a.H), ldw(p + 3 * a.H));
+}
+
+// Columns j .. j + 3 of row `col` of w_hh (zero past the matrix): one float4
+// of the shared row layout.
+template <typename T>
+__device__ __forceinline__ float4 w_row4(const Args& a, int col, int j) {
+  if (col >= a.H || j >= 4 * a.H) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* p = static_cast<const T*>(a.whh) + (size_t)col * 4 * a.H + j;
+  return make_float4(ldw(p), ldw(p + 1), ldw(p + 2), ldw(p + 3));
+}
+
 // 16 bytes of the storage type widened to f32 into dst (16-byte aligned); f32
-// values rounded to bf16 first where `round`.
-__device__ __forceinline__ void widen_store(float* dst, uint4 v, const float*, bool round) {
+// values rounded to w_hh's type first where `round` says (round_w).
+__device__ __forceinline__ void widen_store(float* dst, uint4 v, const float*, int round) {
   float4 f = make_float4(__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
                          __uint_as_float(v.w));
-  if (round) f = make_float4(round_bf16(f.x), round_bf16(f.y), round_bf16(f.z), round_bf16(f.w));
+  if (round)
+    f = make_float4(round_w(f.x, round), round_w(f.y, round), round_w(f.z, round),
+                    round_w(f.w, round));
   *reinterpret_cast<float4*>(dst) = f;
 }
-__device__ __forceinline__ void widen_store(float* dst, uint4 v, const __nv_bfloat16*, bool) {
+__device__ __forceinline__ void widen_store(float* dst, uint4 v, const __nv_bfloat16*, int) {
   // little-endian: the low half of each word is the first element
   *reinterpret_cast<float4*>(dst) =
       make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
@@ -269,9 +317,9 @@ __device__ __forceinline__ void widen_store(float* dst, uint4 v, const __nv_bflo
 }
 
 // Stage src[row, c0 + c) for the block's rows and c < kc into the chunk,
-// zero past n_rows or past `width` columns, f32 values rounded to bf16 where
-// `round` (h under a bf16 w_hh, as the Pallas kernel casts h to w_hh's type
-// before the dot). Where every row starts on a
+// zero past n_rows or past `width` columns, f32 values rounded to w_hh's type
+// where `round` says (h under a bf16 or f16 w_hh, as the Pallas kernel casts h
+// to w_hh's type before the dot). Where every row starts on a
 // 16-byte boundary (width a multiple of 16 bytes' elements, src aligned), a
 // warp reads whole 16-byte pieces of one row and each thread issues kBatch
 // loads before it stores any, so a chunk pays the memory latency a few times
@@ -280,7 +328,7 @@ constexpr int kBatch = 8;
 
 template <typename T, int RB>
 __device__ __forceinline__ void stage(float* ch_s, const T* src, int row0, int n_rows, int width,
-                                      int c0, int kc, bool round) {
+                                      int c0, int kc, int round) {
   constexpr int NB = kRG * RB;
   constexpr int V = 16 / sizeof(T);       // elements per 16-byte piece
   constexpr int kWarps = kThreads / 32;
@@ -315,7 +363,7 @@ __device__ __forceinline__ void stage(float* ch_s, const T* src, int row0, int n
     const int r = e / kc, c = e - r * kc;
     const int row = row0 + r, col = c0 + c;
     const float v = (row < n_rows && col < width) ? ld(src + (size_t)row * width + col) : 0.0f;
-    ch_s[r * hs + c] = round ? round_bf16(v) : v;
+    ch_s[r * hs + c] = round_w(v, round);
   }
 }
 
@@ -327,15 +375,16 @@ __device__ __forceinline__ void fma4(float (&c)[4], float h, float4 w) {
 }
 
 // acc[j][g] += sum_k h[row_j, k] w[k, g*H + unit] over the whole hidden width,
-// h streaming through the chunk.
-template <typename T, int RB>
+// h streaming through the chunk; w from shared memory (WS) or from L2.
+template <typename T, int RB, bool WS>
 __device__ __forceinline__ void gates_matmul(float (&acc)[RB][4], const float* w_s, float* ch_s,
-                                             const T* hp, const Args& a, int row0, int rg, int u) {
+                                             const T* hp, const Args& a, int row0, int rg, int u,
+                                             int unit) {
   const int kc = a.kc, hs = chunk_stride(kc);
 #pragma unroll
   for (int j = 0; j < RB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
   for (int k0 = 0; k0 < a.hpad; k0 += kc) {
-    stage<T, RB>(ch_s, hp, row0, a.N, a.H, k0, kc, a.round_h != 0);
+    stage<T, RB>(ch_s, hp, row0, a.N, a.H, k0, kc, a.round_h);
     __syncthreads();
     const float4* wp = reinterpret_cast<const float4*>(w_s) + (size_t)k0 * kU + u;
     for (int k = 0; k < kc; k += 4, wp += 4 * kU) {
@@ -343,7 +392,18 @@ __device__ __forceinline__ void gates_matmul(float (&acc)[RB][4], const float* w
 #pragma unroll
       for (int j = 0; j < RB; ++j)
         hv[j] = *reinterpret_cast<const float4*>(ch_s + (rg + j * kRG) * hs + k);
-      const float4 w0 = wp[0], w1 = wp[kU], w2 = wp[2 * kU], w3 = wp[3 * kU];
+      float4 w0, w1, w2, w3;
+      if constexpr (WS) {
+        w0 = wp[0];
+        w1 = wp[kU];
+        w2 = wp[2 * kU];
+        w3 = wp[3 * kU];
+      } else {
+        w0 = w_col4<T>(a, k0 + k, unit);
+        w1 = w_col4<T>(a, k0 + k + 1, unit);
+        w2 = w_col4<T>(a, k0 + k + 2, unit);
+        w3 = w_col4<T>(a, k0 + k + 3, unit);
+      }
 #pragma unroll
       for (int j = 0; j < RB; ++j) {
         fma4(acc[j], hv[j].x, w0);
@@ -356,60 +416,83 @@ __device__ __forceinline__ void gates_matmul(float (&acc)[RB][4], const float* w
   }
 }
 
+// A block's tiles: blockIdx.x, + gridDim.x, ... of unit_tiles x btiles, unit
+// tile fastest. Where there are no more tiles than blocks, a thread keeps its
+// state (c; dh and dc) in registers for all T; otherwise each tile's state
+// waits in a.st between steps.
+struct Tile {
+  int unit, row0;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& a, int tile, int nb) {
+  return Tile{(tile % a.unit_tiles) * kU + (int)(threadIdx.x % kU), (tile / a.unit_tiles) * nb};
+}
+
 // ---------------------------------------------------------------- forward
-template <typename T, int RB>
+template <typename T, int RB, bool WS>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
-  float* ch_s = w_s + (size_t)a.hpad * kU * 4;
+  float* ch_s = WS ? w_s + (size_t)a.hpad * kU * 4 : w_s;
   constexpr int NB = kRG * RB;
   const int u = threadIdx.x % kU, rg = threadIdx.x / kU;
-  const int ut = blockIdx.x % a.unit_tiles, bt = blockIdx.x / a.unit_tiles;
-  const int H = a.H, N = a.N, unit = ut * kU + u, row0 = bt * NB;
+  const int H = a.H, N = a.N, tiles = a.unit_tiles * a.btiles;
+  const bool walk = tiles > (int)gridDim.x;
   const T* xp = static_cast<const T*>(a.xp);
   T* ys = static_cast<T*>(a.ys);
   T* cs = static_cast<T*>(a.cs);
 
-  load_w_cols<T>(w_s, a, ut);
+  // with w in shared memory the grid is a multiple of unit_tiles, so a
+  // block's unit tile is the same in every tile it walks
+  if (WS) load_w_cols<T>(w_s, a, blockIdx.x % a.unit_tiles);
   float c[RB];
-  bool ok[RB];
-  int row[RB];
-#pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    row[j] = row0 + rg + j * kRG;
-    ok[j] = unit < H && row[j] < N;
-    c[j] = ok[j] ? ld(static_cast<const T*>(a.c0) + (size_t)row[j] * H + unit) : 0.0f;
-  }
   __syncthreads();
 
   for (int t = 0; t < a.steps; ++t) {
     const T* hp = t == 0 ? static_cast<const T*>(a.h0) : ys + (size_t)(t - 1) * N * H;
-    // this step's inputs that no other block writes, loaded before the
-    // matmul so their latency hides behind it
-    float x[RB][4];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const Tile tl = tile_of(a, tile, NB);
+      const int unit = tl.unit;
+      bool ok[RB];
+      int row[RB];
 #pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      const T* xr = xp + ((size_t)t * N + row[j]) * 4 * H + unit;
+      for (int j = 0; j < RB; ++j) {
+        row[j] = tl.row0 + rg + j * kRG;
+        ok[j] = unit < H && row[j] < N;
+        const size_t o = (size_t)row[j] * H + unit;
+        if (t == 0)
+          c[j] = ok[j] ? ld(static_cast<const T*>(a.c0) + o) : 0.0f;
+        else if (walk)
+          c[j] = ok[j] ? a.st[o] : 0.0f;
+      }
+      // this step's inputs that no other block writes, loaded before the
+      // matmul so their latency hides behind it
+      float x[RB][4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) x[j][g] = ok[j] ? ld(xr + g * H) : 0.0f;
-    }
-    float acc[RB][4];
-    gates_matmul<T, RB>(acc, w_s, ch_s, hp, a, row0, rg, u);
+      for (int j = 0; j < RB; ++j) {
+        const T* xr = xp + ((size_t)t * N + row[j]) * 4 * H + unit;
 #pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      if (!ok[j]) continue;
-      const float gi = sigmoidf(acc[j][0] + x[j][0]);
-      const float gf = sigmoidf(acc[j][1] + x[j][1]);
-      const float gg = tanhf(acc[j][2] + x[j][2]);
-      const float go = sigmoidf(acc[j][3] + x[j][3]);
-      c[j] = __fadd_rn(__fmul_rn(gf, c[j]), __fmul_rn(gi, gg));
-      const float h = __fmul_rn(go, tanhf(c[j]));
-      const size_t o = ((size_t)t * N + row[j]) * H + unit;
-      st(ys + o, h);
-      if (cs != nullptr) st(cs + o, c[j]);
-      if (t == a.steps - 1) {
-        st(static_cast<T*>(a.hT) + (size_t)row[j] * H + unit, h);
-        st(static_cast<T*>(a.cT) + (size_t)row[j] * H + unit, c[j]);
+        for (int g = 0; g < 4; ++g) x[j][g] = ok[j] ? ld(xr + g * H) : 0.0f;
+      }
+      float acc[RB][4];
+      gates_matmul<T, RB, WS>(acc, w_s, ch_s, hp, a, tl.row0, rg, u, unit);
+#pragma unroll
+      for (int j = 0; j < RB; ++j) {
+        if (!ok[j]) continue;
+        const float gi = sigmoidf(acc[j][0] + x[j][0]);
+        const float gf = sigmoidf(acc[j][1] + x[j][1]);
+        const float gg = tanhf(acc[j][2] + x[j][2]);
+        const float go = sigmoidf(acc[j][3] + x[j][3]);
+        c[j] = __fadd_rn(__fmul_rn(gf, c[j]), __fmul_rn(gi, gg));
+        const float h = __fmul_rn(go, tanhf(c[j]));
+        const size_t o = ((size_t)t * N + row[j]) * H + unit;
+        st(ys + o, h);
+        if (cs != nullptr) st(cs + o, c[j]);
+        if (walk) a.st[(size_t)row[j] * H + unit] = c[j];
+        if (t == a.steps - 1) {
+          st(static_cast<T*>(a.hT) + (size_t)row[j] * H + unit, h);
+          st(static_cast<T*>(a.cT) + (size_t)row[j] * H + unit, c[j]);
+        }
       }
     }
     if (t + 1 < a.steps) grid_barrier(a.bar);
@@ -417,121 +500,150 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------- backward
-template <typename T, int RB>
+template <typename T, int RB, bool WS>
 __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* wc_s = reinterpret_cast<float*>(smem4);
-  float* wr_s = wc_s + (size_t)a.hpad * kU * 4;
-  float* ch_s = wr_s + (size_t)a.hpad * kU * 4;
+  float* wr_s = WS ? wc_s + (size_t)a.hpad * kU * 4 : wc_s;
+  float* ch_s = WS ? wr_s + (size_t)a.hpad * kU * 4 : wc_s;
   constexpr int NB = kRG * RB;
   const int u = threadIdx.x % kU, rg = threadIdx.x / kU;
-  const int ut = blockIdx.x % a.unit_tiles, bt = blockIdx.x / a.unit_tiles;
-  const int H = a.H, N = a.N, H4 = 4 * H, unit = ut * kU + u, row0 = bt * NB;
+  const int H = a.H, N = a.N, H4 = 4 * H, tiles = a.unit_tiles * a.btiles;
   const int kc = a.kc, hs = chunk_stride(kc);
+  const bool walk = tiles > (int)gridDim.x;
   const T* xp = static_cast<const T*>(a.xp);
   const T* ys = static_cast<const T*>(a.ys);
   const T* cs = static_cast<const T*>(a.cs);
   const T* dys = static_cast<const T*>(a.dys);
   T* dxp = static_cast<T*>(a.dxp);
+  float* st_dh = a.st;
+  float* st_dc = a.st + (size_t)N * H;
 
-  load_w_cols<T>(wc_s, a, ut);
-  load_w_rows<T>(wr_s, a, ut);
-  float dh[RB], dc[RB];
-  bool ok[RB];
-  int row[RB];
-#pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    row[j] = row0 + rg + j * kRG;
-    ok[j] = unit < H && row[j] < N;
-    const size_t o = (size_t)row[j] * H + unit;
-    dh[j] = (ok[j] && a.dhT != nullptr) ? ld(static_cast<const T*>(a.dhT) + o) : 0.0f;
-    dc[j] = (ok[j] && a.dcT != nullptr) ? ld(static_cast<const T*>(a.dcT) + o) : 0.0f;
+  if (WS) {
+    load_w_cols<T>(wc_s, a, blockIdx.x % a.unit_tiles);
+    load_w_rows<T>(wr_s, a, blockIdx.x % a.unit_tiles);
   }
+  float dh[RB], dc[RB];
   __syncthreads();
 
   for (int t = a.steps - 1; t >= 0; --t) {
     const T* hp = t == 0 ? static_cast<const T*>(a.h0) : ys + (size_t)(t - 1) * N * H;
     const T* cp = t == 0 ? static_cast<const T*>(a.c0) : cs + (size_t)(t - 1) * N * H;
     float* da = a.da + (size_t)t * N * H4;
-    // this step's inputs that no other block writes, loaded before the
-    // matmul so their latency hides behind it
-    float x[RB][4], dy[RB], ct[RB], cprev[RB];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const Tile tl = tile_of(a, tile, NB);
+      const int unit = tl.unit;
+      bool ok[RB];
+      int row[RB];
 #pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      const size_t o = ((size_t)t * N + row[j]) * H + unit;
-      const T* xr = xp + ((size_t)t * N + row[j]) * H4 + unit;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) x[j][g] = ok[j] ? ld(xr + g * H) : 0.0f;
-      dy[j] = ok[j] ? ld(dys + o) : 0.0f;
-      ct[j] = ok[j] ? ld(cs + o) : 0.0f;
-      cprev[j] = ok[j] ? ld(cp + (size_t)row[j] * H + unit) : 0.0f;
-    }
-    float acc[RB][4];
-    gates_matmul<T, RB>(acc, wc_s, ch_s, hp, a, row0, rg, u);
-#pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      if (!ok[j]) continue;
-      const size_t ox = ((size_t)t * N + row[j]) * H4 + unit;
-      const float gi = sigmoidf(acc[j][0] + x[j][0]);
-      const float gf = sigmoidf(acc[j][1] + x[j][1]);
-      const float gg = tanhf(acc[j][2] + x[j][2]);
-      const float go = sigmoidf(acc[j][3] + x[j][3]);
-      dh[j] = __fadd_rn(dh[j], dy[j]);
-      const float tc = tanhf(ct[j]);
-      const float d_o = __fmul_rn(dh[j], tc);
-      dc[j] = __fadd_rn(dc[j], __fmul_rn(__fmul_rn(dh[j], go), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
-      const float d_i = __fmul_rn(dc[j], gg), d_f = __fmul_rn(dc[j], cprev[j]);
-      const float d_g = __fmul_rn(dc[j], gi);
-      const float a_i = __fmul_rn(__fmul_rn(d_i, gi), __fsub_rn(1.0f, gi));
-      const float a_f = __fmul_rn(__fmul_rn(d_f, gf), __fsub_rn(1.0f, gf));
-      const float a_g = __fmul_rn(d_g, __fsub_rn(1.0f, __fmul_rn(gg, gg)));
-      const float a_o = __fmul_rn(__fmul_rn(d_o, go), __fsub_rn(1.0f, go));
-      if (dxp != nullptr) {
-        st(dxp + ox, a_i);
-        st(dxp + ox + H, a_f);
-        st(dxp + ox + 2 * H, a_g);
-        st(dxp + ox + 3 * H, a_o);
+      for (int j = 0; j < RB; ++j) {
+        row[j] = tl.row0 + rg + j * kRG;
+        ok[j] = unit < H && row[j] < N;
+        const size_t o = (size_t)row[j] * H + unit;
+        if (t == a.steps - 1) {
+          dh[j] = (ok[j] && a.dhT != nullptr) ? ld(static_cast<const T*>(a.dhT) + o) : 0.0f;
+          dc[j] = (ok[j] && a.dcT != nullptr) ? ld(static_cast<const T*>(a.dcT) + o) : 0.0f;
+        } else if (walk) {
+          dh[j] = ok[j] ? st_dh[o] : 0.0f;
+          dc[j] = ok[j] ? st_dc[o] : 0.0f;
+        }
       }
-      float* dr = da + (size_t)row[j] * H4 + unit;
-      dr[0] = a_i;
-      dr[H] = a_f;
-      dr[2 * H] = a_g;
-      dr[3 * H] = a_o;
-      dc[j] = __fmul_rn(dc[j], gf);
+      // this step's inputs that no other block writes, loaded before the
+      // matmul so their latency hides behind it
+      float x[RB][4], dy[RB], ct[RB], cprev[RB];
+#pragma unroll
+      for (int j = 0; j < RB; ++j) {
+        const size_t o = ((size_t)t * N + row[j]) * H + unit;
+        const T* xr = xp + ((size_t)t * N + row[j]) * H4 + unit;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[j][g] = ok[j] ? ld(xr + g * H) : 0.0f;
+        dy[j] = ok[j] ? ld(dys + o) : 0.0f;
+        ct[j] = ok[j] ? ld(cs + o) : 0.0f;
+        cprev[j] = ok[j] ? ld(cp + (size_t)row[j] * H + unit) : 0.0f;
+      }
+      float acc[RB][4];
+      gates_matmul<T, RB, WS>(acc, wc_s, ch_s, hp, a, tl.row0, rg, u, unit);
+#pragma unroll
+      for (int j = 0; j < RB; ++j) {
+        if (!ok[j]) continue;
+        const size_t ox = ((size_t)t * N + row[j]) * H4 + unit;
+        const float gi = sigmoidf(acc[j][0] + x[j][0]);
+        const float gf = sigmoidf(acc[j][1] + x[j][1]);
+        const float gg = tanhf(acc[j][2] + x[j][2]);
+        const float go = sigmoidf(acc[j][3] + x[j][3]);
+        dh[j] = __fadd_rn(dh[j], dy[j]);
+        const float tc = tanhf(ct[j]);
+        const float d_o = __fmul_rn(dh[j], tc);
+        dc[j] = __fadd_rn(dc[j], __fmul_rn(__fmul_rn(dh[j], go), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+        const float d_i = __fmul_rn(dc[j], gg), d_f = __fmul_rn(dc[j], cprev[j]);
+        const float d_g = __fmul_rn(dc[j], gi);
+        const float a_i = __fmul_rn(__fmul_rn(d_i, gi), __fsub_rn(1.0f, gi));
+        const float a_f = __fmul_rn(__fmul_rn(d_f, gf), __fsub_rn(1.0f, gf));
+        const float a_g = __fmul_rn(d_g, __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+        const float a_o = __fmul_rn(__fmul_rn(d_o, go), __fsub_rn(1.0f, go));
+        if (dxp != nullptr) {
+          st(dxp + ox, a_i);
+          st(dxp + ox + H, a_f);
+          st(dxp + ox + 2 * H, a_g);
+          st(dxp + ox + 3 * H, a_o);
+        }
+        float* dr = da + (size_t)row[j] * H4 + unit;
+        dr[0] = a_i;
+        dr[H] = a_f;
+        dr[2 * H] = a_g;
+        dr[3 * H] = a_o;
+        dc[j] = __fmul_rn(dc[j], gf);
+        if (walk) st_dc[(size_t)row[j] * H + unit] = dc[j];
+      }
     }
     grid_barrier(a.bar);
 
     // dh_{t-1}[row, unit] = sum_j da_t[row, j] w_hh[unit, j], da streaming
     // through the chunk
-    float acc_h[RB];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const Tile tl = tile_of(a, tile, NB);
+      const int unit = tl.unit;
+      float acc_h[RB];
 #pragma unroll
-    for (int j = 0; j < RB; ++j) acc_h[j] = 0.0f;
-    for (int j0 = 0; j0 < H4; j0 += kc) {
-      stage<float, RB>(ch_s, da, row0, N, H4, j0, kc, false);
-      __syncthreads();
-      const float4* wp = reinterpret_cast<const float4*>(wr_s) + (size_t)(j0 / 4) * kU + u;
-      for (int k = 0; k < kc; k += 4, wp += kU) {
-        const float4 w = *wp;
+      for (int j = 0; j < RB; ++j) acc_h[j] = 0.0f;
+      for (int j0 = 0; j0 < H4; j0 += kc) {
+        stage<float, RB>(ch_s, da, tl.row0, N, H4, j0, kc, 0);
+        __syncthreads();
+        const float4* wp = reinterpret_cast<const float4*>(wr_s) + (size_t)(j0 / 4) * kU + u;
+        for (int k = 0; k < kc; k += 4, wp += kU) {
+          const float4 w = WS ? *wp : w_row4<T>(a, unit, j0 + k);
 #pragma unroll
-        for (int j = 0; j < RB; ++j) {
-          const float4 d = *reinterpret_cast<const float4*>(ch_s + (rg + j * kRG) * hs + k);
-          acc_h[j] = fmaf(d.x, w.x, acc_h[j]);
-          acc_h[j] = fmaf(d.y, w.y, acc_h[j]);
-          acc_h[j] = fmaf(d.z, w.z, acc_h[j]);
-          acc_h[j] = fmaf(d.w, w.w, acc_h[j]);
+          for (int j = 0; j < RB; ++j) {
+            const float4 d = *reinterpret_cast<const float4*>(ch_s + (rg + j * kRG) * hs + k);
+            acc_h[j] = fmaf(d.x, w.x, acc_h[j]);
+            acc_h[j] = fmaf(d.y, w.y, acc_h[j]);
+            acc_h[j] = fmaf(d.z, w.z, acc_h[j]);
+            acc_h[j] = fmaf(d.w, w.w, acc_h[j]);
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < RB; ++j) {
+        const int row = tl.row0 + rg + j * kRG;
+        if (walk) {
+          if (unit < H && row < N) st_dh[(size_t)row * H + unit] = acc_h[j];
+        } else {
+          dh[j] = acc_h[j];
         }
       }
-      __syncthreads();
     }
-#pragma unroll
-    for (int j = 0; j < RB; ++j) dh[j] = acc_h[j];
   }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const Tile tl = tile_of(a, tile, NB);
 #pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    if (!ok[j]) continue;
-    const size_t o = (size_t)row[j] * H + unit;
-    st(static_cast<T*>(a.dh0) + o, dh[j]);
-    st(static_cast<T*>(a.dc0) + o, dc[j]);
+    for (int j = 0; j < RB; ++j) {
+      const int row = tl.row0 + rg + j * kRG;
+      if (tl.unit >= H || row >= N) continue;
+      const size_t o = (size_t)row * H + tl.unit;
+      st(static_cast<T*>(a.dh0) + o, walk ? st_dh[o] : dh[j]);
+      st(static_cast<T*>(a.dc0) + o, walk ? st_dc[o] : dc[j]);
+    }
   }
 }
 
@@ -1268,14 +1380,14 @@ cudaError_t launch_h(const Args& a, cudaStream_t stream, int* plan_out) {
 }  // namespace cl
 
 // ---------------------------------------------------------------- launch plan
-template <typename T, int RB, bool BWD>
+template <typename T, int RB, bool BWD, bool WS>
 const void* kernel_ptr() {
-  return BWD ? reinterpret_cast<const void*>(&lstm_bwd_kernel<T, RB>)
-             : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, RB>);
+  return BWD ? reinterpret_cast<const void*>(&lstm_bwd_kernel<T, RB, WS>)
+             : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, RB, WS>);
 }
 
-size_t smem_bytes(bool bwd, int hpad, int rb, int kc) {
-  const size_t w = (size_t)hpad * kU * 4 * sizeof(float);
+size_t smem_bytes(bool bwd, bool ws, int hpad, int rb, int kc) {
+  const size_t w = ws ? (size_t)hpad * kU * 4 * sizeof(float) : 0;
   return (bwd ? 2 * w : w) + (size_t)kRG * rb * chunk_stride(kc) * sizeof(float);
 }
 
@@ -1283,14 +1395,22 @@ struct Plan {
   const void* fn;
   int rb, kc, hpad, blocks, per_sm;
   size_t smem;
+  int btiles, ws;
 };
 
-// The first plan, by rows per thread (1, 2, 4) and then by chunk (the whole
-// padded width, else 32), whose grid is co-resident on this card. On the H100
-// (132 SMs) the envelope's largest grid, the backward at N=256 and H=512, fits
-// at 4 rows per thread (128 blocks, one per SM). Each kernel may use the
-// card's whole opt-in shared memory, so a plan stays launchable whatever plan
-// was made after it.
+// The first plan whose grid is co-resident on this card, in three passes:
+// 1. w_hh in shared memory and one tile per block, by rows per thread (1, 2,
+//    4) and then by chunk (the whole padded width, else 32). On the H100 (132
+//    SMs) every shape up to N=256, H=512 fits here.
+// 2. w_hh in shared memory, a block per unit tile and as many per batch as
+//    the card holds, each walking its batch tiles (4 rows per thread), the
+//    state waiting in global memory between steps (N past 256: the char-LSTM
+//    at H=1024 keeps its 128 KiB of widened forward columns).
+// 3. w_hh read from L2 every step, as many blocks as the card holds walking
+//    every tile (the backward at H=1024, whose columns and rows would take 256
+//    KiB; any H).
+// Each kernel may use the card's whole opt-in shared memory, so a plan stays
+// launchable whatever plan was made after it.
 template <typename T, bool BWD>
 cudaError_t make_plan(int dev, int N, int H, Plan* p) {
   int sms = 0, max_smem = 0, coop = 0;
@@ -1300,23 +1420,37 @@ cudaError_t make_plan(int dev, int N, int H, Plan* p) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  const void* fns[3] = {kernel_ptr<T, 1, BWD>(), kernel_ptr<T, 2, BWD>(),
-                        kernel_ptr<T, 4, BWD>()};
-  const int unit_tiles = (H + kU - 1) / kU;
+  const void* fns[2][3] = {
+      {kernel_ptr<T, 1, BWD, false>(), kernel_ptr<T, 2, BWD, false>(),
+       kernel_ptr<T, 4, BWD, false>()},
+      {kernel_ptr<T, 1, BWD, true>(), kernel_ptr<T, 2, BWD, true>(),
+       kernel_ptr<T, 4, BWD, true>()}};
+  const long long unit_tiles = (H + kU - 1) / kU;
   const int hpad_full = (H + kChunkMin - 1) / kChunkMin * kChunkMin;
-  for (int i = 0; i < 3; ++i) {
-    const int rb = 1 << i, nb = kRG * rb;
-    const int blocks = unit_tiles * ((N + nb - 1) / nb);
-    err = cudaFuncSetAttribute(fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-    if (err != cudaSuccess) return err;
-    for (int kc : {hpad_full, kChunkMin}) {
-      const size_t smem = smem_bytes(BWD, hpad_full, rb, kc);
-      if (smem > (size_t)max_smem) continue;
-      int per_sm = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[i], kThreads, smem);
+  for (int pass = 0; pass < 3; ++pass) {
+    const bool ws = pass < 2;
+    for (int i = pass == 0 ? 0 : 2; i < 3; ++i) {
+      const int rb = 1 << i, nb = kRG * rb;
+      const long long btiles = (N + nb - 1) / nb;
+      const void* fn = fns[ws][i];
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
       if (err != cudaSuccess) return err;
-      if (blocks <= per_sm * sms) {
-        *p = Plan{fns[i], rb, kc, hpad_full, blocks, per_sm, smem};
+      for (int kc : {hpad_full, kChunkMin}) {
+        const size_t smem = smem_bytes(BWD, ws, hpad_full, rb, kc);
+        if (smem > (size_t)max_smem) continue;
+        int per_sm = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
+        if (err != cudaSuccess) return err;
+        const long long cap = (long long)per_sm * sms;
+        long long blocks;
+        if (pass == 0)
+          blocks = unit_tiles * btiles <= cap ? unit_tiles * btiles : 0;
+        else if (pass == 1)
+          blocks = unit_tiles <= cap ? unit_tiles * std::min(btiles, cap / unit_tiles) : 0;
+        else
+          blocks = std::min(unit_tiles * btiles, cap);
+        if (blocks < 1) continue;
+        *p = Plan{fn, rb, kc, hpad_full, (int)blocks, per_sm, smem, (int)btiles, (int)ws};
         return cudaSuccess;
       }
     }
@@ -1353,12 +1487,16 @@ cudaError_t launch(Args a, cudaStream_t stream, int* plan_out) {
   a.hpad = p.hpad;
   a.kc = p.kc;
   a.unit_tiles = (a.H + kU - 1) / kU;
+  a.btiles = p.btiles;
   if (plan_out != nullptr) {
+    const long long tiles = (long long)a.unit_tiles * a.btiles;
     plan_out[0] = p.blocks;
     plan_out[1] = p.rb;
     plan_out[2] = p.kc;
     plan_out[3] = (int)p.smem;
     plan_out[4] = p.per_sm;
+    plan_out[5] = (int)((tiles + p.blocks - 1) / p.blocks);
+    plan_out[6] = p.ws;
   }
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(p.fn, dim3(p.blocks), dim3(kThreads), args, p.smem, stream);
@@ -1367,7 +1505,7 @@ cudaError_t launch(Args a, cudaStream_t stream, int* plan_out) {
 }
 
 bool bad_shape(int steps, int N, int H) {
-  return steps < 1 || N < 1 || N > 256 || H < 1 || H > 512;
+  return steps < 1 || N < 1 || H < 1 || (long long)N * 4 * H > 0x7fffffffLL;
 }
 
 bool aligned16(std::initializer_list<const void*> ps) {
@@ -1376,10 +1514,11 @@ bool aligned16(std::initializer_list<const void*> ps) {
   return (bits & 15) == 0;
 }
 
-// What the routes take: round_h only with f32 storage (0, the first grid
+// What the routes take: round_h (0-2) only with f32 storage (0, the first grid
 // design); route 1 (clusters) bf16 with H in {64, 128, 256}.
 bool bad_route(int is_bf16, int route, int round_h, int H) {
-  if (route < 0 || route > 1 || (round_h && (is_bf16 || route == 1))) return true;
+  if (route < 0 || route > 1 || round_h < 0 || round_h > 2 || (round_h && (is_bf16 || route == 1)))
+    return true;
   return route == 1 && (!is_bf16 || (H != 64 && H != 128 && H != 256));
 }
 
@@ -1391,16 +1530,18 @@ extern "C" {
 // Device pointers to contiguous tensors of one element type (bf16 if is_bf16,
 // else f32): xp [T, N, 4H], whh [H, 4H], h0 and c0 [N, H]; ys [T, N, H], cs
 // [T, N, H] or null, hT and cT [N, H] are written. route 0 is the cooperative
-// grid design (bar: two zeroed uint32; round_h rounds h to bf16 before the
-// product, for f32 storage of a bf16 w_hh), route 1 the cluster route, which
-// takes bf16 with H in {64, 128, 256} and 16-byte aligned xp, whh and h0, and
-// refuses anything else. plan_out, if not null, receives {blocks, rows per
-// thread, chunk, shared bytes, blocks per SM} (route 0) or {blocks, cluster
-// size, rows per cluster, shared bytes, clusters the card holds at once}
-// (route 1).
+// grid design (bar: two zeroed uint32; st: f32 scratch [2, N, H]; round_h 1
+// or 2 rounds h to bf16 or f16 before the product, for f32 storage of a bf16
+// or f16 w_hh), route
+// 1 the cluster route, which takes bf16 with H in {64, 128, 256} and 16-byte
+// aligned xp, whh and h0, and refuses anything else. plan_out, if not null,
+// receives {blocks, rows per thread, chunk, shared bytes, blocks per SM, tiles
+// per block, w_hh in shared memory (1) or read from L2 (0)} (route 0) or
+// {blocks, cluster size, rows per cluster, shared bytes, clusters the card
+// holds at once} (route 1).
 int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const void* whh,
                   const void* h0, const void* c0, void* ys, void* cs, void* hT, void* cT,
-                  void* bar, int steps, int N, int H, int* plan_out, void* stream) {
+                  void* bar, void* st, int steps, int N, int H, int* plan_out, void* stream) {
   if (bad_shape(steps, N, H) || bad_route(is_bf16, route, round_h, H))
     return (int)cudaErrorInvalidValue;
   if (route == 1 && !aligned16({xp, whh, h0})) return (int)cudaErrorInvalidValue;
@@ -1414,6 +1555,7 @@ int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const voi
   a.hT = hT;
   a.cT = cT;
   a.bar = static_cast<unsigned int*>(bar);
+  a.st = static_cast<float*>(st);
   a.steps = steps;
   a.N = N;
   a.H = H;
@@ -1428,18 +1570,15 @@ int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const voi
 // forward (with the cell stream); dys [T, N, H]; dhT and dcT [N, H] or null
 // (zero). da [T, N, 4H] f32 (d x_proj in f32), dh0 and dc0 [N, H] are written,
 // and dxp [T, N, 4H] in the storage type unless it is null (f32, where da is
-// d x_proj itself). route 0 is the cooperative grid design (bar: two zeroed
-// uint32; round_h as in the forward), route 1 the cluster route, which takes
-// bf16 with H in {64, 128, 256} and 16-byte aligned whh, ys and h0, and
-// refuses anything else.
-// plan_out receives {blocks, rows per thread, chunk, shared bytes, blocks per
-// SM} (route 0) or {blocks, cluster size, rows per cluster, shared bytes,
-// clusters the card holds at once} (route 1).
+// d x_proj itself). route 0 is the cooperative grid design (bar, st and
+// round_h as in the forward), route 1 the cluster route, which takes bf16
+// with H in {64, 128, 256} and 16-byte aligned whh, ys and h0, and refuses
+// anything else. plan_out as in the forward.
 int dl4j_lstm_bwd(int is_bf16, int route, int round_h, const void* xp, const void* whh,
                   const void* h0, const void* c0, const void* ys, const void* cs,
                   const void* dys, const void* dhT, const void* dcT, void* dxp, void* da,
-                  void* dh0, void* dc0, void* bar, int steps, int N, int H, int* plan_out,
-                  void* stream) {
+                  void* dh0, void* dc0, void* bar, void* st, int steps, int N, int H,
+                  int* plan_out, void* stream) {
   if (bad_shape(steps, N, H) || cs == nullptr || bad_route(is_bf16, route, round_h, H))
     return (int)cudaErrorInvalidValue;
   if (route == 1 && (!aligned16({whh, ys, h0}) || dxp == nullptr))
@@ -1459,6 +1598,7 @@ int dl4j_lstm_bwd(int is_bf16, int route, int round_h, const void* xp, const voi
   a.dh0 = dh0;
   a.dc0 = dc0;
   a.bar = static_cast<unsigned int*>(bar);
+  a.st = static_cast<float*>(st);
   a.steps = steps;
   a.N = N;
   a.H = H;

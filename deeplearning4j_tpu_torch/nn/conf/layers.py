@@ -409,10 +409,12 @@ def _weak(c: float, like: torch.Tensor) -> float:
 @dataclasses.dataclass
 class BatchNormalization(Layer):
     """Batch norm over the last (channel) axis. Training normalises with
-    the batch statistics (``ops.nn.batch_norm_train``) and moves the
-    running state by ``decay * state + (1 - decay) * batch`` in the
-    state's dtype (the parameter dtype); inference uses the running
-    state (``ops.nn.batch_norm``)."""
+    the batch statistics (``ops.nn.batch_norm_train``, or with a ReLU
+    activation ``ops.nn.batch_norm_relu_train`` where
+    ``ops.nn.FUSED_BN_RELU_BWD`` is set) and moves the running state by
+    ``decay * state + (1 - decay) * batch`` in the state's dtype (the
+    parameter dtype); inference uses the running state
+    (``ops.nn.batch_norm``)."""
 
     eps: float = 1e-5
     decay: float = 0.9
@@ -433,12 +435,20 @@ class BatchNormalization(Layer):
 
     def apply(self, params, state, x, train, generator):
         if train:
-            out, m, v = nnops.batch_norm_train(x, params["gamma"],
-                                               params["beta"], self.eps)
+            act = self.activation or "identity"
+            fused = act == "relu" and nnops.FUSED_BN_RELU_BWD
+            # the ReLU fused, with the two-pass backward that recomputes
+            # its mask (ops.nn.batch_norm_relu_train), where the caller
+            # turned it on, as the reference's flag does
+            op = nnops.batch_norm_relu_train if fused else \
+                nnops.batch_norm_train
+            out, m, v = op(x, params["gamma"], params["beta"], self.eps)
             d = self.decay
             state = {k: _weak(d, state[k]) * state[k]
                      + _weak(1 - d, b) * b.detach()
                      for k, b in (("mean", m), ("var", v))}
+            if fused:
+                return out, state
         else:
             out = nnops.batch_norm(x, params["gamma"], params["beta"],
                                    state["mean"], state["var"], self.eps)

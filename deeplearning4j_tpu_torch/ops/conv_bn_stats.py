@@ -19,8 +19,8 @@ alignment (never by retrying after a failure): ``"tc"``, the tensor-core
 implicit GEMM, for bf16 with Cin and Cout multiples of 8 (Cin of 64 for the
 3x3) on 16-byte aligned tensors; ``"wmma"``, the first bf16 design, for
 the other bf16 shapes; ``"f32"`` for float32. x and w of different
-dtypes are computed as the reference computes them, an f32 product cast
-to x's dtype, on the ``"f32"`` route.
+dtypes, and f16, are computed as the reference computes them, an f32
+product cast to x's dtype, on the ``"f32"`` route.
 
 The reference is forward-only: interpret-mode ``pallas_call`` has no
 transpose, so a gradient through these ops raises there. Here a call
@@ -147,7 +147,7 @@ def kernel_route(x, w, taps: int) -> str:
     multiples of 8 (Cin a multiple of 64 for the 3x3, so that a 64-deep K
     stage never crosses a tap), both 16-byte aligned, with fewer than 2^31
     rows; ``"wmma"`` for the other bf16 calls; ``"f32"`` otherwise
-    (float32, or mixed dtypes, computed at f32)."""
+    (float32, float16, or mixed dtypes, computed at f32)."""
     rows, _, _, cin, cout = _geometry(x, w, taps)
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         return "f32"
@@ -178,22 +178,22 @@ def conv_bn_stats_kernel(x, w, taps: int, route: str | None = None):
     (x ``[N, H, W, Cin]``, w ``[3, 3, Cin, Cout]``). Returns ``(y, mean,
     var)``. ``route`` defaults to :func:`kernel_route`; a route the call
     does not fit is refused by the kernel source. x and w of different
-    dtypes (float32 or bfloat16) are multiplied at f32 and y is cast to
-    x's dtype, as the reference's ``preferred_element_type=f32`` product
-    and ``astype(x.dtype)`` do. Raises on any argument the kernel does not
+    dtypes (float32, bfloat16 or float16), and f16 x and w, are multiplied
+    at f32 and y is cast to x's dtype, as the reference's
+    ``preferred_element_type=f32`` product and ``astype(x.dtype)`` do. Raises on any argument the kernel does not
     take, on a failed build and on a refused launch; never computes the
     result another way."""
     global launches_1x1, launches_3x3
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"the CUDA kernel needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
-    kinds = (torch.float32, torch.bfloat16)
+    kinds = (torch.float32, torch.bfloat16, torch.float16)
     if x.dtype not in kinds or w.dtype not in kinds:
-        raise TypeError(f"x and w must be float32 or bfloat16, got "
+        raise TypeError(f"x and w must be float32, bfloat16 or float16, got "
                         f"{x.dtype} and {w.dtype}")
     rows, h, wd, cin, cout = _geometry(x, w, taps)
     out_dtype = x.dtype
-    if w.dtype != x.dtype:
+    if w.dtype != x.dtype or x.dtype == torch.float16:
         x, w = x.float(), w.float()
     x = x.contiguous()
     w = w.contiguous()

@@ -11,7 +11,14 @@ iff ``i >= j``.
   for the tests.
 - :func:`flash_attention_fwd` and :func:`flash_attention_bwd`: the
   hand-written Hopper kernels of ``csrc/flash_attention.cu``, joined into
-  one differentiable op by :class:`FlashAttention`.
+  one differentiable op by :class:`FlashAttention`. The kernels are built
+  for head dims 32, 64, 96 and 128 (bf16 on the tensor cores, f32 on the
+  CUDA cores) and 256 (f32); the wrappers take any head dim up to 256
+  (the largest of any config in the repo is 64; JAX's
+  ``pallas_flash_forward`` takes any), zero-padding q, k and v to the
+  next kernel tile with the softmax scale from the real head dim, and
+  slice the results back. f16, and bf16 past a head dim of 128, run the
+  f32 kernels over widened inputs, cast back.
 - :func:`attention`: the dispatcher. CPU tensors take
   :func:`blockwise_attention`, which is what the JAX dispatcher picks off
   the TPU (``:306-307``); CUDA tensors take :class:`FlashAttention`, which
@@ -46,7 +53,33 @@ _NEG_INF = -1e30  # large but finite: a fully masked row stays NaN-free
 fwd_launches = 0
 bwd_launches = 0
 
-_HEAD_DIMS = (32, 64, 96, 128)
+#: the head dims the kernels are built for: every route, and the f32
+#: route's wide tile
+KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+WIDE_HEAD_DIM = 256
+#: the dtypes the wrappers take; the kernels compute in f32 or bf16
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def kernel_layout(dtype: torch.dtype, hd: int) -> Tuple[int, torch.dtype]:
+    """``(tile, dtype)`` the kernels run a call of ``hd`` and ``dtype`` at:
+    the head dim padded to the next kernel tile, and bf16 (the tensor
+    cores, up to 128) or f32 (everything else, widened)."""
+    if not 1 <= hd <= WIDE_HEAD_DIM:
+        raise ValueError(f"the flash-attention kernels take head_dim 1 to "
+                         f"{WIDE_HEAD_DIM}, got {hd}")
+    tile = next((d for d in KERNEL_HEAD_DIMS if hd <= d), WIDE_HEAD_DIM)
+    if dtype == torch.bfloat16 and tile in KERNEL_HEAD_DIMS:
+        return tile, dtype
+    return tile, torch.float32
+
+
+def _to_kernel(t, tile: int, dtype: torch.dtype):
+    """``t`` in the kernels' dtype, zero-padded along the head dim to
+    ``tile`` (the same tensor where nothing changes)."""
+    t = t.to(dtype)
+    pad = tile - t.shape[-1]
+    return (F.pad(t, (0, pad)) if pad else t).contiguous()
 
 
 def _key_mask(mask):
@@ -153,9 +186,9 @@ def _check_layout(name: str, t, aligned: bool = True) -> None:
 
 
 def _check_kernel_args(q, k, v, mask) -> None:
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the flash-attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the flash-attention kernels take float32, "
+                        f"bfloat16 or float16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"k and v ({k.dtype}, {v.dtype}) must match q's "
                         f"dtype {q.dtype}")
@@ -167,9 +200,7 @@ def _check_kernel_args(q, k, v, mask) -> None:
     if (k.shape[0], k.shape[1], k.shape[3]) != (n, h, hd):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} in N, H or hd")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim must be a multiple of 32 up to 128, "
-                         f"got {hd}")
+    kernel_layout(q.dtype, hd)
     tensors = [("q", q), ("k", k), ("v", v)]
     if mask is not None:
         if mask.dtype != torch.float32 or tuple(mask.shape) != (n, k.shape[2]):
@@ -202,34 +233,49 @@ def flash_attention_fwd(q, k, v, mask=None, causal: bool = False
     """Launch the forward kernel on CUDA tensors, on PyTorch's current
     stream. ``mask`` is f32 ``[N, Tk]`` or None. Returns ``out`` (q's
     shape and dtype) and the row statistics f32 ``[2, N*H, Tq]`` (row
-    max, row sum) for :func:`flash_attention_bwd`. Raises on any argument
-    the kernel does not take, on a failed build and on a refused launch;
-    never computes the result another way."""
+    max, row sum) for :func:`flash_attention_bwd`. A head dim or dtype
+    the kernels are not built for runs on the :func:`kernel_layout`
+    (zero-padded, widened) copies. Raises on any argument the kernel does
+    not take, on a failed build and on a refused launch; never computes
+    the result another way."""
     global fwd_launches
     _check_kernel_args(q, k, v, mask)
     n, h, tq, hd = q.shape
-    out = torch.empty_like(q)
+    tile, kdt = kernel_layout(q.dtype, hd)
+    qk, kk, vk = (_to_kernel(t, tile, kdt) for t in (q, k, v))
+    out = torch.empty_like(qk)
     stats = torch.empty((2, n * h, tq), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dl4j_flash_attention_fwd(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _mask_ptr(mask), out.data_ptr(), stats.data_ptr(),
-            n, h, tq, k.shape[2], hd, 1.0 / math.sqrt(hd), int(causal), stream)
+            int(kdt == torch.bfloat16), qk.data_ptr(), kk.data_ptr(),
+            vk.data_ptr(), _mask_ptr(mask), out.data_ptr(), stats.data_ptr(),
+            n, h, tq, k.shape[2], tile, 1.0 / math.sqrt(hd), int(causal),
+            stream)
     _raise_on(lib, err, "forward")
     fwd_launches += 1
-    return out, stats
+    return _from_kernel(out, hd, q.dtype), stats
+
+
+def _from_kernel(t, hd: int, dtype: torch.dtype):
+    """A kernel result back in the caller's head dim and dtype."""
+    if t.shape[-1] == hd and t.dtype == dtype:
+        return t
+    return t[..., :hd].to(dtype).contiguous()
 
 
 def flash_attention_bwd(q, k, v, out, dout, stats, mask=None,
                         causal: bool = False):
     """Launch the backward kernels on CUDA tensors: ``(dq, dk, dv)`` of
     the forward's ``out`` under the upstream gradient ``dout``, from the
-    forward's row ``stats``. Raises like :func:`flash_attention_fwd`."""
+    forward's row ``stats``, in q's dtype. Runs on the
+    :func:`kernel_layout` copies as :func:`flash_attention_fwd` does.
+    Raises like :func:`flash_attention_fwd`."""
     global bwd_launches
     _check_kernel_args(q, k, v, mask)
     n, h, tq, hd = q.shape
+    dtype = q.dtype
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q ({q.dtype} "
@@ -240,20 +286,23 @@ def flash_attention_bwd(q, k, v, out, dout, stats, mask=None,
             or not stats.is_contiguous() or stats.device != q.device):
         raise ValueError(f"stats must be contiguous float32 "
                          f"{(2, n * h, tq)} on {q.device}")
+    tile, kdt = kernel_layout(q.dtype, hd)
+    q, k, v, out, dout = (_to_kernel(t, tile, kdt)
+                          for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drow = torch.empty((n * h, tq), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dl4j_flash_attention_bwd(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            int(kdt == torch.bfloat16), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _mask_ptr(mask), out.data_ptr(), dout.data_ptr(),
             stats.data_ptr(), drow.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), n, h, tq, k.shape[2], hd, 1.0 / math.sqrt(hd),
+            dv.data_ptr(), n, h, tq, k.shape[2], tile, 1.0 / math.sqrt(hd),
             int(causal), stream)
     _raise_on(lib, err, "backward")
     bwd_launches += 1
-    return dq, dk, dv
+    return tuple(_from_kernel(t, hd, dtype) for t in (dq, dk, dv))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -20,11 +20,14 @@ kernel does (``_kernel``, lstm_pallas.py:43-81).
   :func:`bwd_route` from dtypes, shape and alignment: ``"cluster"``
   (bf16 at H in {64, 128, 256}: thread-block clusters per batch tile with
   a DSMEM exchange and tensor-core products) and ``"grid"`` (the first
-  design, a cooperative launch with a grid-wide barrier, for the rest).
-  A call that mixes f32 and bf16 among its inputs (as the Pallas kernel
-  takes them) runs the grid route at f32 over widened inputs, with h
-  rounded to bf16 before the product where ``w_hh`` is bf16, and casts
-  its outputs to the plain versions' dtypes.
+  design, a cooperative launch with a grid-wide barrier, for the rest; it
+  takes any T, N and H, walking several tiles per block, or reading
+  ``w_hh`` from L2, where the card cannot hold them otherwise). A call
+  that mixes f32 and bf16 among its inputs (as the Pallas kernel takes
+  them), or holds any f16, runs the grid route at f32 over widened
+  inputs, with h rounded to ``w_hh``'s type before the product where
+  ``w_hh`` is bf16 or f16, and casts its outputs to the plain versions'
+  dtypes.
 - :class:`LSTMRecurrence` joins a forward and a backward into one
   differentiable op; its forward streams the cell states ``cs`` only when
   a gradient is needed (``collect_cell``, lstm_pallas.py:51-55, 161-164).
@@ -51,22 +54,27 @@ bwd_launches = 0
 fwd_cluster_launches = 0
 bwd_cluster_launches = 0
 
-#: the kernels' envelope (``bad_shape`` in the CUDA source)
-MAX_HIDDEN = 512
-MAX_BATCH = 256
-ENVELOPE = (f"the LSTM kernels take T >= 1, 1 <= N <= {MAX_BATCH} and "
-            f"1 <= H <= {MAX_HIDDEN}")
+#: the kernels' envelope (``bad_shape`` in the CUDA source): every size
+#: the reference's scan takes, within 32-bit offsets of a step's rows
+ENVELOPE = "the LSTM kernels take T, N, H >= 1 with N * 4H < 2^31"
 
 #: the launch plan of the last kernel call: blocks, rows per thread,
-#: chunk, shared bytes, blocks per SM (grid route); blocks, cluster size,
-#: rows per cluster, shared bytes, clusters the card holds at once
+#: chunk, shared bytes, blocks per SM, tiles per block, w_hh in shared
+#: memory (1) or read from L2 (0) (grid route); blocks, cluster size,
+#: rows per cluster, shared bytes, clusters the card holds at once, 0, 0
 #: (cluster route)
 last_plan: Tuple[int, ...] = ()
 
 #: the kernels' routes, by the number the C entries take
 ROUTES = {"grid": 0, "cluster": 1}
-#: the dtypes the kernels take, in any mix
-DTYPES = (torch.float32, torch.bfloat16)
+#: the dtypes the wrappers take, in any mix
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: the storage types the kernels compute in; other calls (f16, or f32 and
+#: bf16 mixed) run at f32 over widened inputs
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: ``round_h`` of the C entries: h rounded to ``w_hh``'s type before the
+#: product, under f32 storage
+ROUND_H = {torch.bfloat16: 1, torch.float16: 2}
 #: hidden widths of the cluster route (a block owns 32 units; clusters of
 #: H / 32 blocks, at most the portable 8)
 CLUSTER_HIDDEN = (64, 128, 256)
@@ -154,9 +162,10 @@ def _lib():
     lib = native.load("lstm_recurrence")
     if lib.dl4j_lstm_fwd.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dl4j_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i, i, i, vp, vp]
+        lib.dl4j_lstm_fwd.argtypes = [i, i, i] + [vp] * 10 + [i, i, i, vp,
+                                                              vp]
         lib.dl4j_lstm_fwd.restype = ctypes.c_int
-        lib.dl4j_lstm_bwd.argtypes = [i, i, i] + [vp] * 14 + [i, i, i, vp,
+        lib.dl4j_lstm_bwd.argtypes = [i, i, i] + [vp] * 15 + [i, i, i, vp,
                                                               vp]
         lib.dl4j_lstm_bwd.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
@@ -166,8 +175,8 @@ def _lib():
 
 def check_envelope(steps: int, n: int, hidden: int) -> None:
     """Raise ``ValueError`` naming the envelope unless the kernels take
-    this shape (conv_pallas.py:157-162 raises alike)."""
-    if steps < 1 or not 1 <= n <= MAX_BATCH or not 1 <= hidden <= MAX_HIDDEN:
+    this shape."""
+    if min(steps, n, hidden) < 1 or n * 4 * hidden >= 2 ** 31:
         raise ValueError(f"{ENVELOPE}; got T={steps}, N={n}, H={hidden}")
 
 
@@ -175,8 +184,8 @@ def _check_kernel_args(x_proj, w_hh, h0, c0) -> None:
     ts = (("x_proj", x_proj), ("w_hh", w_hh), ("h0", h0), ("c0", c0))
     for name, t in ts:
         if t.dtype not in DTYPES:
-            raise TypeError(f"the LSTM kernels take float32 or bfloat16, got "
-                            f"{name} {t.dtype}")
+            raise TypeError(f"the LSTM kernels take float32, bfloat16 or "
+                            f"float16, got {name} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if x_proj.dim() != 3 or w_hh.dim() != 2:
@@ -213,9 +222,17 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _storage(*ts) -> Optional[torch.dtype]:
     """The one dtype of the given tensors (None entries skipped), or None
-    where they mix float32 and bfloat16."""
+    where they mix dtypes."""
     dtypes = {t.dtype for t in ts if t is not None}
     return dtypes.pop() if len(dtypes) == 1 else None
+
+
+def _widened(w_hh, *ts) -> Optional[int]:
+    """None where the kernels take the call as it is (one storage type,
+    f32 or bf16); else the ``round_h`` of the widened f32 call."""
+    if _storage(w_hh, *ts) in KERNEL_DTYPES:
+        return None
+    return ROUND_H.get(w_hh.dtype, 0)
 
 
 def _cluster_fits(w_hh, storage, *aligned) -> bool:
@@ -228,9 +245,8 @@ def fwd_route(x_proj, w_hh, h0, c0=None) -> str:
     alignment alone (any device): ``"cluster"`` where ``x_proj``, ``w_hh``
     and ``h0`` (and ``c0``, where given) are all bf16, H is in
     :data:`CLUSTER_HIDDEN` and ``x_proj``, ``w_hh`` and ``h0`` are 16-byte
-    aligned (the route's 16-byte copies), any T >= 1 and N in the
-    envelope; ``"grid"`` otherwise (float32, mixed dtypes, other
-    widths)."""
+    aligned (the route's 16-byte copies), any T and N; ``"grid"``
+    otherwise (float32, float16, mixed dtypes, other widths)."""
     storage = _storage(x_proj, w_hh, h0, c0)
     return ("cluster" if _cluster_fits(w_hh, storage, x_proj, w_hh, h0)
             else "grid")
@@ -241,10 +257,20 @@ def bwd_route(x_proj, w_hh, h0, ys, c0=None) -> str:
     alignment alone (any device): ``"cluster"`` for bf16 ``x_proj``,
     ``w_hh``, ``h0`` and ``ys`` (and ``c0``, where given) with H in
     :data:`CLUSTER_HIDDEN` and ``w_hh``, ``h0`` and ``ys`` 16-byte aligned
-    (the route's 16-byte copies), any T >= 1 and N in the envelope;
-    ``"grid"`` otherwise (float32, mixed dtypes, other widths)."""
+    (the route's 16-byte copies), any T and N; ``"grid"`` otherwise
+    (float32, float16, mixed dtypes, other widths)."""
     storage = _storage(x_proj, w_hh, h0, ys, c0)
     return "cluster" if _cluster_fits(w_hh, storage, w_hh, h0, ys) else "grid"
+
+
+def _grid_scratch(route: str, n: int, hidden: int, device):
+    """The grid route's barrier words and its f32 state scratch ``[2, N,
+    H]`` (used where a block walks several tiles); None, None for the
+    cluster route."""
+    if route != "grid":
+        return None, None
+    return (torch.zeros(2, dtype=torch.int32, device=device),
+            torch.empty(2 * n * hidden, dtype=torch.float32, device=device))
 
 
 def _route_number(route: str) -> int:
@@ -260,18 +286,18 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
     stream: ``(ys, hT, cT)``, plus ``cs`` when ``collect_cell``, all in
     ``x_proj``'s dtype. ``route`` (default :func:`fwd_route`'s) forces a
     route; the C entry refuses one the call does not fit. A call that
-    mixes f32 and bf16 runs the grid route at f32 over widened inputs
-    (h rounded to bf16 before the product where ``w_hh`` is bf16) and
-    casts its outputs. Raises on any argument the kernel does not take
+    mixes f32 and bf16, or holds any f16, runs the grid route at f32 over
+    widened inputs (h rounded to ``w_hh``'s type before the product where
+    ``w_hh`` is bf16 or f16) and casts its outputs. Raises on any argument the kernel does not take
     (``ValueError`` naming the envelope outside it), on a failed build and
     on a refused launch; never computes the result another way."""
     global fwd_launches, fwd_cluster_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
     out_dtype = x_proj.dtype
-    round_h = 0
-    if _storage(x_proj, w_hh, h0, c0) is None:
-        round_h = int(w_hh.dtype == torch.bfloat16)
+    round_h = _widened(w_hh, x_proj, h0, c0)
+    if round_h is not None:
         x_proj, w_hh, h0, c0 = (t.float() for t in (x_proj, w_hh, h0, c0))
+    round_h = round_h or 0
     route = fwd_route(x_proj, w_hh, h0, c0) if route is None else route
     number = _route_number(route)
     steps, n, _ = x_proj.shape
@@ -280,10 +306,8 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
                      device=x_proj.device)
     cs = torch.empty_like(ys) if collect_cell else None
     hT, cT = torch.empty_like(h0), torch.empty_like(c0)
-    # the grid route's barrier words (the cluster route has none)
-    bar = (torch.zeros(2, dtype=torch.int32, device=x_proj.device)
-           if route == "grid" else None)
-    plan = (ctypes.c_int * 5)()
+    bar, state = _grid_scratch(route, n, hidden, x_proj.device)
+    plan = (ctypes.c_int * 7)()
     lib = _lib()
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
@@ -291,7 +315,7 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
             int(x_proj.dtype == torch.bfloat16), number, round_h,
             x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             ys.data_ptr(), _ptr(cs), hT.data_ptr(), cT.data_ptr(), _ptr(bar),
-            steps, n, hidden, plan, stream)
+            _ptr(state), steps, n, hidden, plan, stream)
     _raise_on(lib, err, f"forward ({route} route)")
     fwd_launches += 1
     fwd_cluster_launches += route == "cluster"
@@ -307,7 +331,8 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     the kernel's f32 ``da``: ``(d x_proj, d w_hh, dh0, dc0)`` in the primal
     dtypes. ``dhT`` / ``dcT`` of None are zero. ``route`` (default
     :func:`bwd_route`'s) forces a route; the C entry refuses one the call
-    does not fit. Mixed dtypes run as in :func:`lstm_recurrence_fwd`.
+    does not fit. Mixed dtypes and f16 run as in
+    :func:`lstm_recurrence_fwd`.
     Raises like :func:`lstm_recurrence_fwd`."""
     global bwd_launches, bwd_cluster_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
@@ -326,10 +351,10 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
                              f"{tuple(h0.shape)} on {h0.device}")
     primal = [t.dtype for t in (x_proj, w_hh, h0, c0)]
     ins = [x_proj, w_hh, h0, c0, ys, cs, dys, dhT, dcT]
-    round_h = 0
-    if _storage(*ins) is None:
-        round_h = int(w_hh.dtype == torch.bfloat16)
+    round_h = _widened(w_hh, x_proj, h0, c0, ys, cs, dys, dhT, dcT)
+    if round_h is not None:
         ins = [None if t is None else t.float() for t in ins]
+    round_h = round_h or 0
     x_proj, w_hh, h0, c0, ys, cs, dys, dhT, dcT = ins
     route = bwd_route(x_proj, w_hh, h0, ys) if route is None else route
     number = _route_number(route)
@@ -337,9 +362,8 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     da = torch.empty(x_proj.shape, dtype=torch.float32, device=x_proj.device)
     dxp = da if x_proj.dtype == torch.float32 else torch.empty_like(x_proj)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    bar = (torch.zeros(2, dtype=torch.int32, device=x_proj.device)
-           if route == "grid" else None)
-    plan = (ctypes.c_int * 5)()
+    bar, state = _grid_scratch(route, n, hidden, x_proj.device)
+    plan = (ctypes.c_int * 7)()
     lib = _lib()
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
@@ -349,8 +373,8 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
             w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
             cs.data_ptr(), dys.data_ptr(), _ptr(dhT), _ptr(dcT),
             None if dxp is da else dxp.data_ptr(), da.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(), _ptr(bar), steps, n, hidden,
-            plan, stream)
+            dh0.data_ptr(), dc0.data_ptr(), _ptr(bar), _ptr(state), steps, n,
+            hidden, plan, stream)
     _raise_on(lib, err, f"backward ({route} route)")
     bwd_launches += 1
     bwd_cluster_launches += route == "cluster"

@@ -4,9 +4,10 @@
 Ported: :func:`conv2d` (``:36-79``), the four pools (``:198-253``),
 :func:`global_avg_pool` (``:370-373``), :func:`batch_norm` (``:383-387``),
 :func:`batch_norm_train` with its shifted one-pass statistics
-(``:390-428``), :func:`lstm_layer` (``:592-651``) and :func:`dropout`
-(``:558-564``); every one but the last two is registered under its JAX
-name. Layouts stay the JAX package's, so a parameter tree from the JAX
+(``:390-428``), :func:`batch_norm_relu_train` with its two-pass backward
+(``:431-531``; both through ``ops.batch_norm``), :func:`lstm_layer`
+(``:592-651``) and :func:`dropout` (``:558-564``); every one but the last
+two is registered under its JAX name. Layouts stay the JAX package's, so a parameter tree from the JAX
 side loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
 ``[kh, kw, C_in, C_out]``; ``x`` ``[N, T, in]``, ``w_ih`` ``[in, 4H]``,
 ``w_hh`` ``[H, 4H]``, ``b`` ``[4H]`` with gates i, f, g, o.
@@ -18,6 +19,10 @@ Pallas kernel in the reference. An NHWC tensor permuted to NCHW is a
 copy. ``lax``'s SAME padding puts the odd pixel on the high side, which
 the library's symmetric ``padding=`` cannot say: such a pad is applied
 with ``F.pad`` (``-inf`` for max pooling) before an unpadded call.
+Integer inputs keep ``jnp``'s result types: max and sum pools stay in the
+integer dtype (their windows taken by ``unfold``, since the library's
+pools take no integers), average and p-norm pools and the global mean
+give float32.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops import batch_norm as bn
 from deeplearning4j_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 from deeplearning4j_tpu_torch.ops.registry import register_op
 
@@ -123,16 +129,31 @@ def _window(kernel, strides):
     return k, (_pair(strides) if strides is not None else k)
 
 
+def _int_windows(x, k, s, pads, value=0):
+    """Each window of the padded integer ``x`` as the two trailing axes:
+    ``[N, oh, ow, C, kh, kw]``."""
+    xp = _pad_nhwc(x, pads, value)
+    return xp.unfold(1, k[0], s[0]).unfold(2, k[1], s[1])
+
+
 def _sum_windows(x, k, s, pads):
-    """The sum over each window of the zero-padded ``x``."""
+    """The sum over each window of the zero-padded ``x``; integers sum
+    exactly in their own dtype, as ``lax.reduce_window``'s add does."""
+    if not x.is_floating_point():
+        return _int_windows(x, k, s, pads).sum(dim=(-2, -1), dtype=x.dtype)
     return _nhwc(F.avg_pool2d(_nchw(_pad_nhwc(x, pads)), k, s,
                               divisor_override=1))
 
 
 @register_op("maxpool2d")
 def maxpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    """The window max; padding takes no part (``-inf``, or an integer
+    dtype's minimum, where the reference's ``-inf`` init converts)."""
     k, s = _window(kernel, strides)
     pads = _spatial_pads(_pool_pad(padding), x, k, s)
+    if not x.is_floating_point():
+        low = torch.iinfo(x.dtype).min
+        return _int_windows(x, k, s, pads, low).amax(dim=(-2, -1))
     return _nhwc(F.max_pool2d(_nchw(_pad_nhwc(x, pads, float("-inf"))), k,
                               s))
 
@@ -143,19 +164,27 @@ def sumpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
     return _sum_windows(x, k, s, _spatial_pads(_pool_pad(padding), x, k, s))
 
 
+def _true_div(summed, count):
+    """``jnp``'s ``/``: an integer sum becomes float32 before dividing."""
+    if not summed.is_floating_point():
+        summed = summed.to(torch.float32)
+    return summed / count
+
+
 @register_op("avgpool2d")
 def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
     """The window mean; with padding, over the window's real pixels only
-    (the reference divides by the edge-clipped window sizes)."""
+    (the reference divides by the edge-clipped window sizes). An integer
+    x sums exactly, then divides in float32, as ``jnp`` does."""
     k, s = _window(kernel, strides)
     pad = _pool_pad(padding)
     pads = _spatial_pads(pad, x, k, s)
     summed = _sum_windows(x, k, s, pads)
     if pad == "VALID":
-        return summed / (k[0] * k[1])
+        return _true_div(summed, k[0] * k[1])
     ones = torch.ones((1, x.shape[1], x.shape[2], 1), dtype=x.dtype,
                       device=x.device)
-    return summed / _sum_windows(ones, k, s, pads)
+    return _true_div(summed, _sum_windows(ones, k, s, pads))
 
 
 @register_op("pnormpool2d")
@@ -163,11 +192,17 @@ def pnormpool2d(x, kernel=(2, 2), strides=None, padding="VALID", p=2):
     k, s = _window(kernel, strides)
     summed = _sum_windows(torch.abs(x) ** p, k, s,
                           _spatial_pads(_pool_pad(padding), x, k, s))
+    if not summed.is_floating_point():
+        summed = summed.to(torch.float32)
     return summed ** (1.0 / p)
 
 
 @register_op("global_avg_pool")
 def global_avg_pool(x, spatial_axes=(1, 2)):
+    """The mean over ``spatial_axes``; an integer x in float32, as
+    ``jnp.mean`` promotes it."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
     return torch.mean(x, dim=tuple(spatial_axes))
 
 
@@ -180,36 +215,35 @@ def batch_norm(x, gamma, beta, mean, var, eps=1e-5):
     return (x - mean) * inv * gamma + beta
 
 
-def _bn_stats(x, axes):
-    """One-pass f32 batch statistics over ``axes``: ``(mean, var)``.
-
-    The reference's formula: a per-channel shift (the first sample,
-    outside the gradient as ``stop_gradient`` keeps it) keeps
-    ``E[d^2] - E[d]^2`` free of cancellation where the mean is large
-    against the spread."""
-    xf = x.float()
-    shift = xf[tuple(0 for _ in axes)].detach()
-    d = xf - shift
-    md = torch.mean(d, dim=axes)
-    v = torch.mean(d * d, dim=axes) - md * md
-    return shift + md, torch.maximum(v, v.new_zeros(()))
-
-
 @register_op("batch_norm_train")
 def batch_norm_train(x, gamma, beta, eps=1e-5, axes=None):
     """Training-mode batch norm: ``(y, batch_mean, batch_var)``, the
     statistics over ``axes`` (default: all but the last, the channel
-    axis) in f32, scale and shift cast to x's dtype before the
-    multiply-add, mean and variance returned in x's dtype. The gradient
-    is autograd's through the same formula, as the reference's is
-    ``jax.grad``'s."""
-    if axes is None:
-        axes = tuple(range(x.dim() - 1))
-    m, v = _bn_stats(x, tuple(axes))
-    scale = torch.rsqrt(v + eps) * gamma.float()
-    shift = beta.float() - m * scale
-    y = x * scale.to(x.dtype) + shift.to(x.dtype)
-    return y, m.to(x.dtype), v.to(x.dtype)
+    axis) in f32 with the reference's shifted one-pass formula, scale and
+    shift cast to x's dtype before the multiply-add, mean and variance
+    returned in x's dtype. On CPU tensors the plain formula, whose
+    gradient is autograd's as the reference's is ``jax.grad``'s; on CUDA
+    tensors the kernels of ``ops.batch_norm``, whose backward gives the
+    same gradients, those reaching the returned statistics included."""
+    return bn.batch_norm_train(x, gamma, beta, eps, axes)
+
+
+#: take ``batch_norm_relu_train`` in ``BatchNormalization`` layers with a
+#: ReLU (the reference's ``FUSED_BN_RELU_BWD``, which it reads from
+#: ``DL4J_TPU_FUSED_BN_RELU``); the port reads no environment variable,
+#: so the caller sets this attribute
+FUSED_BN_RELU_BWD = False
+
+
+@register_op("batch_norm_relu_train")
+def batch_norm_relu_train(x, gamma, beta, eps=1e-5, axes=None):
+    """Training-mode batch norm with the ReLU fused: ``(relu(y),
+    batch_mean, batch_var)``, the statistics detached (the reference's
+    ``stop_gradient``: they feed only the running averages). The
+    backward is the reference's two-pass ``custom_vjp``, which recomputes
+    the ReLU mask from x: the plain version on CPU tensors, kernel (c) on
+    CUDA tensors."""
+    return bn.batch_norm_train(x, gamma, beta, eps, axes, relu=True)
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):

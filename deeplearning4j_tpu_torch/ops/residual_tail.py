@@ -5,7 +5,9 @@
 ``relu((x - mean) * rsqrt(var + eps) * gamma + beta + res)`` in one pass
 over ``[..., C]``: x and res each in f32 or bf16, in any mix (each is
 widened to f32 before the arithmetic, as ``_k_tail`` casts them), the
-per-channel vectors in f32, the output in x's dtype.
+per-channel vectors in f32, the output in x's dtype. f16 (x or res) runs
+the kernel's f32 instance over widened copies, the output cast back: the
+arithmetic is f32 either way, so only the final rounding is x's.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 take :func:`residual_tail_reference` (``_ref_formula``,
@@ -61,13 +63,14 @@ def residual_tail_kernel(x, res, mean, var, gamma, beta, eps=1e-5):
     current stream. x and res may differ in dtype (f32 or bf16 each: the
     kernel is instantiated for each pair); the output is in x's dtype. The
     per-channel vectors are taken as f32 (as ``_tail_kernel`` casts them).
+    An f16 x or res is widened to f32 first and the output cast back.
     Raises on any argument the kernel does not take, on a failed build and
     on a refused launch; never computes the result another way."""
     global launches
-    kinds = (torch.float32, torch.bfloat16)
+    kinds = (torch.float32, torch.bfloat16, torch.float16)
     if x.dtype not in kinds or res.dtype not in kinds:
-        raise TypeError(f"x and res must each be float32 or bfloat16, got "
-                        f"{x.dtype} and {res.dtype}")
+        raise TypeError(f"x and res must each be float32, bfloat16 or "
+                        f"float16, got {x.dtype} and {res.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{x.device}")
@@ -84,6 +87,9 @@ def residual_tail_kernel(x, res, mean, var, gamma, beta, eps=1e-5):
         raise ValueError(f"C must be in 1..{MAX_CHANNELS}, got {c}")
     if any(t.device != x.device for t in (res, *vecs)):
         raise ValueError("all tensors must be on one device")
+    out_dtype = x.dtype
+    if torch.float16 in (x.dtype, res.dtype):
+        x, res = x.float(), res.float()
     x = x.contiguous()
     res = res.contiguous()
     out = torch.empty_like(x)
@@ -100,7 +106,7 @@ def residual_tail_kernel(x, res, mean, var, gamma, beta, eps=1e-5):
         raise RuntimeError(f"residual tail kernel launch failed: {msg} "
                            f"(cudaError {err})")
     launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 class _BnReluResidual(torch.autograd.Function):

@@ -40,6 +40,7 @@ from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
 from deeplearning4j_tpu_torch.nn.conf import (
     ConvolutionLayer, DenseLayer, InputType, MultiLayerConfiguration,
     NeuralNetConfiguration, OutputLayer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.ndarray import Nd4j
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops.registry import get_op
 from deeplearning4j_tpu_torch.params import mln_params_from_numpy
@@ -136,6 +137,52 @@ def test_pool_matches_jax(op, ks, pad, size):
     want = getattr(jn, op)(x, k, s, pad)
     got = get_op(op)(torch.from_numpy(x), k, s, pad)
     _close(got, want, F32_TOL, op)
+
+
+#: integer pools by name (C8): op, padding
+INT_POOLS = [(op, pad) for op in ("maxpool2d", "avgpool2d", "sumpool2d",
+                                  "pnormpool2d")
+             for pad in ("SAME", "VALID")]
+
+
+@pytest.mark.parametrize("op, pad", INT_POOLS,
+                         ids=[f"{o}-{p}" for o, p in INT_POOLS])
+def test_int_pools_match_jax(op, pad):
+    """int32 NHWC input (C8): the result dtype is the JAX op's (int32 for
+    max and sum pools, float32 for average and p-norm); integer results
+    equal JAX's exactly (the sums are exact), float32 ones within one
+    f32 rounding (2^-23 relative: XLA may take a division by a constant
+    as a product with its reciprocal, and ``** 0.5`` as a square root)."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops import nn as jn
+
+    x = np.random.RandomState(3).randint(-50, 50, (2, 7, 8, 3)).astype(
+        np.int32)
+    want = getattr(jn, op)(jnp.asarray(x), 3, 2, pad)
+    got = Nd4j.exec(op, torch.from_numpy(x), 3, 2, pad)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    if got.is_floating_point():
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2.0 ** -23, atol=0)
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_int_global_avg_pool_matches_jax():
+    """int32 (C8): a float32 mean, within one f32 rounding of JAX's (XLA
+    divides by the count as a product with its reciprocal)."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops import nn as jn
+
+    x = np.random.RandomState(4).randint(-50, 50, (3, 4, 5, 6)).astype(
+        np.int32)
+    want = jn.global_avg_pool(jnp.asarray(x))
+    got = get_op("global_avg_pool")(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and str(want.dtype) == "float32"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2.0 ** -23,
+                               atol=0)
 
 
 def test_stem_pads_match_jax():
@@ -330,6 +377,73 @@ def test_bf16_batch_norm_layer_matches_jax_bit_for_bit(seed):
         assert gstate[k].dtype == torch.bfloat16 and wstate[k].dtype \
             == jnp.bfloat16
         np.testing.assert_array_equal(_f32(gstate[k]), _f32(wstate[k]), k)
+
+
+def _set_fused(jax_on: bool, port_on: bool):
+    """Set ``FUSED_BN_RELU_BWD`` in the JAX package and the port; returns
+    the pair it replaced."""
+    from deeplearning4j_tpu.ops import nn as jn
+    from deeplearning4j_tpu_torch.ops import nn as tn
+
+    prev = (jn.FUSED_BN_RELU_BWD, tn.FUSED_BN_RELU_BWD)
+    jn.FUSED_BN_RELU_BWD, tn.FUSED_BN_RELU_BWD = jax_on, port_on
+    return prev
+
+
+def test_fused_bn_relu_layer_matches_jax(monkeypatch):
+    """``BatchNormalization(activation="relu")`` with
+    ``FUSED_BN_RELU_BWD`` on in both packages takes
+    ``batch_norm_relu_train`` in both; the output, the running state and
+    the gradients of ``sum(out * r)`` for x, gamma and beta follow JAX's
+    within the batch norm's f32 tolerances (module docstring; mean 0.5,
+    spread 1)."""
+    import jax
+    import jax.numpy as jnp
+    from deeplearning4j_tpu.nn.conf import layers as jl
+    from deeplearning4j_tpu.ops import nn as jn
+    from deeplearning4j_tpu_torch.ops import nn as tn
+
+    calls = []
+    for mod, tag in ((jn, "jax"), (tn, "port")):
+        fn = mod.batch_norm_relu_train
+        monkeypatch.setattr(mod, "batch_norm_relu_train",
+                            lambda *a, _f=fn, _t=tag, **k: calls.append(_t)
+                            or _f(*a, **k))
+    prev = _set_fused(True, True)
+    try:
+        jlayer, layer = _layer_pair(jl.BatchNormalization(activation="relu"))
+        rs = np.random.RandomState(8)
+        c = 6
+        x = (rs.randn(4, 5, 5, c) + 0.5).astype(np.float32)
+        r = rs.randn(4, 5, 5, c).astype(np.float32)
+        jp = {"gamma": (rs.rand(c) + 0.5).astype(np.float32),
+              "beta": rs.randn(c).astype(np.float32)}
+        js = {"mean": rs.randn(c).astype(np.float32),
+              "var": (rs.rand(c) + 0.5).astype(np.float32)}
+
+        def jloss(x, p):
+            out, state = jlayer.apply(p, js, x, True, None)
+            return jnp.sum(out * r), (out, state)
+
+        (_, (want, wstate)), (jgx, jgp) = jax.value_and_grad(
+            jloss, argnums=(0, 1), has_aux=True)(x, jp)
+        tx = torch.from_numpy(x).requires_grad_(True)
+        tp = {k: torch.from_numpy(v).requires_grad_(True)
+              for k, v in jp.items()}
+        got, gstate = layer.apply(tp, {k: torch.from_numpy(v) for k, v in
+                                       js.items()}, tx, True, None)
+        (got * torch.from_numpy(r)).sum().backward()
+    finally:
+        _set_fused(*prev)
+    assert calls == ["jax", "port"]
+    _close(got, want, F32_TOL, "out")
+    for k in wstate:
+        _close(gstate[k], wstate[k], 1e-6, f"state {k}")
+    for t, w, what in ((tx.grad, jgx, "dx"), (tp["gamma"].grad,
+                                               jgp["gamma"], "dgamma"),
+                       (tp["beta"].grad, jgp["beta"], "dbeta")):
+        err = float(np.abs(_f32(t) - _f32(w)).max())
+        assert err <= 2e-6 * 1.5 * float(np.abs(_f32(w)).max()), (what, err)
 
 
 def test_masked_global_pooling_names_its_roadmap_item():
@@ -578,3 +692,61 @@ def test_cut_resnet_card_matches_cpu(card):
         for n in tree_h:
             for k in tree_h[n]:
                 _close(tree_c[n][k], tree_h[n][k], 1e-5, f"{n}/{k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op, pad", INT_POOLS,
+                         ids=[f"{o}-{p}" for o, p in INT_POOLS])
+def test_int_pools_card_matches_cpu(card, op, pad):
+    """int32 pools on the card (C8): the CPU's dtype and values (integer
+    results exactly, float32 ones within one f32 rounding)."""
+    x = torch.from_numpy(np.random.RandomState(6).randint(
+        -50, 50, (4, 17, 16, 8)).astype(np.int32))
+    got = get_op(op)(x.to(card), 3, 2, pad).cpu()
+    want = get_op(op)(x, 3, 2, pad)
+    assert got.dtype == want.dtype
+    if want.is_floating_point():
+        torch.testing.assert_close(got, want, rtol=2.0 ** -23, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_bn_relu_layer_card_matches_cpu(card):
+    """The fused layer on the card runs the batch-norm kernels (one
+    statistics, one apply and one backward launch) and matches the CPU
+    at f32: output, running state and gradients within 1e-5 of max(1,
+    |value|)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+    from deeplearning4j_tpu_torch.ops import nn as tn
+
+    rs = np.random.RandomState(9)
+    c = 32
+    arrays = [(rs.randn(8, 14, 14, c) + 0.5).astype(np.float32),
+              (rs.rand(c) + 0.5).astype(np.float32),
+              rs.randn(c).astype(np.float32)]
+    r = rs.randn(8, 14, 14, c).astype(np.float32)
+    layer = BatchNormalization(activation="relu")
+    prev = tn.FUSED_BN_RELU_BWD
+    tn.FUSED_BN_RELU_BWD = True
+    res = []
+    try:
+        for dev in (card, "cpu"):
+            x, g, b = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                       for a in arrays)
+            state = {"mean": torch.zeros(c, device=dev),
+                     "var": torch.ones(c, device=dev)}
+            before = (bn.stats_launches, bn.apply_launches, bn.bwd_launches)
+            out, st = layer.apply({"gamma": g, "beta": b}, state, x, True,
+                                  None)
+            (out * torch.from_numpy(r).to(dev)).sum().backward()
+            launched = tuple(a - p for a, p in zip(
+                (bn.stats_launches, bn.apply_launches, bn.bwd_launches),
+                before))
+            assert launched == ((1, 1, 1) if dev == card else (0, 0, 0))
+            res.append([out, st["mean"], st["var"], x.grad, g.grad, b.grad])
+    finally:
+        tn.FUSED_BN_RELU_BWD = prev
+    for i, (a, w) in enumerate(zip(*res)):
+        _close(a, w, 1e-5, f"value {i}")

@@ -280,6 +280,35 @@ def test_mixed_dtypes_match_jax_interpret(k, xdt, wdt):
     _close(v.numpy(), jv, 1e-5, 1e-4, what="var")
 
 
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("xdt, wdt", [("float16", "float16"),
+                                      ("float16", "float32")])
+def test_f16_matches_jax_interpret(k, xdt, wdt):
+    """f16 (C9): the reference's f32 product of the f16 values, y cast to
+    x's dtype; the port's plain version the same: y within one f16
+    rounding (2^-10 of max |y|), the f32 statistics as at f32."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops import conv_pallas as jcp
+
+    x, w = _case((2, 6, 6, 16), 8, seed=26, k=k)
+    xt = torch.from_numpy(x).to(getattr(torch, xdt))
+    wt = torch.from_numpy(w).to(getattr(torch, wdt))
+    y, m, v = get_op("conv1x1_bn_stats" if k == 1 else "conv3x3_bn_stats")(
+        xt, wt)
+    assert y.dtype == xt.dtype
+    jfn = jcp.conv1x1_bn_stats if k == 1 else jcp.conv3x3_bn_stats
+    jy, jm, jv = jfn(jnp.asarray(xt.float().numpy(), getattr(jnp, xdt)),
+                     jnp.asarray(wt.float().numpy(), getattr(jnp, wdt)),
+                     interpret=True)
+    assert str(jy.dtype) == xdt
+    yf = y.float().numpy()
+    _close(yf, np.asarray(jy, np.float32), 2 ** -10 * float(np.abs(yf).max()),
+           what="y")
+    _close(m.numpy(), jm, 1e-5, what="mean")
+    _close(v.numpy(), jv, 1e-5, 1e-4, what="var")
+
+
 def _bf16(shape):
     return torch.empty(shape, dtype=torch.bfloat16)
 
@@ -304,7 +333,8 @@ def test_kernel_route_by_shape(xs, ws, taps, route):
 
 @pytest.mark.parametrize("xdt, wdt", [(torch.float32, torch.float32),
                                       (torch.bfloat16, torch.float32),
-                                      (torch.float32, torch.bfloat16)])
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.float16, torch.float16)])
 def test_kernel_route_f32_and_mixed_dtypes(xdt, wdt):
     x = torch.empty((2, 56, 56, 64), dtype=xdt)
     w = torch.empty((64, 256), dtype=wdt)
@@ -537,6 +567,34 @@ def test_cuda_mixed_dtypes_are_computed_at_f32(k, xdt, wdt):
     ymax = float(ry.float().abs().max())
     ytol = 2 ** -8 if xdt == torch.bfloat16 else 2e-5
     assert float((y.cpu().float() - ry.float()).abs().max()) <= ytol * ymax
+    assert float((m.cpu() - rm).abs().max()) <= 1e-5 * ymax
+    assert float((v.cpu() - rv).abs().max()) \
+        <= 1e-4 * float((rv + rm * rm).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("xdt, wdt", [(torch.float16, torch.float16),
+                                      (torch.float16, torch.bfloat16)])
+def test_cuda_f16_is_computed_at_f32(k, xdt, wdt):
+    """f16 by name on the card (C9): the f32 route over widened copies, y
+    cast to x's dtype, against the CPU path on the same values: y within
+    one f16 rounding (2^-10 of max |y|), the statistics as at f32."""
+    _need_card()
+    x, w = _case((2, 6, 6, 64), 32, seed=27, k=k)
+    before = (cb.launches_1x1, cb.launches_3x3)
+    name = "conv1x1_bn_stats" if k == 1 else "conv3x3_bn_stats"
+    xc = torch.from_numpy(x).cuda().to(xdt)
+    wc = torch.from_numpy(w).cuda().to(wdt)
+    y, m, v = Nd4j.exec(name, xc, wc)
+    ry, rm, rv = get_op(name)(xc.cpu(), wc.cpu())
+    torch.cuda.synchronize()
+    assert y.dtype == xdt and m.dtype == torch.float32
+    launched = (cb.launches_1x1 - before[0], cb.launches_3x3 - before[1])
+    assert launched == ((1, 0) if k == 1 else (0, 1))
+    ymax = float(ry.float().abs().max())
+    assert float((y.cpu().float() - ry.float()).abs().max()) \
+        <= 2 ** -10 * ymax
     assert float((m.cpu() - rm).abs().max()) <= 1e-5 * ymax
     assert float((v.cpu() - rv).abs().max()) \
         <= 1e-4 * float((rv + rm * rm).max())

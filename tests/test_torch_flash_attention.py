@@ -172,10 +172,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("bad, match", [
-    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(dtype=torch.float64), "float32, bfloat16 or float16"),
     (dict(k_dtype=torch.bfloat16), "must match"),
-    (dict(hd=48), "multiple of 32"),
-    (dict(hd=160), "multiple of 32"),
+    (dict(hd=257), "head_dim 1 to 256"),
     (dict(k_heads=3), "N, H or hd"),
     (dict(mask_dtype=torch.int32), "key mask"),
     (dict(mask_len=5), "key mask"),
@@ -196,6 +195,120 @@ def test_kernel_argument_checks(bad, match):
                       dtype=bad.get("mask_dtype", torch.float32))
     with pytest.raises((TypeError, ValueError), match=match):
         fa._check_kernel_args(q, k, k.clone(), mask)
+
+
+@pytest.mark.parametrize("dtype, hd, tile, kernel_dtype", [
+    (torch.bfloat16, 64, 64, torch.bfloat16),
+    (torch.bfloat16, 16, 32, torch.bfloat16),
+    (torch.float32, 48, 64, torch.float32),
+    (torch.float16, 64, 64, torch.float32),
+    (torch.bfloat16, 160, 256, torch.float32),
+    (torch.float32, 256, 256, torch.float32),
+])
+def test_kernel_layout(dtype, hd, tile, kernel_dtype):
+    """The tile and dtype the kernels run a call at (C9, C10): the head
+    dim padded to the next of 32, 64, 96, 128 (256 on the f32 route), bf16
+    on the tensor cores up to 128, everything else at f32."""
+    assert fa.kernel_layout(dtype, hd) == (tile, kernel_dtype)
+    q = torch.zeros(2, 2, 8, hd, dtype=dtype)
+    # every check passes but the device's
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa._check_kernel_args(q, q.clone(), q.clone(), None)
+    padded = fa._to_kernel(torch.ones(2, 3, hd, dtype=dtype), tile,
+                           kernel_dtype)
+    assert padded.shape == (2, 3, tile) and padded.dtype == kernel_dtype
+    assert float(padded[..., hd:].abs().sum()) == 0.0
+    assert float(padded[..., :hd].sum()) == 6 * hd
+
+
+#: head dims and dtypes the kernels are not built for, which the JAX
+#: kernel takes (C9: f16; C10: head dims other than 32, 64, 96, 128)
+WIDE_CASES = [(torch.float16, 32), (torch.float32, 48), (torch.float32, 160),
+              (torch.float16, 16)]
+
+
+@pytest.mark.parametrize("dtype, hd", WIDE_CASES,
+                         ids=[f"{str(d)[6:]}-hd{h}" for d, h in WIDE_CASES])
+def test_any_head_dim_and_f16_match_jax(dtype, hd):
+    """The port's attention at these head dims and dtypes against the JAX
+    kernel through the interpreter (forward) and ``jax.vjp`` of its
+    backward (``blockwise_attention``): f32 within 1e-5, f16 within 2e-3
+    (values) and 2e-3 of max |grad| (f16 roundings at other points)."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops.flash_attention import (
+        blockwise_attention, pallas_flash_forward)
+
+    jdt = jnp.float16 if dtype == torch.float16 else jnp.float32
+    tol = 1e-5 if dtype == torch.float32 else 2e-3
+    q, k, v, m = _case(hd, 128, hd=hd, mask="padded")
+    g = np.random.default_rng(hd).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    want = pallas_flash_forward(jq, jk, jv, jnp.asarray(m), interpret=True)
+    _, vjp = jax.vjp(lambda a, b, c: blockwise_attention(
+        a, b, c, jnp.asarray(m)), jq, jk, jv)
+    jgrads = vjp(jnp.asarray(g).astype(jdt))
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+              for a in (q, k, v)]
+    out = fa.attention(*leaves, torch.from_numpy(m))
+    assert out.dtype == dtype
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=0)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(dtype))
+    for a, b in zip(got, jgrads):
+        b = np.asarray(b, np.float32)
+        assert a.dtype == dtype
+        assert float(np.abs(a.float().numpy() - b).max()) \
+            <= tol * float(np.abs(b).max())
+
+
+def test_tiny_config_flash_matches_jax():
+    """``TransformerEncoder(tiny_config(), attn_impl="flash")`` (head dim
+    16, C10) on the CPU against the JAX encoder from the same parameters:
+    the MLM loss within 1e-4 relative and every gradient within 1e-5
+    absolute plus 1e-4 relative."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.models.transformer import (
+        TransformerEncoder as JaxEncoder, tiny_config as jax_tiny)
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerEncoder, tiny_config)
+    from deeplearning4j_tpu_torch.params import FlatParams, params_from_jax
+
+    jcfg, tcfg = jax_tiny(), tiny_config()
+    jcfg.dropout = tcfg.dropout = 0.0
+    assert tcfg.head_dim == 16
+    jm = JaxEncoder(jcfg, attn_impl="flash")
+    tm = TransformerEncoder(tcfg, attn_impl="flash")
+    params = jax.device_get(jm.init_params(jax.random.key(3)))
+    ids, labels, mask_pos = _mlm_batch(tcfg.vocab_size, 3, 24, seed=5)
+    jargs = [jnp.asarray(a) for a in (ids, labels, mask_pos)]
+    jl, jg = jax.value_and_grad(lambda p: jm.mlm_loss(
+        p, *jargs, train=False))(params)
+    flat = FlatParams(params_from_jax(params, device="cpu"))
+    loss = tm.mlm_loss(flat.tree, *(torch.from_numpy(a) for a in
+                                    (ids, labels, mask_pos)), train=False)
+    assert abs(float(loss.detach()) - float(jl)) <= 1e-4 * abs(float(jl))
+    flat.gather_grads(loss)
+    want = jax.tree_util.tree_leaves(jg)
+    assert len(want) == len(flat.leaves)
+    off = 0
+    for leaf, w in zip(flat.leaves, want):
+        got = flat.grad[off:off + leaf.numel()].view(leaf.shape).numpy()
+        off += leaf.numel()
+        np.testing.assert_allclose(got, np.asarray(w), atol=1e-5, rtol=1e-4)
+
+
+def _mlm_batch(vocab, n, t, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (n, t)).astype(np.int32)
+    labels = rng.integers(0, vocab, (n, t)).astype(np.int32)
+    mask_pos = (rng.random((n, t)) < 0.25).astype(np.float32)
+    mask_pos[:, 0] = 1.0
+    return ids, labels, mask_pos
 
 
 # ------------------------------------------------------------- on the card
@@ -385,3 +498,79 @@ def test_cuda_bf16_fully_masked_row_through_the_backward(causal):
     got, want = _bf16_grads(q, k, v, m, causal, g)
     assert bool((got[1][1] == 0).all())
     _check_bf16(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, hd", WIDE_CASES + [(torch.bfloat16, 16),
+                                                    (torch.bfloat16, 160)],
+                         ids=[f"{str(d)[6:]}-hd{h}" for d, h in WIDE_CASES
+                              + [(torch.bfloat16, 16),
+                                 (torch.bfloat16, 160)]])
+def test_cuda_any_head_dim_and_f16(dtype, hd, causal):
+    """C9 and C10 on the card: f16, and head dims the kernels are not built
+    for (16, 48 and 160: zero-padded to 32, 64 and 256), forward and
+    backward through the autograd Function against autograd through the
+    f32 plain version on the same rounded inputs; f32 within 2e-5 (values)
+    and 1e-4 of max |grad|, f16 and bf16 within their rounding (2e-3 and
+    2e-2, of max |grad| for gradients). Outputs and gradients keep the
+    inputs' dtype and head dim."""
+    _cuda()
+    q, k, v, m = (x.cuda() for x in _t(*_case(hd, 77, N=2, H=3, hd=hd,
+                                                mask="padded", Tq=50)))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(hd))
+    a = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+    before = (fa.fwd_launches, fa.bwd_launches)
+    out = fa.attention(*a, m, causal)
+    got = torch.autograd.grad(out, a, g.to(dtype))
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    b = [t.to(dtype).float().requires_grad_(True) for t in (q, k, v)]
+    ref = _plain(*b, m, causal)
+    want = torch.autograd.grad(ref, b, g.to(dtype).float())
+    tol = {torch.float32: (2e-5, 1e-4), torch.float16: (2e-3, 2e-3),
+           torch.bfloat16: (2e-2, 2e-2)}[dtype]
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float((out.detach().float() - ref.detach()).abs().max()) \
+        <= tol[0]
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        assert float((x.float() - y).abs().max()) \
+            <= tol[1] * float(y.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_config_flash_trains():
+    """``TransformerEncoder(tiny_config(), attn_impl="flash")`` (head dim
+    16) trains on the card: three Adam steps through the kernels against
+    the same steps on the CPU (the plain versions) from one numpy tree,
+    losses within 1e-4 relative, parameters within 2e-5."""
+    _cuda()
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerEncoder, init_params_numpy, tiny_config)
+    from deeplearning4j_tpu_torch.params import FlatParams, params_from_jax
+
+    cfg = tiny_config()
+    cfg.dropout = 0.0
+    tree = init_params_numpy(cfg, seed=4)
+    batch = _mlm_batch(cfg.vocab_size, 4, 32, seed=6)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        model = TransformerEncoder(cfg, attn_impl="flash")
+        flat = FlatParams(params_from_jax(tree, device=dev))
+        upd = Adam(1e-3)
+        opt = upd.init_state(flat.master)
+        step = model.make_train_step(upd)
+        args = [torch.from_numpy(a).to(dev) for a in batch]
+        before = fa.fwd_launches
+        losses = [float(step(flat, opt, i, *args)) for i in range(3)]
+        launched = fa.fwd_launches - before
+        runs.append((losses, flat.master.cpu(), launched))
+    (lc, pc, launched), (lh, ph, none) = runs
+    assert launched == 3 * cfg.n_layers and none == 0
+    for a, b in zip(lc, lh):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    assert float((pc - ph).abs().max()) <= 2e-5

@@ -268,6 +268,50 @@ def test_cut_resnet_trajectory_from_a_jax_zip(tmp_path):
     _close(g.outputSingle(x), out[0], 0.0, "outputSingle")
 
 
+def test_cut_resnet_trajectory_with_the_fused_bn_relu(tmp_path, monkeypatch):
+    """``FUSED_BN_RELU_BWD`` on in both packages (set before the JAX graph
+    is built, since its step reads it at trace time): the cut ResNet from
+    a JAX zip follows the JAX loss, parameters, BN running state and
+    updater state over three steps at f32, every BN layer with a ReLU
+    through ``batch_norm_relu_train`` on both sides."""
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JCG
+    from deeplearning4j_tpu.ops import nn as jn
+    from deeplearning4j_tpu.util import ModelSerializer as JaxSerializer
+    from deeplearning4j_tpu_torch.ops import nn as tn
+
+    calls = {"jax": 0, "port": 0}
+    for mod, tag in ((jn, "jax"), (tn, "port")):
+        fn = mod.batch_norm_relu_train
+
+        def spy(*a, _f=fn, _t=tag, **k):
+            calls[_t] += 1
+            return _f(*a, **k)
+
+        monkeypatch.setattr(mod, "batch_norm_relu_train", spy)
+    prev = (jn.FUSED_BN_RELU_BWD, tn.FUSED_BN_RELU_BWD)
+    jn.FUSED_BN_RELU_BWD = tn.FUSED_BN_RELU_BWD = True
+    try:
+        jg = JCG(_jax_cut_resnet()).init()
+        x, y = _batch(seed=3)
+        jg.fit(x, y)
+        path = os.path.join(tmp_path, "resnet.zip")
+        JaxSerializer.writeModel(jg, path, save_updater=True)
+        g = ModelSerializer.restoreComputationGraph(path, device="cpu")
+        _assert_same_graph_state(g, jg)
+        x2, y2 = _batch(seed=4)
+        for _ in range(3):
+            jg.fit(x2, y2)
+            g.fit(x2, y2)
+            lj, lt = float(jg.score()), g.score()
+            assert abs(lt - lj) <= LOSS_RTOL * abs(lj), (lt, lj)
+        _assert_same_graph_state(g, jg)
+    finally:
+        jn.FUSED_BN_RELU_BWD, tn.FUSED_BN_RELU_BWD = prev
+    # the stem and two convs of each of the two blocks end in a ReLU: the
+    # port's three steps call the fused op 5 times each; JAX traced it
+    assert calls["port"] == 3 * 5 and calls["jax"] > 0
+
+
 def test_cut_resnet_trajectory_through_cg_params_from_numpy():
     import jax
     from deeplearning4j_tpu.nn.graph import ComputationGraph as JCG

@@ -318,26 +318,93 @@ def test_mixed_dtypes_match_jax(mix):
                     1e-6, name)
 
 
+def _layer_grads_against_jax(arrays, dtype, jdtype, val_tol, grad_tol):
+    """``lstm_layer`` of both packages (JAX through its Pallas kernel in
+    the interpreter) on the same numpy inputs cast to one dtype: outputs
+    within ``val_tol``, gradients of ``sum(ys * w)`` within ``grad_tol``
+    of max |grad|, each in the primal's dtype."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops.nn import lstm_layer as jax_lstm
+
+    wy = np.random.RandomState(len(arrays[0])).randn(
+        *arrays[0].shape[:2], arrays[2].shape[0]).astype(np.float32)
+
+    def jloss(*a):
+        ys, _ = jax_lstm(*a, impl="pallas")
+        return jnp.sum(ys.astype(jnp.float32) * wy), ys
+
+    (_, jys), jgrads = jax.value_and_grad(jloss, argnums=range(4),
+                                          has_aux=True)(
+        *(jnp.asarray(a).astype(jdtype) for a in arrays))
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+              for a in arrays]
+    ys, _ = tnn.lstm_layer(*leaves)
+    (ys.float() * torch.from_numpy(wy)).sum().backward()
+    assert ys.dtype == dtype
+    np.testing.assert_allclose(ys.detach().float().numpy(),
+                               np.asarray(jys, np.float32), atol=val_tol,
+                               rtol=0)
+    for name, leaf, g in zip(("x", "w_ih", "w_hh", "b"), leaves, jgrads):
+        assert leaf.grad.dtype == dtype, name
+        _assert_rel(leaf.grad.float().numpy(), np.asarray(g, np.float32),
+                    grad_tol, name)
+
+
+def test_f16_lstm_layer_matches_jax():
+    """f16 (C9): the port's plain path against the Pallas kernel at f16,
+    outputs within 1e-3 (two f16 steps below 1), gradients within 2e-3 of
+    max |grad| (f16 roundings of the sums at other points)."""
+    rs = np.random.RandomState(11)
+    n, t, f, h = 3, 8, 6, 12
+    arrays = [rs.randn(n, t, f).astype(np.float32),
+              (rs.randn(f, 4 * h) * 0.3).astype(np.float32),
+              (rs.randn(h, 4 * h) * 0.2).astype(np.float32),
+              (rs.randn(4 * h) * 0.1).astype(np.float32)]
+    import jax.numpy as jnp
+
+    _layer_grads_against_jax(arrays, torch.float16, jnp.float16, 1e-3, 2e-3)
+
+
+def test_wide_lstm_layer_matches_jax():
+    """N=300 and H=1024 (C10: the grid route's wide shapes) at f32,
+    two steps: within 1e-5 (values) and 1e-5 of max |grad|."""
+    rs = np.random.RandomState(12)
+    n, t, f, h = 300, 2, 5, 1024
+    arrays = [rs.randn(n, t, f).astype(np.float32),
+              (rs.randn(f, 4 * h) * 0.3).astype(np.float32),
+              (rs.randn(h, 4 * h) * 0.03).astype(np.float32),
+              (rs.randn(4 * h) * 0.1).astype(np.float32)]
+    import jax.numpy as jnp
+
+    _layer_grads_against_jax(arrays, torch.float32, jnp.float32, ATOL, ATOL)
+
+
 # ------------------------------------------------------------ wrapper rules
-@pytest.mark.parametrize("steps, n, h", [(0, 4, 8), (3, 0, 8), (3, 257, 8),
-                                         (3, 4, 0), (3, 4, 513)])
+@pytest.mark.parametrize("steps, n, h", [(0, 4, 8), (3, 0, 8), (-1, 4, 8),
+                                         (3, 4, 0), (3, 2 ** 20, 2 ** 10)])
 def test_envelope_is_named_outside_it(steps, n, h):
+    """The kernels take every T, N and H the reference's scan takes;
+    only empty sizes and 32-bit overflow of a step's rows are outside."""
     with pytest.raises(ValueError, match="the LSTM kernels take"):
         lr.check_envelope(steps, n, h)
 
 
 def test_envelope_edges_are_inside():
-    for shape in ((1, 1, 1), (1, 256, 512), (200, 256, 256)):
+    for shape in ((1, 1, 1), (1, 256, 512), (200, 256, 256), (3, 257, 8),
+                  (3, 4, 513), (200, 512, 1024), (2, 8, 2048)):
         lr.check_envelope(*shape)
 
 
 @pytest.mark.parametrize("bad, err", [
-    ("cpu", ValueError), ("f16", TypeError), ("mixed", ValueError),
+    ("cpu", ValueError), ("f16", ValueError), ("mixed", ValueError),
     ("noncontig", ValueError), ("shape", ValueError)])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
-    """Every refusal raises before a launch. Mixed f32 / bf16 inputs are
-    taken (the Pallas kernel takes them), so on CPU tensors that call is
-    refused for the device (ValueError); f16 is refused for its dtype."""
+    """Every refusal raises before a launch. Mixed f32 / bf16 inputs and
+    f16 are taken (the Pallas kernel takes them: the wrapper widens them
+    to f32), so on CPU tensors those calls are refused for the device
+    (ValueError)."""
     x, w, h0, c0 = _t(*_case(3, 2, 8, seed=0))
     if bad == "f16":
         x, w, h0, c0 = (a.half() for a in (x, w, h0, c0))
@@ -581,20 +648,103 @@ def test_cuda_layer_grads_match_cpu():
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
+#: grid-route shapes with N > 256 or H > 512 (C10), with where the plan
+#: keeps w_hh on the H100 (1 in shared memory, 0 read from L2)
+#: in the forward and the backward; at N=512, H=1024 the forward's 128
+#: blocks (one per unit tile, 146 KiB each) walk 4 batch tiles apiece
+WIDE_SHAPES = [((3, 257, 8), (1, 1)), ((3, 4, 513), (1, 1)),
+               ((3, 512, 1024), (1, 0)), ((2, 8, 2048), (0, 0))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 257, 8), (3, 4, 513)])
-def test_cuda_out_of_envelope_raises(shape):
+@pytest.mark.parametrize("shape, resident", WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s, _ in WIDE_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_out_of_envelope_raises(shape, resident, dtype):
+    """Wide shapes (N > 256 or H > 512) compute on the grid route, both
+    directions, against the plain versions (f32 within
+    1e-5 / 1e-4 of max |grad|, bf16 within 2e-2 of the f32 plain
+    version): blocks walk several tiles (N=512 at H=1024, whose forward
+    keeps w_hh in shared memory) or read w_hh from L2 (the backward at
+    H=1024, both at H=2048, whose w_hh no block can keep)."""
     _need_card()
     t, n, h = shape
-    x = torch.zeros(t, n, 4 * h, device="cuda")
-    w = torch.zeros(h, 4 * h, device="cuda")
-    s = torch.zeros(n, h, device="cuda")
-    before = lr.fwd_launches
-    with pytest.raises(ValueError, match="the LSTM kernels take"):
-        lr.lstm_recurrence(x, w, s, s)
-    with pytest.raises(ValueError, match="the LSTM kernels take"):
-        lr.lstm_recurrence_fwd(x, w, s, s)
-    assert lr.fwd_launches == before
+    case, ys, cs, dys, fin = _bwd_case(t, n, h, seed=n + h, dtype=dtype)
+    assert lr.fwd_route(*case) == "grid"
+    want = lr.lstm_recurrence_reference(*[a.float() for a in case],
+                                        collect_cell=True)
+    before = (lr.fwd_launches, lr.bwd_launches)
+    got = lr.lstm_recurrence(*case)
+    torch.cuda.synchronize()
+    assert lr.last_plan[6] == resident[0]
+    walks = {(3, 257, 8): 1, (3, 4, 513): 1, (3, 512, 1024): 4}.get(shape)
+    assert walks is None or lr.last_plan[5] == walks
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a.float() - b).abs().max()) <= tol
+    grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    torch.cuda.synchronize()
+    assert lr.last_plan[6] == resident[1]
+    assert (lr.fwd_launches, lr.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, grads,
+                              1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, n, h", [(3, 512, 256), (4, 300, 128),
+                                     (2, 1000, 64)])
+def test_cuda_cluster_routes_past_256_rows(t, n, h):
+    """bf16 batches past 256 rows take the cluster routes, more clusters
+    than the card holds at once (they wait for each other in no way):
+    both directions against the plain versions, within 2e-2."""
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(t, n, h, seed=n + h)
+    assert lr.fwd_route(*case) == "cluster"
+    assert lr.bwd_route(case[0], case[1], case[2], ys) == "cluster"
+    want = lr.lstm_recurrence_reference(*[a.float() for a in case],
+                                        collect_cell=True)
+    got = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert float((a.float() - b).abs().max()) <= 2e-2
+    grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    torch.cuda.synchronize()
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, grads, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("h", [40, 256])
+def test_cuda_f16_matches_plain(h, w_dtype):
+    """f16 calls (C9): x_proj and the state f16, w_hh f16 or bf16, run
+    the grid route at f32 over widened inputs with h rounded to w_hh's
+    type before the product, as the plain version rounds it; outputs and
+    gradients in the primal dtypes, values within 2e-3 (about two f16
+    steps), gradients within 2e-3 of max |grad| (f16), or one bf16 step,
+    2^-7 of it, for a bf16 w_hh's (each side rounds its f32 sum once)."""
+    _need_card()
+    f16 = torch.float16
+    x, w, h0, c0 = _t(*_case(20, 6, h, seed=h), device="cuda")
+    case = [x.to(f16), w.to(w_dtype), h0.to(f16), c0.to(f16)]
+    leaves = [a.clone().requires_grad_(True) for a in case]
+    got = lr.lstm_recurrence(*leaves)
+    want = lr.lstm_recurrence_reference(*case)
+    for a, b in zip(got, want):
+        assert a.dtype == f16
+        assert float((a.detach().float() - b.float()).abs().max()) <= 2e-3
+    g = torch.Generator(device="cuda").manual_seed(h)
+    cots = [torch.randn(o.shape, generator=g, device="cuda").to(f16)
+            for o in got]
+    torch.autograd.backward(got, cots)
+    ys, _, _, cs = lr.lstm_recurrence_reference(*case, collect_cell=True)
+    ref = lr.lstm_recurrence_backward_reference(*case, ys, cs, *cots)
+    for leaf, b in zip(leaves, ref):
+        assert leaf.grad.dtype == leaf.dtype
+        err = float((leaf.grad.float() - b.float()).abs().max())
+        tol = 2e-3 if leaf.dtype == f16 else 2.0 ** -7
+        assert err <= tol * float(b.float().abs().max())
 
 
 # ------------------------------------------- backward cluster route (card)

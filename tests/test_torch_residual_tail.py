@@ -57,6 +57,12 @@ MIXES = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
 MIX_IDS = ["x-bf16-res-f32", "x-f32-res-bf16"]
 
 
+#: (x, res) dtype pairs holding f16 (C9)
+F16_MIXES = [(torch.float16, torch.float16), (torch.float16, torch.float32),
+             (torch.float32, torch.float16)]
+F16_IDS = ["f16", "x-f16-res-f32", "x-f32-res-f16"]
+
+
 def _mixed(arrays, mix, **kw):
     out = _t(arrays, **kw)
     out[0], out[1] = out[0].to(mix[0]), out[1].to(mix[1])
@@ -131,6 +137,36 @@ class TestForward:
             assert want.dtype == jt[mix[0]]
             np.testing.assert_allclose(gotf, np.asarray(want, np.float32),
                                        rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("mix", F16_MIXES, ids=F16_IDS)
+    def test_f16_matches_jax(self, mix):
+        """f16 x or res (C9): widened to f32 for the arithmetic, the result
+        in x's dtype, as ``_ref_formula``, the off-TPU ``bn_relu_residual``
+        and the Pallas body (interpreted) compute it: within one rounding
+        of x's dtype (2^-10 of the largest value at f16, 1e-6 at f32)."""
+        import jax.numpy as jnp
+
+        from deeplearning4j_tpu.ops.residual_tail_pallas import (
+            _ref_formula, _tail_kernel, bn_relu_residual)
+
+        jt = {torch.float32: jnp.float32, torch.float16: jnp.float16}
+        args = _inputs(seed=13)
+        c = args[0].shape[-1]
+        jx = jnp.asarray(args[0]).astype(jt[mix[0]])
+        jr = jnp.asarray(args[1]).astype(jt[mix[1]])
+        got = get_op("bn_relu_residual")(*_mixed(args, mix))
+        assert got.dtype == mix[0]
+        gotf = got.float().numpy()
+        for want in (_ref_formula(jx, jr, *args[2:], 1e-5),
+                     bn_relu_residual(jx, jr, *args[2:]),
+                     _tail_kernel(jx.reshape(-1, c), jr.reshape(-1, c),
+                                  *args[2:], 1e-5,
+                                  interpret=True).reshape(jx.shape)):
+            assert want.dtype == jt[mix[0]]
+            want = np.asarray(want, np.float32)
+            tol = 1e-6 if mix[0] == torch.float32 else \
+                2 ** -10 * float(np.abs(want).max())
+            np.testing.assert_allclose(gotf, want, rtol=0, atol=tol)
 
     def test_eps_is_passed_through(self):
         from deeplearning4j_tpu.ops.residual_tail_pallas import _ref_formula
@@ -209,13 +245,16 @@ class TestRegistryDispatch:
         args = _t(_inputs(seed=8, c=4))
         with pytest.raises(ValueError, match="CUDA"):
             rt.residual_tail_kernel(*args)
-        # mixed f32 / bf16 x and res pass the dtype check (refused for the
-        # device here); f16 does not
+        # mixed f32 / bf16 x and res, and f16, pass the dtype check
+        # (refused for the device here); f64 does not
         with pytest.raises(ValueError, match="CUDA"):
             rt.residual_tail_kernel(*_mixed(_inputs(seed=8, c=4), MIXES[0]))
-        with pytest.raises(TypeError, match="float32 or bfloat16"):
+        with pytest.raises(ValueError, match="CUDA"):
             rt.residual_tail_kernel(*_mixed(_inputs(seed=8, c=4),
                                             (torch.float32, torch.float16)))
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+            rt.residual_tail_kernel(*_mixed(_inputs(seed=8, c=4),
+                                            (torch.float32, torch.float64)))
         with pytest.raises(ValueError, match="cpu or cuda"):
             rt.bn_relu_residual(*(a.to("meta") for a in args))
 
@@ -336,4 +375,25 @@ def test_cuda_mixed_dtypes_by_name(mix):
     assert got.dtype == want.dtype == mix[0]
     tol = 1e-5 if mix[0] == torch.float32 else \
         2 ** -8 * float(want32.abs().max())
+    assert float((got.float() - want32).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", F16_MIXES, ids=F16_IDS)
+def test_cuda_f16_by_name(mix):
+    """f16 x or res by name on the card (C9): the kernel's f32 instance
+    over widened copies, the output in x's dtype, within one rounding of
+    it (2^-10 of the largest value at f16, 1e-5 at f32) of the plain
+    version at f32 on the same values; one launch."""
+    _need_card()
+    args = _mixed(_inputs(seed=14), mix, device="cuda")
+    before = rt.launches
+    got = Nd4j.exec("bn_relu_residual", *args)
+    want32 = rt.residual_tail_reference(args[0].float(), args[1].float(),
+                                        *args[2:])
+    torch.cuda.synchronize()
+    assert rt.launches == before + 1
+    assert got.dtype == mix[0]
+    tol = 1e-5 if mix[0] == torch.float32 else \
+        2 ** -10 * float(want32.abs().max())
     assert float((got.float() - want32).abs().max()) <= tol
