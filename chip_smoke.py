@@ -310,9 +310,10 @@ def phase_build() -> None:
     # one row per thread (the char-LSTM shape's plan) and the backward's
     # cluster route at H=256 (both row tiles)
     marks = {"paged_attention": ("Li2E",),
-             "flash_attention": ("Li64E", "Li128E"),
+             "flash_attention": ("Li64E", "Li128E", "deep_kernel"),
              "fused_update": ("",),
-             "lstm_recurrence": ("Li1E", "cluster_kernelILi4E"),
+             "lstm_recurrence": ("Li1E", "cluster_kernelILi4E",
+                                 "wide_kernel"),
              "conv_bn_stats": ("nv_bfloat16",),
              "residual_tail": ("residual_tail_kernelI",),
              "batch_norm": ("nv_bfloat16Li8E",)}
@@ -325,9 +326,11 @@ def phase_build() -> None:
             mark = next((m for m in marks[name] if m in ln), None)
             if "Compiling entry function" in ln and mark is not None:
                 found = re.search(r"(paged_attention_kernel"
-                                  r"|flash_(?:fwd|bwd_[a-z]+)(?:_tc)?_kernel"
+                                  r"|flash_(?:fwd|bwd_[a-z]+)(?:_tc|_deep)?"
+                                  r"_kernel"
                                   r"|fused_adam_(?:vec4|scalar)"
-                                  r"|lstm_(?:fwd|bwd)(?:_cluster)?_kernel"
+                                  r"|lstm_(?:fwd|bwd)(?:_cluster|_wide)?"
+                                  r"_kernel"
                                   r"|conv_bn_stats(?:_tc)?_kernel"
                                   r"|residual_tail_kernel"
                                   r"|bn_(?:stats_partial|apply|bwd_partial"
@@ -335,8 +338,9 @@ def phase_build() -> None:
                 tc_conv = re.search(
                     r"conv_bn_stats_tc_kernelILi(\d+)ELi(\d+)E", ln)
                 cl = re.search(r"cluster_kernelILi(\d)ELi(\d)E", ln)
+                wide = "wide_kernel" in ln
                 kind = ("bf16" if "nv_bfloat16" in ln or "_tc_" in ln or cl
-                        else "f32") \
+                        or wide else "f32") \
                     + (" queries, fp8 pools" if "Fp8E4M3" in ln else "") \
                     + (", tensor cores" if any(k in ln for k in
                                                FLASH_TC_KERNELS) else "") \
@@ -346,6 +350,7 @@ def phase_build() -> None:
                     + (f", mma.sync, H {64 * int(cl.group(1))}, "
                        f"{16 * int(cl.group(2))} rows per cluster"
                        if cl else "") \
+                    + (", mma.sync, wide route" if wide else "") \
                     + (f", template <{tail.group(1)}>" if (tail := re.search(
                         r"residual_tail_kernelI(\w+?)EEv", ln)) else "")
                 info = [x.split(":", 1)[-1].strip()
@@ -361,6 +366,8 @@ def phase_build() -> None:
                            r"\bHGMMA\b", "(taps, BN)", 4)
     check_tensor_core_sass(paths["lstm_recurrence"], LSTM_TC_KERNELS,
                            r"\bHMMA\b", "(H, rows)", 6)
+    check_tensor_core_sass(paths["lstm_recurrence"], LSTM_WIDE_KERNELS,
+                           r"\bHMMA\b", "route", 1)
     # paged attention's 8-row tiles under bf16 queries (pools bf16 or fp8,
     # head_dim 32, 64, 96, 128: template arguments 1-4 and rows 8)
     check_tensor_core_sass(paths["paged_attention"], PAGED_TC_KERNELS,
@@ -376,6 +383,9 @@ CONV_TC_KERNELS = ("conv_bn_stats_tc_kernel",)
 #: the LSTM cluster routes, whose gate (forward) and dh and gate
 #: (backward) products must run on the tensor cores (HMMA in SASS)
 LSTM_TC_KERNELS = ("lstm_fwd_cluster_kernel", "lstm_bwd_cluster_kernel")
+#: the LSTM wide route (bf16, H past 256): its gate and dh products must
+#: run on the tensor cores too
+LSTM_WIDE_KERNELS = ("lstm_fwd_wide_kernel", "lstm_bwd_wide_kernel")
 #: the paged-attention kernel, whose multi-row bf16 tiles must run on the
 #: tensor cores
 PAGED_TC_KERNELS = ("paged_attention_kernel",)
@@ -1444,7 +1454,11 @@ FLASH_WIDE = ((torch.float16, 64, (2e-3, 2e-3)), (torch.float32, 16,
               (torch.bfloat16, 16, (2e-2, 2e-2)),
               (torch.float32, 48, (2e-5, 1e-4)),
               (torch.float16, 160, (2e-3, 2e-3)),
-              (torch.bfloat16, 160, (2e-2, 2e-2)))
+              (torch.bfloat16, 160, (2e-2, 2e-2)),
+              (torch.float32, 320, (2e-5, 1e-4)),
+              (torch.bfloat16, 320, (2e-2, 2e-2)),
+              (torch.float32, 512, (2e-5, 1e-4)),
+              (torch.bfloat16, 512, (2e-2, 2e-2)))
 
 
 def check_flash_wide(fa) -> None:
@@ -1491,6 +1505,20 @@ def check_flash_wide(fa) -> None:
                      f"{str(tile[1])[6:]}): forward max abs err "
                      f"{max(errs[0], errs[4]):.2e}, backward err / max "
                      f"|grad| {max(errs[1:4] + errs[5:]):.2e}")
+    # C11's head dims past 256 walk 64-column slices: their time at this
+    # check's shape, f32, beside the 256 tile's
+    for hd in (256, 512):
+        q, k, v = (torch.randn(4, HEADS, 128, hd, generator=g, device=DEVICE)
+                   for _ in range(3))
+        out, stats = fa.flash_attention_fwd(q, k, v, None, False)
+        fwd = cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, None, False),
+                      10, 2)
+        bwd = cuda_ms(lambda i: fa.flash_attention_bwd(q, k, v, out, out,
+                                                       stats), 10, 2)
+        say("flash", f"f32 hd={hd} at N=4 H={HEADS} T=128 (kernel tile "
+                     f"{fa.kernel_layout(torch.float32, hd)[0]}): forward "
+                     f"{fwd:.4f} ms, backward {bwd:.4f} ms a call (CUDA "
+                     f"events)")
 
 
 def phase_flash() -> tuple:
@@ -2037,6 +2065,7 @@ def phase_lstm_kernels() -> tuple:
     check_lstm_wide(lr)
     check_lstm_f16(lr, H)
     check_lstm_mixed(lr, H)
+    wide_rows = lstm_wide_kernels(lr)
 
     # the training shape: bf16, T=200, N=256, H=256
     T, N = LSTM_SEQ, LSTM_BATCH
@@ -2146,13 +2175,120 @@ def phase_lstm_kernels() -> tuple:
                      "launches": 0, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain[j], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib[j]})
+    return tuple(rows) + wide_rows
+
+
+#: the wide route's widths timed in phase 8 at the training batch: the JAX
+#: bench's wide char-LSTM (its row) and H=512 beside it (printed)
+LSTM_WIDE_ROWS = (1024, 512)
+
+
+def lstm_wide_kernels(lr) -> tuple:
+    """Rows of the wide route, B5 and B5 bwd at T=200, N=256, H=1024 bf16
+    (H=512 printed beside them): each direction against its plain version
+    (forward within 2e-2, backward within 2e-2 of max |grad|) and two calls
+    bit-equal; then CUDA-event times of the kernel calls (the backward's
+    with its f32 dw matmul, also timed alone), the kernels' device time
+    (profiler), the plain versions', cuDNN's (``torch.nn.LSTM``, never
+    called by the port) and the bounds."""
+    T, N = LSTM_SEQ, LSTM_BATCH
+    rows = []
+    for H in LSTM_WIDE_ROWS:
+        ins = [t.to(torch.bfloat16) for t in lstm_case(T, N, H, seed=H)]
+        g = torch.Generator(device=DEVICE).manual_seed(H + 1)
+        up = [torch.randn(shape, generator=g, device=DEVICE)
+              .to(torch.bfloat16) for shape in ((T, N, H), (N, H), (N, H))]
+        check(lr.fwd_route(*ins) == "wide", f"B5 at H={H} bf16 takes the "
+                                            f"{lr.fwd_route(*ins)} route")
+        f32 = [t.float() for t in ins]
+        want = lr.lstm_recurrence_reference(*f32, collect_cell=True)
+        got = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+        fplan = lr.last_plan
+        again = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"B5 wide H={H}: two forward calls differ")
+        ferr = max(float((a.float() - b).abs().max())
+                   for a, b in zip(got, want))
+        check(ferr <= 2e-2, f"B5 wide H={H}: forward {ferr:.3e} > 2e-2")
+        ys, cs = got[0], got[3]
+        check(lr.bwd_route(ins[0], ins[1], ins[2], ys) == "wide",
+              f"B5 bwd at H={H} bf16 not on the wide route")
+        grads = lr.lstm_recurrence_bwd(*ins, ys, cs, *up)
+        bplan = lr.last_plan
+        twice = lr.lstm_recurrence_bwd(*ins, ys, cs, *up)
+        ref = lr.lstm_recurrence_backward_reference(
+            *f32, ys.float(), cs.float(), *(t.float() for t in up))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(grads, twice)),
+              f"B5 wide H={H}: two backward calls differ")
+        babs = max(float((a.float() - b).abs().max())
+                   for a, b in zip(grads, ref))
+        brel = max(float((a.float() - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(grads, ref))
+        check(brel <= 2e-2, f"B5 bwd wide H={H}: {brel:.3e} of max |grad| "
+                            f"> 2e-2")
+
+        def fwd(i):
+            return lr.lstm_recurrence_fwd(*ins, collect_cell=True)
+
+        def bwd(i):
+            return lr.lstm_recurrence_bwd(*ins, ys, cs, *up)
+
+        kern = (cuda_ms(fwd, 10, 2), cuda_ms(bwd, 10, 2))
+        h_prev = torch.cat([ins[2][None], ys[:-1]]).float() \
+            .reshape(T * N, H)
+        da = torch.randn(T * N, 4 * H, generator=g, device=DEVICE)
+        dw_ms = cuda_ms(lambda i: torch.matmul(h_prev.T, da), 10, 2)
+        plain = (cuda_ms(lambda i: lr.lstm_recurrence_reference(
+                     *ins, collect_cell=True), 2, 1),
+                 cuda_ms(lambda i: lr.lstm_recurrence_backward_reference(
+                     *ins, ys, cs, *up), 2, 1))
+        lib, port_layer = lstm_yardstick((T, N, 4 * H), 10)
+        shape = f"T={T} N={N} H={H} bf16"
+        split = [device_split(what, lambda: run(0), calls=5,
+                              pattern=r"lstm_\w+?_kernel", phase="lstm",
+                              shape=shape)
+                 for what, run in (("B5 fwd, wide route", fwd),
+                                   ("B5 bwd, wide route", bwd))]
+        for j, (name, err, plan) in enumerate((("B5 wide", ferr, fplan),
+                                               ("B5 bwd wide", babs,
+                                                bplan))):
+            bound_ms, bound_by, nbytes, flops = lstm_bound(T, N, H, 2, j == 1)
+            dev = split[j]
+            say("lstm", f"{name} at {shape} (plan {plan}): kernel call "
+                        f"{kern[j]:.4f} ms ({kern[j] / T * 1e3:.2f} us per "
+                        f"step; kernel device time "
+                        + (f"{dev / 1e3:.4f} ms" if dev else "not measured")
+                        + (f", f32 dw matmul alone {dw_ms:.4f} ms" if j
+                           else "")
+                        + f"), plain {plain[j]:.4f} ms, library (torch.nn."
+                          f"LSTM on cuDNN, projection included) {lib[j]:.4f} "
+                          f"ms against the port's projection + kernel "
+                          f"{port_layer[j]:.4f} ms; bound {bound_ms:.4f} ms "
+                          f"by {bound_by} ({nbytes} B, {flops} flop at 989 "
+                          f"TFLOP/s bf16); errors: forward max abs "
+                          f"{ferr:.2e}, backward max abs {babs:.2e} "
+                          f"({brel:.2e} of max |grad|); two calls bit-equal")
+            if H == LSTM_WIDE_ROWS[0]:
+                rows.append({"name": name, "route": "cuda",
+                             "source": "deeplearning4j_tpu_torch/csrc/"
+                                       "lstm_recurrence.cu",
+                             "replaces":
+                                 "deeplearning4j_tpu/ops/lstm_pallas.py:123",
+                             "launches": 0, "max_abs_err": err,
+                             "ms": kern[j], "plain_ms": plain[j],
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": lib[j]})
     return tuple(rows)
 
 
-#: wide (T, N, H) (C10): N=512 at the JAX bench's width (a forward block walks 4 batch tiles with w_hh in shared
-#: memory; the backward reads w_hh from L2), a width whose w_hh no block
-#: can keep (both directions read it from L2), and N=512 at the training
-#: width (bf16 there takes the cluster routes, two waves of clusters)
+#: wide (T, N, H) (C10): N=512 at the JAX bench's width (f32 on the grid
+#: route: a forward block walks 4 batch tiles with w_hh in shared memory,
+#: the backward reads w_hh from L2; bf16 on the wide route), a width whose
+#: w_hh no block can keep (both directions read it from L2), and N=512 at
+#: the training width (bf16 there takes the cluster routes, two waves of
+#: clusters)
 LSTM_WIDE = ((5, 512, 1024), (3, 8, 2048), (5, 512, 256))
 
 
@@ -2440,11 +2576,19 @@ def lstm_cluster_counts() -> tuple:
     return lr.fwd_cluster_launches, lr.bwd_cluster_launches
 
 
+def lstm_wide_counts() -> tuple:
+    """The launches of :func:`lstm_counts` that took the wide route."""
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+
+    return lr.fwd_wide_launches, lr.bwd_wide_launches
+
+
 def reset_lstm_counts() -> None:
     from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
 
     lr.fwd_launches = lr.bwd_launches = 0
     lr.fwd_cluster_launches = lr.bwd_cluster_launches = 0
+    lr.fwd_wide_launches = lr.bwd_wide_launches = 0
 
 
 def phase_lstm_train(rows: dict) -> None:
@@ -2538,7 +2682,7 @@ def phase_lstm_train(rows: dict) -> None:
                       f"{net.getIterationCount()}, last segment loss per "
                       f"character {float(net._score) / 50:.4f}")
     del net
-    lstm_wide_train(x, y)
+    lstm_wide_train(x, y, rows)
 
 
 #: the JAX bench's wide char-LSTM (bench.py:654, lstm1024_tokens_per_sec_chip;
@@ -2546,13 +2690,13 @@ def phase_lstm_train(rows: dict) -> None:
 LSTM_WIDE_HIDDEN, LSTM_WIDE_STEPS = 1024, 3
 
 
-def lstm_wide_train(x, y) -> None:
-    """C10 on the training path: TextGenerationLSTM at hidden 1024 through
-    ``MultiLayerNetwork.fit`` at phase 9's batch (bf16, standard BPTT):
-    one warm-up and a few timed steps, two grid-route launches per
-    direction per step, finite losses; then B5 at that width (T=200,
-    N=256, H=1024, bf16) against its plain version (forward within 2e-2,
-    backward within 2e-2 of max |grad|)."""
+def lstm_wide_train(x, y, rows: dict) -> None:
+    """The wide route on the training path: TextGenerationLSTM at hidden
+    1024 through ``MultiLayerNetwork.fit`` at phase 9's batch (bf16,
+    standard BPTT): one warm-up and a few timed steps, two wide-route
+    launches per direction per step (the rows' launches), finite losses;
+    then B5 at that width (T=200, N=256, H=1024, bf16) against its plain
+    version (forward within 2e-2, backward within 2e-2 of max |grad|)."""
     from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
 
     H = LSTM_WIDE_HIDDEN
@@ -2568,19 +2712,36 @@ def lstm_wide_train(x, y) -> None:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / LSTM_WIDE_STEPS
     steps = 1 + LSTM_WIDE_STEPS
-    counts, cluster = lstm_counts(), lstm_cluster_counts()
-    check(counts == (2 * steps, 2 * steps) and cluster == (0, 0),
-          f"hidden {H}: launches {counts} (cluster {cluster}) over {steps} "
-          f"steps of 2 layers, all on the grid route")
+    counts, wide = lstm_counts(), lstm_wide_counts()
+    check(counts == (2 * steps, 2 * steps) == wide,
+          f"hidden {H}: launches {counts} (wide route {wide}) over {steps} "
+          f"steps of 2 layers, all on the wide route")
+    rows["B5 wide"]["launches"] = counts[0]
+    rows["B5 bwd wide"]["launches"] = counts[1]
     check(all(math.isfinite(v) for v in losses), f"hidden {H}: losses "
                                                  f"{losses}")
     say("lstm-train", f"TextGenerationLSTM(hidden={H}) ({net.numParams()} "
                       f"parameters), bf16, batch {LSTM_BATCH} x {LSTM_SEQ}: "
                       f"{LSTM_WIDE_STEPS} timed steps {step_s * 1e3:.2f} "
                       f"ms/step, {LSTM_BATCH * LSTM_SEQ / step_s:.1f} "
-                      f"tokens/s; launches {counts} on the grid route; loss "
+                      f"tokens/s; launches {counts} on the wide route; loss "
                       f"per character " + " ".join(f"{v:.4f}"
                                                    for v in losses))
+    say("lstm-train", f"yardstick at hidden {H} (phase 8, never called by "
+                      f"the port): cuDNN's torch.nn.LSTM forward "
+                      f"{rows['B5 wide']['library_ms']:.4f} ms and backward "
+                      f"{rows['B5 bwd wide']['library_ms']:.4f} ms per layer "
+                      f"against the wide route's kernel calls "
+                      f"{rows['B5 wide']['ms']:.4f} and "
+                      f"{rows['B5 bwd wide']['ms']:.4f} ms")
+    busy_ms = device_profile("lstm-train", f"one more step at hidden {H}",
+                             lambda: net.fit(x, y), ("lstm_fwd", "lstm_bwd"),
+                             expect={"lstm_fwd": 2, "lstm_bwd": 2})
+    if busy_ms:
+        say("lstm-train", f"hidden {H}: device busy {busy_ms:.2f} ms against "
+                          f"{step_s * 1e3:.2f} ms per timed step "
+                          f"(unprofiled): idle about "
+                          f"{1 - busy_ms / (step_s * 1e3):.3f} of a step")
     del net
     T, N = LSTM_SEQ, LSTM_BATCH
     ins = [t.to(torch.bfloat16) for t in lstm_case(T, N, H, seed=61)]
@@ -2591,16 +2752,10 @@ def lstm_wide_train(x, y) -> None:
     check(ferr <= 2e-2 and berr <= 2e-2,
           f"B5 at T={T} N={N} H={H} bf16: forward {ferr:.3e}, backward "
           f"{berr:.3e} of max |grad| > 0.02")
-    fwd_ms = cuda_ms(lambda i: lr.lstm_recurrence_fwd(*ins,
-                                                      collect_cell=True), 3, 1)
-    ys, _, _, cs = lr.lstm_recurrence_fwd(*ins, collect_cell=True)
-    bwd_ms = cuda_ms(lambda i: lr.lstm_recurrence_bwd(*ins, ys, cs, *up), 3,
-                     1)
-    say("lstm-train", f"B5 at T={T} N={N} H={H} bf16 (grid route): forward "
-                      f"max abs err {ferr:.2e} against the plain version, "
-                      f"{fwd_ms:.3f} ms a call (plan {fplan}); backward err "
-                      f"/ max |grad| {berr:.2e}, {bwd_ms:.3f} ms a call with "
-                      f"the f32 dw matmul (plan {bplan})")
+    say("lstm-train", f"B5 at T={T} N={N} H={H} bf16 (wide route): forward "
+                      f"max abs err {ferr:.2e} against the plain version "
+                      f"(plan {fplan}); backward err / max |grad| "
+                      f"{berr:.2e} (plan {bplan}); times in phase 8")
 
 
 def phase_lstm_parity() -> None:

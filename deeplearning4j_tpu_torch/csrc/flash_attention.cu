@@ -79,10 +79,13 @@
 //   FMAs, is what these loops run out of.
 // Every tile is bounds-checked, so any Tq and Tk >= 1 work; hd is 32, 64, 96
 // or 128 on both routes, or 256 on the f32 one (there each thread's rows live
-// mostly in local memory: right, and slow). The wrapper (ops/flash_attention.py)
-// zero-pads any head dim up to 256 to the next of these, with the softmax scale
-// of the real one: the padded columns add nothing to q.k and give zero output
-// and gradient columns, which it slices off.
+// mostly in local memory: right, and slow), or on the f32 one any multiple of
+// 64 past 256 (namespace dp: a thread keeps a 64-column slice of its row, the
+// grid's third dimension walks the slices, and every slice's block recomputes
+// the scores over the whole head dim: right, and slow). The wrapper
+// (ops/flash_attention.py) zero-pads any head dim to the next of these, with
+// the softmax scale of the real one: the padded columns add nothing to q.k and
+// give zero output and gradient columns, which it slices off.
 //
 // What bounds it on the H100 at the BERT-base training shape (N=96, H=12,
 // T=128, hd=64, bf16): bytes. The forward must read q, k, v and write out,
@@ -1222,6 +1225,342 @@ cudaError_t backward(const Args& a) {
   return cudaGetLastError();
 }
 
+// f32 past the wide tile (namespace dp, "deep"): any head dim that is a
+// multiple of kDc. A thread keeps kDc columns of its output row (out, dk and
+// dv, or dq) in registers, and the grid's third dimension walks the head dim's
+// kDc-column slices; the scores q.k and dO.v go over the whole head dim, kDc
+// columns at a time staged through shared memory, and are recomputed by every
+// slice's block. Right and simple; each slice repeats the score work.
+namespace dp {
+
+constexpr int kDc = 64;    // head-dim columns per slice and per staged chunk
+constexpr int kT = 16;     // keys (forward, dq) or query rows (dk/dv) per tile
+constexpr int kQs = kDc + kPad;
+
+// rows [r0, r0 + ROWS) of src [total, hd], columns [c0, c0 + kDc), times
+// mul, into dst (row pitch `pitch`); rows past `total` are zero
+template <int ROWS>
+__device__ __forceinline__ void stage(float* dst, int pitch, const float* src, int hd, int c0,
+                                      int r0, int total, float mul) {
+  constexpr int kCpr = kDc / 4;
+  for (int c = threadIdx.x; c < ROWS * kCpr; c += kRows) {
+    const int rr = c / kCpr, cc = (c % kCpr) * 4, g = r0 + rr;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g < total) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)g * hd + c0 + cc));
+    *reinterpret_cast<float4*>(dst + rr * pitch + cc) =
+        make_float4(v.x * mul, v.y * mul, v.z * mul, v.w * mul);
+  }
+}
+
+// Forward: grid (N*H, ceil(Tq / kRows), hd / kDc); block kRows threads, one
+// per query row; block z writes output columns [z kDc, z kDc + kDc), and z = 0
+// the row statistics.
+__global__ void __launch_bounds__(kRows)
+    flash_fwd_deep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ mask,
+                          float* __restrict__ out, float* __restrict__ stats, int H, int Tq, int Tk,
+                          int hd, float scale, int causal) {
+  __shared__ __align__(16) float qs[kRows * kQs];
+  __shared__ __align__(16) float ks[kT * kDc];
+  __shared__ __align__(16) float vs[kT * kDc];
+  __shared__ float kok[kT];
+  const int nh = blockIdx.x, n = nh / H, q0 = blockIdx.y * kRows, z = blockIdx.z;
+  const int row = q0 + threadIdx.x;
+  const bool has_row = row < Tq;
+  const float* qh = q + (size_t)nh * Tq * hd;
+  const float* kh = k + (size_t)nh * Tk * hd;
+  const float* vh = v + (size_t)nh * Tk * hd;
+  const float* qrow = qs + threadIdx.x * kQs;
+  float acc[kDc];
+#pragma unroll
+  for (int d = 0; d < kDc; ++d) acc[d] = 0.f;
+  float m = kNegInf, l = 0.f;
+  for (int j0 = 0; j0 < Tk; j0 += kT) {
+    const int jn = min(kT, Tk - j0);
+    float s[kT];
+#pragma unroll
+    for (int j = 0; j < kT; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < hd; c0 += kDc) {
+      __syncthreads();
+      stage<kRows>(qs, kQs, qh, hd, c0, q0, Tq, scale);
+      stage<kT>(ks, kDc, kh, hd, c0, j0, Tk, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kDc; d += 4) {
+        const float4 qv = ld4(qrow + d);
+#pragma unroll
+        for (int j = 0; j < kT; ++j) s[j] += dot4(qv, ld4(ks + j * kDc + d));
+      }
+    }
+    __syncthreads();
+    stage<kT>(vs, kDc, vh, hd, z * kDc, j0, Tk, 1.f);
+    if (threadIdx.x < kT) {
+      const int j = j0 + threadIdx.x;
+      kok[threadIdx.x] = j < Tk && (mask == nullptr || mask[(size_t)n * Tk + j] > 0.f) ? 1.f : 0.f;
+    }
+    __syncthreads();
+    if (!has_row) continue;
+    float tmax = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      const bool ok = kok[j] > 0.f && (!causal || row >= j0 + j);
+      s[j] = ok ? s[j] : kNegInf;
+      if (j < jn) tmax = fmaxf(tmax, s[j]);
+    }
+    const float m_new = fmaxf(m, tmax);
+    const float alpha = expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      s[j] = j < jn ? expf(s[j] - m_new) : 0.f;
+      psum += s[j];
+    }
+    l = l * alpha + psum;
+#pragma unroll
+    for (int d = 0; d < kDc; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      const float p = s[j];
+#pragma unroll
+      for (int d = 0; d < kDc; d += 4) {
+        const float4 vv = ld4(vs + j * kDc + d);
+        acc[d] += p * vv.x;
+        acc[d + 1] += p * vv.y;
+        acc[d + 2] += p * vv.z;
+        acc[d + 3] += p * vv.w;
+      }
+    }
+    m = m_new;
+  }
+  if (has_row) {
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int d = 0; d < kDc; ++d) acc[d] = acc[d] / den;
+    store_row<kDc>(out + ((size_t)nh * Tq + row) * hd + z * kDc, acc, 1.f);
+    if (z == 0) {
+      const size_t at = (size_t)nh * Tq + row;
+      stats[at] = m;
+      stats[(size_t)gridDim.x * Tq + at] = l;
+    }
+  }
+}
+
+// D = rowsum(dO * O): one warp per (n*h, query row)
+__global__ void flash_bwd_rowdot_deep_kernel(const float* __restrict__ out,
+                                             const float* __restrict__ dout,
+                                             float* __restrict__ drow, long long rows, int hd) {
+  const long long r = (long long)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (r >= rows) return;
+  float part = 0.f;
+  for (int d = lane; d < hd; d += kWarp) part += out[r * hd + d] * dout[r * hd + d];
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
+  if (lane == 0) drow[r] = part;
+}
+
+// dk and dv: grid (N*H, ceil(Tk / kRows), hd / kDc); thread t owns key
+// j0 + t and columns [z kDc, z kDc + kDc) of its dk and dv rows.
+__global__ void __launch_bounds__(kRows)
+    flash_bwd_dkdv_deep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ mask,
+                               const float* __restrict__ dout, const float* __restrict__ stats,
+                               const float* __restrict__ drow, float* __restrict__ dk,
+                               float* __restrict__ dv, int H, int Tq, int Tk, int hd, float scale,
+                               int causal) {
+  __shared__ __align__(16) float ks[kRows * kQs];
+  __shared__ __align__(16) float vs[kRows * kQs];
+  __shared__ __align__(16) float qs[kT * kDc];   // scaled query rows
+  __shared__ __align__(16) float dos[kT * kDc];
+  __shared__ float ms[kT], ls[kT], ds_[kT];
+  const int nh = blockIdx.x, n = nh / H, NH = gridDim.x, j0 = blockIdx.y * kRows, z = blockIdx.z;
+  const int j = j0 + threadIdx.x;
+  const bool has_key = j < Tk;
+  const bool key_ok = has_key && (mask == nullptr || mask[(size_t)n * Tk + j] > 0.f);
+  const float* qh = q + (size_t)nh * Tq * hd;
+  const float* doh = dout + (size_t)nh * Tq * hd;
+  const float* kh = k + (size_t)nh * Tk * hd;
+  const float* vh = v + (size_t)nh * Tk * hd;
+  const float* krow = ks + threadIdx.x * kQs;
+  const float* vrow = vs + threadIdx.x * kQs;
+  float dka[kDc], dva[kDc];
+#pragma unroll
+  for (int d = 0; d < kDc; ++d) dka[d] = dva[d] = 0.f;
+  for (int i0 = 0; i0 < Tq; i0 += kT) {
+    const int in = min(kT, Tq - i0);
+    float s[kT], dp[kT];
+#pragma unroll
+    for (int r = 0; r < kT; ++r) s[r] = dp[r] = 0.f;
+    for (int c0 = 0; c0 < hd; c0 += kDc) {
+      __syncthreads();
+      stage<kRows>(ks, kQs, kh, hd, c0, j0, Tk, 1.f);
+      stage<kRows>(vs, kQs, vh, hd, c0, j0, Tk, 1.f);
+      stage<kT>(qs, kDc, qh, hd, c0, i0, Tq, scale);
+      stage<kT>(dos, kDc, doh, hd, c0, i0, Tq, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kDc; d += 4) {
+        const float4 kk = ld4_own(krow + d);
+        const float4 vv = ld4_own(vrow + d);
+#pragma unroll
+        for (int r = 0; r < kT; ++r) {
+          s[r] += dot4(ld4(qs + r * kDc + d), kk);
+          dp[r] += dot4(ld4(dos + r * kDc + d), vv);
+        }
+      }
+    }
+    __syncthreads();
+    stage<kT>(qs, kDc, qh, hd, z * kDc, i0, Tq, scale);
+    stage<kT>(dos, kDc, doh, hd, z * kDc, i0, Tq, 1.f);
+    if (threadIdx.x < kT) {
+      const int i = i0 + threadIdx.x;
+      const size_t at = (size_t)nh * Tq + i;
+      ms[threadIdx.x] = i < Tq ? stats[at] : 0.f;
+      ls[threadIdx.x] = i < Tq ? fmaxf(stats[(size_t)NH * Tq + at], 1e-30f) : 1.f;
+      ds_[threadIdx.x] = i < Tq ? drow[at] : 0.f;
+    }
+    __syncthreads();
+    if (!has_key) continue;
+#pragma unroll
+    for (int r = 0; r < kT; ++r) {
+      const bool ok = key_ok && (!causal || i0 + r >= j);
+      const float p = r < in ? expf((ok ? s[r] : kNegInf) - ms[r]) / ls[r] : 0.f;
+      const float dsv = ok ? p * (dp[r] - ds_[r]) : 0.f;
+#pragma unroll
+      for (int d = 0; d < kDc; d += 4) {
+        const float4 gg = ld4(dos + r * kDc + d);
+        dva[d] += p * gg.x;
+        dva[d + 1] += p * gg.y;
+        dva[d + 2] += p * gg.z;
+        dva[d + 3] += p * gg.w;
+        const float4 qq = ld4(qs + r * kDc + d);  // already times scale
+        dka[d] += dsv * qq.x;
+        dka[d + 1] += dsv * qq.y;
+        dka[d + 2] += dsv * qq.z;
+        dka[d + 3] += dsv * qq.w;
+      }
+    }
+  }
+  if (has_key) {
+    const size_t at = ((size_t)nh * Tk + j) * hd + z * kDc;
+    store_row<kDc>(dk + at, dka, 1.f);
+    store_row<kDc>(dv + at, dva, 1.f);
+  }
+}
+
+// dq: grid (N*H, ceil(Tq / kRows), hd / kDc); thread t owns query row
+// i0 + t and columns [z kDc, z kDc + kDc) of its dq row.
+__global__ void __launch_bounds__(kRows)
+    flash_bwd_dq_deep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ mask,
+                             const float* __restrict__ dout, const float* __restrict__ stats,
+                             const float* __restrict__ drow, float* __restrict__ dq, int H, int Tq,
+                             int Tk, int hd, float scale, int causal) {
+  __shared__ __align__(16) float qs[kRows * kQs];   // scaled query rows
+  __shared__ __align__(16) float dos[kRows * kQs];
+  __shared__ __align__(16) float ks[kT * kDc];
+  __shared__ __align__(16) float vs[kT * kDc];
+  __shared__ float kok[kT];
+  const int nh = blockIdx.x, n = nh / H, NH = gridDim.x, i0 = blockIdx.y * kRows, z = blockIdx.z;
+  const int i = i0 + threadIdx.x;
+  const bool has_row = i < Tq;
+  const float* qh = q + (size_t)nh * Tq * hd;
+  const float* doh = dout + (size_t)nh * Tq * hd;
+  const float* kh = k + (size_t)nh * Tk * hd;
+  const float* vh = v + (size_t)nh * Tk * hd;
+  const float* qrow = qs + threadIdx.x * kQs;
+  const float* drow_s = dos + threadIdx.x * kQs;
+  const size_t at = (size_t)nh * Tq + i;
+  const float mi = has_row ? stats[at] : 0.f;
+  const float li = has_row ? fmaxf(stats[(size_t)NH * Tq + at], 1e-30f) : 1.f;
+  const float Di = has_row ? drow[at] : 0.f;
+  float dqa[kDc];
+#pragma unroll
+  for (int d = 0; d < kDc; ++d) dqa[d] = 0.f;
+  for (int j0 = 0; j0 < Tk; j0 += kT) {
+    const int jn = min(kT, Tk - j0);
+    float s[kT], dp[kT];
+#pragma unroll
+    for (int c = 0; c < kT; ++c) s[c] = dp[c] = 0.f;
+    for (int c0 = 0; c0 < hd; c0 += kDc) {
+      __syncthreads();
+      stage<kRows>(qs, kQs, qh, hd, c0, i0, Tq, scale);
+      stage<kRows>(dos, kQs, doh, hd, c0, i0, Tq, 1.f);
+      stage<kT>(ks, kDc, kh, hd, c0, j0, Tk, 1.f);
+      stage<kT>(vs, kDc, vh, hd, c0, j0, Tk, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kDc; d += 4) {
+        const float4 qq = ld4_own(qrow + d);
+        const float4 gg = ld4_own(drow_s + d);
+#pragma unroll
+        for (int c = 0; c < kT; ++c) {
+          s[c] += dot4(qq, ld4(ks + c * kDc + d));
+          dp[c] += dot4(gg, ld4(vs + c * kDc + d));
+        }
+      }
+    }
+    __syncthreads();
+    stage<kT>(ks, kDc, kh, hd, z * kDc, j0, Tk, 1.f);
+    if (threadIdx.x < kT) {
+      const int j = j0 + threadIdx.x;
+      kok[threadIdx.x] = j < Tk && (mask == nullptr || mask[(size_t)n * Tk + j] > 0.f) ? 1.f : 0.f;
+    }
+    __syncthreads();
+    if (!has_row) continue;
+#pragma unroll
+    for (int c = 0; c < kT; ++c) {
+      const bool ok = c < jn && kok[c] > 0.f && (!causal || i >= j0 + c);
+      const float p = expf((ok ? s[c] : kNegInf) - mi) / li;
+      const float dsv = ok ? p * (dp[c] - Di) : 0.f;
+#pragma unroll
+      for (int d = 0; d < kDc; d += 4) {
+        const float4 kk = ld4(ks + c * kDc + d);
+        dqa[d] += dsv * kk.x;
+        dqa[d + 1] += dsv * kk.y;
+        dqa[d + 2] += dsv * kk.z;
+        dqa[d + 3] += dsv * kk.w;
+      }
+    }
+  }
+  if (has_row) store_row<kDc>(dq + at * hd + z * kDc, dqa, scale);
+}
+
+cudaError_t forward(const Args& a, int hd) {
+  const dim3 grid(a.N * a.H, (a.Tq + kRows - 1) / kRows, hd / kDc);
+  flash_fwd_deep_kernel<<<grid, kRows, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.o), a.stats, a.H, a.Tq, a.Tk,
+      hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+cudaError_t backward(const Args& a, int hd) {
+  const long long rows = (long long)a.N * a.H * a.Tq;
+  constexpr int kRowdotWarps = 8;
+  flash_bwd_rowdot_deep_kernel<<<(unsigned)((rows + kRowdotWarps - 1) / kRowdotWarps),
+                                 kRowdotWarps * kWarp, 0, a.stream>>>(
+      static_cast<const float*>(a.out), static_cast<const float*>(a.dout), a.drow, rows, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_deep_kernel<<<dim3(a.N * a.H, (a.Tk + kRows - 1) / kRows, hd / kDc), kRows, 0,
+                               a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<const float*>(a.dout), a.stats, a.drow,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.Tq, a.Tk, hd, a.scale,
+      a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_deep_kernel<<<dim3(a.N * a.H, (a.Tq + kRows - 1) / kRows, hd / kDc), kRows, 0,
+                             a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<const float*>(a.dout), a.stats, a.drow,
+      static_cast<float*>(a.dq), a.H, a.Tq, a.Tk, hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+}  // namespace dp
+
 // The element type alone picks the route: bf16 the tensor-core kernels, f32
 // the CUDA-core ones. Both are kernels; neither stands in for the other.
 template <bool kBackward>
@@ -1239,8 +1578,10 @@ cudaError_t dispatch(int is_bf16, int hd, const Args& a) {
     case 256:  // the wide tile, f32 only: the wrapper widens bf16 and f16
       if (is_bf16) return cudaErrorInvalidValue;
       return kBackward ? backward<256>(a) : forward<256>(a);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // past the wide tile: f32, a multiple of dp::kDc
+      if (is_bf16 || hd < 256 || hd % dp::kDc != 0 || hd / dp::kDc > 65535)
+        return cudaErrorInvalidValue;
+      return kBackward ? dp::backward(a, hd) : dp::forward(a, hd);
   }
 }
 

@@ -137,6 +137,53 @@
 // Rows past N are zero and never stored. What is left on its chain per step:
 // the product (2 H / 16 mma per warp and m16 tile), the cell update, a block
 // barrier, the copies' flight and the mbarrier wait, and one __syncthreads.
+//
+// The wide route (namespace wd; bf16, H a multiple of 64 past 256 up to 1024:
+// the JAX bench's wide char-LSTM at H=1024). No cluster can hold w_hh there
+// (8 MiB at H=1024), and the grid design above widens each block's columns to
+// f32, does its products on the CUDA cores and, in the backward, reads w_hh
+// from L2 every step. Here:
+// - A block owns 8 units for every batch row: H / 8 blocks, one to an SM, all
+//   resident at once (sized from cudaOccupancyMaxActiveClusters, launched
+//   cooperative with the cluster dimension; a width the card cannot hold so
+//   is refused). Its 32 gate columns of w_hh (64 KiB at
+//   H=1024) and, in the backward, one 64-unit x 512-column piece of w_hh^T
+//   (64 KiB) stay in registers as bf16 mma fragments for all T: w_hh is held
+//   once across the card, never widened, never read again.
+// - h_{t-1} reaches every block through a ring of shared-memory slots, 16
+//   batch rows (one m16 tile) a chunk. A chunk's row copies are issued once
+//   per cluster of 2 or 4 blocks, by the bulk-copy engine, multicast to every
+//   block of the cluster (each row read from L2 once per cluster), completing
+//   on each receiver's full barrier; each block frees a slot at its issuer's
+//   empty barrier. Warp 0 issues a later chunk as soon as its slot is free
+//   everywhere (its lanes a row each) and waits only for the chunk its block
+//   reads next.
+// - The gate product of a chunk is split over the 8 warps by k (mma.sync
+//   m16n8k16 through ldmatrix, f32 accumulators); the warps' partials are
+//   summed in warp order in shared memory, and 128 threads, one per (row,
+//   unit), run the cell update in the order of operations above, with x_proj
+//   (and dys, cs, c_{t-1}) and the state loaded a chunk ahead.
+// - Forward: one grid-wide barrier a step (ys[t], the exchange buffer, whole
+//   before step t+1's copies read it).
+// - Backward: the gates come back the same way from ys (a ring of 3 slots
+//   beside the da tiles, so the next step's chunks land early); the cell
+//   update writes da_t (f32, and d x_proj) into the f32 da planes; a
+//   grid-wide barrier; then dh_{t-1} = da_t w_hh^T in 2-D pieces: block p
+//   forms the partial over 512 da columns for 64 units (8 x 16 pieces at
+//   H=1024), its da tiles streamed by cp.async, the f32 da split into three
+//   bf16 terms (lo, mid, hi into one f32 accumulator: the reference's f32
+//   product to about f32 rounding), into an f32 partial plane per slice; a
+//   second grid-wide barrier; each unit's dh is its partials summed in slice
+//   order. (Every block reading all of da_t would move 4 MiB through its
+//   shared memory a step; a piece reads 512 KiB.)
+// Every sum runs in a fixed order, so two calls are bit-equal. What bounds it
+// at T=200, N=256, H=1024: operations (0.43 ms forward, 1.30 backward at the
+// bf16 tensor-core peak). What holds it back (tools/lstm_probe.py wide, on an
+// H100 80GB HBM3 at 700 W): in the forward the chunk waits, the gate product,
+// the slots' bookkeeping, the cell update and the barrier, 0.14-0.27 of a
+// step each; in the backward the dh pieces, about half of a step, held by a
+// resource all blocks share (a piece takes half as long at H=512, where a
+// quarter of the blocks form pieces).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -1379,6 +1426,714 @@ cudaError_t launch_h(const Args& a, cudaStream_t stream, int* plan_out) {
 
 }  // namespace cl
 
+// ------------------------------------------------------------- the wide route
+namespace wd {
+
+using bf16 = __nv_bfloat16;
+using cl::cluster_arrive;
+using cl::cluster_rank;
+using cl::cluster_wait;
+using cl::cp16;
+using cl::cp_commit;
+using cl::cp_wait;
+using cl::ldsm4;
+using cl::map_rank;
+using cl::mbar_expect_tx;
+using cl::mbar_init;
+using cl::mbar_wait;
+using cl::mma;
+using cl::pack2;
+using cl::raw;
+using cl::smem_u32;
+
+constexpr int kThreads = 256;                 // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnits = 8;                     // hidden units per block
+constexpr int kCols = 4 * kUnits;             // its gate columns: gate q of unit u is column 8 q + u
+constexpr int kRows = 16;                     // batch rows per chunk: one m16 tile
+constexpr int kFwdSlots = 4;                  // ring slots of the forward
+constexpr int kBwdSlots = 3;                  // and of the backward (beside its da tiles)
+constexpr int kMaxH = 1024;                   // the register arrays' width
+constexpr int kGateSteps = kMaxH / 16 / kWarps;  // k16 steps of the gate product per warp
+constexpr int kSlice = 512;                   // da columns per dh block
+constexpr int kGroup = 64;                    // hidden units per dh block
+constexpr int kDaSteps = kSlice / 16 / kWarps;   // k16 steps of the dh product per warp
+constexpr int kDaTiles = kGroup / 8;          // n8 tiles of the dh product
+constexpr int kDaPitch = kSlice + 8;          // f32 row pitch of a da tile (conflict-free lds.64)
+constexpr int kRedG = kCols + 8;              // f32 row pitch of the gate partials
+constexpr int kRedD = kGroup + 8;             // f32 row pitch of the dh partials
+
+// Shared memory: the ring (kFwdSlots or kBwdSlots slots of kRows rows of
+// H + 8 bf16; in the backward then the two da tiles of the dh product), the
+// warps' partial sums, then the full and empty mbarriers, one each a slot.
+__host__ __device__ inline int slots(bool fwd) { return fwd ? kFwdSlots : kBwdSlots; }
+__host__ __device__ inline unsigned slot_bytes(int H) { return 2u * kRows * (H + 8); }
+__host__ __device__ inline size_t ring_bytes(int H, bool fwd) {
+  const size_t ring = (size_t)slots(fwd) * slot_bytes(H);
+  return fwd ? ring : ring + 2 * sizeof(float) * kRows * kDaPitch;
+}
+__host__ __device__ inline size_t red_floats(bool fwd) {
+  return (size_t)kWarps * kRows * (fwd ? kRedG : kRedD);
+}
+__host__ __device__ inline size_t smem_bytes(int H, bool fwd) {
+  return ring_bytes(H, fwd) + 4 * red_floats(fwd) + 16 * slots(fwd);
+}
+// dh blocks of the backward: one per (da slice of 512 columns, group of 64
+// units)
+__host__ __device__ inline int da_slices(int H) { return (4 * H + kSlice - 1) / kSlice; }
+
+// The ring that brings h_{t-1} into every block, a chunk of kRows rows at a
+// time. Chunk i lives in slot i % S; the cluster's block of rank
+// (i % S) % C issues its row copies with the bulk-copy engine,
+// multicast to every block of the cluster, each completing on the receiver's
+// full[slot]; every block, done with the slot, arrives on the issuer's
+// empty[slot], which the issuer waits for before it fills the slot again.
+struct Ring {
+  unsigned base, slot, full, empty;  // shared addresses
+  int C, rank, H, S;                 // S: slots
+};
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// rows [0, rows) of src [*, H] into slot s of every block of the cluster
+// (row pitch H + 8); the lanes of warp 0 issue a row each
+__device__ __forceinline__ void fill(const Ring& r, int s, const bf16* src, int rows) {
+  const unsigned dst = r.base + (unsigned)s * r.slot, bar = r.full + 8u * s;
+  const unsigned bytes = 2u * r.H, pitch = 2u * (r.H + 8);
+  const unsigned short mask = (unsigned short)((1u << r.C) - 1u);
+  for (int i = threadIdx.x & 31; i < rows; i += 32) {
+    const bf16* p = src + (size_t)i * r.H;
+    if (r.C == 1)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+              dst + i * pitch),
+          "l"(p), "r"(bytes), "r"(bar)
+          : "memory");
+    else
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], "
+          "[%1], %2, [%3], %4;\n" ::"r"(dst + i * pitch),
+          "l"(p), "r"(bytes), "r"(bar), "h"(mask)
+          : "memory");
+  }
+}
+
+// whether the phase of parity `parity` of this block's mbarrier has
+// completed (no wait)
+__device__ __forceinline__ bool mbar_done(unsigned addr, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// warp 0: the chunks this rank issues, in order, up to `consumed + S` (the
+// ring's depth) and `ready` (chunks whose rows are written); `issued` is the
+// next chunk to consider. A chunk past `must` is issued only if every block
+// of the cluster has already freed its slot (else the pump stops, to try
+// again later); chunks up to `must` wait for that. chunk(i, &rows) is the
+// first row of chunk i.
+template <class Chunk>
+__device__ __forceinline__ void pump(const Ring& r, int& issued, int consumed, int ready, int must,
+                                     Chunk chunk) {
+  const int end = min(consumed + r.S, ready);
+  for (; issued < end; ++issued) {
+    const int s = issued % r.S;
+    if (s % r.C != r.rank) continue;
+    if (issued >= r.S) {
+      const unsigned bar = r.empty + 8u * s, parity = (unsigned)(issued / r.S - 1) & 1u;
+      if (issued > must && !__shfl_sync(0xffffffffu, mbar_done(bar, parity), 0)) break;
+      mbar_wait(bar, parity);
+    }
+    int rows = 0;
+    const bf16* src = chunk(issued, &rows);
+    fill(r, s, src, rows);
+  }
+}
+
+// lane 0 of warp 0, after the block's last read of slot s (chunk i):
+// expect the bytes of chunk i + S, then free the slot at its issuer
+__device__ __forceinline__ void release(const Ring& r, int i, int total, int n_rows) {
+  if ((threadIdx.x & 31) != 0) return;
+  const int s = i % r.S;
+  if (i + r.S < total) mbar_expect_tx(r.full + 8u * s, 2u * r.H * (unsigned)n_rows);
+  const unsigned peer = map_rank(r.empty + 8u * s, (unsigned)(s % r.C));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(peer) : "memory");
+}
+
+// Setup of the ring (every thread): the mbarriers, the first chunks expected,
+// and the cluster's barriers visible before any copy or remote arrive.
+template <class ChunkRows>
+__device__ __forceinline__ Ring ring_setup(unsigned char* smem, size_t ring, size_t red, int H,
+                                           int C, int total, int S, ChunkRows chunk_rows) {
+  Ring r;
+  r.base = smem_u32(smem);
+  r.slot = slot_bytes(H);
+  r.full = smem_u32(smem + ring + red);
+  r.empty = r.full + 8u * S;
+  r.C = C;
+  r.rank = (int)cluster_rank();
+  r.H = H;
+  r.S = S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(r.full + 8u * s, 1);
+      mbar_init(r.empty + 8u * s, (unsigned)C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < S && s < total; ++s)
+      mbar_expect_tx(r.full + 8u * s, 2u * H * (unsigned)chunk_rows(s));
+  }
+  cluster_arrive();
+  cluster_wait();
+  return r;
+}
+
+// B of the gate product for warp `warp`: k16 steps [ks0, ks0 + nks) of the
+// block's 32 columns of w_hh; n tile q is gate q, its column g unit g. b0
+// holds k = 16 ks + 2 t4, + 1 of column g, b1 k + 8, + 9.
+__device__ __forceinline__ void load_gate_b(unsigned (&wb)[kGateSteps][4][2], const bf16* whh,
+                                            int H, int ub, int ks0, int nks, int g, int t4) {
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(whh);
+  const size_t H4 = 4 * (size_t)H;
+#pragma unroll
+  for (int kk = 0; kk < kGateSteps; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      wb[kk][q][0] = wb[kk][q][1] = 0u;
+      if (kk < nks) {
+        const size_t k = 16 * (size_t)(ks0 + kk) + 2 * t4, col = (size_t)q * H + ub + g;
+        wb[kk][q][0] = pack2(__ldg(w + k * H4 + col), __ldg(w + (k + 1) * H4 + col));
+        wb[kk][q][1] = pack2(__ldg(w + (k + 8) * H4 + col), __ldg(w + (k + 9) * H4 + col));
+      }
+    }
+}
+
+// The warp's share of the gate product of one chunk (rows of h_{t-1} in a
+// slot of pitch SP): k16 steps [ks0, ks0 + nks) on the tensor cores, the
+// [16][32] f32 partial into red_w.
+__device__ __forceinline__ void gate_partials(const bf16* slot, int SP,
+                                              const unsigned (&wb)[kGateSteps][4][2], int ks0,
+                                              int nks, float* red_w, int lane) {
+  float acc[4][4] = {};
+  const bf16* pa = slot + (lane & 15) * SP + (lane >> 4) * 8 + 16 * ks0;
+#pragma unroll
+  for (int kk = 0; kk < kGateSteps; ++kk)
+    if (kk < nks) {
+      unsigned af[4];
+      ldsm4(af, pa + 16 * kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma(acc[q], af, wb[kk][q][0], wb[kk][q][1]);
+    }
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float* d = red_w + 8 * q + 2 * t4;
+    *reinterpret_cast<float2*>(d + g * kRedG) = make_float2(acc[q][0], acc[q][1]);
+    *reinterpret_cast<float2*>(d + (g + 8) * kRedG) = make_float2(acc[q][2], acc[q][3]);
+  }
+}
+
+// the four gates of (chunk row r, unit u): the warps' partials summed in warp
+// order
+__device__ __forceinline__ void gate_sums(const float* red, int r, int u, float (&gs)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float s = red[r * kRedG + 8 * q + u];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, red[(w * kRows + r) * kRedG + 8 * q + u]);
+    gs[q] = s;
+  }
+}
+
+// Forward. Grid H / 8 blocks in clusters of C, all resident (one grid-wide
+// barrier per step); block b owns units [8 b, 8 b + 8) for every batch row.
+// Per step, chunk by chunk (16 rows of h_{t-1} from the ring): the gate
+// product split over the 8 warps by k, the partials summed in shared memory,
+// the cell update by 128 threads, one per (row, unit); c waits in a.st
+// between steps. (Counting each row tile per block instead of the barrier,
+// so that steps flow into each other tile by tile, was measured slower: a
+// fence per chunk costs more than the barrier per step; tools/lstm_probe.py.)
+__global__ void __launch_bounds__(kThreads, 1) lstm_fwd_wide_kernel(Args a, int C) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int H = a.H, N = a.N, steps = a.steps, SP = H + 8;
+  const size_t H4 = 4 * (size_t)H;
+  const int nrt = (N + kRows - 1) / kRows, total = steps * nrt;
+  const size_t ring_b = ring_bytes(H, true);
+  const bf16* ring = reinterpret_cast<const bf16*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw + ring_b);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ub = blockIdx.x * kUnits;
+  const bf16* xp = static_cast<const bf16*>(a.xp);
+  const bf16* h0 = static_cast<const bf16*>(a.h0);
+  bf16* ys = static_cast<bf16*>(a.ys);
+  bf16* cs = static_cast<bf16*>(a.cs);
+  // chunk i = t nrt + m: rows [16 m, 16 m + 16) of h_{t-1} (h0 at t = 0)
+  auto chunk_rows = [&](int i) { return min(kRows, N - (i % nrt) * kRows); };
+  auto chunk = [&](int i, int* rows) {
+    const int t = i / nrt;
+    *rows = chunk_rows(i);
+    return (t == 0 ? h0 : ys + (size_t)(t - 1) * N * H) + (size_t)(i % nrt) * kRows * H;
+  };
+  const Ring r = ring_setup(smem_raw, ring_b, 4 * red_floats(true), H, C, total, kFwdSlots,
+                            chunk_rows);
+  const int KS = H / 16, ks0 = KS * warp / kWarps, nks = KS * (warp + 1) / kWarps - ks0;
+  unsigned wb[kGateSteps][4][2];
+  load_gate_b(wb, static_cast<const bf16*>(a.whh), H, ub, ks0, nks, lane >> 2, lane & 3);
+
+  // the cell-update thread's (row, unit) in a chunk, and its x_proj (raw
+  // bf16 bits, loaded a chunk ahead)
+  const bool cell = tid < kRows * kUnits;
+  const int cr = tid >> 3, cu = tid & 7, unit = ub + cu;
+  auto load_x = [&](int t, int m, unsigned short (&x)[4]) {
+    const int row = m * kRows + cr;
+    if (!cell || t >= steps || row >= N) return;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = raw(xp + ((size_t)t * N + row) * H4 + (size_t)q * H + unit);
+  };
+  // c of the thread's (row, unit) entering its next chunk, loaded after
+  // the cell update before it (the same thread wrote it a step earlier)
+  auto load_c = [&](int t, int m) {
+    const int row = m * kRows + cr;
+    if (!cell || t >= steps || row >= N) return 0.0f;
+    const size_t o = (size_t)row * H + unit;
+    return t == 0 ? __bfloat162float(static_cast<const bf16*>(a.c0)[o]) : a.st[o];
+  };
+  unsigned short x[4] = {};
+  load_x(0, 0, x);
+  float c_in = load_c(0, 0);
+  // chunk i is ready once the grid barrier after step i / nrt - 1 has
+  // passed: `ready` chunks, counted by warp 0
+  int issued = 0, ready = nrt;
+  if (warp == 0) pump(r, issued, 0, ready, -1, chunk);
+
+  int i = 0;
+  for (int t = 0; t < steps; ++t) {
+    for (int m = 0; m < nrt; ++m, ++i) {
+      unsigned short xn[4] = {};
+      const int tn = m + 1 < nrt ? t : t + 1, mn = m + 1 < nrt ? m + 1 : 0;
+      load_x(tn, mn, xn);
+      const int s = i % r.S;
+      if (warp == 0) pump(r, issued, i, ready, i, chunk);  // chunk i, where this rank issues it
+      mbar_wait(r.full + 8u * s, (unsigned)(i / r.S) & 1u);
+      gate_partials(ring + (size_t)s * kRows * SP, SP, wb, ks0, nks, red + warp * kRows * kRedG,
+                    lane);
+      __syncthreads();
+      if (warp == 0) {
+        const int later = i + r.S;
+        release(r, i, total, later < total ? chunk_rows(later) : 0);
+        pump(r, issued, i + 1, ready, -1, chunk);
+      }
+      const int row = m * kRows + cr;
+      if (cell && row < N) {
+        float gs[4];
+        gate_sums(red, cr, cu, gs);
+        const size_t o = (size_t)row * H + unit;
+        float c = c_in;
+        const float gi = sigmoidf(gs[0] + __uint_as_float((unsigned)x[0] << 16));
+        const float gf = sigmoidf(gs[1] + __uint_as_float((unsigned)x[1] << 16));
+        const float gg = tanhf(gs[2] + __uint_as_float((unsigned)x[2] << 16));
+        const float go = sigmoidf(gs[3] + __uint_as_float((unsigned)x[3] << 16));
+        c = __fadd_rn(__fmul_rn(gf, c), __fmul_rn(gi, gg));
+        const float h = __fmul_rn(go, tanhf(c));
+        const size_t ot = (size_t)t * N * H + o;
+        ys[ot] = __float2bfloat16_rn(h);
+        if (cs != nullptr) cs[ot] = __float2bfloat16_rn(c);
+        a.st[o] = c;
+        if (t == steps - 1) {
+          static_cast<bf16*>(a.hT)[o] = __float2bfloat16_rn(h);
+          static_cast<bf16*>(a.cT)[o] = __float2bfloat16_rn(c);
+        }
+      }
+      c_in = load_c(tn, mn);
+      __syncthreads();  // the partials are rewritten by the next chunk
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = xn[q];
+    }
+    if (t + 1 < steps) {
+      fence_proxy_async();  // ys[t], stored here, is read by the peers' bulk copies
+      grid_barrier(a.bar);
+      if (warp == 0) {
+        fence_proxy_async();
+        ready = (t + 2) * nrt;
+        pump(r, issued, i, ready, -1, chunk);
+      }
+    }
+  }
+  // no block leaves while a peer may still arrive on its barriers
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Backward. The grid and the ring of the forward (3 slots here, beside the da
+// tiles, so that the next step's chunks land while the dh pieces run) bring
+// h_{t-1} for the gate recompute and the cell update of step t (da_t into
+// a.da, f32, and d x_proj); a grid-wide barrier; then dh_{t-1} = da_t w_hh^T
+// in 2-D pieces: block p <
+// slices x groups forms the partial over da columns [512 s, 512 s + 512) for
+// units [64 j, 64 j + 64) (s = p % slices, j = p / slices), its tiles of da
+// streamed by cp.async, the f32 da split into three bf16 terms for the
+// tensor cores, into a.st's partial planes; a second grid-wide barrier; the
+// next step's cell update sums its unit's partials over the slices in order.
+// a.st: dc [N][H], then the partials [slices][N][H].
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_wide_kernel(Args a, int C) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int H = a.H, N = a.N, steps = a.steps, SP = H + 8;
+  const int H4 = 4 * H;
+  const int nrt = (N + kRows - 1) / kRows, total = steps * nrt;
+  const size_t ring_b = ring_bytes(H, false);
+  const bf16* ring = reinterpret_cast<const bf16*>(smem_raw);
+  // [2][kRows][kDaPitch], after the ring
+  float* dat = reinterpret_cast<float*>(smem_raw + (size_t)kBwdSlots * slot_bytes(H));
+  float* red = reinterpret_cast<float*>(smem_raw + ring_b);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ub = blockIdx.x * kUnits;
+  const bf16* whh = static_cast<const bf16*>(a.whh);
+  const bf16* xp = static_cast<const bf16*>(a.xp);
+  const bf16* h0 = static_cast<const bf16*>(a.h0);
+  const bf16* ys = static_cast<const bf16*>(a.ys);
+  const bf16* cs = static_cast<const bf16*>(a.cs);
+  const bf16* dys = static_cast<const bf16*>(a.dys);
+  bf16* dxp = static_cast<bf16*>(a.dxp);
+  float* st_dc = a.st;
+  float* part = a.st + (size_t)N * H;
+  // chunk i: rows [16 m, 16 m + 16) of h_{t-1}, m = i % nrt, step t =
+  // T - 1 - i / nrt
+  auto chunk_rows = [&](int i) { return min(kRows, N - (i % nrt) * kRows); };
+  auto chunk = [&](int i, int* rows) {
+    const int t = steps - 1 - i / nrt;
+    *rows = chunk_rows(i);
+    return (t == 0 ? h0 : ys + (size_t)(t - 1) * N * H) + (size_t)(i % nrt) * kRows * H;
+  };
+  const Ring r = ring_setup(smem_raw, ring_b, 4 * red_floats(false), H, C, total, kBwdSlots,
+                            chunk_rows);
+  const int KS = H / 16, ks0 = KS * warp / kWarps, nks = KS * (warp + 1) / kWarps - ks0;
+  unsigned wb[kGateSteps][4][2];
+  load_gate_b(wb, whh, H, ub, ks0, nks, g, t4);
+
+  // the dh block's piece: B = w_hh^T over da columns [K0, K0 + W) and units
+  // [64 j, 64 j + 64); b0 holds k = 16 ks + 2 t4, + 1 of unit n = 8 nt + g
+  // (one 32-bit load), b1 k + 8, + 9
+  const int slices = da_slices(H);
+  const bool dblock = (int)blockIdx.x < slices * (H / kGroup);
+  const int sl = blockIdx.x % slices, grp = blockIdx.x / slices;
+  const int K0 = sl * kSlice, W = min(kSlice, H4 - K0), KSd = W / 16;
+  const int dks0 = KSd * warp / kWarps, dnks = KSd * (warp + 1) / kWarps - dks0;
+  unsigned wr[kDaSteps][kDaTiles][2];
+#pragma unroll
+  for (int kk = 0; kk < kDaSteps; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < kDaTiles; ++nt) {
+      wr[kk][nt][0] = wr[kk][nt][1] = 0u;
+      if (dblock && kk < dnks) {
+        const unsigned* p = reinterpret_cast<const unsigned*>(
+            whh + (size_t)(kGroup * grp + 8 * nt + g) * H4 + K0 + 16 * (dks0 + kk) + 2 * t4);
+        wr[kk][nt][0] = __ldg(p);
+        wr[kk][nt][1] = __ldg(p + 4);
+      }
+    }
+
+  const bool cell = tid < kRows * kUnits;
+  const int cr = tid >> 3, cu = tid & 7, unit = ub + cu;
+  // the cell update's inputs that no block writes, raw bf16 bits loaded a
+  // chunk ahead: x_proj[t] (4 gates), dys[t], cs[t], c_{t-1}
+  struct In {
+    unsigned short x[4], dy, ct, cp;
+  };
+  auto load_in = [&](int t, int m, In& in) {
+    const int row = m * kRows + cr;
+    if (!cell || t < 0 || row >= N) return;
+    const size_t o = ((size_t)t * N + row) * H + unit;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in.x[q] = raw(xp + ((size_t)t * N + row) * H4 + (size_t)q * H + unit);
+    in.dy = raw(dys + o);
+    in.ct = raw(cs + o);
+    in.cp = t == 0 ? raw(static_cast<const bf16*>(a.c0) + (size_t)row * H + unit)
+                   : raw(cs + o - (size_t)N * H);
+  };
+  auto wide = [](unsigned short b) { return __uint_as_float((unsigned)b << 16); };
+  // dh of (row, unit) entering step t: dhT at the last step, else the sum of
+  // the partials of da_{t+1} w_hh^T over the slices in order, loaded into pv
+  // (issued before the chunk's wait) and summed after it
+  constexpr int kMaxSlices = 4 * kMaxH / kSlice;
+  auto dh_load = [&](int row, bool last, float (&pv)[kMaxSlices]) {
+    const size_t o = (size_t)row * H + unit;
+    if (last) {
+      pv[0] = a.dhT != nullptr ? __bfloat162float(static_cast<const bf16*>(a.dhT)[o]) : 0.0f;
+      return;
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxSlices; ++q)
+      if (q < slices) pv[q] = __ldcg(part + (size_t)q * N * H + o);
+  };
+  auto dh_sum = [&](bool last, const float (&pv)[kMaxSlices]) {
+    float s = pv[0];
+#pragma unroll
+    for (int q = 1; q < kMaxSlices; ++q)
+      if (!last && q < slices) s = __fadd_rn(s, pv[q]);
+    return s;
+  };
+  // dc of the thread's (row, unit) entering its next chunk (dcT at the
+  // last step), loaded after the cell update before it
+  auto load_dc = [&](int t, int m) {
+    const int row = m * kRows + cr;
+    if (!cell || t < 0 || row >= N) return 0.0f;
+    const size_t o = (size_t)row * H + unit;
+    if (t == steps - 1)
+      return a.dcT != nullptr ? __bfloat162float(static_cast<const bf16*>(a.dcT)[o]) : 0.0f;
+    return st_dc[o];
+  };
+  In in = {};
+  load_in(steps - 1, 0, in);
+  float dc_in = load_dc(steps - 1, 0);
+  // the ring reads h0 and ys, the forward's outputs: every chunk is ready
+  int issued = 0;
+  if (warp == 0) pump(r, issued, 0, total, -1, chunk);
+
+  int i = 0;
+  for (int j = 0; j < steps; ++j) {
+    const int t = steps - 1 - j;
+    // 1. the gates of step t and its cell update, chunk by chunk
+    for (int m = 0; m < nrt; ++m, ++i) {
+      In nx = {};
+      const int tn = m + 1 < nrt ? t : t - 1, mn = m + 1 < nrt ? m + 1 : 0;
+      load_in(tn, mn, nx);
+      const int row = m * kRows + cr;
+      const bool mine = cell && row < N;
+      float pv[kMaxSlices] = {};
+      if (mine) dh_load(row, j == 0, pv);
+      const int s = i % r.S;
+      if (warp == 0) pump(r, issued, i, total, i, chunk);  // chunk i, where this rank issues it
+      mbar_wait(r.full + 8u * s, (unsigned)(i / r.S) & 1u);
+      gate_partials(ring + (size_t)s * kRows * SP, SP, wb, ks0, nks, red + warp * kRows * kRedG,
+                    lane);
+      __syncthreads();
+      if (warp == 0) {
+        const int later = i + r.S;
+        release(r, i, total, later < total ? chunk_rows(later) : 0);
+        pump(r, issued, i + 1, total, -1, chunk);
+      }
+      if (mine) {
+        float gs[4];
+        gate_sums(red, cr, cu, gs);
+        const size_t o = (size_t)row * H + unit;
+        float dc = dc_in;
+        const float gi = sigmoidf(gs[0] + wide(in.x[0]));
+        const float gf = sigmoidf(gs[1] + wide(in.x[1]));
+        const float gg = tanhf(gs[2] + wide(in.x[2]));
+        const float go = sigmoidf(gs[3] + wide(in.x[3]));
+        const float dh = __fadd_rn(dh_sum(j == 0, pv), wide(in.dy));
+        const float tc = tanhf(wide(in.ct));
+        const float d_o = __fmul_rn(dh, tc);
+        dc = __fadd_rn(dc, __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+        const float d_i = __fmul_rn(dc, gg), d_f = __fmul_rn(dc, wide(in.cp));
+        const float d_g = __fmul_rn(dc, gi);
+        float da[4];
+        da[0] = __fmul_rn(__fmul_rn(d_i, gi), __fsub_rn(1.0f, gi));
+        da[1] = __fmul_rn(__fmul_rn(d_f, gf), __fsub_rn(1.0f, gf));
+        da[2] = __fmul_rn(d_g, __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+        da[3] = __fmul_rn(__fmul_rn(d_o, go), __fsub_rn(1.0f, go));
+        st_dc[o] = __fmul_rn(dc, gf);
+        const size_t ox = ((size_t)t * N + row) * H4 + unit;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          a.da[ox + (size_t)q * H] = da[q];
+          dxp[ox + (size_t)q * H] = __float2bfloat16_rn(da[q]);
+        }
+      }
+      dc_in = load_dc(tn, mn);
+      __syncthreads();  // the partials are rewritten by the next chunk
+      in = nx;
+    }
+    grid_barrier(a.bar);  // da_t complete
+
+    // 2. the dh block's partial of dh_{t-1} = da_t w_hh^T, 16 rows at a time
+    if (dblock) {
+      const float* src = a.da + (size_t)t * N * H4 + K0;
+      auto load_tile = [&](int m) {
+        float* dst = dat + (m & 1) * kRows * kDaPitch;
+        const int per_row = W / 4;  // 16-byte pieces
+        for (int q = tid; q < kRows * per_row; q += kThreads) {
+          const int rr = q / per_row, k = (q % per_row) * 4, row = m * kRows + rr;
+          const bool ok = row < N;
+          cp16(dst + rr * kDaPitch + k, src + (size_t)(ok ? row : 0) * H4 + k, ok);
+        }
+        cp_commit();
+      };
+      load_tile(0);
+      for (int m = 0; m < nrt; ++m) {
+        if (m + 1 < nrt) {
+          load_tile(m + 1);
+          cp_wait<1>();
+        } else {
+          cp_wait<0>();
+        }
+        __syncthreads();
+        float acc[kDaTiles][4] = {};
+        const float* pa = dat + (m & 1) * kRows * kDaPitch + g * kDaPitch + 2 * t4;
+#pragma unroll
+        for (int kk = 0; kk < kDaSteps; ++kk)
+          if (kk < dnks) {
+            const float* p = pa + 16 * (dks0 + kk);
+            const float2 v[4] = {*reinterpret_cast<const float2*>(p),
+                                 *reinterpret_cast<const float2*>(p + 8 * kDaPitch),
+                                 *reinterpret_cast<const float2*>(p + 8),
+                                 *reinterpret_cast<const float2*>(p + 8 * kDaPitch + 8)};
+            unsigned af[3][4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              bf16 hx, mx, lx, hy, my, ly;
+              cl::split3(v[e].x, &hx, &mx, &lx);
+              cl::split3(v[e].y, &hy, &my, &ly);
+              af[0][e] = pack2(__bfloat16_as_ushort(hx), __bfloat16_as_ushort(hy));
+              af[1][e] = pack2(__bfloat16_as_ushort(mx), __bfloat16_as_ushort(my));
+              af[2][e] = pack2(__bfloat16_as_ushort(lx), __bfloat16_as_ushort(ly));
+            }
+            // lo, mid, hi into each accumulator, the n tiles interleaved so
+            // that no mma waits on the one before it
+#pragma unroll
+            for (int e = 2; e >= 0; --e)
+#pragma unroll
+              for (int nt = 0; nt < kDaTiles; ++nt) mma(acc[nt], af[e], wr[kk][nt][0], wr[kk][nt][1]);
+          }
+        float* rw = red + warp * kRows * kRedD;
+#pragma unroll
+        for (int nt = 0; nt < kDaTiles; ++nt) {
+          float* d = rw + 8 * nt + 2 * t4;
+          *reinterpret_cast<float2*>(d + g * kRedD) = make_float2(acc[nt][0], acc[nt][1]);
+          *reinterpret_cast<float2*>(d + (g + 8) * kRedD) = make_float2(acc[nt][2], acc[nt][3]);
+        }
+        __syncthreads();
+        {
+          // thread: chunk row tid / 16, units 4 (tid % 16) + [0, 4) of the group
+          const int rr = tid >> 4, c4 = (tid & 15) * 4, row = m * kRows + rr;
+          float4 sum = *reinterpret_cast<const float4*>(red + rr * kRedD + c4);
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w) {
+            const float4 v = *reinterpret_cast<const float4*>(red + (w * kRows + rr) * kRedD + c4);
+            sum = make_float4(__fadd_rn(sum.x, v.x), __fadd_rn(sum.y, v.y), __fadd_rn(sum.z, v.z),
+                              __fadd_rn(sum.w, v.w));
+          }
+          if (row < N)
+            *reinterpret_cast<float4*>(part + ((size_t)sl * N + row) * H + kGroup * grp + c4) = sum;
+        }
+        __syncthreads();  // the tile buffer and the partials are reused
+      }
+    }
+    grid_barrier(a.bar);  // the partials of dh_{t-1} complete
+  }
+  // dh0 and dc0
+  for (int m = 0; m < nrt; ++m) {
+    const int row = m * kRows + cr;
+    if (!cell || row >= N) continue;
+    const size_t o = (size_t)row * H + unit;
+    float pv[kMaxSlices] = {};
+    dh_load(row, false, pv);
+    static_cast<bf16*>(a.dh0)[o] = __float2bfloat16_rn(dh_sum(false, pv));
+    static_cast<bf16*>(a.dc0)[o] = __float2bfloat16_rn(st_dc[o]);
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The clusters of C blocks the card holds at once for the forward (FWD) or
+// the backward at width H, with the shared-memory opt-in set first (to the
+// card's whole opt-in, so that a width queried later never lowers what an
+// earlier one launches with); per device, once.
+cudaError_t active_clusters(bool fwd, int H, int C, int dev, int* clusters) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, int>, int> active;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, (int)fwd, H, C);
+  auto it = active.find(key);
+  if (it == active.end()) {
+    void (*fn)(Args, int) = fwd ? lstm_fwd_wide_kernel : lstm_bwd_wide_kernel;
+    const size_t smem = smem_bytes(H, fwd);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0, max_smem = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+    it = active.emplace(key, n).first;
+  }
+  *clusters = it->second;
+  return cudaSuccess;
+}
+
+// H / 8 blocks, in the largest clusters (4, 2, 1) of which the card holds
+// them all at once: the grid-wide barrier needs every block resident. The
+// launch is also cooperative (the driver takes that with a cluster
+// dimension), so the runtime refuses a grid that could not be resident
+// rather than leaving the barrier to its trap. A width the card cannot hold
+// that way is refused.
+cudaError_t launch(bool fwd, const Args& a, cudaStream_t stream, int* plan_out) {
+  if (a.H % 64 != 0 || a.H < 64 || a.H > kMaxH) return cudaErrorInvalidValue;
+  const int blocks = a.H / kUnits;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int C : {4, 2, 1}) {
+    if (blocks % C != 0) continue;
+    int clusters = 0;
+    err = active_clusters(fwd, a.H, C, dev, &clusters);
+    if (err != cudaSuccess) return err;
+    if ((long long)clusters * C < blocks) continue;
+    const size_t smem = smem_bytes(a.H, fwd);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[2];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+    if (plan_out != nullptr) {
+      plan_out[0] = blocks;
+      plan_out[1] = C;
+      plan_out[2] = kUnits;
+      plan_out[3] = (int)smem;
+      plan_out[4] = clusters;
+      plan_out[5] = slots(fwd);
+      plan_out[6] = fwd ? 0 : da_slices(a.H) * (a.H / kGroup);
+    }
+    err = fwd ? cudaLaunchKernelEx(&cfg, lstm_fwd_wide_kernel, a, C)
+              : cudaLaunchKernelEx(&cfg, lstm_bwd_wide_kernel, a, C);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
+}  // namespace wd
+
 // ---------------------------------------------------------------- launch plan
 template <typename T, int RB, bool BWD, bool WS>
 const void* kernel_ptr() {
@@ -1515,10 +2270,13 @@ bool aligned16(std::initializer_list<const void*> ps) {
 }
 
 // What the routes take: round_h (0-2) only with f32 storage (0, the first grid
-// design); route 1 (clusters) bf16 with H in {64, 128, 256}.
+// design); route 1 (clusters) bf16 with H in {64, 128, 256}; route 2 (wide)
+// bf16 with H a multiple of 64 up to wd::kMaxH (the launch refuses a width
+// whose H / 8 blocks the card cannot hold at once).
 bool bad_route(int is_bf16, int route, int round_h, int H) {
-  if (route < 0 || route > 1 || round_h < 0 || round_h > 2 || (round_h && (is_bf16 || route == 1)))
+  if (route < 0 || route > 2 || round_h < 0 || round_h > 2 || (round_h && (is_bf16 || route != 0)))
     return true;
+  if (route == 2) return !is_bf16 || H % 64 != 0 || H > wd::kMaxH;
   return route == 1 && (!is_bf16 || (H != 64 && H != 128 && H != 256));
 }
 
@@ -1534,17 +2292,20 @@ extern "C" {
 // or 2 rounds h to bf16 or f16 before the product, for f32 storage of a bf16
 // or f16 w_hh), route
 // 1 the cluster route, which takes bf16 with H in {64, 128, 256} and 16-byte
-// aligned xp, whh and h0, and refuses anything else. plan_out, if not null,
+// aligned xp, whh and h0, and refuses anything else, route 2 the wide route,
+// which takes bf16 with H a multiple of 64 up to 1024 (st: f32 scratch [N, H])
+// and the same alignment. plan_out, if not null,
 // receives {blocks, rows per thread, chunk, shared bytes, blocks per SM, tiles
-// per block, w_hh in shared memory (1) or read from L2 (0)} (route 0) or
+// per block, w_hh in shared memory (1) or read from L2 (0)} (route 0),
 // {blocks, cluster size, rows per cluster, shared bytes, clusters the card
-// holds at once} (route 1).
+// holds at once} (route 1) or {blocks, cluster size, units per block, shared
+// bytes, clusters the card holds at once, ring slots, dh blocks} (route 2).
 int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const void* whh,
                   const void* h0, const void* c0, void* ys, void* cs, void* hT, void* cT,
                   void* bar, void* st, int steps, int N, int H, int* plan_out, void* stream) {
   if (bad_shape(steps, N, H) || bad_route(is_bf16, route, round_h, H))
     return (int)cudaErrorInvalidValue;
-  if (route == 1 && !aligned16({xp, whh, h0})) return (int)cudaErrorInvalidValue;
+  if (route != 0 && !aligned16({xp, whh, h0})) return (int)cudaErrorInvalidValue;
   Args a{};
   a.xp = xp;
   a.whh = whh;
@@ -1562,6 +2323,7 @@ int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const voi
   a.round_h = round_h;
   const auto s = static_cast<cudaStream_t>(stream);
   if (route == 1) return (int)cl::launch_h<true>(a, s, plan_out);
+  if (route == 2) return (int)wd::launch(true, a, s, plan_out);
   return (int)(is_bf16 ? launch<__nv_bfloat16, false>(a, s, plan_out)
                        : launch<float, false>(a, s, plan_out));
 }
@@ -1573,7 +2335,9 @@ int dl4j_lstm_fwd(int is_bf16, int route, int round_h, const void* xp, const voi
 // d x_proj itself). route 0 is the cooperative grid design (bar, st and
 // round_h as in the forward), route 1 the cluster route, which takes bf16
 // with H in {64, 128, 256} and 16-byte aligned whh, ys and h0, and refuses
-// anything else. plan_out as in the forward.
+// anything else, route 2 the wide route (bf16, H a multiple of 64 up to 1024,
+// the same alignment; st: f32 scratch [1 + ceil(H / 128), N, H]). plan_out as
+// in the forward.
 int dl4j_lstm_bwd(int is_bf16, int route, int round_h, const void* xp, const void* whh,
                   const void* h0, const void* c0, const void* ys, const void* cs,
                   const void* dys, const void* dhT, const void* dcT, void* dxp, void* da,
@@ -1581,7 +2345,7 @@ int dl4j_lstm_bwd(int is_bf16, int route, int round_h, const void* xp, const voi
                   int* plan_out, void* stream) {
   if (bad_shape(steps, N, H) || cs == nullptr || bad_route(is_bf16, route, round_h, H))
     return (int)cudaErrorInvalidValue;
-  if (route == 1 && (!aligned16({whh, ys, h0}) || dxp == nullptr))
+  if (route != 0 && (!aligned16({whh, ys, h0}) || dxp == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.xp = xp;
@@ -1605,6 +2369,7 @@ int dl4j_lstm_bwd(int is_bf16, int route, int round_h, const void* xp, const voi
   a.round_h = round_h;
   const auto s = static_cast<cudaStream_t>(stream);
   if (route == 1) return (int)cl::launch_h<false>(a, s, plan_out);
+  if (route == 2) return (int)wd::launch(false, a, s, plan_out);
   return (int)(is_bf16 ? launch<__nv_bfloat16, true>(a, s, plan_out)
                        : launch<float, true>(a, s, plan_out));
 }

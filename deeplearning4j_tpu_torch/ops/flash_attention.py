@@ -13,12 +13,13 @@ iff ``i >= j``.
   hand-written Hopper kernels of ``csrc/flash_attention.cu``, joined into
   one differentiable op by :class:`FlashAttention`. The kernels are built
   for head dims 32, 64, 96 and 128 (bf16 on the tensor cores, f32 on the
-  CUDA cores) and 256 (f32); the wrappers take any head dim up to 256
-  (the largest of any config in the repo is 64; JAX's
-  ``pallas_flash_forward`` takes any), zero-padding q, k and v to the
-  next kernel tile with the softmax scale from the real head dim, and
-  slice the results back. f16, and bf16 past a head dim of 128, run the
-  f32 kernels over widened inputs, cast back.
+  CUDA cores), 256 (f32) and any multiple of 64 past it (f32, the head
+  dim walked in 64-column slices); the wrappers take any head dim (the
+  largest of any config in the repo is 64; JAX's ``pallas_flash_forward``
+  takes any), zero-padding q, k and v to the next kernel tile with the
+  softmax scale from the real head dim, and slice the results back. f16,
+  and bf16 past a head dim of 128, run the f32 kernels over widened
+  inputs, cast back.
 - :func:`attention`: the dispatcher. CPU tensors take
   :func:`blockwise_attention`, which is what the JAX dispatcher picks off
   the TPU (``:306-307``); CUDA tensors take :class:`FlashAttention`, which
@@ -54,20 +55,25 @@ fwd_launches = 0
 bwd_launches = 0
 
 #: the head dims the kernels are built for: every route, and the f32
-#: route's wide tile
+#: route's wide tile; past it the f32 route takes any multiple of
+#: DEEP_SLICE
 KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 WIDE_HEAD_DIM = 256
+DEEP_SLICE = 64
 #: the dtypes the wrappers take; the kernels compute in f32 or bf16
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def kernel_layout(dtype: torch.dtype, hd: int) -> Tuple[int, torch.dtype]:
     """``(tile, dtype)`` the kernels run a call of ``hd`` and ``dtype`` at:
-    the head dim padded to the next kernel tile, and bf16 (the tensor
-    cores, up to 128) or f32 (everything else, widened)."""
-    if not 1 <= hd <= WIDE_HEAD_DIM:
-        raise ValueError(f"the flash-attention kernels take head_dim 1 to "
-                         f"{WIDE_HEAD_DIM}, got {hd}")
+    the head dim padded to the next kernel tile (past 256, to the next
+    multiple of :data:`DEEP_SLICE`), and bf16 (the tensor cores, up to
+    128) or f32 (everything else, widened)."""
+    if hd < 1:
+        raise ValueError(f"the flash-attention kernels take head_dim >= 1, "
+                         f"got {hd}")
+    if hd > WIDE_HEAD_DIM:
+        return -(-hd // DEEP_SLICE) * DEEP_SLICE, torch.float32
     tile = next((d for d in KERNEL_HEAD_DIMS if hd <= d), WIDE_HEAD_DIM)
     if dtype == torch.bfloat16 and tile in KERNEL_HEAD_DIMS:
         return tile, dtype

@@ -16,10 +16,14 @@ kernel does (``_kernel``, lstm_pallas.py:43-81).
   persistent launch each); the backward's weight gradient is one f32
   ``torch.matmul`` over all ``T * N`` rows of the kernel's f32 ``da``
   after the kernel, as the JAX backward leaves that sum to XLA and casts
-  only its result. Each has two routes, chosen by :func:`fwd_route` and
+  only its result. Each has three routes, chosen by :func:`fwd_route` and
   :func:`bwd_route` from dtypes, shape and alignment: ``"cluster"``
   (bf16 at H in {64, 128, 256}: thread-block clusters per batch tile with
-  a DSMEM exchange and tensor-core products) and ``"grid"`` (the first
+  a DSMEM exchange and tensor-core products), ``"wide"`` (bf16 at H in
+  :data:`WIDE_HIDDEN`: w_hh held once across the card in registers, one
+  block per 8 units, h_{t-1} multicast to the blocks of a cluster by the
+  bulk-copy engine, tensor-core products, and in the backward dh_{t-1}
+  formed in 2-D pieces of ``da @ w_hh^T``) and ``"grid"`` (the first
   design, a cooperative launch with a grid-wide barrier, for the rest; it
   takes any T, N and H, walking several tiles per block, or reading
   ``w_hh`` from L2, where the card cannot hold them otherwise). A call
@@ -48,11 +52,13 @@ from deeplearning4j_tpu_torch.ops import native
 #: launches of the forward / backward kernels since the last reset;
 #: incremented only where :func:`lstm_recurrence_fwd` /
 #: :func:`lstm_recurrence_bwd` launch them (one per call), and of those the
-#: launches that took the cluster route
+#: launches that took the cluster route and the wide route
 fwd_launches = 0
 bwd_launches = 0
 fwd_cluster_launches = 0
 bwd_cluster_launches = 0
+fwd_wide_launches = 0
+bwd_wide_launches = 0
 
 #: the kernels' envelope (``bad_shape`` in the CUDA source): every size
 #: the reference's scan takes, within 32-bit offsets of a step's rows
@@ -62,11 +68,13 @@ ENVELOPE = "the LSTM kernels take T, N, H >= 1 with N * 4H < 2^31"
 #: chunk, shared bytes, blocks per SM, tiles per block, w_hh in shared
 #: memory (1) or read from L2 (0) (grid route); blocks, cluster size,
 #: rows per cluster, shared bytes, clusters the card holds at once, 0, 0
-#: (cluster route)
+#: (cluster route); blocks, cluster size, units per block, shared bytes,
+#: clusters the card holds at once, ring slots, dh blocks (0 in the
+#: forward) (wide route)
 last_plan: Tuple[int, ...] = ()
 
 #: the kernels' routes, by the number the C entries take
-ROUTES = {"grid": 0, "cluster": 1}
+ROUTES = {"grid": 0, "cluster": 1, "wide": 2}
 #: the dtypes the wrappers take, in any mix
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: the storage types the kernels compute in; other calls (f16, or f32 and
@@ -78,6 +86,20 @@ ROUND_H = {torch.bfloat16: 1, torch.float16: 2}
 #: hidden widths of the cluster route (a block owns 32 units; clusters of
 #: H / 32 blocks, at most the portable 8)
 CLUSTER_HIDDEN = (64, 128, 256)
+#: the wide route: a block owns WIDE_UNITS units and keeps their 32 w_hh
+#: columns (64 KiB at H=1024) and, in the backward, a 64 KiB piece of
+#: w_hh^T in registers, and every block must be resident at once (a
+#: grid-wide barrier per step), one to an SM; so H / WIDE_UNITS <= the
+#: card's SMs (132 on the H100 SXM), and H is a multiple of 64 (whole dh
+#: groups of 64 units): 1024 at most. The C entry checks co-residency on
+#: the card itself and refuses a width it cannot hold.
+WIDE_UNITS = 8
+H100_SMS = 132
+WIDE_MAX_HIDDEN = H100_SMS * WIDE_UNITS // 64 * 64
+WIDE_HIDDEN = tuple(range(max(CLUSTER_HIDDEN) + 64, WIDE_MAX_HIDDEN + 1, 64))
+#: da columns per dh block of the wide backward: its scratch holds one f32
+#: partial plane [N, H] per slice of that many columns
+WIDE_DA_SLICE = 512
 
 
 # ------------------------------------------------------------ plain versions
@@ -235,42 +257,58 @@ def _widened(w_hh, *ts) -> Optional[int]:
     return ROUND_H.get(w_hh.dtype, 0)
 
 
-def _cluster_fits(w_hh, storage, *aligned) -> bool:
-    return (storage == torch.bfloat16 and w_hh.shape[0] in CLUSTER_HIDDEN
-            and all(t.data_ptr() % 16 == 0 for t in aligned))
+def _route_of(w_hh, storage, *aligned) -> str:
+    hidden = w_hh.shape[0]
+    if (storage != torch.bfloat16
+            or any(t.data_ptr() % 16 for t in aligned)):
+        return "grid"
+    if hidden in CLUSTER_HIDDEN:
+        return "cluster"
+    return "wide" if hidden in WIDE_HIDDEN else "grid"
 
 
 def fwd_route(x_proj, w_hh, h0, c0=None) -> str:
     """The forward kernel route a call takes, from dtypes, shapes and
-    alignment alone (any device): ``"cluster"`` where ``x_proj``, ``w_hh``
-    and ``h0`` (and ``c0``, where given) are all bf16, H is in
-    :data:`CLUSTER_HIDDEN` and ``x_proj``, ``w_hh`` and ``h0`` are 16-byte
-    aligned (the route's 16-byte copies), any T and N; ``"grid"``
-    otherwise (float32, float16, mixed dtypes, other widths)."""
+    alignment alone (any device), any T and N: where ``x_proj``, ``w_hh``
+    and ``h0`` (and ``c0``, where given) are all bf16 and ``x_proj``,
+    ``w_hh`` and ``h0`` are 16-byte aligned (the routes' 16-byte copies),
+    ``"cluster"`` for H in :data:`CLUSTER_HIDDEN` and ``"wide"`` for H in
+    :data:`WIDE_HIDDEN`; ``"grid"`` otherwise (float32, float16, mixed
+    dtypes, other widths)."""
     storage = _storage(x_proj, w_hh, h0, c0)
-    return ("cluster" if _cluster_fits(w_hh, storage, x_proj, w_hh, h0)
-            else "grid")
+    return _route_of(w_hh, storage, x_proj, w_hh, h0)
 
 
 def bwd_route(x_proj, w_hh, h0, ys, c0=None) -> str:
     """The backward kernel route a call takes, from dtypes, shapes and
-    alignment alone (any device): ``"cluster"`` for bf16 ``x_proj``,
-    ``w_hh``, ``h0`` and ``ys`` (and ``c0``, where given) with H in
-    :data:`CLUSTER_HIDDEN` and ``w_hh``, ``h0`` and ``ys`` 16-byte aligned
-    (the route's 16-byte copies), any T and N; ``"grid"`` otherwise
-    (float32, float16, mixed dtypes, other widths)."""
+    alignment alone (any device), any T and N: for bf16 ``x_proj``,
+    ``w_hh``, ``h0`` and ``ys`` (and ``c0``, where given) with ``w_hh``,
+    ``h0`` and ``ys`` 16-byte aligned (the routes' 16-byte copies),
+    ``"cluster"`` for H in :data:`CLUSTER_HIDDEN` and ``"wide"`` for H in
+    :data:`WIDE_HIDDEN`; ``"grid"`` otherwise (float32, float16, mixed
+    dtypes, other widths)."""
     storage = _storage(x_proj, w_hh, h0, ys, c0)
-    return "cluster" if _cluster_fits(w_hh, storage, w_hh, h0, ys) else "grid"
+    return _route_of(w_hh, storage, w_hh, h0, ys)
 
 
-def _grid_scratch(route: str, n: int, hidden: int, device):
-    """The grid route's barrier words and its f32 state scratch ``[2, N,
-    H]`` (used where a block walks several tiles); None, None for the
-    cluster route."""
-    if route != "grid":
+def wide_scratch_planes(hidden: int, backward: bool) -> int:
+    """f32 ``[N, H]`` planes of the wide route's scratch: c (forward); dc
+    and one partial of dh per :data:`WIDE_DA_SLICE` da columns
+    (backward)."""
+    return 1 + (-(-4 * hidden // WIDE_DA_SLICE) if backward else 0)
+
+
+def _scratch(route: str, n: int, hidden: int, device, backward: bool):
+    """The zeroed barrier words and the f32 state scratch of the grid route
+    (``[2, N, H]``, used where a block walks several tiles) and of the wide
+    route (:func:`wide_scratch_planes`); None, None for the cluster
+    route."""
+    if route == "cluster":
         return None, None
+    planes = 2 if route == "grid" else wide_scratch_planes(hidden, backward)
     return (torch.zeros(2, dtype=torch.int32, device=device),
-            torch.empty(2 * n * hidden, dtype=torch.float32, device=device))
+            torch.empty(planes * n * hidden, dtype=torch.float32,
+                        device=device))
 
 
 def _route_number(route: str) -> int:
@@ -291,7 +329,7 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
     ``w_hh`` is bf16 or f16) and casts its outputs. Raises on any argument the kernel does not take
     (``ValueError`` naming the envelope outside it), on a failed build and
     on a refused launch; never computes the result another way."""
-    global fwd_launches, fwd_cluster_launches, last_plan
+    global fwd_launches, fwd_cluster_launches, fwd_wide_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
     out_dtype = x_proj.dtype
     round_h = _widened(w_hh, x_proj, h0, c0)
@@ -306,7 +344,7 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
                      device=x_proj.device)
     cs = torch.empty_like(ys) if collect_cell else None
     hT, cT = torch.empty_like(h0), torch.empty_like(c0)
-    bar, state = _grid_scratch(route, n, hidden, x_proj.device)
+    bar, state = _scratch(route, n, hidden, x_proj.device, False)
     plan = (ctypes.c_int * 7)()
     lib = _lib()
     with torch.cuda.device(x_proj.device):
@@ -319,6 +357,7 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
     _raise_on(lib, err, f"forward ({route} route)")
     fwd_launches += 1
     fwd_cluster_launches += route == "cluster"
+    fwd_wide_launches += route == "wide"
     last_plan = tuple(plan)
     out = (ys, hT, cT) + ((cs,) if collect_cell else ())
     return tuple(t.to(out_dtype) for t in out)
@@ -334,7 +373,7 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     does not fit. Mixed dtypes and f16 run as in
     :func:`lstm_recurrence_fwd`.
     Raises like :func:`lstm_recurrence_fwd`."""
-    global bwd_launches, bwd_cluster_launches, last_plan
+    global bwd_launches, bwd_cluster_launches, bwd_wide_launches, last_plan
     _check_kernel_args(x_proj, w_hh, h0, c0)
     steps, n, four_h = x_proj.shape
     hidden = w_hh.shape[0]
@@ -362,7 +401,7 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     da = torch.empty(x_proj.shape, dtype=torch.float32, device=x_proj.device)
     dxp = da if x_proj.dtype == torch.float32 else torch.empty_like(x_proj)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    bar, state = _grid_scratch(route, n, hidden, x_proj.device)
+    bar, state = _scratch(route, n, hidden, x_proj.device, True)
     plan = (ctypes.c_int * 7)()
     lib = _lib()
     with torch.cuda.device(x_proj.device):
@@ -378,6 +417,7 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
     _raise_on(lib, err, f"backward ({route} route)")
     bwd_launches += 1
     bwd_cluster_launches += route == "cluster"
+    bwd_wide_launches += route == "wide"
     last_plan = tuple(plan)
     h_prev = torch.cat([h0[None], ys[:-1]]).to(torch.float32)
     dw = torch.matmul(h_prev.reshape(steps * n, hidden).T,

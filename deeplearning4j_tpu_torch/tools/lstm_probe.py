@@ -4,10 +4,11 @@ times ``chip_smoke.py`` takes.
 
 Run from the repository root on a machine with one CUDA card::
 
-    python -m deeplearning4j_tpu_torch.tools.lstm_probe [split] [variants] [compare=PATH,...]
+    python -m deeplearning4j_tpu_torch.tools.lstm_probe [split] [variants] [wide] [compare=PATH,...]
 
-With no argument it runs both, at the char-LSTM training shape (T=200,
-H=256, bf16) with N=256 (32-row clusters) and N=240 (16-row clusters):
+With no argument it runs split and variants, at the char-LSTM training
+shape (T=200, H=256, bf16) with N=256 (32-row clusters) and N=240 (16-row
+clusters):
 
 - split: a copy of the source with ``clock64`` counters on thread 0 of
   every block of both cluster kernels; a step's mean cycles in each phase
@@ -25,7 +26,14 @@ H=256, bf16) with N=256 (32-row clusters) and N=240 (16-row clusters):
   to see what the step waits for;
 - compare=PATH[,PATH...]: other copies of ``lstm_recurrence.cu`` with the
   same C entries (earlier designs of the same tree), timed in turns with
-  the source, forward and backward.
+  the source, forward and backward;
+- wide: the wide route (namespace ``wd``) at T=200, N=256, H=1024 and 512,
+  bf16: a step's mean cycles by phase on thread 0 of every block (the
+  copies due and the chunk wait, the gate product, the block barrier, the
+  slot's release and the copies issued ahead, the cell update and block
+  barrier, the grid barrier(s), and in the backward the dh pieces), then
+  copies with one
+  cost taken away, timed in turns with the source.
 
 Every copy but compare's is the source with text substitutions, each of
 which must find its anchor or the run fails; all are built under the
@@ -193,13 +201,10 @@ def build(copies: dict) -> dict:
 @contextlib.contextmanager
 def using(lib):
     """Route the wrapper's launches through ``lib`` (an edited copy)."""
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i, i, i, vp, vp]
-    lib.dl4j_lstm_fwd.restype = ctypes.c_int
-    lib.dl4j_lstm_bwd.argtypes = [i, i, i] + [vp] * 14 + [i, i, i, vp, vp]
-    lib.dl4j_lstm_bwd.restype = ctypes.c_int
-    lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
+    ref = lr._lib()
+    for fn in ("dl4j_lstm_fwd", "dl4j_lstm_bwd", "dl4j_cuda_error_string"):
+        getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+        getattr(lib, fn).restype = getattr(ref, fn).restype
     saved = lr._lib
     lr._lib = lambda: lib
     try:
@@ -299,6 +304,125 @@ def run_compare(paths: str) -> None:
     time_in_turns("compare", libs)
 
 
+WIDE_FWD_PHASES = ("copies due + chunk wait", "gate product", "block barrier",
+                   "release + copies ahead", "cell update + block barrier",
+                   "grid barrier + first copies")
+WIDE_BWD_PHASES = ("copies due + chunk wait", "gate product", "block barrier",
+                   "release + copies ahead", "cell update + block barrier",
+                   "grid barrier (da)", "dh pieces",
+                   "grid barrier (dh)")
+
+# the same anchors in both wide kernels (each substitution edits both)
+WIDE_SPLIT = [
+    ("namespace wd {\n",
+     "namespace wd {\n__device__ unsigned long long g_wprof[10];\n"),
+    ("  if (warp == 0) pump(r, issued, 0, ",
+     "  long long prof[8] = {}, last = clock64();\n"
+     "  if (warp == 0) pump(r, issued, 0, "),
+    ("      mbar_wait(r.full + 8u * s, (unsigned)(i / r.S) & 1u);\n",
+     "      mbar_wait(r.full + 8u * s, (unsigned)(i / r.S) & 1u);\n"
+     + _prof(0, "      ")),
+    ("                    lane);\n      __syncthreads();\n",
+     "                    lane);\n" + _prof(1, "      ")
+     + "      __syncthreads();\n" + _prof(2, "      ")),
+    ("        pump(r, issued, i + 1, ready, -1, chunk);\n      }\n",
+     "        pump(r, issued, i + 1, ready, -1, chunk);\n      }\n"
+     + _prof(3, "      ")),
+    ("        pump(r, issued, i + 1, total, -1, chunk);\n      }\n",
+     "        pump(r, issued, i + 1, total, -1, chunk);\n      }\n"
+     + _prof(3, "      ")),
+    ("      __syncthreads();  // the partials are rewritten by the next "
+     "chunk\n",
+     "      __syncthreads();\n" + _prof(4, "      ")),
+    ("        ready = (t + 2) * nrt;\n        pump(r, issued, i, ready, "
+     "-1, chunk);\n      }\n",
+     "        ready = (t + 2) * nrt;\n        pump(r, issued, i, ready, "
+     "-1, chunk);\n      }\n" + _prof(5, "      ")),
+    ("    grid_barrier(a.bar);  // da_t complete\n",
+     "    grid_barrier(a.bar);\n" + _prof(5)),
+    ("    grid_barrier(a.bar);  // the partials of dh_{t-1} complete\n",
+     _prof(6) + "    grid_barrier(a.bar);\n" + _prof(7)),
+    ("  // no block leaves while a peer may still arrive on its barriers\n",
+     _flush("g_wprof", 6)
+     + "  // no block leaves while a peer may still arrive on its barriers\n"),
+    ("    static_cast<bf16*>(a.dc0)[o] = __float2bfloat16_rn(st_dc[o]);\n"
+     "  }\n",
+     "    static_cast<bf16*>(a.dc0)[o] = __float2bfloat16_rn(st_dc[o]);\n"
+     "  }\n" + _flush("g_wprof", 8)),
+    ('extern "C" {\n',
+     'extern "C" {\nvoid dl4j_probe_wide_read(unsigned long long* out) {\n'
+     '  cudaDeviceSynchronize();\n'
+     '  cudaMemcpyFromSymbol(out, wd::g_wprof, 10 * sizeof(long long));\n'
+     '  const unsigned long long z[10] = {};\n'
+     '  cudaMemcpyToSymbol(wd::g_wprof, z, sizeof z);\n}\n'),
+]
+
+WIDE_VARIANTS = {
+    "no grid barrier": [("grid_barrier(a.bar);", ";")],
+    "clusters of 1 (no multicast)": [("  for (int C : {4, 2, 1}) {\n",
+                                      "  for (int C : {1}) {\n")],
+    "one bulk copy per chunk": [
+        ("  const unsigned bytes = 2u * r.H, pitch = 2u * (r.H + 8);\n",
+         "  const unsigned bytes = 2u * r.H * rows, pitch = 0u;\n"),
+        ("  for (int i = threadIdx.x & 31; i < rows; i += 32) {\n",
+         "  for (int i = threadIdx.x & 31; i < 1; i += 32) {\n")],
+    "no cell update": [("      if (cell && row < N) {\n",
+                        "      if (false) {\n"),
+                       ("      if (mine) {\n", "      if (false) {\n")],
+    "no wait for the slot's release": [
+        ("      if (issued > must && !__shfl_sync(0xffffffffu, mbar_done(bar, "
+         "parity), 0)) break;\n      mbar_wait(bar, parity);\n", "")],
+    "no dh pieces (backward)": [("    if (dblock) {\n",
+                                 "    if (false) {\n")],
+}
+
+
+def run_wide() -> None:
+    """The wide route's split and variants at H=1024 and 512."""
+    split = build({"split": edited(WIDE_SPLIT)})["split"]
+    split.dl4j_probe_wide_read.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_ulonglong * 10)()
+    cases = {h: inputs(256, h=h) for h in (1024, 512)}
+    for h, args in cases.items():
+        for what, phases, call in (
+                ("forward", WIDE_FWD_PHASES, lambda: lr.lstm_recurrence_fwd(
+                    *args[:4], collect_cell=True, route="wide")),
+                ("backward", WIDE_BWD_PHASES, lambda: lr.lstm_recurrence_bwd(
+                    *args, route="wide"))):
+            with using(split):
+                call()                       # warm-up; counts discarded
+                split.dl4j_probe_wide_read(ctypes.addressof(out))
+                call()
+                split.dl4j_probe_wide_read(ctypes.addressof(out))
+            steps = max(int(out[9]), 1)
+            per = [out[i] / steps for i in range(len(phases))]
+            total = sum(per)
+            print(f"[wide split] {what} H={h} (plan {lr.last_plan}): "
+                  f"{total:.0f} cycles per step ({int(out[8])} blocks) = "
+                  + ", ".join(f"{name} {p:.0f} ({p / total:.2f})"
+                              for name, p in zip(phases, per)), flush=True)
+    libs = {"source as it is": native.load("lstm_recurrence")}
+    libs.update(build({name: edited(subs)
+                       for name, subs in WIDE_VARIANTS.items()}))
+    for h, args in cases.items():
+        for what, call in (
+                ("forward", lambda: lr.lstm_recurrence_fwd(
+                    *args[:4], collect_cell=True, route="wide")),
+                ("backward", lambda: lr.lstm_recurrence_bwd(
+                    *args, route="wide"))):
+            times = {name: [] for name in libs}
+            for _ in range(2):
+                for name, lib in libs.items():
+                    with using(lib):
+                        try:
+                            times[name].append(f"{cuda_ms(call, 3, 1):.4f}")
+                        except RuntimeError as e:   # a copy the launch refuses
+                            times[name].append(f"refused ({e})")
+            for name, ts in times.items():
+                print(f"[wide variants] {what} H={h} {name}: "
+                      f"{' / '.join(ts)} ms per call", flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("lstm_probe: no CUDA device")
@@ -319,7 +443,8 @@ def main(argv) -> int:
         if mode.startswith("compare="):
             run_compare(mode.split("=", 1)[1])
         else:
-            {"split": run_split, "variants": run_variants}[mode]()
+            {"split": run_split, "variants": run_variants,
+             "wide": run_wide}[mode]()
     return 0
 
 

@@ -174,7 +174,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("bad, match", [
     (dict(dtype=torch.float64), "float32, bfloat16 or float16"),
     (dict(k_dtype=torch.bfloat16), "must match"),
-    (dict(hd=257), "head_dim 1 to 256"),
+    (dict(hd=0), "head_dim >= 1"),
     (dict(k_heads=3), "N, H or hd"),
     (dict(mask_dtype=torch.int32), "key mask"),
     (dict(mask_len=5), "key mask"),
@@ -204,11 +204,16 @@ def test_kernel_argument_checks(bad, match):
     (torch.float16, 64, 64, torch.float32),
     (torch.bfloat16, 160, 256, torch.float32),
     (torch.float32, 256, 256, torch.float32),
+    (torch.float32, 257, 320, torch.float32),
+    (torch.float32, 320, 320, torch.float32),
+    (torch.bfloat16, 512, 512, torch.float32),
+    (torch.float16, 500, 512, torch.float32),
 ])
 def test_kernel_layout(dtype, hd, tile, kernel_dtype):
-    """The tile and dtype the kernels run a call at (C9, C10): the head
-    dim padded to the next of 32, 64, 96, 128 (256 on the f32 route), bf16
-    on the tensor cores up to 128, everything else at f32."""
+    """The tile and dtype the kernels run a call at (C9-C11): the head
+    dim padded to the next of 32, 64, 96, 128 (256 on the f32 route, and
+    past it the next multiple of 64), bf16 on the tensor cores up to 128,
+    everything else at f32."""
     assert fa.kernel_layout(dtype, hd) == (tile, kernel_dtype)
     q = torch.zeros(2, 2, 8, hd, dtype=dtype)
     # every check passes but the device's
@@ -224,7 +229,7 @@ def test_kernel_layout(dtype, hd, tile, kernel_dtype):
 #: head dims and dtypes the kernels are not built for, which the JAX
 #: kernel takes (C9: f16; C10: head dims other than 32, 64, 96, 128)
 WIDE_CASES = [(torch.float16, 32), (torch.float32, 48), (torch.float32, 160),
-              (torch.float16, 16)]
+              (torch.float16, 16), (torch.float32, 320)]
 
 
 @pytest.mark.parametrize("dtype, hd", WIDE_CASES,
@@ -574,3 +579,45 @@ def test_cuda_tiny_config_flash_trains():
     for a, b in zip(lc, lh):
         assert abs(a - b) <= 1e-4 * abs(b)
     assert float((pc - ph).abs().max()) <= 2e-5
+
+
+#: head dims past the f32 route's 256 tile (C11): the kernels walk them in
+#: 64-column slices
+DEEP_CASES = [(torch.float32, 320), (torch.bfloat16, 320),
+              (torch.float32, 512), (torch.bfloat16, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, hd", DEEP_CASES,
+                         ids=[f"{str(d)[6:]}-hd{h}" for d, h in DEEP_CASES])
+def test_cuda_head_dims_past_256(dtype, hd, causal):
+    """C11 on the card: head dims 320 and 512 (f32, and bf16 widened to
+    f32), forward and backward through the autograd Function against
+    autograd through the f32 plain version on the same rounded inputs,
+    with padded keys and Tq != Tk: f32 within 2e-5 (values) and 1e-4 of
+    max |grad|, bf16 within 2e-2; one launch each way; the scale is the
+    real head dim's."""
+    _cuda()
+    q, k, v, m = (x.cuda() for x in _t(*_case(hd + 1, 77, N=2, H=3, hd=hd,
+                                                mask="padded", Tq=50)))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(hd))
+    a = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+    before = (fa.fwd_launches, fa.bwd_launches)
+    out = fa.attention(*a, m, causal)
+    got = torch.autograd.grad(out, a, g.to(dtype))
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    b = [t.to(dtype).float().requires_grad_(True) for t in (q, k, v)]
+    ref = _plain(*b, m, causal)
+    want = torch.autograd.grad(ref, b, g.to(dtype).float())
+    tol = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float((out.detach().float() - ref.detach()).abs().max()) \
+        <= tol[0]
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        assert float((x.float() - y).abs().max()) \
+            <= tol[1] * float(y.abs().max())

@@ -367,6 +367,44 @@ def test_f16_lstm_layer_matches_jax():
     _layer_grads_against_jax(arrays, torch.float16, jnp.float16, 1e-3, 2e-3)
 
 
+def test_plain_bf16_wide_matches_pallas_interpret():
+    """The wide route's width at bf16 (H=512): the plain versions against
+    the Pallas kernel through the interpreter and ``jax.vjp`` through
+    ``_recurrence`` on the same bf16 inputs; outputs and gradients bf16,
+    within one bf16 step (2^-7) of the largest value (f32 sums of 512
+    products in another order can flip a rounding)."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops.lstm_pallas import (_recurrence,
+                                                     pallas_lstm_recurrence)
+
+    t, n, h = 3, 2, 512
+    case = _case(t, n, h, seed=23)
+    rs = np.random.RandomState(24)
+    cots = [rs.randn(t, n, h), rs.randn(n, h), rs.randn(n, h)]
+    jins = [jnp.asarray(a).astype(jnp.bfloat16) for a in case]
+    want = pallas_lstm_recurrence(*jins, interpret=True)
+    _, vjp = jax.vjp(lambda *a: _recurrence(1, True, *a), *jins)
+    jgrads = vjp(tuple(jnp.asarray(c).astype(jnp.bfloat16) for c in cots))
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in case]
+    got = lr.lstm_recurrence_reference(*bf, collect_cell=True)
+    for name, a, b in zip(("ys", "hT", "cT"), got, want):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b.astype(jnp.float32))
+        err = float(np.abs(a.float().numpy() - b).max())
+        assert err <= 2 ** -7 * max(1.0, float(np.abs(b).max())), name
+    tcots = [torch.from_numpy(c.astype(np.float32)).to(torch.bfloat16)
+             for c in cots]
+    grads = lr.lstm_recurrence_backward_reference(*bf, got[0], got[3],
+                                                  *tcots)
+    for name, a, b in zip(("dx_proj", "dw_hh", "dh0", "dc0"), grads,
+                          jgrads):
+        assert a.dtype == torch.bfloat16, name
+        _assert_rel(a.float().numpy(), np.asarray(b.astype(jnp.float32)),
+                    2 ** -7, name)
+
+
 def test_wide_lstm_layer_matches_jax():
     """N=300 and H=1024 (C10: the grid route's wide shapes) at f32,
     two steps: within 1e-5 (values) and 1e-5 of max |grad|."""
@@ -467,11 +505,15 @@ def _route_case(dtype, h, n=4, offset=False):
     (torch.bfloat16, 256, False, "cluster"),   # the training shape's width
     (torch.bfloat16, 128, False, "cluster"),
     (torch.bfloat16, 64, False, "cluster"),
-    (torch.bfloat16, 512, False, "grid"),      # clusters of 16: not portable
+    (torch.bfloat16, 512, False, "wide"),      # past the cluster route
+    (torch.bfloat16, 1024, False, "wide"),     # the JAX bench's wide width
+    (torch.bfloat16, 2048, False, "grid"),     # past the wide envelope
     (torch.bfloat16, 200, False, "grid"),      # not a multiple of 64
     (torch.bfloat16, 40, False, "grid"),
     (torch.float32, 256, False, "grid"),       # f32 keeps the first design
+    (torch.float32, 1024, False, "grid"),
     (torch.bfloat16, 256, True, "grid"),       # ys off a 16-byte boundary
+    (torch.bfloat16, 1024, True, "grid"),
 ])
 def test_bwd_route(dtype, h, offset, want):
     assert lr.bwd_route(*_route_case(dtype, h, offset=offset)) == want
@@ -489,14 +531,36 @@ def _fwd_route_case(dtype, h, n=4, offset=False):
     (torch.bfloat16, 256, False, "cluster"),   # the training shape's width
     (torch.bfloat16, 128, False, "cluster"),
     (torch.bfloat16, 64, False, "cluster"),
-    (torch.bfloat16, 512, False, "grid"),      # clusters of 16: not portable
+    (torch.bfloat16, 512, False, "wide"),      # past the cluster route
+    (torch.bfloat16, 1024, False, "wide"),     # the JAX bench's wide width
+    (torch.bfloat16, 2048, False, "grid"),     # past the wide envelope
     (torch.bfloat16, 200, False, "grid"),      # not a multiple of 64
     (torch.bfloat16, 40, False, "grid"),
     (torch.float32, 256, False, "grid"),       # f32 keeps the first design
+    (torch.float32, 1024, False, "grid"),
     (torch.bfloat16, 256, True, "grid"),       # x_proj off a 16-byte boundary
+    (torch.bfloat16, 1024, True, "grid"),
 ])
 def test_fwd_route(dtype, h, offset, want):
     assert lr.fwd_route(*_fwd_route_case(dtype, h, offset=offset)) == want
+
+
+def test_wide_envelope_edge():
+    """The wide route's widths: the multiples of 64 past the cluster
+    route's 256, up to the largest H whose H / 8 blocks (8 units each,
+    their w_hh columns and rows held in registers) the H100's 132 SMs hold
+    at once, one to an SM: 132 x 8 = 1056, so 1024."""
+    assert lr.WIDE_MAX_HIDDEN == 1024 == 132 * lr.WIDE_UNITS // 64 * 64
+    assert lr.WIDE_HIDDEN == tuple(range(320, 1025, 64))
+    assert 512 in lr.WIDE_HIDDEN and 1024 in lr.WIDE_HIDDEN
+    assert 1088 not in lr.WIDE_HIDDEN and 256 not in lr.WIDE_HIDDEN
+    for h, want in ((1024, "wide"), (1088, "grid"), (320, "wide"),
+                    (288, "grid")):
+        assert lr.fwd_route(*_fwd_route_case(torch.bfloat16, h, n=1)) == want
+    # the backward's scratch: dc and one dh partial per 512 da columns
+    assert lr.wide_scratch_planes(1024, True) == 9
+    assert lr.wide_scratch_planes(320, True) == 4
+    assert lr.wide_scratch_planes(1024, False) == 1
 
 
 @pytest.mark.parametrize("mix", MIXES, ids=["-".join(m) for m in MIXES])
@@ -531,6 +595,31 @@ def test_lstm_probe_edits_find_their_anchors(name, subs):
     for old, new in subs:
         assert src.count(old) == 1, f"{name}: {old!r}"
         src = src.replace(old, new)
+
+
+def _wide_probe_copies():
+    from deeplearning4j_tpu_torch.tools import lstm_probe
+
+    return ([("wide split", lstm_probe.WIDE_SPLIT)]
+            + list(lstm_probe.WIDE_VARIANTS.items()))
+
+
+@pytest.mark.parametrize("name, subs", _wide_probe_copies(),
+                         ids=[n for n, _ in _wide_probe_copies()])
+def test_lstm_probe_wide_edits_find_their_anchors(name, subs):
+    """The wide mode's edits: each anchor is in the source (some stand in
+    both wide kernels, and edit both); the split instruments every phase
+    it names in both kernels."""
+    from deeplearning4j_tpu_torch.ops import native
+    from deeplearning4j_tpu_torch.tools import lstm_probe
+
+    src = open(native._source("lstm_recurrence")).read()
+    for old, new in subs:
+        assert src.count(old) >= 1, f"{name}: {old!r}"
+        src = src.replace(old, new)
+    if name == "wide split":
+        for i in range(len(lstm_probe.WIDE_BWD_PHASES)):
+            assert f"prof[{i}] += now - last" in src
 
 
 # ------------------------------------------------------------- on the card
@@ -661,7 +750,8 @@ WIDE_SHAPES = [((3, 257, 8), (1, 1)), ((3, 4, 513), (1, 1)),
                          ids=["x".join(map(str, s)) for s, _ in WIDE_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_out_of_envelope_raises(shape, resident, dtype):
-    """Wide shapes (N > 256 or H > 512) compute on the grid route, both
+    """Wide shapes (N > 256 or H > 512) compute on the grid route (forced
+    for bf16 at H=1024, which takes the wide route by default), both
     directions, against the plain versions (f32 within
     1e-5 / 1e-4 of max |grad|, bf16 within 2e-2 of the f32 plain
     version): blocks walk several tiles (N=512 at H=1024, whose forward
@@ -670,11 +760,14 @@ def test_cuda_out_of_envelope_raises(shape, resident, dtype):
     _need_card()
     t, n, h = shape
     case, ys, cs, dys, fin = _bwd_case(t, n, h, seed=n + h, dtype=dtype)
-    assert lr.fwd_route(*case) == "grid"
+    # bf16 at H=1024 takes the wide route by default; the grid route is
+    # forced here
+    wide = dtype == torch.bfloat16 and h in lr.WIDE_HIDDEN
+    assert lr.fwd_route(*case) == ("wide" if wide else "grid")
     want = lr.lstm_recurrence_reference(*[a.float() for a in case],
                                         collect_cell=True)
     before = (lr.fwd_launches, lr.bwd_launches)
-    got = lr.lstm_recurrence(*case)
+    got = lr.lstm_recurrence_fwd(*case, route="grid")
     torch.cuda.synchronize()
     assert lr.last_plan[6] == resident[0]
     walks = {(3, 257, 8): 1, (3, 4, 513): 1, (3, 512, 1024): 4}.get(shape)
@@ -683,7 +776,7 @@ def test_cuda_out_of_envelope_raises(shape, resident, dtype):
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert float((a.float() - b).abs().max()) <= tol
-    grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin, route="grid")
     torch.cuda.synchronize()
     assert lr.last_plan[6] == resident[1]
     assert (lr.fwd_launches, lr.bwd_launches) == (before[0] + 1,
@@ -819,12 +912,12 @@ def test_cuda_cluster_backward_is_bit_equal():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, h, want", [
-    (torch.float32, 256, "grid"), (torch.bfloat16, 512, "grid"),
+    (torch.float32, 256, "grid"), (torch.bfloat16, 512, "wide"),
     (torch.bfloat16, 256, "cluster")])
 def test_cuda_route_chosen(dtype, h, want):
-    """f32 and H=512 take the first design; the training shape (bf16,
-    H=256) the cluster route; each launches and matches the plain
-    version."""
+    """f32 takes the first design, bf16 at H=512 the wide route, the
+    training shape (bf16, H=256) the cluster route; each launches and
+    matches the plain version."""
     _need_card()
     n = 256 if h == 256 else 5
     case, ys, cs, dys, fin = _bwd_case(3, n, h, seed=h, dtype=dtype)
@@ -999,3 +1092,118 @@ def test_cuda_mixed_dtypes_through_autograd(mix):
     for leaf in leaves:
         assert leaf.grad.dtype == leaf.dtype
         assert bool(torch.isfinite(leaf.grad.float()).all())
+
+
+# ------------------------------------------------------ wide route (card)
+WIDE_CARD_SHAPES = [(1, 1, 512), (3, 5, 512), (7, 37, 1024),
+                    (50, 256, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, n, h", WIDE_CARD_SHAPES)
+def test_cuda_wide_route_matches_plain(t, n, h):
+    """The wide route (bf16, H past 256) against the f32 plain versions on
+    the bf16-rounded inputs, at the cluster route's bf16 tolerances: the
+    forward (with and without the cell stream) within 2e-2, the backward
+    within 2e-2 of max |grad|; one block per 8 units, and each call moves
+    the wide counters by one."""
+    _need_card()
+    case = _fwd_case(t, n, h, seed=t + n + h)
+    assert lr.fwd_route(*case) == "wide"
+    want = lr.lstm_recurrence_reference(*[a.float() for a in case],
+                                        collect_cell=True)
+    for cells in (False, True):
+        before = (lr.fwd_launches, lr.fwd_wide_launches)
+        got = lr.lstm_recurrence_fwd(*case, collect_cell=cells)
+        torch.cuda.synchronize()
+        assert (lr.fwd_launches, lr.fwd_wide_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+        assert lr.last_plan[0] == h // 8 and lr.last_plan[2] == 8
+        assert len(got) == (4 if cells else 3)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            err = float((a.float() - b).abs().max())
+            assert err <= 2e-2, f"{err:.3e} > 2e-2"
+    ys, cs = got[0], got[3]
+    g = torch.Generator(device="cuda").manual_seed(t + h)
+    dys = torch.randn(t, n, h, generator=g, device="cuda").to(torch.bfloat16)
+    fin = [torch.randn(n, h, generator=g, device="cuda").to(torch.bfloat16)
+           for _ in range(2)]
+    assert lr.bwd_route(case[0], case[1], case[2], ys) == "wide"
+    before = (lr.bwd_launches, lr.bwd_wide_launches)
+    grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    torch.cuda.synchronize()
+    assert (lr.bwd_launches, lr.bwd_wide_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert lr.last_plan[6] == -(-h // 128) * (h // 64)   # dh blocks
+    _assert_bwd_matches_plain(case, ys, cs, dys, fin, grads, 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_route_is_bit_equal():
+    """Two wide-route calls at the JAX bench's width (T=50, N=256,
+    H=1024) are bit-equal, forward and backward: every sum runs in a fixed
+    order."""
+    _need_card()
+    case, ys, cs, dys, fin = _bwd_case(50, 256, 1024, seed=7)
+    a = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    b = lr.lstm_recurrence_fwd(*case, collect_cell=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    b = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, n, h", [(4, 20, 256), (5, 3, 64), (2, 300, 320)])
+def test_cuda_wide_route_forced_and_without_final_grads(t, n, h):
+    """The wide route forced at widths it takes below its envelope (H=64
+    and 256: one dh block), and N past 256 at H=320 (a ragged da slice),
+    dhT and dcT None: both directions within 2e-2 of the plain versions."""
+    _need_card()
+    case, _, _, dys, fin = _bwd_case(t, n, h, seed=t * n + h, finals=False)
+    got = lr.lstm_recurrence_fwd(*case, collect_cell=True, route="wide")
+    torch.cuda.synchronize()
+    want = lr.lstm_recurrence_reference(*[a.float() for a in case],
+                                        collect_cell=True)
+    for a, b in zip(got, want):
+        assert float((a.float() - b).abs().max()) <= 2e-2
+    grads = lr.lstm_recurrence_bwd(*case, got[0], got[3], dys, *fin,
+                                   route="wide")
+    torch.cuda.synchronize()
+    _assert_bwd_matches_plain(case, got[0], got[3], dys, fin, grads, 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_route_widths_in_any_order():
+    """Calls at H=1024, 512, 1024, 512 in one process, both directions,
+    each within 2e-2 of the plain versions: a narrower width's launch
+    must leave a wider one launchable (each kernel's shared-memory opt-in
+    is the card's whole, set once)."""
+    _need_card()
+    for h in (1024, 512, 1024, 512):
+        case, ys, cs, dys, fin = _bwd_case(2, 9, h, seed=h)
+        assert lr.fwd_route(*case) == "wide"
+        want = lr.lstm_recurrence_reference(*[a.float() for a in case],
+                                            collect_cell=True)
+        for a, b in zip((ys, cs), (want[0], want[3])):
+            assert float((a.float() - b).abs().max()) <= 2e-2
+        grads = lr.lstm_recurrence_bwd(*case, ys, cs, dys, *fin)
+        torch.cuda.synchronize()
+        _assert_bwd_matches_plain(case, ys, cs, dys, fin, grads, 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_route_refuses_what_it_does_not_take():
+    """f32, and bf16 at a width that is not a multiple of 64, forced onto
+    the wide route are refused by the C entry (a RuntimeError naming the
+    route); neither counts a launch."""
+    _need_card()
+    f32 = _fwd_case(3, 4, 512, seed=1, dtype=torch.float32)
+    odd = _fwd_case(3, 4, 200, seed=1)
+    before = (lr.fwd_launches, lr.fwd_wide_launches)
+    for case in (f32, odd):
+        with pytest.raises(RuntimeError, match="wide route"):
+            lr.lstm_recurrence_fwd(*case, route="wide")
+    assert (lr.fwd_launches, lr.fwd_wide_launches) == before
