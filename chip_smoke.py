@@ -180,7 +180,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bit-equal, each kernel's time beside its plain version's, the
    library's (``torch.var_mean``, ``F.batch_norm`` forward in inference
    mode, the backward of ``F.batch_norm`` in training mode) and its byte
-   bound; the f16 instances at one shape;
+   bound; the statistics' and the backward's times in turns with their
+   two-launch design (``tools/bn_two_launch.cu``, built beside the
+   sources) and their launch plans; at 56x56x256 a profiled call of each
+   must run one device kernel; the f16 instances at one shape;
 12. ResNet-50 blocks by name: the four identity bottleneck blocks
    (256->64->256 at 56x56, 512->128 at 28x28, 1024->256 at 14x14,
    2048->512 at 7x7; numpy He-normal weights from a seed) as ``SameDiff``
@@ -229,7 +232,8 @@ card's ``nvidia-smi`` line, and last the JSON result line.
 the port (this file given by its path), prints only the residual-tail
 kernel's times at the four joins in bf16 and f32 (tagged TAG), for the
 port found from the current directory: an earlier design can be timed in
-the same chip call as this one.
+the same chip call as this one. ``python3 chip_smoke.py resnet50-step
+TAG`` runs phase 15 alone the same way.
 """
 
 from __future__ import annotations
@@ -300,7 +304,18 @@ def phase_device() -> str:
 def phase_build() -> None:
     from deeplearning4j_tpu_torch.ops import native
 
+    global BN_YARDSTICK
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deeplearning4j_tpu_torch.tools import bn_probe
+
     t0 = time.perf_counter()
+    # the batch norm's two-launch design, timed in turns in phase 11b: its
+    # nvcc runs beside the sources' (the thread only waits on it)
+    pool = ThreadPoolExecutor(1)
+    BN_YARDSTICK = pool.submit(
+        bn_probe.build, {"two launches": bn_probe.read(bn_probe.TWO_LAUNCH)})
+    pool.shutdown(wait=False)
     paths = native.build(KERNEL_SOURCES)
     say("build", f"{len(paths)} sources in {time.perf_counter() - t0:.2f} s")
     # ptxas -v for the instantiations the slices run: head_dim 64 is the
@@ -333,8 +348,7 @@ def phase_build() -> None:
                                   r"_kernel"
                                   r"|conv_bn_stats(?:_tc)?_kernel"
                                   r"|residual_tail_kernel"
-                                  r"|bn_(?:stats_partial|apply|bwd_partial"
-                                  r"|dx)_kernel)", ln)
+                                  r"|bn_(?:reduce|apply)_kernel)", ln)
                 tc_conv = re.search(
                     r"conv_bn_stats_tc_kernelILi(\d+)ELi(\d+)E", ln)
                 cl = re.search(r"cluster_kernelILi(\d)ELi(\d)E", ln)
@@ -3248,6 +3262,9 @@ BN_ROWS = (("bn_stats_kernel", "deeplearning4j_tpu/ops/nn.py:390", 3),
 #: dx one bf16 rounding of max |dx|; dgamma, dbeta of the largest sum of
 #: |terms| they add
 BN_STATS_TOL, BN_DX_TOL, BN_SUM_TOL = 1e-4, 2 ** -8, 1e-5
+#: the future of the two-launch design's build (``tools/bn_two_launch.cu``),
+#: started by phase_build
+BN_YARDSTICK = None
 
 
 def bn_bounds(x) -> tuple:
@@ -3274,14 +3291,19 @@ def phase_bn_kernels() -> tuple:
     version's, the library's (never called by the port: ``torch.var_mean``
     for (a), ``F.batch_norm`` in inference mode for (b), the backward of
     ``F.batch_norm`` in training mode for (c), cuDNN's NHWC kernels on a
-    channels-last view) and its byte bound; then the f16 kernels (C9) at
-    one shape. Returns the three rows of the kernels line at
-    ``BN_ROW_SHAPE``."""
+    channels-last view) and its byte bound; (a) and (c) also in turns
+    with their two-launch design (``tools/bn_two_launch.cu``, never
+    called by the port) and, at ``BN_ROW_SHAPE``, a profiled call of each
+    (one device kernel); then the f16 kernels (C9) at one shape. Returns
+    the three rows of the kernels line at ``BN_ROW_SHAPE``."""
     from deeplearning4j_tpu_torch.ops import batch_norm as bn
+    from deeplearning4j_tpu_torch.tools import bn_probe
 
     bf = torch.bfloat16
     errs = [0.0, 0.0, 0.0]
     rows = {}
+    old_stats, old_bwd = bn_probe.legacy_calls(
+        BN_YARDSTICK.result()["two launches"])
     for hw, c in BN_SHAPES:
         g = torch.Generator(device=DEVICE).manual_seed(hw * c)
         x4 = (torch.randn(BN_BATCH, hw, hw, c, generator=g, device=DEVICE)
@@ -3355,11 +3377,21 @@ def phase_bn_kernels() -> tuple:
                                        0.0, 1e-5),
                 lambda i: torch.autograd.grad(lib_out, (lib_in, lib_g, lib_b),
                                               lib_dy, retain_graph=True))
+        olds = (lambda i: old_stats(x),
+                lambda i: old_bwd(x, dy, m, v, gamma, beta))
         kern1 = [cuda_ms(f, 10, 2) for f in kernels]
+        old1 = [cuda_ms(f, 10, 2) for f in olds]
         plain = [cuda_ms(f, 3, 1) for f in plains]
         lib = [cuda_ms(f, 10, 2) for f in libs]
+        old2 = [cuda_ms(f, 10, 2) for f in olds]
         kern2 = [cuda_ms(f, 10, 2) for f in kernels]
         del lib_in, lib_out
+        bn.bn_stats_kernel(x)
+        stats_plan = bn.last_launch()
+        bn.bn_backward_kernel(x, dy, m, v, gamma, beta)
+        bwd_plan = bn.last_launch()
+        if (hw, c) == BN_ROW_SHAPE:
+            check_bn_one_kernel(bn, x, dy, m, v, gamma, beta)
         bounds = bn_bounds(x)
         times = []
         for j, (name, replaces, _) in enumerate(BN_ROWS):
@@ -3379,6 +3411,14 @@ def phase_bn_kernels() -> tuple:
         say("bn", f"{hw}x{hw}x{c} N={BN_BATCH} bf16 ({x.shape[0]} rows): "
                   f"{'; '.join(line)}; two calls bit-equal")
         say("bn", f"  {'; '.join(times)}")
+        say("bn", "  in turns with the two-launch design "
+                  "(tools/bn_two_launch.cu): " + "; ".join(
+                      f"{name} one launch {kern1[j]:.4f} / {kern2[j]:.4f} ms, "
+                      f"two launches {old1[i]:.4f} / {old2[i]:.4f} ms"
+                      for i, (j, name) in enumerate(
+                          ((0, "statistics"), (2, "backward"))))
+                  + f"; plan (grid, ring stages, shared bytes, blocks per "
+                    f"SM): statistics {stats_plan}, backward {bwd_plan}")
         del x4, x, dy, m, v
     for name, err in zip((r[0] for r in BN_ROWS), errs):
         rows[name]["max_abs_err"] = err
@@ -3389,6 +3429,25 @@ def phase_bn_kernels() -> tuple:
               "eager PyTorch at f32")
     check_bn_f16(bn)
     return tuple(rows.values())
+
+
+def check_bn_one_kernel(bn, x, dy, m, v, gamma, beta) -> None:
+    """A profiled call of the statistics and of the backward each runs
+    exactly one device kernel (memsets aside)."""
+    from deeplearning4j_tpu_torch.tools import bn_probe
+
+    for what, fn in (("statistics", lambda: bn.bn_stats_kernel(x)),
+                     ("backward", lambda: bn.bn_backward_kernel(
+                         x, dy, m, v, gamma, beta))):
+        names = bn_probe.device_kernels(fn)
+        if not names:
+            say("bn", f"profiled {what} call: torch.profiler saw no device "
+                      f"time (kernel count not measured)")
+            continue
+        check(len(names) == 1 and "bn_reduce_kernel" in names[0],
+              f"a profiled {what} call ran {names}")
+        say("bn", f"profiled {what} call: one device kernel, "
+                  f"{names[0][:70]}")
 
 
 def check_bn_f16(bn) -> None:
@@ -3966,7 +4025,8 @@ def resnet50_run(net, x, y, fused: bool, flops: int, n_bn: int,
     # the layout transposes cuDNN would add around an NCHW kernel
     device_profile("resnet50", f"[{tag}] one profiled training step "
                                f"(unprofiled {step_s * 1e3:.2f} ms; {smi})",
-                   one_step, ("nchwToNhwc", "nhwcToNchw", "bn_"),
+                   one_step, ("nchwToNhwc", "nhwcToNchw", "bn_",
+                              "bn_reduce_kernel", "bn_apply_kernel"),
                    group=kernel_group, top=10, out=out)
     eager = [n for n, _, g in out.get("largest", ())
              if g == BN_GROUP and "bn_" not in n]
@@ -4050,6 +4110,15 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_device()
         say_tail_times(argv[1] if len(argv) > 1 else os.getcwd())
+        return 0
+    if argv[:1] == ["resnet50-step"]:
+        # phase 15 alone, of the port found from the current directory
+        sys.path.insert(0, os.getcwd())
+        smi = phase_device()
+        import deeplearning4j_tpu_torch
+        say("resnet50", f"[{argv[1] if len(argv) > 1 else os.getcwd()}] "
+                        f"the port of {deeplearning4j_tpu_torch.__file__}")
+        phase_resnet50_train(smi, {r[0]: {} for r in BN_ROWS})
         return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "

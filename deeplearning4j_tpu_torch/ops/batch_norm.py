@@ -31,15 +31,14 @@ fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import native
 
-#: kernel launches since the last reset, one per wrapper call (the
-#: statistics and the backward each run a second small launch that sums
-#: their partials); incremented only where the CUDA kernels launch
+#: kernel launches since the last reset, one per wrapper call (each is one
+#: device launch); incremented only where the CUDA kernels launch
 stats_launches = 0
 apply_launches = 0
 bwd_launches = 0
@@ -47,9 +46,14 @@ bwd_launches = 0
 #: the dtypes the kernels take, by the number the C entries take
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-THREADS = 256          # threads per block (kThreads)
-MAX_GROUPS = 32        # channel groups per block row (kMaxTg)
-TARGET_BLOCKS = 512    # blocks a launch aims at (about 4 per SM on the H100)
+THREADS = 256          # threads per block of (b), consumers of (a), (c) (kThreads)
+MAX_GROUPS = 32        # channel groups per block row of (b) (kMaxTg)
+TARGET_BLOCKS = 512    # blocks an apply launch aims at (about 4 per SM on the H100)
+ROWS_PER_LANE = 4      # rows of a reduce tile per row lane (kRowsPerLane)
+#: work items (chunks) a reduce launch aims at: one for each of the H100's
+#: 132 SMs. A constant, so the sums' grouping is the same on every card;
+#: only the balance of the persistent grid depends on the card
+TARGET_ITEMS = 132
 
 
 # ------------------------------------------------------------ plain versions
@@ -155,18 +159,63 @@ def launch_plan(rows: int, channels: int, itemsize: int,
     return vec, tg, -(-rows // rpc), rpc
 
 
+class ReducePlan(NamedTuple):
+    """The work of one statistics or backward launch: ``ctiles`` channel
+    tiles of ``tg`` groups (16-byte groups where ``vec``, single channels
+    otherwise) by ``chunks`` row chunks of ``tpc`` tiles of ``rows``
+    (``ROWS_PER_LANE`` x ``lanes``) rows each. Item ``q`` is channel tile
+    ``q // chunks``, row chunk ``q % chunks``; each item's sums are one
+    partial, and the persistent grid's block ``b`` takes items ``b, b +
+    grid, ...``."""
+    vec: int
+    tg: int
+    lanes: int
+    rows: int
+    tpc: int
+    chunks: int
+    ctiles: int
+
+    @property
+    def items(self) -> int:
+        return self.ctiles * self.chunks
+
+    @property
+    def rpc(self) -> int:
+        """Rows per chunk."""
+        return self.tpc * self.rows
+
+
+def reduce_plan(rows: int, channels: int, itemsize: int,
+                aligned: bool) -> ReducePlan:
+    """The statistics' and the backward's cut of ``[rows, channels]`` into
+    tiles and items, about :data:`TARGET_ITEMS` items. From the shape
+    alone, never the card: the grid only decides which block sums which
+    item, so the bits are the same on every card."""
+    per = 16 // itemsize
+    vec = int(aligned and channels % per == 0)
+    groups = channels // per if vec else channels
+    tg = min(groups, THREADS)
+    lanes = THREADS // tg
+    tile_rows = ROWS_PER_LANE * lanes
+    ctiles = -(-groups // tg)
+    tiles = -(-rows // tile_rows)
+    tpc = -(-tiles // max(1, TARGET_ITEMS // ctiles))
+    return ReducePlan(vec, tg, lanes, tile_rows, tpc, -(-tiles // tpc),
+                      ctiles)
+
+
 def _lib():
     lib = native.load("batch_norm")
     if lib.dl4j_bn_stats.argtypes is None:
         vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
-        lib.dl4j_bn_stats.argtypes = [i, vp, ll, i, i, i, i, ll, vp, vp, vp,
-                                      vp]
+        lib.dl4j_bn_stats.argtypes = [i, vp, ll, i, i, vp, vp, vp, vp, vp,
+                                      vp, i, vp]
         lib.dl4j_bn_apply.argtypes = [i, vp, vp, vp, vp, vp, f, i, ll, i, i,
-                                      i, i, ll, vp, vp]
+                                      i, i, ll, vp, i, vp]
         lib.dl4j_bn_backward.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, f,
-                                         i, ll, i, i, i, i, ll, vp, vp, vp,
-                                         vp, vp]
+                                         i, ll, i, i, vp, vp, vp, vp, vp, vp,
+                                         vp, i, vp]
         for fn in (lib.dl4j_bn_stats, lib.dl4j_bn_apply,
                    lib.dl4j_bn_backward):
             fn.restype = ctypes.c_int
@@ -176,6 +225,12 @@ def _lib():
 
 
 def _check_rows(name: str, t: torch.Tensor, like: Optional[torch.Tensor]):
+    if (t.dtype in DTYPES and t.is_cuda and t.dim() == 2
+            and t.is_contiguous() and t.numel() and (
+                like is None or (t.shape == like.shape
+                                 and t.dtype == like.dtype
+                                 and t.get_device() == like.get_device()))):
+        return
     if t.dtype not in DTYPES:
         raise TypeError(f"the batch-norm kernels take float32, bfloat16 or "
                         f"float16, got {name} {t.dtype}")
@@ -185,30 +240,81 @@ def _check_rows(name: str, t: torch.Tensor, like: Optional[torch.Tensor]):
     if t.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got "
                          f"{t.device}")
-    if like is not None and (t.shape != like.shape or t.dtype != like.dtype
-                             or t.device != like.device):
-        raise ValueError(f"{name} must match x ({like.dtype} "
-                         f"{tuple(like.shape)} on {like.device})")
+    raise ValueError(f"{name} must match x ({like.dtype} "
+                     f"{tuple(like.shape)} on {like.device})")
 
 
-def _vectors(x2, **vecs):
-    """The per-channel vectors as contiguous f32 ``[C]`` on x's device."""
-    c = x2.shape[1]
+def _vectors(x2, *vecs):
+    """The per-channel vectors ``(name, tensor)`` as contiguous f32 ``[C]``
+    on x's device: the tensor itself where it is one already (the caller
+    holds them until the launch is enqueued)."""
+    c, dev = x2.shape[1], x2.get_device()
     out = []
-    for name, t in vecs.items():
-        if t.numel() != c or t.device != x2.device:
-            raise ValueError(f"{name} must hold C = {c} values on "
-                             f"{x2.device}, got {tuple(t.shape)} on "
-                             f"{t.device}")
-        out.append(t.reshape(c).float().contiguous())
+    for name, t in vecs:
+        if not (t.dtype is torch.float32 and t.dim() == 1
+                and t.shape[0] == c and t.is_contiguous()
+                and t.get_device() == dev):
+            if t.numel() != c or t.device != x2.device:
+                raise ValueError(f"{name} must hold C = {c} values on "
+                                 f"{x2.device}, got {tuple(t.shape)} on "
+                                 f"{t.device}")
+            t = t.reshape(c).float().contiguous()
+        out.append(t)
     return out
 
 
-def _plan(*ts):
-    x2 = ts[0]
+#: apply plans by (rows, C, itemsize, aligned)
+_apply_plans: Dict[tuple, tuple] = {}
+#: reduce plans by (rows, C, itemsize, aligned): the plan and its six ints
+#: as the C entries take them
+_reduce_plans: Dict[tuple, tuple] = {}
+#: (grid, ring stages, shared bytes, blocks per SM) of the last statistics
+#: or backward launch, written by the C entry
+_info = (ctypes.c_int * 4)()
+#: the grid-barrier word and the partials scratch by (device, stream),
+#: allocated once and grown to the largest call; the barrier leaves its
+#: word's low bits zero, so it serves every launch as it is
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def last_launch() -> Tuple[int, int, int, int]:
+    """``(grid, ring stages, shared bytes, blocks per SM)`` of the last
+    statistics or backward launch in this process."""
+    return tuple(_info)
+
+
+def _apply_plan(x2, ptrs: int):
+    """(b)'s ``launch_plan`` of x, cached; ``ptrs`` the OR of the call's
+    data pointers."""
     rows, c = x2.shape
-    aligned = all(t.data_ptr() % 16 == 0 for t in ts)
-    return (rows, c) + launch_plan(rows, c, x2.element_size(), aligned)
+    key = (rows, c, x2.dtype, ptrs & 15 == 0)
+    got = _apply_plans.get(key)
+    if got is None:
+        got = _apply_plans[key] = launch_plan(rows, c, x2.element_size(),
+                                              key[3])
+    return got
+
+
+def _reduce_args(x2, ptrs: int, dev: int):
+    """``(plan, its ints, barrier word, partials, stream)`` of a reduce
+    call on x (``ptrs`` the OR of the call's data pointers), the scratch
+    on x's device and stream."""
+    rows, c = x2.shape
+    key = (rows, c, x2.dtype, ptrs & 15 == 0)
+    got = _reduce_plans.get(key)
+    if got is None:
+        plan = reduce_plan(rows, c, x2.element_size(), key[3])
+        got = _reduce_plans[key] = (plan, (ctypes.c_int * 6)(*plan[1:]))
+    plan, ints = got
+    stream = _stream(dev)
+    floats = 2 * plan.chunks * c
+    held = _scratch.get((dev, stream))
+    if held is None or held[1].numel() < floats:
+        bar = held[0] if held is not None else torch.zeros(
+            1, dtype=torch.int32, device=x2.device)
+        held = _scratch[(dev, stream)] = (bar, torch.empty(
+            floats, dtype=torch.float32, device=x2.device))
+    return plan, ints, held[0].data_ptr(), held[1].data_ptr(), stream
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -218,28 +324,28 @@ def _raise_on(lib, err: int, what: str) -> None:
                            f"(cudaError {err})")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(dev: int) -> int:
+    """PyTorch's current stream on CUDA device ``dev``, as a handle."""
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def bn_stats_kernel(x2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel (a) on a CUDA ``[rows, C]``: f32 ``(mean, var)`` ``[C]``,
-    the shift the first row. Raises on what the kernel does not take, on
-    a failed build and on a refused launch."""
+    """Kernel (a) on a CUDA ``[rows, C]``, one cooperative launch: f32
+    ``(mean, var)`` ``[C]``, the shift the first row. Raises on what the
+    kernel does not take, on a failed build and on a refused launch."""
     global stats_launches
     _check_rows("x", x2, None)
-    rows, c, vec, tg, chunks, rpc = _plan(x2)
-    part = torch.empty(2 * chunks * c, dtype=torch.float32, device=x2.device)
-    mean = torch.empty(c, dtype=torch.float32, device=x2.device)
-    var = torch.empty_like(mean)
+    rows, c = x2.shape
+    dev, px = x2.get_device(), x2.data_ptr()
+    plan, ints, bar, part, stream = _reduce_args(x2, px, dev)
+    out = x2.new_empty((2, c), dtype=torch.float32)
+    po = out.data_ptr()
     lib = _lib()
-    with torch.cuda.device(x2.device):
-        err = lib.dl4j_bn_stats(DTYPES[x2.dtype], x2.data_ptr(), rows, c, vec,
-                                tg, chunks, rpc, part.data_ptr(),
-                                mean.data_ptr(), var.data_ptr(), _stream(x2))
+    err = lib.dl4j_bn_stats(DTYPES[x2.dtype], px, rows, c, plan.vec, ints,
+                            part, bar, po, po + 4 * c, _info, dev, stream)
     _raise_on(lib, err, "statistics")
     stats_launches += 1
-    return mean, var
+    return out.unbind()
 
 
 def bn_apply_kernel(x2, mean, var, gamma, beta, eps: float = 1e-5,
@@ -249,15 +355,17 @@ def bn_apply_kernel(x2, mean, var, gamma, beta, eps: float = 1e-5,
     float ``gamma``, ``beta``. Raises like :func:`bn_stats_kernel`."""
     global apply_launches
     _check_rows("x", x2, None)
-    vecs = _vectors(x2, mean=mean, var=var, gamma=gamma, beta=beta)
+    vecs = _vectors(x2, ("mean", mean), ("var", var), ("gamma", gamma),
+                    ("beta", beta))
     y = torch.empty_like(x2)
-    rows, c, vec, tg, chunks, rpc = _plan(x2, y)
+    rows, c = x2.shape
+    dev, px, py = x2.get_device(), x2.data_ptr(), y.data_ptr()
+    vec, tg, chunks, rpc = _apply_plan(x2, px | py)
     lib = _lib()
-    with torch.cuda.device(x2.device):
-        err = lib.dl4j_bn_apply(DTYPES[x2.dtype], x2.data_ptr(),
-                                *(t.data_ptr() for t in vecs), float(eps),
-                                int(relu), rows, c, vec, tg, chunks, rpc,
-                                y.data_ptr(), _stream(x2))
+    err = lib.dl4j_bn_apply(DTYPES[x2.dtype], px,
+                            *(t.data_ptr() for t in vecs), float(eps),
+                            int(relu), rows, c, vec, tg, chunks, rpc, py,
+                            dev, _stream(dev))
     _raise_on(lib, err, "apply")
     apply_launches += 1
     return y
@@ -265,35 +373,39 @@ def bn_apply_kernel(x2, mean, var, gamma, beta, eps: float = 1e-5,
 
 def bn_backward_kernel(x2, g2, mean, var, gamma, beta, eps: float = 1e-5,
                        relu: bool = False, gm=None, gv=None):
-    """Kernel (c) on CUDA ``[rows, C]`` x and upstream g (one dtype):
-    ``(dx, dgamma, dbeta)``, dx in x's dtype, the others f32 ``[C]``.
-    ``gm`` / ``gv`` (None for none) are the gradients of the returned
-    mean and variance. Raises like :func:`bn_stats_kernel`."""
+    """Kernel (c) on CUDA ``[rows, C]`` x and upstream g (one dtype), one
+    cooperative launch: ``(dx, dgamma, dbeta)``, dx in x's dtype, the
+    others f32 ``[C]``. ``gm`` / ``gv`` (None for none) are the gradients
+    of the returned mean and variance. Raises like
+    :func:`bn_stats_kernel`."""
     global bwd_launches
     _check_rows("x", x2, None)
     _check_rows("g", g2, x2)
-    vecs = _vectors(x2, mean=mean, var=var, gamma=gamma, beta=beta)
+    vecs = _vectors(x2, ("mean", mean), ("var", var), ("gamma", gamma),
+                    ("beta", beta))
     extra = [None, None]
     if gm is not None or gv is not None:
-        extra = _vectors(x2, gm=torch.zeros_like(mean) if gm is None else gm,
-                         gv=torch.zeros_like(var) if gv is None else gv)
+        extra = _vectors(
+            x2, ("gm", torch.zeros_like(mean) if gm is None else gm),
+            ("gv", torch.zeros_like(var) if gv is None else gv))
     dx = torch.empty_like(x2)
-    rows, c, vec, tg, chunks, rpc = _plan(x2, g2, dx)
-    part = torch.empty(2 * chunks * c, dtype=torch.float32, device=x2.device)
-    dgamma = torch.empty(c, dtype=torch.float32, device=x2.device)
-    dbeta = torch.empty_like(dgamma)
+    rows, c = x2.shape
+    dev, px, pg, pd = x2.get_device(), x2.data_ptr(), g2.data_ptr(), \
+        dx.data_ptr()
+    plan, ints, bar, part, stream = _reduce_args(x2, px | pg | pd, dev)
+    out = x2.new_empty((2, c), dtype=torch.float32)
+    po = out.data_ptr()
     lib = _lib()
-    with torch.cuda.device(x2.device):
-        err = lib.dl4j_bn_backward(
-            DTYPES[x2.dtype], x2.data_ptr(), g2.data_ptr(),
-            *(t.data_ptr() for t in vecs),
-            *(None if t is None else t.data_ptr() for t in extra),
-            float(eps), int(relu), rows, c, vec, tg, chunks, rpc,
-            part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-            dx.data_ptr(), _stream(x2))
+    err = lib.dl4j_bn_backward(DTYPES[x2.dtype], px, pg,
+                               *(t.data_ptr() for t in vecs),
+                               *(None if t is None else t.data_ptr()
+                                 for t in extra),
+                               float(eps), int(relu), rows, c, plan.vec, ints,
+                               part, bar, po + 4 * c, po, pd, _info, dev,
+                               stream)
     _raise_on(lib, err, "backward")
     bwd_launches += 1
-    return dx, dgamma, dbeta
+    return dx, out[1], out[0]
 
 
 # -------------------------------------------------------------- autograd ops

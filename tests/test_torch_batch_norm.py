@@ -267,22 +267,105 @@ RESNET_ROWS = [(256 * 112 * 112, 64), (256 * 56 * 56, 64),
                (256 * 7 * 7, 2048)]
 
 
+def _pieces(kind, rows, c, itemsize):
+    """The (row range, channel range) pieces a plan cuts ``[rows, c]``
+    into, and the plan: (b)'s blocks (channel tile, row chunk), or (a)
+    and (c)'s tiles of every item."""
+    if kind == "apply":
+        vec, tg, chunks, rpc = bn.launch_plan(rows, c, itemsize, True)
+        per = 16 // itemsize if vec else 1
+        width = tg * per
+        return [((y * rpc, min(rows, (y + 1) * rpc)),
+                 (x * width, min(c, (x + 1) * width)))
+                for x in range(-(-c // width)) for y in range(chunks)], tg
+    p = bn.reduce_plan(rows, c, itemsize, True)
+    per = 16 // itemsize if p.vec else 1
+    width = p.tg * per
+    out = []
+    for q in range(p.items):
+        ct, rq = divmod(q, p.chunks)
+        for r0 in range(rq * p.rpc, min(rows, (rq + 1) * p.rpc), p.rows):
+            out.append(((r0, min(rows, r0 + p.rows)),
+                        (ct * width, min(c, (ct + 1) * width))))
+    return out, p.tg
+
+
+@pytest.mark.parametrize("kind", ["apply", "reduce"])
 @pytest.mark.parametrize("rows, c", RESNET_ROWS + [(7, 3), (5, 33), (1, 1)])
 @pytest.mark.parametrize("itemsize", [4, 2])
-def test_launch_plan_covers_every_row_and_channel(rows, c, itemsize):
-    """The grid holds every row in chunks that are none of them empty,
-    every channel in 16-byte groups where C allows (one channel per
-    thread otherwise), a warp or less of groups per block row, and at
-    most about 512 blocks (a chunk per row lane at least)."""
-    vec, tg, chunks, rpc = bn.launch_plan(rows, c, itemsize, True)
+def test_launch_plan_covers_every_row_and_channel(rows, c, itemsize, kind):
+    """The grid holds every row and channel exactly once, in pieces none
+    of them empty, every channel in 16-byte groups where C allows (one
+    channel per thread otherwise). (b): a warp or less of groups per
+    block row and at most about 512 blocks (a chunk per row lane at
+    least). (a), (c): tiles of 4 rows per row lane, at most a block (256
+    threads) of groups, whole tiles per chunk, about 132 items, a plan
+    the C entries take."""
     per = 16 // itemsize
-    assert vec == int(c % per == 0)
-    groups = c // per if vec else c
-    assert 1 <= tg <= min(groups, bn.MAX_GROUPS)
-    assert chunks * rpc >= rows > (chunks - 1) * rpc
-    tiles = -(-groups // tg)
-    assert tiles * chunks <= max(bn.TARGET_BLOCKS, tiles)
-    assert bn.launch_plan(rows, c, itemsize, False)[0] == 0
+    pieces, _ = _pieces(kind, rows, c, itemsize)
+    by_cols: dict = {}
+    for r, cols in pieces:
+        by_cols.setdefault(cols, []).append(r)
+    for bounds in (sorted(by_cols), *(sorted(v) for v in by_cols.values())):
+        # ranges that follow each other from 0 to the end, none empty
+        assert bounds[0][0] == 0 and all(a < b for a, b in bounds)
+        assert all(p[1] == n[0] for p, n in zip(bounds, bounds[1:]))
+    assert sorted(by_cols)[-1][1] == c
+    assert all(sorted(v)[-1][1] == rows for v in by_cols.values())
+    if kind == "apply":
+        vec, tg, chunks, rpc = bn.launch_plan(rows, c, itemsize, True)
+        assert vec == int(c % per == 0)
+        groups = c // per if vec else c
+        assert 1 <= tg <= min(groups, bn.MAX_GROUPS)
+        assert chunks * rpc >= rows > (chunks - 1) * rpc
+        tiles = -(-groups // tg)
+        assert tiles * chunks <= max(bn.TARGET_BLOCKS, tiles)
+        assert bn.launch_plan(rows, c, itemsize, False)[0] == 0
+        return
+    p = bn.reduce_plan(rows, c, itemsize, True)
+    assert p.vec == int(c % per == 0)
+    groups = c // per if p.vec else c
+    assert 1 <= p.tg <= min(groups, bn.THREADS)
+    assert p.lanes == bn.THREADS // p.tg
+    assert p.rows == bn.ROWS_PER_LANE * p.lanes
+    assert p.ctiles * p.tg >= groups > (p.ctiles - 1) * p.tg
+    assert p.chunks * p.rpc >= rows > (p.chunks - 1) * p.rpc
+    assert p.items <= max(bn.TARGET_ITEMS, p.ctiles)
+    assert len(pieces) == p.ctiles * -(-rows // p.rows)
+    assert bn.reduce_plan(rows, c, itemsize, False).vec == 0
+
+
+@pytest.mark.parametrize("rows, c", RESNET_ROWS + [(7, 3), (50, 2048)])
+def test_reduce_plan_reads_no_card(monkeypatch, rows, c):
+    """The sums' grouping comes from the shape alone: the same plan under
+    any SM count the card reports (mocked), and the persistent grid's
+    walk (block b takes items b, b + grid, ...) hands every item to one
+    block for every grid size, so only the balance depends on the card."""
+    want = bn.reduce_plan(rows, c, 2, True)
+
+    class Props:
+        def __init__(self, sms):
+            self.multi_processor_count = sms
+            self.name = "mocked"
+
+    for sms in (1, 16, 114, 132, 264):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda *a, sms=sms: Props(sms))
+        assert bn.reduce_plan(rows, c, 2, True) == want
+        walk = sorted(q for b in range(min(sms, want.items))
+                      for q in range(b, want.items, min(sms, want.items)))
+        assert walk == list(range(want.items))
+
+
+def test_bn_probe_split_edits_find_their_anchors():
+    """``tools/bn_probe.py split`` edits a copy of ``csrc/batch_norm.cu``
+    by text anchors, each of which must occur once."""
+    from deeplearning4j_tpu_torch.tools import bn_probe
+
+    text = bn_probe.edited(bn_probe.SPLIT)
+    assert text.count("prof[") >= 10 and "dl4j_probe_read" in text
+    assert "bn_reduce_kernel" not in bn_probe.read(bn_probe.TWO_LAUNCH)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
@@ -406,6 +489,73 @@ def test_cuda_two_calls_are_bit_equal(dtype):
     again += bn.bn_backward_kernel(x, dy, *again[:2], gamma, beta, 1e-5,
                                    True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+#: [rows, C] cases that reach every route of the statistics and the
+#: backward (one launch each) on the card: rows, C, and an offset in
+#: elements that moves every pointer off 16 bytes
+ROUTE_CASES = {
+    "resident": (4096, 64, 0),      # a block's tiles all stay in its ring
+    "streamed": (65536, 256, 0),    # more tiles a block than ring stages
+    "unaligned": (3000, 64, 1),     # one element a thread, no ring
+    "odd_c": (1000, 33, 0),         # C not a multiple of the group
+    "few_rows": (3, 16, 0),         # fewer rows than a tile's row lanes
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [False, True], ids=["", "stat_grads"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", list(TOLS), ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("route", list(ROUTE_CASES))
+def test_cuda_reduce_routes_match_plain(route, dtype, relu, extra):
+    """Kernels (a) and (c) on each route against their plain versions at
+    the tolerances above (the statistics' gradients ``gm``, ``gv`` on and
+    off), one launch of each wrapper per call, two calls bit-equal; the
+    ring holds all of a block's tiles ("resident"), fewer ("streamed"),
+    or is not used (one element a thread)."""
+    _need_card()
+    rows, c, off = ROUTE_CASES[route]
+    x, dy, gamma, beta = _card_case(rows, c, dtype)
+    if off:
+        x, dy = (torch.cat([t.new_zeros(off), t.reshape(-1)])[off:]
+                 .view(rows, c) for t in (x, dy))
+    gm = torch.randn(c, device="cuda") if extra else None
+    gv = torch.randn(c, device="cuda") if extra else None
+    plan = bn.reduce_plan(rows, c, x.element_size(), off == 0)
+    before = (bn.stats_launches, bn.bwd_launches)
+    m, v = bn.bn_stats_kernel(x)
+    dx, dg, db = bn.bn_backward_kernel(x, dy, m, v, gamma, beta, 1e-5, relu,
+                                       gm, gv)
+    torch.cuda.synchronize()
+    assert (bn.stats_launches, bn.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    grid, stages, _, _ = bn.last_launch()
+    per_block = -(-plan.items // grid) * plan.tpc
+    if route == "resident":
+        assert plan.vec and per_block <= stages
+    elif route == "streamed":
+        assert plan.vec and per_block > stages
+    else:
+        assert (plan.vec, stages) == (0, 0) or route == "few_rows"
+    rm, rv = bn.bn_stats_reference(x, (0,))
+    for a, w in ((m, rm), (v, rv)):
+        assert float((a - w).abs().max()) \
+            <= 1e-5 * max(1.0, float(w.abs().max()))
+    wx, wg, wb = bn.bn_backward_reference(x, dy, gamma, beta, m, v, 1e-5,
+                                          relu, (0,), gm, gv)
+    assert dx.dtype == dtype
+    assert float((dx.float() - wx.float()).abs().max()) \
+        <= TOLS[dtype] * float(wx.float().abs().max()) + 1e-30
+    gsum = float(dy.float().abs().sum(0).max())
+    xhat_sum = float((dy.float() * (x.float() - m) * torch.rsqrt(v + 1e-5))
+                     .abs().sum(0).max())
+    assert float((db - wb).abs().max()) <= 1e-5 * gsum
+    assert float((dg - wg).abs().max()) <= 1e-5 * xhat_sum
+    again = (*bn.bn_stats_kernel(x),
+             *bn.bn_backward_kernel(x, dy, m, v, gamma, beta, 1e-5, relu, gm,
+                                    gv))
+    assert all(torch.equal(a, b) for a, b in zip((m, v, dx, dg, db), again))
 
 
 @pytest.mark.cuda
