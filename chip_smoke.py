@@ -225,6 +225,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    2e-5 of max(1, |value|)), then one inference ``output`` alike; with
    ``FUSED_BN_RELU_BWD`` off and on.
 
+17. the training loop: (a) LeNet at f32, batch 64, 8 batches (TF32 off,
+   cuDNN deterministic): ``fit(DevicePrefetchIterator(ArrayDataSetIterator
+   (shuffle=True), depth=2), epochs=2)`` against ``fit(x_i, y_i)`` on the
+   same batches, parameters bit-equal; ``evaluate`` on the card against an
+   ``Evaluation`` of the same outputs on the CPU, confusion matrices equal;
+   ``EarlyStoppingTrainer`` (``MaxEpochsTerminationCondition(3)``,
+   ``DataSetLossCalculator``, ``InMemoryModelSaver``), the best model's
+   recomputed score within 1e-6 relative of the recorded one;
+   ``writeModel`` and a restore on the card, outputs bit-equal. (b)
+   ResNet-50 at phase 15's cell from 8 host-resident uint8 224x224x3
+   batches (``RandomState(0)``, one-hot labels) through
+   ``ArrayDataSetIterator`` and ``DevicePrefetchIterator(dtype=bfloat16)``
+   at depth 2 and depth 0, 2 warm-up and 6 timed steps a run, three
+   rounds in turns with the same steps on a batch already on the card
+   (phase 15's step beside them): finite losses, 53 launches of each
+   batch-norm kernel a step, ms per step, images/s, the ETL wait per
+   step, the host staging, the prefetch overlap, the copies' ms per batch
+   on the card and to the end of the cast, a bare copy of the same bytes
+   as a yardstick, with the card's ``nvidia-smi`` line; then
+   ``evaluate`` over 2 held-out batches, its accuracy equal to argmax
+   (output) == argmax(label) computed directly. (c) The char-LSTM at
+   phase 9's cell: 3 steps of ``fit(ArrayDataSetIterator(...))`` against
+   ``fit(x, y)`` on the same batches from the same weights, B5's forward
+   and backward launches equal, losses within 1e-5 relative. No prefetch
+   or ETL thread may be left.
+
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
 
@@ -233,7 +259,9 @@ the port (this file given by its path), prints only the residual-tail
 kernel's times at the four joins in bf16 and f32 (tagged TAG), for the
 port found from the current directory: an earlier design can be timed in
 the same chip call as this one. ``python3 chip_smoke.py resnet50-step
-TAG`` runs phase 15 alone the same way.
+TAG`` runs phase 15 alone the same way, ``python3 chip_smoke.py
+lstm-train TAG`` phase 9, and ``python3 chip_smoke.py training-loop``
+phase 17.
 """
 
 from __future__ import annotations
@@ -3906,13 +3934,14 @@ def set_fused(on: bool) -> None:
     nnops.FUSED_BN_RELU_BWD = on
 
 
-def phase_resnet50_train(smi: str, rows: dict) -> None:
+def phase_resnet50_train(smi: str, rows: dict) -> float:
     """ResNet-50 through ComputationGraph at full width: bench.py's cell
     (batch 256, 224x224x3, bf16, Nesterovs(0.1, 0.9), RandomState(0)
     data), twice: with ``FUSED_BN_RELU_BWD`` off (the reference's
     default: batch norm, then the ReLU) and on (``batch_norm_relu_train``
     in every BN layer with a ReLU); cuDNN autotuning
-    (``cudnn.benchmark``) on for this phase only."""
+    (``cudnn.benchmark``) on for this phase only. Returns the ms per step
+    with the toggle off."""
     from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
     from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
@@ -3963,6 +3992,7 @@ def phase_resnet50_train(smi: str, rows: dict) -> None:
     del net, x, y
     torch.cuda.empty_cache()
     say("resnet50", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return step_ms[False]
 
 
 def resnet50_run(net, x, y, fused: bool, flops: int, n_bn: int,
@@ -4100,6 +4130,372 @@ def graph_parity(fused: bool) -> None:
                         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------ the training loop
+#: phase 17: batches through the iterator; LeNet's epochs and ResNet-50's
+#: warm-up and timed steps
+LOOP_BATCHES, LOOP_HELD_OUT, LOOP_WARMUP, LOOP_EPOCHS = 8, 2, 2, 2
+LOOP_ROUNDS = 3
+LOOP_LSTM_STEPS = 3
+#: the char-LSTM's losses through the iterator against fit(x, y)'s
+LOOP_LOSS_RTOL = 1e-5
+#: the early-stopping best model's recomputed score against the recorded
+LOOP_SCORE_RTOL = 1e-6
+PREFETCH_THREADS = ("DevicePrefetch-transfer", "AsyncDataSet-ETL")
+
+
+def prefetch_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name in PREFETCH_THREADS and t.is_alive()]
+
+
+def phase_training_loop(smi: str, resident_ms) -> None:
+    """Phase 17: the loop users run, through the port's entry points on
+    the card: (a) LeNet, (b) ResNet-50 fed from host uint8 images through
+    the device prefetcher, (c) the char-LSTM through an iterator."""
+    t0 = time.perf_counter()
+    loop_lenet()
+    loop_resnet50(smi, resident_ms)
+    loop_char_lstm()
+    check(not prefetch_threads(), f"threads left: {prefetch_threads()}")
+    say("train-loop", f"phase {time.perf_counter() - t0:.1f} s")
+
+
+def loop_lenet() -> None:
+    """(a) LeNet at f32 (TF32 off, cuDNN deterministic): ``fit`` over a
+    depth-2 prefetcher for 2 epochs against ``fit(x_i, y_i)`` on the same
+    batches, bit for bit; ``evaluate`` on the card against an
+    ``Evaluation`` of the same outputs on the CPU; early stopping; and a
+    ``writeModel`` / restore round trip, bit for bit."""
+    from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                                   DevicePrefetchIterator)
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition, TerminationReason)
+    from deeplearning4j_tpu_torch.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.params import mln_params_from_numpy
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer)
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        zoo = LeNet(num_classes=LENET_CLASSES, updater=Nesterovs(1e-2, 0.9))
+        tree = None
+
+        def net():
+            nonlocal tree
+            n = zoo.init(device=DEVICE)
+            if tree is None:
+                tree = numpy_tree(enumerate(n.params_list), seed=13,
+                                  scheme="xavier")
+            n.params_list = mln_params_from_numpy(
+                [tree[i] for i in range(len(tree))], device=DEVICE)
+            return n
+
+        B = LENET_BATCH
+        x, y = image_batch(B * LOOP_BATCHES, 28, 1, LENET_CLASSES, seed=3)
+        xe, ye = image_batch(B * LOOP_HELD_OUT, 28, 1, LENET_CLASSES,
+                             seed=4)
+        a, b = net(), net()
+        it = DevicePrefetchIterator(ArrayDataSetIterator(x, y, B,
+                                                         shuffle=True),
+                                    depth=2)
+        try:
+            a.fit(it, epochs=LOOP_EPOCHS)
+        finally:
+            it.shutdown()
+        ref = ArrayDataSetIterator(x, y, B, shuffle=True)
+        for _ in range(LOOP_EPOCHS):
+            for ds in ref:
+                b.fit(ds.features, ds.labels)
+        steps = LOOP_BATCHES * LOOP_EPOCHS
+        check(a.getIterationCount() == b.getIterationCount() == steps,
+              f"lenet: iterations {a.getIterationCount()}, "
+              f"{b.getIterationCount()}")
+        pa, pb = a.params(), b.params()
+        check(torch.equal(pa, pb),
+              f"lenet: fit(prefetcher) and fit(x, y) differ in "
+              f"{int((pa != pb).sum())} parameters, by up to "
+              f"{float((pa - pb).abs().max()):.3e}")
+        ev = a.evaluate(ArrayDataSetIterator(xe, ye, B))
+        check(ev._counts.device.type == "cuda",
+              "evaluate's counts left the card")
+        host = Evaluation()
+        for ds in ArrayDataSetIterator(xe, ye, B):
+            host.eval(ds.labels, a.output(ds.features).cpu())
+        check((ev.confusionMatrix() == host.confusionMatrix()).all(),
+              "lenet: evaluate on the card differs from the CPU's "
+              "Evaluation of the same outputs")
+        calc = DataSetLossCalculator(ArrayDataSetIterator(xe, ye, B))
+        cfg = EarlyStoppingConfiguration(
+            calc, [MaxEpochsTerminationCondition(3)],
+            model_saver=InMemoryModelSaver())
+        res = EarlyStoppingTrainer(cfg, net(), ArrayDataSetIterator(
+            x, y, B, shuffle=True)).fit()
+        check(res.termination_reason == TerminationReason.EPOCH_TERMINATION
+              and res.total_epochs == 3,
+              f"early stopping: {res.termination_reason} "
+              f"{res.termination_details} after {res.total_epochs} epochs")
+        again = calc.calculate_score(res.best_model)
+        rel = abs(again - res.best_model_score) / abs(res.best_model_score)
+        check(rel <= LOOP_SCORE_RTOL,
+              f"early stopping: the best model scores {again} against the "
+              f"recorded {res.best_model_score}")
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "lenet.zip")
+            ModelSerializer.writeModel(a, path, save_updater=True)
+            back = ModelSerializer.restore(path, load_updater=True,
+                                           device=DEVICE)
+            check(torch.equal(back.output(xe), a.output(xe)),
+                  "lenet: the restored model's output differs")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    say("train-loop", f"(a) LeNet, f32, batch {B}: fit(DevicePrefetchIterator"
+                      f"(ArrayDataSetIterator(shuffle=True), depth=2), "
+                      f"epochs={LOOP_EPOCHS}) bit-equal to fit(x_i, y_i) "
+                      f"over {steps} steps; evaluate on the card = the CPU's "
+                      f"(accuracy {ev.accuracy():.4f}); early stopping "
+                      f"best epoch {res.best_model_epoch} of "
+                      f"{res.total_epochs}, score {res.best_model_score:.6f} "
+                      f"(recomputed, {rel:.1e} relative); writeModel and "
+                      f"restore bit-equal; {time.perf_counter() - t0:.1f} s")
+
+
+class StepClock:
+    """A listener: each step's loss tensor and ETL wait, and the host
+    clock after a ``torch.cuda.synchronize()`` at the end of step
+    ``warmup`` and of the last step."""
+
+    def __init__(self, warmup: int, steps: int):
+        self.warmup, self.steps = warmup, steps
+        self.losses, self.etl_ms, self.clock = [], [], {}
+
+    def iterationDone(self, model, iteration, epoch):
+        self.losses.append(model._score)
+        self.etl_ms.append(model._last_etl_ms)
+        k = len(self.losses)
+        if k in (self.warmup, self.steps):
+            torch.cuda.synchronize()
+            self.clock[k] = time.perf_counter()
+
+    def step_ms(self) -> float:
+        return ((self.clock[self.steps] - self.clock[self.warmup])
+                / (self.steps - self.warmup) * 1e3)
+
+
+def loop_resnet50(smi: str, resident_ms) -> None:
+    """(b) ResNet-50 at phase 15's cell from host-resident uint8 images:
+    ``fit`` over ``DevicePrefetchIterator(ArrayDataSetIterator(...),
+    dtype=bfloat16)`` at depth 2 and depth 0, in turns with the same steps
+    on a batch already on the card, LOOP_ROUNDS rounds (the host-bound
+    step moves between calls more than the pipeline's effect); then
+    ``evaluate`` on held-out batches against the accuracy computed
+    directly."""
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    t0 = time.perf_counter()
+    B, HW, C = RESNET50_BATCH, RESNET50_HW, RESNET50_CLASSES
+    conf = ResNet50(num_classes=C, in_shape=(HW, HW, 3),
+                    updater=Nesterovs(learning_rate=1e-1,
+                                      momentum=0.9)).conf()
+    conf.dtype = "bfloat16"
+    net = ComputationGraph(conf, device=DEVICE).init()
+    n_bn = sum(isinstance(getattr(n.vertex, "layer", None),
+                          BatchNormalization) for n in conf.nodes)
+    rng = np.random.RandomState(0)
+    n = B * (LOOP_BATCHES + LOOP_HELD_OUT)
+    x = rng.randint(0, 256, (n, HW, HW, 3), dtype=np.uint8)
+    y = np.eye(C, dtype=np.float32)[rng.randint(0, C, n)]
+    xt, yt = x[:B * LOOP_BATCHES], y[:B * LOOP_BATCHES]
+    xh, yh = x[B * LOOP_BATCHES:], y[B * LOOP_BATCHES:]
+    steps, nbytes = LOOP_BATCHES, xt[:B].nbytes
+    say("train-loop", f"(b) ResNet-50, bf16, batch {B}: {steps} host uint8 "
+                      f"batches of {nbytes / 1e6:.1f} MB "
+                      f"({x.nbytes / 1e6:.0f} MB with {LOOP_HELD_OUT} "
+                      f"held out), {LOOP_WARMUP} warm-up and "
+                      f"{steps - LOOP_WARMUP} timed steps a run; "
+                      f"{LOOP_ROUNDS} rounds of resident, depth 2, depth 0")
+    torch.backends.cudnn.benchmark = True
+    try:
+        xr = torch.from_numpy(xt[:B]).to(DEVICE).to(torch.bfloat16)
+        yr = torch.from_numpy(yt[:B]).to(DEVICE)
+        runs = {"resident": [], 2: [], 0: []}
+        for _ in range(LOOP_ROUNDS):
+            clock = StepClock(LOOP_WARMUP, steps)
+            net.setListeners(clock)
+            for _ in range(steps):
+                net.fit(xr, yr)
+            runs["resident"].append({"ms": clock.step_ms()})
+            for depth in (2, 0):
+                runs[depth].append(loop_resnet50_run(net, xt, yt, depth,
+                                                     n_bn, steps))
+        net.setListeners()
+        del xr, yr
+        # a yardstick the port never calls: the same bytes copied alone
+        # from page-locked memory, the card idle
+        src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+        bare_ms = cuda_ms(lambda i: dst.copy_(src, non_blocking=True), 10, 3)
+        del src, dst
+        ev = net.evaluate(ArrayDataSetIterator(xh, yh, B))
+        correct = 0
+        for i in range(LOOP_HELD_OUT):
+            xb = torch.from_numpy(xh[i * B:(i + 1) * B]).to(DEVICE)
+            yb = torch.from_numpy(yh[i * B:(i + 1) * B]).to(DEVICE)
+            o = net.outputSingle(xb.to(torch.bfloat16))
+            correct += int((o.argmax(-1) == yb.argmax(-1)).sum())
+        direct = correct / (B * LOOP_HELD_OUT)
+        check(ev.getNumRowCounter() == B * LOOP_HELD_OUT
+              and ev.accuracy() == direct,
+              f"evaluate: accuracy {ev.accuracy()} over "
+              f"{ev.getNumRowCounter()} rows, directly {direct}")
+    finally:
+        net.setListeners()
+        torch.backends.cudnn.benchmark = False
+
+    def med(rows, key):
+        return float(np.median([r[key] for r in rows]))
+
+    here = [r["ms"] for r in runs["resident"]]
+    ref = (f"phase 15's {resident_ms:.2f}" if resident_ms is not None
+           else "phase 15 not run")
+    say("train-loop", f"(b) resident batch: "
+                      + " ".join(f"{v:.2f}" for v in here)
+                      + f" ms/step by round, median {np.median(here):.2f} "
+                      f"({ref}); {smi}")
+    for depth in (2, 0):
+        rows = runs[depth]
+        ms = [r["ms"] for r in rows]
+        copy, ready = med(rows, "copy"), med(rows, "ready")
+        say("train-loop", f"(b) depth {depth}: "
+                          + " ".join(f"{v:.2f}" for v in ms)
+                          + " ms/step by round ("
+                          + " ".join(f"{v / h:.3f}" for v, h in zip(ms, here))
+                          + f" of the resident run before it), median "
+                          f"{np.median(ms):.2f} ({B / np.median(ms) * 1e3:.1f} "
+                          f"images/s); medians: ETL wait "
+                          f"{med(rows, 'etl'):.3f} ms/step, host staging "
+                          f"{med(rows, 'stage'):.3f} ms/batch, copies on the "
+                          f"card {copy:.3f} ms/batch ({nbytes / copy / 1e6:.1f}"
+                          f" GB/s of pixels) and {ready:.3f} to the end of "
+                          f"the cast (CUDA events)"
+                          + (f", overlap {med(rows, 'overlap'):.2f} ms from "
+                             f"copy issue to consumption" if depth else "")
+                          + f"; {smi}")
+    say("train-loop", f"(b) yardstick: {nbytes / 1e6:.1f} MB copied alone "
+                      f"from page-locked memory to the idle card "
+                      f"{bare_ms:.3f} ms ({nbytes / bare_ms / 1e6:.1f} GB/s); "
+                      f"{smi}")
+    say("train-loop", f"(b) evaluate over {LOOP_HELD_OUT} held-out batches: "
+                      f"accuracy {ev.accuracy():.6f} = argmax(output) == "
+                      f"argmax(label) directly; "
+                      f"{time.perf_counter() - t0:.1f} s")
+    del net
+    torch.cuda.empty_cache()
+
+
+def loop_resnet50_run(net, x, y, depth: int, n_bn: int, steps: int) -> dict:
+    """One epoch of ``steps`` batches through the prefetcher at ``depth``:
+    finite losses, the batch-norm kernels once per layer per step. Returns
+    ms per timed step, and means of the ETL wait per timed step, the
+    overlap, the copies and the time to the end of the casts on the card,
+    and the host staging per batch, all in ms."""
+    from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                                   DevicePrefetchIterator)
+
+    B = RESNET50_BATCH
+    clock = StepClock(LOOP_WARMUP, steps)
+    net.setListeners(clock)
+    it = DevicePrefetchIterator(ArrayDataSetIterator(x, y, B), depth=depth,
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_bn_counts()
+    try:
+        net.fit(it)
+        launches = bn_counts()
+        copies, ready = it.copy_ms(), it.ready_ms()
+    finally:
+        it.shutdown()
+    losses = [float(v) for v in clock.losses]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"depth {depth}: losses {losses}")
+    check(launches == (n_bn * steps,) * 3,
+          f"depth {depth}: batch-norm kernel launches {launches} over "
+          f"{steps} steps, not {n_bn} a step")
+    check(len(copies) == steps, f"depth {depth}: {len(copies)} copies")
+    etl = clock.etl_ms[LOOP_WARMUP:]
+    say("train-loop", f"(b) depth {depth}: losses "
+                      + " ".join(f"{v:.4f}" for v in losses)
+                      + f"; batch-norm launches {launches}; queue depth "
+                      f"{it.queue_depth} when last taken")
+    return {"ms": clock.step_ms(), "etl": sum(etl) / len(etl),
+            "overlap": (it.transfer_overlap_ms_total
+                        / max(it.transfer_overlap_batches, 1)),
+            "copy": sum(copies) / steps, "ready": sum(ready) / steps,
+            "stage": it.stage_ms_total / steps}
+
+
+def loop_char_lstm() -> None:
+    """(c) The char-LSTM at phase 9's cell: ``fit(ArrayDataSetIterator)``
+    over 3 batches against ``fit(x, y)`` on the same batches from the
+    same weights: B5's launches per step equal, losses within
+    LOOP_LOSS_RTOL."""
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+
+    t0 = time.perf_counter()
+    B, T, V = LSTM_BATCH, LSTM_SEQ, LSTM_VOCAB
+    rng = np.random.default_rng(30)
+    ids = rng.integers(0, V, (B * LOOP_LSTM_STEPS, T))
+    eye = np.eye(V, dtype=np.float32)
+    x, y = eye[ids], eye[np.roll(ids, -1, 1)]
+    a, b = (textgen_net("bfloat16", 0, DEVICE),
+            textgen_net("bfloat16", 0, DEVICE))
+    clock = StepClock(1, LOOP_LSTM_STEPS)
+    a.setListeners(clock)
+    reset_lstm_counts()
+    a.fit(ArrayDataSetIterator(x, y, B))
+    through_it = lstm_counts()
+    reset_lstm_counts()
+    direct = []
+    for i in range(LOOP_LSTM_STEPS):
+        b.fit(x[i * B:(i + 1) * B], y[i * B:(i + 1) * B])
+        direct.append(b._score)
+    through_arrays = lstm_counts()
+    la = [float(v) for v in clock.losses]
+    lb = [float(v) for v in direct]
+    check(through_it == through_arrays and min(through_it) > 0,
+          f"char-LSTM: B5 launches {through_it} through the iterator, "
+          f"{through_arrays} through fit(x, y)")
+    rel = max(abs(p - q) / abs(q) for p, q in zip(la, lb))
+    check(len(la) == LOOP_LSTM_STEPS and rel <= LOOP_LOSS_RTOL,
+          f"char-LSTM: losses {la} against fit(x, y)'s {lb}")
+    say("train-loop", f"(c) char-LSTM {B} x {T}, bf16: "
+                      f"fit(ArrayDataSetIterator) {LOOP_LSTM_STEPS} steps, B5 "
+                      f"launches (forward, backward) {through_it} = fit(x, "
+                      f"y)'s; losses {' '.join(f'{v:.5f}' for v in la)} "
+                      f"(max relative diff {rel:.1e}, tolerance "
+                      f"{LOOP_LOSS_RTOL:g}); {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4119,6 +4515,23 @@ def main(argv) -> int:
         say("resnet50", f"[{argv[1] if len(argv) > 1 else os.getcwd()}] "
                         f"the port of {deeplearning4j_tpu_torch.__file__}")
         phase_resnet50_train(smi, {r[0]: {} for r in BN_ROWS})
+        return 0
+    if argv[:1] == ["lstm-train"]:
+        # phase 9 alone, of the port found from the current directory; the
+        # kernel rows that phase 8 fills print as nan
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_device()
+        import deeplearning4j_tpu_torch
+        say("lstm-train", f"[{argv[1] if len(argv) > 1 else os.getcwd()}] "
+                          f"the port of {deeplearning4j_tpu_torch.__file__}")
+        phase_lstm_train(defaultdict(lambda: defaultdict(lambda: math.nan)))
+        return 0
+    if argv[:1] == ["training-loop"]:
+        # phase 17 alone, of the port found from the current directory
+        sys.path.insert(0, os.getcwd())
+        phase_training_loop(phase_device(), None)
         return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
@@ -4146,8 +4559,9 @@ def main(argv) -> int:
     phase_resnet_blocks(rows)
     phase_resnet_parity()
     phase_lenet()
-    phase_resnet50_train(smi, rows)
+    resident_ms = phase_resnet50_train(smi, rows)
     phase_graph_parity()
+    phase_training_loop(smi, resident_ms)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -52,6 +52,12 @@ Ported so far:
   its configuration and vertices), ``zoo.LeNet`` and ``zoo.ResNet50``, and
   ``ModelSerializer.restoreComputationGraph`` / ``restore``; the image
   layers reach no Pallas kernel in the reference, so no hand kernel;
+- slice 14, the training loop: ``datasets`` (iterators, normalizers,
+  local-file fetchers, ``AsyncDataSetIterator``, ``DevicePrefetchIterator``
+  with page-locked staging and copies on a side stream), ``evaluation``,
+  ``optimize.listeners``, ``earlystopping``, ``ModelSerializer.writeModel``
+  and ``restoreNormalizer``, and ``fit`` over iterators, ``evaluate`` and
+  the listeners on both networks;
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
   ``mln_params_from_numpy``, ``cg_params_from_numpy``,
   ``params_to_numpy``) and ``FlatParams``, the flat f32 master buffer.

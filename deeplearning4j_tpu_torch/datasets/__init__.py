@@ -1,21 +1,39 @@
-"""Datasets: a minimal ``DataSet`` (counterpart of
-``deeplearning4j_tpu/datasets/dataset.py``), enough for
-``MultiLayerNetwork.fit(DataSet)``. ``DataSetIterator`` and the rest of
-the datasets package are not ported yet (ROADMAP.md A9)."""
+"""Datasets and iterators: counterpart of ``deeplearning4j_tpu/datasets``
+(``DataSet``, ``MultiDataSet``, the iterators, normalizers, the local-file
+fetchers, the host and device prefetchers and the class-imbalance
+preprocessors). The record-reader iterators are stand-ins that raise."""
 
-from __future__ import annotations
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterator import (
+    ArrayDataSetIterator, DataSetIterator, ListDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.record_reader_iterator import (
+    AsyncDataSetIterator, RecordReaderDataSetIterator,
+    RecordReaderMultiDataSetIterator, SequenceRecordReaderDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.fetchers import (
+    Cifar10DataSetIterator, EmnistDataSetIterator, IrisDataSetIterator,
+    MnistDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.multi_dataset import (
+    ArrayMultiDataSetIterator, ListMultiDataSetIterator, MultiDataSet,
+    MultiDataSetIterator, MultiDataSetIteratorAdapter)
+from deeplearning4j_tpu_torch.datasets.iterator_utils import (
+    CachingDataSetIterator, EarlyTerminationDataSetIterator,
+    ExistingMiniBatchDataSetIterator, KFoldIterator, MultipleEpochsIterator,
+    SamplingDataSetIterator, ViewIterator)
+from deeplearning4j_tpu_torch.datasets.device_prefetch import (
+    BatchShapePolicy, DevicePrefetchIterator, DevicePrefetchMultiIterator)
 
-
-class DataSet:
-    """A minibatch: features and labels, each with an optional mask.
-    Arrays are kept as given (numpy arrays or tensors)."""
-
-    def __init__(self, features, labels, features_mask=None,
-                 labels_mask=None):
-        self.features = features
-        self.labels = labels
-        self.features_mask = features_mask
-        self.labels_mask = labels_mask
-
-
-__all__ = ["DataSet"]
+__all__ = ["DataSet", "DataSetIterator", "ListDataSetIterator",
+           "ArrayDataSetIterator", "AsyncDataSetIterator",
+           "RecordReaderDataSetIterator",
+           "RecordReaderMultiDataSetIterator",
+           "SequenceRecordReaderDataSetIterator",
+           "IrisDataSetIterator", "MnistDataSetIterator",
+           "EmnistDataSetIterator", "Cifar10DataSetIterator",
+           "MultiDataSet", "MultiDataSetIterator",
+           "ListMultiDataSetIterator", "ArrayMultiDataSetIterator",
+           "MultiDataSetIteratorAdapter",
+           "KFoldIterator", "ViewIterator", "SamplingDataSetIterator",
+           "MultipleEpochsIterator", "EarlyTerminationDataSetIterator",
+           "CachingDataSetIterator", "ExistingMiniBatchDataSetIterator",
+           "BatchShapePolicy", "DevicePrefetchIterator",
+           "DevicePrefetchMultiIterator"]

@@ -127,13 +127,14 @@ class Adam(IUpdater):
 
     def apply(self, state, grads, step):
         b1, b2 = self.beta1, self.beta2
-        alpha = self.bias_corrected_lr(step)
+        # the f32 value as a Python number: a scalar operand needs no copy
+        # to the card (a blocking copy there waits for the stream)
+        alpha = float(self.bias_corrected_lr(step))
         m = tree_map2(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
         v = tree_map2(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"],
                       grads)
         updates = tree_map2(
-            lambda m_, v_: alpha.to(m_.device) * m_
-            / (torch.sqrt(v_) + self.epsilon), m, v)
+            lambda m_, v_: alpha * m_ / (torch.sqrt(v_) + self.epsilon), m, v)
         return updates, {"m": m, "v": v}
 
 

@@ -13,14 +13,18 @@ training step names each vertex's ops and the update as profiler record
 ranges (``dl4j::<layer class>``, ``dl4j::updater``), so a trace sums the
 device time by layer kind.
 
-Ported: ``init``, ``fit`` (arrays, lists of arrays or a ``DataSet``, with
-label masks), ``output`` / ``outputSingle``, ``score``, ``numParams``,
-``params``, ``setParams``, l1/l2 on the weights and gradient
-normalisation. Not ported yet, and raising ``NotImplementedError`` with
-the ROADMAP item: features masks, pretraining, ``rnnTimeStep`` and
-``backpropGradient`` (A3); evaluation, listeners, the health monitor,
-fault tolerance and ``fit`` over an iterator or a ``MultiDataSet`` (A9);
-loss scaling and the mixed policies (A2, refused by the configuration).
+Ported: ``init``, ``fit`` (arrays, lists of arrays, a ``DataSet``, a
+``MultiDataSet``, or a ``DataSetIterator`` or ``MultiDataSetIterator``,
+with label masks), ``output`` / ``outputSingle``, ``score``, ``evaluate``
+and its ROC and regression variants, the listeners, ``clone``,
+``numParams``, ``params``, ``setParams``, l1/l2 on the weights and
+gradient normalisation. Not ported yet, and raising
+``NotImplementedError`` with the ROADMAP item: features masks,
+pretraining, ``rnnTimeStep`` and ``backpropGradient`` (A3); the health
+monitor and fault tolerance (A9); loss scaling and the mixed policies
+(A2, refused by the configuration). ``fit`` over an iterator takes a
+batch already on the device in the input dtype without a copy, and
+records each ``next()``'s wait in ``_last_etl_ms``.
 
 Parameters, layer state and updater state are dicts keyed by node name
 in the JAX layout, so ``params.cg_params_from_numpy`` and
@@ -29,21 +33,23 @@ in the JAX layout, so ``params.cg_params_from_numpy`` and
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.datasets import (DataSet, DataSetIterator,
+                                               MultiDataSet,
+                                               MultiDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.updaters import apply_updater
 from deeplearning4j_tpu_torch.nn.graph.config import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.graph.vertices import LayerVertex
 from deeplearning4j_tpu_torch.nn.multilayer.network import (
-    _not_ported, as_device_tensor, normalize_gradients, torch_dtype,
-    weight_penalty)
+    _not_ported, as_device_tensor, eval_mask, fit_epochs,
+    normalize_gradients, torch_dtype, weight_penalty)
 
 
 def _label(vertex) -> str:
@@ -71,6 +77,9 @@ class ComputationGraph:
         self._epoch = 0
         self._score = float("nan")
         self._generator: Optional[torch.Generator] = None
+        self._listeners: List[Any] = []
+        self._last_etl_ms: Optional[float] = None
+        self._last_batch_size = 0
 
     # ------------------------------------------------------------------
     def init(self) -> "ComputationGraph":
@@ -204,12 +213,33 @@ class ComputationGraph:
     def fit(self, data, labels=None, epochs: int = 1, fault_tolerance=None,
             auto_resume=None):
         """Train on arrays ``fit(x, y)`` (one per graph input and output,
-        or lists of them) or a ``DataSet``, ``epochs`` passes over the one
-        batch."""
+        or lists of them), a ``DataSet`` or a ``MultiDataSet`` (``epochs``
+        passes over the one batch), or a ``DataSetIterator`` or
+        ``MultiDataSetIterator`` (``epochs`` passes, each ending in the
+        listeners' ``onEpochEnd``; more than one needs an iterator that
+        can reset)."""
         self._check_init()
         if fault_tolerance is not None or auto_resume is not None:
             raise _not_ported("fit(fault_tolerance=..., auto_resume=...)",
                               "A9")
+        if isinstance(data, MultiDataSetIterator):
+            if epochs > 1 and not data.resetSupported():
+                raise ValueError("epochs > 1 requires a resettable "
+                                 "MultiDataSetIterator")
+            return fit_epochs(self, data, epochs, lambda m: self._fit_batch(
+                m.features, m.labels, m.labels_mask_arrays or None,
+                m.features_mask_arrays or None))
+        if isinstance(data, DataSetIterator):
+            return fit_epochs(self, data, epochs, lambda d: self._fit_batch(
+                [d.features], [d.labels], [d.labels_mask],
+                [d.features_mask]))
+        self._last_etl_ms = None
+        if isinstance(data, MultiDataSet):
+            for _ in range(epochs):
+                self._fit_batch(data.features, data.labels,
+                                data.labels_mask_arrays or None,
+                                data.features_mask_arrays or None)
+            return self
         if isinstance(data, DataSet):
             for _ in range(epochs):
                 self._fit_batch([data.features], [data.labels],
@@ -217,9 +247,9 @@ class ComputationGraph:
             return self
         if not (torch.is_tensor(data) or isinstance(data, (np.ndarray, list,
                                                            tuple))):
-            raise _not_ported(
-                f"fit({type(data).__name__}) (iterators, MultiDataSet and "
-                f"other sources)", "A9")
+            raise TypeError(
+                f"fit({type(data).__name__}): expected arrays, a DataSet, a "
+                f"MultiDataSet or an iterator of them")
         if labels is None:
             raise ValueError("fit(inputs, labels) requires labels")
         data = list(data) if isinstance(data, (list, tuple)) else [data]
@@ -249,6 +279,9 @@ class ComputationGraph:
                      if m is not None}
         self._score = self._train_step(inputs, labels, masks)
         self._iteration += 1
+        self._last_batch_size = int(next(iter(inputs.values())).shape[0])
+        for l in self._listeners:
+            l.iterationDone(self, self._iteration, self._epoch)
 
     # ------------------------------------------------------------------
     def output(self, *xs, feature_masks=None):
@@ -311,6 +344,63 @@ class ComputationGraph:
                 p.dtype)
             off += n
 
+    def _evaluate(self, ev, iterator):
+        """``ev.eval`` over ``iterator``'s batches of the single output in
+        inference mode (the counts stay on the device)."""
+        for ds in iterator:
+            fms = ([ds.features_mask] if ds.features_mask is not None
+                   else None)
+            out = self.outputSingle(ds.features, feature_masks=fms)
+            ev.eval(ds.labels, out, mask=eval_mask(ds))
+        return ev
+
+    def evaluate(self, iterator):
+        """Classification ``Evaluation`` over ``iterator``."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+        return self._evaluate(Evaluation(), iterator)
+
+    def evaluateROC(self, iterator, threshold_steps=0):
+        """Binary ``ROC`` over the single output (exact sweep)."""
+        from deeplearning4j_tpu_torch.evaluation import ROC
+
+        return self._evaluate(ROC(), iterator)
+
+    def evaluateROCMultiClass(self, iterator, threshold_steps=0):
+        """One-vs-all ``ROCMultiClass`` (exact sweep)."""
+        from deeplearning4j_tpu_torch.evaluation import ROCMultiClass
+
+        return self._evaluate(ROCMultiClass(), iterator)
+
+    def evaluateRegression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation import RegressionEvaluation
+
+        return self._evaluate(RegressionEvaluation(), iterator)
+
+    def setListeners(self, *listeners):
+        self._listeners = list(listeners)
+        return self
+
+    def addListeners(self, *listeners):
+        self._listeners.extend(listeners)
+        return self
+
+    def getListeners(self):
+        return list(self._listeners)
+
+    def clone(self) -> "ComputationGraph":
+        """A graph of the same configuration on the same device sharing
+        this one's tensors (a step replaces tensors, it does not write
+        into them); its counters and dropout generator start afresh, as
+        the JAX clone's do."""
+        m = ComputationGraph(self.conf, device=self.device)
+        if self.params_map is not None:
+            m.init()
+            m.params_map = {n: dict(p) for n, p in self.params_map.items()}
+            m.states_map = {n: dict(s) for n, s in self.states_map.items()}
+            m.opt_states = dict(self.opt_states)
+        return m
+
     def getIterationCount(self) -> int:
         return self._iteration
 
@@ -330,16 +420,6 @@ class ComputationGraph:
 
     def backpropGradient(self, *args, **kwargs):
         raise _not_ported("backpropGradient", "A3")
-
-    def evaluate(self, *args, **kwargs):
-        raise _not_ported("evaluation", "A9")
-
-    evaluateROC = evaluateROCMultiClass = evaluateRegression = evaluate
-
-    def setListeners(self, *listeners):
-        raise _not_ported("training listeners", "A9")
-
-    addListeners = setListeners
 
     def setHealthMonitor(self, monitor):
         raise _not_ported("the model-health monitor", "A9")

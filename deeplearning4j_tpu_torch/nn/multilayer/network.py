@@ -8,16 +8,22 @@ one :func:`~deeplearning4j_tpu_torch.learning.updaters.apply_updater` per
 layer (``params - updates`` in each parameter's dtype). An LSTM layer runs
 the hand-written recurrence kernels on the card, forward and backward.
 
-Ported: ``init``, ``fit`` (arrays or a ``DataSet``; standard BPTT and
-truncated BPTT, one update per segment with the carries detached between
-segments and reset at each minibatch), ``output``, ``rnnTimeStep`` and its
-state accessors, ``score``, ``params``, ``numParams``, ``paramTable``,
-l1/l2 regularization, gradient normalization and the preprocessor tags
-between image and dense layers (``nn.conf.builder.apply_preprocessor``). Not ported yet, and
-raising ``NotImplementedError`` with the ROADMAP item:
-listeners, the health monitor, fault tolerance, evaluation and
-``DataSetIterator`` (A9), layerwise pretraining (A3), mixed precision
-(A2, at the configuration).
+Ported: ``init``, ``fit`` (arrays, a ``DataSet`` or a ``DataSetIterator``;
+standard BPTT and truncated BPTT, one update per segment with the carries
+detached between segments and reset at each minibatch), ``output``,
+``rnnTimeStep`` and its state accessors, ``score``, ``evaluate`` and its
+ROC and regression variants, the listeners, ``clone``, ``params``,
+``numParams``, ``paramTable``, l1/l2 regularization, gradient
+normalization and the preprocessor tags between image and dense layers
+(``nn.conf.builder.apply_preprocessor``). Not ported yet, and raising
+``NotImplementedError`` with the ROADMAP item: the health monitor and
+fault tolerance (A9), layerwise pretraining (A3), mixed precision (A2, at
+the configuration).
+
+``fit`` over an iterator takes each batch as it comes: one already on the
+device in the input dtype (a ``DevicePrefetchIterator``'s) goes into the
+step without a copy, and nothing on the way reads a value back from the
+card; ``_last_etl_ms`` is the time the last ``next()`` blocked.
 
 Parameters are a list of per-layer dicts of tensors in the JAX layout, so
 ``params.mln_params_from_numpy`` and ``util.model_serializer`` carry a
@@ -26,12 +32,14 @@ JAX network's weights across unchanged.
 
 from __future__ import annotations
 
+import time
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.common import not_ported as _not_ported
+from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, apply_updater
 from deeplearning4j_tpu_torch.nn.conf.builder import (
@@ -63,10 +71,35 @@ def torch_dtype(name) -> torch.dtype:
         raise ValueError(f"Unsupported dtype: {name!r}") from None
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to deeplearning4j_tpu_torch yet "
-        f"(ROADMAP.md {item})")
+def eval_mask(ds):
+    """The labels mask for evaluation: per-timestep labels with a features
+    mask and no labels mask take the features mask (the RNN
+    convention)."""
+    if ds.labels_mask is None and ds.features_mask is not None \
+            and ds.labels.ndim == 3:
+        return ds.features_mask
+    return ds.labels_mask
+
+
+def fit_epochs(model, iterator, epochs: int, step):
+    """``epochs`` passes of ``step(batch)`` over ``iterator``, each wait
+    in its ``next()`` in ``model._last_etl_ms``, each pass ending in the
+    epoch count and the listeners' ``onEpochEnd``."""
+    for _ in range(epochs):
+        it = iter(iterator)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            model._last_etl_ms = (time.perf_counter() - t0) * 1e3
+            step(batch)
+        model._epoch += 1
+        for l in model._listeners:
+            if hasattr(l, "onEpochEnd"):
+                l.onEpochEnd(model)
+    return model
 
 
 def as_device_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -132,6 +165,9 @@ class MultiLayerNetwork:
         self._rnn_carries = None
         self._rnn_batch = 0
         self._generator: Optional[torch.Generator] = None
+        self._listeners: List[Any] = []
+        self._last_etl_ms: Optional[float] = None
+        self._last_batch_size = 0
 
     # ------------------------------------------------------------------
     # initialization
@@ -284,21 +320,27 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1, fault_tolerance=None,
             auto_resume=None):
-        """Train on arrays ``fit(x, y)`` or a ``DataSet``, ``epochs``
-        passes over the one batch."""
+        """Train on arrays ``fit(x, y)`` or a ``DataSet`` (``epochs``
+        passes over the one batch), or on a ``DataSetIterator``
+        (``epochs`` passes, each ending in the listeners'
+        ``onEpochEnd``)."""
         self._check_init()
         if fault_tolerance is not None or auto_resume is not None:
             raise _not_ported("fit(fault_tolerance=..., auto_resume=...)",
                               "A9")
+        if isinstance(data, DataSetIterator):
+            return fit_epochs(self, data, epochs, lambda ds: self._fit_batch(
+                ds.features, ds.labels, ds.labels_mask, ds.features_mask))
+        self._last_etl_ms = None
         if isinstance(data, DataSet):
             for _ in range(epochs):
                 self._fit_batch(data.features, data.labels, data.labels_mask,
                                 data.features_mask)
             return self
         if not (torch.is_tensor(data) or isinstance(data, np.ndarray)):
-            raise _not_ported(
-                f"fit({type(data).__name__}) (DataSetIterator and other "
-                f"sources)", "A9")
+            raise TypeError(
+                f"fit({type(data).__name__}): expected arrays, a DataSet or "
+                f"a DataSetIterator")
         if labels is None:
             raise ValueError("fit(x, y) requires labels")
         for _ in range(epochs):
@@ -337,7 +379,14 @@ class MultiLayerNetwork:
                     "yet; use standard BPTT")
             return self._fit_tbptt(x, y, m, k)
         self._score, _ = self._train_step(x, y, m, fm, None)
+        self._after_step(x)
+
+    def _after_step(self, x) -> None:
+        """Count the update and tell the listeners."""
         self._iteration += 1
+        self._last_batch_size = int(x.shape[0])
+        for l in self._listeners:
+            l.iterationDone(self, self._iteration, self._epoch)
 
     def _fit_tbptt(self, x, y, mask, k: int):
         """Truncated BPTT: segments of ``k`` timesteps, one update per
@@ -354,7 +403,7 @@ class MultiLayerNetwork:
             mc = mask[:, t0:t0 + k] if mask is not None else None
             self._score, carries = self._train_step(
                 x[:, t0:t0 + k], y[:, t0:t0 + k], mc, None, carries)
-            self._iteration += 1
+            self._after_step(x)
 
     def pretrain(self, *args, **kwargs):
         raise _not_ported("layerwise pretraining", "A3")
@@ -445,8 +494,37 @@ class MultiLayerNetwork:
                                          None, x, y, m, None)
         return float(loss)
 
-    def evaluate(self, *args, **kwargs):
-        raise _not_ported("evaluation", "A9")
+    def _evaluate(self, ev, iterator):
+        """``ev.eval`` over ``iterator``'s batches of the network's
+        inference output (the counts stay on the device)."""
+        for ds in iterator:
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            ev.eval(ds.labels, out, mask=eval_mask(ds))
+        return ev
+
+    def evaluate(self, iterator, batch_output=None):
+        """Classification ``Evaluation`` over ``iterator``."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+        return self._evaluate(Evaluation(), iterator)
+
+    def evaluateROC(self, iterator, threshold_steps=0):
+        """Binary ``ROC`` (a 1- or 2-column probability output; the sweep
+        is exact whatever ``threshold_steps`` says)."""
+        from deeplearning4j_tpu_torch.evaluation import ROC
+
+        return self._evaluate(ROC(), iterator)
+
+    def evaluateROCMultiClass(self, iterator, threshold_steps=0):
+        """One-vs-all ``ROCMultiClass`` (exact sweep)."""
+        from deeplearning4j_tpu_torch.evaluation import ROCMultiClass
+
+        return self._evaluate(ROCMultiClass(), iterator)
+
+    def evaluateRegression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation import RegressionEvaluation
+
+        return self._evaluate(RegressionEvaluation(), iterator)
 
     # ------------------------------------------------------------------
     # parameter access
@@ -475,13 +553,32 @@ class MultiLayerNetwork:
         return {f"{i}_{k}": self.params_list[i][k]
                 for i, k in self._flat_order()}
 
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of the same configuration on the same device sharing
+        this one's tensors (a step replaces tensors, it does not write
+        into them); its counters and dropout generator start afresh, as
+        the JAX clone's do."""
+        m = MultiLayerNetwork(self.conf, device=self.device)
+        if self.params_list is not None:
+            m.init()
+            m.params_list = [dict(p) for p in self.params_list]
+            m.states_list = [dict(s) for s in self.states_list]
+            m.opt_states = list(self.opt_states)
+        return m
+
     # ------------------------------------------------------------------
-    # not ported
+    # listeners
     # ------------------------------------------------------------------
     def setListeners(self, *listeners):
-        raise _not_ported("training listeners", "A9")
+        self._listeners = list(listeners)
+        return self
 
-    addListeners = setListeners
+    def addListeners(self, *listeners):
+        self._listeners.extend(listeners)
+        return self
+
+    def getListeners(self):
+        return list(self._listeners)
 
     def setHealthMonitor(self, monitor):
         raise _not_ported("the model-health monitor", "A9")
@@ -494,4 +591,5 @@ class MultiLayerNetwork:
 
 
 __all__ = ["MultiLayerNetwork", "torch_dtype", "as_device_tensor",
-           "weight_penalty", "normalize_gradients"]
+           "weight_penalty", "normalize_gradients", "eval_mask",
+           "fit_epochs"]

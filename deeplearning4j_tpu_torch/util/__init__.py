@@ -1,2 +1,2 @@
-"""Utilities: ``util.model_serializer`` (the read side of the JAX
-package's ModelSerializer zips)."""
+"""Utilities: ``util.model_serializer`` (the ModelSerializer zips both
+packages share: write, restore, the normalizer beside the model)."""

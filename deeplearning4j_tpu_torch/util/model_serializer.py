@@ -1,22 +1,27 @@
-"""The read side of ``deeplearning4j_tpu/util/model_serializer.py``:
-restores a ``MultiLayerNetwork`` or a ``ComputationGraph`` from the zip
-that the JAX side's ``ModelSerializer.writeModel`` writes.
+"""ModelSerializer: counterpart of
+``deeplearning4j_tpu/util/model_serializer.py``. Writes and restores a
+``MultiLayerNetwork`` or a ``ComputationGraph`` as the zip both packages
+share, and the normalizer saved beside it.
 
 The zip holds ``configuration.json`` (the configuration's JSON),
 ``coefficients.npz`` (parameters, keys ``<idx>/<name>`` per layer, or
 ``<node>/<name>`` per graph node), ``state.npz`` (non-trainable layer
 state, keyed alike), optionally ``updaterState.npz`` (the updater state
-tree, keys ``<idx>/m/<name>``, ``<node>/v/<name>`` and so on) and
-``meta.json`` (iteration and epoch counters, and ``model_type``). Arrays of a
-dtype that numpy's npz cannot hold (bfloat16) are stored as a uint view
-under ``<key>__as__<dtype>``; they are decoded here through torch, so no
-``ml_dtypes`` is needed.
+tree, keys ``<idx>/m/<name>``, ``<node>/v/<name>`` and so on),
+``meta.json`` (iteration and epoch counters, and ``model_type``) and,
+when a normalizer is saved, ``normalizer.npz`` and ``normalizer.json``.
+Arrays of a dtype that numpy's npz cannot hold (bfloat16) are stored as a
+uint view under ``<key>__as__<dtype>``; they are encoded and decoded here
+through torch, so no ``ml_dtypes`` is needed. A zip this module writes
+restores in the JAX package, and the JAX package's restores here.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
+import uuid
 import zipfile
 from typing import Dict
 
@@ -26,6 +31,112 @@ import torch
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.params import (bfloat16_from_bits,
                                              numpy_to_tensor)
+
+
+def fsync_directory(dirpath: str) -> None:
+    """fsync a directory, so a rename inside it survives power loss
+    (skipped where a directory cannot be opened)."""
+    try:
+        fd = os.open(dirpath, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def atomic_replace(tmp: str, path: str) -> None:
+    """fsync ``tmp``, rename it over ``path``, fsync the directory: after
+    a crash at any point ``path`` is the old file or the whole new one."""
+    fd = os.open(tmp, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, path)
+    fsync_directory(os.path.dirname(os.path.abspath(path)))
+
+
+def unique_tmp_path(path: str) -> str:
+    """A sibling temp name no other writer shares."""
+    return f"{path}.{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp"
+
+
+def _numpy_leaf(t) -> np.ndarray:
+    """A leaf for an npz member: a bfloat16 tensor as its uint16 bits
+    (the writer's ``__as__bfloat16`` form), others as numpy."""
+    if torch.is_tensor(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            return t.cpu().view(torch.int16).numpy().view(np.uint16)
+        return t.cpu().numpy()
+    return np.asarray(t)
+
+
+def _flatten_with_paths(tree, prefix="") -> Dict[str, np.ndarray]:
+    """``{"a/0/b": array}`` of a nested dict/list/tuple tree (dict keys
+    sorted; None leaves skipped), keys of bfloat16 leaves suffixed
+    ``__as__bfloat16``."""
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flatten_with_paths(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten_with_paths(v, f"{prefix}{i}/"))
+    elif tree is not None:
+        key = prefix[:-1]
+        if torch.is_tensor(tree) and tree.dtype == torch.bfloat16:
+            key += "__as__bfloat16"
+        out[key] = _numpy_leaf(tree)
+    return out
+
+
+def _write_npz(zf: zipfile.ZipFile, name: str, arrays: dict) -> None:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    zf.writestr(name, buf.getvalue())
+
+
+def _read_npz_numpy(zf: zipfile.ZipFile, name: str) -> dict:
+    with zf.open(name) as f:
+        data = np.load(io.BytesIO(f.read()))
+        return {k: data[k] for k in data.files}
+
+
+def _normalizer_registry():
+    """The normalizer types ``restoreNormalizer`` rebuilds (each built
+    with no arguments, then its state loaded)."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        ImagePreProcessingScaler, MultiNormalizerMinMaxScaler,
+        MultiNormalizerStandardize, NormalizerMinMaxScaler,
+        NormalizerStandardize, VGG16ImagePreProcessor)
+
+    return {"NormalizerStandardize": NormalizerStandardize,
+            "NormalizerMinMaxScaler": NormalizerMinMaxScaler,
+            "ImagePreProcessingScaler": ImagePreProcessingScaler,
+            "VGG16ImagePreProcessor": VGG16ImagePreProcessor,
+            "MultiNormalizerStandardize": MultiNormalizerStandardize,
+            "MultiNormalizerMinMaxScaler": MultiNormalizerMinMaxScaler}
+
+
+def _check_composite_children(normalizer) -> None:
+    """Refuse, before anything is written, a composite whose children
+    could not be restored (nested composites, unknown types)."""
+    registry = _normalizer_registry()
+    for i, child in enumerate(normalizer.preprocessors):
+        name = type(child).__name__
+        if hasattr(child, "preprocessors"):
+            raise ValueError(
+                f"cannot save CompositeDataSetPreProcessor child {i} "
+                f"({name}): nested composites are not restorable; flatten "
+                "the children into one composite")
+        if name not in registry:
+            raise ValueError(
+                f"cannot save CompositeDataSetPreProcessor child {i}: "
+                f"{name} is not a restorable normalizer type (expected one "
+                f"of {sorted(registry)})")
 
 
 def read_npz(zf: zipfile.ZipFile, name: str) -> Dict[str, torch.Tensor]:
@@ -93,6 +204,86 @@ def _load_members(model, zf: zipfile.ZipFile, load_updater: bool, dev):
 
 
 class ModelSerializer:
+    @staticmethod
+    def writeModel(model, path: str, save_updater: bool = True,
+                   normalizer=None) -> None:
+        """The model (and ``normalizer``) as a zip at ``path``, written to
+        a temp file of this writer's own, fsynced and renamed into place:
+        a reader never sees a partial file. ``save_updater`` adds the
+        updater state."""
+        if normalizer is not None and hasattr(normalizer, "preprocessors"):
+            _check_composite_children(normalizer)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = unique_tmp_path(path)
+        try:
+            ModelSerializer._write_zip(model, tmp, save_updater, normalizer)
+            atomic_replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    @staticmethod
+    def _write_zip(model, path, save_updater, normalizer) -> None:
+        graph = hasattr(model, "params_map")
+        params = model.params_map if graph else model.params_list
+        states = model.states_map if graph else model.states_list
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+            zf.writestr("configuration.json", model.conf.to_json())
+            _write_npz(zf, "coefficients.npz", _flatten_with_paths(params))
+            _write_npz(zf, "state.npz", _flatten_with_paths(states))
+            if save_updater and model.opt_states is not None:
+                _write_npz(zf, "updaterState.npz",
+                           _flatten_with_paths(model.opt_states))
+            meta = {"iteration": model.getIterationCount(),
+                    "epoch": model.getEpochCount(),
+                    "format": "deeplearning4j_tpu-1",
+                    "model_type": type(model).__name__}
+            zf.writestr("meta.json", json.dumps(meta))
+            if normalizer is not None:
+                info = {"type": type(normalizer).__name__}
+                if hasattr(normalizer, "preprocessors"):
+                    info["children"] = [type(p).__name__
+                                        for p in normalizer.preprocessors]
+                _write_npz(zf, "normalizer.npz",
+                           _flatten_with_paths(normalizer.state_dict()))
+                zf.writestr("normalizer.json", json.dumps(info))
+
+    @staticmethod
+    def restoreNormalizer(path: str):
+        """The normalizer saved with the model, or None."""
+        from deeplearning4j_tpu_torch.datasets.normalizers import (
+            CompositeDataSetPreProcessor)
+
+        registry = _normalizer_registry()
+        with zipfile.ZipFile(path) as zf:
+            if "normalizer.json" not in zf.namelist():
+                return None
+            info = json.loads(zf.read("normalizer.json").decode())
+            state = _read_npz_numpy(zf, "normalizer.npz")
+        if info["type"] == "CompositeDataSetPreProcessor":
+            bad = [t for t in info["children"] if t not in registry]
+            if bad:
+                raise ValueError(
+                    "cannot restore CompositeDataSetPreProcessor: children "
+                    f"{bad} are not restorable normalizer types (expected "
+                    f"one of {sorted(registry)})")
+            n = CompositeDataSetPreProcessor(
+                *[registry[t]() for t in info["children"]])
+            # the writer joined the children's dicts as "p<i>/<key>"
+            nested: dict = {f"p{i}": {} for i in range(len(info["children"]))}
+            for k, v in state.items():
+                head, rest = k.split("/", 1)
+                nested[head][rest] = v
+            n.load_state_dict(nested)
+            return n
+        if info["type"] not in registry:
+            raise ValueError(
+                f"cannot restore normalizer of type {info['type']!r} "
+                f"(expected one of {sorted(registry)})")
+        n = registry[info["type"]]()
+        n.load_state_dict(state)
+        return n
+
     @staticmethod
     def restoreMultiLayerNetwork(path: str, load_updater: bool = False,
                                  device=None):

@@ -346,14 +346,15 @@ def test_unported_parts_raise_with_their_roadmap_item():
     net = TextGenerationLSTM(vocab_size=VOCAB, hidden=HIDDEN).init(
         device="cpu")
     x, y = _char_batch(0)
-    for call, item in ((lambda: net.setListeners(object()), "A9"),
-                       (lambda: net.setHealthMonitor(object()), "A9"),
-                       (lambda: net.evaluate(None), "A9"),
+    for call, item in ((lambda: net.setHealthMonitor(object()), "A9"),
                        (lambda: net.pretrain(x), "A3"),
                        (lambda: net.fit(x, y, fault_tolerance=object()),
                         "A9"),
-                       (lambda: net.fit(iter([DataSet(x, y)])), "A9")):
+                       (lambda: net.fit(x, y, auto_resume=object()), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # iterators are ported: a plain Python iterator is no DataSetIterator
+    with pytest.raises(TypeError, match="DataSetIterator"):
+        net.fit(iter([DataSet(x, y)]))
     with pytest.raises(RuntimeError, match="init"):
         MultiLayerNetwork(net.conf, device="cpu").output(x)

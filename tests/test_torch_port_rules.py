@@ -278,3 +278,41 @@ def test_graph_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
     assert y.shape == (1, 4, 4, 5)
     assert batch_norm_train(y, torch.ones(5), torch.zeros(5))[0].device \
         == torch.device("cpu")
+
+
+def test_training_loop_entry_points_refuse_the_cpu_unless_asked(
+        monkeypatch, tmp_path):
+    """The device prefetcher lands batches on the card unless the caller
+    names the CPU; the loop around it (fit over an iterator, evaluation,
+    early stopping, writeModel and restore) runs where the network is."""
+    from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                                   DevicePrefetchIterator)
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition)
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer)
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((6, 12, 12, 1), np.float32)
+    y = np.eye(3, dtype=np.float32)[[0, 1, 2, 0, 1, 2]]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePrefetchIterator(ArrayDataSetIterator(x, y, 3))
+    net = LeNet(num_classes=3, in_shape=(12, 12, 1)).init(device="cpu")
+    with DevicePrefetchIterator(ArrayDataSetIterator(x, y, 3),
+                                device="cpu") as it:
+        net.fit(it)
+    ev = net.evaluate(ArrayDataSetIterator(x, y, 3))
+    assert ev._counts.device == torch.device("cpu")
+    saver = LocalFileModelSaver(str(tmp_path / "es"))
+    EarlyStoppingTrainer(EarlyStoppingConfiguration(
+        DataSetLossCalculator(ArrayDataSetIterator(x, y, 3)),
+        [MaxEpochsTerminationCondition(1)], model_saver=saver), net,
+        ArrayDataSetIterator(x, y, 3)).fit()
+    assert saver.get_best_model().device == torch.device("cpu")
+    path = str(tmp_path / "m.zip")
+    ModelSerializer.writeModel(net, path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelSerializer.restore(path)
