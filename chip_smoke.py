@@ -250,6 +250,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``fit(x, y)`` on the same batches from the same weights, B5's forward
    and backward launches equal, losses within 1e-5 relative. No prefetch
    or ETL thread may be left.
+18. the recurrent graph: (a) ``Seq2SeqLSTM(16, 16, hidden=128, t_in=12,
+   t_out=12)`` (216,080 parameters) at batch 64 on the reversal task, f32
+   with TF32 off: 3 Adam steps (epsilon 1e-4) on the card and on the CPU
+   from one numpy tree, then ``output``: unmasked; masked (source lengths
+   4-12 from the seed, a features mask on ``encoderInput``, the same mask
+   as ``LastTimeStepVertex``'s second input, a labels mask on the output);
+   AdamW under an ``ExponentialSchedule``; losses within 1e-5 relative,
+   parameters within 2e-5, B5 2 + 2 launches a step. (b) The timed cell:
+   the same model at batch 256 in bf16, 2 warm-up and 10 timed steps, ms
+   a step, target tokens/s (256 x 12 a step), peak memory, the device's
+   idle share of a profiled step, both LSTMs on B5's cluster route; then
+   hidden 512 (one warm-up, 3 timed steps) on the wide route. (c)
+   ``rnnTimeStep``: 12 single steps at f32 on (a)'s graphs against the
+   stepwise formula (every recurrent vertex advances, so the decoder's
+   step t sees the encoder's step t) and against the CPU's steps, one
+   12-step call against ``output()``, a batch change refused; then ms a
+   step at batch 256 in bf16, 2 forward launches a step on the cluster
+   route. (d) ``EmbeddingLayer(77, 128)`` on ``[N, T, 1]`` ids ->
+   ``Bidirectional(LSTM(128), CONCAT)`` -> masked average pooling ->
+   ``OutputLayer(2)`` at batch 64 x 200 with lengths from the seed, 3 Adam
+   steps card against CPU at f32, B5 2 + 2 launches a step. The phase's
+   B5 launches are added to B5's rows.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -260,8 +282,8 @@ kernel's times at the four joins in bf16 and f32 (tagged TAG), for the
 port found from the current directory: an earlier design can be timed in
 the same chip call as this one. ``python3 chip_smoke.py resnet50-step
 TAG`` runs phase 15 alone the same way, ``python3 chip_smoke.py
-lstm-train TAG`` phase 9, and ``python3 chip_smoke.py training-loop``
-phase 17.
+lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
+phase 17 and ``python3 chip_smoke.py seq2seq`` phase 18.
 """
 
 from __future__ import annotations
@@ -4495,6 +4517,441 @@ def loop_char_lstm() -> None:
                       f"(max relative diff {rel:.1e}, tolerance "
                       f"{LOOP_LOSS_RTOL:g}); {time.perf_counter() - t0:.1f} s")
 
+# ------------------------------------------------------ the recurrent graph
+#: phase 18: Seq2SeqLSTM at its default widths (16 features, hidden 128,
+#: 12 steps each side); the card-vs-CPU runs at batch 64, the timed cell
+#: at batch 256 in bf16, the wide route at hidden 512
+S2S_FEATURES, S2S_HIDDEN, S2S_T = 16, 128, 12
+S2S_PARITY_BATCH, S2S_BATCH, S2S_WIDE_HIDDEN, S2S_WIDE_STEPS = 64, 256, 512, 3
+#: Adam's epsilon in the card-vs-CPU runs: 1e-4 keeps lr / eps at 50, so a
+#: gradient that cancels to near zero cannot turn a 1e-9 rounding
+#: difference into an lr-sized parameter difference (phase 14's note)
+S2S_PARITY_EPS = 1e-4
+#: (d): EmbeddingLayer(77, 128) -> Bidirectional(LSTM(128), CONCAT) ->
+#: masked average pooling -> OutputLayer(2), batch 64 x 200
+BI_VOCAB, BI_WIDTH, BI_BATCH, BI_T = 77, 128, 64, 200
+#: rnnTimeStep stepping against the full-sequence formula at f32
+S2S_STEP_TOL = 1e-5
+
+
+def reversal_batch(n: int, t: int, k: int, seed: int):
+    """tests/test_seq2seq.py's task at ``k`` symbols: one-hot sources, the
+    reversed target, and the decoder input (the target shifted right
+    behind a zero "go" step)."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, k, (n, t))
+    eye = np.eye(k, dtype=np.float32)
+    enc, out = eye[src], eye[src[:, ::-1]]
+    dec = np.zeros_like(out)
+    dec[:, 1:] = out[:, :-1]
+    return enc, dec, out
+
+
+def length_mask(n: int, t: int, lo: int, seed: int) -> np.ndarray:
+    """``[n, t]`` masks of lengths drawn from ``[lo, t]``."""
+    lens = np.random.RandomState(seed).randint(lo, t + 1, n)
+    return (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+
+
+def seq2seq_conf(hidden: int, updater, masked: bool = False):
+    """``Seq2SeqLSTM``'s configuration; ``masked`` adds a third input,
+    ``encoderMask``, wired into ``LastTimeStepVertex`` beside the encoder
+    (the same builder calls as the model otherwise)."""
+    from deeplearning4j_tpu_torch.models import Seq2SeqLSTM
+    from deeplearning4j_tpu_torch.nn.conf import (LSTM, InputType,
+                                                  RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraphConfiguration, DuplicateToTimeSeriesVertex,
+        LastTimeStepVertex, MergeVertex)
+
+    if not masked:
+        return Seq2SeqLSTM(S2S_FEATURES, S2S_FEATURES, hidden=hidden,
+                           t_in=S2S_T, t_out=S2S_T, updater=updater).conf()
+    b = (ComputationGraphConfiguration.graphBuilder().seed(42)
+         .updater(updater)
+         .addInputs("encoderInput", "decoderInput", "encoderMask")
+         .setInputTypes(InputType.recurrent(S2S_FEATURES, S2S_T),
+                        InputType.recurrent(S2S_FEATURES, S2S_T),
+                        InputType.feedForward(S2S_T)))
+    b.addLayer("encoder", LSTM(n_out=hidden, activation="tanh"),
+               "encoderInput")
+    b.addVertex("thought", LastTimeStepVertex(), "encoder", "encoderMask")
+    b.addVertex("dup", DuplicateToTimeSeriesVertex(), "thought",
+                "decoderInput")
+    b.addVertex("decoderIn", MergeVertex(), "decoderInput", "dup")
+    b.addLayer("decoder", LSTM(n_out=hidden, activation="tanh"),
+               "decoderIn")
+    b.addLayer("output", RnnOutputLayer(n_out=S2S_FEATURES,
+                                        activation="softmax",
+                                        loss="mcxent"), "decoder")
+    return b.setOutputs("output").build()
+
+
+def recurrent_tree(params_map, seed: int) -> dict:
+    """Numpy weights for a graph's parameter tree (nested dicts): every
+    ``W`` / ``RW`` normal at sqrt(2 / (fan_in + fan_out)), biases zero, an
+    LSTM's forget-gate bias 1."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(k, t):
+        shape = tuple(t.shape)
+        if k in ("W", "RW"):
+            return (rng.standard_normal(shape) * math.sqrt(
+                2.0 / (shape[0] + shape[-1]))).astype(np.float32)
+        a = np.zeros(shape, np.float32)
+        if k == "b" and shape[0] % 4 == 0 and shape[0] >= 4:
+            a[shape[0] // 4:shape[0] // 2] = 1.0
+        return a
+
+    def walk(p):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in sorted(p.items())}
+
+    return {n: walk(p) for n, p in params_map.items()}
+
+
+def graph_leaves(g) -> dict:
+    """``{"node/key/...": tensor}`` of a graph's parameters."""
+    out = {}
+
+    def walk(prefix, p):
+        for k, v in p.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}/", v)
+            else:
+                out[f"{prefix}{k}"] = v
+
+    for n, p in g.params_map.items():
+        walk(f"{n}/", p)
+    return out
+
+
+def card_cpu_runs(tag: str, conf, tree, batches, steps: int) -> tuple:
+    """The same graph on the card and on the CPU from one numpy tree,
+    ``steps`` fits of each batch list in ``batches`` (``(xs, ys,
+    label_masks, feature_masks)``), held to phases 14 and 16's tolerances:
+    losses IMAGE_LOSS_RTOL relative, parameters PARITY_PARAM_ATOL, the
+    card's update moving some parameter by 100 x that. Returns the two
+    graphs and the card's B5 launches."""
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.params import cg_params_from_numpy
+
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        g = ComputationGraph(conf, device=dev).init()
+        g.params_map = cg_params_from_numpy(conf.nodes, tree, device=dev)
+        start = {k: v.detach().cpu() for k, v in graph_leaves(g).items()}
+        reset_lstm_counts()
+        losses = []
+        for _ in range(steps):
+            xs, ys, lm, fm = batches
+            g.fit(MultiDataSet(xs, ys, features_mask_arrays=fm,
+                               labels_mask_arrays=lm))
+            losses.append(g.score())
+        launched = lstm_counts()
+        moved = max(float((v.detach().cpu() - start[k]).abs().max())
+                    for k, v in graph_leaves(g).items())
+        runs.append((g, losses, launched, moved))
+    (card, lc, launched, moved), (cpu, lh, none, _) = runs
+    check(none == (0, 0), f"{tag}: the CPU run launched {none}")
+    check_losses(tag, lc, lh)
+    got, want = graph_leaves(card), graph_leaves(cpu)
+    err, where = max((float((got[k].detach().cpu() - want[k]).abs().max()),
+                      k) for k in want)
+    check(err <= PARITY_PARAM_ATOL,
+          f"{tag}: parameters differ by {err:.3e} ({where})")
+    check(moved >= 100 * PARITY_PARAM_ATOL,
+          f"{tag}: the card's updates moved no parameter by 100 x the "
+          f"tolerance ({moved:.3e})")
+    return card, cpu, launched, err, moved
+
+
+def phase_seq2seq(smi: str, rows) -> None:
+    """Phase 18: the recurrent ComputationGraph on the card (a)-(d); the
+    phase's B5 launches go to B5's rows."""
+    t0 = time.perf_counter()
+    total = [0, 0, 0, 0]          # fwd, bwd (other routes); fwd, bwd wide
+
+    def add(launched, wide):
+        for i in range(2):
+            total[i] += launched[i] - wide[i]
+            total[2 + i] += wide[i]
+
+    seq2seq_parity(smi, add)
+    seq2seq_timed(smi, add)
+    bidirectional_parity(smi, add)
+    for key, n in zip(("B5", "B5 bwd", "B5 wide", "B5 bwd wide"), total):
+        rows[key]["launches"] = rows[key].get("launches", 0) + n
+    say("seq2seq", f"B5 launches in phase 18: forward {total[0]}, backward "
+                   f"{total[1]}, wide route forward {total[2]}, backward "
+                   f"{total[3]} (added to B5's rows); "
+                   f"{time.perf_counter() - t0:.1f} s")
+
+
+def seq2seq_parity(smi: str, add) -> None:
+    """(a) Seq2SeqLSTM at f32 (TF32 off) on the card and on the CPU from
+    one numpy tree, 3 Adam steps each and an ``output``: unmasked, masked
+    (a features mask on the encoder input, the same mask into
+    ``LastTimeStepVertex``, a labels mask on the output), and AdamW under
+    an ExponentialSchedule. Then (c) stateful stepping on the unmasked
+    pair."""
+    from deeplearning4j_tpu_torch.learning import (Adam, AdamW,
+                                                   ExponentialSchedule)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    B, T, K = S2S_PARITY_BATCH, S2S_T, S2S_FEATURES
+    enc, dec, out = reversal_batch(B, T, K, seed=40)
+    mask = length_mask(B, T, 4, seed=41)
+    runs = (("unmasked", Adam(5e-3, epsilon=S2S_PARITY_EPS), False),
+            ("masked", Adam(5e-3, epsilon=S2S_PARITY_EPS), True),
+            ("AdamW + ExponentialSchedule",
+             AdamW(ExponentialSchedule(5e-3, 0.9), epsilon=S2S_PARITY_EPS,
+                   weight_decay=0.1), False))
+    kept = None
+    for tag, upd, masked in runs:
+        t1 = time.perf_counter()
+        conf = seq2seq_conf(S2S_HIDDEN, upd, masked)
+        tree = recurrent_tree(ComputationGraph(conf, device="cpu").init()
+                              .params_map, seed=50)
+        if masked:
+            batches = ([enc, dec, mask], [out], [mask], [mask, None, None])
+        else:
+            batches = ([enc, dec], [out], None, None)
+        card, cpu, launched, err, moved = card_cpu_runs(
+            f"seq2seq (a) {tag}", conf, tree, batches, PARITY_STEPS)
+        check(launched == (2 * PARITY_STEPS, 2 * PARITY_STEPS),
+              f"seq2seq (a) {tag}: B5 launches {launched}, not 2 + 2 a step")
+        add(launched, lstm_wide_counts())
+        xs = batches[0]
+        fms = batches[3]
+        o = close_card_cpu(f"seq2seq (a) {tag} output",
+                           card.output(*xs, feature_masks=fms)[0],
+                           cpu.output(*xs, feature_masks=fms)[0],
+                           IMAGE_STATE_TOL)
+        say("seq2seq", f"(a) {tag}: Seq2SeqLSTM({K}, {K}, hidden={S2S_HIDDEN},"
+                       f" t_in=t_out={T}) at batch {B}, f32, "
+                       f"{type(upd).__name__}: {PARITY_STEPS} steps, "
+                       f"parameters max abs diff {err:.2e} (tolerance "
+                       f"{PARITY_PARAM_ATOL:g}; the card moved one by up to "
+                       f"{moved:.3e}), output {o:.2e}; B5 launches "
+                       f"{launched}; {time.perf_counter() - t1:.1f} s")
+        if tag == "unmasked":
+            kept = (card, cpu)
+    seq2seq_stepping(*kept, enc, dec)
+
+
+def stepwise_formula(g, enc, dec):
+    """What ``rnnTimeStep`` over single steps gives on the seq2seq graph:
+    every recurrent vertex advances, so the decoder's step t sees the
+    encoder's output at step t (its running state), not its last step.
+    The encoder over the whole sequence, its outputs beside the decoder
+    input, the decoder and the head."""
+    by = {n.name: n.vertex for n in g.conf.nodes}
+    p = g.params_map
+    with torch.no_grad():
+        ys, _ = by["encoder"].layer.apply(p["encoder"], {}, enc, False, None)
+        yd, _ = by["decoder"].layer.apply(p["decoder"], {},
+                                          torch.cat([dec, ys], -1), False,
+                                          None)
+        o, _ = by["output"].layer.apply(p["output"], {}, yd, False, None)
+    return o
+
+
+def seq2seq_stepping(card, cpu, enc, dec) -> None:
+    """(c) ``rnnTimeStep``: T single steps on the card against the
+    stepwise formula on the card and the same steps on the CPU; one
+    T-step call against ``output()``; a batch change refused."""
+    T = S2S_T
+    outs = []
+    for g in (card, cpu):
+        e = torch.from_numpy(enc).to(g.device)
+        d = torch.from_numpy(dec).to(g.device)
+        g.rnnClearPreviousState()
+        reset_lstm_counts()
+        steps = torch.stack([g.rnnTimeStep(e[:, t], d[:, t])[0]
+                             for t in range(T)], 1)
+        launched = lstm_counts()
+        g.rnnClearPreviousState()
+        whole = g.rnnTimeStep(e, d)[0]
+        g.rnnClearPreviousState()
+        outs.append((steps, stepwise_formula(g, e, d), whole,
+                     g.output(e, d)[0], launched))
+    steps, formula, whole, full, launched = outs[0]
+    check(launched == (2 * T, 0),
+          f"seq2seq (c): {T} steps launched {launched}, not 2 forward a "
+          f"step")
+    e1 = float((steps - formula).abs().max())
+    e2 = float((steps.cpu() - outs[1][0]).abs().max())
+    e3 = float((whole - full).abs().max())
+    check(max(e1, e2, e3) <= S2S_STEP_TOL,
+          f"seq2seq (c): steps vs the stepwise formula {e1:.3e}, vs the "
+          f"CPU's steps {e2:.3e}; one {T}-step call vs output() {e3:.3e}")
+    try:
+        card.rnnTimeStep(torch.from_numpy(enc[:2, 0]).to(card.device),
+                         torch.from_numpy(dec[:2, 0]).to(card.device))
+        card.rnnTimeStep(torch.from_numpy(enc[:3, 0]).to(card.device),
+                         torch.from_numpy(dec[:3, 0]).to(card.device))
+    except ValueError as err:
+        say("seq2seq", f"(c) batch 2 -> 3 with stored state refused: {err}")
+    else:
+        raise RuntimeError("rnnTimeStep took a new batch size with stored "
+                           "state")
+    card.rnnClearPreviousState()
+    say("seq2seq", f"(c) rnnTimeStep x {T} single steps at f32: against the "
+                   f"stepwise formula (the encoder's running state) "
+                   f"{e1:.2e}, against the CPU's steps {e2:.2e}; one "
+                   f"{T}-step call against output() {e3:.2e} (tolerance "
+                   f"{S2S_STEP_TOL:g}); B5 forward launches {launched[0]}")
+
+
+def seq2seq_timed(smi: str, add) -> None:
+    """(b) The timed cell: Seq2SeqLSTM at batch 256 in bf16, 2 warm-up and
+    10 timed Adam steps, both LSTMs on the cluster route; a profiled
+    step; then hidden 512 on the wide route; (c)'s stepping timed."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    B, T, K = S2S_BATCH, S2S_T, S2S_FEATURES
+    enc, dec, out = (torch.from_numpy(a).to(DEVICE).to(torch.bfloat16)
+                     for a in reversal_batch(B, T, K, seed=42))
+    for hidden, warm, timed in ((S2S_HIDDEN, WARMUP_STEPS, TIMED_STEPS),
+                                (S2S_WIDE_HIDDEN, 1, S2S_WIDE_STEPS)):
+        conf = seq2seq_conf(hidden, Adam(5e-3))
+        conf.dtype = "bfloat16"
+        g = ComputationGraph(conf, device=DEVICE).init()
+        route = "cluster" if hidden == S2S_HIDDEN else "wide"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_lstm_counts()
+        losses = []
+        for i in range(warm + timed):
+            if i == warm:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            g.fit([enc, dec], [out])
+            losses.append(g._score)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / timed
+        steps = warm + timed
+        counts = lstm_counts()
+        on_route = (lstm_cluster_counts() if route == "cluster"
+                    else lstm_wide_counts())
+        add(counts, lstm_wide_counts())
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        check(counts == (2 * steps, 2 * steps) == on_route,
+              f"seq2seq (b) hidden {hidden}: B5 launches {counts}, on the "
+              f"{route} route {on_route}, over {steps} steps of 2 LSTMs")
+        check(all(math.isfinite(v) for v in losses),
+              f"seq2seq (b) hidden {hidden}: losses {losses}")
+        say("seq2seq", f"(b) Seq2SeqLSTM hidden {hidden} ({g.numParams()} "
+                       f"parameters), bf16, batch {B} x {T}: {timed} timed "
+                       f"steps {step_s * 1e3:.3f} ms/step, "
+                       f"{B * T / step_s:.1f} target tokens/s; peak memory "
+                       f"{peak / 2 ** 20:.1f} MiB; B5 launches {counts}, all "
+                       f"on the {route} route; losses "
+                       + " ".join(f"{v:.4f}" for v in losses) + f"; {smi}")
+        reset_lstm_counts()
+        busy_ms = device_profile("seq2seq", f"one profiled step at hidden "
+                                            f"{hidden}",
+                                 lambda: g.fit([enc, dec], [out]),
+                                 ("lstm_fwd", "lstm_bwd"),
+                                 expect={"lstm_fwd": 2, "lstm_bwd": 2})
+        add(lstm_counts(), lstm_wide_counts())
+        if busy_ms:
+            say("seq2seq", f"(b) hidden {hidden}: device busy {busy_ms:.3f} "
+                           f"ms against {step_s * 1e3:.3f} ms per timed step "
+                           f"(unprofiled): idle about "
+                           f"{1 - busy_ms / (step_s * 1e3):.3f} of a step; "
+                           f"{smi}")
+        if hidden == S2S_HIDDEN:
+            seq2seq_step_times(g, enc, dec, smi, add)
+        del g
+    torch.cuda.empty_cache()
+
+
+def seq2seq_step_times(g, enc, dec, smi: str, add) -> None:
+    """(c) timed: T single-step ``rnnTimeStep`` calls at batch 256 in
+    bf16, 2 B5 forward launches a step on the cluster route."""
+    T = S2S_T
+    g.rnnTimeStep(enc[:, 0], dec[:, 0])        # warm-up, then a fresh state
+    g.rnnClearPreviousState()
+    reset_lstm_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for t in range(T):
+        o = g.rnnTimeStep(enc[:, t], dec[:, t])[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / T * 1e3
+    counts, cluster = lstm_counts(), lstm_cluster_counts()
+    add(counts, lstm_wide_counts())
+    g.rnnClearPreviousState()
+    check(counts == cluster == (2 * T, 0),
+          f"seq2seq (c): bf16 stepping launched {counts}, cluster route "
+          f"{cluster}, not 2 forward a step on the cluster route")
+    check(bool(torch.isfinite(o.float()).all()), "seq2seq (c): bf16 steps "
+                                                  "not finite")
+    say("seq2seq", f"(c) rnnTimeStep at batch {S2S_BATCH}, bf16: "
+                   f"{ms:.3f} ms a step (host clock, both LSTMs, T = 1), B5 "
+                   f"forward launches {counts[0]} over {T} steps, on the "
+                   f"cluster route {cluster[0]}; {smi}")
+
+
+def bidirectional_parity(smi: str, add) -> None:
+    """(d) EmbeddingLayer(77, 128) -> Bidirectional(LSTM(128), CONCAT) ->
+    masked GlobalPoolingLayer(AVG) -> OutputLayer(2) at batch 64 x 200 from
+    ids ``[N, T, 1]`` with lengths from the seed: 3 Adam steps on the card
+    and on the CPU from one numpy tree, B5 2 + 2 launches a step (the
+    backward direction on the flipped input). The ids come as ``[N, T,
+    1]`` through ``EmbeddingLayer`` (which drops the trailing axis): both
+    packages validate a features mask against an ``[N, T, F]`` input, so
+    ``EmbeddingSequenceLayer``'s ``[N, T]`` ids take none."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (LSTM, Bidirectional,
+                                                  EmbeddingLayer,
+                                                  GlobalPoolingLayer,
+                                                  InputType, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph, ComputationGraphConfiguration)
+
+    t1 = time.perf_counter()
+    B, T = BI_BATCH, BI_T
+    b = (ComputationGraphConfiguration.graphBuilder().seed(7)
+         .updater(Adam(1e-3, epsilon=S2S_PARITY_EPS)).addInputs("ids")
+         .setInputTypes(InputType.recurrent(1, T)))
+    b.addLayer("embed", EmbeddingLayer(n_in=BI_VOCAB, n_out=BI_WIDTH), "ids")
+    b.addLayer("bilstm", Bidirectional(layer=LSTM(n_out=BI_WIDTH),
+                                       mode="CONCAT"), "embed")
+    b.addLayer("pool", GlobalPoolingLayer(pooling_type="avg"), "bilstm")
+    b.addLayer("out", OutputLayer(n_out=2, activation="softmax",
+                                  loss="mcxent"), "pool")
+    conf = b.setOutputs("out").build()
+    tree = recurrent_tree(ComputationGraph(conf, device="cpu").init()
+                          .params_map, seed=51)
+    rng = np.random.RandomState(52)
+    ids = rng.randint(0, BI_VOCAB, (B, T, 1)).astype(np.float32)
+    mask = length_mask(B, T, 20, seed=53)
+    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, B)]
+    card, cpu, launched, err, moved = card_cpu_runs(
+        "seq2seq (d) Bidirectional", conf, tree,
+        ([ids], [y], None, [mask]), PARITY_STEPS)
+    check(launched == (2 * PARITY_STEPS, 2 * PARITY_STEPS),
+          f"seq2seq (d): B5 launches {launched}, not 2 + 2 a step")
+    add(launched, lstm_wide_counts())
+    o = close_card_cpu("seq2seq (d) output",
+                       card.output(ids, feature_masks=[mask])[0],
+                       cpu.output(ids, feature_masks=[mask])[0],
+                       IMAGE_STATE_TOL)
+    say("seq2seq", f"(d) EmbeddingLayer({BI_VOCAB}, {BI_WIDTH}) -> "
+                   f"Bidirectional(LSTM({BI_WIDTH}), CONCAT) -> masked "
+                   f"average pooling -> OutputLayer(2) at batch {B} x {T} "
+                   f"(lengths 20-{T}), f32: {PARITY_STEPS} steps, parameters "
+                   f"max abs diff {err:.2e} (tolerance {PARITY_PARAM_ATOL:g};"
+                   f" the card moved one by up to {moved:.3e}), output "
+                   f"{o:.2e}; B5 launches {launched}; "
+                   f"{time.perf_counter() - t1:.1f} s; {smi}")
+
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
@@ -4533,6 +4990,13 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_training_loop(phase_device(), None)
         return 0
+    if argv[:1] == ["seq2seq"]:
+        # phase 18 alone, of the port found from the current directory
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_seq2seq(phase_device(), defaultdict(dict))
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -4562,6 +5026,7 @@ def main(argv) -> int:
     resident_ms = phase_resnet50_train(smi, rows)
     phase_graph_parity()
     phase_training_loop(smi, resident_ms)
+    phase_seq2seq(smi, rows)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -4,13 +4,17 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     Builder, ListBuilder, MultiLayerConfiguration, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    LSTM, ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    GlobalPoolingLayer, GravesLSTM, Layer, OutputLayer, PoolingType,
-    RnnOutputLayer, SubsamplingLayer, ZeroPaddingLayer)
+    LSTM, ActivationLayer, BatchNormalization, Bidirectional, CnnLossLayer,
+    ConvolutionLayer, DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+    GlobalPoolingLayer, GravesLSTM, LastTimeStep, Layer, LossLayer,
+    OutputLayer, PoolingType, RnnLossLayer, RnnOutputLayer, SimpleRnn,
+    SubsamplingLayer, ZeroPaddingLayer)
 
 __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "NeuralNetConfiguration", "InputType", "Layer", "DenseLayer",
            "OutputLayer", "RnnOutputLayer", "LSTM", "GravesLSTM",
            "ActivationLayer", "PoolingType", "ConvolutionLayer",
            "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
-           "BatchNormalization"]
+           "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
+           "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
+           "SimpleRnn", "Bidirectional"]

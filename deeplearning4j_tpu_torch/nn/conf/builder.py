@@ -26,13 +26,14 @@ from deeplearning4j_tpu_torch.common.serde import serializable
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    LSTM, ConvolutionLayer, DenseLayer, Layer, RnnOutputLayer,
-    SubsamplingLayer, ZeroPaddingLayer)
+    LSTM, Bidirectional, ConvolutionLayer, DenseLayer, EmbeddingLayer,
+    LastTimeStep, Layer, RnnOutputLayer, SimpleRnn, SubsamplingLayer,
+    ZeroPaddingLayer)
 
 #: ported layers that consume image [N, H, W, C] input
 _CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer)
 #: ported layers that consume sequence [N, T, F] input
-_RNN_LAYERS = (LSTM, RnnOutputLayer)
+_RNN_LAYERS = (LSTM, SimpleRnn, LastTimeStep, Bidirectional, RnnOutputLayer)
 
 
 def _check_precision(policy, dtype: str) -> None:
@@ -198,14 +199,17 @@ class ListBuilder:
         preprocessors: Dict[int, str] = {}
         it = self._input_type
         for i, layer in enumerate(layers):
-            if layer.activation is None and p._activation is not None:
-                layer.activation = p._activation
-            if layer.weight_init is None:
-                layer.weight_init = p._weight_init
-            if layer.l1 is None:
-                layer.l1 = p._l1
-            if layer.l2 is None:
-                layer.l2 = p._l2
+            # a Bidirectional's wrapped layer holds the real configuration
+            for lt in [layer] + ([layer.layer]
+                                 if isinstance(layer, Bidirectional) else []):
+                if lt.activation is None and p._activation is not None:
+                    lt.activation = p._activation
+                if lt.weight_init is None:
+                    lt.weight_init = p._weight_init
+                if lt.l1 is None:
+                    lt.l1 = p._l1
+                if lt.l2 is None:
+                    lt.l2 = p._l2
             if it is None:
                 continue  # no shape inference: the user set n_in
             if isinstance(layer, _CNN2D_LAYERS):
@@ -229,9 +233,11 @@ class ListBuilder:
                     it = InputType.feedForward(it.flat_size())
                 elif it.kind == "convolutionalFlat":
                     it = InputType.feedForward(it.flat_size())
-            if getattr(layer, "n_in", 0) in (0, None) and hasattr(layer,
-                                                                   "n_in"):
-                layer.n_in = (it.channels if it.kind in (
+            target = _n_in_holder(layer)
+            if getattr(target, "n_in", 0) in (0, None) \
+                    and hasattr(target, "n_in") \
+                    and not isinstance(target, EmbeddingLayer):
+                target.n_in = (it.channels if it.kind in (
                     "convolutional", "convolutional3d") else it.size)
             it = layer.output_type(it)
 
@@ -258,6 +264,23 @@ class ListBuilder:
             preprocessors=preprocessors, gradient_normalization=p._grad_norm,
             gradient_normalization_threshold=p._grad_norm_threshold,
             tbptt_fwd_length=tbptt_fwd, tbptt_back_length=tbptt_back)
+
+
+def _n_in_holder(layer: Layer) -> Layer:
+    """The layer that holds ``n_in`` inside wrappers: a
+    ``LastTimeStep``'s underlying layer, or the wrapped ``layer`` of a
+    class whose ``n_in`` is a property (``Bidirectional``)."""
+    while True:
+        if isinstance(layer, LastTimeStep):
+            layer = layer.underlying
+        elif isinstance(type(layer).__dict__.get("n_in"), property) \
+                or not hasattr(layer, "n_in"):
+            inner = getattr(layer, "layer", None)
+            if not (isinstance(inner, Layer) and hasattr(inner, "n_in")):
+                return layer
+            layer = inner
+        else:
+            return layer
 
 
 def _image_shape(tag: str) -> Tuple[int, int, int]:

@@ -43,6 +43,13 @@ class InputType:
                          channels=channels)
 
     @staticmethod
+    def convolutional3D(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        """NDHWC volumetric input."""
+        return InputType(kind="convolutional3d", depth=depth, height=height,
+                         width=width, channels=channels)
+
+    @staticmethod
     def convolutionalFlat(height: int, width: int,
                           channels: int) -> "InputType":
         return InputType(kind="convolutionalFlat", height=height,

@@ -12,17 +12,22 @@ functions of tensors:
 Parameter names and layouts follow the JAX package (``W`` ``[in, out]``,
 ``b``; the LSTM's ``W`` ``[in, 4H]``, ``RW`` ``[H, 4H]``, ``b`` ``[4H]``
 with gates i, f, g, o; conv ``W`` HWIO ``[kh, kw, C_in, C_out]``; batch
-norm ``gamma``, ``beta`` and the state ``mean``, ``var``). Ported:
-:class:`DenseLayer`, :class:`OutputLayer`, :class:`LSTM` (and its alias
-:class:`GravesLSTM`), :class:`RnnOutputLayer`, :class:`ActivationLayer`,
-and the image layers :class:`ConvolutionLayer`,
-:class:`SubsamplingLayer`, :class:`ZeroPaddingLayer`,
-:class:`GlobalPoolingLayer` and :class:`BatchNormalization` (NHWC).
-Dropout is a float rate; an ``IDropout``
-config, weight noise and constraints are not ported and raise
-``NotImplementedError``. Every other layer class of the JAX package is
-not registered here, so a configuration naming one raises
-``NotImplementedError`` with its name (``common.serde``).
+norm ``gamma``, ``beta`` and the state ``mean``, ``var``; a
+``Bidirectional``'s ``{"fw": ..., "bw": ...}``). Ported:
+:class:`DenseLayer`, :class:`OutputLayer`, the parameterless loss heads
+:class:`LossLayer`, :class:`CnnLossLayer` and :class:`RnnLossLayer`,
+:class:`EmbeddingLayer` and :class:`EmbeddingSequenceLayer`, the
+recurrent family (:class:`LSTM` and its alias :class:`GravesLSTM`,
+:class:`SimpleRnn`, :class:`Bidirectional`, the :class:`LastTimeStep`
+wrapper, :class:`RnnOutputLayer`), :class:`ActivationLayer`, and the
+image layers :class:`ConvolutionLayer`, :class:`SubsamplingLayer`,
+:class:`ZeroPaddingLayer`, :class:`GlobalPoolingLayer` (with masked
+pooling over sequences) and :class:`BatchNormalization` (NHWC).
+Dropout is a float rate; an ``IDropout`` config, weight noise and
+constraints are not ported and raise ``NotImplementedError``. Every
+other layer class of the JAX package is not registered here, so a
+configuration naming one raises ``NotImplementedError`` with its name
+(``common.serde``).
 """
 
 from __future__ import annotations
@@ -178,6 +183,118 @@ class RnnOutputLayer(OutputLayer):
 
 @serializable
 @dataclasses.dataclass
+class LossLayer(Layer):
+    """A loss head without parameters: the loss of ``x`` itself, under the
+    activation (identity by default)."""
+
+    loss: str = "mse"
+
+    def loss_value(self, params, state, x, labels, mask=None):
+        return compute_loss(LossFunction.resolve(self.loss), labels, x,
+                            self.activation or "identity", mask)
+
+    def apply(self, params, state, x, train, generator):
+        return _act(self.activation or "identity").fn(x), state
+
+
+@serializable
+@dataclasses.dataclass
+class CnnLossLayer(LossLayer):
+    """Per-pixel loss head on ``[N, H, W, C]`` activations."""
+
+
+@serializable
+@dataclasses.dataclass
+class RnnLossLayer(LossLayer):
+    """Per-timestep loss head on ``[N, T, C]`` activations."""
+
+
+@serializable
+@dataclasses.dataclass
+class EmbeddingLayer(Layer):
+    """Index lookup in ``W`` ``[n_in, n_out]`` (a gather). Takes ``[N]``
+    or ``[N, T]`` ids of any dtype (cast to int32; a trailing axis of one
+    is dropped) and gives ``[N, n_out]`` or ``[N, T, n_out]``."""
+
+    n_in: int = 0     # vocabulary size
+    n_out: int = 0
+
+    def output_type(self, it: InputType) -> InputType:
+        if it.kind == "recurrent":
+            return InputType.recurrent(self.n_out, it.timeseries_length)
+        return InputType.feedForward(self.n_out)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        return {"W": init_weights(self.weight_init or WeightInit.XAVIER,
+                                  generator, (self.n_in, self.n_out),
+                                  self.n_in, self.n_out, dtype, device)}
+
+    def _lookup(self, params, ids):
+        out = F.embedding(ids.to(torch.int32).long(), params["W"])
+        return _act(self.activation or "identity").fn(out)
+
+    def apply(self, params, state, x, train, generator):
+        if x.dim() > 1 and x.shape[-1] == 1:
+            x = x[..., 0]
+        return self._lookup(params, x), state
+
+
+@serializable
+@dataclasses.dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """Sequence lookup: ``[N, T]`` ids to ``[N, T, n_out]``; ``[N]`` is a
+    sequence of one. ``[N, 1]`` stays a sequence of length 1 (no trailing
+    axis is dropped)."""
+
+    input_length: int = 0
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.timeseries_length if it.kind == "recurrent" else (
+            self.input_length or it.size or -1)
+        return InputType.recurrent(self.n_out, t)
+
+    def apply(self, params, state, x, train, generator):
+        if x.dim() == 1:
+            x = x[:, None]
+        return self._lookup(params, x), state
+
+
+@serializable
+@dataclasses.dataclass
+class LastTimeStep(Layer):
+    """A recurrent layer of which only the last timestep is emitted:
+    ``[N, T, F]`` to ``[N, F]``."""
+
+    underlying: Optional[Layer] = None
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feedForward(self.underlying.output_type(it).size)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        return self.underlying.init_params(generator, it, dtype, device)
+
+    def init_state(self, it, dtype, device) -> dict:
+        return self.underlying.init_state(it, dtype, device)
+
+    def apply(self, params, state, x, train, generator):
+        out, st = self.underlying.apply(params, state, x, train, generator)
+        return out[:, -1, :], st
+
+    @property
+    def is_recurrent(self):
+        return self.underlying is not None and self.underlying.is_recurrent
+
+    def init_carry(self, batch, dtype, device):
+        return self.underlying.init_carry(batch, dtype, device)
+
+    def apply_with_carry(self, params, state, carry, x, train, generator):
+        out, st, c = self.underlying.apply_with_carry(
+            params, state, carry, x, train, generator)
+        return out[:, -1, :], st, c
+
+
+@serializable
+@dataclasses.dataclass
 class ActivationLayer(Layer):
     """An activation alone. ``alpha`` parametrises leakyrelu, elu and
     thresholdedrelu, none of which is ported yet."""
@@ -249,6 +366,112 @@ class LSTM(Layer):
 @dataclasses.dataclass
 class GravesLSTM(LSTM):
     """Alias of :class:`LSTM`, without peepholes, as in the JAX package."""
+
+
+@serializable
+@dataclasses.dataclass
+class SimpleRnn(Layer):
+    """Elman RNN, ``h_t = tanh(x_t W + b + h_{t-1} RW)`` through
+    ``ops.nn.simple_rnn_layer`` (plain PyTorch: no kernel computes it in
+    the reference); weights ``W`` ``[in, H]``, ``RW`` ``[H, H]``, ``b``
+    ``[H]``."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    is_recurrent = True
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, it.timeseries_length)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        scheme = self.weight_init or WeightInit.XAVIER
+        h = self.n_out
+        return {"W": init_weights(scheme, generator, (self.n_in, h),
+                                  self.n_in, h, dtype, device),
+                "RW": init_weights(scheme, generator, (h, h), h, h, dtype,
+                                   device),
+                "b": torch.zeros((h,), dtype=dtype, device=device)}
+
+    def apply(self, params, state, x, train, generator):
+        ys, _ = nnops.simple_rnn_layer(x, params["W"], params["RW"],
+                                       params["b"])
+        return ys, state
+
+    def init_carry(self, batch, dtype, device):
+        return torch.zeros((batch, self.n_out), dtype=dtype, device=device)
+
+    def apply_with_carry(self, params, state, carry, x, train, generator):
+        ys, new_carry = nnops.simple_rnn_layer(
+            x, params["W"], params["RW"], params["b"], h0=carry)
+        return ys, state, new_carry
+
+
+@serializable
+@dataclasses.dataclass
+class Bidirectional(Layer):
+    """Two copies of a recurrent layer (parameters ``fw`` and ``bw``), the
+    second run over the time-reversed input and its output reversed back,
+    merged by ``mode``: CONCAT, ADD, MUL or AVERAGE. An LSTM's two
+    directions are two launches of the recurrence kernels on the card.
+    ``return_sequences=False`` merges the forward direction's last step
+    with the backward direction's output at input step 0 (its own last),
+    giving ``[N, out]``. Stepping (``rnnTimeStep``, truncated BPTT) is
+    refused: the backward direction needs the whole sequence."""
+
+    layer: Optional[Layer] = None
+    mode: str = "CONCAT"
+    return_sequences: bool = True
+
+    is_recurrent = True
+
+    @property
+    def n_out(self):
+        n = self.layer.n_out
+        return 2 * n if self.mode.upper() == "CONCAT" else n
+
+    @property
+    def n_in(self):
+        return self.layer.n_in
+
+    @n_in.setter
+    def n_in(self, v):
+        self.layer.n_in = v
+
+    def output_type(self, it: InputType) -> InputType:
+        if not self.return_sequences:
+            return InputType.feedForward(self.n_out)
+        return InputType.recurrent(self.n_out, it.timeseries_length)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        return {"fw": self.layer.init_params(generator, it, dtype, device),
+                "bw": self.layer.init_params(generator, it, dtype, device)}
+
+    def init_state(self, it, dtype, device) -> dict:
+        return {}
+
+    def apply(self, params, state, x, train, generator):
+        yf, _ = self.layer.apply(params["fw"], {}, x, train, generator)
+        yb, _ = self.layer.apply(params["bw"], {}, torch.flip(x, dims=(1,)),
+                                 train, generator)
+        yb = torch.flip(yb, dims=(1,))
+        if not self.return_sequences:
+            yf, yb = yf[:, -1], yb[:, 0]
+        m = self.mode.upper()
+        if m == "CONCAT":
+            return torch.cat([yf, yb], dim=-1), state
+        if m == "ADD":
+            return yf + yb, state
+        if m == "MUL":
+            return yf * yb, state
+        if m == "AVERAGE":
+            return 0.5 * (yf + yb), state
+        raise ValueError(f"Unknown Bidirectional mode: {self.mode}")
+
+    def init_carry(self, batch, dtype, device):
+        raise NotImplementedError(
+            "rnnTimeStep is not supported for Bidirectional layers "
+            "(reference behavior: requires the full sequence)")
 
 
 # ---------------------------------------------------------------- images
@@ -393,9 +616,21 @@ class GlobalPoolingLayer(Layer):
         return torch.mean(x, dim=axes), state
 
     def apply_masked(self, params, state, x, mask, train, generator):
-        raise NotImplementedError(
-            "masked global pooling is not ported to deeplearning4j_tpu_torch "
-            "yet (nn/masking.py, ROADMAP.md A3)")
+        """Pooling over the real timesteps of ``x`` ``[N, T, F]`` only,
+        ``mask`` ``[N, T]`` (1 real): max over them (the dtype's lowest
+        value in the padding), their sum, p-norm, or their mean (the sum
+        over at least one step)."""
+        m = mask[..., None].to(x.dtype)
+        pt = PoolingType(self.pooling_type)
+        if pt is PoolingType.MAX:
+            return torch.amax(torch.where(m > 0, x, torch.finfo(
+                x.dtype).min), dim=1), state
+        if pt is PoolingType.SUM:
+            return torch.sum(x * m, dim=1), state
+        if pt is PoolingType.PNORM:
+            return torch.sum(torch.abs(x * m) ** 2, dim=1) ** 0.5, state
+        return torch.sum(x * m, dim=1) / torch.clamp(torch.sum(m, dim=1),
+                                                      min=1.0), state
 
 
 def _weak(c: float, like: torch.Tensor) -> float:
@@ -458,4 +693,6 @@ class BatchNormalization(Layer):
 __all__ = ["Layer", "DenseLayer", "OutputLayer", "RnnOutputLayer", "LSTM",
            "GravesLSTM", "ActivationLayer", "PoolingType", "ConvolutionLayer",
            "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
-           "BatchNormalization"]
+           "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
+           "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
+           "SimpleRnn", "Bidirectional"]

@@ -15,14 +15,18 @@ device time by layer kind.
 
 Ported: ``init``, ``fit`` (arrays, lists of arrays, a ``DataSet``, a
 ``MultiDataSet``, or a ``DataSetIterator`` or ``MultiDataSetIterator``,
-with label masks), ``output`` / ``outputSingle``, ``score``, ``evaluate``
-and its ROC and regression variants, the listeners, ``clone``,
-``numParams``, ``params``, ``setParams``, l1/l2 on the weights and
-gradient normalisation. Not ported yet, and raising
-``NotImplementedError`` with the ROADMAP item: features masks,
-pretraining, ``rnnTimeStep`` and ``backpropGradient`` (A3); the health
-monitor and fault tolerance (A9); loss scaling and the mixed policies
-(A2, refused by the configuration). ``fit`` over an iterator takes a
+with label masks and a features mask on one input: the input's padded
+steps zeroed and global pooling on its own branch masked), ``output`` /
+``outputSingle`` (with features masks), ``rnnTimeStep`` and its state
+accessors (every recurrent layer vertex keeps its carry between calls,
+the encoder of a two-input graph included), ``backpropGradient``
+(external errors), ``score``, ``evaluate`` and its ROC and regression
+variants, the listeners, ``clone``, ``numParams``, ``params``,
+``setParams``, l1/l2 on the weights, gradient normalisation, epoch-typed
+learning-rate schedules and ``FrozenVertex`` (the ``NoOp`` updater). Not
+ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
+pretraining (A3); the health monitor and fault tolerance (A9); loss
+scaling and the mixed policies (A2, refused by the configuration). ``fit`` over an iterator takes a
 batch already on the device in the input dtype without a copy, and
 records each ``next()``'s wait in ``_last_etl_ms``.
 
@@ -43,13 +47,18 @@ from deeplearning4j_tpu_torch.datasets import (DataSet, DataSetIterator,
                                                MultiDataSet,
                                                MultiDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.learning.updaters import apply_updater
+from deeplearning4j_tpu_torch.learning.schedules import uses_epoch_schedule
+from deeplearning4j_tpu_torch.learning.updaters import NoOp, apply_updater
+from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.nn.graph.config import (
     ComputationGraphConfiguration)
-from deeplearning4j_tpu_torch.nn.graph.vertices import LayerVertex
+from deeplearning4j_tpu_torch.nn.graph.vertices import (FrozenVertex,
+                                                        LayerVertex)
+from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
 from deeplearning4j_tpu_torch.nn.multilayer.network import (
-    _not_ported, as_device_tensor, eval_mask, fit_epochs,
-    normalize_gradients, torch_dtype, weight_penalty)
+    _not_ported, as_device_tensor, eval_mask, external_gradients,
+    fit_epochs, grads_of, normalize_gradients, torch_dtype, weight_penalty)
+from deeplearning4j_tpu_torch.params import tree_map, tree_map2
 
 
 def _label(vertex) -> str:
@@ -80,6 +89,8 @@ class ComputationGraph:
         self._listeners: List[Any] = []
         self._last_etl_ms: Optional[float] = None
         self._last_batch_size = 0
+        self._rnn_carries: Optional[Dict[str, Any]] = None
+        self._rnn_batch = 0
 
     # ------------------------------------------------------------------
     def init(self) -> "ComputationGraph":
@@ -102,6 +113,10 @@ class ComputationGraph:
             upd = conf.updater
             if isinstance(v, LayerVertex) and v.layer.updater is not None:
                 upd = v.layer.updater
+            if isinstance(v, FrozenVertex):
+                # a parameter-aware updater (AdamW's decay) would move
+                # frozen parameters at a zero gradient
+                upd = NoOp()
             self._updaters[node.name] = upd
             self.opt_states[node.name] = upd.init_state(p)
             types[node.name] = v.output_type(in_types)
@@ -123,40 +138,109 @@ class ComputationGraph:
                              f"{len(names)} graph inputs {names}")
         return {n: self._tensor(x, self._dtype) for n, x in zip(names, xs)}
 
+    def _downstream_of(self, source: str) -> set:
+        """The names of the nodes reachable from ``source`` (an input or a
+        node), ``source`` included: masked pooling fires only on the
+        masked input's own branch."""
+        down = {source}
+        for node in self.conf.nodes:       # topologically ordered
+            if any(s in down for s in node.inputs):
+                down.add(node.name)
+        return down
+
+    def _validate_fmasks(self, feature_masks, inputs: Dict[str, Any]):
+        """``{input name: [N, T] mask}`` of the given features masks (one
+        per graph input, None for an unmasked one), each validated
+        against its ``[N, T, F]`` input; a mask on more than one input
+        raises (masked pooling could not tell which applies)."""
+        names = self.conf.network_inputs
+        if not feature_masks:
+            return {}
+        if len(feature_masks) != len(names):
+            raise ValueError(
+                f"got {len(feature_masks)} feature masks for {len(names)} "
+                f"graph inputs {names} (use None placeholders)")
+        fmasks = {n: validate_features_mask(m, inputs[n], ctx=f"input {n!r}")
+                  for n, m in zip(names, feature_masks) if m is not None}
+        if len(fmasks) > 1:
+            raise NotImplementedError(
+                "features masks on more than one graph input are not "
+                "supported (masked-pooling attribution would be "
+                "ambiguous)")
+        return fmasks
+
+    def _masked_inputs(self, inputs, fmasks_map):
+        """The activations after the inputs, each masked input's padded
+        steps zeroed; the mask and the nodes downstream of its input."""
+        acts: Dict[str, Any] = dict(inputs)
+        fmask, branch = None, set()
+        for name, fm in (fmasks_map or {}).items():
+            acts[name] = acts[name] * fm[..., None].to(acts[name].dtype)
+            fmask, branch = fm, self._downstream_of(name)
+        return acts, fmask, branch
+
     @staticmethod
-    def _no_feature_masks(feature_masks):
-        if feature_masks is not None and any(m is not None
-                                             for m in feature_masks):
-            raise _not_ported("features masks on a ComputationGraph", "A3")
+    def _pools_sequence(v, xs) -> bool:
+        """Whether vertex ``v`` is global pooling over a sequence."""
+        return (isinstance(v, LayerVertex)
+                and isinstance(v.layer, GlobalPoolingLayer)
+                and xs[0].dim() == 3)
 
     # ------------------------------------------------------------------
     def _forward_all(self, params_map, states_map, inputs: dict, train,
-                     generator):
+                     generator, fmasks_map=None):
         """Every vertex's output, in topological order: ``(acts,
-        new_states)``."""
-        acts: Dict[str, Any] = dict(inputs)
+        new_states)``. A features mask zeroes its input's padded steps
+        and masks the global pooling on that input's branch, which
+        raises if an upstream layer changed the sequence length."""
+        acts, fmask, branch = self._masked_inputs(inputs, fmasks_map)
         new_states: Dict[str, dict] = {}
         for node in self.conf.nodes:
-            acts[node.name], new_states[node.name] = node.vertex.apply(
-                params_map[node.name], states_map[node.name],
-                [acts[s] for s in node.inputs], train, generator)
+            xs = [acts[s] for s in node.inputs]
+            v = node.vertex
+            if fmask is not None and node.name in branch \
+                    and self._pools_sequence(v, xs):
+                if xs[0].shape[1] != fmask.shape[1]:
+                    raise ValueError(
+                        f"GlobalPoolingLayer {node.name!r}: features mask "
+                        f"has {fmask.shape[1]} timesteps but the pooling "
+                        f"input has {xs[0].shape[1]} — an upstream layer "
+                        "changed the sequence length. Downsample/supply a "
+                        "mask matching the pooled sequence length "
+                        "(reference: MaskedReductionUtil).")
+                out, ns = v.layer.apply_masked(
+                    params_map[node.name], states_map[node.name], xs[0],
+                    fmask, train, generator)
+            else:
+                out, ns = v.apply(params_map[node.name],
+                                  states_map[node.name], xs, train,
+                                  generator)
+            acts[node.name], new_states[node.name] = out, ns
         return acts, new_states
 
     def _loss(self, params_map, states_map, inputs, labels_map, generator,
-              masks_map=None):
+              masks_map=None, fmasks_map=None):
         """Training-mode forward to every output's loss head: ``(loss,
         (new_states, data_loss))``, the losses summed in f32 and
-        ``loss`` with the l1/l2 terms of the weights."""
+        ``loss`` with the l1/l2 terms of the weights. A features mask acts
+        as in :meth:`_forward_all`, the pooling masked only while the
+        time axis still lines up."""
         masks_map = masks_map or {}
         outputs = self.conf.network_outputs
-        acts: Dict[str, Any] = dict(inputs)
+        acts, fmask, branch = self._masked_inputs(inputs, fmasks_map)
         new_states: Dict[str, dict] = {}
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for node in self.conf.nodes:
             xs = [acts[s] for s in node.inputs]
             v, name = node.vertex, node.name
             with record_function(_label(v)):
-                if name in outputs and isinstance(v, LayerVertex) \
+                if fmask is not None and name in branch \
+                        and self._pools_sequence(v, xs) \
+                        and xs[0].shape[1] == fmask.shape[1]:
+                    acts[name], new_states[name] = v.layer.apply_masked(
+                        params_map[name], states_map[name], xs[0], fmask,
+                        True, generator)
+                elif name in outputs and isinstance(v, LayerVertex) \
                         and hasattr(v.layer, "loss_value"):
                     total = total + v.layer.loss_value(
                         params_map[name], states_map[name], xs[0],
@@ -179,35 +263,34 @@ class ComputationGraph:
                                        conf.gradient_normalization_threshold,
                                        g) for n, g in grads.items()}
 
-    def _train_step(self, inputs, labels, masks):
+    def _train_step(self, inputs, labels, masks, fmasks=None):
         """One update: forward, gradients of every parameter, clipping,
         updater. Returns the data loss, detached."""
-        leaves = {n: {k: v.detach().requires_grad_(True)
-                      for k, v in p.items()}
-                  for n, p in self.params_map.items()}
+        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
+                          self.params_map)
         with torch.enable_grad():
             loss, (new_states, data_loss) = self._loss(
                 leaves, self.states_map, inputs, labels, self._generator,
-                masks)
-            flat = [v for p in leaves.values() for v in p.values()]
-            got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
-        grads = {n: {k: (lambda g, v: torch.zeros_like(v) if g is None
-                         else g)(next(got), v) for k, v in p.items()}
-                 for n, p in leaves.items()}
-        del leaves, flat, loss
+                masks, fmasks)
+            grads = grads_of(loss, leaves)
+        del leaves, loss
         with torch.no_grad(), record_function("dl4j::updater"):
             self._apply_updates(self._clip(grads))
         self.states_map = new_states
         return data_loss.detach()
 
     def _apply_updates(self, grads: Dict[str, dict]) -> None:
-        """One ``apply_updater`` per vertex; ``p - u`` in the parameter's
-        dtype."""
+        """One ``apply_updater`` per vertex at the iteration count (the
+        epoch count for an epoch-typed schedule); ``p - u`` in the
+        parameter's dtype."""
         for name, p in self.params_map.items():
+            upd = self._updaters[name]
+            step = (self._epoch if uses_epoch_schedule(upd)
+                    else self._iteration)
             updates, self.opt_states[name] = apply_updater(
-                self._updaters[name], self.opt_states[name], grads[name], p,
-                self._iteration)
-            self.params_map[name] = {k: p[k] - updates[k] for k in p}
+                upd, self.opt_states[name], grads[name], p, step)
+            self.params_map[name] = tree_map2(lambda a, u: a - u, p,
+                                              updates)
 
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1, fault_tolerance=None,
@@ -262,7 +345,6 @@ class ComputationGraph:
     def _fit_batch(self, xs: Sequence, ys: Sequence, label_masks=None,
                    feature_masks=None):
         outputs = self.conf.network_outputs
-        self._no_feature_masks(feature_masks)
         inputs = self._inputs(xs)
         if len(ys) != len(outputs):
             raise ValueError(f"got {len(ys)} label arrays for "
@@ -277,7 +359,8 @@ class ComputationGraph:
                     f"unmasked outputs)")
             masks = {n: self._tensor(m) for n, m in zip(outputs, label_masks)
                      if m is not None}
-        self._score = self._train_step(inputs, labels, masks)
+        fmasks = self._validate_fmasks(feature_masks, inputs)
+        self._score = self._train_step(inputs, labels, masks, fmasks)
         self._iteration += 1
         self._last_batch_size = int(next(iter(inputs.values())).shape[0])
         for l in self._listeners:
@@ -286,12 +369,15 @@ class ComputationGraph:
     # ------------------------------------------------------------------
     def output(self, *xs, feature_masks=None):
         """The graph's outputs for ``xs`` (one array per input), in
-        inference mode: a list of tensors on the device."""
+        inference mode: a list of tensors on the device.
+        ``feature_masks`` (one per input, None for an unmasked one) keeps
+        inference consistent with masked training."""
         self._check_init()
-        self._no_feature_masks(feature_masks)
+        inputs = self._inputs(xs)
+        fmasks = self._validate_fmasks(feature_masks, inputs)
         with torch.no_grad():
             acts, _ = self._forward_all(self.params_map, self.states_map,
-                                        self._inputs(xs), False, None)
+                                        inputs, False, None, fmasks)
         return [acts[o] for o in self.conf.network_outputs]
 
     def outputSingle(self, *xs, feature_masks=None):
@@ -408,18 +494,119 @@ class ComputationGraph:
         return self._epoch
 
     # ------------------------------------------------------------------
+    # stateful stepping
+    # ------------------------------------------------------------------
+    def _recurrent_nodes(self) -> List[str]:
+        return [n.name for n in self.conf.nodes
+                if getattr(getattr(n.vertex, "layer", None), "is_recurrent",
+                           False)]
+
+    def rnnTimeStep(self, *xs) -> List[torch.Tensor]:
+        """One or more timesteps of stateful inference across the graph:
+        each recurrent layer vertex keeps its carry between calls (in a
+        two-input encoder-decoder both LSTMs advance). 2-D inputs
+        ``[N, F]`` are one step and give ``[N, out]``; 3-D ``[N, T, F]``
+        step T times. A batch size other than the stored state's raises
+        ``ValueError``. Returns one tensor per graph output."""
+        self._check_init()
+        names = self.conf.network_inputs
+        if len(xs) != len(names):
+            raise ValueError(f"expected {len(names)} inputs, got {len(xs)}")
+        arrs = [self._tensor(x, self._dtype) for x in xs]
+        single = arrs[0].dim() == 2
+        if single:
+            arrs = [a[:, None, :] if a.dim() == 2 else a for a in arrs]
+        n = arrs[0].shape[0]
+        if self._rnn_carries is not None and self._rnn_batch != n:
+            raise ValueError(
+                f"rnnTimeStep batch size changed ({self._rnn_batch} -> {n}) "
+                "with stored state — call rnnClearPreviousState() first "
+                "(reference behavior)")
+        if self._rnn_carries is None:
+            by_name = {node.name: node for node in self.conf.nodes}
+            self._rnn_carries = {
+                name: by_name[name].vertex.layer.init_carry(
+                    n, self._dtype, self.device)
+                for name in self._recurrent_nodes()}
+            self._rnn_batch = n
+        acts: Dict[str, Any] = dict(zip(names, arrs))
+        carries = {}
+        with torch.no_grad():
+            for node in self.conf.nodes:
+                xs_n = [acts[s] for s in node.inputs]
+                p, st = self.params_map[node.name], self.states_map[node.name]
+                if node.name in self._rnn_carries:
+                    acts[node.name], _, carries[node.name] = \
+                        node.vertex.layer.apply_with_carry(
+                            p, st, self._rnn_carries[node.name], xs_n[0],
+                            False, None)
+                else:
+                    acts[node.name], _ = node.vertex.apply(p, st, xs_n,
+                                                           False, None)
+        self._rnn_carries = carries
+        outs = [acts[o] for o in self.conf.network_outputs]
+        if single:
+            outs = [o[:, 0] if o.dim() == 3 else o for o in outs]
+        return outs
+
+    def rnnClearPreviousState(self) -> None:
+        self._rnn_carries = None
+        self._rnn_batch = 0
+
+    def rnnGetPreviousState(self, name: str):
+        """The stored carry of one recurrent vertex (an LSTM's ``(h,
+        c)``), or None."""
+        if self._rnn_carries is None:
+            return None
+        return self._rnn_carries.get(name)
+
+    # ------------------------------------------------------------------
+    def backpropGradient(self, xs, external_errors, train: bool = True):
+        """Backpropagate external errors, one ``dL/d output`` per graph
+        output (in output order), through the forward (training mode:
+        dropout and batch statistics, as ``fit`` runs it, unless ``train``
+        is False). ``xs`` has one array per graph input. Returns
+        ``(gradients in the params_map layout, {input name: epsilon})``.
+        A wrong count or shape raises ``ValueError``, and the dropout
+        generator is left where it was."""
+        self._check_init()
+        conf = self.conf
+        xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+        errs = (list(external_errors)
+                if isinstance(external_errors, (list, tuple))
+                else [external_errors])
+        if len(xs) != len(conf.network_inputs):
+            raise ValueError(
+                f"need one input per network input "
+                f"({len(conf.network_inputs)}), got {len(xs)}")
+        if len(errs) != len(conf.network_outputs):
+            raise ValueError(
+                f"need one external error per network output "
+                f"({len(conf.network_outputs)}), got {len(errs)}")
+        inputs = self._inputs(xs)
+        errs = [self._tensor(e, self._dtype) for e in errs]
+
+        def forward(params, ins):
+            acts, _ = self._forward_all(params, self.states_map, ins, train,
+                                        self._generator if train else None)
+            outs = [acts[o] for o in conf.network_outputs]
+            for e, o, name in zip(errs, outs, conf.network_outputs):
+                if e.shape != o.shape:
+                    raise ValueError(
+                        f"external error for output {name!r} has shape "
+                        f"{tuple(e.shape)}, expected {tuple(o.shape)}")
+            return outs
+
+        return external_gradients(self._generator, forward, self.params_map,
+                                  inputs, errs)
+
+    # ------------------------------------------------------------------
     # not ported
     # ------------------------------------------------------------------
     def pretrain(self, *args, **kwargs):
         raise _not_ported("layerwise pretraining", "A3")
 
     pretrainLayer = pretrain
-
-    def rnnTimeStep(self, *xs):
-        raise _not_ported("ComputationGraph.rnnTimeStep", "A3")
-
-    def backpropGradient(self, *args, **kwargs):
-        raise _not_ported("backpropGradient", "A3")
 
     def setHealthMonitor(self, monitor):
         raise _not_ported("the model-health monitor", "A9")

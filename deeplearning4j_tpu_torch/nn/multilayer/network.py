@@ -10,11 +10,14 @@ the hand-written recurrence kernels on the card, forward and backward.
 
 Ported: ``init``, ``fit`` (arrays, a ``DataSet`` or a ``DataSetIterator``;
 standard BPTT and truncated BPTT, one update per segment with the carries
-detached between segments and reset at each minibatch), ``output``,
-``rnnTimeStep`` and its state accessors, ``score``, ``evaluate`` and its
+detached between segments and reset at each minibatch; a features mask
+zeroes the padded steps and masks global pooling), ``output``,
+``feedForward``, ``rnnTimeStep`` and its state accessors,
+``backpropGradient`` (external errors), ``score``, ``evaluate`` and its
 ROC and regression variants, the listeners, ``clone``, ``params``,
 ``numParams``, ``paramTable``, l1/l2 regularization, gradient
-normalization and the preprocessor tags between image and dense layers
+normalization, epoch-typed learning-rate schedules and the preprocessor
+tags between image and dense layers
 (``nn.conf.builder.apply_preprocessor``). Not ported yet, and raising
 ``NotImplementedError`` with the ROADMAP item: the health monitor and
 fault tolerance (A9), layerwise pretraining (A3), mixed precision (A2, at
@@ -41,11 +44,15 @@ import torch
 from deeplearning4j_tpu_torch.common import not_ported as _not_ported
 from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.learning.schedules import uses_epoch_schedule
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, apply_updater
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     MultiLayerConfiguration, apply_preprocessor, preprocessor_output_type)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.params import tree_map
+from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPoolingLayer
+from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
+from deeplearning4j_tpu_torch.params import (tree_leaves, tree_map, tree_map2,
+                                             tree_unflatten)
 
 #: param keys subject to l1/l2 (weights, not biases)
 _REGULARIZED_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
@@ -133,17 +140,58 @@ def normalize_gradients(mode: Optional[str], t: float, g: dict) -> dict:
     """One layer's gradients under the configuration's gradient
     normalization (``mode`` None leaves them); the L2 norms are summed in
     the gradients' dtype, as the JAX step does."""
-    if not mode or not g:
+    if not mode or not tree_leaves(g):
         return g
     if mode == "ClipElementWiseAbsoluteValue":
         return tree_map(lambda l: torch.clamp(l, -t, t), g)
     if mode not in ("ClipL2PerLayer", "RenormalizeL2PerLayer"):
         raise ValueError(f"Unknown gradient normalization: {mode}")
-    norm = torch.sqrt(sum(torch.sum(l * l) for l in g.values()) + 1e-12)
+    norm = torch.sqrt(sum(torch.sum(l * l) for l in tree_leaves(g)) + 1e-12)
     if mode == "ClipL2PerLayer":
         scale = torch.clamp(t / norm, max=1.0)
         return tree_map(lambda l: l * scale, g)
     return tree_map(lambda l: l / norm, g)
+
+
+def grads_of(loss: torch.Tensor, leaves):
+    """``d loss / d leaves``: the gradient of every leaf of the tree
+    ``leaves`` (tensors that require grad), in its structure, zero where
+    the loss does not reach a leaf, as ``jax.grad`` gives it."""
+    flat = tree_leaves(leaves)
+    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    return tree_unflatten(leaves, [torch.zeros_like(v) if g is None else g
+                                   for g, v in zip(got, flat)])
+
+
+def external_gradients(generator, forward, params, inputs, errs):
+    """``(parameter gradients, input epsilons)`` of external errors:
+    ``forward(params, inputs)`` gives the outputs (a list), and ``errs``
+    (one per output) are backpropagated through it into the parameter
+    tree ``params`` and the input tree ``inputs`` (a float input gets its
+    epsilon, any other a zero). ``forward`` raises ``ValueError`` on an
+    error of the wrong shape; ``generator``'s state (dropout) is then put
+    back as it was."""
+    saved = generator.get_state() if generator is not None else None
+    leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
+    ins = tree_map(lambda x: x.detach().requires_grad_(
+        x.is_floating_point()), inputs)
+    try:
+        with torch.enable_grad():
+            outs = forward(leaves, ins)
+    except ValueError:
+        if saved is not None:
+            generator.set_state(saved)
+        raise
+    wrt = tree_leaves(leaves) + [x for x in tree_leaves(ins)
+                                 if x.requires_grad]
+    got = list(torch.autograd.grad(outs, wrt, grad_outputs=errs,
+                                   allow_unused=True))
+    got = [torch.zeros_like(v) if g is None else g for g, v in zip(got, wrt)]
+    n = len(tree_leaves(leaves))
+    grads, rest = tree_unflatten(leaves, got[:n]), iter(got[n:])
+    eps = tree_map(lambda x: next(rest) if x.requires_grad
+                   else torch.zeros_like(x), ins)
+    return grads, eps
 
 
 class MultiLayerNetwork:
@@ -201,14 +249,14 @@ class MultiLayerNetwork:
         return self
 
     def _infer_input_type(self) -> InputType:
-        from deeplearning4j_tpu_torch.nn.conf.layers import LSTM
+        from deeplearning4j_tpu_torch.nn.conf.layers import LSTM, SimpleRnn
 
         first = self.conf.layers[0]
         n_in = getattr(first, "n_in", 0)
         if not n_in:
             raise ValueError(
                 "Without setInputType, the first layer must declare n_in")
-        if isinstance(first, LSTM):
+        if isinstance(first, (LSTM, SimpleRnn)):
             return InputType.recurrent(n_in)
         return InputType.feedForward(n_in)
 
@@ -224,15 +272,21 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------
     def _forward(self, params_list, states_list, x, train: bool, generator,
                  fmask=None):
-        """Forward through all layers: ``(out, new_states)``."""
+        """Forward through all layers: ``(out, new_states)``. A features
+        mask zeroes the padded steps of ``x`` and masks global pooling
+        while the time axis still lines up."""
         a = x
         if fmask is not None:
             a = a * fmask[..., None].to(a.dtype)
         new_states = []
         for i, layer in enumerate(self.conf.layers):
             a = self._preprocess(i, a)
-            a, ns = layer.apply(params_list[i], states_list[i], a, train,
-                                generator)
+            if _pools_masked(layer, a, fmask):
+                a, ns = layer.apply_masked(params_list[i], states_list[i], a,
+                                           fmask, train, generator)
+            else:
+                a, ns = layer.apply(params_list[i], states_list[i], a,
+                                    train, generator)
             new_states.append(ns)
         return a, new_states
 
@@ -253,6 +307,12 @@ class MultiLayerNetwork:
         new_states, new_carries = [], []
         for i, layer in enumerate(conf.layers[:-1]):
             a = self._preprocess(i, a)
+            if _pools_masked(layer, a, fmask):
+                a, ns = layer.apply_masked(params_list[i], states_list[i], a,
+                                           fmask, True, generator)
+                new_states.append(ns)
+                new_carries.append(None)
+                continue
             if carries is not None and layer.is_recurrent:
                 a, ns, c = layer.apply_with_carry(
                     params_list[i], states_list[i], carries[i], a, True,
@@ -281,38 +341,39 @@ class MultiLayerNetwork:
                                     conf.gradient_normalization_threshold, g)
                 for g in grads_list]
 
-    def _apply_updates(self, params_list, opt_states, grads, step):
-        """One ``apply_updater`` per layer; ``p - u`` in the parameter's
-        dtype."""
+    def _apply_updates(self, params_list, opt_states, grads):
+        """One ``apply_updater`` per layer at the iteration count (the
+        epoch count for an epoch-typed schedule); ``p - u`` in the
+        parameter's dtype."""
         new_params, new_opt = [], []
         for i, p in enumerate(params_list):
-            updates, no = apply_updater(self._updaters[i], opt_states[i],
-                                        grads[i], p, step)
-            new_params.append({k: p[k] - updates[k] for k in p})
+            upd = self._updaters[i]
+            step = (self._epoch if uses_epoch_schedule(upd)
+                    else self._iteration)
+            updates, no = apply_updater(upd, opt_states[i], grads[i], p,
+                                        step)
+            new_params.append(tree_map2(lambda a, u: a - u, p, updates))
             new_opt.append(no)
         return new_params, new_opt
 
     def _train_step(self, x, y, mask, fmask, carries):
         """One update: forward, gradients of every parameter, clipping,
         updater. Returns ``(data_loss, new_carries)``, both detached."""
-        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for p in self.params_list]
+        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
+                          self.params_list)
         with torch.enable_grad():
             loss, (new_states, data_loss, new_carries) = self._loss_carries(
                 leaves, self.states_list, carries, x, y, mask,
                 self._generator, fmask)
-            flat = [v for p in leaves for v in p.values()]
-            got = torch.autograd.grad(loss, flat, allow_unused=True)
-        it = iter(got)
-        grads = [{k: (lambda g, v: torch.zeros_like(v) if g is None else g)(
-            next(it), v) for k, v in p.items()} for p in leaves]
+            grads = grads_of(loss, leaves)
         grads = self._clip_grads(grads)
         with torch.no_grad():
             self.params_list, self.opt_states = self._apply_updates(
-                self.params_list, self.opt_states, grads, self._iteration)
+                self.params_list, self.opt_states, grads)
         self.states_list = new_states
-        detached = [None if c is None else tuple(t.detach() for t in c)
-                    for c in new_carries]
+        # an LSTM's carry is (h, c), a SimpleRnn's h alone
+        detached = [None if c is None else c.detach() if torch.is_tensor(c)
+                    else tuple(t.detach() for t in c) for c in new_carries]
         return data_loss.detach(), detached
 
     # ------------------------------------------------------------------
@@ -347,23 +408,10 @@ class MultiLayerNetwork:
             self._fit_batch(data, labels, None)
         return self
 
-    def _features_mask(self, fm, x):
-        if fm is None:
-            return None
-        fm = self._tensor(fm)
-        if fm.dim() == 3 and fm.shape[-1] == 1:
-            fm = fm[..., 0]
-        if x.dim() != 3 or fm.dim() != 2 or fm.shape[1] != x.shape[1]:
-            raise NotImplementedError(
-                f"features mask shape {tuple(fm.shape)} not supported for "
-                f"input of shape {tuple(x.shape)}: expected [N,T] (or "
-                "[N,T,1]) matching a [N,T,F] sequence input")
-        return fm
-
     def _fit_batch(self, x, y, mask, features_mask=None):
         x = self._tensor(x, self._dtype)
         y = self._tensor(y)
-        fm = self._features_mask(features_mask, x)
+        fm = validate_features_mask(features_mask, x)
         # per-timestep labels with a features mask and no label mask: the
         # features mask is the label mask
         if mask is None and fm is not None and y.dim() == 3 \
@@ -397,8 +445,15 @@ class MultiLayerNetwork:
             raise ValueError("tBPTT requires per-timestep labels [N,T,C] "
                              "(use RnnOutputLayer)")
         n, t = x.shape[0], x.shape[1]
-        carries = [(l.init_carry(n, self._dtype, self.device)
-                    if l.is_recurrent else None) for l in self.conf.layers]
+        try:
+            carries = [(l.init_carry(n, self._dtype, self.device)
+                        if l.is_recurrent else None)
+                       for l in self.conf.layers]
+        except NotImplementedError:
+            raise ValueError(
+                "Truncated BPTT is not supported with Bidirectional layers "
+                "(the backward direction needs the full sequence) — use "
+                "standard BPTT") from None
         for t0 in range(0, t, k):
             mc = mask[:, t0:t0 + k] if mask is not None else None
             self._score, carries = self._train_step(
@@ -418,12 +473,49 @@ class MultiLayerNetwork:
         ``train=True`` applies dropout."""
         self._check_init()
         xt = self._tensor(x, self._dtype)
-        fm = self._features_mask(features_mask, xt)
+        fm = validate_features_mask(features_mask, xt)
         with torch.no_grad():
             out, _ = self._forward(self.params_list, self.states_list, xt,
                                    train, self._generator if train else None,
                                    fm)
         return out
+
+    def feedForward(self, x) -> List[torch.Tensor]:
+        """The input and every layer's output, in inference mode."""
+        self._check_init()
+        a = self._tensor(x, self._dtype)
+        acts = [a]
+        with torch.no_grad():
+            for i, layer in enumerate(self.conf.layers):
+                a, _ = layer.apply(self.params_list[i], self.states_list[i],
+                                   self._preprocess(i, a), False, None)
+                acts.append(a)
+        return acts
+
+    def backpropGradient(self, x, external_errors, train: bool = True,
+                         features_mask=None):
+        """Backpropagate an external error ``dL/d output`` through the
+        network's forward (training mode: dropout and batch statistics,
+        unless ``train`` is False): ``(gradients in the params_list
+        layout, epsilon at the input)``. An error of another shape than
+        the output raises ``ValueError`` and leaves the dropout generator
+        where it was."""
+        self._check_init()
+        xt = self._tensor(x, self._dtype)
+        err = self._tensor(external_errors, self._dtype)
+        fm = validate_features_mask(features_mask, xt)
+
+        def forward(params, xx):
+            out, _ = self._forward(params, self.states_list, xx, train,
+                                   self._generator if train else None, fm)
+            if err.shape != out.shape:
+                raise ValueError(
+                    f"external_errors shape {tuple(err.shape)} must match "
+                    f"the network output shape {tuple(out.shape)}")
+            return [out]
+
+        return external_gradients(self._generator, forward,
+                                  self.params_list, xt, [err])
 
     def rnnTimeStep(self, x):
         """One or more timesteps of stateful inference: the hidden state is
@@ -544,8 +636,7 @@ class MultiLayerNetwork:
 
     def numParams(self) -> int:
         self._check_init()
-        return sum(int(t.numel()) for p in self.params_list
-                   for t in p.values())
+        return sum(int(t.numel()) for t in tree_leaves(self.params_list))
 
     def paramTable(self) -> dict:
         """``{"0_W": tensor, ...}``."""
@@ -590,6 +681,13 @@ class MultiLayerNetwork:
         return self._epoch
 
 
+def _pools_masked(layer, a, fmask) -> bool:
+    """Global pooling over a sequence whose time axis still lines up with
+    the features mask, which pools over the real steps only."""
+    return (fmask is not None and isinstance(layer, GlobalPoolingLayer)
+            and a.dim() == 3 and a.shape[1] == fmask.shape[1])
+
+
 __all__ = ["MultiLayerNetwork", "torch_dtype", "as_device_tensor",
            "weight_penalty", "normalize_gradients", "eval_mask",
-           "fit_epochs"]
+           "fit_epochs", "grads_of", "external_gradients"]

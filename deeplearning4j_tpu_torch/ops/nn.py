@@ -6,8 +6,11 @@ Ported: :func:`conv2d` (``:36-79``), the four pools (``:198-253``),
 :func:`batch_norm_train` with its shifted one-pass statistics
 (``:390-428``), :func:`batch_norm_relu_train` with its two-pass backward
 (``:431-531``; both through ``ops.batch_norm``), :func:`lstm_layer`
-(``:592-651``) and :func:`dropout` (``:558-564``); every one but the last
-two is registered under its JAX name. Layouts stay the JAX package's, so a parameter tree from the JAX
+(``:592-651``), :func:`simple_rnn_layer` (``:709-722``),
+:func:`dot_product_attention` (``:981-997``) and :func:`dropout`
+(``:558-564``); every one but the last four is registered under its JAX
+name. The simple RNN and the attention are plain PyTorch: no Pallas
+kernel computes them in the reference. Layouts stay the JAX package's, so a parameter tree from the JAX
 side loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
 ``[kh, kw, C_in, C_out]``; ``x`` ``[N, T, in]``, ``w_ih`` ``[in, 4H]``,
 ``w_hh`` ``[H, 4H]``, ``b`` ``[4H]`` with gates i, f, g, o.
@@ -284,3 +287,36 @@ def lstm_layer(x, w_ih, w_hh, b, h0=None, c0=None, reverse: bool = False):
     if reverse:
         ys = torch.flip(ys, dims=(0,))
     return ys.transpose(0, 1), (hT, cT)
+
+
+def simple_rnn_layer(x, w_ih, w_hh, b, h0=None, activation=torch.tanh):
+    """Elman RNN over time: ``(outputs [N, T, H], hT)`` with
+    ``h_t = activation(x_t @ w_ih + b + h_{t-1} @ w_hh)``; the input
+    projection of all timesteps is one matmul, as in the reference."""
+    n, t, _ = x.shape
+    hidden = w_hh.shape[0]
+    if h0 is None:
+        h0 = torch.zeros((n, hidden), dtype=x.dtype, device=x.device)
+    x_proj = (x.reshape(n * t, -1) @ w_ih + b).reshape(n, t, hidden)
+    h, ys = h0, []
+    for s in range(t):
+        h = activation(x_proj[:, s] + h @ w_hh)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def dot_product_attention(q, k, v, mask=None, scale=None):
+    """Scaled dot-product attention: ``q`` ``[..., Tq, d]``, ``k``
+    ``[..., Tk, d]``, ``v`` ``[..., Tk, dv]``; ``mask`` broadcastable to
+    ``[..., Tq, Tk]``, 1 attends and 0 is masked (its logits set to the
+    dtype's lowest value). ``scale`` defaults to ``1 / sqrt(d)`` in
+    ``q``'s dtype."""
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]),
+                                              dtype=q.dtype))
+    logits = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    if mask is not None:
+        logits = torch.where(mask.to(torch.bool), logits,
+                             torch.finfo(logits.dtype).min)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("...qk,...kv->...qv", weights, v)

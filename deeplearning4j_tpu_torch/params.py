@@ -33,6 +33,11 @@ def _leaves(tree):
         yield tree
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree, in its iteration order."""
+    return list(_leaves(tree))
+
+
 def tree_map(fn, tree):
     """``fn`` over every leaf of a nested dict/list parameter tree."""
     if isinstance(tree, dict):
@@ -40,6 +45,22 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_map2(fn, a, b):
+    """``fn`` over the paired leaves of two trees of the same structure."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [tree_map2(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def params_from_jax(np_tree, device=None,
@@ -101,10 +122,10 @@ def mln_params_from_numpy(layers, device=None,
                           dtype: torch.dtype = None) -> List[Dict[str, Any]]:
     """A ``MultiLayerNetwork.params_list`` from a JAX network's
     ``params_list`` after ``jax.device_get`` (one dict of numpy arrays per
-    layer), on ``device`` (default: the CUDA card), each leaf in its own
-    dtype unless ``dtype`` is given."""
+    layer, nested for a ``Bidirectional``), on ``device`` (default: the
+    CUDA card), each leaf in its own dtype unless ``dtype`` is given."""
     dev = resolve_device(device)
-    return [{k: numpy_to_tensor(a).to(dev, dtype) for k, a in layer.items()}
+    return [tree_map(lambda a: numpy_to_tensor(a).to(dev, dtype), layer)
             for layer in layers]
 
 

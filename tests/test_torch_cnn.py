@@ -447,11 +447,22 @@ def test_fused_bn_relu_layer_matches_jax(monkeypatch):
 
 
 def test_masked_global_pooling_names_its_roadmap_item():
+    """Masked global pooling is ported now: each pooling type over the
+    real steps of a sequence (a row with an interior gap, a row of one
+    step) equals the JAX layer's ``apply_masked``."""
+    from deeplearning4j_tpu.nn.conf import GlobalPoolingLayer as JGlobal
     from deeplearning4j_tpu_torch.nn.conf import GlobalPoolingLayer
 
-    with pytest.raises(NotImplementedError, match="A3"):
-        GlobalPoolingLayer().apply_masked({}, {}, torch.zeros(2, 3, 4),
-                                          torch.ones(2, 3), False, None)
+    rs = np.random.RandomState(4)
+    x = rs.randn(3, 5, 4).astype(np.float32)
+    mask = np.array([[1, 1, 1, 0, 0], [1, 0, 1, 1, 0], [1, 0, 0, 0, 0]],
+                    np.float32)
+    for pt in ("max", "avg", "sum", "pnorm"):
+        want, _ = JGlobal(pooling_type=pt).apply_masked({}, {}, x, mask,
+                                                        False, None)
+        got, _ = GlobalPoolingLayer(pooling_type=pt).apply_masked(
+            {}, {}, torch.from_numpy(x), torch.from_numpy(mask), False, None)
+        _close(got, want, 1e-6, pt)
 
 
 # -------------------------------------------------------------- updater

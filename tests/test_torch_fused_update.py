@@ -142,12 +142,25 @@ def test_rejects_non_adam():
 
 
 def test_learning_rate_schedule_is_not_ported():
-    class Schedule:
-        def value_at(self, step):
-            return 1e-3
+    """Schedules are ported now: an ``ExponentialSchedule`` rate reaches
+    B2's ``alpha`` (``adam_update_scalars``) as JAX's scalars give it, at
+    steps 0 and 50 (XLA's f32 ``pow`` drifts from the rounded power as the
+    exponent grows: 2.5e-6 relative at 0.99^300)."""
+    import jax.numpy as jnp
 
-    with pytest.raises(NotImplementedError, match="schedule"):
-        Adam(learning_rate=Schedule()).bias_corrected_lr(0)
+    from deeplearning4j_tpu.learning import ExponentialSchedule as JaxExp
+    from deeplearning4j_tpu.learning.updaters import Adam as JaxAdam
+    from deeplearning4j_tpu.ops.fused_update_pallas import adam_update_scalars
+    from deeplearning4j_tpu_torch.learning import ExponentialSchedule
+
+    for step in (0, 50):
+        want = np.asarray(adam_update_scalars(
+            JaxAdam(JaxExp(3e-4, 0.99)), jnp.asarray(step)))
+        got = fu.adam_update_scalars(Adam(ExponentialSchedule(3e-4, 0.99)),
+                                     step)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    # the rate is computed on the host: a Python float, no device tensor
+    assert isinstance(Adam(ExponentialSchedule(3e-4, 0.99))._lr(5), float)
 
 
 def test_cpu_path_is_the_reference_and_launches_nothing():

@@ -147,21 +147,53 @@ def test_merge_vertex_matches_jax():
 
 
 def test_unported_vertex_names_its_roadmap_item():
-    from deeplearning4j_tpu.nn.graph import ScaleVertex as JScale
+    """Every vertex of the JAX package is ported now: a JAX graph naming
+    each of the fourteen that were stand-ins reads back through the
+    port's JSON to the same configuration, and the port builds and runs
+    it (shapes equal to the JAX graph's outputs)."""
+    import jax
+    from deeplearning4j_tpu.nn.conf import InputType as JIt
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JCG
     from deeplearning4j_tpu.nn.graph import ComputationGraphConfiguration \
         as JCGC
-    from deeplearning4j_tpu.nn.conf import InputType as JIt
-
-    jconf = (JCGC.graphBuilder().addInputs("in")
-             .setInputTypes(JIt.feedForward(3))
-             .addVertex("s", JScale(scale=2.0), "in").setOutputs("s")
-             .build())
-    with pytest.raises(NotImplementedError, match="ScaleVertex.*A3"):
-        ComputationGraphConfiguration.from_json(jconf.to_json())
+    from deeplearning4j_tpu.nn.graph import vertices as jv
     from deeplearning4j_tpu_torch.nn.graph import vertices
 
-    with pytest.raises(NotImplementedError, match="A3"):
-        vertices.ScaleVertex(scale=2.0)
+    b = (JCGC.graphBuilder().addInputs("seq", "img", "vec")
+         .setInputTypes(JIt.recurrent(4, 6), JIt.convolutional(5, 5, 2),
+                        JIt.feedForward(4)))
+    b.addVertex("scale", jv.ScaleVertex(scale=2.0), "vec")
+    b.addVertex("l2n", jv.L2NormalizeVertex(), "scale")
+    b.addVertex("subset", jv.SubsetVertex(frm=1, to=2), "l2n")
+    b.addVertex("last", jv.LastTimeStepVertex(), "seq")
+    b.addVertex("dup", jv.DuplicateToTimeSeriesVertex(), "last", "seq")
+    b.addVertex("rev", jv.ReverseTimeSeriesVertex(), "dup")
+    b.addVertex("stack", jv.StackVertex(), "vec", "last")
+    b.addVertex("unstack", jv.UnstackVertex(from_index=1, stack_size=2),
+                "stack")
+    b.addVertex("shift", jv.ShiftVertex(shift=0.5), "unstack")
+    b.addVertex("reshape", jv.ReshapeVertex(shape=[2, 2]), "shift")
+    b.addVertex("l2", jv.L2Vertex(), "vec", "shift")
+    b.addVertex("frozen", jv.FrozenVertex(vertex=jv.ScaleVertex(scale=3.0)),
+                "l2")
+    b.addVertex("pool", jv.PoolHelperVertex(), "img")
+    b.addVertex("att", jv.DotProductAttentionVertex(), "rev", "seq", "seq")
+    outs = ("subset", "reshape", "frozen", "pool", "att")
+    jconf = b.setOutputs(*outs).build()
+    names = {type(n.vertex).__name__ for n in jconf.nodes}
+    assert len(names) == 14, sorted(names)
+    conf = ComputationGraphConfiguration.from_json(jconf.to_json())
+    assert conf.to_json() == jconf.to_json()
+    for name in names:
+        assert type(getattr(vertices, name)) is type
+    rs = np.random.RandomState(9)
+    xs = [rs.randn(3, 6, 4).astype(np.float32),
+          rs.randn(3, 5, 5, 2).astype(np.float32),
+          rs.randn(3, 4).astype(np.float32)]
+    want = JCG(jconf).init().output(*xs)
+    got = ComputationGraph(conf, device="cpu").init().output(*xs)
+    for g, w, o in zip(got, want, outs):
+        _close(g, np.asarray(jax.device_get(w.jax)), 1e-6, o)
 
 
 # ---------------------------------------------------------- configuration
@@ -516,12 +548,11 @@ def test_set_params_round_trips():
 def test_unported_parts_raise_with_their_roadmap_item():
     g = ComputationGraph(cut_resnet_conf(), device="cpu").init()
     x, y = _batch(n=2)
+    # rnnTimeStep, backpropGradient and features masks are ported: they
+    # run in tests/test_torch_rnn_features.py and
+    # tests/test_torch_external_errors.py
     for call, item in ((lambda: g.setHealthMonitor(object()), "A9"),
                        (lambda: g.pretrain(x), "A3"),
-                       (lambda: g.rnnTimeStep(x), "A3"),
-                       (lambda: g.backpropGradient([x], [y]), "A3"),
-                       (lambda: g.output(x, feature_masks=[np.ones((2, 3))]),
-                        "A3"),
                        (lambda: g.fit(x, y, fault_tolerance=object()), "A9"),
                        (lambda: g.fit(x, y, auto_resume=object()), "A9")):
         with pytest.raises(NotImplementedError, match=item):
