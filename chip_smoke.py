@@ -272,6 +272,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``OutputLayer(2)`` at batch 64 x 200 with lengths from the seed, 3 Adam
    steps card against CPU at f32, B5 2 + 2 launches a step. The phase's
    B5 launches are added to B5's rows.
+19. the precision policies: (1) the char-LSTM of phase 9 (batch 256 x
+   200, hidden 256, vocab 77, Adam 1e-3, standard BPTT) under
+   ``float32``, ``mixed_bfloat16``, ``bfloat16`` (the identity, phase 9's
+   cell) and ``mixed_float16``: 2 warm-up and 10 timed steps each, ms a
+   step, tokens/s, peak memory, the idle share of 3 profiled steps, B5's
+   launches by route (under mixed_bfloat16 every one on the cluster
+   route), the masters' and the updater state's dtypes (f32 under the
+   mixed policies), and every loss after the loss scale settled finite.
+   (2) ``ResNet50(num_classes=1000, precision="mixed_bfloat16")`` at
+   phase 15's cell: ms a step and images/s beside phase 15's, peak
+   memory, 53 launches of each batch-norm kernel a step on f32 inputs
+   (the islands), the device time by group of a profiled step and the
+   idle share. (3) ``AlexNet(num_classes=1000)`` (62,378,344 parameters)
+   under mixed_bfloat16 at batch 128 x 224x224x3: ms a step, images/s,
+   the LRN layers on f32. (4) The narrow char-LSTM (hidden 64, batch 16 x
+   50) and the cut ResNet under mixed_bfloat16 and mixed_float16: 3
+   Nesterovs steps on the card against 3 on the CPU from one numpy tree
+   (tolerances ``PREC_LSTM_TOL`` and ``PREC_RESNET_TOL``); under
+   mixed_float16 a forced overflow (parameters and updater state
+   bit-equal, the scale halved, one overflow and one skipped step) and the
+   doubling after ``growth_interval`` (2) clean steps, the loss-scale
+   state equal on both devices. The phase's B5 and batch-norm launches
+   are added to their rows.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -283,7 +306,8 @@ port found from the current directory: an earlier design can be timed in
 the same chip call as this one. ``python3 chip_smoke.py resnet50-step
 TAG`` runs phase 15 alone the same way, ``python3 chip_smoke.py
 lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
-phase 17 and ``python3 chip_smoke.py seq2seq`` phase 18.
+phase 17, ``python3 chip_smoke.py seq2seq`` phase 18 and ``python3
+chip_smoke.py precision`` phase 19.
 """
 
 from __future__ import annotations
@@ -4953,6 +4977,466 @@ def bidirectional_parity(smi: str, add) -> None:
                    f"{time.perf_counter() - t1:.1f} s; {smi}")
 
 
+# --------------------------------------------------- precision policies
+#: phase 19: the char-LSTM's policies in bench_common.precision_ab's order,
+#: with the f16 policy last
+PREC_POLICIES = ("float32", "mixed_bfloat16", "bfloat16", "mixed_float16")
+#: AlexNet's batch (Krizhevsky et al., 2012)
+ALEXNET_BATCH = 128
+#: the narrow char-LSTM of the card-vs-CPU runs: batch x steps, hidden (a
+#: cluster width of B5), and the cut ResNet's batch
+PREC_PARITY_BATCH, PREC_PARITY_T, PREC_PARITY_HIDDEN = 16, 50, 64
+#: card vs CPU under a mixed policy after three Nesterovs steps, as the
+#: CPU tests hold the port against JAX (tests/test_torch_mixed_precision.py):
+#: each side rounds every op to bf16/f16, so an f32-level difference in a
+#: sum (another summation order, an f32 island's formula) moves an
+#: activation by one bf16/f16 step where it crosses a rounding boundary,
+#: and the cut ResNet's batch norms spread such steps. Losses relative,
+#: parameters and outputs absolute (outputs of max(1, |value|)).
+PREC_LSTM_TOL = (5e-4, 1e-2, 1e-3)
+PREC_RESNET_TOL = (1e-2, 2e-2, 5e-2)
+
+
+def policy_conf(conf, policy: str):
+    """``conf`` under ``policy``: a mixed preset as its precision, an
+    identity dtype ("float32", "bfloat16") as its dtype, as
+    bench_common.precision_ab builds its sides."""
+    if policy.startswith("mixed_"):
+        conf.precision = policy
+    else:
+        conf.dtype = policy
+    return conf
+
+
+def float_dtypes(tree) -> set:
+    from deeplearning4j_tpu_torch.params import tree_leaves
+
+    return {t.dtype for t in tree_leaves(tree)
+            if torch.is_tensor(t) and t.is_floating_point()}
+
+
+def phase_precision(smi: str, rows, resnet_bf16_ms) -> None:
+    """Phase 19: the precision policies at full width on the card (1)-(4);
+    the phase's B5 and batch-norm launches go to their rows."""
+    t0 = time.perf_counter()
+    totals = {}
+
+    def add(key, n):
+        totals[key] = totals.get(key, 0) + n
+
+    for policy in PREC_POLICIES:
+        precision_char_lstm(policy, smi, add)
+    torch.cuda.empty_cache()
+    precision_resnet50(smi, add, resnet_bf16_ms)
+    torch.cuda.empty_cache()
+    precision_alexnet(smi)
+    torch.cuda.empty_cache()
+    precision_parity(smi, add)
+    for key, n in totals.items():
+        rows[key]["launches"] = rows[key].get("launches", 0) + n
+    say("precision", "launches in phase 19 (added to their rows): "
+        + ", ".join(f"{k} {n}" for k, n in totals.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def precision_char_lstm(policy: str, smi: str, add) -> None:
+    """(1) bench_common.build_char_lstm's model (TextGenerationLSTM,
+    vocab 77, hidden 256, standard BPTT, Adam 1e-3) at batch 256 x 200
+    under ``policy``: 2 warm-up and 10 timed steps, ms a step, tokens/s,
+    peak memory, the idle share of a profiled step, B5's launches by
+    route, the dtypes of the masters and the updater state."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.params import mln_params_from_numpy
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    V, H, B, T = LSTM_VOCAB, LSTM_HIDDEN, LSTM_BATCH, LSTM_SEQ
+    conf = policy_conf(TextGenerationLSTM(vocab_size=V, hidden=H,
+                                          tbptt_length=0).conf(), policy)
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    net.params_list = mln_params_from_numpy(
+        textgen_params_numpy(V, H, 0), device=DEVICE, dtype=net._dtype)
+    x, y = char_batch(V, B, T, 0, net._input_dtype, DEVICE)
+    mixed = policy.startswith("mixed_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lstm_counts()
+    losses, skipped = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net._score)
+        ls = net._loss_scale_state
+        skipped.append(ls["skipped_steps"] if ls is not None else None)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counts, cluster, wide = lstm_counts(), lstm_cluster_counts(), \
+        lstm_wide_counts()
+    add("B5", counts[0] - wide[0])
+    add("B5 bwd", counts[1] - wide[1])
+    vals = [float(v) for v in losses]
+    # the scale settles at the last skipped step: every later loss must be
+    # finite (a skipped step's loss may be inf)
+    skips = [int(s) if s is not None else 0 for s in skipped]
+    settled = vals[skips.index(skips[-1]) + (1 if skips[-1] else 0):]
+    check(counts == (2 * steps, 2 * steps),
+          f"precision (1) {policy}: B5 launches {counts} over {steps} steps")
+    check(all(math.isfinite(v) for v in settled),
+          f"precision (1) {policy}: a loss after the scale settled is not "
+          f"finite: {vals}")
+    masters = float_dtypes(net.params_list)
+    state = float_dtypes(net.opt_states)
+    if mixed:
+        check(masters == state == {torch.float32},
+              f"precision (1) {policy}: masters {masters}, updater state "
+              f"{state}, not all f32")
+    if policy == "mixed_bfloat16":
+        check(cluster == counts,
+              f"precision (1) mixed_bfloat16: B5 launches {counts}, of "
+              f"them on the cluster route {cluster}: a launch left it")
+    routes = (f"forward {counts[0]} (cluster {cluster[0]}, wide {wide[0]}, "
+              f"grid {counts[0] - cluster[0] - wide[0]}), backward "
+              f"{counts[1]} (cluster {cluster[1]}, wide {wide[1]}, grid "
+              f"{counts[1] - cluster[1] - wide[1]})")
+    ls = net._loss_scale_state
+    scale = ("" if ls is None else
+             f"; loss scale {float(ls['scale']):g}, overflows "
+             f"{int(ls['overflows'])}, skipped steps "
+             f"{int(ls['skipped_steps'])}")
+    say("precision", f"(1) char-LSTM {policy}: {step_s * 1e3:.3f} ms/step, "
+                     f"{B * T / step_s:.1f} tokens/s; peak memory "
+                     f"{peak / 2 ** 30:.3f} GiB; B5 launches {routes}; "
+                     f"masters {sorted(str(d) for d in masters)}, updater "
+                     f"state {sorted(str(d) for d in state)}{scale}; "
+                     f"losses per character "
+                     + " ".join(f"{v / T:.4f}" for v in vals) + f"; {smi}")
+    reset_lstm_counts()
+    busy_ms = device_profile("precision", f"(1) {policy}: "
+                                          f"{PROFILED_STEPS} profiled steps",
+                             lambda: [net.fit(x, y)
+                                      for _ in range(PROFILED_STEPS)],
+                             ("lstm_fwd", "lstm_bwd"))
+    counts, wide = lstm_counts(), lstm_wide_counts()
+    add("B5", counts[0] - wide[0])
+    add("B5 bwd", counts[1] - wide[1])
+    if busy_ms:
+        per = busy_ms / PROFILED_STEPS
+        say("precision", f"(1) char-LSTM {policy}: device busy {per:.3f} ms "
+                         f"a profiled step against {step_s * 1e3:.3f} ms a "
+                         f"timed step: idle about "
+                         f"{1 - per / (step_s * 1e3):.3f}; {smi}")
+    del net, x, y
+
+
+def record_bn_dtypes():
+    """Wrap the batch-norm statistics kernel's wrapper to record the dtype
+    of every input it is handed (no launch is added or counted here);
+    returns (the set, a function that puts the wrapper back)."""
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+
+    seen, plain = set(), bn.bn_stats_kernel
+
+    def wrapped(x2, *a, **k):
+        seen.add(x2.dtype)
+        return plain(x2, *a, **k)
+
+    bn.bn_stats_kernel = wrapped
+
+    def restore():
+        bn.bn_stats_kernel = plain
+
+    return seen, restore
+
+
+def precision_resnet50(smi: str, add, bf16_ms) -> None:
+    """(2) bench.py's ResNet-50, ``ResNet50(num_classes=1000,
+    precision="mixed_bfloat16")``, at batch 256 x 224x224x3 with
+    Nesterovs(0.1, 0.9), ``cudnn.benchmark`` on: 2 warm-up and 10 timed
+    steps, ms a step and images/s beside phase 15's bf16 identity step,
+    peak memory, the batch-norm kernels' launches and the dtype of their
+    input (f32: the islands), the device time by group of a profiled
+    step and the idle share."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    B, HW, C = RESNET50_BATCH, RESNET50_HW, RESNET50_CLASSES
+    conf = ResNet50(num_classes=C, in_shape=(HW, HW, 3),
+                    updater=Nesterovs(learning_rate=1e-1, momentum=0.9),
+                    precision="mixed_bfloat16").conf()
+    net = ComputationGraph(conf, device=DEVICE).init()
+    n_bn = sum(isinstance(getattr(n.vertex, "layer", None),
+                          BatchNormalization) for n in conf.nodes)
+    x, y = image_batch(B, HW, 3, C, seed=0)
+    x = torch.from_numpy(x).to(DEVICE, net._input_dtype)
+    y = torch.from_numpy(y).to(DEVICE)
+    seen, restore = record_bn_dtypes()
+    torch.backends.cudnn.benchmark = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_bn_counts()
+        losses = []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            if i == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            net.fit(x, y)
+            losses.append(net._score)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        launches = bn_counts()
+        steps = WARMUP_STEPS + TIMED_STEPS
+        vals = [float(v) for v in losses]
+        for name, k in zip((r[0] for r in BN_ROWS), launches):
+            add(name, k)
+        check(all(math.isfinite(v) for v in vals),
+              f"precision (2): losses {vals}")
+        check(launches == (n_bn * steps,) * 3,
+              f"precision (2): batch-norm launches {launches}, not "
+              f"{n_bn} x {steps} of each")
+        check(seen == {torch.float32},
+              f"precision (2): the batch-norm kernels ran on {seen}, not "
+              f"on f32 inside the islands")
+        masters = float_dtypes(net.params_map)
+        state = float_dtypes(net.opt_states)
+        check(masters == state == {torch.float32},
+              f"precision (2): masters {masters}, updater state {state}")
+        ident = (f"{bf16_ms:.2f} ms/step, {B / bf16_ms * 1e3:.1f} images/s"
+                 if bf16_ms else "not run in this call")
+        say("precision", f"(2) ResNet-50 mixed_bfloat16 at batch {B} x "
+                         f"{HW}x{HW}x3, Nesterovs(0.1, 0.9): "
+                         f"{step_s * 1e3:.2f} ms/step, {B / step_s:.1f} "
+                         f"images/s (phase 15, bfloat16 identity, this run: "
+                         f"{ident}); peak memory {peak / 2 ** 30:.3f} GiB; "
+                         f"batch-norm launches {launches} ({n_bn} layers x "
+                         f"{steps}), input dtype "
+                         f"{sorted(str(d) for d in seen)}; losses "
+                         + " ".join(f"{v:.4f}" for v in vals) + f"; {smi}")
+        reset_bn_counts()
+        busy_ms = device_profile(
+            "precision", f"(2) one profiled mixed_bfloat16 step "
+                         f"(unprofiled {step_s * 1e3:.2f} ms; {smi})",
+            lambda: net.fit(x, y), ("bn_reduce_kernel", "bn_apply_kernel"),
+            group=kernel_group, top=10)
+        for name, k in zip((r[0] for r in BN_ROWS), bn_counts()):
+            add(name, k)
+        if busy_ms:
+            say("precision", f"(2) idle about "
+                             f"{1 - busy_ms / (step_s * 1e3):.3f} of a step "
+                             f"({busy_ms:.2f} ms busy); {smi}")
+    finally:
+        restore()
+        torch.backends.cudnn.benchmark = False
+    del net, x, y
+
+
+def precision_alexnet(smi: str) -> None:
+    """(3) ``zoo.AlexNet(num_classes=1000)`` under mixed_bfloat16 at batch
+    128 x 224x224x3 (dropout on, as fit trains it): 2 warm-up and 10 timed
+    steps, ms a step, images/s; the LRN layers computed in f32."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import nn as nnops
+    from deeplearning4j_tpu_torch.zoo import AlexNet
+
+    B = ALEXNET_BATCH
+    conf = policy_conf(AlexNet(num_classes=1000).conf(), "mixed_bfloat16")
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    n = net.numParams()
+    check(n == 62_378_344, f"precision (3): AlexNet has {n} parameters")
+    x, y = image_batch(B, 224, 3, 1000, seed=0)
+    x = torch.from_numpy(x).to(DEVICE, net._input_dtype)
+    y = torch.from_numpy(y).to(DEVICE)
+    seen, plain = set(), nnops.local_response_normalization
+
+    def lrn(a, *args, **kw):
+        seen.add(a.dtype)
+        return plain(a, *args, **kw)
+
+    nnops.local_response_normalization = lrn
+    torch.backends.cudnn.benchmark = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            if i == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            net.fit(x, y)
+            losses.append(net._score)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / TIMED_STEPS
+    finally:
+        nnops.local_response_normalization = plain
+        torch.backends.cudnn.benchmark = False
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in vals),
+          f"precision (3): AlexNet losses {vals}")
+    check(seen == {torch.float32}, f"precision (3): LRN ran on {seen}")
+    check(float_dtypes(net.params_list) == {torch.float32},
+          "precision (3): a master left f32")
+    say("precision", f"(3) AlexNet ({n} parameters) mixed_bfloat16 at batch "
+                     f"{B} x 224x224x3, Nesterovs(0.01, 0.9), l2 5e-4: "
+                     f"{step_s * 1e3:.2f} ms/step, {B / step_s:.1f} images/s; "
+                     f"peak memory {peak / 2 ** 30:.3f} GiB; LRN input "
+                     f"{sorted(str(d) for d in seen)}; losses "
+                     + " ".join(f"{v:.4f}" for v in vals) + f"; {smi}")
+    del net, x, y
+
+
+def precision_parity(smi: str, add) -> None:
+    """(4) the narrow char-LSTM and the cut ResNet under mixed_bfloat16 and
+    mixed_float16: 3 Nesterovs steps on the card against 3 on the CPU from
+    one numpy tree; then under mixed_float16 on both devices a forced
+    overflow (an input of 1e7, inf once staged in f16: the step is
+    skipped, parameters and updater state bit-equal, the scale halved,
+    overflows == skipped steps == 1) and the growth (growth_interval 2:
+    the scale doubles after 2 clean steps), the loss-scale states equal
+    across the devices."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy
+    from deeplearning4j_tpu_torch.params import (cg_params_from_numpy,
+                                                 mln_params_from_numpy)
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.resnet50 import cut_resnet_conf
+
+    t0 = time.perf_counter()
+    V, H, B, T = LSTM_VOCAB, PREC_PARITY_HIDDEN, PREC_PARITY_BATCH, \
+        PREC_PARITY_T
+    tree = textgen_params_numpy(V, H, 3)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, V, (B, T))
+    eye = np.eye(V, dtype=np.float32)
+    cx, cy = eye[ids], eye[np.roll(ids, -1, 1)]
+    ix, iy = image_batch(GRAPH_PARITY_BATCH, 32, 3, 4, seed=1)
+
+    def lstm_net(policy, dev):
+        conf = TextGenerationLSTM(vocab_size=V, hidden=H, tbptt_length=0,
+                                  updater=Nesterovs(0.05, 0.9)).conf()
+        conf.precision = policy
+        net = MultiLayerNetwork(conf, device=dev).init()
+        net.params_list = mln_params_from_numpy(tree, device=dev)
+        return net
+
+    gtree = None
+
+    def resnet_net(policy, dev):
+        nonlocal gtree
+        conf = cut_resnet_conf()
+        conf.precision = policy
+        g = ComputationGraph(conf, device=dev).init()
+        if gtree is None:
+            gtree = numpy_tree(ComputationGraph(conf, device="cpu").init()
+                               .params_map.items(), seed=21)
+        g.params_map = cg_params_from_numpy(conf.nodes, gtree, device=dev)
+        return g
+
+    def leaves(model):
+        return model.params().detach().float().cpu()
+
+    for policy in ("mixed_bfloat16", "mixed_float16"):
+        for what, make, xy, tol in (("char-LSTM", lstm_net, (cx, cy),
+                                     PREC_LSTM_TOL),
+                                    ("cut ResNet", resnet_net, (ix, iy),
+                                     PREC_RESNET_TOL)):
+            runs = []
+            for dev in (DEVICE, "cpu"):
+                m = make(policy, dev)
+                reset_lstm_counts()
+                losses = []
+                for _ in range(PARITY_STEPS):
+                    m.fit(*xy)
+                    losses.append(m.score())
+                if dev == DEVICE:
+                    counts, wide = lstm_counts(), lstm_wide_counts()
+                    add("B5", counts[0] - wide[0])
+                    add("B5 bwd", counts[1] - wide[1])
+                    cluster = lstm_cluster_counts()
+                runs.append((m, losses))
+            (card, lc), (cpu, lh) = runs
+            rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+            perr = float((leaves(card) - leaves(cpu)).abs().max())
+            out_card = (card.output(xy[0]) if what == "char-LSTM"
+                        else card.outputSingle(xy[0]))
+            out_cpu = (cpu.output(xy[0]) if what == "char-LSTM"
+                       else cpu.outputSingle(xy[0]))
+            check(out_card.dtype == torch.float32,
+                  f"precision (4) {what} {policy}: output {out_card.dtype}")
+            oerr = close_card_cpu(f"precision (4) {what} {policy} output",
+                                  out_card, out_cpu, tol[2])
+            check(all(math.isfinite(v) for v in lc + lh) and rel <= tol[0],
+                  f"precision (4) {what} {policy}: losses card {lc}, CPU "
+                  f"{lh} ({rel:.3e} relative > {tol[0]:g})")
+            check(perr <= tol[1], f"precision (4) {what} {policy}: "
+                                  f"parameters differ by {perr:.3e}")
+            if what == "char-LSTM" and policy == "mixed_bfloat16":
+                check(cluster == (PARITY_STEPS * 2,) * 2,
+                      f"precision (4): narrow char-LSTM B5 launches on the "
+                      f"cluster route {cluster}")
+            say("precision", f"(4) {what} {policy}, {PARITY_STEPS} Nesterovs "
+                             f"steps card against CPU: losses max relative "
+                             f"diff {rel:.2e} (tolerance {tol[0]:g}), "
+                             f"parameters {perr:.2e} ({tol[1]:g}), output "
+                             f"{oerr:.2e} ({tol[2]:g} of max(1, |value|))")
+
+    # the forced overflow and the growth, mixed_float16, on both devices
+    pol = PrecisionPolicy.of("mixed_float16")
+    pol.growth_interval = 2
+    states = []
+    for dev in (DEVICE, "cpu"):
+        g = resnet_net(pol, dev)
+        g.fit(ix, iy)
+        s0 = {k: v.clone() for k, v in g._loss_scale_state.items()}
+        p0, o0 = g.params().clone(), [t.clone() for t in
+                                      _leaves_of(g.opt_states)]
+        g.fit(ix * np.float32(1e7), iy)
+        s1 = g._loss_scale_state
+        held = (torch.equal(g.params(), p0)
+                and all(torch.equal(a, b) for a, b in
+                        zip(_leaves_of(g.opt_states), o0)))
+        check(held, f"precision (4) overflow on {dev}: the skipped step "
+                    f"moved the parameters or the updater state")
+        check(int(s0["overflows"]) == 0 and int(s1["overflows"]) == 1
+              and int(s1["skipped_steps"]) == 1
+              and float(s1["scale"]) == float(s0["scale"]) * 0.5,
+              f"precision (4) overflow on {dev}: loss-scale state "
+              f"{ {k: float(v) for k, v in s1.items()} } after "
+              f"{ {k: float(v) for k, v in s0.items()} }")
+        before = float(s1["scale"])
+        g.fit(ix, iy)
+        g.fit(ix, iy)
+        s2 = g._loss_scale_state
+        check(float(s2["scale"]) == 2 * before and int(s2["good_steps"]) == 0,
+              f"precision (4) growth on {dev}: scale {float(s2['scale'])} "
+              f"after 2 clean steps at {before}")
+        states.append({k: float(v) for k, v in s2.items()})
+        states.append(g.getIterationCount())
+    check(states[0] == states[2] and states[1] == states[3],
+          f"precision (4): loss-scale state card {states[0]}, CPU "
+          f"{states[2]}; iterations {states[1]}, {states[3]}")
+    say("precision", f"(4) mixed_float16 forced overflow (input 1e7) on the "
+                     f"card and the CPU: parameters and updater state held "
+                     f"bit-equal, the scale halved, overflows == skipped "
+                     f"steps == 1; then 2 clean steps at growth_interval 2 "
+                     f"doubled it: {states[0]} on both, {states[1]} "
+                     f"iterations; {time.perf_counter() - t0:.1f} s")
+
+
+def _leaves_of(tree) -> list:
+    from deeplearning4j_tpu_torch.params import tree_leaves
+
+    return [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4997,6 +5481,13 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_seq2seq(phase_device(), defaultdict(dict))
         return 0
+    if argv[:1] == ["precision"]:
+        # phase 19 alone, of the port found from the current directory
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_precision(phase_device(), defaultdict(dict), None)
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -5027,6 +5518,7 @@ def main(argv) -> int:
     phase_graph_parity()
     phase_training_loop(smi, resident_ms)
     phase_seq2seq(smi, rows)
+    phase_precision(smi, rows, resident_ms)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

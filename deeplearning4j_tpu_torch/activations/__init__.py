@@ -2,9 +2,9 @@
 
 :class:`Activation` keeps every name of the JAX enum (so a configuration
 written by the JAX side resolves), and :meth:`Activation.fn` returns the
-PyTorch function for the ported ones: ``identity``, ``sigmoid``,
-``tanh``, ``relu`` and ``softmax`` (over the last axis). The others raise
-``NotImplementedError`` when used.
+PyTorch function of each, from the port's registry (``ops/transforms.py``,
+under the JAX op names), as the JAX enum resolves each through its own;
+``identity`` is the identity.
 """
 
 from __future__ import annotations
@@ -12,15 +12,8 @@ from __future__ import annotations
 import enum
 from typing import Callable
 
-import torch
-
-_FNS = {
-    "identity": lambda x: x,
-    "sigmoid": torch.sigmoid,
-    "tanh": torch.tanh,
-    "relu": torch.relu,
-    "softmax": lambda x: torch.softmax(x, dim=-1),
-}
+from deeplearning4j_tpu_torch.ops import transforms  # noqa: F401  (registers)
+from deeplearning4j_tpu_torch.ops.registry import get_op
 
 
 class Activation(enum.Enum):
@@ -49,13 +42,9 @@ class Activation(enum.Enum):
 
     @property
     def fn(self) -> Callable:
-        try:
-            return _FNS[self.value]
-        except KeyError:
-            raise NotImplementedError(
-                f"activation {self.value!r} is not ported to "
-                f"deeplearning4j_tpu_torch yet (ported: "
-                f"{sorted(_FNS)})") from None
+        if self is Activation.IDENTITY:
+            return _identity
+        return get_op(self.value)
 
     @staticmethod
     def resolve(a) -> "Activation":
@@ -66,6 +55,10 @@ class Activation(enum.Enum):
                 return Activation[a.upper()]
             return Activation(a.lower())
         raise ValueError(f"Cannot resolve activation: {a!r}")
+
+
+def _identity(x):
+    return x
 
 
 __all__ = ["Activation"]

@@ -4,8 +4,8 @@ Every loss takes ``(labels, output)`` and returns the per-example loss
 ``[N]``; :func:`compute_loss` applies the activation, the fused stable
 paths (softmax + MCXENT, sigmoid + XENT on pre-activations), the mask and
 the reduction exactly as the JAX function does. :class:`LossFunction`
-keeps every name of the JAX enum; the losses not ported yet raise
-``NotImplementedError`` when used.
+keeps every name of the JAX enum, each with the JAX formula
+(loss/__init__.py:23-152).
 """
 
 from __future__ import annotations
@@ -24,6 +24,19 @@ def mse(labels, output):
     """Per-example mean of squared errors (reference: LossMSE)."""
     d = output - labels
     return torch.mean(d * d, dim=_feature_dims(output))
+
+
+def l2(labels, output):
+    d = output - labels
+    return torch.sum(d * d, dim=_feature_dims(output))
+
+
+def l1(labels, output):
+    return torch.sum(torch.abs(output - labels), dim=_feature_dims(output))
+
+
+def mae(labels, output):
+    return torch.mean(torch.abs(output - labels), dim=_feature_dims(output))
 
 
 def mcxent(labels, probs, eps=1e-7):
@@ -51,10 +64,73 @@ def sigmoid_xent_logits(labels, logits):
     return torch.sum(loss, dim=_feature_dims(logits))
 
 
+def hinge(labels, output):
+    """Labels in {-1, 1} (reference: LossHinge)."""
+    return torch.sum(torch.clamp(1.0 - labels * output, min=0.0),
+                     dim=_feature_dims(output))
+
+
+def squared_hinge(labels, output):
+    return torch.sum(torch.clamp(1.0 - labels * output, min=0.0) ** 2,
+                     dim=_feature_dims(output))
+
+
+def kl_divergence(labels, probs, eps=1e-7):
+    p = torch.clamp(probs, eps, 1.0)
+    lc = torch.clamp(labels, eps, 1.0)
+    return torch.sum(labels * (torch.log(lc) - torch.log(p)),
+                     dim=_feature_dims(probs))
+
+
+def poisson(labels, output, eps=1e-7):
+    return torch.sum(output - labels * torch.log(output + eps),
+                     dim=_feature_dims(output))
+
+
+def cosine_proximity(labels, output, eps=1e-8):
+    ln = labels / (torch.linalg.vector_norm(labels, dim=-1, keepdim=True)
+                   + eps)
+    on = output / (torch.linalg.vector_norm(output, dim=-1, keepdim=True)
+                   + eps)
+    return -torch.sum(ln * on, dim=_feature_dims(output))
+
+
+def huber(labels, output, delta=1.0):
+    d = torch.abs(output - labels)
+    quad = 0.5 * d * d
+    lin = delta * d - 0.5 * delta * delta
+    return torch.sum(torch.where(d <= delta, quad, lin),
+                     dim=_feature_dims(output))
+
+
+def mape(labels, output, eps=1e-7):
+    return torch.mean(100.0 * torch.abs((labels - output)
+                                        / (torch.abs(labels) + eps)),
+                      dim=_feature_dims(output))
+
+
+def msle(labels, output, eps=1e-7):
+    d = (torch.log1p(torch.clamp(output, min=-1 + eps))
+         - torch.log1p(torch.clamp(labels, min=-1 + eps)))
+    return torch.mean(d * d, dim=_feature_dims(output))
+
+
 def sparse_mcxent(labels, logits):
     """Integer labels variant (reference: LossSparseMCXENT)."""
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def wasserstein(labels, output):
+    """Reference: LossWasserstein, ``mean(labels * output)``; the labels
+    are the critic's +1 / -1 signs."""
+    return torch.mean(labels * output, dim=_feature_dims(output))
+
+
+def reconstruction_crossentropy(labels, output):
+    """Reference: LossReconstructionCrossEntropy: binary cross-entropy of
+    activated outputs with the reference's wider 1e-5 clamp."""
+    return xent_binary(labels, output, eps=1e-5)
 
 
 _LOSS_ALIASES = {
@@ -93,18 +169,7 @@ class LossFunction(enum.Enum):
 
     @property
     def fn(self) -> Callable:
-        fns = {
-            LossFunction.MSE: mse,
-            LossFunction.XENT: xent_binary,
-            LossFunction.MCXENT: mcxent,
-            LossFunction.SPARSE_MCXENT: sparse_mcxent,
-            LossFunction.NEGATIVELOGLIKELIHOOD: mcxent,
-        }
-        if self not in fns:
-            raise NotImplementedError(
-                f"loss {self.value!r} is not ported to "
-                f"deeplearning4j_tpu_torch yet")
-        return fns[self]
+        return _FNS[self]
 
     @staticmethod
     def resolve(l) -> "LossFunction":
@@ -121,6 +186,28 @@ class LossFunction(enum.Enum):
                     f"Unknown loss {l!r}; valid: "
                     f"{sorted(LossFunction.__members__)}") from None
         raise ValueError(f"Cannot resolve loss: {l!r}")
+
+
+_FNS = {
+    LossFunction.MSE: mse,
+    LossFunction.L1: l1,
+    LossFunction.L2: l2,
+    LossFunction.MAE: mae,
+    LossFunction.XENT: xent_binary,
+    LossFunction.MCXENT: mcxent,
+    LossFunction.SPARSE_MCXENT: sparse_mcxent,
+    LossFunction.KL_DIVERGENCE: kl_divergence,
+    LossFunction.POISSON: poisson,
+    LossFunction.HINGE: hinge,
+    LossFunction.SQUARED_HINGE: squared_hinge,
+    LossFunction.COSINE_PROXIMITY: cosine_proximity,
+    LossFunction.NEGATIVELOGLIKELIHOOD: mcxent,
+    LossFunction.MEAN_ABSOLUTE_PERCENTAGE_ERROR: mape,
+    LossFunction.MEAN_SQUARED_LOGARITHMIC_ERROR: msle,
+    LossFunction.HUBER: huber,
+    LossFunction.WASSERSTEIN: wasserstein,
+    LossFunction.RECONSTRUCTION_CROSSENTROPY: reconstruction_crossentropy,
+}
 
 
 #: losses whose per-example value is a MEAN over feature axes (all
@@ -178,5 +265,8 @@ def compute_loss(loss_fn: LossFunction, labels, preoutput, activation,
     return torch.mean(per_ex)
 
 
-__all__ = ["LossFunction", "compute_loss", "softmax_xent_logits", "mcxent",
-           "mse"]
+__all__ = ["LossFunction", "compute_loss", "softmax_xent_logits",
+           "sigmoid_xent_logits", "mse", "l1", "l2", "mae", "mcxent",
+           "xent_binary", "sparse_mcxent", "kl_divergence", "poisson",
+           "hinge", "squared_hinge", "cosine_proximity", "huber", "mape",
+           "msle", "wasserstein", "reconstruction_crossentropy"]

@@ -5,10 +5,11 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, ActivationLayer, BatchNormalization, Bidirectional, CnnLossLayer,
-    ConvolutionLayer, DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
-    GlobalPoolingLayer, GravesLSTM, LastTimeStep, Layer, LossLayer,
-    OutputLayer, PoolingType, RnnLossLayer, RnnOutputLayer, SimpleRnn,
-    SubsamplingLayer, ZeroPaddingLayer)
+    ConvolutionLayer, DenseLayer, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, FlattenLayer, GlobalPoolingLayer, GravesLSTM,
+    LastTimeStep, Layer, LayerNormalization, LocalResponseNormalization,
+    LossLayer, OutputLayer, PoolingType, RnnLossLayer, RnnOutputLayer,
+    SimpleRnn, SubsamplingLayer, ZeroPaddingLayer)
 
 __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "NeuralNetConfiguration", "InputType", "Layer", "DenseLayer",
@@ -17,4 +18,5 @@ __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
            "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
            "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
-           "SimpleRnn", "Bidirectional"]
+           "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",
+           "LayerNormalization", "LocalResponseNormalization"]

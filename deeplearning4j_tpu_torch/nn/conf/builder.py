@@ -9,10 +9,8 @@ representation changes (``"flatten"`` from an image to a dense layer,
 ``"to_conv:H,W,C"`` from a flat image to an image layer; resolved by
 :func:`apply_preprocessor`), truncated-BPTT settings, and the JSON
 round-trip (``to_json`` / ``from_json``) that reads what the JAX side
-writes.
-
-Not ported: ``precision(...)`` with a mixed policy (``nn/precision.py``
-comes with ROADMAP item A2), which raises ``NotImplementedError``.
+writes, the precision policy (``precision(...)``, a preset name or an
+``nn.precision.PrecisionPolicy``) included.
 """
 
 from __future__ import annotations
@@ -27,26 +25,16 @@ from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, Bidirectional, ConvolutionLayer, DenseLayer, EmbeddingLayer,
-    LastTimeStep, Layer, RnnOutputLayer, SimpleRnn, SubsamplingLayer,
-    ZeroPaddingLayer)
+    LastTimeStep, Layer, LocalResponseNormalization, RnnOutputLayer,
+    SimpleRnn, SubsamplingLayer, ZeroPaddingLayer)
+# registers PrecisionPolicy with the JSON serde
+from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy  # noqa: F401
 
 #: ported layers that consume image [N, H, W, C] input
-_CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer)
+_CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer,
+                 LocalResponseNormalization)
 #: ported layers that consume sequence [N, T, F] input
 _RNN_LAYERS = (LSTM, SimpleRnn, LastTimeStep, Bidirectional, RnnOutputLayer)
-
-
-def _check_precision(policy, dtype: str) -> None:
-    """Only the identity policies are ported: None, or "float32" with a
-    float32 ``dtype``."""
-    if policy is None:
-        return
-    if policy == "float32" and dtype == "float32":
-        return
-    raise NotImplementedError(
-        f"precision policy {policy!r} is not ported to "
-        f"deeplearning4j_tpu_torch yet (nn/precision.py, ROADMAP.md A2); "
-        f"use dataType(...) for a single-dtype network")
 
 
 @serializable
@@ -61,6 +49,9 @@ class MultiLayerConfiguration:
     l1: float = 0.0
     l2: float = 0.0
     dtype: str = "float32"
+    #: the precision policy: None (the single-dtype network of ``dtype``),
+    #: a preset name ("float32", "mixed_bfloat16", "mixed_float16") or an
+    #: ``nn.precision.PrecisionPolicy``
     precision: Optional[Any] = None
     input_type: Optional[InputType] = None
     #: layer index -> preprocessor tag ("flatten" | "to_conv:H,W,C")
@@ -72,7 +63,6 @@ class MultiLayerConfiguration:
 
     def __post_init__(self):
         self.preprocessors = {int(k): v for k, v in self.preprocessors.items()}
-        _check_precision(self.precision, self.dtype)
 
     def to_json(self) -> str:
         return serde.to_json(self)
@@ -136,9 +126,10 @@ class Builder:
         return self
 
     def precision(self, policy) -> "Builder":
-        """Only None (and "float32" on a float32 network) are ported; a
-        mixed policy raises ``NotImplementedError``."""
-        _check_precision(policy, self._dtype)
+        """The precision policy: "float32", "mixed_bfloat16",
+        "mixed_float16" or a ``PrecisionPolicy``. Beside ``dataType()``: a
+        mixed policy keeps the master parameters in its ``param_dtype``
+        (f32) and only the compute drops to bf16 or f16."""
         self._precision = policy
         return self
 

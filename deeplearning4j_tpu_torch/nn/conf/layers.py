@@ -22,9 +22,12 @@ recurrent family (:class:`LSTM` and its alias :class:`GravesLSTM`,
 wrapper, :class:`RnnOutputLayer`), :class:`ActivationLayer`, and the
 image layers :class:`ConvolutionLayer`, :class:`SubsamplingLayer`,
 :class:`ZeroPaddingLayer`, :class:`GlobalPoolingLayer` (with masked
-pooling over sequences) and :class:`BatchNormalization` (NHWC).
-Dropout is a float rate; an ``IDropout`` config, weight noise and
-constraints are not ported and raise ``NotImplementedError``. Every
+pooling over sequences), the normalizations :class:`BatchNormalization`
+(NHWC), :class:`LayerNormalization` and
+:class:`LocalResponseNormalization`, and :class:`DropoutLayer` and
+:class:`FlattenLayer`. Dropout is a float rate; an ``IDropout`` config,
+weight noise and constraints are not ported and raise
+``NotImplementedError``. Every
 other layer class of the JAX package is not registered here, so a
 configuration naming one raises ``NotImplementedError`` with its name
 (``common.serde``).
@@ -296,8 +299,8 @@ class LastTimeStep(Layer):
 @serializable
 @dataclasses.dataclass
 class ActivationLayer(Layer):
-    """An activation alone. ``alpha`` parametrises leakyrelu, elu and
-    thresholdedrelu, none of which is ported yet."""
+    """An activation alone. ``alpha`` parametrises leakyrelu (the slope),
+    elu (alpha) and thresholdedrelu (the threshold)."""
 
     alpha: Optional[float] = None
 
@@ -306,10 +309,44 @@ class ActivationLayer(Layer):
         if self.alpha is not None and a in (Activation.LEAKYRELU,
                                             Activation.ELU,
                                             Activation.THRESHOLDEDRELU):
-            raise NotImplementedError(
-                f"activation {a.value!r} with alpha is not ported to "
-                f"deeplearning4j_tpu_torch yet (ROADMAP.md A1)")
+            return a.fn(x, self.alpha), state
         return a.fn(x), state
+
+
+@serializable
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Dropout alone (``ops.nn.dropout`` at ``rate`` in training, the
+    identity in inference); ``rate`` is a float (an ``IDropout`` config is
+    not ported)."""
+
+    rate: Any = 0.5
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not isinstance(self.rate, numbers.Real):
+            raise NotImplementedError(
+                f"dropout config {type(self.rate).__name__} is not ported "
+                f"yet; pass a float drop rate")
+
+    def apply(self, params, state, x, train, generator):
+        if train and generator is not None:
+            return nnops.dropout(x, float(self.rate), generator), state
+        return x, state
+
+
+@serializable
+@dataclasses.dataclass
+class FlattenLayer(Layer):
+    """Any input to ``[N, flat]``."""
+
+    def output_type(self, it: InputType) -> InputType:
+        if it.kind == "recurrent" and it.timeseries_length in (-1, None):
+            raise ValueError("FlattenLayer needs a fixed timeseries length")
+        return InputType.feedForward(it.flat_size())
+
+    def apply(self, params, state, x, train, generator):
+        return x.reshape(x.shape[0], -1), state
 
 
 @serializable
@@ -690,9 +727,49 @@ class BatchNormalization(Layer):
         return _act(self.activation or "identity").fn(out), state
 
 
+@serializable
+@dataclasses.dataclass
+class LayerNormalization(Layer):
+    """Layer norm over the last (feature) axis, ``ops.nn.layer_norm``,
+    with ``gamma`` and ``beta``."""
+
+    eps: float = 1e-5
+
+    def _nf(self, it: InputType) -> int:
+        return it.channels if it.kind == "convolutional" else it.size
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        n = self._nf(it)
+        return {"gamma": torch.ones((n,), dtype=dtype, device=device),
+                "beta": torch.zeros((n,), dtype=dtype, device=device)}
+
+    def apply(self, params, state, x, train, generator):
+        return nnops.layer_norm(x, params["gamma"], params["beta"],
+                                eps=self.eps), state
+
+
+@serializable
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Local response normalization across channels (AlexNet's),
+    ``ops.nn.local_response_normalization`` over a window of ``n``
+    channels."""
+
+    n: int = 5
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, state, x, train, generator):
+        return nnops.local_response_normalization(
+            x, depth_radius=self.n // 2, bias=self.k, alpha=self.alpha,
+            beta=self.beta), state
+
+
 __all__ = ["Layer", "DenseLayer", "OutputLayer", "RnnOutputLayer", "LSTM",
            "GravesLSTM", "ActivationLayer", "PoolingType", "ConvolutionLayer",
            "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
            "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
            "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
-           "SimpleRnn", "Bidirectional"]
+           "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",
+           "LayerNormalization", "LocalResponseNormalization"]

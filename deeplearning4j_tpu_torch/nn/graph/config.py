@@ -8,9 +8,10 @@ topological order taken exactly as the reference takes it, so the
 parameter, state and updater trees match the JAX graph's key for key;
 global defaults cloned into the layers; type and ``n_in`` inference; a
 ``"flatten"`` preprocessor vertex before a dense layer on image input;
-and the JSON round-trip that reads what the JAX side writes.
-``precision`` takes only the identity policies (``None``, or
-``"float32"`` on a float32 graph); a mixed policy raises (ROADMAP A2).
+and the JSON round-trip that reads what the JAX side writes, the
+precision policy included (``precision(...)``: a preset name or an
+``nn.precision.PrecisionPolicy``, whose ``layer_overrides`` are keyed by
+vertex name).
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ from typing import Any, Dict, List, Optional
 from deeplearning4j_tpu_torch.common import serde
 from deeplearning4j_tpu_torch.common.serde import serializable
 from deeplearning4j_tpu_torch.learning.updaters import Sgd
-from deeplearning4j_tpu_torch.nn.conf.builder import _check_precision
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import DenseLayer, Layer
 from deeplearning4j_tpu_torch.nn.graph.vertices import (
     GraphVertex, LayerVertex, PreprocessorVertex)
+# registers PrecisionPolicy with the JSON serde
+from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy  # noqa: F401
 
 
 @serializable
@@ -49,12 +51,10 @@ class ComputationGraphConfiguration:
     l1: float = 0.0
     l2: float = 0.0
     dtype: str = "float32"
+    #: the precision policy, as ``MultiLayerConfiguration.precision``
     precision: Optional[Any] = None
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
-
-    def __post_init__(self):
-        _check_precision(self.precision, self.dtype)
 
     def to_json(self) -> str:
         return serde.to_json(self)
@@ -115,9 +115,8 @@ class GraphBuilder:
         return self
 
     def precision(self, policy):
-        """Only None (and "float32" on a float32 graph) are ported; a
-        mixed policy raises ``NotImplementedError``."""
-        _check_precision(policy, self._dtype)
+        """The precision policy (a preset name or a ``PrecisionPolicy``),
+        as ``NeuralNetConfiguration.Builder.precision``."""
         self._precision = policy
         return self
 

@@ -23,11 +23,18 @@ the encoder of a two-input graph included), ``backpropGradient``
 (external errors), ``score``, ``evaluate`` and its ROC and regression
 variants, the listeners, ``clone``, ``numParams``, ``params``,
 ``setParams``, l1/l2 on the weights, gradient normalisation, epoch-typed
-learning-rate schedules and ``FrozenVertex`` (the ``NoOp`` updater). Not
-ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-pretraining (A3); the health monitor and fault tolerance (A9); loss
-scaling and the mixed policies (A2, refused by the configuration). ``fit`` over an iterator takes a
-batch already on the device in the input dtype without a copy, and
+learning-rate schedules, ``FrozenVertex`` (the ``NoOp`` updater) and the
+precision policies, with the seams of ``MultiLayerNetwork`` keyed by
+vertex name: each vertex's inputs and parameters in its compute dtype
+(``_cast_xs``, ``_cast_p``; a vertex that is not a layer takes the
+policy's), the loss heads and normalization layers f32 islands, the
+recurrent carries of ``rnnTimeStep`` in the layer's compute dtype, the
+outputs of ``output``, ``rnnTimeStep`` and ``backpropGradient`` and the
+external errors in the output dtype, and under ``mixed_float16`` the
+loss-scaled step with its skip-step guard. Not ported yet, and raising
+``NotImplementedError`` with the ROADMAP item: pretraining (A3); the
+health monitor and fault tolerance (A9). ``fit`` over an iterator takes
+a batch already on the device in the input dtype without a copy, and
 records each ``next()``'s wait in ``_last_etl_ms``.
 
 Parameters, layer state and updater state are dicts keyed by node name
@@ -49,6 +56,7 @@ from deeplearning4j_tpu_torch.datasets import (DataSet, DataSetIterator,
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.schedules import uses_epoch_schedule
 from deeplearning4j_tpu_torch.learning.updaters import NoOp, apply_updater
+from deeplearning4j_tpu_torch.nn import precision as _precision
 from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.nn.graph.config import (
     ComputationGraphConfiguration)
@@ -57,7 +65,7 @@ from deeplearning4j_tpu_torch.nn.graph.vertices import (FrozenVertex,
 from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
 from deeplearning4j_tpu_torch.nn.multilayer.network import (
     _not_ported, as_device_tensor, eval_mask, external_gradients,
-    fit_epochs, grads_of, normalize_gradients, torch_dtype, weight_penalty)
+    fit_epochs, grads_of, normalize_gradients, weight_penalty)
 from deeplearning4j_tpu_torch.params import tree_map, tree_map2
 
 
@@ -77,7 +85,17 @@ class ComputationGraph:
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
-        self._dtype = torch_dtype(conf.dtype)
+        self._policy = _precision.PrecisionPolicy.resolve(
+            getattr(conf, "precision", None), conf.dtype)
+        self._mixed = not self._policy.is_identity
+        #: master, input (compute) and output dtypes, as in
+        #: MultiLayerNetwork
+        self._dtype = _precision.torch_dtype(self._policy.param_dtype)
+        self._input_dtype = _precision.torch_dtype(self._policy.compute_dtype)
+        self._out_dtype = _precision.torch_dtype(self._policy.output_dtype)
+        self._compute_dtypes: Dict[str, torch.dtype] = {}
+        self._loss_scale_state = None
+        self._ls_seen = (0, 0)
         self.params_map: Optional[Dict[str, dict]] = None
         self.states_map: Optional[Dict[str, dict]] = None
         self.opt_states: Optional[Dict[str, Any]] = None
@@ -122,6 +140,17 @@ class ComputationGraph:
             types[node.name] = v.output_type(in_types)
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(conf.seed) + 7919)
+        self._compute_dtypes = {
+            node.name: self._policy.layer_compute_dtype(
+                getattr(node.vertex, "layer", None), node.name)
+            for node in conf.nodes}
+        self._loss_scale_state = _precision.init_loss_scale(
+            self._policy, self.device)
+        self._ls_seen = (0, 0)
+        if self._mixed:
+            _precision.record_cast_count("cg", sum(
+                _precision.count_casts(p, self._compute_dtypes[n])
+                for n, p in self.params_map.items()))
         return self
 
     def _check_init(self):
@@ -136,7 +165,25 @@ class ComputationGraph:
         if len(xs) != len(names):
             raise ValueError(f"got {len(xs)} feature arrays for "
                              f"{len(names)} graph inputs {names}")
-        return {n: self._tensor(x, self._dtype) for n, x in zip(names, xs)}
+        return {n: self._tensor(x, self._input_dtype)
+                for n, x in zip(names, xs)}
+
+    # -- the mixed-precision seams (no-ops under a single-dtype policy) --
+    def _cast_p(self, p, name: str):
+        """Vertex ``name``'s master parameters in its compute dtype."""
+        return _precision.cast_tree(p, self._compute_dtypes[name]) \
+            if self._mixed else p
+
+    def _cast_xs(self, xs, name: str):
+        """The activations entering vertex ``name`` in its compute
+        dtype."""
+        if not self._mixed:
+            return xs
+        dt = self._compute_dtypes[name]
+        return [_precision.cast_leaf(a, dt) for a in xs]
+
+    def _cast_out(self, a):
+        return _precision.cast_leaf(a, self._out_dtype) if self._mixed else a
 
     def _downstream_of(self, source: str) -> set:
         """The names of the nodes reachable from ``source`` (an input or a
@@ -196,7 +243,8 @@ class ComputationGraph:
         acts, fmask, branch = self._masked_inputs(inputs, fmasks_map)
         new_states: Dict[str, dict] = {}
         for node in self.conf.nodes:
-            xs = [acts[s] for s in node.inputs]
+            xs = self._cast_xs([acts[s] for s in node.inputs], node.name)
+            p = self._cast_p(params_map[node.name], node.name)
             v = node.vertex
             if fmask is not None and node.name in branch \
                     and self._pools_sequence(v, xs):
@@ -209,11 +257,9 @@ class ComputationGraph:
                         "mask matching the pooled sequence length "
                         "(reference: MaskedReductionUtil).")
                 out, ns = v.layer.apply_masked(
-                    params_map[node.name], states_map[node.name], xs[0],
-                    fmask, train, generator)
+                    p, states_map[node.name], xs[0], fmask, train, generator)
             else:
-                out, ns = v.apply(params_map[node.name],
-                                  states_map[node.name], xs, train,
+                out, ns = v.apply(p, states_map[node.name], xs, train,
                                   generator)
             acts[node.name], new_states[node.name] = out, ns
         return acts, new_states
@@ -231,26 +277,26 @@ class ComputationGraph:
         new_states: Dict[str, dict] = {}
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for node in self.conf.nodes:
-            xs = [acts[s] for s in node.inputs]
             v, name = node.vertex, node.name
             with record_function(_label(v)):
+                # the loss heads are f32 islands under the mixed policies
+                xs = self._cast_xs([acts[s] for s in node.inputs], name)
+                p = self._cast_p(params_map[name], name)
                 if fmask is not None and name in branch \
                         and self._pools_sequence(v, xs) \
                         and xs[0].shape[1] == fmask.shape[1]:
                     acts[name], new_states[name] = v.layer.apply_masked(
-                        params_map[name], states_map[name], xs[0], fmask,
-                        True, generator)
+                        p, states_map[name], xs[0], fmask, True, generator)
                 elif name in outputs and isinstance(v, LayerVertex) \
                         and hasattr(v.layer, "loss_value"):
                     total = total + v.layer.loss_value(
-                        params_map[name], states_map[name], xs[0],
-                        labels_map[name], masks_map.get(name))
+                        p, states_map[name], xs[0], labels_map[name],
+                        masks_map.get(name))
                     new_states[name] = states_map[name]
                     acts[name] = xs[0]
                 else:
                     acts[name], new_states[name] = v.apply(
-                        params_map[name], states_map[name], xs, True,
-                        generator)
+                        p, states_map[name], xs, True, generator)
         reg = weight_penalty(
             ((n.vertex.layer, params_map[n.name]) for n in self.conf.nodes
              if isinstance(n.vertex, LayerVertex)),
@@ -265,32 +311,52 @@ class ComputationGraph:
 
     def _train_step(self, inputs, labels, masks, fmasks=None):
         """One update: forward, gradients of every parameter, clipping,
-        updater. Returns the data loss, detached."""
+        updater; under loss scaling the skip-step guard. Returns the data
+        loss, detached."""
         leaves = tree_map(lambda v: v.detach().requires_grad_(True),
                           self.params_map)
-        with torch.enable_grad():
-            loss, (new_states, data_loss) = self._loss(
-                leaves, self.states_map, inputs, labels, self._generator,
-                masks, fmasks)
-            grads = grads_of(loss, leaves)
-        del leaves, loss
+
+        def loss_fn(pm):
+            return self._loss(pm, self.states_map, inputs, labels,
+                              self._generator, masks, fmasks)
+
+        ls = self._loss_scale_state
+        if ls is not None:
+            (_, (new_states, data_loss)), grads, finite = \
+                _precision.scaled_value_and_grad(loss_fn, ls, leaves)
+        else:
+            with torch.enable_grad():
+                loss, (new_states, data_loss) = loss_fn(leaves)
+                grads = grads_of(loss, leaves)
+            del loss
+        del leaves
         with torch.no_grad(), record_function("dl4j::updater"):
-            self._apply_updates(self._clip(grads))
+            new_params, new_opt = self._apply_updates(self._clip(grads))
+            if ls is not None:
+                (new_params, new_opt, new_states,
+                 self._loss_scale_state) = _precision.guard_scaled_step(
+                    self._policy, ls, finite,
+                    [(new_params, self.params_map),
+                     (new_opt, self.opt_states),
+                     (new_states, self.states_map)])
+        self.params_map, self.opt_states = new_params, new_opt
         self.states_map = new_states
         return data_loss.detach()
 
-    def _apply_updates(self, grads: Dict[str, dict]) -> None:
+    def _apply_updates(self, grads: Dict[str, dict]):
         """One ``apply_updater`` per vertex at the iteration count (the
         epoch count for an epoch-typed schedule); ``p - u`` in the
-        parameter's dtype."""
+        parameter's dtype. Returns the new parameters and updater
+        state."""
+        new_params, new_opt = {}, {}
         for name, p in self.params_map.items():
             upd = self._updaters[name]
             step = (self._epoch if uses_epoch_schedule(upd)
                     else self._iteration)
-            updates, self.opt_states[name] = apply_updater(
+            updates, new_opt[name] = apply_updater(
                 upd, self.opt_states[name], grads[name], p, step)
-            self.params_map[name] = tree_map2(lambda a, u: a - u, p,
-                                              updates)
+            new_params[name] = tree_map2(lambda a, u: a - u, p, updates)
+        return new_params, new_opt
 
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1, fault_tolerance=None,
@@ -362,6 +428,9 @@ class ComputationGraph:
         fmasks = self._validate_fmasks(feature_masks, inputs)
         self._score = self._train_step(inputs, labels, masks, fmasks)
         self._iteration += 1
+        if self._loss_scale_state is not None:
+            self._ls_seen = _precision.record_loss_scale(
+                "cg", self._loss_scale_state, self._ls_seen)
         self._last_batch_size = int(next(iter(inputs.values())).shape[0])
         for l in self._listeners:
             l.iterationDone(self, self._iteration, self._epoch)
@@ -378,7 +447,7 @@ class ComputationGraph:
         with torch.no_grad():
             acts, _ = self._forward_all(self.params_map, self.states_map,
                                         inputs, False, None, fmasks)
-        return [acts[o] for o in self.conf.network_outputs]
+        return [self._cast_out(acts[o]) for o in self.conf.network_outputs]
 
     def outputSingle(self, *xs, feature_masks=None):
         return self.output(*xs, feature_masks=feature_masks)[0]
@@ -477,14 +546,17 @@ class ComputationGraph:
     def clone(self) -> "ComputationGraph":
         """A graph of the same configuration on the same device sharing
         this one's tensors (a step replaces tensors, it does not write
-        into them); its counters and dropout generator start afresh, as
-        the JAX clone's do."""
+        into them), the loss-scale state included; its counters and
+        dropout generator start afresh, as the JAX clone's do."""
         m = ComputationGraph(self.conf, device=self.device)
         if self.params_map is not None:
             m.init()
             m.params_map = {n: dict(p) for n, p in self.params_map.items()}
             m.states_map = {n: dict(s) for n, s in self.states_map.items()}
             m.opt_states = dict(self.opt_states)
+            if self._loss_scale_state is not None:
+                m._loss_scale_state = dict(self._loss_scale_state)
+                m._ls_seen = self._ls_seen
         return m
 
     def getIterationCount(self) -> int:
@@ -512,7 +584,7 @@ class ComputationGraph:
         names = self.conf.network_inputs
         if len(xs) != len(names):
             raise ValueError(f"expected {len(names)} inputs, got {len(xs)}")
-        arrs = [self._tensor(x, self._dtype) for x in xs]
+        arrs = [self._tensor(x, self._input_dtype) for x in xs]
         single = arrs[0].dim() == 2
         if single:
             arrs = [a[:, None, :] if a.dim() == 2 else a for a in arrs]
@@ -526,15 +598,18 @@ class ComputationGraph:
             by_name = {node.name: node for node in self.conf.nodes}
             self._rnn_carries = {
                 name: by_name[name].vertex.layer.init_carry(
-                    n, self._dtype, self.device)
+                    n, self._compute_dtypes[name] if self._mixed
+                    else self._dtype, self.device)
                 for name in self._recurrent_nodes()}
             self._rnn_batch = n
         acts: Dict[str, Any] = dict(zip(names, arrs))
         carries = {}
         with torch.no_grad():
             for node in self.conf.nodes:
-                xs_n = [acts[s] for s in node.inputs]
-                p, st = self.params_map[node.name], self.states_map[node.name]
+                xs_n = self._cast_xs([acts[s] for s in node.inputs],
+                                     node.name)
+                p = self._cast_p(self.params_map[node.name], node.name)
+                st = self.states_map[node.name]
                 if node.name in self._rnn_carries:
                     acts[node.name], _, carries[node.name] = \
                         node.vertex.layer.apply_with_carry(
@@ -544,7 +619,7 @@ class ComputationGraph:
                     acts[node.name], _ = node.vertex.apply(p, st, xs_n,
                                                            False, None)
         self._rnn_carries = carries
-        outs = [acts[o] for o in self.conf.network_outputs]
+        outs = [self._cast_out(acts[o]) for o in self.conf.network_outputs]
         if single:
             outs = [o[:, 0] if o.dim() == 3 else o for o in outs]
         return outs
@@ -584,12 +659,12 @@ class ComputationGraph:
                 f"need one external error per network output "
                 f"({len(conf.network_outputs)}), got {len(errs)}")
         inputs = self._inputs(xs)
-        errs = [self._tensor(e, self._dtype) for e in errs]
+        errs = [self._tensor(e, self._out_dtype) for e in errs]
 
         def forward(params, ins):
             acts, _ = self._forward_all(params, self.states_map, ins, train,
                                         self._generator if train else None)
-            outs = [acts[o] for o in conf.network_outputs]
+            outs = [self._cast_out(acts[o]) for o in conf.network_outputs]
             for e, o, name in zip(errs, outs, conf.network_outputs):
                 if e.shape != o.shape:
                     raise ValueError(

@@ -18,10 +18,23 @@ ROC and regression variants, the listeners, ``clone``, ``params``,
 ``numParams``, ``paramTable``, l1/l2 regularization, gradient
 normalization, epoch-typed learning-rate schedules and the preprocessor
 tags between image and dense layers
-(``nn.conf.builder.apply_preprocessor``). Not ported yet, and raising
+(``nn.conf.builder.apply_preprocessor``) and the precision policies
+(``nn.precision``, below). Not ported yet, and raising
 ``NotImplementedError`` with the ROADMAP item: the health monitor and
-fault tolerance (A9), layerwise pretraining (A3), mixed precision (A2, at
-the configuration).
+fault tolerance (A9) and layerwise pretraining (A3).
+
+Under a mixed policy (``conf.precision``) the parameters and the updater
+state are the f32 masters (``_dtype``); inputs are staged in the compute
+dtype (``_input_dtype``); each layer's parameters and input are cast to
+its compute dtype (``_cast_p``, ``_cast_a``: the policy's, or f32 for the
+loss head and the normalization layers), recurrent carries are made in
+it (``_cd``); and what ``output``, ``feedForward``, ``rnnTimeStep`` and
+``backpropGradient`` return is in the output dtype (``_out_dtype``).
+Under ``mixed_float16`` a step differentiates the scaled loss, unscales
+in f32, judges finiteness before the clipping, updates, and keeps the
+old parameters, updater state and layer state where the gradients were
+not finite, all on the device (``_loss_scale_state``); the iteration
+count advances either way, as in the JAX step.
 
 ``fit`` over an iterator takes each batch as it comes: one already on the
 device in the input dtype (a ``DevicePrefetchIterator``'s) goes into the
@@ -46,6 +59,7 @@ from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.schedules import uses_epoch_schedule
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, apply_updater
+from deeplearning4j_tpu_torch.nn import precision as _precision
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     MultiLayerConfiguration, apply_preprocessor, preprocessor_output_type)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -56,27 +70,6 @@ from deeplearning4j_tpu_torch.params import (tree_leaves, tree_map, tree_map2,
 
 #: param keys subject to l1/l2 (weights, not biases)
 _REGULARIZED_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
-
-_DTYPES = {
-    "float32": torch.float32, "bfloat16": torch.bfloat16,
-    "float16": torch.float16, "float64": torch.float64,
-    "f32": torch.float32, "fp32": torch.float32, "single": torch.float32,
-    "bf16": torch.bfloat16, "f16": torch.float16, "fp16": torch.float16,
-    "half": torch.float16, "f64": torch.float64, "fp64": torch.float64,
-    "double": torch.float64,
-}
-
-
-def torch_dtype(name) -> torch.dtype:
-    """The torch dtype of a configuration's ``dtype`` string (the JAX
-    ``DataType`` values and their short aliases)."""
-    if isinstance(name, torch.dtype):
-        return name
-    try:
-        return _DTYPES[str(name).strip().lower()]
-    except KeyError:
-        raise ValueError(f"Unsupported dtype: {name!r}") from None
-
 
 def eval_mask(ds):
     """The labels mask for evaluation: per-timestep labels with a features
@@ -202,7 +195,18 @@ class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
-        self._dtype = torch_dtype(conf.dtype)
+        self._policy = _precision.PrecisionPolicy.resolve(
+            getattr(conf, "precision", None), conf.dtype)
+        self._mixed = not self._policy.is_identity
+        #: the master dtype of parameters and updater state
+        self._dtype = _precision.torch_dtype(self._policy.param_dtype)
+        #: the dtype inputs are staged in (the compute dtype)
+        self._input_dtype = _precision.torch_dtype(self._policy.compute_dtype)
+        #: the dtype output() and its siblings return
+        self._out_dtype = _precision.torch_dtype(self._policy.output_dtype)
+        self._compute_dtypes: List[torch.dtype] = []
+        self._loss_scale_state = None
+        self._ls_seen = (0, 0)
         self.params_list: Optional[List[dict]] = None
         self.states_list: Optional[List[dict]] = None
         self.opt_states: Optional[List[Any]] = None
@@ -246,6 +250,15 @@ class MultiLayerNetwork:
         self._output_type = it
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(conf.seed) ^ 0x5EED)
+        self._compute_dtypes = [self._policy.layer_compute_dtype(l, i)
+                                for i, l in enumerate(conf.layers)]
+        self._loss_scale_state = _precision.init_loss_scale(
+            self._policy, self.device)
+        self._ls_seen = (0, 0)
+        if self._mixed:
+            _precision.record_cast_count("mln", sum(
+                _precision.count_casts(p, self._compute_dtypes[i])
+                for i, p in enumerate(self.params_list)))
         return self
 
     def _infer_input_type(self) -> InputType:
@@ -268,6 +281,30 @@ class MultiLayerNetwork:
         return as_device_tensor(a, self.device, dtype)
 
     # ------------------------------------------------------------------
+    # the mixed-precision seams (no-ops under a single-dtype policy)
+    # ------------------------------------------------------------------
+    def _cd(self, i: int) -> torch.dtype:
+        """Layer ``i``'s compute dtype."""
+        return self._compute_dtypes[i] if self._mixed else self._dtype
+
+    def _cast_p(self, p, i: int):
+        """Layer ``i``'s master parameters in its compute dtype; autograd
+        takes the gradients back to the masters' dtype through the
+        cast."""
+        return _precision.cast_tree(p, self._compute_dtypes[i]) \
+            if self._mixed else p
+
+    def _cast_a(self, a, i: int):
+        """The activation entering layer ``i`` in its compute dtype (an
+        f32 island casts up; the next reduced-precision layer casts
+        down)."""
+        return _precision.cast_leaf(a, self._compute_dtypes[i]) \
+            if self._mixed else a
+
+    def _cast_out(self, a):
+        return _precision.cast_leaf(a, self._out_dtype) if self._mixed else a
+
+    # ------------------------------------------------------------------
     # forward and loss
     # ------------------------------------------------------------------
     def _forward(self, params_list, states_list, x, train: bool, generator,
@@ -280,15 +317,15 @@ class MultiLayerNetwork:
             a = a * fmask[..., None].to(a.dtype)
         new_states = []
         for i, layer in enumerate(self.conf.layers):
-            a = self._preprocess(i, a)
+            a = self._cast_a(self._preprocess(i, a), i)
+            p = self._cast_p(params_list[i], i)
             if _pools_masked(layer, a, fmask):
-                a, ns = layer.apply_masked(params_list[i], states_list[i], a,
-                                           fmask, train, generator)
+                a, ns = layer.apply_masked(p, states_list[i], a, fmask,
+                                           train, generator)
             else:
-                a, ns = layer.apply(params_list[i], states_list[i], a,
-                                    train, generator)
+                a, ns = layer.apply(p, states_list[i], a, train, generator)
             new_states.append(ns)
-        return a, new_states
+        return self._cast_out(a), new_states
 
     def _preprocess(self, i: int, a):
         """Layer ``i``'s input after its preprocessor, if it has one."""
@@ -306,20 +343,19 @@ class MultiLayerNetwork:
             a = a * fmask[..., None].to(a.dtype)
         new_states, new_carries = [], []
         for i, layer in enumerate(conf.layers[:-1]):
-            a = self._preprocess(i, a)
+            a = self._cast_a(self._preprocess(i, a), i)
+            p = self._cast_p(params_list[i], i)
             if _pools_masked(layer, a, fmask):
-                a, ns = layer.apply_masked(params_list[i], states_list[i], a,
-                                           fmask, True, generator)
+                a, ns = layer.apply_masked(p, states_list[i], a, fmask, True,
+                                           generator)
                 new_states.append(ns)
                 new_carries.append(None)
                 continue
             if carries is not None and layer.is_recurrent:
                 a, ns, c = layer.apply_with_carry(
-                    params_list[i], states_list[i], carries[i], a, True,
-                    generator)
+                    p, states_list[i], carries[i], a, True, generator)
             else:
-                a, ns = layer.apply(params_list[i], states_list[i], a, True,
-                                    generator)
+                a, ns = layer.apply(p, states_list[i], a, True, generator)
                 c = None
             new_states.append(ns)
             new_carries.append(c)
@@ -327,9 +363,12 @@ class MultiLayerNetwork:
         last = conf.layers[-1]
         if not hasattr(last, "loss_value"):
             raise ValueError("Last layer must be an OutputLayer to fit()")
-        a = self._preprocess(len(conf.layers) - 1, a)
-        data_loss = last.loss_value(params_list[-1], states_list[-1], a, y,
-                                    mask)
+        # the loss head: an f32 island under the mixed policies, so the
+        # logits, the softmax and the reduction run at f32
+        k = len(conf.layers) - 1
+        a = self._cast_a(self._preprocess(k, a), k)
+        data_loss = last.loss_value(self._cast_p(params_list[-1], k),
+                                    states_list[-1], a, y, mask)
         new_states.append(states_list[-1])
         reg = weight_penalty(zip(conf.layers, params_list), torch.zeros(
             (), dtype=data_loss.dtype, device=data_loss.device))
@@ -358,18 +397,38 @@ class MultiLayerNetwork:
 
     def _train_step(self, x, y, mask, fmask, carries):
         """One update: forward, gradients of every parameter, clipping,
-        updater. Returns ``(data_loss, new_carries)``, both detached."""
+        updater; under loss scaling the skip-step guard. Returns
+        ``(data_loss, new_carries)``, both detached."""
         leaves = tree_map(lambda v: v.detach().requires_grad_(True),
                           self.params_list)
-        with torch.enable_grad():
-            loss, (new_states, data_loss, new_carries) = self._loss_carries(
-                leaves, self.states_list, carries, x, y, mask,
-                self._generator, fmask)
-            grads = grads_of(loss, leaves)
+
+        def loss_fn(pl):
+            return self._loss_carries(pl, self.states_list, carries, x, y,
+                                      mask, self._generator, fmask)
+
+        ls = self._loss_scale_state
+        if ls is not None:
+            # carries are not guarded: they are activations, and the
+            # next minibatch resets them
+            (_, (new_states, data_loss, new_carries)), grads, finite = \
+                _precision.scaled_value_and_grad(loss_fn, ls, leaves)
+        else:
+            with torch.enable_grad():
+                loss, (new_states, data_loss, new_carries) = loss_fn(leaves)
+                grads = grads_of(loss, leaves)
+        del leaves
         grads = self._clip_grads(grads)
         with torch.no_grad():
-            self.params_list, self.opt_states = self._apply_updates(
+            new_params, new_opt = self._apply_updates(
                 self.params_list, self.opt_states, grads)
+            if ls is not None:
+                (new_params, new_opt, new_states,
+                 self._loss_scale_state) = _precision.guard_scaled_step(
+                    self._policy, ls, finite,
+                    [(new_params, self.params_list),
+                     (new_opt, self.opt_states),
+                     (new_states, self.states_list)])
+        self.params_list, self.opt_states = new_params, new_opt
         self.states_list = new_states
         # an LSTM's carry is (h, c), a SimpleRnn's h alone
         detached = [None if c is None else c.detach() if torch.is_tensor(c)
@@ -409,7 +468,7 @@ class MultiLayerNetwork:
         return self
 
     def _fit_batch(self, x, y, mask, features_mask=None):
-        x = self._tensor(x, self._dtype)
+        x = self._tensor(x, self._input_dtype)
         y = self._tensor(y)
         fm = validate_features_mask(features_mask, x)
         # per-timestep labels with a features mask and no label mask: the
@@ -430,9 +489,12 @@ class MultiLayerNetwork:
         self._after_step(x)
 
     def _after_step(self, x) -> None:
-        """Count the update and tell the listeners."""
+        """Count the update (a skipped one too) and tell the listeners."""
         self._iteration += 1
         self._last_batch_size = int(x.shape[0])
+        if self._loss_scale_state is not None:
+            self._ls_seen = _precision.record_loss_scale(
+                "mln", self._loss_scale_state, self._ls_seen)
         for l in self._listeners:
             l.iterationDone(self, self._iteration, self._epoch)
 
@@ -446,9 +508,10 @@ class MultiLayerNetwork:
                              "(use RnnOutputLayer)")
         n, t = x.shape[0], x.shape[1]
         try:
-            carries = [(l.init_carry(n, self._dtype, self.device)
+            # carries are activations: in the layer's compute dtype
+            carries = [(l.init_carry(n, self._cd(i), self.device)
                         if l.is_recurrent else None)
-                       for l in self.conf.layers]
+                       for i, l in enumerate(self.conf.layers)]
         except NotImplementedError:
             raise ValueError(
                 "Truncated BPTT is not supported with Bidirectional layers "
@@ -472,7 +535,7 @@ class MultiLayerNetwork:
         """The network's output for ``x`` (a tensor on the device);
         ``train=True`` applies dropout."""
         self._check_init()
-        xt = self._tensor(x, self._dtype)
+        xt = self._tensor(x, self._input_dtype)
         fm = validate_features_mask(features_mask, xt)
         with torch.no_grad():
             out, _ = self._forward(self.params_list, self.states_list, xt,
@@ -483,13 +546,16 @@ class MultiLayerNetwork:
     def feedForward(self, x) -> List[torch.Tensor]:
         """The input and every layer's output, in inference mode."""
         self._check_init()
-        a = self._tensor(x, self._dtype)
+        a = self._tensor(x, self._input_dtype)
         acts = [a]
         with torch.no_grad():
             for i, layer in enumerate(self.conf.layers):
-                a, _ = layer.apply(self.params_list[i], self.states_list[i],
-                                   self._preprocess(i, a), False, None)
+                a, _ = layer.apply(self._cast_p(self.params_list[i], i),
+                                   self.states_list[i],
+                                   self._cast_a(self._preprocess(i, a), i),
+                                   False, None)
                 acts.append(a)
+        acts[-1] = self._cast_out(acts[-1])
         return acts
 
     def backpropGradient(self, x, external_errors, train: bool = True,
@@ -501,8 +567,8 @@ class MultiLayerNetwork:
         the output raises ``ValueError`` and leaves the dropout generator
         where it was."""
         self._check_init()
-        xt = self._tensor(x, self._dtype)
-        err = self._tensor(external_errors, self._dtype)
+        xt = self._tensor(x, self._input_dtype)
+        err = self._tensor(external_errors, self._out_dtype)
         fm = validate_features_mask(features_mask, xt)
 
         def forward(params, xx):
@@ -524,7 +590,7 @@ class MultiLayerNetwork:
         ``[N, T, out]``. A batch size other than the stored state's
         raises ``ValueError``."""
         self._check_init()
-        xt = self._tensor(x, self._dtype)
+        xt = self._tensor(x, self._input_dtype)
         single = xt.dim() == 2
         if single:
             xt = xt[:, None, :]
@@ -535,24 +601,26 @@ class MultiLayerNetwork:
                 "with stored state; call rnnClearPreviousState() first")
         if self._rnn_carries is None:
             self._rnn_carries = [
-                (l.init_carry(n, self._dtype, self.device)
-                 if l.is_recurrent else None) for l in self.conf.layers]
+                (l.init_carry(n, self._cd(i), self.device)
+                 if l.is_recurrent else None)
+                for i, l in enumerate(self.conf.layers)]
             self._rnn_batch = n
         a = xt
         carries = []
         with torch.no_grad():
             for i, layer in enumerate(self.conf.layers):
-                a = self._preprocess(i, a)
+                a = self._cast_a(self._preprocess(i, a), i)
+                p = self._cast_p(self.params_list[i], i)
                 if layer.is_recurrent:
                     a, _, c = layer.apply_with_carry(
-                        self.params_list[i], self.states_list[i],
-                        self._rnn_carries[i], a, False, None)
+                        p, self.states_list[i], self._rnn_carries[i], a,
+                        False, None)
                 else:
-                    a, _ = layer.apply(self.params_list[i],
-                                       self.states_list[i], a, False, None)
+                    a, _ = layer.apply(p, self.states_list[i], a, False, None)
                     c = None
                 carries.append(c)
         self._rnn_carries = carries
+        a = self._cast_out(a)
         return a[:, 0] if single and a.dim() == 3 else a
 
     def rnnClearPreviousState(self) -> None:
@@ -577,7 +645,7 @@ class MultiLayerNetwork:
         if dataset is None:
             return float(self._score)
         self._check_init()
-        x = self._tensor(dataset.features, self._dtype)
+        x = self._tensor(dataset.features, self._input_dtype)
         y = self._tensor(dataset.labels)
         m = (self._tensor(dataset.labels_mask)
              if dataset.labels_mask is not None else None)
@@ -647,14 +715,17 @@ class MultiLayerNetwork:
     def clone(self) -> "MultiLayerNetwork":
         """A network of the same configuration on the same device sharing
         this one's tensors (a step replaces tensors, it does not write
-        into them); its counters and dropout generator start afresh, as
-        the JAX clone's do."""
+        into them), the loss-scale state included; its counters and
+        dropout generator start afresh, as the JAX clone's do."""
         m = MultiLayerNetwork(self.conf, device=self.device)
         if self.params_list is not None:
             m.init()
             m.params_list = [dict(p) for p in self.params_list]
             m.states_list = [dict(s) for s in self.states_list]
             m.opt_states = list(self.opt_states)
+            if self._loss_scale_state is not None:
+                m._loss_scale_state = dict(self._loss_scale_state)
+                m._ls_seen = self._ls_seen
         return m
 
     # ------------------------------------------------------------------
@@ -688,6 +759,6 @@ def _pools_masked(layer, a, fmask) -> bool:
             and a.dim() == 3 and a.shape[1] == fmask.shape[1])
 
 
-__all__ = ["MultiLayerNetwork", "torch_dtype", "as_device_tensor",
+__all__ = ["MultiLayerNetwork", "as_device_tensor",
            "weight_penalty", "normalize_gradients", "eval_mask",
            "fit_epochs", "grads_of", "external_gradients"]

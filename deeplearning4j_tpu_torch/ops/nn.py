@@ -5,7 +5,9 @@ Ported: :func:`conv2d` (``:36-79``), the four pools (``:198-253``),
 :func:`global_avg_pool` (``:370-373``), :func:`batch_norm` (``:383-387``),
 :func:`batch_norm_train` with its shifted one-pass statistics
 (``:390-428``), :func:`batch_norm_relu_train` with its two-pass backward
-(``:431-531``; both through ``ops.batch_norm``), :func:`lstm_layer`
+(``:431-531``; both through ``ops.batch_norm``), :func:`layer_norm`
+(``:534-541``), :func:`local_response_normalization` (``:544-555``),
+:func:`lstm_layer`
 (``:592-651``), :func:`simple_rnn_layer` (``:709-722``),
 :func:`dot_product_attention` (``:981-997``) and :func:`dropout`
 (``:558-564``); every one but the last four is registered under its JAX
@@ -247,6 +249,33 @@ def batch_norm_relu_train(x, gamma, beta, eps=1e-5, axes=None):
     the ReLU mask from x: the plain version on CPU tensors, kernel (c) on
     CUDA tensors."""
     return bn.batch_norm_train(x, gamma, beta, eps, axes, relu=True)
+
+
+@register_op("layer_norm")
+def layer_norm(x, gamma, beta=None, axis=-1, eps=1e-5):
+    """``(x - mean) * rsqrt(var + eps) * gamma + beta`` over ``axis``, the
+    variance the mean of the squared deviations (``jnp.var``)."""
+    m = torch.mean(x, dim=axis, keepdim=True)
+    c = x - m
+    v = torch.mean(c * c, dim=axis, keepdim=True)
+    y = c * torch.rsqrt(v + eps) * gamma
+    if beta is not None:
+        y = y + beta
+    return y
+
+
+@register_op("lrn")
+def local_response_normalization(x, depth_radius=5, bias=1.0, alpha=1.0,
+                                 beta=0.5):
+    """``x / (bias + alpha * sum of x^2 over 2 * depth_radius + 1
+    channels) ** beta`` over the trailing channel axis, the window sum
+    taken slice by slice in the reference's order."""
+    sq = F.pad(x * x, (depth_radius, depth_radius))
+    c = x.shape[-1]
+    acc = sq[..., 0:c]
+    for i in range(1, 2 * depth_radius + 1):
+        acc = acc + sq[..., i:i + c]
+    return x / torch.pow(bias + alpha * acc, beta)
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):

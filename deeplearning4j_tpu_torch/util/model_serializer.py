@@ -8,12 +8,17 @@ The zip holds ``configuration.json`` (the configuration's JSON),
 ``<node>/<name>`` per graph node), ``state.npz`` (non-trainable layer
 state, keyed alike), optionally ``updaterState.npz`` (the updater state
 tree, keys ``<idx>/m/<name>``, ``<node>/v/<name>`` and so on),
-``meta.json`` (iteration and epoch counters, and ``model_type``) and,
-when a normalizer is saved, ``normalizer.npz`` and ``normalizer.json``.
-Arrays of a dtype that numpy's npz cannot hold (bfloat16) are stored as a
+``meta.json`` (iteration and epoch counters, and ``model_type``),
+``lossScaleState.npz`` when the model scales its loss (``mixed_float16``:
+the live scale and its counters) and, when a normalizer is saved,
+``normalizer.npz`` and ``normalizer.json``. Arrays of a dtype that numpy's
+npz cannot hold (bfloat16, the float8 types) are stored as a same-width
 uint view under ``<key>__as__<dtype>``; they are encoded and decoded here
-through torch, so no ``ml_dtypes`` is needed. A zip this module writes
-restores in the JAX package, and the JAX package's restores here.
+through torch, so no ``ml_dtypes`` is needed. As in the JAX reader, a key
+whose suffix names no dtype is kept whole (a vertex name may hold
+``__as__``), and a suffix naming an ``ml_dtypes`` type that torch lacks
+raises, naming it. A zip this module writes restores in the JAX package,
+and the JAX package's restores here.
 """
 
 from __future__ import annotations
@@ -29,8 +34,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.params import (bfloat16_from_bits,
-                                             numpy_to_tensor)
+from deeplearning4j_tpu_torch.params import numpy_to_tensor
 
 
 def fsync_directory(dirpath: str) -> None:
@@ -63,21 +67,66 @@ def unique_tmp_path(path: str) -> str:
     return f"{path}.{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp"
 
 
-def _numpy_leaf(t) -> np.ndarray:
-    """A leaf for an npz member: a bfloat16 tensor as its uint16 bits
-    (the writer's ``__as__bfloat16`` form), others as numpy."""
+#: the ``ml_dtypes`` tags that torch has a dtype of the same width for,
+#: decoded from (and encoded as) a uint view
+_TORCH_TAGS = tuple(n for n in ("bfloat16", "float8_e4m3fn", "float8_e5m2",
+                                "float8_e4m3fnuz", "float8_e5m2fnuz",
+                                "float8_e8m0fnu") if hasattr(torch, n))
+#: the other ``ml_dtypes`` types: a JAX archive may tag them, torch
+#: cannot hold them
+_ML_DTYPES_ONLY = ("float8_e3m4", "float8_e4m3", "float8_e4m3b11fnuz",
+                   "float4_e2m1fn", "float6_e2m3fn", "float6_e3m2fn",
+                   "int2", "int4", "uint2", "uint4")
+#: an element's bits by its width: the torch view, the numpy type written
+#: (unsigned, as the JAX writer's) and the numpy type read into torch
+_BITS_BY_SIZE = {1: (torch.uint8, np.uint8, np.uint8),
+                 2: (torch.int16, np.uint16, np.int16)}
+
+
+def _tag(t) -> str:
+    """The ``__as__`` tag of a tensor numpy cannot hold, or ''."""
     if torch.is_tensor(t):
-        t = t.detach()
-        if t.dtype == torch.bfloat16:
-            return t.cpu().view(torch.int16).numpy().view(np.uint16)
-        return t.cpu().numpy()
+        name = str(t.dtype).split(".", 1)[1]
+        if name in _TORCH_TAGS:
+            return name
+    return ""
+
+
+def _numpy_leaf(t) -> np.ndarray:
+    """A leaf for an npz member: a tensor of a tagged dtype as its bits in
+    a same-width uint (the writer's ``__as__<dtype>`` form), others as
+    numpy."""
+    if torch.is_tensor(t):
+        t = t.detach().cpu()
+        if _tag(t):
+            tdt, ndt, _ = _BITS_BY_SIZE[t.element_size()]
+            return t.view(tdt).numpy().view(ndt)
+        return t.numpy()
     return np.asarray(t)
+
+
+def _decode(arr: np.ndarray, tag: str, member: str, k: str):
+    """The tensor of an ``<key>__as__<tag>`` array, or None where ``tag``
+    names no dtype (the key is then a name that holds ``__as__``)."""
+    if tag in _TORCH_TAGS:
+        dt = getattr(torch, tag)
+        size = torch.empty((), dtype=dt).element_size()
+        return torch.from_numpy(np.array(arr.view(_BITS_BY_SIZE[size][2]))
+                                ).view(dt)
+    if tag in _ML_DTYPES_ONLY:
+        raise NotImplementedError(
+            f"{member}: {k} holds the ml_dtypes type {tag}, which torch has "
+            f"no dtype for")
+    try:
+        return numpy_to_tensor(arr.view(np.dtype(tag)))
+    except TypeError:
+        return None
 
 
 def _flatten_with_paths(tree, prefix="") -> Dict[str, np.ndarray]:
     """``{"a/0/b": array}`` of a nested dict/list/tuple tree (dict keys
-    sorted; None leaves skipped), keys of bfloat16 leaves suffixed
-    ``__as__bfloat16``."""
+    sorted; None leaves skipped), keys of leaves that numpy cannot hold
+    suffixed ``__as__<dtype>``."""
     out = {}
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -87,8 +136,8 @@ def _flatten_with_paths(tree, prefix="") -> Dict[str, np.ndarray]:
             out.update(_flatten_with_paths(v, f"{prefix}{i}/"))
     elif tree is not None:
         key = prefix[:-1]
-        if torch.is_tensor(tree) and tree.dtype == torch.bfloat16:
-            key += "__as__bfloat16"
+        if _tag(tree):
+            key += "__as__" + _tag(tree)
         out[key] = _numpy_leaf(tree)
     return out
 
@@ -140,21 +189,22 @@ def _check_composite_children(normalizer) -> None:
 
 
 def read_npz(zf: zipfile.ZipFile, name: str) -> Dict[str, torch.Tensor]:
-    """``{key: CPU tensor}`` of one npz member; a ``<key>__as__bfloat16``
-    uint16 view becomes a bfloat16 tensor under ``<key>``."""
+    """``{key: CPU tensor}`` of one npz member, as the JAX ``_read_npz``
+    decodes it: a ``<key>__as__<dtype>`` uint view becomes a tensor of
+    that dtype under ``<key>``; where the suffix names no dtype the key
+    stays whole; a suffix naming an ``ml_dtypes`` type that torch lacks
+    raises ``NotImplementedError`` naming it."""
     with zf.open(name) as f:
         data = np.load(io.BytesIO(f.read()))
         out = {}
         for k in data.files:
-            if "__as__" not in k:
-                out[k] = numpy_to_tensor(data[k])
-                continue
-            key, dt = k.rsplit("__as__", 1)
-            if dt != "bfloat16":
-                raise NotImplementedError(
-                    f"{name}: {k} holds {dt}, which the port does not read "
-                    f"yet")
-            out[key] = bfloat16_from_bits(data[k])
+            if "__as__" in k:
+                key, dt = k.rsplit("__as__", 1)
+                t = _decode(data[k], dt, name, k)
+                if t is not None:
+                    out[key] = t
+                    continue
+            out[k] = numpy_to_tensor(data[k])
         return out
 
 
@@ -196,11 +246,26 @@ def _load_members(model, zf: zipfile.ZipFile, load_updater: bool, dev):
     if load_updater and "updaterState.npz" in zf.namelist():
         model.opt_states = _unflatten_into(
             model.opt_states, read_npz(zf, "updaterState.npz"), dev)
+    _restore_loss_scale(model, zf, dev)
     if "meta.json" in zf.namelist():
         meta = json.loads(zf.read("meta.json").decode())
         model._iteration = int(meta.get("iteration", 0))
         model._epoch = int(meta.get("epoch", 0))
     return model
+
+
+def _restore_loss_scale(model, zf: zipfile.ZipFile, dev) -> None:
+    """``lossScaleState.npz`` into a model whose policy scales its loss
+    (a member beside any other policy is ignored, as in the JAX reader);
+    the telemetry baseline ``_ls_seen`` follows the restored counters."""
+    if "lossScaleState.npz" not in zf.namelist() \
+            or getattr(model, "_loss_scale_state", None) is None:
+        return
+    flat = read_npz(zf, "lossScaleState.npz")
+    model._loss_scale_state = _unflatten_into(model._loss_scale_state, flat,
+                                              dev)
+    model._ls_seen = (int(flat.get("overflows", 0)),
+                      int(flat.get("skipped_steps", 0)))
 
 
 class ModelSerializer:
@@ -234,6 +299,9 @@ class ModelSerializer:
             if save_updater and model.opt_states is not None:
                 _write_npz(zf, "updaterState.npz",
                            _flatten_with_paths(model.opt_states))
+            if getattr(model, "_loss_scale_state", None) is not None:
+                _write_npz(zf, "lossScaleState.npz",
+                           _flatten_with_paths(model._loss_scale_state))
             meta = {"iteration": model.getIterationCount(),
                     "epoch": model.getEpochCount(),
                     "format": "deeplearning4j_tpu-1",

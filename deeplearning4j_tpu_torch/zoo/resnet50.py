@@ -22,7 +22,8 @@ class ResNet50(ZooModel):
         self.seed = seed
         self.updater = updater or Nesterovs(learning_rate=1e-1, momentum=0.9)
         self.in_shape = in_shape
-        #: only None is ported (a mixed policy raises at build time)
+        #: the precision policy (a preset name or an
+        #: ``nn.precision.PrecisionPolicy``)
         self.precision = precision
 
     # -- block builders --------------------------------------------------

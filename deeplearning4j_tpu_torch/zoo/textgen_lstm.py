@@ -21,7 +21,8 @@ class TextGenerationLSTM(ZooModel):
         self.seed = seed
         self.updater = updater or Adam(1e-3)
         self.tbptt_length = tbptt_length
-        #: only None is ported (a mixed policy raises at build time)
+        #: the precision policy (a preset name or an
+        #: ``nn.precision.PrecisionPolicy``)
         self.precision = precision
 
     def conf(self):

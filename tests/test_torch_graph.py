@@ -560,8 +560,6 @@ def test_unported_parts_raise_with_their_roadmap_item():
     # iterators are ported: a plain Python iterator is no DataSetIterator
     with pytest.raises(TypeError, match="DataSet"):
         g.fit(iter([DataSet(x, y)]))
-    with pytest.raises(NotImplementedError, match="A2"):
-        ResNet50(precision="mixed_bfloat16").conf()
     with pytest.raises(RuntimeError, match="init"):
         ComputationGraph(cut_resnet_conf(), device="cpu").output(x)
     with pytest.raises(ValueError, match="setInputTypes"):
