@@ -295,6 +295,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    doubling after ``growth_interval`` (2) clean steps, the loss-scale
    state equal on both devices. The phase's B5 and batch-norm launches
    are added to their rows.
+20. the vision zoo: (a) ``zoo.YOLO2()`` at its published widths
+   (608x608x3, 80 COCO classes, 5 anchors, a 19x19x425 output) under
+   ``mixed_bfloat16`` through ``ComputationGraph.fit`` at batch 16 on a
+   synthetic batch with YOLO labels from a numpy seed: 2 warm-up and 10
+   timed steps, ms a step, images/s, peak memory, finite falling losses,
+   one launch of each batch-norm kernel per layer per step on f32 inputs,
+   a profiled step's idle share and device time by group (batch norm,
+   conv, activation/add, loss, updater); (b) ``output()`` of that batch
+   and ``YoloUtils.getPredictedObjects`` (decode and NMS on the card), ms
+   of each, then the cut YOLO2 (128x128, 3 classes) with planted
+   detections: the card's lists equal the CPU's; ties take the first
+   index on the card (NMS, anchor responsibility); (c) ``zoo.Xception()``
+   at 299x299x3, 1000 classes, ``mixed_bfloat16``, batch 32: ms a step,
+   images/s, peak memory, idle share; (d) VGG16, VGG19, Darknet19,
+   TinyYOLO, SqueezeNet, UNet, InceptionResNetV1, FaceNetNN4Small2 and
+   NASNet at their defaults (f32), two steps at batch 4: parameters, ms,
+   peak memory, finite losses and parameters that moved; (e) YOLO2,
+   Xception, NASNet and UNet at the CPU tests' cut sizes, card against
+   CPU at f32 (``VISION_TOL``); (f) the three batch-norm kernels against
+   their plain versions at the zoo's new shapes (``VISION_BN_SHAPES``), in
+   f32 and bf16, with each kernel's event ms and share of its bound. The
+   batch-norm launches of (a)-(d) are added to their rows.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -306,8 +328,9 @@ port found from the current directory: an earlier design can be timed in
 the same chip call as this one. ``python3 chip_smoke.py resnet50-step
 TAG`` runs phase 15 alone the same way, ``python3 chip_smoke.py
 lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
-phase 17, ``python3 chip_smoke.py seq2seq`` phase 18 and ``python3
-chip_smoke.py precision`` phase 19.
+phase 17, ``python3 chip_smoke.py seq2seq`` phase 18, ``python3
+chip_smoke.py precision`` phase 19 and ``python3 chip_smoke.py vision``
+phase 20.
 """
 
 from __future__ import annotations
@@ -3870,15 +3893,24 @@ def phase_lenet() -> None:
 def graph_macs(conf) -> int:
     """Multiply-adds per example of a graph's convolutions and dense
     layers, from the shapes its configuration gives them."""
-    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
-                                                         DenseLayer)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ConvolutionLayer, DenseLayer, SeparableConvolution2D)
+    from deeplearning4j_tpu_torch.nn.conf.layers_extra import (
+        DepthwiseConvolution2D)
 
     types = dict(zip(conf.network_inputs, conf.input_types))
     macs = 0
     for node in conf.nodes:
         out = node.vertex.output_type([types[s] for s in node.inputs])
         layer = getattr(node.vertex, "layer", None)
-        if isinstance(layer, ConvolutionLayer):
+        if isinstance(layer, (SeparableConvolution2D,
+                              DepthwiseConvolution2D)):
+            kh, kw = layer.kernel_size
+            mid = layer.n_in * layer.depth_multiplier
+            macs += out.height * out.width * mid * kh * kw
+            if isinstance(layer, SeparableConvolution2D):
+                macs += out.height * out.width * mid * out.channels
+        elif isinstance(layer, ConvolutionLayer):
             kh, kw = layer.kernel_size
             macs += out.height * out.width * out.channels * kh * kw \
                 * layer.n_in
@@ -5431,6 +5463,582 @@ def precision_parity(smi: str, add) -> None:
                      f"iterations; {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------- the vision zoo
+#: phase 20: YOLO2 at its published widths (608x608x3, 80 COCO classes, 5
+#: anchors: a 19x19 grid, 425 output channels) and Xception at 299x299x3,
+#: 1000 classes, each under mixed_bfloat16
+YOLO2_BATCH, YOLO2_HW, YOLO2_CLASSES = 16, 608, 80
+#: (a)'s rate: from random weights on random images the zoo's Nesterovs
+#: (1e-3, 0.9) took YOLO2's loss to NaN by the fourth step on the card
+#: (696.8, 871.1, 1192.0, nan; YOLO training starts with a burn-in); at
+#: 1e-5 it fell 709 -> 394-470 over 13 steps at batch 2 on the CPU
+YOLO2_LR = 1e-5
+XCEPTION_BATCH, XCEPTION_HW = 32, 299
+#: (d): the other nine builders at their defaults, two steps at batch 4
+ZOO_BATCH, ZOO_STEPS = 4, 2
+#: (e) card against CPU at f32 at the CPU tests' cut sizes, with their
+#: updaters and tolerances (tests/test_torch_zoo_vision.py): outputs of
+#: max(1, |value|), losses relative, parameters absolute
+VISION_TOL = (1e-4, 1e-4, 1e-3)
+VISION_PARITY_BATCH = 2
+#: (f) the batch-norm kernels at the zoo's new shapes: (model, batch, H,
+#: W, C); YOLO2's first and last widths, Xception's entry and middle
+#: flows, NASNet's first cell (44 channels: not a 16-byte group in bf16)
+#: and InceptionResNetV1's block17 projection
+VISION_BN_SHAPES = (("YOLO2", 16, 608, 608, 32), ("YOLO2", 16, 19, 19, 1024),
+                    ("Xception", 32, 150, 150, 32),
+                    ("Xception", 32, 19, 19, 728),
+                    ("NASNet", 4, 112, 112, 44),
+                    ("InceptionResNetV1", 4, 8, 8, 896))
+
+
+def yolo_labels(n: int, grid: int, classes: int, seed: int,
+                share: float = 0.1) -> np.ndarray:
+    """``[n, grid, grid, 4 + classes]`` YOLO labels from a numpy seed, as
+    ``tests/test_zoo_extended.py::TestYOLO2`` builds them: about ``share``
+    of the cells hold an object, a box (x1, y1, x2, y2) in grid units
+    around a point of the cell, 0.3-4 cells a side, and a one-hot class;
+    the other cells are zero."""
+    rng = np.random.RandomState(seed)
+    y = np.zeros((n, grid, grid, 4 + classes), np.float32)
+    ii, gy, gx = np.nonzero(rng.rand(n, grid, grid) < share)
+    cx, cy = gx + rng.rand(len(ii)), gy + rng.rand(len(ii))
+    bw, bh = rng.uniform(0.3, 4.0, (2, len(ii)))
+    y[ii, gy, gx, 0], y[ii, gy, gx, 1] = cx - bw / 2, cy - bh / 2
+    y[ii, gy, gx, 2], y[ii, gy, gx, 3] = cx + bw / 2, cy + bh / 2
+    y[ii, gy, gx, 4 + rng.randint(0, classes, len(ii))] = 1.0
+    return y
+
+
+#: the activations' ops: the leaky ReLU is ``where(x >= 0, x, a * x)``,
+#: and it runs inside the ``BatchNormalization`` layer's record range
+ACTIVATION_OPS = ("aten::where", "aten::ge", "aten::mul")
+ACTIVATION_BACKWARD = ("WhereBackward", "MulBackward")
+
+
+def vision_group(chain) -> str:
+    """``kernel_group`` with the YOLO loss head as its own group and the
+    activation that a batch-norm layer applies (its ``where`` / ``ge`` /
+    ``mul`` forward, their backward) apart from the batch norm."""
+    text = " | ".join(chain)
+    if "dl4j::Yolo2OutputLayer" in text:
+        return "loss"
+    if "BatchNormKernels" in text:
+        return BN_GROUP
+    if (chain[0] in ACTIVATION_OPS and "dl4j::BatchNormalization" in text) \
+            or any(k in text for k in ACTIVATION_BACKWARD):
+        return "activation/add"
+    g = kernel_group(chain)
+    return "activation/add" if g == "ReLU/add" else g
+
+
+def bn_layers(conf) -> int:
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+
+    nodes = getattr(conf, "nodes", None)
+    layers = ([getattr(n.vertex, "layer", None) for n in nodes]
+              if nodes is not None else conf.layers)
+    return sum(isinstance(v, BatchNormalization) for v in layers)
+
+
+def timed_fit(net, x, y, warmup: int, timed: int) -> tuple:
+    """``warmup`` then ``timed`` steps of ``net.fit(x, y)``: (losses, ms a
+    timed step, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / timed * 1e3
+    return ([float(v) for v in losses], ms,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_vision(smi: str, rows) -> None:
+    """Phase 20: the vision zoo on the card, (a)-(f); the batch-norm
+    launches of (a)-(d) go to the batch-norm rows."""
+    t0 = time.perf_counter()
+    totals = {}
+
+    def add(key, n):
+        totals[key] = totals.get(key, 0) + n
+
+    torch.backends.cudnn.benchmark = True
+    try:
+        net, x = vision_yolo2_train(smi, add)
+        vision_yolo2_decode(net, x, smi)
+        del net, x
+        torch.cuda.empty_cache()
+        vision_xception(smi, add)
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    # (d) without autotuning: two steps would not repay it (UNet's f32
+    # convolutions at 512x512x64 autotuned for ~100 s, to a 68 GiB peak)
+    vision_zoo(smi, add)
+    torch.cuda.empty_cache()
+    vision_ties()
+    vision_parity()
+    torch.cuda.empty_cache()
+    vision_bn_kernels(smi)
+    for key, n in totals.items():
+        rows[key]["launches"] = rows[key].get("launches", 0) + n
+    say("vision", "batch-norm launches in phase 20 (added to their rows): "
+        + ", ".join(f"{k} {n}" for k, n in totals.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def vision_yolo2_train(smi: str, add) -> tuple:
+    """(a) ``zoo.YOLO2()`` at 608x608x3, 80 classes, 5 anchors, under
+    mixed_bfloat16 through ``ComputationGraph.fit`` at batch 16 with
+    Nesterovs(``YOLO2_LR``, 0.9): 2 warm-up and 10 timed steps on one
+    synthetic batch, ms a step, images/s, peak memory, finite and falling
+    losses, one launch of each batch-norm kernel per layer per step on f32
+    inputs (the islands), then a profiled step: idle share and device time
+    by group. Returns the network and the batch for (b)."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+
+    t0 = time.perf_counter()
+    B, HW, C = YOLO2_BATCH, YOLO2_HW, YOLO2_CLASSES
+    conf = YOLO2(num_classes=C, in_shape=(HW, HW, 3),
+                 updater=Nesterovs(YOLO2_LR, 0.9)).conf()
+    conf.precision = "mixed_bfloat16"
+    net = ComputationGraph(conf, device=DEVICE).init()
+    n_params, n_bn = net.numParams(), bn_layers(conf)
+    grid = HW // 32
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.normal(0, 1, (B, HW, HW, 3)).astype(
+        np.float32)).to(DEVICE, net._input_dtype)
+    y = torch.from_numpy(yolo_labels(B, grid, C, seed=1)).to(DEVICE)
+    macs = graph_macs(conf)
+    flops = 6 * macs * B
+    say("vision", f"(a) YOLO2(num_classes={C}, in_shape=({HW}, {HW}, 3)): "
+                  f"{n_params} parameters, {len(conf.nodes)} nodes ({n_bn} "
+                  f"batch norms), output {grid}x{grid}x{5 * (5 + C)}, "
+                  f"mixed_bfloat16, Nesterovs({YOLO2_LR:g}, 0.9), batch {B}; "
+                  f"{macs / 1e9:.3f} GMAC per image forward; "
+                  f"{int(y[..., 4:].sum())} objects in the labels")
+    seen, restore = record_bn_dtypes()
+    try:
+        reset_bn_counts()
+        losses, step_ms, peak = timed_fit(net, x, y, WARMUP_STEPS,
+                                          TIMED_STEPS)
+        launches = bn_counts()
+    finally:
+        restore()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    for name, k in zip((r[0] for r in BN_ROWS), launches):
+        add(name, k)
+    check(all(math.isfinite(v) for v in losses),
+          f"vision (a): YOLO2 losses {losses}")
+    check(losses[-1] < losses[0], f"vision (a): the YOLO2 loss did not fall "
+                                  f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    check(launches == (n_bn * steps,) * 3,
+          f"vision (a): batch-norm launches {launches}, not {n_bn} x {steps}")
+    check(seen == {torch.float32},
+          f"vision (a): the batch-norm kernels ran on {seen}, not f32")
+    check(float_dtypes(net.params_map) == {torch.float32},
+          "vision (a): a master left f32")
+    say("vision", f"(a) YOLO2 {TIMED_STEPS} timed steps: {step_ms:.2f} "
+                  f"ms/step, {B / step_ms * 1e3:.1f} images/s, "
+                  f"{flops / step_ms / 1e9:.1f} TFLOP/s counted; peak memory "
+                  f"{peak / 2 ** 30:.2f} GiB; batch-norm launches a step "
+                  f"{tuple(k // steps for k in launches)} ({n_bn} layers, "
+                  f"f32 inputs); losses "
+                  + " ".join(f"{v:.4f}" for v in losses) + f"; {smi}")
+    reset_bn_counts()
+    busy = device_profile(
+        "vision", f"(a) one profiled YOLO2 step (unprofiled {step_ms:.2f} "
+                  f"ms; {smi})", lambda: net.fit(x, y),
+        ("bn_reduce_kernel", "bn_apply_kernel"), group=vision_group, top=10)
+    for name, k in zip((r[0] for r in BN_ROWS), bn_counts()):
+        add(name, k)
+    if busy:
+        say("vision", f"(a) YOLO2 idle about {1 - busy / step_ms:.3f} of a "
+                      f"step ({busy:.2f} ms busy of {step_ms:.2f}); "
+                      f"{time.perf_counter() - t0:.1f} s")
+    return net, x
+
+
+def vision_yolo2_decode(net, x, smi: str) -> None:
+    """(b) ``output()`` of (a)'s batch, then ``YoloUtils
+    .getPredictedObjects`` on the card (decode, objectness threshold 0.5,
+    NMS 0.4, 50 objects an image; and at 0.05, where the trained head
+    leaves boxes to suppress): ms of each, three times; then the cut
+    YOLO2 (128x128, 3 classes) on the card and the CPU from the same
+    weights, a detection planted in its activations: the card's lists
+    equal the CPU's."""
+    from deeplearning4j_tpu_torch.nn.conf.objdetect import YoloUtils
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.params import tree_map
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+
+    layer = next(n.vertex.layer for n in net.conf.nodes if n.name == "yolo")
+    fwd, dec, low = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = net.outputSingle(x)
+        torch.cuda.synchronize()
+        fwd.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        dets = YoloUtils.getPredictedObjects(layer, out)
+        dec.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        many = YoloUtils.getPredictedObjects(layer, out, 0.05, 0.4, 50)
+        low.append((time.perf_counter() - t) * 1e3)
+    check(out.dtype == torch.float32 and tuple(out.shape) == (
+        x.shape[0], YOLO2_HW // 32, YOLO2_HW // 32, 5 * (5 + YOLO2_CLASSES))
+        and bool(torch.isfinite(out).all()),
+        f"vision (b): output {out.dtype} {tuple(out.shape)}")
+    check(len(dets) == x.shape[0], f"vision (b): {len(dets)} lists")
+    say("vision", f"(b) YOLO2 output() of batch {x.shape[0]}: "
+                  + ", ".join(f"{v:.2f}" for v in fwd) + " ms; decode + NMS "
+                  "on the card (getPredictedObjects, 0.5 / 0.4, 50 a image): "
+                  + ", ".join(f"{v:.2f}" for v in dec) + " ms; detections "
+                  f"per image {[len(d) for d in dets]}; at objectness 0.05 "
+                  + ", ".join(f"{v:.2f}" for v in low) + " ms, detections "
+                  f"{[len(d) for d in many]}; {smi}")
+    del out, dets, many
+
+    conf = YOLO2(num_classes=3, in_shape=(128, 128, 3)).conf()
+    cpu = ComputationGraph(conf, device="cpu").init()
+    card = ComputationGraph(conf, device=DEVICE).init()
+    card.params_map = tree_map(lambda t: t.to(DEVICE), cpu.params_map)
+    card.states_map = tree_map(lambda t: t.to(DEVICE), cpu.states_map)
+    xs = np.random.RandomState(5).normal(0, 1, (2, 128, 128, 3)).astype(
+        np.float32)
+    outs = [cpu.outputSingle(xs), card.outputSingle(xs)]
+    err = close_card_cpu("vision (b) cut YOLO2 output", outs[1], outs[0],
+                         VISION_TOL[0])
+    cut_layer = next(n.vertex.layer for n in conf.nodes if n.name == "yolo")
+    lists = []
+    for dev, o in zip(("cpu", DEVICE), outs):
+        o = o.detach().clone().reshape(2, 4, 4, 5, 8)
+        o[..., 4] = -8.0                       # no objectness anywhere ...
+        o[:, 1, 2, 0] = torch.tensor([0.0, 0.0, 0.0, 0.0, 8.0, -8, -8, 8])
+        #                                ... but one object, class 2, and
+        o[:, 1, 2, 1] = torch.tensor([0.0, 0.0, -0.7, -0.7, 6.0, -8, -8, 6])
+        #                                its duplicate, suppressed by NMS;
+        o[1, 3, 0, 2] = torch.tensor([0.3, -0.2, 0.1, 0.2, 5.0, -8, 9, -8])
+        #                                a second object, class 1
+        lists.append(YoloUtils.getPredictedObjects(
+            cut_layer, o.reshape(2, 4, 4, 40), 0.5, 0.4, 10, device=dev))
+    got = [[(d.getPredictedClass(), d.getCenterX(), d.getCenterY(),
+             d.getWidth(), d.getHeight(), d.getConfidence()) for d in ds]
+           for ds in lists[1]]
+    want = [[(d.getPredictedClass(), d.getCenterX(), d.getCenterY(),
+              d.getWidth(), d.getHeight(), d.getConfidence()) for d in ds]
+            for ds in lists[0]]
+    classes = [[t[0] for t in d] for d in want]
+    check(classes == [[2], [2, 1]], f"vision (b): the CPU decoded {want}")
+    check([[t[0] for t in d] for d in got] == [[t[0] for t in d]
+                                                for d in want]
+          and all(abs(a - b) <= 1e-6 for dg, dw in zip(got, want)
+                  for tg, tw in zip(dg, dw) for a, b in zip(tg[1:], tw[1:])),
+          f"vision (b): the card decoded {got}, the CPU {want}")
+    say("vision", f"(b) cut YOLO2 (128x128, 3 classes) card against CPU at "
+                  f"f32: output {err:.2e} (tolerance {VISION_TOL[0]:g} of "
+                  f"max(1, |value|)); planted detections decode to the same "
+                  f"lists on both (classes {[[t[0] for t in d] for d in got]},"
+                  f" coordinates and confidences within 1e-6)")
+
+
+def vision_ties() -> None:
+    """The first index on a tie, on the card as on the CPU: NMS over equal
+    scores, and the Yolo loss's anchor responsibility where a square
+    object ties two anchors (the first takes the gradient)."""
+    from deeplearning4j_tpu_torch.nn.conf.objdetect import Yolo2OutputLayer
+    from deeplearning4j_tpu_torch.ops.image import non_max_suppression
+
+    boxes = torch.tensor([[[0, 0, 1, 1], [5, 5, 6, 6], [0, 0, 1, 1.0],
+                           [5, 5, 6, 6]]])
+    scores = torch.full((1, 4), 0.5)
+    res = [non_max_suppression(boxes.to(d), scores.to(d), 4, 0.5)
+           for d in ("cpu", DEVICE)]
+    check(res[0][0].tolist() == res[1][0].cpu().tolist() == [[0, 1, -1, -1]],
+          f"vision: NMS on tied scores {res[0][0].tolist()} (CPU), "
+          f"{res[1][0].tolist()} (card)")
+    layer = Yolo2OutputLayer(anchors=((1.0, 2.0), (2.0, 1.0)))
+    y = torch.zeros(1, 4, 4, 7)
+    y[0, 1, 2, :4] = torch.tensor([1.75, 0.75, 3.25, 2.25])
+    y[0, 1, 2, 6] = 1.0
+    xg = torch.from_numpy(np.random.RandomState(2).normal(
+        0, 0.5, (1, 4, 4, 16)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", DEVICE):
+        xt = xg.detach().to(dev).clone().requires_grad_(True)
+        layer.loss_value({}, {}, xt, y.to(dev)).backward()
+        grads.append(xt.grad.reshape(1, 4, 4, 2, 8)[0, 1, 2].cpu())
+    keys = [0, 1, 2, 3, 5, 6, 7]
+    check(all(bool((g[0, keys] != 0).all()) and bool((g[1, keys] == 0).all())
+              for g in grads),
+          f"vision: anchor tie: box gradients {grads}")
+    say("vision", "ties take the first index on the card as on the CPU: NMS "
+                  "[0, 1, -1, -1] on equal scores, the first of two tied "
+                  "anchors responsible in the Yolo loss")
+
+
+def vision_xception(smi: str, add) -> None:
+    """(c) ``zoo.Xception()`` at 299x299x3, 1000 classes, under
+    mixed_bfloat16 at batch 32 with its Adam(1e-3): 2 warm-up and 10 timed
+    steps, ms a step, images/s, peak memory, a profiled step's idle share
+    and device time by group."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import Xception
+
+    t0 = time.perf_counter()
+    B, HW = XCEPTION_BATCH, XCEPTION_HW
+    conf = Xception(num_classes=1000, in_shape=(HW, HW, 3)).conf()
+    conf.precision = "mixed_bfloat16"
+    net = ComputationGraph(conf, device=DEVICE).init()
+    n_bn = bn_layers(conf)
+    x, y = image_batch(B, HW, 3, 1000, seed=2)
+    x = torch.from_numpy(x).to(DEVICE, net._input_dtype)
+    y = torch.from_numpy(y).to(DEVICE)
+    reset_bn_counts()
+    losses, step_ms, peak = timed_fit(net, x, y, WARMUP_STEPS, TIMED_STEPS)
+    launches = bn_counts()
+    for name, k in zip((r[0] for r in BN_ROWS), launches):
+        add(name, k)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    check(all(math.isfinite(v) for v in losses),
+          f"vision (c): Xception losses {losses}")
+    check(launches == (n_bn * steps,) * 3,
+          f"vision (c): batch-norm launches {launches}, not {n_bn} x {steps}")
+    say("vision", f"(c) Xception(num_classes=1000) ({net.numParams()} "
+                  f"parameters, {len(conf.nodes)} nodes, {n_bn} batch norms) "
+                  f"mixed_bfloat16 at batch {B} x {HW}x{HW}x3, Adam(1e-3): "
+                  f"{step_ms:.2f} ms/step, {B / step_ms * 1e3:.1f} images/s; "
+                  f"peak memory {peak / 2 ** 30:.2f} GiB; losses "
+                  + " ".join(f"{v:.4f}" for v in losses) + f"; {smi}")
+    reset_bn_counts()
+    busy = device_profile(
+        "vision", f"(c) one profiled Xception step (unprofiled "
+                  f"{step_ms:.2f} ms; {smi})", lambda: net.fit(x, y),
+        ("bn_reduce_kernel", "bn_apply_kernel", "onv"), group=vision_group,
+        top=10)
+    for name, k in zip((r[0] for r in BN_ROWS), bn_counts()):
+        add(name, k)
+    if busy:
+        say("vision", f"(c) Xception idle about {1 - busy / step_ms:.3f} of "
+                      f"a step ({busy:.2f} ms busy); "
+                      f"{time.perf_counter() - t0:.1f} s")
+    del net, x, y
+
+
+def zoo_cases() -> list:
+    """(d)'s nine models at their defaults: (name, builder, input shape,
+    labels of a batch of ``ZOO_BATCH``)."""
+    from deeplearning4j_tpu_torch import zoo
+
+    rng = np.random.RandomState(3)
+
+    def onehot(k):
+        return np.eye(k, dtype=np.float32)[rng.randint(0, k, ZOO_BATCH)]
+
+    tiny = zoo.TinyYOLO()
+    return [
+        ("VGG16", zoo.VGG16(), onehot(1000)),
+        ("VGG19", zoo.VGG19(), onehot(1000)),
+        ("Darknet19", zoo.Darknet19(), onehot(1000)),
+        ("TinyYOLO", tiny, yolo_labels(ZOO_BATCH, 13, tiny.num_classes, 4)),
+        ("SqueezeNet", zoo.SqueezeNet(), onehot(1000)),
+        ("UNet", zoo.UNet(), (rng.rand(ZOO_BATCH, 512, 512, 1) > 0.5)
+         .astype(np.float32)),
+        ("InceptionResNetV1", zoo.InceptionResNetV1(), onehot(1000)),
+        ("FaceNetNN4Small2", zoo.FaceNetNN4Small2(), onehot(1000)),
+        ("NASNet", zoo.NASNet(), onehot(1000)),
+    ]
+
+
+def vision_zoo(smi: str, add) -> None:
+    """(d) The other nine models at their default widths (f32, their own
+    updaters): init on the card, two ``fit`` steps at batch 4; the
+    parameter count, ms of the second step, peak memory; losses and
+    parameters finite, and the parameters moved."""
+    from deeplearning4j_tpu_torch.params import tree_leaves
+
+    for name, model, y in zoo_cases():
+        t0 = time.perf_counter()
+        net = model.init(device=DEVICE)
+        h, w, c = model.in_shape
+        x = torch.from_numpy(np.random.RandomState(6).rand(
+            ZOO_BATCH, h, w, c).astype(np.float32)).to(DEVICE)
+        yt = torch.from_numpy(y).to(DEVICE)
+        tree = getattr(net, "params_map", None) or net.params_list
+        before = [t.detach().clone() for t in tree_leaves(tree)[:4]]
+        reset_bn_counts()
+        losses, step_ms, peak = timed_fit(net, x, yt, ZOO_STEPS - 1, 1)
+        for key, k in zip((r[0] for r in BN_ROWS), bn_counts()):
+            add(key, k)
+        leaves = tree_leaves(getattr(net, "params_map", None)
+                             or net.params_list)
+        finite = all(bool(torch.isfinite(t).all()) for t in leaves)
+        moved = max(float((a - b).abs().max())
+                    for a, b in zip(leaves[:4], before))
+        check(all(math.isfinite(v) for v in losses) and finite,
+              f"vision (d) {name}: losses {losses}, parameters finite "
+              f"{finite}")
+        check(moved > 0, f"vision (d) {name}: no parameter moved")
+        say("vision", f"(d) {name} ({net.numParams()} parameters, "
+                      f"{h}x{w}x{c}, f32) {ZOO_STEPS} steps at batch "
+                      f"{ZOO_BATCH}: second step {step_ms:.2f} ms, peak "
+                      f"memory {peak / 2 ** 30:.2f} GiB, losses "
+                      + " ".join(f"{v:.4f}" for v in losses)
+                      + f", first weights moved by up to {moved:.2e}; "
+                      f"{time.perf_counter() - t0:.1f} s; {smi}")
+        del net, x, yt, leaves, before
+        torch.cuda.empty_cache()
+
+
+def vision_parity() -> None:
+    """(e) YOLO2 (128x128, 3 classes), Xception (71x71, one middle block),
+    NASNet (32x32, one cell a stage) and UNet (32x32, base 4, depth 2) at
+    f32 (TF32 off) on the card and on the CPU from the CPU network's
+    weights: the outputs, then three steps at the CPU tests' Nesterovs
+    rates, losses and parameters within ``VISION_TOL``."""
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.params import tree_map
+
+    rng = np.random.RandomState(7)
+    nb = VISION_PARITY_BATCH
+    g4 = np.zeros((nb, 4, 4, 7), np.float32)
+    g4[:, 1, 1, :4] = (0.3, 0.3, 0.6, 0.6)
+    g4[:, 1, 1, 4] = 1.0
+    cases = [
+        ("YOLO2", zoo.YOLO2(num_classes=3, in_shape=(128, 128, 3),
+                            updater=Nesterovs(1e-8, 0.9)),
+         rng.normal(0, 1, (nb, 128, 128, 3)), g4),
+        ("Xception", zoo.Xception(num_classes=5, in_shape=(71, 71, 3),
+                                  middle_blocks=1,
+                                  updater=Nesterovs(1e-4, 0.9)),
+         rng.rand(nb, 71, 71, 3), np.eye(5)[rng.randint(0, 5, nb)]),
+        ("NASNet", zoo.NASNet(num_classes=3, in_shape=(32, 32, 3),
+                              num_cells=1, penultimate_filters=96,
+                              stem_filters=8, updater=Nesterovs(1e-3, 0.9)),
+         rng.rand(nb, 32, 32, 3), np.eye(3)[rng.randint(0, 3, nb)]),
+        ("UNet", zoo.UNet(in_shape=(32, 32, 3), base_filters=4, depth=2,
+                          updater=Nesterovs(1e-3, 0.9)),
+         rng.rand(nb, 32, 32, 3), (rng.rand(nb, 32, 32, 1) > 0.5)),
+    ]
+    for name, model, x, y in cases:
+        t0 = time.perf_counter()
+        x, y = x.astype(np.float32), y.astype(np.float32)
+        cpu = model.init(device="cpu")
+        card = model.init(device=DEVICE)
+        card.params_map = tree_map(lambda t: t.to(DEVICE), cpu.params_map)
+        card.states_map = tree_map(lambda t: t.to(DEVICE), cpu.states_map)
+        card.opt_states = tree_map(
+            lambda t: t.to(DEVICE) if torch.is_tensor(t) else t,
+            cpu.opt_states)
+        out = close_card_cpu(f"vision (e) {name} output",
+                             card.outputSingle(x), cpu.outputSingle(x),
+                             VISION_TOL[0])
+        lc, lh = [], []
+        for _ in range(PARITY_STEPS):
+            card.fit(x, y)
+            cpu.fit(x, y)
+            lc.append(card.score())
+            lh.append(cpu.score())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        check(all(math.isfinite(v) for v in lc + lh)
+              and rel <= VISION_TOL[1],
+              f"vision (e) {name}: losses card {lc}, CPU {lh}")
+        perr = max(float((card.params_map[n][k].cpu() - v).abs().max())
+                   for n, p in cpu.params_map.items() for k, v in p.items())
+        check(perr <= VISION_TOL[2],
+              f"vision (e) {name}: parameters differ by {perr:.3e}")
+        say("vision", f"(e) {name} card against CPU at f32 "
+                      f"({cpu.numParams()} parameters, batch {nb}): output "
+                      f"{out:.2e}, {PARITY_STEPS} steps' losses {rel:.2e} "
+                      f"relative, parameters {perr:.2e} (tolerances "
+                      f"{VISION_TOL[0]:g} of max(1, |value|), "
+                      f"{VISION_TOL[1]:g}, {VISION_TOL[2]:g}); "
+                      f"{time.perf_counter() - t0:.1f} s")
+        del cpu, card
+
+
+def vision_bn_kernels(smi: str) -> None:
+    """(f) The three batch-norm kernels at the zoo's new shapes
+    (``VISION_BN_SHAPES``), in f32 (the islands of (a) and (c), and (d)'s
+    f32) and in bf16 (the identity policy; NASNet's 44 channels take the
+    one-element plan there): against their plain versions on the card as
+    phase 11b holds them (statistics within ``BN_STATS_TOL``, apply bit for
+    bit, backward within ``BN_DX_TOL`` for bf16 or 1e-5 for f32 and
+    ``BN_SUM_TOL``), then each kernel's event ms and share of its bound.
+    These calls are checks, not main-path launches."""
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+
+    before = bn_counts()
+    for model, n, h, w, c in VISION_BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=DEVICE).manual_seed(h * c)
+            x = (torch.randn(n * h * w, c, generator=g, device=DEVICE) * 2
+                 + 0.5).to(dtype)
+            dy = torch.randn(x.shape, generator=g, device=DEVICE).to(dtype)
+            gamma = torch.rand(c, generator=g, device=DEVICE) + 0.5
+            beta = torch.randn(c, generator=g, device=DEVICE)
+            m, v = bn.bn_stats_kernel(x)
+            rm, rv = bn.bn_stats_reference(x, (0,))
+            e_stats = max(float((a - b).abs().max()) / max(1.0, float(
+                b.abs().max())) for a, b in ((m, rm), (v, rv)))
+            del rm, rv
+            y = bn.bn_apply_kernel(x, m, v, gamma, beta, 1e-5, True)
+            same = torch.equal(y, bn.bn_apply_reference(
+                x, m, v, gamma, beta, 1e-5, True))
+            del y
+            dx, dg, db = bn.bn_backward_kernel(x, dy, m, v, gamma, beta,
+                                               1e-5, True)
+            wx, wg, wb = bn.bn_backward_reference(x, dy, gamma, beta, m, v,
+                                                  1e-5, True, (0,))
+            torch.cuda.synchronize()
+            e_dx = float((dx.float() - wx.float()).abs().max()) / float(
+                wx.float().abs().max())
+            gsum = float(dy.float().abs().sum(0).max())
+            e_db = float((db - wb).abs().max()) / gsum
+            e_dg = float((dg - wg).abs().max()) / float(
+                (dy.float() * (x.float() - m) * torch.rsqrt(v + 1e-5)).abs()
+                .sum(0).max())
+            del dx, wx
+            dx_tol = BN_DX_TOL if dtype == torch.bfloat16 else 1e-5
+            tag = (f"{model} {h}x{w}x{c} N={n} "
+                   f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+            check(e_stats <= BN_STATS_TOL and same and e_dx <= dx_tol
+                  and max(e_db, e_dg) <= BN_SUM_TOL,
+                  f"vision (f) {tag}: statistics {e_stats:.2e}, apply "
+                  f"bit-equal {same}, dx {e_dx:.2e}, dbeta {e_db:.2e}, "
+                  f"dgamma {e_dg:.2e}")
+            ms = [cuda_ms(lambda i: bn.bn_stats_kernel(x), 10, 2),
+                  cuda_ms(lambda i: bn.bn_apply_kernel(x, m, v, gamma, beta),
+                          10, 2),
+                  cuda_ms(lambda i: bn.bn_backward_kernel(
+                      x, dy, m, v, gamma, beta), 10, 2)]
+            vec = bn.reduce_plan(x.shape[0], c, x.element_size(),
+                                 x.data_ptr() % 16 == 0).vec
+            say("vision", f"(f) {tag} ({x.shape[0]} rows; plan vec "
+                          f"{vec}): statistics {e_stats:.1e}, apply "
+                          f"bit-equal, dx {e_dx:.1e}, dgamma {e_dg:.1e}, "
+                          f"dbeta {e_db:.1e}; " + ", ".join(
+                              f"{name} {t:.4f} ms ({b[0] / t:.3f} of its "
+                              f"bound {b[0]:.4f} by {b[1]})"
+                              for (name, _, _), t, b in zip(
+                                  BN_ROWS, ms, bn_bounds(x)))
+                          + f"; {smi}")
+            del x, dy, m, v
+    torch.cuda.empty_cache()
+    bn.stats_launches, bn.apply_launches, bn.bwd_launches = before
+
+
 def _leaves_of(tree) -> list:
     from deeplearning4j_tpu_torch.params import tree_leaves
 
@@ -5488,6 +6096,13 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_precision(phase_device(), defaultdict(dict), None)
         return 0
+    if argv[:1] == ["vision"]:
+        # phase 20 alone, of the port found from the current directory
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_vision(phase_device(), defaultdict(dict))
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -5519,6 +6134,7 @@ def main(argv) -> int:
     phase_training_loop(smi, resident_ms)
     phase_seq2seq(smi, rows)
     phase_precision(smi, rows, resident_ms)
+    phase_vision(smi, rows)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

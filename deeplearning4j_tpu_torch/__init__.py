@@ -58,6 +58,14 @@ Ported so far:
   ``optimize.listeners``, ``earlystopping``, ``ModelSerializer.writeModel``
   and ``restoreNormalizer``, and ``fit`` over iterators, ``evaluate`` and
   the listeners on both networks;
+- the vision zoo: ``nn.conf`` ``SeparableConvolution2D``,
+  ``Upsampling2D``, ``DepthwiseConvolution2D``, ``SpaceToDepthLayer`` and
+  ``objdetect`` (``Yolo2OutputLayer``, ``YoloUtils``), ``ops.image``
+  (batched NMS), ``ops.shape``, and ``zoo``'s ``SimpleCNN``, ``VGG16``,
+  ``VGG19``, ``Darknet19``, ``TinyYOLO``, ``YOLO2``, ``SqueezeNet``,
+  ``UNet``, ``Xception``, ``InceptionResNetV1``, ``FaceNetNN4Small2`` and
+  ``NASNet``; no hand kernel (the reference's convolutions are ``lax``
+  ops; the batch norm runs the kernels of ``ops.batch_norm``);
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
   ``mln_params_from_numpy``, ``cg_params_from_numpy``,
   ``params_to_numpy``) and ``FlatParams``, the flat f32 master buffer.

@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from deeplearning4j_tpu_torch.ops.transforms import jax_abs, jax_clip
+
 
 def _feature_dims(x):
     return tuple(range(1, x.dim()))
@@ -32,16 +34,16 @@ def l2(labels, output):
 
 
 def l1(labels, output):
-    return torch.sum(torch.abs(output - labels), dim=_feature_dims(output))
+    return torch.sum(jax_abs(output - labels), dim=_feature_dims(output))
 
 
 def mae(labels, output):
-    return torch.mean(torch.abs(output - labels), dim=_feature_dims(output))
+    return torch.mean(jax_abs(output - labels), dim=_feature_dims(output))
 
 
 def mcxent(labels, probs, eps=1e-7):
     """Multi-class cross-entropy on probabilities (post-softmax)."""
-    p = torch.clamp(probs, eps, 1.0)
+    p = jax_clip(probs, eps, 1.0)
     return -torch.sum(labels * torch.log(p), dim=_feature_dims(probs))
 
 
@@ -53,31 +55,35 @@ def softmax_xent_logits(labels, logits):
 
 
 def xent_binary(labels, probs, eps=1e-7):
-    p = torch.clamp(probs, eps, 1 - eps)
+    p = jax_clip(probs, eps, 1 - eps)
     loss = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
     return torch.sum(loss, dim=_feature_dims(probs))
 
 
 def sigmoid_xent_logits(labels, logits):
-    loss = (torch.clamp(logits, min=0) - logits * labels
-            + torch.log1p(torch.exp(-torch.abs(logits))))
+    """``max(z, 0) - z y + log1p(exp(-|z|))`` with JAX's gradients at the
+    kink z == 0 (C13): ``jnp.maximum`` splits a tie and ``jnp.abs`` takes
+    slope 1 there, so the gradient at 0 is ``-y`` (``torch.clamp`` and
+    ``torch.abs`` would give ``1 - y``)."""
+    loss = (jax_clip(logits, lo=0.0) - logits * labels
+            + torch.log1p(torch.exp(-jax_abs(logits))))
     return torch.sum(loss, dim=_feature_dims(logits))
 
 
 def hinge(labels, output):
     """Labels in {-1, 1} (reference: LossHinge)."""
-    return torch.sum(torch.clamp(1.0 - labels * output, min=0.0),
+    return torch.sum(jax_clip(1.0 - labels * output, lo=0.0),
                      dim=_feature_dims(output))
 
 
 def squared_hinge(labels, output):
-    return torch.sum(torch.clamp(1.0 - labels * output, min=0.0) ** 2,
+    return torch.sum(jax_clip(1.0 - labels * output, lo=0.0) ** 2,
                      dim=_feature_dims(output))
 
 
 def kl_divergence(labels, probs, eps=1e-7):
-    p = torch.clamp(probs, eps, 1.0)
-    lc = torch.clamp(labels, eps, 1.0)
+    p = jax_clip(probs, eps, 1.0)
+    lc = jax_clip(labels, eps, 1.0)
     return torch.sum(labels * (torch.log(lc) - torch.log(p)),
                      dim=_feature_dims(probs))
 
@@ -96,7 +102,7 @@ def cosine_proximity(labels, output, eps=1e-8):
 
 
 def huber(labels, output, delta=1.0):
-    d = torch.abs(output - labels)
+    d = jax_abs(output - labels)
     quad = 0.5 * d * d
     lin = delta * d - 0.5 * delta * delta
     return torch.sum(torch.where(d <= delta, quad, lin),
@@ -104,14 +110,14 @@ def huber(labels, output, delta=1.0):
 
 
 def mape(labels, output, eps=1e-7):
-    return torch.mean(100.0 * torch.abs((labels - output)
-                                        / (torch.abs(labels) + eps)),
+    return torch.mean(100.0 * jax_abs((labels - output)
+                                      / (jax_abs(labels) + eps)),
                       dim=_feature_dims(output))
 
 
 def msle(labels, output, eps=1e-7):
-    d = (torch.log1p(torch.clamp(output, min=-1 + eps))
-         - torch.log1p(torch.clamp(labels, min=-1 + eps)))
+    d = (torch.log1p(jax_clip(output, lo=-1 + eps))
+         - torch.log1p(jax_clip(labels, lo=-1 + eps)))
     return torch.mean(d * d, dim=_feature_dims(output))
 
 

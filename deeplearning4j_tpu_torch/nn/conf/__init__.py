@@ -1,4 +1,10 @@
-"""Configurations of the layer framework (the ported subset)."""
+"""Configurations of the layer framework (the ported subset): the
+builders and ``InputType``; the layers of ``layers.py`` (dense and
+output heads, the recurrent family, embeddings, the image layers with
+``SeparableConvolution2D`` and ``Upsampling2D``, the normalizations,
+dropout and flatten); of ``layers_extra.py`` ``DepthwiseConvolution2D``
+and ``SpaceToDepthLayer``; and ``objdetect.py`` whole
+(``Yolo2OutputLayer``, ``DetectedObject``, ``YoloUtils``)."""
 
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     Builder, ListBuilder, MultiLayerConfiguration, NeuralNetConfiguration)
@@ -9,14 +15,22 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     EmbeddingSequenceLayer, FlattenLayer, GlobalPoolingLayer, GravesLSTM,
     LastTimeStep, Layer, LayerNormalization, LocalResponseNormalization,
     LossLayer, OutputLayer, PoolingType, RnnLossLayer, RnnOutputLayer,
-    SimpleRnn, SubsamplingLayer, ZeroPaddingLayer)
+    SeparableConvolution2D, SimpleRnn, SubsamplingLayer, Upsampling2D,
+    ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers_extra import (
+    DepthwiseConvolution2D, SpaceToDepthLayer)
+from deeplearning4j_tpu_torch.nn.conf.objdetect import (
+    DetectedObject, Yolo2OutputLayer, YoloUtils)
 
 __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "NeuralNetConfiguration", "InputType", "Layer", "DenseLayer",
            "OutputLayer", "RnnOutputLayer", "LSTM", "GravesLSTM",
            "ActivationLayer", "PoolingType", "ConvolutionLayer",
-           "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
+           "SeparableConvolution2D", "SubsamplingLayer", "Upsampling2D",
+           "ZeroPaddingLayer", "GlobalPoolingLayer",
            "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
            "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
            "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",
-           "LayerNormalization", "LocalResponseNormalization"]
+           "LayerNormalization", "LocalResponseNormalization",
+           "DepthwiseConvolution2D", "SpaceToDepthLayer",
+           "Yolo2OutputLayer", "DetectedObject", "YoloUtils"]

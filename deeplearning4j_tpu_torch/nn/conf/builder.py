@@ -26,13 +26,15 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, Bidirectional, ConvolutionLayer, DenseLayer, EmbeddingLayer,
     LastTimeStep, Layer, LocalResponseNormalization, RnnOutputLayer,
-    SimpleRnn, SubsamplingLayer, ZeroPaddingLayer)
+    SimpleRnn, SubsamplingLayer, Upsampling2D, ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers_extra import SpaceToDepthLayer
 # registers PrecisionPolicy with the JSON serde
 from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy  # noqa: F401
 
 #: ported layers that consume image [N, H, W, C] input
-_CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer,
-                 LocalResponseNormalization)
+_CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, Upsampling2D,
+                 ZeroPaddingLayer, LocalResponseNormalization,
+                 SpaceToDepthLayer)
 #: ported layers that consume sequence [N, T, F] input
 _RNN_LAYERS = (LSTM, SimpleRnn, LastTimeStep, Bidirectional, RnnOutputLayer)
 

@@ -11,8 +11,10 @@ functions of tensors:
 
 Parameter names and layouts follow the JAX package (``W`` ``[in, out]``,
 ``b``; the LSTM's ``W`` ``[in, 4H]``, ``RW`` ``[H, 4H]``, ``b`` ``[4H]``
-with gates i, f, g, o; conv ``W`` HWIO ``[kh, kw, C_in, C_out]``; batch
-norm ``gamma``, ``beta`` and the state ``mean``, ``var``; a
+with gates i, f, g, o; conv ``W`` HWIO ``[kh, kw, C_in, C_out]``; a
+separable conv's ``dW`` ``[kh, kw, C_in, mult]`` and ``pW`` ``[1, 1,
+C_in * mult, C_out]``; batch norm ``gamma``, ``beta`` and the state
+``mean``, ``var``; a
 ``Bidirectional``'s ``{"fw": ..., "bw": ...}``). Ported:
 :class:`DenseLayer`, :class:`OutputLayer`, the parameterless loss heads
 :class:`LossLayer`, :class:`CnnLossLayer` and :class:`RnnLossLayer`,
@@ -20,17 +22,19 @@ norm ``gamma``, ``beta`` and the state ``mean``, ``var``; a
 recurrent family (:class:`LSTM` and its alias :class:`GravesLSTM`,
 :class:`SimpleRnn`, :class:`Bidirectional`, the :class:`LastTimeStep`
 wrapper, :class:`RnnOutputLayer`), :class:`ActivationLayer`, and the
-image layers :class:`ConvolutionLayer`, :class:`SubsamplingLayer`,
+image layers :class:`ConvolutionLayer`, :class:`SeparableConvolution2D`,
+:class:`SubsamplingLayer`, :class:`Upsampling2D`,
 :class:`ZeroPaddingLayer`, :class:`GlobalPoolingLayer` (with masked
 pooling over sequences), the normalizations :class:`BatchNormalization`
 (NHWC), :class:`LayerNormalization` and
 :class:`LocalResponseNormalization`, and :class:`DropoutLayer` and
 :class:`FlattenLayer`. Dropout is a float rate; an ``IDropout`` config,
 weight noise and constraints are not ported and raise
-``NotImplementedError``. Every
-other layer class of the JAX package is not registered here, so a
-configuration naming one raises ``NotImplementedError`` with its name
-(``common.serde``).
+``NotImplementedError``. ``nn/conf/layers_extra.py`` and
+``nn/conf/objdetect.py`` hold the ported classes of the JAX modules of
+those names. Every other layer class of the JAX package is not
+registered, so a configuration naming one raises ``NotImplementedError``
+with its name (``common.serde``).
 """
 
 from __future__ import annotations
@@ -570,6 +574,39 @@ class ConvolutionLayer(Layer):
 
 @serializable
 @dataclasses.dataclass
+class SeparableConvolution2D(ConvolutionLayer):
+    """Depthwise-separable convolution through ``ops.nn.separable_conv2d``:
+    a depthwise ``dW`` ``[kh, kw, C_in, depth_multiplier]`` at the layer's
+    stride and padding, then a pointwise ``pW`` ``[1, 1, C_in *
+    depth_multiplier, C_out]`` and ``b``."""
+
+    depth_multiplier: int = 1
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        kh, kw = self.kernel_size
+        scheme = self.weight_init or WeightInit.XAVIER
+        fan = kh * kw * self.n_in
+        mid = self.n_in * self.depth_multiplier
+        p = {"dW": init_weights(scheme, generator,
+                                (kh, kw, self.n_in, self.depth_multiplier),
+                                fan, fan, dtype, device),
+             "pW": init_weights(scheme, generator, (1, 1, mid, self.n_out),
+                                mid, self.n_out, dtype, device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, state, x, train, generator):
+        x = self._maybe_dropout(x, train, generator)
+        pad = "SAME" if self.convolution_mode == "Same" else self.padding
+        out = nnops.separable_conv2d(x, params["dW"], params["pW"],
+                                     params.get("b"), strides=self.stride,
+                                     padding=pad, dilation=self.dilation)
+        return _act(self.activation or "identity").fn(out), state
+
+
+@serializable
+@dataclasses.dataclass
 class SubsamplingLayer(Layer):
     """Pooling (max, avg, sum or pnorm) over NHWC windows."""
 
@@ -605,6 +642,22 @@ class SubsamplingLayer(Layer):
         if pt is PoolingType.PNORM:
             return nnops.pnormpool2d(x, k, s, pad, self.pnorm), state
         return nnops.sumpool2d(x, k, s, pad), state
+
+
+@serializable
+@dataclasses.dataclass
+class Upsampling2D(Layer):
+    """Nearest-neighbour upsampling by ``size`` along H and W
+    (``ops.nn.upsampling2d``)."""
+
+    size: int = 2
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.convolutional(it.height * self.size,
+                                       it.width * self.size, it.channels)
+
+    def apply(self, params, state, x, train, generator):
+        return nnops.upsampling2d(x, self.size), state
 
 
 @serializable
@@ -768,7 +821,8 @@ class LocalResponseNormalization(Layer):
 
 __all__ = ["Layer", "DenseLayer", "OutputLayer", "RnnOutputLayer", "LSTM",
            "GravesLSTM", "ActivationLayer", "PoolingType", "ConvolutionLayer",
-           "SubsamplingLayer", "ZeroPaddingLayer", "GlobalPoolingLayer",
+           "SeparableConvolution2D", "SubsamplingLayer", "Upsampling2D",
+           "ZeroPaddingLayer", "GlobalPoolingLayer",
            "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
            "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
            "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",

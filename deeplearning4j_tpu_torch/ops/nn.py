@@ -1,7 +1,9 @@
 """Neural-net ops the layer framework calls: counterpart of the part of
 ``deeplearning4j_tpu/ops/nn.py`` that the ported layers reach.
 
-Ported: :func:`conv2d` (``:36-79``), the four pools (``:198-253``),
+Ported: :func:`conv2d` (``:36-79``), :func:`depthwise_conv2d`
+(``:117-134``), :func:`separable_conv2d` (``:137-142``),
+:func:`upsampling2d` (``:173-176``), the four pools (``:198-253``),
 :func:`global_avg_pool` (``:370-373``), :func:`batch_norm` (``:383-387``),
 :func:`batch_norm_train` with its shifted one-pass statistics
 (``:390-428``), :func:`batch_norm_relu_train` with its two-pass backward
@@ -10,7 +12,9 @@ Ported: :func:`conv2d` (``:36-79``), the four pools (``:198-253``),
 :func:`lstm_layer`
 (``:592-651``), :func:`simple_rnn_layer` (``:709-722``),
 :func:`dot_product_attention` (``:981-997``) and :func:`dropout`
-(``:558-564``); every one but the last four is registered under its JAX
+(``:558-564``); every one but the last four and the three image ops of
+the vision zoo (``depthwise_conv2d``, ``separable_conv2d``,
+``upsampling2d``, called by their layers) is registered under its JAX
 name. The simple RNN and the attention are plain PyTorch: no Pallas
 kernel computes them in the reference. Layouts stay the JAX package's, so a parameter tree from the JAX
 side loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
@@ -21,7 +25,8 @@ The convolutions and pools are the library's (``F.conv2d``, the pooling
 functions), as ``lax.conv`` and ``lax.reduce_window`` are outside any
 Pallas kernel in the reference. An NHWC tensor permuted to NCHW is a
 ``channels_last`` view, so cuDNN runs its NHWC kernels on it without a
-copy. ``lax``'s SAME padding puts the odd pixel on the high side, which
+copy (on the card; the CPU takes an NCHW copy, C13). ``lax``'s SAME
+padding puts the odd pixel on the high side, which
 the library's symmetric ``padding=`` cannot say: such a pad is applied
 with ``F.pad`` (``-inf`` for max pooling) before an unpadded call.
 Integer inputs keep ``jnp``'s result types: max and sum pools stay in the
@@ -113,11 +118,48 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
         sym = (hl, wl)
     else:
         x, sym = _pad_nhwc(x, pads), (0, 0)
-    out = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), None, s, sym, d,
+    xc = _nchw(x)
+    if xc.device.type == "cpu":
+        # the CPU convolution's backward on a channels_last input corrupts
+        # the heap at some of the vision zoo's shapes (C13): the CPU takes
+        # an NCHW copy; the card keeps the channels_last view
+        xc = xc.contiguous()
+    out = _nhwc(F.conv2d(xc, w.permute(3, 2, 0, 1), None, s, sym, d,
                          int(groups)))
     if b is not None:
         out = out + b
     return out
+
+
+def depthwise_conv2d(x, w, b=None, strides=(1, 1), padding="SAME",
+                     dilation=(1, 1)):
+    """Depthwise convolution, NHWC x ``[kh, kw, C_in, mult]`` -> NHWC
+    ``[..., C_in * mult]``: :func:`conv2d` with ``groups = C_in`` on the
+    weight as ``[kh, kw, 1, C_in * mult]``, so output channel ``c * mult +
+    m`` is input channel ``c`` under multiplier ``m`` (XLA's feature
+    grouping); ``b`` ``[C_in * mult]`` or None."""
+    kh, kw, c_in, mult = w.shape
+    return conv2d(x, w.reshape(kh, kw, 1, c_in * mult), b, strides, padding,
+                  dilation, groups=c_in)
+
+
+def separable_conv2d(x, depth_w, point_w, b=None, strides=(1, 1),
+                     padding="SAME", dilation=(1, 1)):
+    """:func:`depthwise_conv2d` by ``depth_w`` ``[kh, kw, C_in, mult]`` at
+    ``strides``, then a 1x1 :func:`conv2d` by ``point_w`` ``[1, 1, C_in *
+    mult, C_out]`` with the bias."""
+    out = depthwise_conv2d(x, depth_w, None, strides, padding, dilation)
+    return conv2d(out, point_w, b, (1, 1), "SAME")
+
+
+def upsampling2d(x, scale=2):
+    """Nearest-neighbour upsampling of NHWC ``x``: each pixel repeated
+    ``scale`` times along H, then along W (``jnp.repeat`` twice), as one
+    broadcast copy."""
+    s0, s1 = _pair(scale)
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, s0, w, s1, c).reshape(
+        n, h * s0, w * s1, c)
 
 
 # -------------------------------------------------------------- pooling

@@ -24,6 +24,23 @@ def _const(c: float, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
+def jax_abs(x):
+    """``|x|`` with slope 1 at 0, where ``jnp.abs`` differentiates so
+    (``torch.abs`` gives 0 there)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def jax_clip(x, lo=None, hi=None):
+    """``jnp.clip`` (and ``jnp.maximum`` / ``jnp.minimum`` with a constant):
+    at a tie with a bound the gradient is split, half to ``x``, as JAX's
+    ``max`` / ``min`` differentiate (``torch.clamp`` passes all of it)."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_tensor(lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_tensor(hi))
+    return x
+
+
 @register_op("sigmoid")
 def sigmoid(x):
     return torch.sigmoid(x)
@@ -41,7 +58,9 @@ def relu(x):
 
 @register_op("relu6")
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    """``min(max(x, 0), 6)`` with slope 0 at both kinks, as
+    ``jax.nn.relu6`` differentiates."""
+    return torch.where(x >= 6.0, torch.full_like(x, 6.0), torch.relu(x))
 
 
 @register_op("leakyrelu")
@@ -72,8 +91,8 @@ def gelu(x):
 
 @register_op("softplus")
 def softplus(x):
-    """``logaddexp(x, 0)``: ``max(x, 0) + log1p(exp(-|x|))``."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    """``logaddexp(x, 0)``, as ``jax.nn.softplus`` (slope 1/2 at 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 @register_op("softsign")
@@ -93,12 +112,12 @@ def mish(x):
 
 @register_op("hardsigmoid")
 def hard_sigmoid(x):
-    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+    return jax_clip(0.2 * x + 0.5, 0.0, 1.0)
 
 
 @register_op("hardtanh")
 def hard_tanh(x):
-    return torch.clamp(x, -1.0, 1.0)
+    return jax_clip(x, -1.0, 1.0)
 
 
 @register_op("softmax")
@@ -119,7 +138,7 @@ def rational_tanh(x):
 
 @register_op("recttanh")
 def rectified_tanh(x):
-    return torch.clamp(torch.tanh(x), min=0.0)
+    return jax_clip(torch.tanh(x), lo=0.0)
 
 
 @register_op("thresholdedrelu")

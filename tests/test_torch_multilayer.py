@@ -125,8 +125,8 @@ def test_zoo_textgen_conf_matches_jax():
     assert torch.all(b[256:512] == 1.0) and torch.all(b[:256] == 0.0)
 
 
-@pytest.mark.parametrize("layer", ["Upsampling2D", "SeparableConvolution2D",
-                                   "GRU"])
+@pytest.mark.parametrize("layer", ["SelfAttentionLayer",
+                                   "RecurrentAttentionLayer", "GRU"])
 def test_unported_layer_class_is_named(layer):
     import dataclasses
 
