@@ -317,6 +317,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
    their plain versions at the zoo's new shapes (``VISION_BN_SHAPES``), in
    f32 and bf16, with each kernel's event ms and share of its bound. The
    batch-norm launches of (a)-(d) are added to their rows.
+21. network surgery and pretraining: (a) ``zoo.VGG16()`` at its
+   published widths (224x224x3, 1000 classes, f32), edited by
+   ``TransferLearning.Builder`` as dl4j-examples' EditLastLayerOthersFrozen
+   (Nesterovs(5e-5, 0.9), ``setFeatureExtractor(19)``, the head replaced
+   by a 5-class softmax) and fine-tuned at batch 32: ms a step beside the
+   ms of ``output()`` on the same batch (the step held to
+   ``TRANSFER_STEP_BOUND`` times it), images/s, peak memory, a profiled
+   step's idle share, the unfrozen source's step; every frozen parameter
+   and the source bit-identical after the steps, no ``grad_fn`` out of a
+   frozen layer, only the head handed to ``torch.autograd.grad``; (b)
+   ``TransferLearningHelper`` on it: featurize 256 images, 10 head steps
+   on the features, the head written back equal to ``unfrozenMLN()``'s;
+   (c) ``zoo.ResNet50()`` in bf16 through ``TransferLearning.GraphBuilder``
+   (``setFeatureExtractor("avg_pool")``, ``nOutReplace("fc", 5)``) at
+   batch 64: ms a step, idle share and device time by group (the frozen
+   batch norms run the plain inference formula), peak memory, no
+   batch-norm kernel launch, frozen parameters and running statistics
+   bit-identical; (d) the VAE of dl4j-examples' VaeMNISTAnomaly
+   (784-256-256-32, Bernoulli, leaky ReLU, Adam(1e-3), l2 1e-4) pretrained
+   by ``pretrainLayer`` for 50 steps at batch 128 on synthetic data in [0,
+   1] (a falling -ELBO), ``reconstructionLogProbability`` of 1,024
+   examples over 16 samples, and 5 steps of ``ComputationGraph
+   .pretrainLayer``; (e) every ``IDropout`` and ``IWeightNoise`` on a
+   [32, 56, 56, 256] tensor and on VGG16's fc1 weight within its
+   distribution's tolerances, every constraint against its CPU result
+   (1e-6), and a small MLN with ``Dropout(0.5)``, ``DropConnect(0.5)`` and
+   ``MaxNormConstraint(2.0)`` trained 5 steps with its column norms held;
+   (f) card against CPU at f32 at the tests' cut sizes
+   (``TRANSFER_TOL``): a frozen MLN fine-tune, a graph transfer with
+   ``nOutReplace``, a ``FrozenLayerWithBackprop`` GAN step, an
+   AutoEncoder pretrain and an OCNN fit.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -329,8 +360,8 @@ the same chip call as this one. ``python3 chip_smoke.py resnet50-step
 TAG`` runs phase 15 alone the same way, ``python3 chip_smoke.py
 lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
 phase 17, ``python3 chip_smoke.py seq2seq`` phase 18, ``python3
-chip_smoke.py precision`` phase 19 and ``python3 chip_smoke.py vision``
-phase 20.
+chip_smoke.py precision`` phase 19, ``python3 chip_smoke.py vision``
+phase 20 and ``python3 chip_smoke.py transfer`` phase 21.
 """
 
 from __future__ import annotations
@@ -878,8 +909,9 @@ def device_profile(phase: str, what: str, run, focus,
     and each of the largest kernels' group. Record ranges
     (``dl4j::...``) show on the device's timeline too and are not
     kernels. ``out``, where given, receives the ``top`` largest kernels as
-    (name, us, group or None). Returns the busy milliseconds (0 when the
-    profiler saw no device time)."""
+    (name, us, group or None) under "largest", and every kernel as (name,
+    us, group or None, launches) under "all". Returns the busy
+    milliseconds (0 when the profiler saw no device time)."""
     from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
@@ -943,6 +975,9 @@ def device_profile(phase: str, what: str, run, focus,
         largest.append((name, t, grp))
     if out is not None:
         out["largest"] = largest
+        out["all"] = [(n, t, of_name[n].most_common(1)[0][0]
+                       if of_name[n] else None, launches[n])
+                      for n, t in by_name.most_common()]
     return busy_us / 1e3
 
 
@@ -4140,6 +4175,16 @@ def resnet50_run(net, x, y, fused: bool, flops: int, n_bn: int,
              if g == BN_GROUP and "bn_" not in n]
     check(not eager, f"[{tag}] batch-norm work outside the kernels among "
                      f"the largest device operations: {eager}")
+    # the check's margin: the group's largest operation that is not a
+    # kernel against the smallest of the largest
+    rest = [r for r in out.get("all", ())
+            if r[2] == BN_GROUP and "bn_" not in r[0]]
+    if out.get("largest"):
+        say("resnet50", f"[{tag}] batch-norm work outside the kernels: "
+                        + (f"largest {rest[0][1] / 1e3:.3f} ms x{rest[0][3]} "
+                           f"({rest[0][0][:80]})" if rest else "none")
+                        + f"; the {len(out['largest'])}th largest device "
+                          f"operation {out['largest'][-1][1] / 1e3:.3f} ms")
     return step_s * 1e3, launches
 
 
@@ -6039,6 +6084,676 @@ def vision_bn_kernels(smi: str) -> None:
     bn.stats_launches, bn.apply_launches, bn.bwd_launches = before
 
 
+# ------------------------------------------------- phase 21: transfer
+TRANSFER_BATCH, TRANSFER_CLASSES, TRANSFER_HW = 32, 5, 224
+TRANSFER_RESNET_BATCH, TRANSFER_RESNET_HW, TRANSFER_FEATURIZED = 64, 224, 256
+#: (e) the activation-shaped input of the stochastic configs
+CONFIG_SHAPE = (32, 56, 56, 256)
+#: a frozen fine-tune step against ``output()`` on the same batch: the
+#: frozen forward is the same work as inference (no dropout or batch norm
+#: in VGG16), and the 4096 x 5 head's forward, backward and update add
+#: well under a per cent of its operations; the rest is launches and the
+#: host's walk, which 1.3x leaves room for
+TRANSFER_STEP_BOUND = 1.3
+VAE_BATCH, VAE_STEPS, VAE_SCORED, VAE_SAMPLES = 128, 50, 1024, 16
+#: card against CPU at f32 (TF32 off): outputs 1e-5 of max(1, |value|),
+#: losses 1e-5 relative, parameters 1e-4 absolute after three steps
+TRANSFER_TOL = (1e-5, 1e-5, 1e-4)
+#: (e) the distribution contract: a fraction or mean within this many
+#: standard deviations of the draws it averages, a variance within 5 %
+CONTRACT_SIGMAS, CONTRACT_VAR_RTOL = 7.0, 0.05
+
+
+def phase_transfer(smi: str) -> None:
+    """Phase 21: network surgery and pretraining on the card, (a)-(f).
+    No hand kernel runs on this path (VGG16's and ResNet-50's
+    convolutions are cuDNN's, the frozen batch norms the plain inference
+    formula, the VAE dense products), so no kernel row changes; (c)
+    checks that the batch-norm kernels stay idle."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    try:
+        fc1 = transfer_vgg16(smi)
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.benchmark = True
+        transfer_resnet50(smi)
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    transfer_vae(smi)
+    transfer_configs(fc1, smi)
+    del fc1
+    torch.cuda.empty_cache()
+    transfer_parity()
+    say("transfer", f"phase 21 {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def _clones(tree) -> list:
+    return [t.clone() for t in _leaves_of(tree)]
+
+
+def _unchanged(tree, clones) -> bool:
+    leaves = _leaves_of(tree)
+    return len(leaves) == len(clones) and all(
+        torch.equal(a, b) for a, b in zip(leaves, clones))
+
+
+def transfer_vgg16(smi: str):
+    """(a) and (b). Returns VGG16's fc1 weight for (e)."""
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn import transferlearning as tl
+    from deeplearning4j_tpu_torch.nn.conf import OutputLayer
+
+    t0 = time.perf_counter()
+    src = zoo.VGG16(in_shape=(TRANSFER_HW, TRANSFER_HW, 3)).init(
+        device=DEVICE)
+    n_src = src.numParams()
+    check(n_src == 138_357_544 or TRANSFER_HW != 224,
+          f"transfer (a): VGG16 has {n_src} parameters")
+    tuned = (tl.TransferLearning.Builder(src)
+             .fineTuneConfiguration(tl.FineTuneConfiguration(
+                 updater=Nesterovs(5e-5, momentum=0.9), seed=12345))
+             .setFeatureExtractor(19).removeOutputLayer()
+             .addLayer(OutputLayer(n_in=4096, n_out=TRANSFER_CLASSES,
+                                   activation="softmax", loss="mcxent"))
+             .build())
+    frozen = [i for i, l in enumerate(tuned.conf.layers)
+              if isinstance(l, tl.FrozenLayer)]
+    check(len(frozen) == 15 and max(frozen) == 19,
+          f"transfer (a): frozen layers {frozen}")
+    check(all(tuned.params_list[i][k] is src.params_list[i][k]
+              for i in frozen for k in src.params_list[i]),
+          "transfer (a): the kept layers do not share the source's tensors")
+    n_head = sum(t.numel() for t in _leaves_of(tuned.params_list[20]))
+    say("transfer", f"(a) VGG16: {n_src} parameters, {len(frozen)} frozen "
+                    f"layers (0-19), head 4096 x {TRANSFER_CLASSES} "
+                    f"({n_head} parameters), Nesterovs(5e-5, 0.9), batch "
+                    f"{TRANSFER_BATCH}, f32 (TF32 off); built in "
+                    f"{time.perf_counter() - t0:.1f} s")
+    x, y = image_batch(TRANSFER_BATCH, TRANSFER_HW, 3, TRANSFER_CLASSES,
+                       seed=0)
+    x = torch.from_numpy(x).to(DEVICE)
+    y = torch.from_numpy(y).to(DEVICE)
+    src_clones = _clones(src.params_list)
+    # what a step does with the frozen layers: their outputs and what the
+    # gradient is asked of
+    outs, handed = [], []
+    real_apply, real_grad = tl.FrozenLayer.apply, torch.autograd.grad
+
+    def apply(self, *a, **kw):
+        out = real_apply(self, *a, **kw)
+        outs.append(out[0])
+        return out
+
+    def grad(outputs, inputs, *a, **kw):
+        inputs = list(inputs)
+        handed.append(sum(t.numel() for t in inputs))
+        return real_grad(outputs, inputs, *a, **kw)
+
+    tl.FrozenLayer.apply, torch.autograd.grad = apply, grad
+    try:
+        tuned.fit(x, y)
+    finally:
+        tl.FrozenLayer.apply, torch.autograd.grad = real_apply, real_grad
+    check(len(outs) == len(frozen) and all(
+        o.grad_fn is None and not o.requires_grad for o in outs),
+        "transfer (a): a frozen layer's output carries an autograd graph")
+    check(handed == [n_head], f"transfer (a): torch.autograd.grad was "
+                              f"handed {handed} parameters, not the head's "
+                              f"{n_head}")
+    del outs
+    losses, step_ms, peak = timed_fit(tuned, x, y, WARMUP_STEPS - 1,
+                                      TIMED_STEPS)
+    check(all(math.isfinite(v) for v in losses),
+          f"transfer (a): losses {losses}")
+    with torch.no_grad():
+        out_ms = cuda_ms(lambda _: tuned.output(x), TIMED_STEPS, 2)
+    torch.cuda.reset_peak_memory_stats()
+    tuned.output(x)
+    out_peak = torch.cuda.max_memory_allocated()
+    # the frozen layers still hold the source's tensors, and those hold
+    # their bits
+    check(_unchanged(src.params_list, src_clones),
+          "transfer (a): the source network moved")
+    check(all(tuned.params_list[i][k] is src.params_list[i][k]
+              for i in frozen for k in src.params_list[i]),
+          "transfer (a): a frozen parameter was replaced")
+    ratio = step_ms / out_ms
+    say("transfer", f"(a) VGG16 frozen fine-tune, {TIMED_STEPS} timed "
+                    f"steps: {step_ms:.2f} ms/step "
+                    f"({TRANSFER_BATCH / step_ms * 1e3:.1f} images/s), "
+                    f"output() {out_ms:.2f} ms, the step {ratio:.3f} of it "
+                    f"(bound {TRANSFER_STEP_BOUND}); peak memory "
+                    f"{peak / 2 ** 30:.2f} GiB in the steps, "
+                    f"{out_peak / 2 ** 30:.2f} GiB in output(); losses "
+                    + " ".join(f"{v:.4f}" for v in losses) + f"; {smi}")
+    check(ratio <= TRANSFER_STEP_BOUND,
+          f"transfer (a): a frozen step takes {ratio:.3f} of output()'s "
+          f"time, above {TRANSFER_STEP_BOUND}")
+    busy = device_profile(
+        "transfer", f"(a) one profiled VGG16 frozen step (unprofiled "
+                    f"{step_ms:.2f} ms; {smi})", lambda: tuned.fit(x, y),
+        (), top=6)
+    if busy:
+        say("transfer", f"(a) VGG16 frozen step idle about "
+                        f"{1 - busy / step_ms:.3f} ({busy:.2f} ms busy)")
+    del src_clones
+    # (b) and the unfrozen source without cuDNN's autotuning: a new batch
+    # size (256) or the backward's shapes would autotune for tens of
+    # seconds, to time calls that are not the cell's
+    torch.backends.cudnn.benchmark = False
+    transfer_helper(tuned, smi)
+    # the unfrozen source at the same batch, for comparison (its step
+    # moves the source, so it runs after the checks)
+    y1000 = torch.zeros((TRANSFER_BATCH, 1000), device=DEVICE)
+    y1000[:, 0] = 1.0
+    fc1 = src.params_list[18]["W"]
+    del tuned
+    torch.cuda.empty_cache()
+    losses, full_ms, full_peak = timed_fit(src, x, y1000, 1, 5)
+    check(all(math.isfinite(v) for v in losses),
+          f"transfer (a): the unfrozen source's losses {losses}")
+    say("transfer", f"(a) the unfrozen VGG16 at batch {TRANSFER_BATCH} "
+                    f"(cuDNN's heuristics for the backward): "
+                    f"{full_ms:.2f} ms/step ({full_ms / step_ms:.2f}x the "
+                    f"frozen step), peak {full_peak / 2 ** 30:.2f} GiB; "
+                    f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fc1
+
+
+def transfer_helper(tuned, smi: str) -> None:
+    """(b) ``TransferLearningHelper`` on (a)'s network:
+    ``TRANSFER_FEATURIZED`` images featurized to 4096 features, 10 steps of the head on them, the head
+    written back equal to ``unfrozenMLN()``'s."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import transferlearning as tl
+
+    t0 = time.perf_counter()
+    helper = tl.TransferLearningHelper(tuned)
+    check(helper.frozen_up_to == 19, f"transfer (b): frozen up to "
+                                     f"{helper.frozen_up_to}")
+    n = TRANSFER_FEATURIZED
+    x, y = image_batch(n, TRANSFER_HW, 3, TRANSFER_CLASSES, seed=1)
+    ds = DataSet(torch.from_numpy(x).to(DEVICE),
+                 torch.from_numpy(y).to(DEVICE))
+    feat_ms = []
+    for _ in range(2):      # the first call chooses cuDNN's algorithms
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        feats = helper.featurize(ds)
+        torch.cuda.synchronize()
+        feat_ms.append((time.perf_counter() - t1) * 1e3)
+    check(tuple(feats.features.shape) == (n, 4096)
+          and feats.features.grad_fn is None
+          and bool(torch.isfinite(feats.features).all()),
+          f"transfer (b): features {tuple(feats.features.shape)}")
+    head_ms = cuda_ms(lambda _: helper.fitFeaturized(feats), 10, 1)
+    tail = helper.unfrozenMLN()
+    check(all(torch.equal(tuned.params_list[20][k], v)
+              for k, v in tail.params_list[0].items()),
+          "transfer (b): the head written back differs from unfrozenMLN()'s")
+    check(math.isfinite(tail.score()), "transfer (b): head loss not finite")
+    say("transfer", f"(b) TransferLearningHelper: featurize {n} images "
+                    f"{feat_ms[1]:.2f} ms ({n / feat_ms[1] * 1e3:.1f} "
+                    f"images/s; the first call {feat_ms[0]:.2f} ms), "
+                    f"a head step on the features {head_ms:.3f} ms, head "
+                    f"loss {tail.score():.4f}; {time.perf_counter() - t0:.1f}"
+                    f" s; {smi}")
+
+
+def transfer_resnet50(smi: str) -> None:
+    """(c) ResNet-50 in bf16 through ``TransferLearning.GraphBuilder``."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn import transferlearning as tl
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph.vertices import FrozenVertex
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    t0 = time.perf_counter()
+    hw = TRANSFER_RESNET_HW
+    conf = ResNet50(num_classes=1000, in_shape=(hw, hw, 3),
+                    updater=Nesterovs(learning_rate=1e-1,
+                                      momentum=0.9)).conf()
+    conf.dtype = "bfloat16"
+    src = ComputationGraph(conf, device=DEVICE).init()
+    x, y = image_batch(TRANSFER_RESNET_BATCH, hw, 3, TRANSFER_CLASSES, seed=2)
+    x = torch.from_numpy(x).to(DEVICE, torch.bfloat16)
+    y = torch.from_numpy(y).to(DEVICE)
+    # a trained model's running statistics: training-mode forwards of the
+    # batch move the source's batch norms to its statistics (decay 0.9:
+    # 0.12 of the initial state left after 20), nothing else changes
+    with torch.no_grad():
+        for _ in range(20):
+            _, src.states_map = src._forward_all(
+                src.params_map, src.states_map, src._inputs([x]), True, None)
+    g = (tl.TransferLearning.GraphBuilder(src)
+         .fineTuneConfiguration(tl.FineTuneConfiguration(
+             updater=Nesterovs(1e-4, momentum=0.9), seed=12345))
+         .setFeatureExtractor("avg_pool")
+         .nOutReplace("fc", TRANSFER_CLASSES, "xavier").build())
+    frozen = [n.name for n in g.conf.nodes
+              if isinstance(n.vertex, FrozenVertex)]
+    n_bn = sum(isinstance(getattr(n.vertex.vertex, "layer", None),
+                          BatchNormalization)
+               for n in g.conf.nodes if isinstance(n.vertex, FrozenVertex))
+    check(n_bn == 53 and "fc" not in frozen,
+          f"transfer (c): {n_bn} frozen batch norms, fc frozen: "
+          f"{'fc' in frozen}")
+    say("transfer", f"(c) ResNet-50: {src.numParams()} parameters, "
+                    f"{len(frozen)} frozen vertices ({n_bn} batch norms), "
+                    f"fc 2048 x {TRANSFER_CLASSES}, bf16, Nesterovs(1e-4, "
+                    f"0.9), batch {TRANSFER_RESNET_BATCH}; the source's "
+                    f"running statistics calibrated on the batch")
+    fz = {n: g.params_map[n] for n in frozen}
+    fz_states = {n: g.states_map[n] for n in frozen}
+    p_clones, s_clones = _clones(fz), _clones(fz_states)
+    reset_bn_counts()
+    losses, step_ms, peak = timed_fit(g, x, y, WARMUP_STEPS, TIMED_STEPS)
+    launches = bn_counts()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    check(all(math.isfinite(v) for v in losses),
+          f"transfer (c): losses {losses}")
+    check(launches == (0, 0, 0), f"transfer (c): batch-norm kernel "
+                                 f"launches {launches} in {steps} steps, "
+                                 f"not 0: a frozen batch norm trained")
+    check(_unchanged({n: g.params_map[n] for n in frozen}, p_clones)
+          and _unchanged({n: g.states_map[n] for n in frozen}, s_clones),
+          "transfer (c): a frozen parameter or running statistic moved")
+    say("transfer", f"(c) ResNet-50 frozen fine-tune, {TIMED_STEPS} timed "
+                    f"steps: {step_ms:.2f} ms/step "
+                    f"({TRANSFER_RESNET_BATCH / step_ms * 1e3:.1f} "
+                    f"images/s), peak {peak / 2 ** 30:.2f} GiB; batch-norm "
+                    f"kernel launches a step "
+                    f"{tuple(k // steps for k in launches)}; losses "
+                    + " ".join(f"{v:.4f}" for v in losses) + f"; {smi}")
+    busy = device_profile(
+        "transfer", f"(c) one profiled ResNet-50 frozen step (unprofiled "
+                    f"{step_ms:.2f} ms; {smi})", lambda: g.fit(x, y),
+        (), group=kernel_group, top=6)
+    if busy:
+        say("transfer", f"(c) ResNet-50 frozen step idle about "
+                        f"{1 - busy / step_ms:.3f} ({busy:.2f} ms busy); "
+                        f"{time.perf_counter() - t0:.1f} s")
+
+
+def vae_data(n: int, seed: int) -> np.ndarray:
+    """``n`` synthetic 784-pixel examples in [0, 1]: ten random strokes
+    patterns, each example one of them with noise, clipped."""
+    rs = np.random.RandomState(seed)
+    protos = (rs.rand(10, 784) < 0.15).astype(np.float32)
+    x = protos[rs.randint(0, 10, n)] + rs.normal(0, 0.1, (n, 784))
+    return np.clip(x, 0.0, 1.0).astype(np.float32)
+
+
+def vae_conf(graph: bool):
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration,
+                                                  VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraphConfiguration)
+
+    vae = VariationalAutoencoder(
+        n_out=32, encoder_layer_sizes=(256, 256),
+        decoder_layer_sizes=(256, 256), activation="leakyrelu",
+        reconstruction_distribution="bernoulli", pzx_activation="identity")
+    if graph:
+        vae.n_in, vae.l2 = 784, 1e-4
+        return (ComputationGraphConfiguration.graphBuilder().seed(12345)
+                .updater(Adam(1e-3)).addInputs("in")
+                .addLayer("vae", vae, "in").setOutputs("vae")
+                .setInputTypes(InputType.feedForward(784)).build())
+    return (NeuralNetConfiguration.builder().seed(12345)
+            .updater(Adam(1e-3)).l2(1e-4).list().layer(vae)
+            .setInputType(InputType.feedForward(784)).build())
+
+
+def transfer_vae(smi: str) -> None:
+    """(d) The VAE of VaeMNISTAnomaly at its published widths."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t0 = time.perf_counter()
+    net = MultiLayerNetwork(vae_conf(False), device=DEVICE).init()
+    data = torch.from_numpy(vae_data(VAE_STEPS * VAE_BATCH, 3)).to(DEVICE)
+    losses = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(VAE_STEPS):
+        net.pretrainLayer(0, data[i * VAE_BATCH:(i + 1) * VAE_BATCH])
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / VAE_STEPS * 1e3
+    losses = [float(v) for v in losses]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"transfer (d): the -ELBO did not fall ({first:.2f} -> "
+          f"{last:.2f})")
+    check(net.getIterationCount() == VAE_STEPS,
+          "transfer (d): the pretrain steps were not counted")
+    scored = data[:VAE_SCORED]
+    net.reconstructionLogProbability(0, scored[:8], VAE_SAMPLES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = net.reconstructionLogProbability(0, scored, VAE_SAMPLES)
+    torch.cuda.synchronize()
+    score_ms = (time.perf_counter() - t1) * 1e3
+    check(tuple(s.shape) == (VAE_SCORED,)
+          and bool(torch.isfinite(s).all()) and s.is_cuda,
+          f"transfer (d): scores {tuple(s.shape)}")
+    g = ComputationGraph(vae_conf(True), device=DEVICE).init()
+    glosses = []
+    for i in range(5):
+        g.pretrainLayer("vae", data[i * VAE_BATCH:(i + 1) * VAE_BATCH])
+        glosses.append(g.score())
+    check(all(math.isfinite(v) for v in glosses),
+          f"transfer (d): graph pretrain losses {glosses}")
+    say("transfer", f"(d) VAE 784-256-256-32 (Bernoulli, "
+                    f"{net.numParams()} parameters), batch {VAE_BATCH}: "
+                    f"{step_ms:.3f} ms a pretrain step, -ELBO "
+                    f"{losses[0]:.2f} -> {losses[-1]:.2f} (means of 5: "
+                    f"{first:.2f} -> {last:.2f}); reconstructionLog"
+                    f"Probability of {VAE_SCORED} x {VAE_SAMPLES} samples "
+                    f"{score_ms:.2f} ms (mean {float(s.mean()):.2f}); the "
+                    f"graph's 5 steps " + " ".join(f"{v:.2f}" for v in
+                                                   glosses)
+                    + f"; {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def contract_rows(name: str, kw: dict, x, out) -> list:
+    """The distribution an ``IDropout`` or ``IWeightNoise`` promises, as
+    (quantity, value, expected, tolerance) rows for its output ``out`` of
+    ``x`` (tensors on the card)."""
+    n, rows = x.numel(), []
+    if name in ("Dropout", "SpatialDropout", "DropConnect"):
+        # the kept entries exactly x / keep, in x's dtype
+        kept = out != 0
+        rows.append(("kept = x / keep", float(
+            torch.where(kept, out - x / (1.0 - kw["rate"]), 0.0).abs()
+            .max()), 0.0, 0.0))
+    x, out = x.double(), out.double()
+
+    def mean_row(what, r, s2):
+        # r: residuals of mean 0, s2: their variances
+        rows.append((f"{what} mean", float(r.mean()), 0.0,
+                     CONTRACT_SIGMAS * float(s2.sum()) ** 0.5 / n))
+        rows.append((f"{what} variance ratio", float((r * r).sum())
+                     / float(s2.sum()), 1.0, CONTRACT_VAR_RTOL))
+
+    if name in ("Dropout", "SpatialDropout", "DropConnect"):
+        keep = 1.0 - kw["rate"]
+        kept = out != 0
+        draws = kept
+        if name == "SpatialDropout" and x.dim() == 4:
+            rows.append(("mask constant over H, W", float(
+                (kept == kept[:, :1, :1, :]).all()), 1.0, 0.0))
+            draws = kept[:, 0, 0, :]
+        m = draws.numel()
+        rows.append(("kept fraction", float(draws.double().mean()), keep,
+                     CONTRACT_SIGMAS * (keep * (1 - keep) / m) ** 0.5))
+        if name != "SpatialDropout":
+            mean_row("out - x", out - x, x * x * (1 - keep) / keep)
+    elif name == "AlphaDropout":
+        keep = 1.0 - kw["rate"]
+        from deeplearning4j_tpu_torch.nn.conf.dropout import _ALPHA_PRIME
+        a = (keep + _ALPHA_PRIME ** 2 * keep * (1 - keep)) ** -0.5
+        b = -a * _ALPHA_PRIME * (1 - keep)
+        kept = (out - (a * x + b)).abs() <= 1e-5 * (1 + x.abs())
+        rows.append(("kept fraction", float(kept.double().mean()), keep,
+                     CONTRACT_SIGMAS * (keep * (1 - keep) / n) ** 0.5))
+        rows.append(("dropped = a alpha' + b", float(
+            ((out - (a * _ALPHA_PRIME + b)).abs() * ~kept).max()), 0.0,
+            1e-6))
+        if abs(float(x.mean())) < 0.01 and abs(float(x.var()) - 1) < 0.01:
+            rows.append(("mean (SELU fixed point)", float(out.mean()), 0.0,
+                         0.01))
+            rows.append(("variance (SELU fixed point)", float(out.var()),
+                         1.0, CONTRACT_VAR_RTOL))
+    elif name == "GaussianDropout":
+        s2 = x * x * kw["rate"] / (1 - kw["rate"])
+        mean_row("out - x", out - x, s2)
+    elif name == "GaussianNoise":
+        mean_row("out - x", out - x, torch.full_like(x, kw["stddev"] ** 2))
+    else:                                   # WeightNoise
+        mu, sd = kw["mean"], kw["stddev"]
+        if kw["additive"]:
+            mean_row("out - x - mean", out - x - mu,
+                     torch.full_like(x, sd ** 2))
+        else:
+            mean_row("out - mean x", out - mu * x, sd ** 2 * x * x)
+    return rows
+
+
+def transfer_configs(fc1, smi: str) -> None:
+    """(e) The regularisation configs on the card."""
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.conf import (
+        DenseLayer, InputType, NeuralNetConfiguration, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf import constraint as tc
+    from deeplearning4j_tpu_torch.nn.conf import dropout as td
+    from deeplearning4j_tpu_torch.nn.conf import weightnoise as tw
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    acts = torch.randn(CONFIG_SHAPE, generator=gen, device=DEVICE)
+    ones = torch.ones(CONFIG_SHAPE, device=DEVICE)
+    cases = [("Dropout", td.Dropout, dict(rate=0.5)),
+             ("SpatialDropout", td.SpatialDropout, dict(rate=0.3)),
+             ("GaussianDropout", td.GaussianDropout, dict(rate=0.4)),
+             ("GaussianNoise", td.GaussianNoise, dict(stddev=0.1)),
+             ("AlphaDropout", td.AlphaDropout, dict(rate=0.2)),
+             ("DropConnect", tw.DropConnect, dict(rate=0.5)),
+             ("WeightNoise", tw.WeightNoise, dict(mean=0.0, stddev=0.05,
+                                                  additive=True)),
+             ("WeightNoise", tw.WeightNoise, dict(mean=1.0, stddev=0.1,
+                                                  additive=False))]
+    inputs = {str(list(CONFIG_SHAPE)): (ones, acts),
+              f"fc1 {list(fc1.shape)}": (fc1, fc1)}
+    worst = 0.0
+    for name, cls, kw in cases:
+        cfg = cls(**kw)
+        for where, (const, normal) in inputs.items():
+            x = normal if name in ("GaussianNoise", "AlphaDropout",
+                                   "WeightNoise") else const
+            if isinstance(cfg, tw.IWeightNoise):
+                b = x[0]
+                out = cfg.apply({"W": x, "b": b}, gen)
+                check(out["b"] is b, f"transfer (e): {name} noised a bias")
+                out = out["W"]
+            else:
+                out = cfg.apply(x, gen)
+            rows = contract_rows(name, kw, x, out)
+            for what, v, want, tol in rows:
+                check(abs(v - want) <= tol,
+                      f"transfer (e): {name}({kw}) on {where}: {what} "
+                      f"{v:.6g}, expected {want:g} +- {tol:.3g}")
+                worst = max(worst, abs(v - want) / tol if tol else 0.0)
+            args = ", ".join(f"{k}={v}" for k, v in kw.items())
+            say("transfer", f"(e) {name}({args}) on {where}: "
+                + "; ".join(f"{w} {v:.6g} (expected {e:g} +- {t:.2g})"
+                            for w, v, e, t in rows))
+            del out
+    say("transfer", f"(e) every contract held, the worst at {worst:.2f} of "
+                    f"its tolerance ({CONTRACT_SIGMAS:g} standard "
+                    f"deviations of the draws' mean, variances "
+                    f"{CONTRACT_VAR_RTOL:g} relative)")
+    del acts, ones
+    conv = torch.randn((3, 3, 256, 256), generator=gen, device=DEVICE) * 0.05
+    for c in (tc.MaxNormConstraint(1.0), tc.MinMaxNormConstraint(0.5, 2.0,
+                                                                 0.7),
+              tc.UnitNormConstraint(), tc.NonNegativeConstraint()):
+        errs = []
+        for w in (fc1, conv):
+            card = c.apply({"W": w})["W"]
+            cpu = c.apply({"W": w.cpu()})["W"]
+            errs.append(float((card.cpu() - cpu).abs().max()))
+        check(max(errs) <= 1e-6, f"transfer (e): {type(c).__name__} card "
+                                 f"against CPU {errs}")
+        say("transfer", f"(e) {type(c).__name__}: card against CPU on fc1 "
+                        f"and a 3x3x256x256 conv weight, max |diff| "
+                        f"{max(errs):.2e} (tolerance 1e-6)")
+    conf = (NeuralNetConfiguration.builder().seed(21).updater(Sgd(2.0))
+            .list()
+            .layer(DenseLayer(n_out=256, activation="relu",
+                              dropout=td.Dropout(0.5),
+                              weight_noise=tw.DropConnect(0.5),
+                              constraints=[tc.MaxNormConstraint(2.0)]))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .setInputType(InputType.feedForward(784)).build())
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    x = torch.from_numpy(vae_data(256, 4) * 4).to(DEVICE)
+    y = torch.zeros((256, 10), device=DEVICE)
+    y[torch.arange(256), torch.arange(256) % 10] = 1.0
+    norms = []
+    for _ in range(5):
+        net.fit(x, y)
+        norms.append(float(torch.linalg.norm(net.params_list[0]["W"],
+                                             dim=0).max()))
+        check(norms[-1] <= 2.0 * (1 + 1e-6) and math.isfinite(net.score()),
+              f"transfer (e): column norm {norms[-1]} after a step")
+    say("transfer", f"(e) Dropout(0.5) + DropConnect(0.5) + "
+                    f"MaxNormConstraint(2.0) MLN, 5 steps: largest column "
+                    f"norm " + " ".join(f"{v:.4f}" for v in norms)
+        + f"; {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def transfer_parity() -> None:
+    """(f) Card against CPU at f32 at the tests' cut sizes."""
+    from deeplearning4j_tpu_torch.learning.updaters import (NoOp, Nesterovs,
+                                                            Sgd)
+    from deeplearning4j_tpu_torch.nn import transferlearning as tl
+    from deeplearning4j_tpu_torch.nn.conf import (
+        AutoEncoder, ConvolutionLayer, DenseLayer, InputType,
+        NeuralNetConfiguration, OCNNOutputLayer, OutputLayer,
+        SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph, ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.params import tree_map
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(9)
+
+    def mln(layers, it, updater):
+        b = NeuralNetConfiguration.builder().seed(5).updater(updater).list()
+        for layer in layers:
+            b.layer(layer)
+        return b.setInputType(it).build()
+
+    def pair(build):
+        """The network ``build(device)`` on the card and on the CPU, the
+        card's parameters and state copied from the CPU's."""
+        cpu, card = build("cpu"), build(DEVICE)
+        tree = "params_map" if hasattr(cpu, "params_map") else "params_list"
+        state = "states_map" if tree == "params_map" else "states_list"
+        for attr in (tree, state):
+            setattr(card, attr, tree_map(lambda t: t.to(DEVICE),
+                                         getattr(cpu, attr)))
+        return card, cpu
+
+    def mln_transfer(device):
+        src = MultiLayerNetwork(mln(
+            [ConvolutionLayer(n_out=4, kernel_size=(3, 3), activation="relu"),
+             SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)),
+             DenseLayer(n_out=12, activation="relu"),
+             DenseLayer(n_out=8, activation="tanh"),
+             OutputLayer(n_out=3, activation="softmax", loss="mcxent")],
+            InputType.convolutional(6, 6, 2), Sgd(0.1)),
+            device=device).init()
+        return (tl.TransferLearning.Builder(src)
+                .fineTuneConfiguration(tl.FineTuneConfiguration(
+                    updater=Nesterovs(0.05, 0.9), seed=12345))
+                .setFeatureExtractor(3).removeOutputLayer()
+                .addLayer(OutputLayer(n_in=8, n_out=2, activation="softmax",
+                                      loss="mcxent")).build())
+
+    def graph_transfer(device):
+        b = (ComputationGraphConfiguration.graphBuilder().seed(1)
+             .updater(Sgd(0.1)).addInputs("in")
+             .addLayer("fe1", DenseLayer(n_out=10, activation="relu"), "in")
+             .addLayer("fe2", DenseLayer(n_out=8, activation="relu"), "fe1")
+             .addLayer("out", OutputLayer(n_out=3, activation="softmax",
+                                          loss="mcxent"), "fe2")
+             .setOutputs("out").setInputTypes(InputType.feedForward(5)))
+        src = ComputationGraph(b.build(), device=device).init()
+        return (tl.TransferLearning.GraphBuilder(src)
+                .setFeatureExtractor("fe1").nOutReplace("fe2", 6).build())
+
+    def gan(device):
+        return MultiLayerNetwork(mln(
+            [DenseLayer(n_out=6, activation="relu"),
+             DenseLayer(n_out=2, activation="identity"),
+             tl.FrozenLayerWithBackprop(layer=DenseLayer(
+                 n_out=5, activation="leakyrelu")),
+             tl.FrozenLayerWithBackprop(layer=DenseLayer(
+                 n_out=5, activation="leakyrelu")),
+             OutputLayer(n_out=1, activation="identity", loss="wasserstein",
+                         updater=NoOp())],
+            InputType.feedForward(4), Sgd(0.05)), device=device).init()
+
+    def autoencoder(device):
+        return MultiLayerNetwork(mln(
+            [DenseLayer(n_out=6, activation="tanh"),
+             AutoEncoder(n_out=4, corruption_level=0.0, sparsity=0.05),
+             OutputLayer(n_out=2, activation="softmax", loss="mcxent")],
+            InputType.feedForward(5), Sgd(0.2)), device=device).init()
+
+    def ocnn(device):
+        return MultiLayerNetwork(mln(
+            [DenseLayer(n_out=5, activation="tanh"),
+             OCNNOutputLayer(hidden_size=6, nu=0.2)],
+            InputType.feedForward(4), Sgd(0.05)), device=device).init()
+
+    img = rs.randn(16, 6, 6, 2).astype(np.float32)
+    vec5 = rs.randn(16, 5).astype(np.float32)
+    vec4 = rs.randn(16, 4).astype(np.float32)
+    cases = [("frozen MLN fine-tune", mln_transfer, img,
+              np.eye(2, dtype=np.float32)[rs.randint(0, 2, 16)], "fit"),
+             ("graph transfer, nOutReplace", graph_transfer, vec5,
+              np.eye(3, dtype=np.float32)[rs.randint(0, 3, 16)], "fit"),
+             ("FrozenLayerWithBackprop GAN", gan, vec4,
+              -np.ones((16, 1), np.float32), "fit"),
+             ("AutoEncoder pretrain", autoencoder, vec5, None, "pretrain"),
+             ("OCNN fit", ocnn, vec4, np.zeros((16, 1), np.float32), "fit")]
+    for what, build, x, y, how in cases:
+        card, cpu = pair(build)
+        out = close_card_cpu(f"transfer (f) {what} output",
+                             _first(card.output(x)), _first(cpu.output(x)),
+                             TRANSFER_TOL[0])
+        lc, lh = [], []
+        for _ in range(PARITY_STEPS):
+            for net, losses in ((card, lc), (cpu, lh)):
+                if how == "pretrain":
+                    net.pretrainLayer(1, x)
+                else:
+                    net.fit(x, y)
+                losses.append(net.score())
+        rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lc, lh))
+        check(all(math.isfinite(v) for v in lc + lh)
+              and rel <= TRANSFER_TOL[1],
+              f"transfer (f) {what}: losses card {lc}, CPU {lh}")
+        tree = "params_map" if hasattr(cpu, "params_map") else "params_list"
+        perr = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            _leaves_of(getattr(card, tree)), _leaves_of(getattr(cpu, tree))))
+        check(perr <= TRANSFER_TOL[2],
+              f"transfer (f) {what}: parameters differ by {perr:.3e}")
+        say("transfer", f"(f) {what}, card against CPU at f32: output "
+                        f"{out:.2e}, {PARITY_STEPS} steps' losses "
+                        f"{rel:.2e} relative, parameters {perr:.2e} "
+                        f"(tolerances {TRANSFER_TOL[0]:g} of max(1, "
+                        f"|value|), {TRANSFER_TOL[1]:g}, "
+                        f"{TRANSFER_TOL[2]:g})")
+    say("transfer", f"(f) {time.perf_counter() - t0:.1f} s")
+
+
+def _first(out):
+    return out[0] if isinstance(out, list) else out
+
+
 def _leaves_of(tree) -> list:
     from deeplearning4j_tpu_torch.params import tree_leaves
 
@@ -6103,6 +6818,11 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_vision(phase_device(), defaultdict(dict))
         return 0
+    if argv[:1] == ["transfer"]:
+        # phase 21 alone, of the port found from the current directory
+        sys.path.insert(0, os.getcwd())
+        phase_transfer(phase_device())
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -6135,6 +6855,7 @@ def main(argv) -> int:
     phase_seq2seq(smi, rows)
     phase_precision(smi, rows, resident_ms)
     phase_vision(smi, rows)
+    phase_transfer(smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -66,6 +66,14 @@ Ported so far:
   ``UNet``, ``Xception``, ``InceptionResNetV1``, ``FaceNetNN4Small2`` and
   ``NASNet``; no hand kernel (the reference's convolutions are ``lax``
   ops; the batch norm runs the kernels of ``ops.batch_norm``);
+- network surgery and pretraining: the per-layer configs ``nn.conf``
+  ``dropout`` (the ``IDropout`` family), ``weightnoise`` and
+  ``constraint``, ``nn.transferlearning`` (frozen layers, the
+  ``TransferLearning`` builders, ``TransferLearningHelper``),
+  ``nn.conf.variational`` (``VariationalAutoencoder``, ``AutoEncoder``)
+  and ``nn.conf.ocnn``, layerwise pretraining and ``summary`` of both
+  networks; no hand kernel (a frozen layer's parameters stay out of the
+  gradient and the updater);
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
   ``mln_params_from_numpy``, ``cg_params_from_numpy``,
   ``params_to_numpy``) and ``FlatParams``, the flat f32 master buffer.

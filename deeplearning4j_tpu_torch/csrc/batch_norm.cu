@@ -12,7 +12,10 @@
 // device time on the H100.
 //
 // What it computes, for x [rows, C] (channels last: every axis but the kept ones
-// flattened into rows), f32, bf16 or f16, and f32 per-channel vectors:
+// flattened into rows), f32, bf16 or f16, f32 statistics, and gamma and beta of
+// one of those three types, read as they are (no cast of them before a launch);
+// (a) also writes the statistics in x's type and (c) dgamma and dbeta in
+// gamma's, where the caller asks, so that no cast of them follows a launch:
 // (a) statistics: shift = x[0] (per channel), d = x - shift,
 //     mean = shift + sum(d) / rows, var = max(sum(d^2) / rows - (sum(d) / rows)^2, 0);
 // (b) apply: scale = rsqrt(var + eps) * gamma, shift = beta - mean * scale (f32),
@@ -117,6 +120,23 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// Element c of a per-channel vector of type dt (0 f32, 1 bf16, 2 f16), as f32.
+__device__ __forceinline__ float ld_vec(const void* __restrict__ p, int dt, int c) {
+  if (dt == 1) return to_f(static_cast<const __nv_bfloat16*>(p)[c]);
+  if (dt == 2) return to_f(static_cast<const __half*>(p)[c]);
+  return static_cast<const float*>(p)[c];
+}
+
+// v rounded to type dt into element c of a per-channel vector.
+__device__ __forceinline__ void st_vec(void* __restrict__ p, int dt, int c, float v) {
+  if (dt == 1)
+    static_cast<__nv_bfloat16*>(p)[c] = from_f<__nv_bfloat16>(v);
+  else if (dt == 2)
+    static_cast<__half*>(p)[c] = from_f<__half>(v);
+  else
+    static_cast<float*>(p)[c] = v;
+}
+
 // V elements of T (16 bytes where V > 1, one element otherwise) as loaded
 template <typename T, int V>
 struct Raw {
@@ -203,16 +223,17 @@ __device__ __forceinline__ Slot slot(const Geo& g) {
 template <typename T, int V, bool RELU>
 __global__ void __launch_bounds__(kThreads)
     bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                    const float* __restrict__ var, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float eps, Geo g, T* __restrict__ y) {
+                    const float* __restrict__ var, const void* __restrict__ gamma,
+                    const void* __restrict__ beta, int vdt, float eps, Geo g,
+                    T* __restrict__ y) {
   const Slot s = slot<V>(g);
   if (s.c0 < 0) return;
   float sc[V], sh[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int c = s.c0 + i;
-    const float scale = __fmul_rn(rsqrtf(__fadd_rn(var[c], eps)), gamma[c]);
-    sh[i] = round_to<T>(__fsub_rn(beta[c], __fmul_rn(mean[c], scale)));
+    const float scale = __fmul_rn(rsqrtf(__fadd_rn(var[c], eps)), ld_vec(gamma, vdt, c));
+    sh[i] = round_to<T>(__fsub_rn(ld_vec(beta, vdt, c), __fmul_rn(mean[c], scale)));
     sc[i] = round_to<T>(scale);
   }
 #pragma unroll 4
@@ -236,13 +257,15 @@ struct BwdConst {
 
 __device__ __forceinline__ BwdConst bwd_const(const float* __restrict__ mean,
                                               const float* __restrict__ var,
-                                              const float* __restrict__ gamma,
-                                              const float* __restrict__ beta, float eps, int c) {
+                                              const void* __restrict__ gamma,
+                                              const void* __restrict__ beta, int vdt, float eps,
+                                              int c) {
   BwdConst k;
+  const float ga = ld_vec(gamma, vdt, c);
   k.m = mean[c];
   k.inv = rsqrtf(__fadd_rn(var[c], eps));
-  k.sc = __fmul_rn(gamma[c], k.inv);
-  k.sh = __fsub_rn(beta[c], __fmul_rn(__fmul_rn(k.m, gamma[c]), k.inv));
+  k.sc = __fmul_rn(ga, k.inv);
+  k.sh = __fsub_rn(ld_vec(beta, vdt, c), __fmul_rn(__fmul_rn(k.m, ga), k.inv));
   return k;
 }
 
@@ -337,10 +360,11 @@ struct Red {
   const void* g;  // the upstream gradient (c), or null (a)
   const float* mean;
   const float* var;
-  const float* gamma;
-  const float* beta;
+  const void* gamma;  // (c), of type vdt
+  const void* beta;
   const float* gm;  // (c) with the statistics' gradients, else null
   const float* gv;
+  int vdt;          // gamma's and beta's type (0 f32, 1 bf16, 2 f16)
   float eps, count;
   long long rows;
   long long rpc;
@@ -354,6 +378,9 @@ struct Red {
   unsigned* bar;         // the grid-barrier word, zero before the first launch
   float* out0;           // (a) mean, (c) dbeta = s1
   float* out1;           // (a) var, (c) dgamma = s2
+  void* out0_t;          // out0 and out1 rounded to type odt as well, or null
+  void* out1_t;
+  int odt;
   void* dx;              // (c)
 };
 
@@ -570,7 +597,7 @@ __global__ void __launch_bounds__(kBlock, 1) bn_reduce_kernel(const Red a) {
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           if (BWD)
-            k[j] = bwd_const(a.mean, a.var, a.gamma, a.beta, a.eps, c0 + j);
+            k[j] = bwd_const(a.mean, a.var, a.gamma, a.beta, a.vdt, a.eps, c0 + j);
           else
             sh[j] = to_f(xg[c0 + j]);
         }
@@ -656,14 +683,17 @@ __global__ void __launch_bounds__(kBlock, 1) bn_reduce_kernel(const Red a) {
           p += sums[w * 32 + lane];
           r += sums[(kWarps + w) * 32 + lane];
         }
-        if constexpr (BWD) {
-          a.out0[c] = p;
-          a.out1[c] = r;
-        } else {
+        if constexpr (!BWD) {
           const float md = __fdiv_rn(p, a.count);
           const float v = __fsub_rn(__fdiv_rn(r, a.count), __fmul_rn(md, md));
-          a.out0[c] = __fadd_rn(to_f(xg[c]), md);
-          a.out1[c] = v > 0.f ? v : 0.f;
+          p = __fadd_rn(to_f(xg[c]), md);
+          r = v > 0.f ? v : 0.f;
+        }
+        a.out0[c] = p;
+        a.out1[c] = r;
+        if (a.out0_t != nullptr) {
+          st_vec(a.out0_t, a.odt, c, p);
+          st_vec(a.out1_t, a.odt, c, r);
         }
       }
       __syncthreads();  // the sums are rewritten by the next 32 channels
@@ -707,7 +737,7 @@ __global__ void __launch_bounds__(kBlock, 1) bn_reduce_kernel(const Red a) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const int c = c0 + j;
-        k[j] = bwd_const(a.mean, a.var, a.gamma, a.beta, a.eps, c);
+        k[j] = bwd_const(a.mean, a.var, a.gamma, a.beta, a.vdt, a.eps, c);
         w.s1[j] = __ldcg(a.out0 + c);
         w.s2[j] = __ldcg(a.out1 + c);
         w.em[j] = EXTRA ? __fdiv_rn(a.gm[c], a.count) : 0.f;
@@ -800,23 +830,25 @@ dim3 grid_of(const Geo& g, int vec, int chunks) {
 template <typename T>
 struct Apply {
   template <int V>
-  static void go(dim3 grid, int relu, const T* x, const float* m, const float* v, const float* ga,
-                 const float* be, float eps, Geo g, T* y, cudaStream_t st) {
+  static void go(dim3 grid, int relu, const T* x, const float* m, const float* v, const void* ga,
+                 const void* be, int vdt, float eps, Geo g, T* y, cudaStream_t st) {
     if (relu)
-      bn_apply_kernel<T, V, true><<<grid, kThreads, 0, st>>>(x, m, v, ga, be, eps, g, y);
+      bn_apply_kernel<T, V, true><<<grid, kThreads, 0, st>>>(x, m, v, ga, be, vdt, eps, g, y);
     else
-      bn_apply_kernel<T, V, false><<<grid, kThreads, 0, st>>>(x, m, v, ga, be, eps, g, y);
+      bn_apply_kernel<T, V, false><<<grid, kThreads, 0, st>>>(x, m, v, ga, be, vdt, eps, g, y);
   }
-  static int run(const void* x, const float* m, const float* v, const float* ga, const float* be,
-                 float eps, int relu, Geo g, int vec, int chunks, void* y, cudaStream_t st) {
-    if (bad_geo<T>(g, vec, chunks, {x, y})) return (int)cudaErrorInvalidValue;
+  static int run(const void* x, const float* m, const float* v, const void* ga, const void* be,
+                 int vdt, float eps, int relu, Geo g, int vec, int chunks, void* y,
+                 cudaStream_t st) {
+    if (bad_geo<T>(g, vec, chunks, {x, y}) || vdt < 0 || vdt > 2)
+      return (int)cudaErrorInvalidValue;
     const dim3 grid = grid_of<T>(g, vec, chunks);
     const T* px = static_cast<const T*>(x);
     T* py = static_cast<T*>(y);
     if (vec)
-      go<16 / sizeof(T)>(grid, relu, px, m, v, ga, be, eps, g, py, st);
+      go<16 / sizeof(T)>(grid, relu, px, m, v, ga, be, vdt, eps, g, py, st);
     else
-      go<1>(grid, relu, px, m, v, ga, be, eps, g, py, st);
+      go<1>(grid, relu, px, m, v, ga, be, vdt, eps, g, py, st);
     return (int)cudaGetLastError();
   }
 };
@@ -952,7 +984,8 @@ struct Backward {
                 : launch_reduce<T, V, BULK, true, false, false>(a, st, info);
   }
   static int run(Red a, int vec, int relu, cudaStream_t st, int* info) {
-    if (bad_red<T>(a, vec, {a.x, a.g, a.dx}) || (a.gm == nullptr) != (a.gv == nullptr))
+    if (bad_red<T>(a, vec, {a.x, a.g, a.dx}) || (a.gm == nullptr) != (a.gv == nullptr) ||
+        a.vdt < 0 || a.vdt > 2 || a.odt < 0 || a.odt > 2)
       return (int)cudaErrorInvalidValue;
     a.count = (float)a.rows;
     if (vec) return go<16 / sizeof(T), true>(a, relu, st, info);
@@ -1004,49 +1037,60 @@ extern "C" {
 // Every entry launches on `stream` of CUDA device `device` (made current for
 // the call) and returns the CUDA error (0 on success).
 // x (and g, y, dx) are contiguous [rows, C] of one type (dtype 0 f32, 1 bf16,
-// 2 f16); the per-channel vectors are contiguous f32 [C]. The geometry comes
-// from the caller (ops/batch_norm.py): vec 1 for 16-byte channel groups.
+// 2 f16); the per-channel vectors are contiguous [C]: gamma and beta of type
+// vdt (the same codes), the others f32. The geometry comes from the caller
+// (ops/batch_norm.py): vec 1 for 16-byte channel groups.
 
 // (a) mean and var [C] of x, one cooperative launch. plan = reduce_plan's
 // (tg, lanes, R, tpc, chunks, ctiles); part is f32 scratch of 2 * chunks * C
 // floats, bar one zeroed word (its low bits left zero); info, where not null, receives
-// (grid, ring stages, shared bytes, blocks per SM).
+// (grid, ring stages, shared bytes, blocks per SM). mean_t and var_t, where not
+// null, receive the statistics rounded to x's type as well.
 int dl4j_bn_stats(int dtype, const void* x, long long rows, int C, int vec, const int* plan,
-                  float* part, unsigned* bar, float* mean, float* var, int* info, int device,
-                  void* stream) {
+                  float* part, unsigned* bar, float* mean, float* var, void* mean_t,
+                  void* var_t, int* info, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
+  if ((mean_t == nullptr) != (var_t == nullptr)) return (int)cudaErrorInvalidValue;
   Red a = red_args(rows, C, plan);
   a.x = x;
   a.part = part;
   a.bar = bar;
   a.out0 = mean;
   a.out1 = var;
+  a.out0_t = mean_t;
+  a.out1_t = var_t;
+  a.odt = dtype;
   return by_dtype<Stats>(dtype, a, vec, static_cast<cudaStream_t>(stream), info);
 }
 
 // (b) y = x * scale + shift in x's type, then max(y, 0) where relu; tg groups
 // per block row (1-32), `chunks` row chunks of rpc rows (launch_plan).
 int dl4j_bn_apply(int dtype, const void* x, const float* mean, const float* var,
-                  const float* gamma, const float* beta, float eps, int relu, long long rows,
-                  int C, int vec, int tg, int chunks, long long rpc, void* y, int device,
-                  void* stream) {
+                  const void* gamma, const void* beta, int vdt, float eps, int relu,
+                  long long rows, int C, int vec, int tg, int chunks, long long rpc, void* y,
+                  int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
-  return by_dtype<Apply>(dtype, x, mean, var, gamma, beta, eps, relu, geo(rows, C, tg, rpc), vec,
-                         chunks, y, static_cast<cudaStream_t>(stream));
+  return by_dtype<Apply>(dtype, x, mean, var, gamma, beta, vdt, eps, relu,
+                         geo(rows, C, tg, rpc), vec, chunks, y,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // (c) dx [rows, C] in x's type and dgamma, dbeta [C] f32 from the upstream gy,
 // one cooperative launch; gm and gv (f32 [C], both or neither) are the
-// gradients of the returned mean and variance. plan, part, bar, info as (a).
+// gradients of the returned mean and variance. dgamma_t and dbeta_t, where not
+// null, receive dgamma and dbeta rounded to type vdt as well. plan, part, bar,
+// info as (a).
 int dl4j_bn_backward(int dtype, const void* x, const void* gy, const float* mean,
-                     const float* var, const float* gamma, const float* beta, const float* gm,
-                     const float* gv, float eps, int relu, long long rows, int C, int vec,
-                     const int* plan, float* part, unsigned* bar, float* dgamma, float* dbeta,
-                     void* dx, int* info, int device, void* stream) {
+                     const float* var, const void* gamma, const void* beta, int vdt,
+                     const float* gm, const float* gv, float eps, int relu, long long rows, int C,
+                     int vec, const int* plan, float* part, unsigned* bar, float* dgamma,
+                     float* dbeta, void* dgamma_t, void* dbeta_t, void* dx, int* info,
+                     int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
+  if ((dgamma_t == nullptr) != (dbeta_t == nullptr)) return (int)cudaErrorInvalidValue;
   Red a = red_args(rows, C, plan);
   a.x = x;
   a.g = gy;
@@ -1054,6 +1098,7 @@ int dl4j_bn_backward(int dtype, const void* x, const void* gy, const float* mean
   a.var = var;
   a.gamma = gamma;
   a.beta = beta;
+  a.vdt = vdt;
   a.gm = gm;
   a.gv = gv;
   a.eps = eps;
@@ -1061,6 +1106,9 @@ int dl4j_bn_backward(int dtype, const void* x, const void* gy, const float* mean
   a.bar = bar;
   a.out0 = dbeta;
   a.out1 = dgamma;
+  a.out0_t = dbeta_t;
+  a.out1_t = dgamma_t;
+  a.odt = vdt;
   a.dx = dx;
   return by_dtype<Backward>(dtype, a, vec, relu, static_cast<cudaStream_t>(stream), info);
 }

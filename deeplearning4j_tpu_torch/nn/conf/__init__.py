@@ -3,11 +3,23 @@ builders and ``InputType``; the layers of ``layers.py`` (dense and
 output heads, the recurrent family, embeddings, the image layers with
 ``SeparableConvolution2D`` and ``Upsampling2D``, the normalizations,
 dropout and flatten); of ``layers_extra.py`` ``DepthwiseConvolution2D``
-and ``SpaceToDepthLayer``; and ``objdetect.py`` whole
-(``Yolo2OutputLayer``, ``DetectedObject``, ``YoloUtils``)."""
+and ``SpaceToDepthLayer``; ``objdetect.py`` whole
+(``Yolo2OutputLayer``, ``DetectedObject``, ``YoloUtils``); the
+pretrainable ``VariationalAutoencoder`` and ``AutoEncoder``
+(``variational.py``) and ``OCNNOutputLayer`` (``ocnn.py``); and the
+per-layer regularisation configs: the ``IDropout`` family
+(``dropout.py``), weight noise (``weightnoise.py``) and constraints
+(``constraint.py``). The frozen wrappers live in
+``nn.transferlearning``."""
 
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     Builder, ListBuilder, MultiLayerConfiguration, NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.conf.constraint import (
+    LayerConstraint, MaxNormConstraint, MinMaxNormConstraint,
+    NonNegativeConstraint, UnitNormConstraint)
+from deeplearning4j_tpu_torch.nn.conf.dropout import (
+    AlphaDropout, Dropout, GaussianDropout, GaussianNoise, IDropout,
+    SpatialDropout)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, ActivationLayer, BatchNormalization, Bidirectional, CnnLossLayer,
@@ -21,6 +33,11 @@ from deeplearning4j_tpu_torch.nn.conf.layers_extra import (
     DepthwiseConvolution2D, SpaceToDepthLayer)
 from deeplearning4j_tpu_torch.nn.conf.objdetect import (
     DetectedObject, Yolo2OutputLayer, YoloUtils)
+from deeplearning4j_tpu_torch.nn.conf.ocnn import OCNNOutputLayer
+from deeplearning4j_tpu_torch.nn.conf.variational import (
+    AutoEncoder, VariationalAutoencoder)
+from deeplearning4j_tpu_torch.nn.conf.weightnoise import (
+    DropConnect, IWeightNoise, WeightNoise)
 
 __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "NeuralNetConfiguration", "InputType", "Layer", "DenseLayer",
@@ -33,4 +50,10 @@ __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",
            "LayerNormalization", "LocalResponseNormalization",
            "DepthwiseConvolution2D", "SpaceToDepthLayer",
-           "Yolo2OutputLayer", "DetectedObject", "YoloUtils"]
+           "Yolo2OutputLayer", "DetectedObject", "YoloUtils",
+           "AlphaDropout", "Dropout", "GaussianDropout", "GaussianNoise",
+           "IDropout", "SpatialDropout",
+           "DropConnect", "IWeightNoise", "WeightNoise",
+           "LayerConstraint", "MaxNormConstraint", "MinMaxNormConstraint",
+           "NonNegativeConstraint", "UnitNormConstraint",
+           "AutoEncoder", "VariationalAutoencoder", "OCNNOutputLayer"]

@@ -28,11 +28,15 @@ image layers :class:`ConvolutionLayer`, :class:`SeparableConvolution2D`,
 pooling over sequences), the normalizations :class:`BatchNormalization`
 (NHWC), :class:`LayerNormalization` and
 :class:`LocalResponseNormalization`, and :class:`DropoutLayer` and
-:class:`FlattenLayer`. Dropout is a float rate; an ``IDropout`` config,
-weight noise and constraints are not ported and raise
-``NotImplementedError``. ``nn/conf/layers_extra.py`` and
-``nn/conf/objdetect.py`` hold the ported classes of the JAX modules of
-those names. Every other layer class of the JAX package is not
+:class:`FlattenLayer`. A layer's ``dropout`` is a float drop rate or an
+``IDropout`` config (``nn/conf/dropout.py``), its ``weight_noise`` an
+``IWeightNoise`` (``nn/conf/weightnoise.py``, applied by the networks in
+training) and its ``constraints`` a list of ``LayerConstraint``
+(``nn/conf/constraint.py``, applied by the networks after each update).
+``nn/conf/layers_extra.py``, ``nn/conf/objdetect.py``,
+``nn/conf/variational.py`` and ``nn/conf/ocnn.py`` hold the ported
+classes of the JAX modules of those names, and ``nn/transferlearning.py``
+the frozen wrappers. Every other layer class of the JAX package is not
 registered, so a configuration naming one raises ``NotImplementedError``
 with its name (``common.serde``).
 """
@@ -76,21 +80,15 @@ class Layer:
     updater: Optional[Any] = None        # per-layer updater override
     l1: Optional[float] = None
     l2: Optional[float] = None
-    dropout: Optional[Any] = None        # input dropout rate (float)
-    weight_noise: Optional[Any] = None   # not ported
-    constraints: Optional[Any] = None    # not ported
+    #: input dropout: a float drop rate or an ``IDropout`` config
+    dropout: Optional[Any] = None
+    #: an ``IWeightNoise`` (DropConnect, WeightNoise), training only
+    weight_noise: Optional[Any] = None
+    #: a list of ``LayerConstraint``, applied after every update
+    constraints: Optional[Any] = None
 
     def __post_init__(self):
-        for field in ("weight_noise", "constraints"):
-            if getattr(self, field) is not None:
-                raise NotImplementedError(
-                    f"{type(self).__name__}.{field} is not ported to "
-                    f"deeplearning4j_tpu_torch yet")
-        if self.dropout is not None and not isinstance(self.dropout,
-                                                       numbers.Real):
-            raise NotImplementedError(
-                f"dropout config {type(self.dropout).__name__} is not ported "
-                f"yet; pass a float drop rate")
+        pass
 
     # -- to be overridden ----------------------------------------------
     def output_type(self, input_type: InputType) -> InputType:
@@ -120,9 +118,20 @@ class Layer:
         return out, ns, carry
 
     def _maybe_dropout(self, x, train, generator):
-        if train and self.dropout and generator is not None:
-            return nnops.dropout(x, float(self.dropout), generator)
-        return x
+        return _dropout(self.dropout, x, train, generator)
+
+    def has_params(self) -> bool:
+        return True
+
+
+def _dropout(d, x, train, generator):
+    """``x`` through dropout ``d`` (a float drop rate or an ``IDropout``)
+    in training with a generator; ``x`` itself otherwise."""
+    if train and d and generator is not None:
+        if isinstance(d, numbers.Real):
+            return nnops.dropout(x, float(d), generator)
+        return d.apply(x, generator)
+    return x
 
 
 @serializable
@@ -195,6 +204,9 @@ class LossLayer(Layer):
     activation (identity by default)."""
 
     loss: str = "mse"
+
+    def has_params(self):
+        return False
 
     def loss_value(self, params, state, x, labels, mask=None):
         return compute_loss(LossFunction.resolve(self.loss), labels, x,
@@ -274,6 +286,9 @@ class LastTimeStep(Layer):
 
     underlying: Optional[Layer] = None
 
+    def has_params(self):
+        return self.underlying.has_params()
+
     def output_type(self, it: InputType) -> InputType:
         return InputType.feedForward(self.underlying.output_type(it).size)
 
@@ -308,6 +323,9 @@ class ActivationLayer(Layer):
 
     alpha: Optional[float] = None
 
+    def has_params(self):
+        return False
+
     def apply(self, params, state, x, train, generator):
         a = _act(self.activation or "identity")
         if self.alpha is not None and a in (Activation.LEAKYRELU,
@@ -320,29 +338,26 @@ class ActivationLayer(Layer):
 @serializable
 @dataclasses.dataclass
 class DropoutLayer(Layer):
-    """Dropout alone (``ops.nn.dropout`` at ``rate`` in training, the
-    identity in inference); ``rate`` is a float (an ``IDropout`` config is
-    not ported)."""
+    """Dropout alone (``ops.nn.dropout`` at a float ``rate``, or an
+    ``IDropout`` config's ``apply``, in training; the identity in
+    inference)."""
 
     rate: Any = 0.5
 
-    def __post_init__(self):
-        super().__post_init__()
-        if not isinstance(self.rate, numbers.Real):
-            raise NotImplementedError(
-                f"dropout config {type(self.rate).__name__} is not ported "
-                f"yet; pass a float drop rate")
+    def has_params(self):
+        return False
 
     def apply(self, params, state, x, train, generator):
-        if train and generator is not None:
-            return nnops.dropout(x, float(self.rate), generator), state
-        return x, state
+        return _dropout(self.rate, x, train, generator), state
 
 
 @serializable
 @dataclasses.dataclass
 class FlattenLayer(Layer):
     """Any input to ``[N, flat]``."""
+
+    def has_params(self):
+        return False
 
     def output_type(self, it: InputType) -> InputType:
         if it.kind == "recurrent" and it.timeseries_length in (-1, None):
@@ -617,6 +632,9 @@ class SubsamplingLayer(Layer):
     convolution_mode: str = "Truncate"
     pnorm: int = 2
 
+    def has_params(self):
+        return False
+
     def __post_init__(self):
         super().__post_init__()
         self.kernel_size = tuplify(self.kernel_size)
@@ -652,6 +670,9 @@ class Upsampling2D(Layer):
 
     size: int = 2
 
+    def has_params(self):
+        return False
+
     def output_type(self, it: InputType) -> InputType:
         return InputType.convolutional(it.height * self.size,
                                        it.width * self.size, it.channels)
@@ -666,6 +687,9 @@ class ZeroPaddingLayer(Layer):
     """``pad`` zero pixels on each side of H and of W."""
 
     pad: Tuple[int, int] = (1, 1)
+
+    def has_params(self):
+        return False
 
     def __post_init__(self):
         super().__post_init__()
@@ -688,6 +712,9 @@ class GlobalPoolingLayer(Layer):
     spatial axes of an image, the time axis of a sequence)."""
 
     pooling_type: str = "max"
+
+    def has_params(self):
+        return False
 
     def output_type(self, it: InputType) -> InputType:
         if it.kind == "recurrent":
@@ -812,6 +839,9 @@ class LocalResponseNormalization(Layer):
     k: float = 2.0
     alpha: float = 1e-4
     beta: float = 0.75
+
+    def has_params(self):
+        return False
 
     def apply(self, params, state, x, train, generator):
         return nnops.local_response_normalization(

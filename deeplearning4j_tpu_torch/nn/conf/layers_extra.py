@@ -68,6 +68,9 @@ class SpaceToDepthLayer(Layer):
 
     block_size: int = 2
 
+    def has_params(self):
+        return False
+
     def output_type(self, it: InputType) -> InputType:
         bs = self.block_size
         return InputType.convolutional(it.height // bs, it.width // bs,

@@ -23,7 +23,10 @@ the encoder of a two-input graph included), ``backpropGradient``
 (external errors), ``score``, ``evaluate`` and its ROC and regression
 variants, the listeners, ``clone``, ``numParams``, ``params``,
 ``setParams``, l1/l2 on the weights, gradient normalisation, epoch-typed
-learning-rate schedules, ``FrozenVertex`` (the ``NoOp`` updater) and the
+learning-rate schedules, ``FrozenVertex`` (the ``NoOp`` updater; its
+parameters left out of the gradient and the updater), the layers' weight
+noise (in training) and constraints (after each update), layerwise
+pretraining (``pretrainLayer``, ``pretrain``), ``summary`` and the
 precision policies, with the seams of ``MultiLayerNetwork`` keyed by
 vertex name: each vertex's inputs and parameters in its compute dtype
 (``_cast_xs``, ``_cast_p``; a vertex that is not a layer takes the
@@ -32,8 +35,8 @@ recurrent carries of ``rnnTimeStep`` in the layer's compute dtype, the
 outputs of ``output``, ``rnnTimeStep`` and ``backpropGradient`` and the
 external errors in the output dtype, and under ``mixed_float16`` the
 loss-scaled step with its skip-step guard. Not ported yet, and raising
-``NotImplementedError`` with the ROADMAP item: pretraining (A3); the
-health monitor and fault tolerance (A9). ``fit`` over an iterator takes
+``NotImplementedError`` with the ROADMAP item: the health monitor and
+fault tolerance (A9). ``fit`` over an iterator takes
 a batch already on the device in the input dtype without a copy, and
 records each ``next()``'s wait in ``_last_etl_ms``.
 
@@ -57,6 +60,7 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.schedules import uses_epoch_schedule
 from deeplearning4j_tpu_torch.learning.updaters import NoOp, apply_updater
 from deeplearning4j_tpu_torch.nn import precision as _precision
+from deeplearning4j_tpu_torch.nn.conf.constraint import apply_constraints
 from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.nn.graph.config import (
     ComputationGraphConfiguration)
@@ -65,13 +69,17 @@ from deeplearning4j_tpu_torch.nn.graph.vertices import (FrozenVertex,
 from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
 from deeplearning4j_tpu_torch.nn.multilayer.network import (
     _not_ported, as_device_tensor, eval_mask, external_gradients,
-    fit_epochs, grads_of, normalize_gradients, weight_penalty)
-from deeplearning4j_tpu_torch.params import tree_map, tree_map2
+    fit_epochs, grads_of, merged, normalize_gradients, pretrain_loss,
+    trainable_leaves, weight_penalty, with_weight_noise)
+from deeplearning4j_tpu_torch.params import tree_leaves, tree_map, tree_map2
 
 
 def _label(vertex) -> str:
     """The profiler's name for a vertex's ops in a training step:
-    ``dl4j::`` and its layer's class (or the vertex's own)."""
+    ``dl4j::`` and its layer's class (or the vertex's own; a frozen
+    vertex's, the one it wraps)."""
+    if isinstance(vertex, FrozenVertex):
+        vertex = vertex.vertex
     if isinstance(vertex, LayerVertex):
         return f"dl4j::{type(vertex.layer).__name__}"
     return f"dl4j::{type(vertex).__name__}"
@@ -84,6 +92,7 @@ class ComputationGraph:
 
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
+        self._nodes = {n.name: n for n in conf.nodes}
         self.device = resolve_device(device)
         self._policy = _precision.PrecisionPolicy.resolve(
             getattr(conf, "precision", None), conf.dtype)
@@ -281,7 +290,9 @@ class ComputationGraph:
             with record_function(_label(v)):
                 # the loss heads are f32 islands under the mixed policies
                 xs = self._cast_xs([acts[s] for s in node.inputs], name)
-                p = self._cast_p(params_map[name], name)
+                p = with_weight_noise(getattr(v, "layer", None),
+                                      self._cast_p(params_map[name], name),
+                                      generator)
                 if fmask is not None and name in branch \
                         and self._pools_sequence(v, xs) \
                         and xs[0].shape[1] == fmask.shape[1]:
@@ -310,14 +321,14 @@ class ComputationGraph:
                                        g) for n, g in grads.items()}
 
     def _train_step(self, inputs, labels, masks, fmasks=None):
-        """One update: forward, gradients of every parameter, clipping,
-        updater; under loss scaling the skip-step guard. Returns the data
-        loss, detached."""
-        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
-                          self.params_map)
+        """One update: forward, gradients of every parameter that is not
+        frozen, clipping, updater; under loss scaling the skip-step guard.
+        Returns the data loss, detached."""
+        leaves = trainable_leaves(self.params_map, self._frozen)
 
         def loss_fn(pm):
-            return self._loss(pm, self.states_map, inputs, labels,
+            return self._loss(merged(pm, self.params_map, self._frozen),
+                              self.states_map, inputs, labels,
                               self._generator, masks, fmasks)
 
         ls = self._loss_scale_state
@@ -343,19 +354,37 @@ class ComputationGraph:
         self.states_map = new_states
         return data_loss.detach()
 
+    def _node(self, name: str):
+        return self._nodes[name]
+
+    def _frozen(self, name: str) -> bool:
+        return isinstance(self._node(name).vertex, FrozenVertex)
+
+    def _update_one(self, name: str, p, opt_state, g, step: int):
+        """Vertex ``name``'s parameters after one ``apply_updater`` at
+        ``step`` (``p - u`` in the parameter's dtype) and its layer's
+        constraints; a frozen vertex is left as it is (a ``FrozenVertex``
+        has no layer of its own, so the wrapped layer's constraints do not
+        apply, as in the JAX step). Returns ``(params, updater
+        state)``."""
+        if self._frozen(name):
+            return p, opt_state
+        updates, no = apply_updater(self._updaters[name], opt_state, g, p,
+                                    step)
+        p = tree_map2(lambda a, u: a - u, p, updates)
+        layer = getattr(self._node(name).vertex, "layer", None)
+        return (apply_constraints(layer, p) if layer is not None else p), no
+
     def _apply_updates(self, grads: Dict[str, dict]):
-        """One ``apply_updater`` per vertex at the iteration count (the
-        epoch count for an epoch-typed schedule); ``p - u`` in the
-        parameter's dtype. Returns the new parameters and updater
-        state."""
+        """One update per vertex at the iteration count (the epoch count
+        for an epoch-typed schedule). Returns the new parameters and
+        updater state."""
         new_params, new_opt = {}, {}
         for name, p in self.params_map.items():
-            upd = self._updaters[name]
-            step = (self._epoch if uses_epoch_schedule(upd)
+            step = (self._epoch if uses_epoch_schedule(self._updaters[name])
                     else self._iteration)
-            updates, new_opt[name] = apply_updater(
-                upd, self.opt_states[name], grads[name], p, step)
-            new_params[name] = tree_map2(lambda a, u: a - u, p, updates)
+            new_params[name], new_opt[name] = self._update_one(
+                name, p, self.opt_states[name], grads[name], step)
         return new_params, new_opt
 
     # ------------------------------------------------------------------
@@ -676,13 +705,110 @@ class ComputationGraph:
                                   inputs, errs)
 
     # ------------------------------------------------------------------
+    # layerwise unsupervised pretraining
+    # ------------------------------------------------------------------
+    def _pretrain_step(self, name: str, inputs) -> torch.Tensor:
+        """One unsupervised update of layer vertex ``name``: every vertex
+        before it in topological order in inference mode without autograd,
+        then the layer's pretrain loss on its first input, the gradient,
+        normalisation, its updater and its constraints. Returns the loss,
+        detached."""
+        layer = self._node(name).vertex.layer
+        acts = dict(inputs)
+        with torch.no_grad():
+            for nd in self.conf.nodes:
+                if nd.name == name:
+                    break
+                acts[nd.name], _ = nd.vertex.apply(
+                    self._cast_p(self.params_map[nd.name], nd.name),
+                    self.states_map[nd.name],
+                    self._cast_xs([acts[s] for s in nd.inputs], nd.name),
+                    False, None)
+        x = acts[self._node(name).inputs[0]]
+        p = tree_map(lambda v: v.detach().requires_grad_(True),
+                     self.params_map[name])
+        with torch.enable_grad():
+            loss = pretrain_loss(layer, p, x, self._generator,
+                                 lambda q: self._cast_p(q, name),
+                                 lambda v: self._cast_xs([v], name)[0])
+            g = grads_of(loss, p)
+        g = self._clip({name: g})[name]
+        with torch.no_grad():
+            self.params_map[name], self.opt_states[name] = self._update_one(
+                name, self.params_map[name], self.opt_states[name], g,
+                self._iteration)
+        return loss.detach()
+
+    def pretrainLayer(self, name: str, data, epochs: int = 1):
+        """Unsupervised training of layer vertex ``name`` alone; the
+        vertices upstream act as a frozen feature extractor. ``data`` is
+        features: one array (a single-input graph), a list with one per
+        graph input, or a ``DataSet`` / ``MultiDataSet`` or an iterator of
+        them (labels ignored). Each update counts an iteration."""
+        self._check_init()
+        layer = getattr(self._node(name).vertex, "layer", None)
+        if layer is None or not hasattr(layer, "unsupervised_loss"):
+            raise ValueError(
+                f"vertex {name!r} is not pretrainable — only layer "
+                "vertices with an unsupervised loss "
+                "(VariationalAutoencoder, AutoEncoder) support "
+                "pretrainLayer")
+        conf = self.conf
+
+        def feature_batches():
+            if isinstance(data, (MultiDataSetIterator, DataSetIterator)):
+                for d in data:
+                    yield (d.features if isinstance(d.features, (list,
+                                                                 tuple))
+                           else [d.features])
+            elif isinstance(data, (MultiDataSet, DataSet)):
+                f = data.features
+                yield f if isinstance(f, (list, tuple)) else [f]
+            elif isinstance(data, (list, tuple)):
+                yield data
+            else:
+                yield [data]
+
+        for _ in range(epochs):
+            for xs in feature_batches():
+                if len(xs) != len(conf.network_inputs):
+                    raise ValueError(
+                        f"expected {len(conf.network_inputs)} input "
+                        f"arrays, got {len(xs)}")
+                self._score = self._pretrain_step(name, self._inputs(xs))
+                self._iteration += 1
+        return self
+
+    def pretrain(self, data, epochs: int = 1):
+        """``pretrainLayer`` of every pretrainable layer vertex, in
+        topological order."""
+        for node in self.conf.nodes:
+            layer = getattr(node.vertex, "layer", None)
+            if layer is not None and hasattr(layer, "unsupervised_loss"):
+                self.pretrainLayer(node.name, data, epochs)
+        return self
+
+    def summary(self) -> str:
+        """One row a vertex (name, layer or vertex class, parameter count,
+        inputs) and the total, the JAX package's text character for
+        character."""
+        self._check_init()
+        lines = [f"{'name':<24}{'vertex':<26}{'params':>12}  inputs"]
+        total = 0
+        for node in self.conf.nodes:
+            n = sum(int(t.numel()) for t in
+                    tree_leaves(self.params_map[node.name]))
+            total += n
+            vname = (type(node.vertex.layer).__name__
+                     if isinstance(node.vertex, LayerVertex)
+                     else type(node.vertex).__name__)
+            lines.append(f"{node.name:<24}{vname:<26}{n:>12,}  {node.inputs}")
+        lines.append(f"Total params: {total:,}")
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------------
     # not ported
     # ------------------------------------------------------------------
-    def pretrain(self, *args, **kwargs):
-        raise _not_ported("layerwise pretraining", "A3")
-
-    pretrainLayer = pretrain
-
     def setHealthMonitor(self, monitor):
         raise _not_ported("the model-health monitor", "A9")
 

@@ -324,7 +324,10 @@ class L2Vertex(GraphVertex):
 class FrozenVertex(GraphVertex):
     """A vertex whose parameters take no gradient (detached) and which
     runs in inference mode (no dropout, running batch-norm statistics);
-    ``ComputationGraph.init`` gives it the ``NoOp`` updater."""
+    ``ComputationGraph.init`` gives it the ``NoOp`` updater, and a
+    training step leaves its parameters out of the gradient and the
+    updater. Where no input carries a gradient it records no autograd
+    graph."""
 
     vertex: object = None
 
@@ -339,7 +342,10 @@ class FrozenVertex(GraphVertex):
 
     def apply(self, params, state, inputs, train, generator):
         frozen = tree_map(lambda t: t.detach(), params)
-        return self.vertex.apply(frozen, state, inputs, False, generator)
+        record = torch.is_grad_enabled() and any(
+            torch.is_tensor(x) and x.requires_grad for x in inputs)
+        with torch.set_grad_enabled(record):
+            return self.vertex.apply(frozen, state, inputs, False, generator)
 
 
 @serializable

@@ -18,10 +18,14 @@ ROC and regression variants, the listeners, ``clone``, ``params``,
 ``numParams``, ``paramTable``, l1/l2 regularization, gradient
 normalization, epoch-typed learning-rate schedules and the preprocessor
 tags between image and dense layers
-(``nn.conf.builder.apply_preprocessor``) and the precision policies
-(``nn.precision``, below). Not ported yet, and raising
-``NotImplementedError`` with the ROADMAP item: the health monitor and
-fault tolerance (A9) and layerwise pretraining (A3).
+(``nn.conf.builder.apply_preprocessor``), the precision policies
+(``nn.precision``, below), the layers' weight noise (in training) and
+constraints (after each update), frozen layers (``nn.transferlearning``:
+their parameters left out of the gradient and the updater), layerwise
+pretraining (``pretrainLayer``, ``pretrain``,
+``reconstructionLogProbability``) and ``summary``. Not ported yet, and
+raising ``NotImplementedError`` with the ROADMAP item: the health monitor
+and fault tolerance (A9).
 
 Under a mixed policy (``conf.precision``) the parameters and the updater
 state are the f32 masters (``_dtype``); inputs are staged in the compute
@@ -62,9 +66,11 @@ from deeplearning4j_tpu_torch.learning.updaters import IUpdater, apply_updater
 from deeplearning4j_tpu_torch.nn import precision as _precision
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     MultiLayerConfiguration, apply_preprocessor, preprocessor_output_type)
+from deeplearning4j_tpu_torch.nn.conf.constraint import apply_constraints
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
+from deeplearning4j_tpu_torch.ops.transforms import jax_abs
 from deeplearning4j_tpu_torch.params import (tree_leaves, tree_map, tree_map2,
                                              tree_unflatten)
 
@@ -115,7 +121,8 @@ def as_device_tensor(a, device, dtype=None) -> torch.Tensor:
 
 def weight_penalty(layers_params, reg: torch.Tensor) -> torch.Tensor:
     """``reg`` plus each layer's l1 and ``0.5 * l2 * sum(W * W)`` over its
-    weights (``_REGULARIZED_KEYS``), for ``(layer, params)`` pairs."""
+    weights (``_REGULARIZED_KEYS``), for ``(layer, params)`` pairs; the l1
+    term takes ``jnp.abs``'s slope 1 at a weight of exactly 0."""
     for layer, p in layers_params:
         l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
         if l1 == 0.0 and l2 == 0.0:
@@ -123,10 +130,61 @@ def weight_penalty(layers_params, reg: torch.Tensor) -> torch.Tensor:
         for k, v in p.items():
             if k in _REGULARIZED_KEYS:
                 if l1:
-                    reg = reg + l1 * torch.sum(torch.abs(v))
+                    reg = reg + l1 * torch.sum(jax_abs(v))
                 if l2:
                     reg = reg + 0.5 * l2 * torch.sum(v * v)
     return reg
+
+
+def with_weight_noise(layer, p, generator):
+    """``p`` with ``layer``'s weight noise, where it has one and there is
+    a generator (a training forward)."""
+    wn = getattr(layer, "weight_noise", None)
+    if wn is not None and generator is not None:
+        return wn.apply(p, generator)
+    return p
+
+
+def trainable_leaves(params, frozen):
+    """The gradient's leaves: each entry of ``params`` (a list or a dict
+    of per-layer trees) detached and requiring grad, an empty tree where
+    ``frozen(key)`` is true, so ``grads_of`` never visits a frozen
+    parameter."""
+    keys = range(len(params)) if isinstance(params, list) else params
+    out = {k: {} if frozen(k) else tree_map(
+        lambda v: v.detach().requires_grad_(True), params[k]) for k in keys}
+    return [out[k] for k in keys] if isinstance(params, list) else out
+
+
+def merged(trainable, params, frozen):
+    """``trainable`` with each frozen entry taken from ``params``."""
+    keys = range(len(params)) if isinstance(params, list) else params
+    out = {k: params[k] if frozen(k) else trainable[k] for k in keys}
+    return [out[k] for k in keys] if isinstance(params, list) else out
+
+
+def pretrain_loss(layer, p, x, generator, cast_p, cast_x):
+    """One pretrain step's loss of ``layer`` on its input ``x``: the
+    layer's weight noise, its ``unsupervised_loss`` on the parameters and
+    input in its compute dtype (``cast_p``, ``cast_x``), and its l1 / l2
+    terms on the master parameters (after the noise, as the JAX step
+    reads them)."""
+    p = with_weight_noise(layer, p, generator)
+    loss = layer.unsupervised_loss(cast_p(p), cast_x(x), generator)
+    return weight_penalty([(layer, p)], loss)
+
+
+def _feature_batches(data):
+    """The feature arrays of ``data`` for pretraining (labels ignored): a
+    ``DataSetIterator``'s batches, a ``DataSet``'s features, or ``data``
+    itself."""
+    if isinstance(data, DataSetIterator):
+        for ds in data:
+            yield ds.features
+    elif isinstance(data, DataSet):
+        yield data.features
+    else:
+        yield data
 
 
 def normalize_gradients(mode: Optional[str], t: float, g: dict) -> dict:
@@ -351,6 +409,7 @@ class MultiLayerNetwork:
                 new_states.append(ns)
                 new_carries.append(None)
                 continue
+            p = with_weight_noise(layer, p, generator)
             if carries is not None and layer.is_recurrent:
                 a, ns, c = layer.apply_with_carry(
                     p, states_list[i], carries[i], a, True, generator)
@@ -367,8 +426,9 @@ class MultiLayerNetwork:
         # logits, the softmax and the reduction run at f32
         k = len(conf.layers) - 1
         a = self._cast_a(self._preprocess(k, a), k)
-        data_loss = last.loss_value(self._cast_p(params_list[-1], k),
-                                    states_list[-1], a, y, mask)
+        data_loss = last.loss_value(
+            with_weight_noise(last, self._cast_p(params_list[-1], k),
+                              generator), states_list[-1], a, y, mask)
         new_states.append(states_list[-1])
         reg = weight_penalty(zip(conf.layers, params_list), torch.zeros(
             (), dtype=data_loss.dtype, device=data_loss.device))
@@ -380,31 +440,44 @@ class MultiLayerNetwork:
                                     conf.gradient_normalization_threshold, g)
                 for g in grads_list]
 
+    def _frozen(self, i: int) -> bool:
+        """Whether layer ``i``'s parameters are frozen (a ``FrozenLayer``
+        or ``FrozenLayerWithBackprop``)."""
+        return getattr(self.conf.layers[i], "frozen_params", False)
+
+    def _update_one(self, i: int, p, opt_state, g, step: int):
+        """Layer ``i``'s parameters after one ``apply_updater`` at ``step``
+        (``p - u`` in the parameter's dtype) and its constraints; a frozen
+        layer is left as it is. Returns ``(params, updater state)``."""
+        layer = self.conf.layers[i]
+        if self._frozen(i):
+            return apply_constraints(layer, p), opt_state
+        updates, no = apply_updater(self._updaters[i], opt_state, g, p, step)
+        return apply_constraints(layer, tree_map2(lambda a, u: a - u, p,
+                                                  updates)), no
+
     def _apply_updates(self, params_list, opt_states, grads):
-        """One ``apply_updater`` per layer at the iteration count (the
-        epoch count for an epoch-typed schedule); ``p - u`` in the
-        parameter's dtype."""
+        """One update per layer at the iteration count (the epoch count
+        for an epoch-typed schedule)."""
         new_params, new_opt = [], []
         for i, p in enumerate(params_list):
-            upd = self._updaters[i]
-            step = (self._epoch if uses_epoch_schedule(upd)
+            step = (self._epoch if uses_epoch_schedule(self._updaters[i])
                     else self._iteration)
-            updates, no = apply_updater(upd, opt_states[i], grads[i], p,
-                                        step)
-            new_params.append(tree_map2(lambda a, u: a - u, p, updates))
+            np_i, no = self._update_one(i, p, opt_states[i], grads[i], step)
+            new_params.append(np_i)
             new_opt.append(no)
         return new_params, new_opt
 
     def _train_step(self, x, y, mask, fmask, carries):
-        """One update: forward, gradients of every parameter, clipping,
-        updater; under loss scaling the skip-step guard. Returns
-        ``(data_loss, new_carries)``, both detached."""
-        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
-                          self.params_list)
+        """One update: forward, gradients of every parameter that is not
+        frozen, clipping, updater; under loss scaling the skip-step guard.
+        Returns ``(data_loss, new_carries)``, both detached."""
+        leaves = trainable_leaves(self.params_list, self._frozen)
 
         def loss_fn(pl):
-            return self._loss_carries(pl, self.states_list, carries, x, y,
-                                      mask, self._generator, fmask)
+            return self._loss_carries(
+                merged(pl, self.params_list, self._frozen), self.states_list,
+                carries, x, y, mask, self._generator, fmask)
 
         ls = self._loss_scale_state
         if ls is not None:
@@ -523,10 +596,86 @@ class MultiLayerNetwork:
                 x[:, t0:t0 + k], y[:, t0:t0 + k], mc, None, carries)
             self._after_step(x)
 
-    def pretrain(self, *args, **kwargs):
-        raise _not_ported("layerwise pretraining", "A3")
+    # ------------------------------------------------------------------
+    # layerwise unsupervised pretraining
+    # ------------------------------------------------------------------
+    def _prefix_activations(self, idx: int, x):
+        """The input of layer ``idx``: an inference-mode forward through
+        layers ``[0, idx)`` without autograd, then layer ``idx``'s
+        preprocessor."""
+        a = x
+        with torch.no_grad():
+            for j, layer in enumerate(self.conf.layers[:idx]):
+                a = self._cast_a(self._preprocess(j, a), j)
+                a, _ = layer.apply(self._cast_p(self.params_list[j], j),
+                                   self.states_list[j], a, False, None)
+        return self._preprocess(idx, a)
 
-    pretrainLayer = pretrain
+    def _pretrain_step(self, idx: int, x) -> torch.Tensor:
+        """One unsupervised update of layer ``idx`` on the features
+        ``x``: the prefix's activations, the layer's pretrain loss and its
+        gradient, gradient normalisation, the layer's updater (its own
+        state in ``opt_states[idx]``, at the iteration count) and its
+        constraints. Returns the loss, detached."""
+        layer = self.conf.layers[idx]
+        a = self._prefix_activations(idx, x)
+        p = tree_map(lambda v: v.detach().requires_grad_(True),
+                     self.params_list[idx])
+        with torch.enable_grad():
+            loss = pretrain_loss(layer, p, a, self._generator,
+                                 lambda q: self._cast_p(q, idx),
+                                 lambda v: self._cast_a(v, idx))
+            g = grads_of(loss, p)
+        g = self._clip_grads([g])[0]
+        with torch.no_grad():
+            self.params_list[idx], self.opt_states[idx] = self._update_one(
+                idx, self.params_list[idx], self.opt_states[idx], g,
+                self._iteration)
+        return loss.detach()
+
+    def pretrainLayer(self, idx: int, data, epochs: int = 1):
+        """Unsupervised training of layer ``idx`` alone: the layers below
+        act as a frozen feature extractor (inference mode, no autograd),
+        and only layer ``idx``'s parameters and updater state change, one
+        update per batch of ``data`` (features: an array, a ``DataSet`` or
+        a ``DataSetIterator``; labels are ignored). Each update counts an
+        iteration; ``score()`` is the last loss with its l1/l2 terms."""
+        self._check_init()
+        layer = self.conf.layers[idx]
+        if not hasattr(layer, "unsupervised_loss"):
+            raise ValueError(
+                f"layer {idx} ({type(layer).__name__}) is not "
+                "pretrainable — only layers with an unsupervised loss "
+                "(VariationalAutoencoder, AutoEncoder) support "
+                "pretrainLayer")
+        for _ in range(epochs):
+            for xb in _feature_batches(data):
+                x = self._tensor(xb, self._input_dtype)
+                self._score = self._pretrain_step(idx, x)
+                self._iteration += 1
+        return self
+
+    def pretrain(self, data, epochs: int = 1):
+        """``pretrainLayer`` of every pretrainable layer, bottom up."""
+        for idx, layer in enumerate(self.conf.layers):
+            if hasattr(layer, "unsupervised_loss"):
+                self.pretrainLayer(idx, data, epochs)
+        return self
+
+    def reconstructionLogProbability(self, idx: int, x,
+                                     num_samples: int = 16):
+        """The importance-sampled ``log p(x)`` per example of the
+        ``VariationalAutoencoder`` at layer ``idx`` (the anomaly score),
+        on the device, ``[N]``."""
+        self._check_init()
+        layer = self.conf.layers[idx]
+        if not hasattr(layer, "reconstruction_log_prob"):
+            raise ValueError(f"layer {idx} is not a "
+                             "VariationalAutoencoder")
+        a = self._prefix_activations(idx, self._tensor(x, self._input_dtype))
+        with torch.no_grad():
+            return layer.reconstruction_log_prob(
+                self.params_list[idx], a, self._generator, num_samples)
 
     # ------------------------------------------------------------------
     # inference
@@ -712,6 +861,23 @@ class MultiLayerNetwork:
         return {f"{i}_{k}": self.params_list[i][k]
                 for i, k in self._flat_order()}
 
+    def summary(self) -> str:
+        """One row a layer (index, class, parameter count, output type)
+        and the total, the JAX package's text character for character."""
+        self._check_init()
+        lines = [f"{'idx':<4}{'layer':<28}{'params':>12}  out_type"]
+        it = self.conf.input_type
+        total = 0
+        for i, layer in enumerate(self.conf.layers):
+            n = sum(int(t.numel()) for t in tree_leaves(self.params_list[i]))
+            total += n
+            ot = layer.output_type(it) if it else None
+            lines.append(f"{i:<4}{type(layer).__name__:<28}{n:>12,}  "
+                         f"{(ot.kind + str(ot.example_shape())) if ot else '?'}")
+            it = ot
+        lines.append(f"Total params: {total:,}")
+        return "\n".join(lines)
+
     def clone(self) -> "MultiLayerNetwork":
         """A network of the same configuration on the same device sharing
         this one's tensors (a step replaces tensors, it does not write
@@ -761,4 +927,6 @@ def _pools_masked(layer, a, fmask) -> bool:
 
 __all__ = ["MultiLayerNetwork", "as_device_tensor",
            "weight_penalty", "normalize_gradients", "eval_mask",
-           "fit_epochs", "grads_of", "external_gradients"]
+           "fit_epochs", "grads_of", "external_gradients",
+           "with_weight_noise", "trainable_leaves", "merged",
+           "pretrain_loss"]

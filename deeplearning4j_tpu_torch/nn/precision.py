@@ -279,9 +279,12 @@ def all_finite(tree) -> torch.Tensor:
 
 
 def select(pred: torch.Tensor, new_tree, old_tree):
-    """Per leaf ``where(pred, new, old)``: the skip-step primitive."""
+    """Per leaf ``where(pred, new, old)``: the skip-step primitive (a leaf
+    that the step left as it was, a frozen one, is kept without a
+    copy)."""
     return _map(lambda n, o: torch.where(pred, n, o)
-                if torch.is_tensor(n) else n, new_tree, old_tree)
+                if torch.is_tensor(n) and n is not o else n,
+                new_tree, old_tree)
 
 
 def update_loss_scale(policy: PrecisionPolicy, ls_state, finite):

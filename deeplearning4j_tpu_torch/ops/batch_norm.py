@@ -210,12 +210,12 @@ def _lib():
         vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
         lib.dl4j_bn_stats.argtypes = [i, vp, ll, i, i, vp, vp, vp, vp, vp,
-                                      vp, i, vp]
-        lib.dl4j_bn_apply.argtypes = [i, vp, vp, vp, vp, vp, f, i, ll, i, i,
-                                      i, i, ll, vp, i, vp]
-        lib.dl4j_bn_backward.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, f,
-                                         i, ll, i, i, vp, vp, vp, vp, vp, vp,
-                                         vp, i, vp]
+                                      vp, vp, vp, i, vp]
+        lib.dl4j_bn_apply.argtypes = [i, vp, vp, vp, vp, vp, i, f, i, ll, i,
+                                      i, i, i, ll, vp, i, vp]
+        lib.dl4j_bn_backward.argtypes = [i, vp, vp, vp, vp, vp, vp, i, vp, vp,
+                                         f, i, ll, i, i, vp, vp, vp, vp, vp,
+                                         vp, vp, vp, vp, i, vp]
         for fn in (lib.dl4j_bn_stats, lib.dl4j_bn_apply,
                    lib.dl4j_bn_backward):
             fn.restype = ctypes.c_int
@@ -261,6 +261,19 @@ def _vectors(x2, *vecs):
             t = t.reshape(c).float().contiguous()
         out.append(t)
     return out
+
+
+def _affine(x2, gamma, beta):
+    """``(gamma, beta, their type's number)`` as the kernels read them:
+    each as it is where both are contiguous ``[C]`` of one of the kernels'
+    types on x's device (no cast before the launch), else both as f32
+    (:func:`_vectors`)."""
+    c, dev = x2.shape[1], x2.get_device()
+    if (gamma.dtype in DTYPES and beta.dtype is gamma.dtype
+            and all(t.dim() == 1 and t.shape[0] == c and t.is_contiguous()
+                    and t.get_device() == dev for t in (gamma, beta))):
+        return gamma, beta, DTYPES[gamma.dtype]
+    return (*_vectors(x2, ("gamma", gamma), ("beta", beta)), 0)
 
 
 #: apply plans by (rows, C, itemsize, aligned)
@@ -329,10 +342,13 @@ def _stream(dev: int) -> int:
     return torch._C._cuda_getCurrentRawStream(dev)
 
 
-def bn_stats_kernel(x2) -> Tuple[torch.Tensor, torch.Tensor]:
+def bn_stats_kernel(x2, in_x_dtype: bool = False):
     """Kernel (a) on a CUDA ``[rows, C]``, one cooperative launch: f32
-    ``(mean, var)`` ``[C]``, the shift the first row. Raises on what the
-    kernel does not take, on a failed build and on a refused launch."""
+    ``(mean, var)`` ``[C]``, the shift the first row; with ``in_x_dtype``
+    also the two rounded to x's dtype, written by the same launch
+    (``(mean, var, mean_x, var_x)``; the f32 ones again for f32 x). Raises
+    on what the kernel does not take, on a failed build and on a refused
+    launch."""
     global stats_launches
     _check_rows("x", x2, None)
     rows, c = x2.shape
@@ -340,32 +356,40 @@ def bn_stats_kernel(x2) -> Tuple[torch.Tensor, torch.Tensor]:
     plan, ints, bar, part, stream = _reduce_args(x2, px, dev)
     out = x2.new_empty((2, c), dtype=torch.float32)
     po = out.data_ptr()
+    typed = (x2.new_empty((2, c)) if in_x_dtype
+             and x2.dtype is not torch.float32 else None)
+    pt = None if typed is None else typed.data_ptr()
     lib = _lib()
     err = lib.dl4j_bn_stats(DTYPES[x2.dtype], px, rows, c, plan.vec, ints,
-                            part, bar, po, po + 4 * c, _info, dev, stream)
+                            part, bar, po, po + 4 * c, pt,
+                            None if pt is None else pt + c * x2.element_size(),
+                            _info, dev, stream)
     _raise_on(lib, err, "statistics")
     stats_launches += 1
-    return out.unbind()
+    if not in_x_dtype:
+        return out.unbind()
+    return (*out.unbind(), *(out if typed is None else typed).unbind())
 
 
 def bn_apply_kernel(x2, mean, var, gamma, beta, eps: float = 1e-5,
                     relu: bool = False) -> torch.Tensor:
     """Kernel (b) on a CUDA ``[rows, C]``: ``x * scale + shift`` in x's
     dtype (then ``max(y, 0)`` where ``relu``) from f32 statistics and any
-    float ``gamma``, ``beta``. Raises like :func:`bn_stats_kernel`."""
+    float ``gamma``, ``beta`` (read in their dtype where they share one of
+    the kernels'). Raises like :func:`bn_stats_kernel`."""
     global apply_launches
     _check_rows("x", x2, None)
-    vecs = _vectors(x2, ("mean", mean), ("var", var), ("gamma", gamma),
-                    ("beta", beta))
+    vecs = _vectors(x2, ("mean", mean), ("var", var))
+    ga, be, vdt = _affine(x2, gamma, beta)
     y = torch.empty_like(x2)
     rows, c = x2.shape
     dev, px, py = x2.get_device(), x2.data_ptr(), y.data_ptr()
     vec, tg, chunks, rpc = _apply_plan(x2, px | py)
     lib = _lib()
     err = lib.dl4j_bn_apply(DTYPES[x2.dtype], px,
-                            *(t.data_ptr() for t in vecs), float(eps),
-                            int(relu), rows, c, vec, tg, chunks, rpc, py,
-                            dev, _stream(dev))
+                            *(t.data_ptr() for t in (*vecs, ga, be)), vdt,
+                            float(eps), int(relu), rows, c, vec, tg, chunks,
+                            rpc, py, dev, _stream(dev))
     _raise_on(lib, err, "apply")
     apply_launches += 1
     return y
@@ -375,14 +399,16 @@ def bn_backward_kernel(x2, g2, mean, var, gamma, beta, eps: float = 1e-5,
                        relu: bool = False, gm=None, gv=None):
     """Kernel (c) on CUDA ``[rows, C]`` x and upstream g (one dtype), one
     cooperative launch: ``(dx, dgamma, dbeta)``, dx in x's dtype, the
-    others f32 ``[C]``. ``gm`` / ``gv`` (None for none) are the gradients
-    of the returned mean and variance. Raises like
+    others ``[C]`` in the dtype the kernel read gamma and beta in
+    (:func:`_affine`: theirs where they share one of the kernels', else
+    f32), rounded by the same launch. ``gm`` / ``gv`` (None for none) are
+    the gradients of the returned mean and variance. Raises like
     :func:`bn_stats_kernel`."""
     global bwd_launches
     _check_rows("x", x2, None)
     _check_rows("g", g2, x2)
-    vecs = _vectors(x2, ("mean", mean), ("var", var), ("gamma", gamma),
-                    ("beta", beta))
+    vecs = _vectors(x2, ("mean", mean), ("var", var))
+    ga, be, vdt = _affine(x2, gamma, beta)
     extra = [None, None]
     if gm is not None or gv is not None:
         extra = _vectors(
@@ -395,17 +421,22 @@ def bn_backward_kernel(x2, g2, mean, var, gamma, beta, eps: float = 1e-5,
     plan, ints, bar, part, stream = _reduce_args(x2, px | pg | pd, dev)
     out = x2.new_empty((2, c), dtype=torch.float32)
     po = out.data_ptr()
+    typed = None if vdt == 0 else x2.new_empty((2, c), dtype=ga.dtype)
+    pt = None if typed is None else typed.data_ptr()
     lib = _lib()
     err = lib.dl4j_bn_backward(DTYPES[x2.dtype], px, pg,
-                               *(t.data_ptr() for t in vecs),
+                               *(t.data_ptr() for t in (*vecs, ga, be)), vdt,
                                *(None if t is None else t.data_ptr()
                                  for t in extra),
                                float(eps), int(relu), rows, c, plan.vec, ints,
-                               part, bar, po + 4 * c, po, pd, _info, dev,
-                               stream)
+                               part, bar, po + 4 * c, po,
+                               None if pt is None
+                               else pt + c * typed.element_size(), pt, pd,
+                               _info, dev, stream)
     _raise_on(lib, err, "backward")
     bwd_launches += 1
-    return dx, out[1], out[0]
+    res = out if typed is None else typed
+    return dx, res[1], res[0]
 
 
 # -------------------------------------------------------------- autograd ops
@@ -417,12 +448,11 @@ class BatchNormKernels(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps, relu):
-        m, v = bn_stats_kernel(x2)
+        m, v, mo, vo = bn_stats_kernel(x2, in_x_dtype=True)
         y = bn_apply_kernel(x2, m, v, gamma, beta, eps, relu)
         ctx.save_for_backward(x2, gamma, beta, m, v)
         ctx.eps, ctx.relu = eps, relu
         ctx.set_materialize_grads(False)
-        mo, vo = m.to(x2.dtype), v.to(x2.dtype)
         if relu:
             ctx.mark_non_differentiable(mo, vo)
         return y, mo, vo

@@ -196,8 +196,12 @@ def test_plain_backward_with_stat_grads_is_autograd_of_the_formula(case):
 def _plain_kernels(monkeypatch):
     """Kernels (a)-(c) replaced by their plain versions (on any device),
     so the CUDA path's plumbing runs on the CPU."""
-    monkeypatch.setattr(bn, "bn_stats_kernel",
-                        lambda x2: bn.bn_stats_reference(x2, (0,)))
+    def stats(x2, in_x_dtype=False):
+        m, v = bn.bn_stats_reference(x2, (0,))
+        return (m, v, m.to(x2.dtype), v.to(x2.dtype)) if in_x_dtype \
+            else (m, v)
+
+    monkeypatch.setattr(bn, "bn_stats_kernel", stats)
     monkeypatch.setattr(
         bn, "bn_apply_kernel",
         lambda x2, m, v, g, b, eps=1e-5, relu=False: bn.bn_apply_reference(
@@ -389,6 +393,25 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     assert (bn.stats_launches, bn.apply_launches, bn.bwd_launches) == before
 
 
+@pytest.mark.parametrize("dtypes, code", [
+    ((torch.float32, torch.float32), 0), ((torch.bfloat16, torch.bfloat16), 1),
+    ((torch.float16, torch.float16), 2), ((torch.bfloat16, torch.float32), 0),
+    ((torch.float64, torch.float64), 0)])
+def test_affine_vectors_reach_the_kernels_uncast(dtypes, code):
+    """gamma and beta of one of the kernels' dtypes go to the kernels as
+    they are (no cast kernel before a launch); mixed or other dtypes as
+    f32 copies, as before."""
+    x2 = torch.zeros(4, 6, dtype=torch.bfloat16)
+    g, b = (torch.arange(6, dtype=d) / 4 for d in dtypes)
+    ga, be, vdt = bn._affine(x2, g, b)
+    assert vdt == code
+    if code:
+        assert ga is g and be is b
+    else:
+        assert ga.dtype == be.dtype == torch.float32
+        assert torch.equal(ga, g.float()) and torch.equal(be, b.float())
+
+
 def test_cpu_path_launches_nothing():
     x, g, b, r, *_ = _case("nhwc")
     before = (bn.stats_launches, bn.apply_launches, bn.bwd_launches)
@@ -489,6 +512,63 @@ def test_cuda_two_calls_are_bit_equal(dtype):
     again += bn.bn_backward_kernel(x, dy, *again[:2], gamma, beta, 1e-5,
                                    True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("rows, c", [(4096, 64), (1000, 33)])
+def test_cuda_kernels_read_and_write_half_vectors(rows, c, dtype):
+    """gamma and beta in x's half dtype, read by the kernels as they are:
+    (b) bit-equal to the same values handed in as f32; (c)'s dgamma and
+    dbeta in that dtype, equal to its f32 results rounded; (a)'s
+    statistics in x's dtype equal to its f32 ones rounded."""
+    _need_card()
+    x, dy, gamma, beta = _card_case(rows, c, dtype)
+    gamma, beta = gamma.to(dtype), beta.to(dtype)
+    m, v, mx, vx = bn.bn_stats_kernel(x, in_x_dtype=True)
+    assert mx.dtype == vx.dtype == dtype
+    assert torch.equal(mx, m.to(dtype)) and torch.equal(vx, v.to(dtype))
+    for relu in (False, True):
+        y = bn.bn_apply_kernel(x, m, v, gamma, beta, 1e-5, relu)
+        assert torch.equal(y, bn.bn_apply_kernel(
+            x, m, v, gamma.float(), beta.float(), 1e-5, relu))
+        dx, dg, db = bn.bn_backward_kernel(x, dy, m, v, gamma, beta, 1e-5,
+                                           relu)
+        wx, wg, wb = bn.bn_backward_kernel(x, dy, m, v, gamma.float(),
+                                           beta.float(), 1e-5, relu)
+        assert dg.dtype == db.dtype == dtype
+        assert torch.equal(dx, wx) and torch.equal(dg, wg.to(dtype)) \
+            and torch.equal(db, wb.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", OPS)
+def test_cuda_train_op_launches_only_the_kernels(op):
+    """A bf16 training batch norm with bf16 gamma and beta, forward and
+    backward, runs the three kernels and no other device kernel: no cast
+    of the per-channel vectors before or after a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(8, 14, 14, 64, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    gamma, beta = (torch.rand(64, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_(True) for _ in range(2))
+    r = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+    get_op(op)(x, gamma, beta)   # build and load the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        y = get_op(op)(x, gamma, beta)[0]
+        grads = torch.autograd.grad(y, (x, gamma, beta), r)
+        torch.cuda.synchronize()
+    assert [t.dtype for t in grads] == [torch.bfloat16] * 3
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all("bn_" in n for n in names), names
 
 
 #: [rows, C] cases that reach every route of the statistics and the

@@ -552,11 +552,16 @@ def test_unported_parts_raise_with_their_roadmap_item():
     # run in tests/test_torch_rnn_features.py and
     # tests/test_torch_external_errors.py
     for call, item in ((lambda: g.setHealthMonitor(object()), "A9"),
-                       (lambda: g.pretrain(x), "A3"),
                        (lambda: g.fit(x, y, fault_tolerance=object()), "A9"),
                        (lambda: g.fit(x, y, auto_resume=object()), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # pretraining is ported (tests/test_torch_pretrain.py): a graph
+    # without a pretrainable vertex pretrains nothing, as JAX's does
+    before = g.params()
+    assert g.pretrain(x) is g and torch.equal(g.params(), before)
+    with pytest.raises(ValueError, match="not pretrainable"):
+        g.pretrainLayer("fc", x)
     # iterators are ported: a plain Python iterator is no DataSetIterator
     with pytest.raises(TypeError, match="DataSet"):
         g.fit(iter([DataSet(x, y)]))

@@ -340,12 +340,18 @@ def test_unported_parts_raise_with_their_roadmap_item():
         device="cpu")
     x, y = _char_batch(0)
     for call, item in ((lambda: net.setHealthMonitor(object()), "A9"),
-                       (lambda: net.pretrain(x), "A3"),
                        (lambda: net.fit(x, y, fault_tolerance=object()),
                         "A9"),
                        (lambda: net.fit(x, y, auto_resume=object()), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # pretraining is ported (tests/test_torch_pretrain.py): a network
+    # without a pretrainable layer pretrains nothing, as JAX's does, and
+    # names the layer it cannot pretrain
+    before = net.params()
+    assert net.pretrain(x) is net and torch.equal(net.params(), before)
+    with pytest.raises(ValueError, match="not pretrainable"):
+        net.pretrainLayer(0, x)
     # iterators are ported: a plain Python iterator is no DataSetIterator
     with pytest.raises(TypeError, match="DataSetIterator"):
         net.fit(iter([DataSet(x, y)]))
