@@ -348,6 +348,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``TRANSFER_TOL``): a frozen MLN fine-tune, a graph transfer with
    ``nOutReplace``, a ``FrozenLayerWithBackprop`` GAN step, an
    AutoEncoder pretrain and an OCNN fit.
+22. the rest of the layer framework: (a) C3D (Tran et al. 2015: eight
+   ``Convolution3D`` 3x3x3 Same of 64-512, five max
+   ``Subsampling3DLayer``, pool5 1x4x4x512 = 8,192 features, two fc of
+   4096 with dropout 0.5, 487 classes) at bf16, batch 30 of 16 x 112 x
+   112 x 3 clips: its parameters against the builder's reckoning, 2
+   warm-up and 10 timed steps (ms a step, clips/s, peak memory), a
+   profiled step's idle share and device time by group (conv, pool,
+   matmul, softmax, elementwise/other); (b) CapsNet (Sabour et al. 2017:
+   Conv 256 9x9, ``PrimaryCapsules`` 32 x 8, ``CapsuleLayer`` 10 x 16 with
+   3 routings, ``CapsuleStrengthLayer``, softmax; 6,804,334 parameters) at
+   f32, batch 128 of learnable synthetic 28x28x1 images: 30 steps, the
+   loss falling, every capsule shorter than 1; (c) TensorFlow's GRU
+   character model (``EmbeddingSequenceLayer(65, 256)``, ``GRU(1024)``
+   with both biases, softmax 65; 4,021,569 parameters) at bf16, batch 64 x
+   100: ms a step, tokens/s, 200 sampled characters through
+   ``rnnTimeStep``, stepping against ``output()`` (``GRU_STEP_TOL``), the
+   GRU layer alone beside cuDNN's ``nn.GRU`` (a yardstick, not on the
+   path); then ``GravesBidirectionalLSTM(256)`` on the same batch (two
+   forward and two backward B5 launches a step, its output bit-equal to
+   ``Bidirectional(LSTM(256), CONCAT)``'s) and ``MaskZeroLayer(LSTM(256))``
+   on padded rows (the padded steps zero); (d) ``SelfAttentionLayer`` ->
+   ``RecurrentAttentionLayer`` -> ``LearnedSelfAttentionLayer(4)`` ->
+   average pooling -> ``OutputLayer(2)`` at d_model 768, 12 heads, T 128,
+   batch 32, bf16: ms a step and the recurrent layer's loop's share of
+   it; (e) card against CPU at f32 at the tests' cut sizes
+   (``LAYERS_TOL``): every class of the slice in nine networks, and the
+   builder's ``dropOut`` default's kept fraction on both devices. The
+   phase's B5 launches are added to B5's rows.
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -361,7 +389,8 @@ TAG`` runs phase 15 alone the same way, ``python3 chip_smoke.py
 lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
 phase 17, ``python3 chip_smoke.py seq2seq`` phase 18, ``python3
 chip_smoke.py precision`` phase 19, ``python3 chip_smoke.py vision``
-phase 20 and ``python3 chip_smoke.py transfer`` phase 21.
+phase 20, ``python3 chip_smoke.py transfer`` phase 21 and ``python3
+chip_smoke.py layers`` phase 22.
 """
 
 from __future__ import annotations
@@ -6750,6 +6779,741 @@ def transfer_parity() -> None:
     say("transfer", f"(f) {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------- phase 22: the layer framework
+#: (a) C3D (Tran et al. 2015, section 3.3 and Fig. 3) on clips of
+#: Sports-1M's shape: batch 30 (the paper's), 16 frames of 112x112x3, 487
+#: classes; eight 3x3x3 convolutions, five max pools, two fc of 4096
+C3D_BATCH, C3D_FRAMES, C3D_HW, C3D_CLASSES = 30, 16, 112, 487
+C3D_WIDTHS = (64, 128, 256, 256, 512, 512, 512, 512)
+#: after which convolutions (by index) a max pool comes: pool1 is 1x2x2,
+#: the rest 2x2x2, each in Same mode
+C3D_POOLS = {0: (1, 2, 2), 1: (2, 2, 2), 3: (2, 2, 2), 5: (2, 2, 2),
+             7: (2, 2, 2)}
+C3D_FC, C3D_LR = 4096, 0.003
+#: (b) CapsNet (Sabour et al. 2017, section 4) without the reconstruction
+#: decoder and the margin loss, at f32 on 28x28x1 images
+CAPS_BATCH, CAPS_STEPS, CAPS_PARAMS = 128, 30, 6_804_334
+#: (c) the GRU model of TensorFlow's "Text generation with an RNN"
+#: tutorial: vocabulary 65, embedding 256, GRU(1024), batch 64 x 100
+GRU_VOCAB, GRU_EMBED, GRU_UNITS = 65, 256, 1024
+GRU_BATCH, GRU_SEQ, GRU_SAMPLE, GRU_PARAMS = 64, 100, 200, 4_021_569
+GRAVES_UNITS = 256
+#: rnnTimeStep against output() on the same sequence: the softmax
+#: probabilities within 1e-5 at f32 (TF32 off) and within 2^-5 at bf16
+#: (the stepped input projection is another matmul shape, rounded alike
+#: only at f32)
+GRU_STEP_TOL = (1e-5, 2.0 ** -5)
+#: (d) the attention layers at BERT-base's widths
+ATTN_BATCH, ATTN_T, ATTN_D, ATTN_HEADS, ATTN_QUERIES = 32, 128, 768, 12, 4
+#: (e) card against CPU at f32 (TF32 off): outputs within 1e-5 of max(1,
+#: |value|), losses 1e-5 relative, parameters 1e-4 absolute after three
+#: steps (the tests' tolerances)
+LAYERS_TOL = (1e-5, 1e-5, 1e-4)
+#: the attention classes of nn/conf/layers.py; (e) holds these and those
+#: of layers_extra.py (but the vision zoo's DepthwiseConvolution2D and
+#: SpaceToDepthLayer, which phase 20 drives) in its networks
+SLICE_ATTENTION = {"SelfAttentionLayer", "LearnedSelfAttentionLayer",
+                   "RecurrentAttentionLayer"}
+
+
+def layers_group(chain) -> str:
+    """The group of a kernel of phase 22's networks (which run through
+    ``MultiLayerNetwork``, without record ranges) from the names of the
+    CPU op that launched it and of its parents, innermost first: B5 (under
+    its autograd function), conv, pool, matmul, softmax or
+    elementwise/other."""
+    text = " | ".join(chain)
+    low = text.lower()
+    if "LSTMRecurrence" in text:
+        return "B5"
+    if "convolution" in low:
+        return "conv"
+    if "pool" in low:
+        return "pool"
+    if any(k in text for k in ("aten::mm", "aten::addmm", "aten::bmm",
+                               "MmBackward", "BmmBackward")):
+        return "matmul"
+    if "softmax" in low:
+        return "softmax"
+    return "elementwise/other"
+
+
+def layers_mln(layers, it, updater, dtype="float32", seed=5, device=None):
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    b = (NeuralNetConfiguration.builder().seed(seed).updater(updater)
+         .weightInit("relu").dataType(dtype).list())
+    for layer in layers:
+        b.layer(layer)
+    return MultiLayerNetwork(b.setInputType(it).build(),
+                             device=device or DEVICE).init()
+
+
+def layers_report(tag: str, what: str, net, x, y, warmup: int, timed: int,
+                  items: int, unit: str, smi: str) -> tuple:
+    """Train ``net`` on one batch (``warmup`` + ``timed`` steps) and print
+    its parameters, ms a step, ``unit`` a second (``items`` a step), peak
+    memory, and a profiled step's idle share and device time by group.
+    Returns (losses, ms a step)."""
+    losses, ms, peak = timed_fit(net, x, y, warmup, timed)
+    check(all(math.isfinite(v) for v in losses),
+          f"layers {tag}: losses {losses}")
+    say("layers", f"{tag} {what}: {net.numParams()} parameters; {timed} "
+                  f"timed steps after {warmup}: {ms:.2f} ms/step "
+                  f"({items / ms * 1e3:.1f} {unit}/s), peak "
+                  f"{peak / 2 ** 30:.2f} GiB; losses "
+                  + " ".join(f"{v:.4f}" for v in losses) + f"; {smi}")
+    busy = device_profile("layers", f"{tag} one profiled step (unprofiled "
+                                    f"{ms:.2f} ms; {smi})",
+                          lambda: net.fit(x, y), (), group=layers_group,
+                          top=6)
+    if busy:
+        say("layers", f"{tag} idle about {max(1 - busy / ms, 0):.3f} of a "
+                      f"step ({busy:.2f} ms busy)")
+    return losses, ms
+
+
+def phase_layers(smi: str, rows) -> None:
+    """Phase 22: the rest of the layer framework on the card, (a)-(e). The
+    B5 launches of (c)'s GravesBidirectionalLSTM and MaskZeroLayer go to
+    B5's rows."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    try:
+        layers_c3d(smi)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    layers_capsnet(smi)
+    torch.cuda.empty_cache()
+    launched = layers_gru(smi)
+    torch.cuda.empty_cache()
+    layers_attention(smi)
+    torch.cuda.empty_cache()
+    layers_parity()
+    for key, n in zip(("B5", "B5 bwd"), launched):
+        rows[key]["launches"] = rows[key].get("launches", 0) + n
+    say("layers", f"B5 launches in phase 22: forward {launched[0]}, "
+                  f"backward {launched[1]} (cluster route; added to B5's "
+                  f"rows); phase 22 {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def c3d_layers():
+    from deeplearning4j_tpu_torch.nn.conf import (Convolution3D, DenseLayer,
+                                                  OutputLayer,
+                                                  Subsampling3DLayer)
+
+    layers = []
+    for i, width in enumerate(C3D_WIDTHS):
+        layers.append(Convolution3D(n_out=width, kernel_size=3,
+                                    convolution_mode="Same",
+                                    activation="relu"))
+        if i in C3D_POOLS:
+            layers.append(Subsampling3DLayer(
+                kernel_size=C3D_POOLS[i], stride=C3D_POOLS[i],
+                convolution_mode="Same"))
+    return layers + [
+        DenseLayer(n_out=C3D_FC, activation="relu"),
+        DenseLayer(n_out=C3D_FC, activation="relu", dropout=0.5),
+        OutputLayer(n_out=C3D_CLASSES, activation="softmax", loss="mcxent",
+                    dropout=0.5)]
+
+
+def layers_c3d(smi: str) -> None:
+    """(a) C3D at bf16 (the ``dataType("bfloat16")`` identity), batch 30 of
+    16 x 112 x 112 x 3 clips, 487 classes, Nesterovs(0.003, 0.9) as the
+    paper trains it."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+
+    t1 = time.perf_counter()
+    it = InputType.convolutional3D(C3D_FRAMES, C3D_HW, C3D_HW, 3)
+    net = layers_mln(c3d_layers(), it, Nesterovs(C3D_LR, momentum=0.9),
+                     "bfloat16")
+    conf = net.conf
+    # the reckoning: every 3x3x3 convolution, then fc6 from pool5
+    t = conf.input_type
+    want, widths, macs = 0, (3,) + C3D_WIDTHS, 0
+    for layer in conf.layers:
+        out = layer.output_type(t)
+        if type(layer).__name__ == "Convolution3D":
+            want += 27 * layer.n_in * layer.n_out + layer.n_out
+            macs += 27 * layer.n_in * out.arrayElementsPerExample()
+        elif hasattr(layer, "n_out"):
+            want += layer.n_in * layer.n_out + layer.n_out
+            macs += layer.n_in * layer.n_out
+        t = out
+    pool5 = conf.layers[-3].n_in
+    check([l.n_in for l in conf.layers
+           if type(l).__name__ == "Convolution3D"] == list(widths[:-1]),
+          "layers (a): C3D's convolution widths")
+    check(pool5 == 1 * 4 * 4 * 512,
+          f"layers (a): pool5 gives {pool5} features, not 8,192")
+    check(net.numParams() == want,
+          f"layers (a): C3D has {net.numParams()} parameters, the "
+          f"reckoning {want}")
+    check(conf.preprocessors == {len(conf.layers) - 3: "flatten"},
+          f"layers (a): preprocessors {conf.preprocessors}")
+    rng = np.random.RandomState(60)
+    x = torch.from_numpy(rng.randn(C3D_BATCH, C3D_FRAMES, C3D_HW, C3D_HW,
+                                   3).astype(np.float32)).to(
+        DEVICE, torch.bfloat16)
+    y = torch.zeros((C3D_BATCH, C3D_CLASSES), device=DEVICE)
+    y[torch.arange(C3D_BATCH), torch.from_numpy(rng.randint(
+        0, C3D_CLASSES, C3D_BATCH))] = 1.0
+    say("layers", f"(a) C3D: 8 Convolution3D 3x3x3 Same ({C3D_WIDTHS}), 5 "
+                  f"max Subsampling3DLayer (pool1 1x2x2), pool5 1x4x4x512 "
+                  f"= {pool5} features, fc6/fc7 {C3D_FC} (dropout 0.5), "
+                  f"{C3D_CLASSES} classes; {want} parameters by the "
+                  f"reckoning, {macs / 1e9:.2f} GMAC a clip forward; bf16, "
+                  f"batch {C3D_BATCH}; built in "
+                  f"{time.perf_counter() - t1:.1f} s")
+    _, ms = layers_report("(a)", f"C3D {C3D_FRAMES}x{C3D_HW}x{C3D_HW}x3",
+                          net, x, y, WARMUP_STEPS, TIMED_STEPS, C3D_BATCH,
+                          "clips", smi)
+    tflops = 3 * 2 * macs * C3D_BATCH / (ms * 1e-3) / 1e12
+    say("layers", f"(a) C3D about {tflops:.1f} TFLOP/s of its forward and "
+                  f"backward (3 x the forward's MACs); "
+                  f"{time.perf_counter() - t1:.1f} s")
+
+
+def capsnet_data(n: int, seed: int):
+    """28x28x1 images whose class can be learned: one of ten fixed
+    random strokes (a template per class, from the seed) at a random
+    shift, under noise; one-hot labels."""
+    rng = np.random.RandomState(seed)
+    templates = (rng.rand(10, 12, 12) > 0.7).astype(np.float32)
+    y = rng.randint(0, 10, n)
+    x = 0.1 * rng.rand(n, 28, 28, 1).astype(np.float32)
+    for i, k in enumerate(y):
+        r, c = rng.randint(4, 13, 2)
+        x[i, r:r + 12, c:c + 12, 0] += templates[k]
+    return x, np.eye(10, dtype=np.float32)[y]
+
+
+def capsnet_layers():
+    from deeplearning4j_tpu_torch.nn.conf import (CapsuleLayer,
+                                                  CapsuleStrengthLayer,
+                                                  ConvolutionLayer,
+                                                  OutputLayer,
+                                                  PrimaryCapsules)
+
+    return [ConvolutionLayer(n_out=256, kernel_size=(9, 9), stride=(1, 1),
+                             activation="relu"),
+            PrimaryCapsules(channels=32, capsule_dimensions=8,
+                            kernel_size=(9, 9), stride=(2, 2)),
+            CapsuleLayer(capsules=10, capsule_dimensions=16, routings=3),
+            CapsuleStrengthLayer(),
+            OutputLayer(n_out=10, activation="softmax", loss="mcxent")]
+
+
+def layers_capsnet(smi: str) -> None:
+    """(b) CapsNet at f32 (TF32 off), batch 128, Adam(1e-3): 2 warm-up and
+    28 timed steps, the loss falling; every capsule shorter than 1."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+
+    t1 = time.perf_counter()
+    net = layers_mln(capsnet_layers(), InputType.convolutional(28, 28, 1),
+                     Adam(1e-3))
+    check(net.numParams() == CAPS_PARAMS,
+          f"layers (b): CapsNet has {net.numParams()} parameters, not "
+          f"{CAPS_PARAMS:,}")
+    caps = net.conf.layers[2]
+    check((caps.input_capsules, caps.n_in) == (1152, 8),
+          f"layers (b): {caps.input_capsules} primary capsules of "
+          f"{caps.n_in}, not 1,152 of 8")
+    x, y = capsnet_data(CAPS_BATCH, seed=61)
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
+    losses, _ = layers_report(
+        "(b)", "CapsNet 28x28x1 (Conv 256 9x9 -> PrimaryCapsules 32 x 8 -> "
+               "CapsuleLayer 10 x 16, 3 routings -> strength -> softmax)",
+        net, x, y, WARMUP_STEPS, CAPS_STEPS - WARMUP_STEPS, CAPS_BATCH,
+        "images", smi)
+    check(losses[-1] < losses[0], f"layers (b): the loss did not fall "
+                                  f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    with torch.no_grad():
+        v = net.feedForward(x)[3]
+    longest = float(torch.linalg.norm(v.float(), dim=-1).max())
+    check(tuple(v.shape) == (CAPS_BATCH, 10, 16) and longest < 1.0,
+          f"layers (b): capsules {tuple(v.shape)}, longest {longest}")
+    say("layers", f"(b) loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+                  f"{CAPS_STEPS} steps; the longest of {CAPS_BATCH} x 10 "
+                  f"capsules {longest:.4f}; "
+                  f"{time.perf_counter() - t1:.1f} s")
+
+
+def gru_char_layers():
+    from deeplearning4j_tpu_torch.nn.conf import (GRU, EmbeddingSequenceLayer,
+                                                  RnnOutputLayer)
+
+    return [EmbeddingSequenceLayer(n_in=GRU_VOCAB, n_out=GRU_EMBED),
+            GRU(n_out=GRU_UNITS, recurrent_bias=True),
+            RnnOutputLayer(n_out=GRU_VOCAB, activation="softmax",
+                           loss="mcxent")]
+
+
+def char_ids(n: int, t: int, seed: int):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, GRU_VOCAB, (n, t + 1))
+    eye = np.eye(GRU_VOCAB, dtype=np.float32)
+    return ids[:, :-1].astype(np.float32), eye[ids[:, 1:]]
+
+
+def layers_gru(smi: str) -> tuple:
+    """(c) The GRU character model at bf16, its sampling through
+    ``rnnTimeStep``, cuDNN's ``nn.GRU`` as a yardstick, then
+    ``GravesBidirectionalLSTM`` and ``MaskZeroLayer(LSTM)`` on B5. Returns
+    the B5 launches (forward, backward) of its runs."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+
+    t1 = time.perf_counter()
+    it = InputType.recurrent(1, GRU_SEQ)
+    net = layers_mln(gru_char_layers(), it, Adam(1e-3), "bfloat16")
+    check(net.numParams() == GRU_PARAMS,
+          f"layers (c): the GRU model has {net.numParams()} parameters, not "
+          f"{GRU_PARAMS:,}")
+    ids, y = char_ids(GRU_BATCH, GRU_SEQ, seed=62)
+    x = torch.from_numpy(ids).to(DEVICE)
+    y = torch.from_numpy(y).to(DEVICE)
+    _, ms = layers_report(
+        "(c)", f"GRU char model (Embedding {GRU_VOCAB}x{GRU_EMBED} -> "
+               f"GRU({GRU_UNITS}, two biases) -> softmax {GRU_VOCAB}), bf16, "
+               f"{GRU_BATCH} x {GRU_SEQ}", net, x, y, WARMUP_STEPS,
+        TIMED_STEPS, GRU_BATCH * GRU_SEQ, "tokens", smi)
+    gru_sampling(net)
+    gru_stepping(net)
+    gru_yardstick(net, x)
+    reset_lstm_counts()
+    graves_lstm(smi)
+    mask_zero_lstm()
+    launched = lstm_counts()
+    check(launched[0] > 0 and launched[1] > 0 and lstm_wide_counts() == (0, 0)
+          and lstm_cluster_counts() == launched,
+          f"layers (c): B5 launches {launched}, of which "
+          f"{lstm_cluster_counts()} on the cluster route and "
+          f"{lstm_wide_counts()} on the wide route")
+    say("layers", f"(c) {time.perf_counter() - t1:.1f} s")
+    return launched
+
+
+def gru_sampling(net) -> None:
+    """200 characters through ``rnnTimeStep`` from one seed character,
+    each drawn from the softmax by a numpy generator."""
+    rng = np.random.RandomState(63)
+    net.rnnClearPreviousState()
+    # ids [N] are one step of EmbeddingSequenceLayer (a sequence of one)
+    c = np.zeros((1,), np.float32)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRU_SAMPLE):
+        p = net.rnnTimeStep(c)
+        probs = p[0, -1].float().cpu().numpy().astype(np.float64)
+        k = int(rng.choice(GRU_VOCAB, p=probs / probs.sum()))
+        out.append(k)
+        c = np.full((1,), k, np.float32)
+    ms = (time.perf_counter() - t0) / GRU_SAMPLE * 1e3
+    net.rnnClearPreviousState()
+    check(len(set(out)) > 1, f"layers (c): samples {out[:20]}")
+    say("layers", f"(c) sampled {GRU_SAMPLE} characters through rnnTimeStep "
+                  f"at batch 1: {ms:.3f} ms a character (the host's draw "
+                  f"included)")
+
+
+def gru_stepping(net) -> None:
+    """``rnnTimeStep`` one step at a time against ``output()`` on the same
+    sequences: at bf16 on the model itself, and at f32 (TF32 off) on a
+    copy of its parameters."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+    from deeplearning4j_tpu_torch.params import tree_map
+
+    ids, _ = char_ids(4, GRU_SEQ, seed=64)
+    f32 = layers_mln(gru_char_layers(), InputType.recurrent(1, GRU_SEQ),
+                     Adam(1e-3))
+    f32.params_list = tree_map(lambda t: t.float(), net.params_list)
+    errs = []
+    for model, tol in ((f32, GRU_STEP_TOL[0]), (net, GRU_STEP_TOL[1])):
+        with torch.no_grad():
+            full = model.output(ids).float()
+            model.rnnClearPreviousState()
+            steps = torch.stack([model.rnnTimeStep(ids[:, t])[:, 0]
+                                 for t in range(GRU_SEQ)], dim=1).float()
+            model.rnnClearPreviousState()
+        errs.append(close_card_cpu("layers (c) rnnTimeStep vs output()",
+                                   steps, full, tol))
+    say("layers", f"(c) rnnTimeStep over {GRU_SEQ} steps against output() "
+                  f"(batch 4): max |diff| of the probabilities f32 "
+                  f"{errs[0]:.2e} (tolerance {GRU_STEP_TOL[0]:g}), bf16 "
+                  f"{errs[1]:.2e} (tolerance {GRU_STEP_TOL[1]:g})")
+
+
+def gru_yardstick(net, x) -> None:
+    """The port's GRU layer (the plain loop over T) forward and forward +
+    backward at the model's shape beside cuDNN's ``nn.GRU`` (the same
+    reset-after cell and biases), which the port never calls."""
+    from deeplearning4j_tpu_torch.ops import nn as tnn
+
+    p = net.params_list[1]
+    with torch.no_grad():
+        emb, _ = net.conf.layers[0].apply(net.params_list[0], {}, x, False,
+                                          None)
+    emb = emb.detach()
+    leaves = [p["W"], p["RW"], p["b"], p["Rb"]]
+
+    def port(grad: bool):
+        ws = [t.detach().requires_grad_(grad) for t in leaves]
+        ys, _ = tnn.gru_layer(emb, *ws[:3], rb=ws[3])
+        if grad:
+            torch.autograd.grad(ys.float().sum(), ws)
+
+    ref = torch.nn.GRU(GRU_EMBED, GRU_UNITS, batch_first=True).to(
+        DEVICE, torch.bfloat16)
+    ref.flatten_parameters()
+
+    def cudnn(grad: bool):
+        ys, _ = ref(emb)
+        if grad:
+            torch.autograd.grad(ys.float().sum(), list(ref.parameters()))
+
+    times = {}
+    for name, fn in (("port", port), ("cudnn", cudnn)):
+        with torch.no_grad():
+            times[name, "fwd"] = cuda_ms(lambda _: fn(False), 5, 2)
+        times[name, "fwd+bwd"] = cuda_ms(lambda _: fn(True), 5, 2)
+    say("layers", f"(c) GRU({GRU_UNITS}) alone at {GRU_BATCH} x {GRU_SEQ} x "
+                  f"{GRU_EMBED}, bf16: the port's loop forward "
+                  f"{times['port', 'fwd']:.3f} ms, forward + backward "
+                  f"{times['port', 'fwd+bwd']:.3f} ms; cuDNN nn.GRU "
+                  f"(yardstick, not on the path) {times['cudnn', 'fwd']:.3f} "
+                  f"/ {times['cudnn', 'fwd+bwd']:.3f} ms")
+
+
+def graves_lstm(smi: str) -> None:
+    """``GravesBidirectionalLSTM(256)`` on (c)'s batch at bf16 (B5's
+    cluster route): B5 launches a step, and its output equal to
+    ``Bidirectional(LSTM(256), "CONCAT")``'s on the same parameters."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (
+        LSTM, Bidirectional, EmbeddingSequenceLayer, GravesBidirectionalLSTM,
+        InputType, RnnOutputLayer)
+
+    def layers(rec):
+        return [EmbeddingSequenceLayer(n_in=GRU_VOCAB, n_out=GRU_EMBED), rec,
+                RnnOutputLayer(n_out=GRU_VOCAB, activation="softmax",
+                               loss="mcxent")]
+
+    it = InputType.recurrent(1, GRU_SEQ)
+    net = layers_mln(layers(GravesBidirectionalLSTM(n_out=GRAVES_UNITS)),
+                     it, Adam(1e-3), "bfloat16")
+    ids, y = char_ids(GRU_BATCH, GRU_SEQ, seed=65)
+    x = torch.from_numpy(ids).to(DEVICE)
+    y = torch.from_numpy(y).to(DEVICE)
+    f0, b0 = lstm_counts()
+    _, ms = layers_report("(c)", f"GravesBidirectionalLSTM({GRAVES_UNITS}) "
+                                 f"char model, bf16, {GRU_BATCH} x "
+                                 f"{GRU_SEQ}", net, x, y, WARMUP_STEPS,
+                          TIMED_STEPS, GRU_BATCH * GRU_SEQ, "tokens", smi)
+    launched = (lstm_counts()[0] - f0, lstm_counts()[1] - b0)
+    steps = WARMUP_STEPS + TIMED_STEPS + 1        # the profiled step too
+    check(launched == (2 * steps, 2 * steps),
+          f"layers (c): B5 launches {launched} over {steps} steps, not two "
+          f"forward and two backward a step")
+    same = layers_mln(layers(Bidirectional(layer=LSTM(n_out=GRAVES_UNITS),
+                                           mode="CONCAT")),
+                      it, Adam(1e-3), "bfloat16")
+    same.params_list = net.params_list
+    with torch.no_grad():
+        a, b = net.output(x), same.output(x)
+    check(torch.equal(a, b), "layers (c): GravesBidirectionalLSTM's output "
+                             "differs from Bidirectional(LSTM)'s")
+    say("layers", f"(c) GravesBidirectionalLSTM: B5 launches {launched} over "
+                  f"{steps} steps (two forward, two backward a step, the "
+                  f"cluster route), output bit-equal to Bidirectional(LSTM("
+                  f"{GRAVES_UNITS}), CONCAT) on the same parameters")
+
+
+def mask_zero_lstm() -> None:
+    """``MaskZeroLayer(LSTM(256))`` at bf16 on one-hot rows padded with
+    the mask value (0) from lengths 40-100 (of 100): the padded steps give
+    zero output; two steps and a forward on B5."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (LSTM, InputType,
+                                                  MaskZeroLayer,
+                                                  RnnOutputLayer)
+
+    net = layers_mln([MaskZeroLayer(layer=LSTM(n_out=GRAVES_UNITS),
+                                    mask_value=0.0),
+                      RnnOutputLayer(n_out=GRU_VOCAB, activation="softmax",
+                                     loss="mcxent")],
+                     InputType.recurrent(GRU_VOCAB, GRU_SEQ), Adam(1e-3),
+                     "bfloat16")
+    _, y = char_ids(GRU_BATCH, GRU_SEQ, seed=66)
+    x, _ = char_ids(GRU_BATCH, GRU_SEQ, seed=67)
+    x = np.eye(GRU_VOCAB, dtype=np.float32)[x.astype(int)]
+    lengths = np.random.RandomState(68).randint(2 * GRU_SEQ // 5,
+                                                GRU_SEQ + 1, GRU_BATCH)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = torch.from_numpy(x).to(DEVICE, torch.bfloat16)
+    y = torch.from_numpy(y).to(DEVICE)
+    f0, b0 = lstm_counts()
+    for _ in range(2):
+        net.fit(x, y)
+    with torch.no_grad():
+        h = net.feedForward(x)[1]
+    launched = (lstm_counts()[0] - f0, lstm_counts()[1] - b0)
+    pad = torch.from_numpy(np.arange(GRU_SEQ)[None, :] >= lengths[:, None]
+                           ).to(DEVICE)
+    check(bool(torch.all(h[pad] == 0)) and bool(torch.all(
+        h[~pad].float().abs().sum(-1) > 0)),
+        "layers (c): MaskZeroLayer's padded steps are not zero, or a real "
+        "one is")
+    check(launched == (3, 2), f"layers (c): MaskZeroLayer B5 launches "
+                              f"{launched}, not 3 forward and 2 backward")
+    say("layers", f"(c) MaskZeroLayer(LSTM({GRAVES_UNITS})) at bf16 on rows "
+                  f"padded from lengths {lengths.min()}-{lengths.max()}: "
+                  f"{int(pad.sum())} padded steps all zero, B5 launches "
+                  f"{launched} over 2 steps and a forward")
+
+
+def layers_attention(smi: str) -> None:
+    """(d) SelfAttentionLayer -> RecurrentAttentionLayer ->
+    LearnedSelfAttentionLayer(4) -> average pooling -> OutputLayer(2) at
+    BERT-base's widths, bf16; then the recurrent layer's forward and
+    backward alone, its share of the step."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (
+        GlobalPoolingLayer, InputType, LearnedSelfAttentionLayer,
+        OutputLayer, RecurrentAttentionLayer, SelfAttentionLayer)
+
+    t1 = time.perf_counter()
+    d, h = ATTN_D, ATTN_HEADS
+    net = layers_mln([SelfAttentionLayer(n_out=d, n_heads=h),
+                      RecurrentAttentionLayer(n_out=d, n_heads=h),
+                      LearnedSelfAttentionLayer(n_out=d, n_heads=h,
+                                                n_queries=ATTN_QUERIES),
+                      GlobalPoolingLayer(pooling_type="avg"),
+                      OutputLayer(n_out=2, activation="softmax",
+                                  loss="mcxent")],
+                     InputType.recurrent(d, ATTN_T), Adam(1e-4), "bfloat16")
+    check(all(l.head_size == d // h for l in net.conf.layers[:3]),
+          "layers (d): head sizes")
+    rng = np.random.RandomState(69)
+    x = torch.from_numpy(rng.randn(ATTN_BATCH, ATTN_T, d).astype(
+        np.float32)).to(DEVICE, torch.bfloat16)
+    y = torch.from_numpy(np.eye(2, dtype=np.float32)[
+        rng.randint(0, 2, ATTN_BATCH)]).to(DEVICE)
+    _, ms = layers_report("(d)", f"attention stack, d_model {d}, {h} heads "
+                                 f"of {d // h}, T {ATTN_T}, bf16",
+                          net, x, y, WARMUP_STEPS, TIMED_STEPS,
+                          ATTN_BATCH * ATTN_T, "tokens", smi)
+    layer, p = net.conf.layers[1], net.params_list[1]
+    with torch.no_grad():
+        a, _ = net.conf.layers[0].apply(net.params_list[0], {}, x, False,
+                                        None)
+
+    def loop(_):
+        ps = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xin = a.detach().requires_grad_(True)
+        out, _ = layer.apply(ps, {}, xin, True, None)
+        torch.autograd.grad(out.float().sum(), [xin, *ps.values()])
+
+    loop_ms = cuda_ms(loop, 3, 1)
+    say("layers", f"(d) RecurrentAttentionLayer's {ATTN_T}-step loop alone, "
+                  f"forward + backward: {loop_ms:.2f} ms, "
+                  f"{loop_ms / ms:.3f} of a step; "
+                  f"{time.perf_counter() - t1:.1f} s")
+
+
+def parity_nets():
+    """(e)'s networks at the tests' cut sizes, every class of the slice in
+    one of them: (name, layers, input type, x, y)."""
+    from deeplearning4j_tpu_torch.nn import conf as C
+
+    rs = np.random.RandomState(70)
+
+    def onehot(n, k, t=None):
+        shape = (n,) if t is None else (n, t)
+        return np.eye(k, dtype=np.float32)[rs.randint(0, k, shape)]
+
+    def randn(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    pad = randn(4, 7, 4)
+    pad[0, 5:] = 0.0
+    pad[2, 4:] = 0.0
+    return [
+        ("1D", [C.ZeroPadding1DLayer(pad=(1, 1)),
+                C.Convolution1D(n_out=8, kernel_size=3, activation="relu"),
+                C.Subsampling1DLayer(kernel_size=2, stride=2),
+                C.Upsampling1D(size=2), C.Cropping1D(crop=(1, 1)),
+                C.LocallyConnected1D(n_out=6, kernel_size=3),
+                C.GlobalPoolingLayer(pooling_type="avg"),
+                C.OutputLayer(n_out=3, activation="softmax", loss="mcxent")],
+         C.InputType.recurrent(4, 16), randn(5, 16, 4), onehot(5, 3)),
+        ("2D", [C.ConvolutionLayer(n_out=4, kernel_size=(3, 3),
+                                   activation="relu"),
+                C.Deconvolution2D(n_out=3, kernel_size=(3, 3), stride=(2, 2),
+                                  convolution_mode="Same",
+                                  activation="tanh"),
+                C.Cropping2D(crop=(1, 1, 0, 2)),
+                C.LocallyConnected2D(n_out=4, kernel_size=(3, 3),
+                                     stride=(2, 2), activation="relu"),
+                C.SpaceToBatchLayer(block_size=2, padding=((1, 0), (0, 1))),
+                C.DenseLayer(n_out=8, activation="relu"),
+                C.OutputLayer(n_out=2, activation="softmax", loss="mcxent")],
+         C.InputType.convolutional(9, 9, 2), randn(4, 9, 9, 2),
+         onehot(16, 2)),
+        ("3D", [C.ZeroPadding3DLayer(pad=(1, 1, 1)),
+                C.Convolution3D(n_out=4, kernel_size=(3, 3, 3),
+                                activation="relu"),
+                C.Subsampling3DLayer(kernel_size=(2, 2, 2),
+                                     stride=(2, 2, 2)),
+                C.Upsampling3D(size=2),
+                C.Cropping3D(crop=(1, 1, 1, 1, 1, 1)),
+                C.Deconvolution3D(n_out=2, kernel_size=(3, 3, 3),
+                                  stride=(2, 2, 2), padding=(1, 1, 1),
+                                  activation="relu"),
+                C.Subsampling3DLayer(pooling_type="avg",
+                                     kernel_size=(2, 2, 2),
+                                     stride=(1, 1, 1),
+                                     convolution_mode="Same"),
+                C.DenseLayer(n_out=8, activation="relu"),
+                C.OutputLayer(n_out=2, activation="softmax", loss="mcxent")],
+         C.InputType.convolutional3D(6, 5, 6, 2), randn(3, 6, 5, 6, 2),
+         onehot(3, 2)),
+        ("misc", [C.DenseLayer(n_out=6, activation="identity"),
+                  C.PReLULayer(),
+                  C.ElementWiseMultiplicationLayer(activation="tanh"),
+                  C.LambdaLayer(fn=lambda t: torch.tanh(t) * 2.0),
+                  C.RepeatVector(n=4), C.MaskLayer(),
+                  C.PermuteLayer(dims=(2, 1)),
+                  C.GlobalPoolingLayer(pooling_type="max"),
+                  C.DenseLayer(n_out=12, activation="relu"),
+                  C.ReshapeLayer(target_shape=(3, 4)),
+                  C.Subsampling1DLayer(pooling_type="pnorm", kernel_size=2,
+                                       stride=1),
+                  C.GlobalPoolingLayer(pooling_type="sum"),
+                  C.CenterLossOutputLayer(n_out=3, activation="softmax",
+                                          loss="mcxent", lambda_=0.5)],
+         C.InputType.feedForward(5), randn(9, 5), onehot(9, 3)),
+        ("CapsNet", [C.ConvolutionLayer(n_out=8, kernel_size=(5, 5),
+                                        activation="relu"),
+                     C.PrimaryCapsules(capsule_dimensions=4, channels=2,
+                                       kernel_size=(5, 5), stride=(2, 2)),
+                     C.CapsuleLayer(capsules=3, capsule_dimensions=6,
+                                    routings=2),
+                     C.CapsuleStrengthLayer(),
+                     C.OutputLayer(n_out=3, activation="softmax",
+                                   loss="mcxent")],
+         C.InputType.convolutional(20, 20, 1), randn(4, 20, 20, 1),
+         onehot(4, 3)),
+        ("GRU", [C.GRU(n_out=6, recurrent_bias=True),
+                 C.RnnOutputLayer(n_out=3, activation="softmax",
+                                  loss="mcxent")],
+         C.InputType.recurrent(4, 7), randn(3, 7, 4), onehot(3, 3, 7)),
+        ("GravesBidirectionalLSTM",
+         [C.GravesBidirectionalLSTM(n_out=6),
+          C.RnnOutputLayer(n_out=3, activation="softmax", loss="mcxent")],
+         C.InputType.recurrent(4, 7), randn(3, 7, 4), onehot(3, 3, 7)),
+        ("MaskZeroLayer", [C.MaskZeroLayer(layer=C.LSTM(n_out=6)),
+                           C.RnnOutputLayer(n_out=3, activation="softmax",
+                                            loss="mcxent")],
+         C.InputType.recurrent(4, 7), pad, onehot(4, 3, 7)),
+        ("attention", [C.SelfAttentionLayer(n_heads=2, head_size=4,
+                                            activation="tanh"),
+                       C.RecurrentAttentionLayer(n_out=6, n_heads=2),
+                       C.LearnedSelfAttentionLayer(n_heads=2, head_size=3,
+                                                   n_queries=2),
+                       C.GlobalPoolingLayer(pooling_type="avg"),
+                       C.OutputLayer(n_out=2, activation="softmax",
+                                     loss="mcxent")],
+         C.InputType.recurrent(8, 6), randn(5, 6, 8), onehot(5, 2)),
+    ]
+
+
+def layers_parity() -> None:
+    """(e) Card against CPU at f32 (TF32 off) at the tests' cut sizes:
+    every class of the slice, outputs, then three Adam steps' losses and
+    parameters; then the builder's ``dropOut`` default, whose kept
+    fraction is held to the distribution contract on both devices."""
+    import copy
+
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (DenseLayer, InputType,
+                                                  NeuralNetConfiguration,
+                                                  OutputLayer)
+    from deeplearning4j_tpu_torch.params import tree_map
+
+    t1 = time.perf_counter()
+    classes = set()
+    for name, layers, it, x, y in parity_nets():
+        cpu = layers_mln(copy.deepcopy(layers), it, Adam(1e-3),
+                         device="cpu")
+        card = layers_mln(layers, it, Adam(1e-3))
+        card.params_list = tree_map(lambda t: t.to(DEVICE), cpu.params_list)
+        classes |= {type(l).__name__ for l in cpu.conf.layers}
+        classes |= {type(l.layer).__name__ for l in cpu.conf.layers
+                    if hasattr(l, "mask_value")}
+        out = close_card_cpu(f"layers (e) {name} output", card.output(x),
+                             cpu.output(x), LAYERS_TOL[0])
+        lc, lh = [], []
+        for _ in range(PARITY_STEPS):
+            for net, losses in ((card, lc), (cpu, lh)):
+                net.fit(x, y)
+                losses.append(net.score())
+        rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lc, lh))
+        check(all(math.isfinite(v) for v in lc + lh)
+              and rel <= LAYERS_TOL[1],
+              f"layers (e) {name}: losses card {lc}, CPU {lh}")
+        perr = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            _leaves_of(card.params_list), _leaves_of(cpu.params_list)))
+        check(perr <= LAYERS_TOL[2],
+              f"layers (e) {name}: parameters differ by {perr:.3e}")
+        say("layers", f"(e) {name}, card against CPU at f32: output "
+                      f"{out:.2e}, {PARITY_STEPS} steps' losses {rel:.2e} "
+                      f"relative, parameters {perr:.2e}")
+    # the builder's dropOut(keep): every layer without a rate takes 1 - keep
+    keep, n = 0.75, 256 * 512
+    frac = {}
+    for dev in ("cpu", DEVICE):
+        b = (NeuralNetConfiguration.builder().seed(3).dropOut(keep).list()
+             .layer(DenseLayer(n_out=8)).layer(OutputLayer(n_out=2))
+             .setInputType(InputType.feedForward(512)).build())
+        check(all(l.dropout == 1.0 - keep for l in b.layers),
+              f"layers (e): dropOut({keep}) gave "
+              f"{[l.dropout for l in b.layers]}")
+        gen = torch.Generator(device=dev).manual_seed(4)
+        out = b.layers[0]._maybe_dropout(torch.ones((256, 512), device=dev),
+                                         True, gen)
+        kept = out != 0
+        frac[dev] = float(kept.float().mean())
+        check(bool(torch.all(out[kept] == 1.0 / keep)),
+              "layers (e): dropout's scale")
+    sigma = math.sqrt(keep * (1 - keep) / n)
+    for dev, f in frac.items():
+        check(abs(f - keep) <= CONTRACT_SIGMAS * sigma,
+              f"layers (e): dropOut({keep}) kept {f:.4f} on {dev}")
+    say("layers", f"(e) dropOut({keep}): kept fraction card "
+                  f"{frac[DEVICE]:.4f}, CPU {frac['cpu']:.4f} of {n} (within "
+                  f"{CONTRACT_SIGMAS:g} sigma = "
+                  f"{CONTRACT_SIGMAS * sigma:.4f} of {keep})")
+    from deeplearning4j_tpu_torch.nn.conf import layers_extra
+
+    missing = (set(layers_extra.__all__) | SLICE_ATTENTION) - classes - {
+        "DepthwiseConvolution2D", "SpaceToDepthLayer"}
+    check(not missing, f"layers (e): no network holds {sorted(missing)}")
+    say("layers", f"(e) {len(classes)} layer classes through the card: "
+                  f"{', '.join(sorted(classes))} (tolerances "
+                  f"{LAYERS_TOL[0]:g} of max(1, |value|), "
+                  f"{LAYERS_TOL[1]:g}, {LAYERS_TOL[2]:g}); "
+                  f"{time.perf_counter() - t1:.1f} s")
+
+
 def _first(out):
     return out[0] if isinstance(out, list) else out
 
@@ -6823,6 +7587,13 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_transfer(phase_device())
         return 0
+    if argv[:1] == ["layers"]:
+        # phase 22 alone, of the port found from the current directory
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_layers(phase_device(), defaultdict(dict))
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -6856,6 +7627,7 @@ def main(argv) -> int:
     phase_precision(smi, rows, resident_ms)
     phase_vision(smi, rows)
     phase_transfer(smi)
+    phase_layers(smi, rows)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

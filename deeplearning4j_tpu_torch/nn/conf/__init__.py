@@ -1,9 +1,11 @@
-"""Configurations of the layer framework (the ported subset): the
-builders and ``InputType``; the layers of ``layers.py`` (dense and
-output heads, the recurrent family, embeddings, the image layers with
-``SeparableConvolution2D`` and ``Upsampling2D``, the normalizations,
-dropout and flatten); of ``layers_extra.py`` ``DepthwiseConvolution2D``
-and ``SpaceToDepthLayer``; ``objdetect.py`` whole
+"""Configurations of the layer framework: the builders and
+``InputType``; every layer of ``layers.py`` (dense and output heads, the
+recurrent family, embeddings, the image layers, the normalizations,
+dropout, flatten, and the attention layers ``SelfAttentionLayer``,
+``LearnedSelfAttentionLayer`` and ``RecurrentAttentionLayer``) and of
+``layers_extra.py`` (``GRU``, ``GravesBidirectionalLSTM``, the 1D, 2D and
+3D convolution, pooling, cropping and padding layers, the locally
+connected, misc, capsule and structural layers); ``objdetect.py`` whole
 (``Yolo2OutputLayer``, ``DetectedObject``, ``YoloUtils``); the
 pretrainable ``VariationalAutoencoder`` and ``AutoEncoder``
 (``variational.py``) and ``OCNNOutputLayer`` (``ocnn.py``); and the
@@ -28,9 +30,18 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     LastTimeStep, Layer, LayerNormalization, LocalResponseNormalization,
     LossLayer, OutputLayer, PoolingType, RnnLossLayer, RnnOutputLayer,
     SeparableConvolution2D, SimpleRnn, SubsamplingLayer, Upsampling2D,
-    ZeroPaddingLayer)
+    ZeroPaddingLayer, SelfAttentionLayer, LearnedSelfAttentionLayer,
+    RecurrentAttentionLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers_extra import (
-    DepthwiseConvolution2D, SpaceToDepthLayer)
+    GRU, CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer,
+    Convolution1D, Convolution3D, Cropping1D, Cropping2D, Cropping3D,
+    Deconvolution2D, Deconvolution3D, DepthwiseConvolution2D,
+    ElementWiseMultiplicationLayer, GravesBidirectionalLSTM, LambdaLayer,
+    LocallyConnected1D, LocallyConnected2D, MaskLayer, MaskZeroLayer,
+    PermuteLayer, PReLULayer, PrimaryCapsules, RepeatVector, ReshapeLayer,
+    SpaceToBatchLayer, SpaceToDepthLayer, Subsampling1DLayer,
+    Subsampling3DLayer, Upsampling1D, Upsampling3D, ZeroPadding1DLayer,
+    ZeroPadding3DLayer)
 from deeplearning4j_tpu_torch.nn.conf.objdetect import (
     DetectedObject, Yolo2OutputLayer, YoloUtils)
 from deeplearning4j_tpu_torch.nn.conf.ocnn import OCNNOutputLayer
@@ -49,6 +60,18 @@ __all__ = ["Builder", "ListBuilder", "MultiLayerConfiguration",
            "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
            "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",
            "LayerNormalization", "LocalResponseNormalization",
+           "SelfAttentionLayer", "LearnedSelfAttentionLayer",
+           "RecurrentAttentionLayer",
+           "GRU", "CapsuleLayer", "CapsuleStrengthLayer",
+           "CenterLossOutputLayer", "Convolution1D", "Convolution3D",
+           "Cropping1D", "Cropping2D", "Cropping3D", "Deconvolution2D",
+           "Deconvolution3D", "ElementWiseMultiplicationLayer",
+           "GravesBidirectionalLSTM", "LambdaLayer", "LocallyConnected1D",
+           "LocallyConnected2D", "MaskLayer", "MaskZeroLayer",
+           "PermuteLayer", "PReLULayer", "PrimaryCapsules", "RepeatVector",
+           "ReshapeLayer", "SpaceToBatchLayer", "Subsampling1DLayer",
+           "Subsampling3DLayer", "Upsampling1D", "Upsampling3D",
+           "ZeroPadding1DLayer", "ZeroPadding3DLayer",
            "DepthwiseConvolution2D", "SpaceToDepthLayer",
            "Yolo2OutputLayer", "DetectedObject", "YoloUtils",
            "AlphaDropout", "Dropout", "GaussianDropout", "GaussianNoise",

@@ -3,14 +3,18 @@ of ``deeplearning4j_tpu/nn/conf/builder.py`` for the ported layers.
 
 The fluent builder with the same names (``NeuralNetConfiguration
 .builder().seed(...).updater(...).list().layer(...).setInputType(...)
-.build()``), global defaults cloned into the layers, ``n_in`` inferred
-from the input type, the preprocessor tags placed where the
-representation changes (``"flatten"`` from an image to a dense layer,
-``"to_conv:H,W,C"`` from a flat image to an image layer; resolved by
-:func:`apply_preprocessor`), truncated-BPTT settings, and the JSON
-round-trip (``to_json`` / ``from_json``) that reads what the JAX side
-writes, the precision policy (``precision(...)``, a preset name or an
-``nn.precision.PrecisionPolicy``) included.
+.build()``), global defaults cloned into the layers (``dropOut(keep)``
+among them, stored as the drop rate ``1 - keep``), ``n_in`` inferred from
+the input type (through the wrappers ``LastTimeStep``, ``Bidirectional``
+and ``MaskZeroLayer``; an attention layer's ``n_out`` of 0 becomes its
+``n_in``), the input kind each layer family needs checked (images,
+volumes, sequences), the preprocessor tags placed where the
+representation changes (``"flatten"`` from an image or a volume to a
+dense layer, ``"to_conv:H,W,C"`` from a flat image to an image layer;
+resolved by :func:`apply_preprocessor`), truncated-BPTT settings, and the
+JSON round-trip (``to_json`` / ``from_json``) that reads what the JAX
+side writes, the precision policy (``precision(...)``, a preset name or
+an ``nn.precision.PrecisionPolicy``) included.
 """
 
 from __future__ import annotations
@@ -25,18 +29,39 @@ from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, Bidirectional, ConvolutionLayer, DenseLayer, EmbeddingLayer,
-    LastTimeStep, Layer, LocalResponseNormalization, RnnOutputLayer,
-    SimpleRnn, SubsamplingLayer, Upsampling2D, ZeroPaddingLayer)
-from deeplearning4j_tpu_torch.nn.conf.layers_extra import SpaceToDepthLayer
+    GravesLSTM, LastTimeStep, Layer, LearnedSelfAttentionLayer,
+    LocalResponseNormalization, RecurrentAttentionLayer, RnnOutputLayer,
+    SelfAttentionLayer, SimpleRnn, SubsamplingLayer, Upsampling2D,
+    ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers_extra import (
+    GRU, CapsuleLayer, CapsuleStrengthLayer, Convolution1D, Convolution3D,
+    Cropping1D, Cropping2D, Cropping3D, GravesBidirectionalLSTM,
+    LocallyConnected1D, LocallyConnected2D, MaskZeroLayer, PrimaryCapsules,
+    SpaceToBatchLayer, SpaceToDepthLayer, Subsampling1DLayer,
+    Subsampling3DLayer, Upsampling1D, Upsampling3D, ZeroPadding1DLayer,
+    ZeroPadding3DLayer)
 # registers PrecisionPolicy with the JSON serde
 from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy  # noqa: F401
 
-#: ported layers that consume image [N, H, W, C] input
+#: layers that consume image [N, H, W, C] input
 _CNN2D_LAYERS = (ConvolutionLayer, SubsamplingLayer, Upsampling2D,
-                 ZeroPaddingLayer, LocalResponseNormalization,
-                 SpaceToDepthLayer)
-#: ported layers that consume sequence [N, T, F] input
-_RNN_LAYERS = (LSTM, SimpleRnn, LastTimeStep, Bidirectional, RnnOutputLayer)
+                 ZeroPaddingLayer, LocalResponseNormalization, Cropping2D,
+                 SpaceToDepthLayer, SpaceToBatchLayer, LocallyConnected2D,
+                 PrimaryCapsules)
+#: layers that consume volumetric [N, D, H, W, C] input
+_CNN3D_LAYERS = (Convolution3D, Subsampling3DLayer, Upsampling3D,
+                 Cropping3D, ZeroPadding3DLayer)
+#: layers that consume sequence [N, T, F] input
+_RNN_LAYERS = (LSTM, SimpleRnn, GravesLSTM, GRU, GravesBidirectionalLSTM,
+               SelfAttentionLayer, LastTimeStep, Bidirectional,
+               LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+               RnnOutputLayer, Convolution1D, Subsampling1DLayer,
+               Upsampling1D, Cropping1D, ZeroPadding1DLayer,
+               LocallyConnected1D, MaskZeroLayer, CapsuleLayer,
+               CapsuleStrengthLayer)
+#: layers whose n_out of 0 the builder sets to their n_in
+_ATTENTION_LAYERS = (SelfAttentionLayer, LearnedSelfAttentionLayer,
+                     RecurrentAttentionLayer)
 
 
 @serializable
@@ -95,6 +120,7 @@ class Builder:
         self._l2 = 0.0
         self._dtype = "float32"
         self._precision = None
+        self._dropout = None
         self._activation = None
         self._grad_norm = None
         self._grad_norm_threshold = 1.0
@@ -133,6 +159,13 @@ class Builder:
         mixed policy keeps the master parameters in its ``param_dtype``
         (f32) and only the compute drops to bf16 or f16."""
         self._precision = policy
+        return self
+
+    def dropOut(self, keep: float) -> "Builder":
+        """Input dropout for every layer that sets none: ``keep`` is the
+        retain probability, stored as the drop rate ``1 - keep`` (a
+        ``keep`` of 0 or less sets none)."""
+        self._dropout = 1.0 - float(keep) if keep > 0 else None
         return self
 
     def gradientNormalization(self, mode: str,
@@ -203,6 +236,8 @@ class ListBuilder:
                     lt.l1 = p._l1
                 if lt.l2 is None:
                     lt.l2 = p._l2
+                if lt.dropout is None and p._dropout is not None:
+                    lt.dropout = p._dropout
             if it is None:
                 continue  # no shape inference: the user set n_in
             if isinstance(layer, _CNN2D_LAYERS):
@@ -214,6 +249,11 @@ class ListBuilder:
                 elif it.kind != "convolutional":
                     raise ValueError(
                         f"Layer {i} ({type(layer).__name__}) needs image "
+                        f"input, got {it.kind}")
+            elif isinstance(layer, _CNN3D_LAYERS):
+                if it.kind != "convolutional3d":
+                    raise ValueError(
+                        f"Layer {i} ({type(layer).__name__}) needs 3D image "
                         f"input, got {it.kind}")
             elif isinstance(layer, _RNN_LAYERS):
                 if it.kind != "recurrent":
@@ -232,6 +272,8 @@ class ListBuilder:
                     and not isinstance(target, EmbeddingLayer):
                 target.n_in = (it.channels if it.kind in (
                     "convolutional", "convolutional3d") else it.size)
+            if isinstance(layer, _ATTENTION_LAYERS) and layer.n_out == 0:
+                layer.n_out = layer.n_in
             it = layer.output_type(it)
 
         # explicit backpropType wins; a length without backpropType
@@ -262,7 +304,8 @@ class ListBuilder:
 def _n_in_holder(layer: Layer) -> Layer:
     """The layer that holds ``n_in`` inside wrappers: a
     ``LastTimeStep``'s underlying layer, or the wrapped ``layer`` of a
-    class whose ``n_in`` is a property (``Bidirectional``)."""
+    class whose ``n_in`` is a property (``Bidirectional``,
+    ``MaskZeroLayer``)."""
     while True:
         if isinstance(layer, LastTimeStep):
             layer = layer.underlying

@@ -33,12 +33,15 @@ pooling over sequences), the normalizations :class:`BatchNormalization`
 ``IWeightNoise`` (``nn/conf/weightnoise.py``, applied by the networks in
 training) and its ``constraints`` a list of ``LayerConstraint``
 (``nn/conf/constraint.py``, applied by the networks after each update).
+The attention layers :class:`SelfAttentionLayer`,
+:class:`LearnedSelfAttentionLayer` and :class:`RecurrentAttentionLayer`
+run the plain ``ops.nn.dot_product_attention``, as the reference's do.
 ``nn/conf/layers_extra.py``, ``nn/conf/objdetect.py``,
-``nn/conf/variational.py`` and ``nn/conf/ocnn.py`` hold the ported
-classes of the JAX modules of those names, and ``nn/transferlearning.py``
-the frozen wrappers. Every other layer class of the JAX package is not
-registered, so a configuration naming one raises ``NotImplementedError``
-with its name (``common.serde``).
+``nn/conf/variational.py`` and ``nn/conf/ocnn.py`` hold the classes of the
+JAX modules of those names, and ``nn/transferlearning.py`` the frozen
+wrappers: every layer class of the JAX package has its counterpart, and
+only ``LambdaLayer`` (which holds a function) is not registered with the
+JSON serde.
 """
 
 from __future__ import annotations
@@ -849,6 +852,153 @@ class LocalResponseNormalization(Layer):
             beta=self.beta), state
 
 
+# ------------------------------------------------------------- attention
+def _head_size(layer) -> int:
+    """The head size a ``head_size`` of 0 takes: ``(n_out or n_in) //
+    n_heads``, at construction, as the JAX layers fix it."""
+    if not layer.head_size and layer.n_heads:
+        return (layer.n_out or layer.n_in) // layer.n_heads
+    return layer.head_size
+
+
+def _split_heads(a, heads: int, dh: int):
+    """``[N, T, heads * dh]`` -> ``[N, heads, T, dh]``."""
+    return a.reshape(a.shape[0], a.shape[1], heads, dh).transpose(1, 2)
+
+
+@serializable
+@dataclasses.dataclass
+class SelfAttentionLayer(Layer):
+    """Multi-head self-attention over ``[N, T, n_in]``
+    (``ops.nn.multi_head_dot_product_attention``): ``Wq``, ``Wk``, ``Wv``
+    ``[n_in, n_heads * head_size]`` and ``Wo`` ``[proj, n_out]``; the
+    builder sets ``n_out = n_in`` where it is 0."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+
+    def __post_init__(self):
+        self.head_size = _head_size(self)
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, it.timeseries_length)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        proj = self.n_heads * self.head_size
+        wi = self.weight_init or WeightInit.XAVIER
+        shapes = (("Wq", self.n_in, proj), ("Wk", self.n_in, proj),
+                  ("Wv", self.n_in, proj), ("Wo", proj, self.n_out))
+        return {k: init_weights(wi, generator, (a, b), a, b, dtype, device)
+                for k, a, b in shapes}
+
+    def apply(self, params, state, x, train, generator):
+        out = nnops.multi_head_dot_product_attention(
+            x, x, params["Wq"], params["Wk"], params["Wv"], params["Wo"],
+            num_heads=self.n_heads)
+        return _act(self.activation or "identity").fn(out), state
+
+
+@serializable
+@dataclasses.dataclass
+class LearnedSelfAttentionLayer(Layer):
+    """Attention of ``n_queries`` learned queries ``Q`` ``[n_queries,
+    proj]`` (already in the projection space, the same for every row of
+    the batch) over ``[N, T, n_in]``: a sequence of length ``n_queries``
+    whatever T is."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    n_queries: int = 1
+
+    def __post_init__(self):
+        self.head_size = _head_size(self)
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, self.n_queries)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        proj = self.n_heads * self.head_size
+        wi = self.weight_init or WeightInit.XAVIER
+        shapes = (("Q", self.n_queries, proj), ("Wk", self.n_in, proj),
+                  ("Wv", self.n_in, proj), ("Wo", proj, self.n_out))
+        return {k: init_weights(wi, generator, (a, b), a, b, dtype, device)
+                for k, a, b in shapes}
+
+    def apply(self, params, state, x, train, generator):
+        n = x.shape[0]
+        h, dh = self.n_heads, self.head_size
+        q = params["Q"].expand(n, *params["Q"].shape)
+        out = nnops.dot_product_attention(
+            _split_heads(q, h, dh), _split_heads(x @ params["Wk"], h, dh),
+            _split_heads(x @ params["Wv"], h, dh))
+        out = out.transpose(1, 2).reshape(n, self.n_queries, h * dh)
+        return _act(self.activation or "identity").fn(
+            out @ params["Wo"]), state
+
+
+@serializable
+@dataclasses.dataclass
+class RecurrentAttentionLayer(Layer):
+    """A recurrent cell that attends over the whole input sequence at
+    every step: ``h_t = act(x_t W + b + h_{t-1} RW + attn(h_{t-1} Wq, K,
+    V) Wa)``, ``act`` tanh by default. K and V (``x Wk``, ``x Wv``) and
+    the input projection are computed once before a plain loop over T.
+    Stepping (``rnnTimeStep``) is refused: each step reads the whole
+    sequence."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+
+    is_recurrent = True
+
+    def __post_init__(self):
+        self.head_size = _head_size(self)
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, it.timeseries_length)
+
+    def init_params(self, generator, it, dtype, device) -> dict:
+        proj = self.n_heads * self.head_size
+        wi = self.weight_init or WeightInit.XAVIER
+        n_in, n_out = self.n_in, self.n_out
+        shapes = (("W", n_in, n_out), ("RW", n_out, n_out),
+                  ("Wq", n_out, proj), ("Wk", n_in, proj),
+                  ("Wv", n_in, proj), ("Wa", proj, n_out))
+        p = {k: init_weights(wi, generator, (a, b), a, b, dtype, device)
+             for k, a, b in shapes}
+        p["b"] = torch.zeros((n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, state, x, train, generator):
+        n, t, _ = x.shape
+        heads, dh = self.n_heads, self.head_size
+        flat = x.reshape(n * t, -1)
+        k = _split_heads((flat @ params["Wk"]).reshape(n, t, -1), heads, dh)
+        v = _split_heads((flat @ params["Wv"]).reshape(n, t, -1), heads, dh)
+        x_proj = (flat @ params["W"] + params["b"]).reshape(n, t,
+                                                            self.n_out)
+        act = _act(self.activation or "tanh").fn
+        h = torch.zeros((n, self.n_out), dtype=x.dtype, device=x.device)
+        ys = []
+        for s in range(t):
+            q = (h @ params["Wq"]).reshape(n, heads, 1, dh)
+            a = nnops.dot_product_attention(q, k, v).reshape(n, heads * dh)
+            h = act(x_proj[:, s] + h @ params["RW"] + a @ params["Wa"])
+            ys.append(h)
+        return torch.stack(ys, dim=1), state
+
+    def init_carry(self, batch, dtype, device):
+        raise NotImplementedError(
+            "rnnTimeStep is not supported for RecurrentAttentionLayer "
+            "(attends over the full input sequence)")
+
+
 __all__ = ["Layer", "DenseLayer", "OutputLayer", "RnnOutputLayer", "LSTM",
            "GravesLSTM", "ActivationLayer", "PoolingType", "ConvolutionLayer",
            "SeparableConvolution2D", "SubsamplingLayer", "Upsampling2D",
@@ -856,4 +1006,6 @@ __all__ = ["Layer", "DenseLayer", "OutputLayer", "RnnOutputLayer", "LSTM",
            "BatchNormalization", "LossLayer", "CnnLossLayer", "RnnLossLayer",
            "EmbeddingLayer", "EmbeddingSequenceLayer", "LastTimeStep",
            "SimpleRnn", "Bidirectional", "DropoutLayer", "FlattenLayer",
-           "LayerNormalization", "LocalResponseNormalization"]
+           "LayerNormalization", "LocalResponseNormalization",
+           "SelfAttentionLayer", "LearnedSelfAttentionLayer",
+           "RecurrentAttentionLayer"]

@@ -16,7 +16,20 @@ Ported: :func:`conv2d` (``:36-79``), :func:`depthwise_conv2d`
 the vision zoo (``depthwise_conv2d``, ``separable_conv2d``,
 ``upsampling2d``, called by their layers) is registered under its JAX
 name. The simple RNN and the attention are plain PyTorch: no Pallas
-kernel computes them in the reference. Layouts stay the JAX package's, so a parameter tree from the JAX
+kernel computes them in the reference.
+
+The rest of the layer framework's ops, called by their layers and not
+registered by name (ROADMAP A10): :func:`conv1d` (``:82-95``),
+:func:`conv3d` (``:98-113``), :func:`deconv2d` (``:145-168``),
+:func:`im2col` (``:179-193``), the 1D pools (``:256-297``), the 3D pools
+(``:300-331``), :func:`locally_connected2d` and
+:func:`locally_connected1d` (``:334-369``), :func:`gru_layer`
+(``:654-681``) and :func:`multi_head_dot_product_attention`
+(``:998-1019``), with copies of ``ops/declarable_tail.py``'s
+:func:`deconv3d` and :func:`upsampling3d` (``:284-296``). No Pallas
+kernel computes any of them in the reference: the GRU is a plain loop
+over T as ``lax.scan`` is, the attention plain as
+:func:`dot_product_attention` is. Layouts stay the JAX package's, so a parameter tree from the JAX
 side loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
 ``[kh, kw, C_in, C_out]``; ``x`` ``[N, T, in]``, ``w_ih`` ``[in, 4H]``,
 ``w_hh`` ``[H, 4H]``, ``b`` ``[4H]`` with gates i, f, g, o.
@@ -37,6 +50,7 @@ give float32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -45,6 +59,7 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.ops import batch_norm as bn
 from deeplearning4j_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 from deeplearning4j_tpu_torch.ops.registry import register_op
+from deeplearning4j_tpu_torch.ops.transforms import jax_abs
 
 
 # ---------------------------------------------------------- convolution
@@ -237,7 +252,8 @@ def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
 @register_op("pnormpool2d")
 def pnormpool2d(x, kernel=(2, 2), strides=None, padding="VALID", p=2):
     k, s = _window(kernel, strides)
-    summed = _sum_windows(torch.abs(x) ** p, k, s,
+    # jnp.abs's slope 1 at 0, which a p of 1 passes on (C16)
+    summed = _sum_windows(jax_abs(x) ** p, k, s,
                           _spatial_pads(_pool_pad(padding), x, k, s))
     if not summed.is_floating_point():
         summed = summed.to(torch.float32)
@@ -391,3 +407,324 @@ def dot_product_attention(q, k, v, mask=None, scale=None):
                              torch.finfo(logits.dtype).min)
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("...qk,...kv->...qv", weights, v)
+
+
+# ------------------------------------------- 1D and 3D, channels last
+#: the library's functions by the number of spatial axes
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _triple(v):
+    return (v, v, v) if isinstance(v, int) else tuple(v)
+
+
+def _cf(x):
+    """A channels-last tensor ``[N, *S, C]`` as the channels-first view the
+    library takes (``channels_last`` / ``channels_last_3d`` strides when
+    ``x`` is contiguous)."""
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _cl(y):
+    return y.permute(0, *range(2, y.dim()), 1)
+
+
+def _pad_cl(x, pads, value=0.0):
+    """``(lo, hi)`` per spatial axis of a channels-last ``x``; a negative
+    pad crops, as ``lax``'s does."""
+    if all(lo == hi == 0 for lo, hi in pads):
+        return x
+    flat = [0, 0]
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(x, flat, value=value)
+
+
+def _pads_nd(padding, x, kernel, strides, dilation):
+    """A resolved padding of a channels-last ``x`` over ``len(kernel)``
+    spatial axes: "SAME" (``lax``'s, the odd cell high), "VALID", an int
+    or a tuple of ints (symmetric) or a list of ``(lo, hi)`` pairs."""
+    nd = len(kernel)
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            return _same_pads(x.shape[1:1 + nd], kernel, strides, dilation)
+        return [(0, 0)] * nd
+    if isinstance(padding, int):
+        return [(padding, padding)] * nd
+    if all(isinstance(q, (tuple, list)) for q in padding):
+        return [tuple(int(v) for v in q) for q in padding]
+    return [(int(v), int(v)) for v in padding]
+
+
+def _conv_cl(x, w, b, strides, pads, dilation):
+    """The correlation of channels-last ``x`` with ``w`` ``[*k, C_in,
+    C_out]`` through the library: symmetric pads go to it, others are
+    applied first."""
+    nd = w.dim() - 2
+    if all(lo == hi >= 0 for lo, hi in pads):
+        sym = tuple(lo for lo, _ in pads)
+    else:
+        x, sym = _pad_cl(x, pads), (0,) * nd
+    xc = _cf(x)
+    if xc.device.type == "cpu":
+        # C13: the CPU backward takes a channels-first copy
+        xc = xc.contiguous()
+    out = _cl(_CONV[nd](xc, w.permute(nd + 1, nd, *range(nd)), None,
+                        tuple(strides), sym, tuple(dilation)))
+    return out if b is None else out + b
+
+
+def conv1d(x, w, b=None, stride=1, padding="SAME", dilation=1):
+    """1D convolution, NWC ``[N, T, C_in]`` x WIO ``[k, C_in, C_out]`` ->
+    NWC; ``padding`` "SAME", "VALID" or an int a side."""
+    pads = _pads_nd(padding, x, w.shape[:1], (stride,), (dilation,))
+    return _conv_cl(x, w, b, (stride,), pads, (dilation,))
+
+
+def conv3d(x, w, b=None, strides=(1, 1, 1), padding="SAME",
+           dilation=(1, 1, 1)):
+    """3D convolution, NDHWC x DHWIO ``[kd, kh, kw, C_in, C_out]`` ->
+    NDHWC (cuDNN on the ``channels_last_3d`` view on the card)."""
+    s, d = _triple(strides), _triple(dilation)
+    pads = _pads_nd(padding if isinstance(padding, str) else
+                    _triple(padding), x, w.shape[:3], s, d)
+    return _conv_cl(x, w, b, s, pads, d)
+
+
+def _transpose_pads(k, s, padding):
+    """``lax.conv_transpose``'s ``(lo, hi)`` pad of the stride-dilated
+    input for "SAME" or "VALID" (``_conv_transpose_padding``): SAME gives
+    ``in * s`` outputs, VALID ``(in - 1) * s + max(k, s)``."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-pad_len // 2)
+    else:
+        pad_len = k + s - 2 + max(k - s, 0)
+        lo = k - 1
+    return lo, pad_len - lo
+
+
+def _conv_transpose_cl(x, w, strides, padding):
+    """``lax.conv_transpose`` without ``transpose_kernel``: channels-last
+    ``x`` dilated by ``strides``, padded by ``padding`` ("SAME", "VALID"
+    or ``(lo, hi)`` pairs) and correlated with ``w`` ``[*k, C_in, C_out]``
+    as it is. The library's transposed convolution is the gradient of a
+    convolution, so it takes ``w`` flipped and permuted, its ``padding``
+    ``p`` is a pad of ``k - 1 - p`` a side and its ``output_padding``
+    adds to the high side; pads it cannot say are cropped (or zero-padded)
+    from its unpadded output."""
+    nd = w.dim() - 2
+    ks, s = tuple(w.shape[:nd]), tuple(strides)
+    pads = ([_transpose_pads(k, st, padding.upper())
+             for k, st in zip(ks, s)] if isinstance(padding, str)
+            else [tuple(q) for q in padding])
+    xc = _cf(x)
+    if xc.device.type == "cpu":
+        xc = xc.contiguous()
+    wt = torch.flip(w, dims=tuple(range(nd))).permute(nd, nd + 1,
+                                                     *range(nd))
+    p = [k - 1 - lo for k, (lo, _) in zip(ks, pads)]
+    op = [hi - lo for lo, hi in pads]
+    if all(v >= 0 for v in p) and all(0 <= o < st for o, st in zip(op, s)):
+        return _cl(_CONV_T[nd](xc, wt, None, s, p, op))
+    full = _cl(_CONV_T[nd](xc, wt, None, s))          # pads k - 1 a side
+    return _pad_cl(full, [(lo - (k - 1), hi - (k - 1))
+                          for k, (lo, hi) in zip(ks, pads)])
+
+
+def deconv2d(x, w, b=None, strides=(2, 2), padding="SAME"):
+    """Transposed convolution, NHWC x ``[kh, kw, C_in, C_out]``: "SAME" or
+    "VALID" as ``lax.conv_transpose`` pads them, or an integer padding
+    ``p`` (an int or a pair) with the reference's ``s (in - 1) + k - 2p``
+    output: a pad of ``k - 1 - p`` a side."""
+    if isinstance(padding, str):
+        pad = padding
+    else:
+        pad = [(k - 1 - p, k - 1 - p)
+               for k, p in zip(w.shape[:2], _pair(padding))]
+    out = _conv_transpose_cl(x, w, _pair(strides), pad)
+    return out if b is None else out + b
+
+
+def deconv3d(x, w, strides=(1, 1, 1), padding="VALID"):
+    """3D transposed convolution, NDHWC x DHWIO: ``lax.conv_transpose``
+    with ``padding`` "SAME", "VALID" or ``(lo, hi)`` pairs (a copy of
+    JAX ``ops/declarable_tail.py:284-289``)."""
+    return _conv_transpose_cl(x, w, tuple(strides), padding)
+
+
+def upsampling3d(x, scale=2):
+    """Each voxel of NDHWC ``x`` repeated ``scale`` times along D, H and W
+    (JAX ``ops/declarable_tail.py:292-296``), as one broadcast copy."""
+    s0, s1, s2 = _triple(scale)
+    n, d, h, w, c = x.shape
+    return x[:, :, None, :, None, :, None, :].expand(
+        n, d, s0, h, s1, w, s2, c).reshape(n, d * s0, h * s1, w * s2, c)
+
+
+def im2col(x, kernel, strides=(1, 1), padding="VALID"):
+    """Patches of NHWC ``x``: ``[N, oh, ow, C * kh * kw]``, the feature
+    axis channel-major ``(C, kh, kw)`` as
+    ``lax.conv_general_dilated_patches`` orders it."""
+    k, s = _pair(kernel), _pair(strides)
+    pads = _pads_nd(padding, x, k, s, (1, 1))
+    xp = _pad_cl(x, pads)
+    p = xp.unfold(1, k[0], s[0]).unfold(2, k[1], s[1])  # [N,oh,ow,C,kh,kw]
+    return p.reshape(p.shape[0], p.shape[1], p.shape[2], -1)
+
+
+def locally_connected2d(x, w, b=None, kernel=(2, 2), strides=(1, 1),
+                        padding="VALID"):
+    """Unshared-weight convolution: ``w`` ``[oh * ow, C * kh * kw,
+    C_out]``, one filter bank per output position over :func:`im2col`'s
+    channel-major patches; ``b`` ``[oh, ow, C_out]`` or None."""
+    patches = im2col(x, kernel, strides, padding)
+    n, oh, ow, kc = patches.shape
+    out = torch.einsum("npk,pko->npo", patches.reshape(n, oh * ow, kc), w)
+    out = out.reshape(n, oh, ow, w.shape[-1])
+    return out if b is None else out + b
+
+
+def locally_connected1d(x, w, b=None, kernel=2, stride=1, padding="VALID"):
+    """1D unshared-weight convolution of ``[N, T, F]``: ``w`` ``[oT, F * k,
+    C_out]`` over channel-major ``(F, k)`` patches; ``b`` ``[oT, C_out]``
+    or None."""
+    pads = _pads_nd(padding, x, (kernel,), (stride,), (1,))
+    p = _pad_cl(x, pads).unfold(1, kernel, stride)          # [N, oT, F, k]
+    out = torch.einsum("npk,pko->npo", p.reshape(p.shape[0], p.shape[1], -1),
+                       w)
+    return out if b is None else out + b
+
+
+# --------------------------------------------------- 1D and 3D pooling
+def _pool_nd(kernel, strides, nd):
+    k = (kernel,) * nd if isinstance(kernel, int) else tuple(kernel)
+    if strides is None:
+        return k, k
+    return k, ((strides,) * nd if isinstance(strides, int)
+               else tuple(strides))
+
+
+def _pool_pads(padding, x, k, s):
+    """``(mode, pads)``: "SAME" or "VALID" for a string ``padding`` (None
+    for integer pads), and the resolved pads."""
+    mode = padding.upper() if isinstance(padding, str) else None
+    return mode, _pads_nd(padding, x, k, s, (1,) * len(k))
+
+
+def _max_cl(x, k, s, pads):
+    """The window max of channels-last ``x``, padding at ``-inf``; the
+    library's pools pass the gradient to the first maximum of a window, as
+    XLA's ``select_and_scatter`` does."""
+    xc = _cf(_pad_cl(x, pads, float("-inf")))
+    if len(k) == 1:
+        return _cl(F.max_pool1d(xc, k, s))
+    return _cl(F.max_pool3d(xc, k, s))
+
+
+def _sum_cl(x, k, s, pads):
+    """The sum over each window of the zero-padded channels-last ``x``."""
+    xp = _pad_cl(x, pads)
+    if len(k) == 1:
+        y = F.avg_pool2d(_cf(xp)[:, :, None, :], (1, k[0]), (1, s[0]),
+                         divisor_override=1)
+        return _cl(y[:, :, 0, :])
+    return _cl(F.avg_pool3d(_cf(xp), k, s, divisor_override=1))
+
+
+def _avg_cl(x, k, s, padding):
+    """The window mean; with padding, over the window's real cells only
+    (the reference divides by a pool of ones)."""
+    mode, pads = _pool_pads(padding, x, k, s)
+    summed = _sum_cl(x, k, s, pads)
+    if mode == "VALID":
+        return summed / math.prod(k)
+    ones = torch.ones((1, *x.shape[1:-1], 1), dtype=x.dtype, device=x.device)
+    return summed / _sum_cl(ones, k, s, pads)
+
+
+def maxpool1d(x, kernel=2, stride=None, padding="VALID"):
+    """Max pooling over the T axis of ``[N, T, F]``."""
+    k, s = _pool_nd(kernel, stride, 1)
+    return _max_cl(x, k, s, _pool_pads(padding, x, k, s)[1])
+
+
+def avgpool1d(x, kernel=2, stride=None, padding="VALID"):
+    k, s = _pool_nd(kernel, stride, 1)
+    return _avg_cl(x, k, s, padding)
+
+
+def sumpool1d(x, kernel=2, stride=None, padding="VALID"):
+    k, s = _pool_nd(kernel, stride, 1)
+    return _sum_cl(x, k, s, _pool_pads(padding, x, k, s)[1])
+
+
+def pnormpool1d(x, kernel=2, stride=None, padding="VALID", p=2):
+    """``(sum over the window of |x|^p)^(1/p)``, ``|x|`` with ``jnp.abs``'s
+    slope 1 at 0."""
+    k, s = _pool_nd(kernel, stride, 1)
+    summed = _sum_cl(jax_abs(x) ** p, k, s, _pool_pads(padding, x, k, s)[1])
+    return summed ** (1.0 / p)
+
+
+def maxpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
+    """Max pooling over NDHWC."""
+    k, s = _pool_nd(kernel, strides, 3)
+    return _max_cl(x, k, s, _pool_pads(padding, x, k, s)[1])
+
+
+def avgpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
+    """Average pooling over NDHWC, over the real cells of a padded
+    window."""
+    k, s = _pool_nd(kernel, strides, 3)
+    return _avg_cl(x, k, s, padding)
+
+
+# -------------------------------------------------------- GRU, attention
+def gru_layer(x, w_ih, w_hh, b, h0=None, rb=None):
+    """GRU over time: ``(outputs [N, T, H], hT)``; ``w_ih`` ``[in, 3H]``,
+    ``w_hh`` ``[H, 3H]``, ``b`` ``[3H]``, gates r, z, n in that order, the
+    reset applied after the recurrent product (``n = tanh(x_n + r (h
+    w_hh_n + rb_n))``, Keras' ``reset_after``), ``rb`` ``[3H]`` an
+    optional recurrent bias. The input projection of all timesteps is
+    one matmul, then a plain loop over T."""
+    n, t, _ = x.shape
+    hidden = w_hh.shape[0]
+    if h0 is None:
+        h0 = torch.zeros((n, hidden), dtype=x.dtype, device=x.device)
+    x_proj = (x.reshape(n * t, -1) @ w_ih + b).reshape(n, t, 3 * hidden)
+    h, ys = h0, []
+    for s in range(t):
+        hp = h @ w_hh
+        if rb is not None:
+            hp = hp + rb
+        xr, xz, xn = x_proj[:, s].chunk(3, dim=-1)
+        hr, hz, hn = hp.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        h = (1 - z) * torch.tanh(xn + r * hn) + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def multi_head_dot_product_attention(x_q, x_kv, wq, wk, wv, wo, mask=None,
+                                     num_heads=None):
+    """Multi-head attention: ``x_q`` ``[N, Tq, D]``, ``x_kv`` ``[N, Tk,
+    D]``, ``wq`` / ``wk`` / ``wv`` ``[D, H * dh]``, ``wo`` ``[H * dh,
+    D_out]``; ``num_heads`` defaults to ``max(1, proj // 64)``; a ``[N,
+    Tk]`` mask is a key-padding mask, broadcast over heads and queries."""
+    n, tq, _ = x_q.shape
+    proj = wq.shape[-1]
+    h = num_heads if num_heads else max(1, proj // 64)
+    dh = proj // h
+
+    def split(y):
+        return y.reshape(n, -1, h, dh).transpose(1, 2)     # [N, H, T, dh]
+
+    if mask is not None and mask.dim() == 2:
+        mask = mask[:, None, None, :]
+    out = dot_product_attention(split(x_q @ wq), split(x_kv @ wk),
+                                split(x_kv @ wv), mask)
+    return out.transpose(1, 2).reshape(n, tq, proj) @ wo

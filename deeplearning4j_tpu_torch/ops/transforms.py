@@ -7,7 +7,8 @@ where the JAX op calls it): ``sigmoid`` (:19), ``tanh`` (:24), ``relu``
 default), ``softplus`` (:59), ``softsign`` (:64), ``swish`` (:69),
 ``mish`` (:74), ``hardsigmoid`` (:79), ``hardtanh`` (:84), ``softmax``
 (:89), ``cube`` (:159), ``rationaltanh`` (:256), ``recttanh`` (:262) and
-``thresholdedrelu`` (:267). The rest of the file waits (ROADMAP A10)."""
+``thresholdedrelu`` (:267); and, unregistered, ``PReLULayer``'s
+:func:`prelu` (:273-274). The rest of the file waits (ROADMAP A10)."""
 
 from __future__ import annotations
 
@@ -144,3 +145,9 @@ def rectified_tanh(x):
 @register_op("thresholdedrelu")
 def thresholded_relu(x, theta=1.0):
     return torch.where(x > theta, x, torch.zeros_like(x))
+
+
+def prelu(x, alpha):
+    """``x`` where ``x >= 0``, else ``alpha * x`` (``jnp.where``: at ``x =
+    0`` the gradient goes to ``x``)."""
+    return torch.where(x >= 0, x, alpha * x)
