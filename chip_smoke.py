@@ -376,6 +376,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``LAYERS_TOL``): every class of the slice in nine networks, and the
    builder's ``dropOut`` default's kept fraction on both devices. The
    phase's B5 launches are added to B5's rows.
+23. resilience, the training infrastructure: (a) phase 9's char-LSTM
+   (vocabulary 77, hidden 256, bf16, Adam, batch 256 x 200) over a
+   ``ListDataSetIterator`` of 12 synthetic batches for 2 epochs,
+   preempted at step 9 by ``ChaosConfig(preempt_at_step=9)`` and resumed
+   in a fresh model from its bundle: parameters and Adam state bit-equal
+   to an uninterrupted run, B5's launches two a step; (b) the same cell
+   under ``ChaosConfig(nan_steps=(4,))``, ``snapshot_every=2``: one
+   rollback, one skipped batch, finite parameters, the registry's
+   counters; the guard's cost as ms a step at ``divergence_window=16``
+   against 0, timed in turns; (c) the cell under ``mixed_float16`` with a
+   batch that overflows f16: the loss-scale gauge and the overflow and
+   skipped-step counters in ``to_prometheus()``, read by
+   ``_peek_loss_scale``, and no rollback; (d), run first, phase 15's own
+   ResNet-50 network with
+   ``HealthMonitor(frequency=10)`` over 20 steps: ``first_nonfinite``
+   -1, a gauge per layer, ``dl4j_tpu_mfu`` against the table's 989
+   TFLOP/s, ms a step monitored against unmonitored in turns; an
+   unmonitored step runs the same operations as phase 15's step (the
+   profiler's host-side count, by name; its device records of a long
+   process lose some kernels, so their count is reported beside it) and
+   launches each batch-norm kernel once per layer, and the same after a
+   monitored run; 3 monitored steps, and 3 unmonitored ones after the
+   FLOP count, leave the parameters equal to 3 unmonitored ones (cuDNN's
+   deterministic algorithms for that check);
+   (e) ``Seq2SeqLSTM`` at hidden 512 (B5's wide route), bf16, batch 256,
+   preempted and resumed bit-equal through the graph's guarded fit; (f)
+   ``DevicePrefetchIterator`` at depth 2 under a chaos transfer failure
+   rate: retries counted, then every batch of a poisoned stream
+   quarantined; (g) a chaos hang past a 0.5 s ``step_deadline``: one
+   stall with its stack dump; (h) the Chrome trace exported to a temp
+   directory and parsed. The phase's B5 launches are added to B5's rows.
+
+The peak rates that the bounds and the MFU divide by come from the
+port's ``profiler/flops.py`` (its row for the card's name).
 
 Prints progress lines, then a JSON line with every kernel's numbers, the
 card's ``nvidia-smi`` line, and last the JSON result line.
@@ -390,11 +424,13 @@ lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
 phase 17, ``python3 chip_smoke.py seq2seq`` phase 18, ``python3
 chip_smoke.py precision`` phase 19, ``python3 chip_smoke.py vision``
 phase 20, ``python3 chip_smoke.py transfer`` phase 21 and ``python3
-chip_smoke.py layers`` phase 22.
+chip_smoke.py layers`` phase 22 and ``python3 chip_smoke.py
+resilience`` phase 23.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -412,11 +448,10 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.join(HERE, "deeplearning4j_tpu_torch")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f32 rate
-# outside the tensor cores and the dense bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+# the card's peaks, from the port's profiler/flops.py (set_peaks): HBM
+# bandwidth, the f32 rate outside the tensor cores and the dense bf16
+# tensor-core rate
+HBM_BYTES_PER_S = F32_FLOPS = BF16_FLOPS = math.nan
 
 # the training slice: bench.py's BERT-base MLM cell
 TRAIN_BATCH, TRAIN_SEQ, MASKED_PER_ROW, MASKED_CAPACITY = 96, 128, 19, 20
@@ -441,7 +476,21 @@ def check(cond: bool, msg: str) -> None:
 
 
 # ---------------------------------------------------------------- device
+def set_peaks() -> None:
+    """The peak rates of this card from the port's ``profiler/flops.py``
+    (the table the health monitor's MFU divides by too)."""
+    global HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS
+    from deeplearning4j_tpu_torch.profiler import flops
+
+    bf16, f32 = flops.peak_flops("bf16"), flops.peak_flops("f32")
+    hbm = flops.peak_hbm_gbps()
+    check(None not in (bf16, f32, hbm),
+          f"profiler/flops.py has no row for {flops.device_kind()!r}")
+    BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = bf16, f32, hbm * 1e9
+
+
 def phase_device() -> str:
+    set_peaks()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -450,7 +499,10 @@ def phase_device() -> str:
     say("device", f"nvidia-smi: {line}")
     say("device", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                   f"{torch.cuda.get_device_name(0)} x "
-                  f"{torch.cuda.device_count()}")
+                  f"{torch.cuda.device_count()}; peaks from "
+                  f"profiler/flops.py: bf16 {BF16_FLOPS / 1e12:g}, f32 "
+                  f"{F32_FLOPS / 1e12:g} TFLOP/s, HBM "
+                  f"{HBM_BYTES_PER_S / 1e9:g} GB/s")
     # state the f32 matmul precision: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4131,10 +4183,40 @@ def phase_resnet50_train(smi: str, rows: dict) -> float:
     finally:
         set_fused(False)
         torch.backends.cudnn.benchmark = False
+    # phase 23 (d) steps this network again: its kernels are the ones
+    # counted here (cuDNN keys its algorithm choices by the tensors too)
+    PHASE15_KERNELS["model"] = (net, x, y)
     del net, x, y
     torch.cuda.empty_cache()
     say("resnet50", f"phase {time.perf_counter() - t_phase:.1f} s")
     return step_ms[False]
+
+
+#: phase 15's network, batch and labels ("model"), and of one step with
+#: the toggle off the kernels by name ("kernels") and the operations by
+#: name ("ops"), both the profiler's counts: phase 23 (d) steps that
+#: network and holds an unmonitored step to them
+PHASE15_KERNELS: dict = {}
+
+
+def profiled_ops(run) -> dict:
+    """``{aten operation: calls}`` of ``run()`` (the backward's too), from
+    the profiler's host-side events. Unlike its device records, which a
+    long process loses some of (``device_profile``), these are complete:
+    every kernel a step launches comes from one of them, or from a hand
+    kernel's wrapper, which counts its own launches."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return dict(Counter(e.name for e in prof.events()
+                        if e.device_type == DeviceType.CPU
+                        and e.name.startswith("aten::")))
 
 
 def resnet50_run(net, x, y, fused: bool, flops: int, n_bn: int,
@@ -4200,6 +4282,11 @@ def resnet50_run(net, x, y, fused: bool, flops: int, n_bn: int,
                    one_step, ("nchwToNhwc", "nhwcToNchw", "bn_",
                               "bn_reduce_kernel", "bn_apply_kernel"),
                    group=kernel_group, top=10, out=out)
+    if not fused:
+        # one step's kernels and its operations by name, phase 23 (d)'s
+        # yardstick
+        PHASE15_KERNELS["kernels"] = {r[0]: r[3] for r in out.get("all", ())}
+        PHASE15_KERNELS["ops"] = profiled_ops(one_step)
     eager = [n for n, _, g in out.get("largest", ())
              if g == BN_GROUP and "bn_" not in n]
     check(not eager, f"[{tag}] batch-norm work outside the kernels among "
@@ -7514,6 +7601,622 @@ def layers_parity() -> None:
                   f"{time.perf_counter() - t1:.1f} s")
 
 
+# ------------------------------------------------------------- phase 23
+#: (a)-(c): phase 9's cell over this many synthetic batches, 2 epochs,
+#: preempted after FT_PREEMPT steps
+FT_BATCHES, FT_EPOCHS, FT_PREEMPT = 12, 2, 9
+#: (e): the wide seq2seq cell over this many batches, 2 epochs
+FT_S2S_BATCHES, FT_S2S_PREEMPT = 6, 5
+#: (d): the monitor's cadence and the monitored steps
+HEALTH_FREQ, HEALTH_STEPS = 10, 20
+#: (g): the watchdog's deadline and the injected hang, seconds
+FT_DEADLINE_S, FT_HANG_S = 0.5, 1.0
+
+
+class _LogCapture:
+    """The port's log records of a block, kept from stderr (the guarded
+    fit logs every recovery, the watchdog whole thread stacks)."""
+
+    def __enter__(self):
+        import logging
+
+        self.records = []
+        self.log = logging.getLogger("deeplearning4j_tpu_torch")
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+        self.saved = (self.log.level, self.log.propagate)
+        self.log.setLevel(logging.INFO)
+        self.log.propagate = False
+        self.log.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+        self.log.setLevel(self.saved[0])
+        self.log.propagate = self.saved[1]
+
+    def text(self) -> str:
+        return "\n".join(r.getMessage() for r in self.records)
+
+
+def ft_char_batches(dtype, n: int = FT_BATCHES) -> list:
+    """``n`` synthetic batches of phase 9's shape on the card
+    (char_batch, seeds 0 to n - 1)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    return [DataSet(*char_batch(LSTM_VOCAB, LSTM_BATCH, LSTM_SEQ, s, dtype,
+                                DEVICE)) for s in range(n)]
+
+
+def bit_equal(tag: str, a, b) -> None:
+    la, lb = _leaves_of(a), _leaves_of(b)
+    check(len(la) == len(lb) and len(la) > 0, f"{tag}: {len(la)} leaves "
+                                              f"against {len(lb)}")
+    bad = sum(not torch.equal(u, v) for u, v in zip(la, lb))
+    check(bad == 0, f"{tag}: {bad} of {len(la)} tensors differ")
+
+
+def ft_counter(name: str) -> float:
+    from deeplearning4j_tpu_torch.profiler import telemetry
+
+    return telemetry.MetricsRegistry.get_default().counter(name).total()
+
+
+def phase_resilience(smi: str, rows) -> None:
+    """Phase 23: the training infrastructure on the card, (a)-(h); the
+    phase's B5 launches go to B5's rows."""
+    from deeplearning4j_tpu_torch.profiler import telemetry
+
+    t0 = time.perf_counter()
+    total = [0, 0, 0, 0]          # fwd, bwd (other routes); fwd, bwd wide
+
+    def add(launched, wide):
+        for i in range(2):
+            total[i] += launched[i] - wide[i]
+            total[2 + i] += wide[i]
+
+    telemetry.reset()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience.")
+    try:
+        with _LogCapture() as logs:
+            # (d) first: phase 15's network, as close to phase 15's count
+            # as the process allows (other work between them moves a few
+            # fill and copy kernels of the same step)
+            resilience_health(smi)
+            resilience_preempt_mln(smi, tmp, add)
+            resilience_divergence(smi, tmp, add)
+            resilience_loss_scale(smi, tmp, add)
+            resilience_preempt_graph(smi, tmp, add)
+            resilience_transfer(smi, add)
+            resilience_watchdog(smi, tmp, add, logs)
+        resilience_export(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key, n in zip(("B5", "B5 bwd", "B5 wide", "B5 bwd wide"), total):
+        rows[key]["launches"] = rows[key].get("launches", 0) + n
+    say("resilience", f"B5 launches in phase 23: forward {total[0]}, "
+                      f"backward {total[1]}, wide route forward {total[2]}, "
+                      f"backward {total[3]} (added to B5's rows); "
+                      f"{time.perf_counter() - t0:.1f} s")
+
+
+def resilience_preempt_mln(smi: str, tmp: str, add) -> None:
+    """(a) preempted at step FT_PREEMPT, resumed in a fresh model (other
+    initial weights), bit-equal to an uninterrupted run."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.profiler import chaos
+    from deeplearning4j_tpu_torch.util import resilience
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+
+    batches = ft_char_batches(torch.bfloat16)
+    ck = os.path.join(tmp, "mln")
+    policy = lambda: FaultTolerance(checkpoint_dir=ck, divergence_window=0)
+    reset_lstm_counts()
+    times = {}
+    clean = textgen_net("bfloat16", 0, DEVICE)
+    net = textgen_net("bfloat16", 0, DEVICE)
+    fresh = textgen_net("bfloat16", 0, DEVICE, seed=1)
+    for tag, model, kw in (("clean", clean, {}),
+                           ("preempted", net, {"fault_tolerance": policy()}),
+                           ("resumed", fresh, {"fault_tolerance": policy()})):
+        scope = (chaos.installed(chaos.ChaosConfig(
+            preempt_at_step=FT_PREEMPT)) if tag == "preempted"
+            else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with scope:
+            model.fit(ListDataSetIterator(batches), epochs=FT_EPOCHS, **kw)
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t1
+        if tag == "preempted":
+            check(net.getIterationCount() == FT_PREEMPT,
+                  f"resilience (a): preempted at iteration "
+                  f"{net.getIterationCount()}, not {FT_PREEMPT}")
+            bundle = resilience.latest_valid_bundle(ck)
+            check(bundle is not None, "resilience (a): no valid bundle")
+            size = sum(os.path.getsize(os.path.join(bundle, f))
+                       for f in os.listdir(bundle))
+    steps = FT_BATCHES * FT_EPOCHS
+    check((fresh.getIterationCount(), fresh.getEpochCount())
+          == (steps, FT_EPOCHS),
+          f"resilience (a): resumed run ended at iteration "
+          f"{fresh.getIterationCount()}, epoch {fresh.getEpochCount()}")
+    bit_equal("resilience (a) parameters", clean.params_list,
+              fresh.params_list)
+    bit_equal("resilience (a) Adam state", clean.opt_states, fresh.opt_states)
+    check(resilience.latest_valid_bundle(ck) is None,
+          "resilience (a): the finished run left its bundles")
+    counts, cluster = lstm_counts(), lstm_cluster_counts()
+    add(counts, lstm_wide_counts())
+    want = 2 * (2 * steps)          # clean + preempted and resumed, 2 LSTMs
+    check(counts == (want, want) == cluster,
+          f"resilience (a): B5 launches {counts} (cluster route {cluster}), "
+          f"not {want} = 2 LSTMs x 2 x {steps} steps")
+    say("resilience", f"(a) char-LSTM (V {LSTM_VOCAB}, H {LSTM_HIDDEN}, bf16, "
+                      f"batch {LSTM_BATCH} x {LSTM_SEQ}), {FT_BATCHES} "
+                      f"batches x {FT_EPOCHS} epochs: uninterrupted "
+                      f"{times['clean']:.3f} s; preempted at step "
+                      f"{FT_PREEMPT} with a {size} B bundle in "
+                      f"{times['preempted']:.3f} s; resumed "
+                      f"{steps - FT_PREEMPT} steps in {times['resumed']:.3f} "
+                      f"s; parameters and Adam state bit-equal; B5 launches "
+                      f"{counts}, all on the cluster route; {smi}")
+
+
+def resilience_divergence(smi: str, tmp: str, add) -> None:
+    """(b) a NaN batch at ordinal 4 rolled back and skipped; the guard's
+    cost (one read-back a step) in turns."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.profiler import chaos, telemetry
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+
+    batches = ft_char_batches(torch.bfloat16)
+    reset_lstm_counts()
+    net = textgen_net("bfloat16", 0, DEVICE)
+    r0 = (ft_counter(telemetry.FT_ROLLBACKS),
+          ft_counter(telemetry.FT_SKIPPED_BATCHES))
+    with chaos.installed(chaos.ChaosConfig(nan_steps=(4,))):
+        net.fit(ListDataSetIterator(batches), epochs=1,
+                fault_tolerance=FaultTolerance(
+                    divergence_window=16, snapshot_every=2,
+                    flight_dir=os.path.join(tmp, "incidents")))
+    got = (ft_counter(telemetry.FT_ROLLBACKS) - r0[0],
+           ft_counter(telemetry.FT_SKIPPED_BATCHES) - r0[1])
+    check(got == (1, 1), f"resilience (b): rollbacks, skipped batches {got}")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in _leaves_of(net.params_list)),
+          "resilience (b): a parameter is not finite after the rollback")
+    # the rollback rewinds the iteration count to the snapshot (step 4)
+    check(net.getIterationCount() == FT_BATCHES - 1,
+          f"resilience (b): iteration {net.getIterationCount()}")
+    lines = [l for l in telemetry.MetricsRegistry.get_default()
+             .to_prometheus().splitlines()
+             if l.startswith(("dl4j_tpu_ft_", "dl4j_tpu_chaos_"))]
+    say("resilience", f"(b) NaN batch at ordinal 4, snapshot_every 2: "
+                      f"rolled back and skipped, iteration "
+                      f"{net.getIterationCount()}, parameters finite; "
+                      + "; ".join(lines))
+    ms = {16: [], 0: []}
+    for _ in range(3):
+        for window in (16, 0):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            net.fit(ListDataSetIterator(batches), epochs=1,
+                    fault_tolerance=FaultTolerance(divergence_window=window))
+            torch.cuda.synchronize()
+            ms[window].append((time.perf_counter() - t1) / FT_BATCHES * 1e3)
+    add(lstm_counts(), lstm_wide_counts())
+    say("resilience", f"(b) the guard's cost, ms a step over {FT_BATCHES} "
+                      f"steps in turns: divergence_window=16 "
+                      + " ".join(f"{v:.3f}" for v in ms[16])
+                      + "; divergence_window=0 "
+                      + " ".join(f"{v:.3f}" for v in ms[0])
+                      + f" (min {min(ms[16]) / min(ms[0]):.3f}x); {smi}")
+
+
+def resilience_loss_scale(smi: str, tmp: str, add) -> None:
+    """(c) the cell under mixed_float16 with one batch that overflows f16:
+    the loss-scale series in the registry, and no rollback."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.params import mln_params_from_numpy
+    from deeplearning4j_tpu_torch.profiler import telemetry
+    from deeplearning4j_tpu_torch.util import resilience
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    conf = policy_conf(TextGenerationLSTM(
+        vocab_size=LSTM_VOCAB, hidden=LSTM_HIDDEN, tbptt_length=0).conf(),
+        "mixed_float16")
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    net.params_list = mln_params_from_numpy(
+        textgen_params_numpy(LSTM_VOCAB, LSTM_HIDDEN, 0), device=DEVICE,
+        dtype=net._dtype)
+    batches = ft_char_batches(net._input_dtype, 4)
+    x, y = batches[0].features, batches[0].labels
+    batches.insert(2, DataSet(torch.full_like(x, float("inf")), y))
+    reset_lstm_counts()
+    r0 = ft_counter(telemetry.FT_ROLLBACKS)
+    net.fit(ListDataSetIterator(batches), epochs=1,
+            fault_tolerance=FaultTolerance(
+                divergence_window=16, snapshot_every=1,
+                flight_dir=os.path.join(tmp, "incidents")))
+    add(lstm_counts(), lstm_wide_counts())
+    check(ft_counter(telemetry.FT_ROLLBACKS) == r0,
+          "resilience (c): a handled overflow was rolled back")
+    text = telemetry.MetricsRegistry.get_default().to_prometheus()
+    want = [f'{n}{{site="mln"}}' for n in (
+        telemetry.LOSS_SCALE, telemetry.LOSS_SCALE_OVERFLOWS,
+        telemetry.LOSS_SCALE_SKIPPED_STEPS, telemetry.PRECISION_CASTS)]
+    lines = [l for l in text.splitlines() if l.split(" ")[0] in want]
+    check(len(lines) == 4, f"resilience (c): loss-scale series {lines}")
+    scale = float(net._loss_scale_state["scale"])
+    peek = resilience._peek_loss_scale(net)
+    check(peek == scale, f"resilience (c): _peek_loss_scale {peek} against "
+                         f"the state's {scale}")
+    skipped = int(net._loss_scale_state["skipped_steps"])
+    check(skipped >= 1, "resilience (c): no step was skipped")
+    say("resilience", f"(c) mixed_float16, {len(batches)} batches, one "
+                      f"poisoned: no rollback; " + "; ".join(lines)
+                      + f"; _peek_loss_scale {peek:g}")
+
+
+def _profiled_kernels(tag: str, run) -> dict:
+    """``{kernel name: launches}`` the profiler counts in ``run()``
+    (empty when it saw no device time), from an idle card: no earlier
+    step's kernels run into the window."""
+    torch.cuda.synchronize()
+    out = {}
+    device_profile("resilience", tag, run, (), top=3, out=out)
+    return {r[0]: r[3] for r in out.get("all", ())}
+
+
+def _kernel_diff(a: dict, b: dict) -> str:
+    """The kernels whose launches differ between two counts."""
+    names = sorted(n for n in set(a) | set(b) if a.get(n) != b.get(n))
+    return "; ".join(f"{n[:110]} {a.get(n, 0)} -> {b.get(n, 0)}"
+                     for n in names[:6]) or "no kernel differs"
+
+
+def _three_steps(net, step, adapter, snap, monitor=None) -> dict:
+    """The parameters after 3 steps from ``snap`` (restored first),
+    under ``monitor`` (None: unmonitored) and cuDNN's deterministic
+    algorithms."""
+    from deeplearning4j_tpu_torch.util import resilience
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        adapter.restore(snap)
+        net.setHealthMonitor(monitor)
+        for _ in range(3):
+            step()
+        return resilience._clone_tree(net.params_map)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        net.setHealthMonitor(None)
+
+
+def resilience_health(smi: str) -> None:
+    """(d) ResNet-50 of phase 15 under the health monitor: kernels of an
+    unmonitored step against phase 15's, the monitor's cost in turns
+    (without the FLOP count), then HEALTH_STEPS steps at HEALTH_FREQ with
+    it (MFU), and the trajectory of 3 steps monitored, unmonitored, and
+    unmonitored after the FLOP count, all equal."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.profiler import model_health, telemetry
+    from deeplearning4j_tpu_torch.profiler.model_health import HealthMonitor
+    from deeplearning4j_tpu_torch.util import resilience
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    B, HW = RESNET50_BATCH, RESNET50_HW
+    model = PHASE15_KERNELS.pop("model", None)
+    if model is not None:
+        net, x, y = model
+        conf = net.conf
+    else:
+        conf = ResNet50(num_classes=RESNET50_CLASSES, in_shape=(HW, HW, 3),
+                        updater=Nesterovs(learning_rate=1e-1,
+                                          momentum=0.9)).conf()
+        conf.dtype = "bfloat16"
+        net = ComputationGraph(conf, device=DEVICE).init()
+        x, y = image_batch(B, HW, 3, RESNET50_CLASSES, seed=0)
+        x = torch.from_numpy(x).to(DEVICE, torch.bfloat16)
+        y = torch.from_numpy(y).to(DEVICE)
+    step = lambda: net.fit(x, y)
+    adapter = resilience._FitAdapter(net)
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(WARMUP_STEPS):
+            step()
+        reset_bn_counts()
+        ops = profiled_ops(step)
+        bn_launched = bn_counts()
+        n_bn = sum(isinstance(getattr(n.vertex, "layer", None),
+                              BatchNormalization) for n in conf.nodes)
+        ref_ops = PHASE15_KERNELS.get("ops", ops)
+        check(sum(ops.values()) > 0 and ops == ref_ops
+              and bn_launched == (n_bn,) * 3,
+              f"resilience (d): an unmonitored step ran "
+              f"{sum(ops.values())} operations and batch-norm kernels "
+              f"{bn_launched}, phase 15's {sum(ref_ops.values())} and "
+              f"{(n_bn,) * 3}: {_kernel_diff(ref_ops, ops)}")
+        base = _profiled_kernels("(d) one unmonitored step", step)
+        n_base = sum(base.values())
+        ref = PHASE15_KERNELS.get("kernels", base)
+        snap = adapter.snapshot()
+        plain = _three_steps(net, step, adapter, snap)
+        torch.backends.cudnn.benchmark = True
+        # the monitor's cost, in turns (without the FLOP count)
+        ms = {False: [], True: []}
+        cost = HealthMonitor(frequency=HEALTH_FREQ, mfu=False)
+        for _ in range(2):
+            for mon in (False, True):
+                net.setHealthMonitor(cost if mon else None)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(HEALTH_FREQ):
+                    step()
+                torch.cuda.synchronize()
+                ms[mon].append((time.perf_counter() - t1) / HEALTH_FREQ * 1e3)
+        net.setHealthMonitor(None)
+        after_ops = profiled_ops(step)
+        check(after_ops == ops,
+              f"resilience (d): after monitoring an unmonitored step ran "
+              f"{sum(after_ops.values())} operations, before "
+              f"{sum(ops.values())}: {_kernel_diff(ops, after_ops)}")
+        after = _profiled_kernels("(d) one unmonitored step after the "
+                                  "monitor was detached", step)
+        # the monitor as users run it: MFU from the counted FLOPs, from
+        # the warm state (lr 0.1 on one batch runs away in ~100 steps)
+        adapter.restore(snap)
+        hm = HealthMonitor(frequency=HEALTH_FREQ)
+        net.setHealthMonitor(hm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(HEALTH_STEPS):
+            step()
+        torch.cuda.synchronize()
+        mon_s = (time.perf_counter() - t1) / HEALTH_STEPS
+        net.setHealthMonitor(None)
+        counted = _profiled_kernels("(d) one unmonitored step after the "
+                                    "FLOP count", step)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    fetches, last = hm.fetches, hm.last
+    check(fetches == HEALTH_STEPS // HEALTH_FREQ,
+          f"resilience (d): {fetches} read-backs over {HEALTH_STEPS} "
+          f"steps at frequency {HEALTH_FREQ}")
+    check(last["nonfinite_first_layer"] == -1,
+          f"resilience (d): first non-finite layer "
+          f"{last['nonfinite_first_layer']}")
+    gauges = telemetry.MetricsRegistry.get_default().gauge(
+        telemetry.LAYER_GRAD_NORM).values()
+    n_cg = sum(dict(k).get("site") == "cg" for k in gauges)
+    check(n_cg == len(conf.nodes), f"resilience (d): {n_cg} grad-norm "
+                                   f"gauges for {len(conf.nodes)} vertices")
+    mfu = last.get("mfu")
+    check(mfu is not None and 0 < mfu < 1, f"resilience (d): MFU {mfu}")
+    flops = model_health.site_flops("cg_step")
+    macs = 6 * graph_macs(conf) * B
+    # the trajectory: unmonitored after the FLOP count, then monitored
+    again = _three_steps(net, step, adapter, snap)
+    bit_equal("resilience (d) 3 unmonitored steps after the FLOP count",
+              again, plain)
+    watched = _three_steps(net, step, adapter, snap,
+                           HealthMonitor(frequency=1, mfu=False))
+    bit_equal("resilience (d) 3 monitored steps", watched, plain)
+    say("resilience", f"(d) ResNet-50, bf16, batch {B}, HealthMonitor("
+                      f"frequency={HEALTH_FREQ}) over {HEALTH_STEPS} steps: "
+                      f"{mon_s * 1e3:.2f} ms a step (the first under the "
+                      f"FLOP counter), {fetches} read-backs, first "
+                      f"non-finite layer -1, {n_cg} per-layer gauges each of "
+                      f"grad norm, parameter norm and update ratio; FLOPs a "
+                      f"step {flops:.6g} counted (FlopCounterMode + kernel "
+                      f"launches; 6 x MACs x batch {macs:.6g}); dl4j_tpu_mfu "
+                      f"{mfu:.4f} of {BF16_FLOPS / 1e12:g} TFLOP/s; {smi}")
+    say("resilience", f"(d) ms a step in turns of {HEALTH_FREQ}: "
+                      "unmonitored " + " ".join(f"{v:.2f}" for v in ms[False])
+                      + "; monitored " + " ".join(f"{v:.2f}" for v in ms[True])
+                      + f" (min {min(ms[True]) / min(ms[False]):.3f}x); "
+                      f"an unmonitored step's operations {sum(ops.values())}, "
+                      f"phase 15's and after monitoring the same; its "
+                      f"kernels in the profiler's device records {n_base} "
+                      f"(phase 15's {sum(ref.values())}: "
+                      f"{_kernel_diff(ref, base)}), after monitoring "
+                      f"{sum(after.values())}, after the FLOP count "
+                      f"{sum(counted.values())} "
+                      f"({_kernel_diff(base, counted)}); 3 steps monitored, "
+                      f"unmonitored and unmonitored after the FLOP count "
+                      f"bit-equal; {smi}")
+    del net, x, y, snap, plain, again, watched, adapter
+    torch.cuda.empty_cache()
+
+
+def resilience_preempt_graph(smi: str, tmp: str, add) -> None:
+    """(e) Seq2SeqLSTM at hidden 512 (the wide route), preempted and
+    resumed bit-equal through the graph's guarded fit."""
+    from deeplearning4j_tpu_torch.datasets import (ListMultiDataSetIterator,
+                                                   MultiDataSet)
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.profiler import chaos
+    from deeplearning4j_tpu_torch.util import resilience
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+
+    class StatefulList(ListMultiDataSetIterator):
+        """Its position as state: a mid-epoch resume takes the next
+        batch."""
+
+        def get_state(self):
+            return {"i": self._i}
+
+        def set_state(self, state):
+            self._i = int(state["i"])
+
+    batches = []
+    for s in range(FT_S2S_BATCHES):
+        enc, dec, out = (torch.from_numpy(a).to(DEVICE, torch.bfloat16)
+                         for a in reversal_batch(S2S_BATCH, S2S_T,
+                                                 S2S_FEATURES, seed=s))
+        batches.append(MultiDataSet([enc, dec], [out]))
+    conf = seq2seq_conf(S2S_WIDE_HIDDEN, Adam(5e-3))
+    conf.dtype = "bfloat16"
+    ck = os.path.join(tmp, "cg")
+    policy = lambda: FaultTolerance(checkpoint_dir=ck, divergence_window=0)
+    reset_lstm_counts()
+    clean = ComputationGraph(conf, device=DEVICE).init()
+    clean.fit(StatefulList(batches), epochs=FT_EPOCHS)
+    net = ComputationGraph(conf, device=DEVICE).init()
+    with chaos.installed(chaos.ChaosConfig(preempt_at_step=FT_S2S_PREEMPT)):
+        net.fit(StatefulList(batches), epochs=FT_EPOCHS,
+                fault_tolerance=policy())
+    check(net.getIterationCount() == FT_S2S_PREEMPT,
+          f"resilience (e): preempted at {net.getIterationCount()}")
+    check(resilience.latest_valid_bundle(ck) is not None,
+          "resilience (e): no valid bundle")
+    fresh = ComputationGraph(conf, device=DEVICE).init()
+    fresh.fit(StatefulList(batches), epochs=FT_EPOCHS,
+              fault_tolerance=policy())
+    steps = FT_S2S_BATCHES * FT_EPOCHS
+    check(fresh.getIterationCount() == steps,
+          f"resilience (e): resumed run ended at {fresh.getIterationCount()}")
+    bit_equal("resilience (e) parameters", clean.params_map, fresh.params_map)
+    bit_equal("resilience (e) Adam state", clean.opt_states, fresh.opt_states)
+    counts, wide = lstm_counts(), lstm_wide_counts()
+    add(counts, wide)
+    want = 2 * (2 * steps)
+    check(counts == wide == (want, want),
+          f"resilience (e): B5 launches {counts} (wide route {wide}), not "
+          f"{want}")
+    say("resilience", f"(e) Seq2SeqLSTM hidden {S2S_WIDE_HIDDEN}, bf16, "
+                      f"batch {S2S_BATCH}, {FT_S2S_BATCHES} batches x "
+                      f"{FT_EPOCHS} epochs: preempted at step "
+                      f"{FT_S2S_PREEMPT}, resumed in a fresh graph, "
+                      f"parameters and Adam state bit-equal; B5 launches "
+                      f"{counts}, all on the wide route; {smi}")
+
+
+def resilience_transfer(smi: str, add) -> None:
+    """(f) transfer retries and quarantine of the device prefetcher."""
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   DevicePrefetchIterator,
+                                                   ListDataSetIterator)
+    from deeplearning4j_tpu_torch.profiler import chaos, telemetry
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+
+    host = [DataSet(d.features.cpu().numpy(), d.labels.cpu().numpy())
+            for d in ft_char_batches(torch.float32, 4)]
+    net = textgen_net("bfloat16", 0, DEVICE)
+    reset_lstm_counts()
+    r0 = (ft_counter(telemetry.TRANSFER_RETRIES),
+          ft_counter(telemetry.TRANSFER_QUARANTINES))
+    it = DevicePrefetchIterator(ListDataSetIterator(host), depth=2,
+                                device=DEVICE, dtype=torch.bfloat16)
+    with chaos.installed(chaos.ChaosConfig(transfer_error_rate=0.3,
+                                           seed=3)), it:
+        net.fit(it, epochs=2, fault_tolerance=FaultTolerance(
+            divergence_window=0, transfer_retries=8,
+            transfer_backoff=0.002))
+        posture = (it._transfer_retries, it._quarantine)
+    retries = ft_counter(telemetry.TRANSFER_RETRIES) - r0[0]
+    check(net.getIterationCount() == 2 * len(host) and retries > 0
+          and ft_counter(telemetry.TRANSFER_QUARANTINES) == r0[1],
+          f"resilience (f): {net.getIterationCount()} steps, {retries} "
+          f"retries")
+    check(posture == (0, False), f"resilience (f): the policy's retry "
+                                 f"posture stayed on the prefetcher "
+                                 f"{posture}")
+    it0 = net.getIterationCount()
+    poisoned = DevicePrefetchIterator(
+        ListDataSetIterator(host), depth=2, device=DEVICE,
+        dtype=torch.bfloat16, transfer_retries=1, transfer_backoff=0.001,
+        quarantine=True)
+    with chaos.installed(chaos.ChaosConfig(transfer_error_rate=1.0)), \
+            poisoned:
+        net.fit(poisoned, epochs=1, fault_tolerance=FaultTolerance(
+            divergence_window=0, transfer_retries=0))
+    quarantined = ft_counter(telemetry.TRANSFER_QUARANTINES) - r0[1]
+    check(net.getIterationCount() == it0 and quarantined == len(host),
+          f"resilience (f): {quarantined} batches quarantined, "
+          f"{net.getIterationCount() - it0} steps on a poisoned stream")
+    add(lstm_counts(), lstm_wide_counts())
+    check(not prefetch_threads(), f"resilience (f): prefetch threads left "
+                                  f"{prefetch_threads()}")
+    say("resilience", f"(f) DevicePrefetchIterator depth 2 at phase 9's "
+                      f"batch, chaos failure rate 0.3: {2 * len(host)} steps, "
+                      f"{retries:g} retries, none quarantined; rate 1.0 with "
+                      f"1 retry: {quarantined:g} of {len(host)} batches "
+                      f"quarantined, no step, the fit went on")
+
+
+def resilience_watchdog(smi: str, tmp: str, add, logs) -> None:
+    """(g) a chaos hang of FT_HANG_S past a FT_DEADLINE_S deadline."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.profiler import (chaos, flight_recorder,
+                                                   telemetry)
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+
+    batches = ft_char_batches(torch.bfloat16, 3)
+    net = textgen_net("bfloat16", 0, DEVICE)
+    net.fit(batches[0].features, batches[0].labels)      # warm
+    reset_lstm_counts()
+    s0 = ft_counter(telemetry.WATCHDOG_STALLS)
+    n_logs = len(logs.records)
+    dumps = os.path.join(tmp, "watchdog")
+    with chaos.installed(chaos.ChaosConfig(hang_step=2,
+                                           hang_seconds=FT_HANG_S)):
+        net.fit(ListDataSetIterator(batches), epochs=1,
+                fault_tolerance=FaultTolerance(
+                    divergence_window=0, step_deadline=FT_DEADLINE_S,
+                    flight_dir=dumps))
+    torch.cuda.synchronize()
+    add(lstm_counts(), lstm_wide_counts())
+    stalls = ft_counter(telemetry.WATCHDOG_STALLS) - s0
+    fired = [r.getMessage() for r in logs.records[n_logs:]
+             if r.getMessage().startswith("WATCHDOG")]
+    check(stalls == 1 and len(fired) == 1,
+          f"resilience (g): {stalls} stalls counted, {len(fired)} logged")
+    check("Thread stacks" in fired[0] and "MainThread" in fired[0],
+          "resilience (g): the stall's log holds no stack dump")
+    deadline = time.monotonic() + 5
+    while not flight_recorder.list_dumps(dumps) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    dump = flight_recorder.list_dumps(dumps)
+    check(len(dump) == 1 and flight_recorder.load_dump(dump[0])["valid"],
+          f"resilience (g): incident dumps {dump}")
+    say("resilience", f"(g) a {FT_HANG_S:g} s hang at step 2 past a "
+                      f"{FT_DEADLINE_S:g} s step_deadline: {stalls:g} stall, "
+                      f"a {len(fired[0])}-character stack dump, one valid "
+                      f"incident dump; the fit finished "
+                      f"{net.getIterationCount() - 1} steps")
+
+
+def resilience_export(tmp: str) -> None:
+    """(h) the Chrome trace to a temp directory, parsed back."""
+    from deeplearning4j_tpu_torch.profiler import telemetry
+
+    path = telemetry.export_chrome_trace(os.path.join(tmp, "trace.json"))
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    names = {e["name"] for e in events}
+    check({"etl_wait", "device_step"} <= names,
+          f"resilience (h): trace span names {sorted(names)[:10]}")
+    check(all(e["ph"] == "X" and e["dur"] >= 0 for e in events),
+          "resilience (h): a malformed trace event")
+    h = telemetry.MetricsRegistry.get_default().histogram(
+        telemetry.STEP_PHASE_SECONDS)
+    say("resilience", f"(h) Chrome trace: {len(events)} events, "
+                      f"{os.path.getsize(path)} B, parsed; step phases "
+                      f"etl_wait {h.count(phase='etl_wait')}, device_step "
+                      f"{h.count(phase='device_step')} spans, device_step "
+                      f"p50 {h.percentiles(phase='device_step')['p50'] * 1e3:.3f}"
+                      f" ms (host dispatch)")
+
+
 def _first(out):
     return out[0] if isinstance(out, list) else out
 
@@ -7594,6 +8297,13 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_layers(phase_device(), defaultdict(dict))
         return 0
+    if argv[:1] == ["resilience"]:
+        # phase 23 alone, of the port found from the current directory
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_resilience(phase_device(), defaultdict(dict))
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -7628,6 +8338,7 @@ def main(argv) -> int:
     phase_vision(smi, rows)
     phase_transfer(smi)
     phase_layers(smi, rows)
+    phase_resilience(smi, rows)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -74,6 +74,12 @@ Ported so far:
   and ``nn.conf.ocnn``, layerwise pretraining and ``summary`` of both
   networks; no hand kernel (a frozen layer's parameters stay out of the
   gradient and the updater);
+- the training infrastructure: ``util.resilience`` (the fault-tolerant
+  fit: preemption bundles, auto-resume, divergence rollback, the
+  watchdog, bundle stores), ``util.sharded_checkpoint``, the prefetcher's
+  transfer retries, and ``profiler`` (``telemetry``, ``flops``,
+  ``flight_recorder``, ``chaos``, ``model_health``); no hand kernel (the
+  kernel wrappers count their launches' FLOPs for the MFU);
 - ``params``: parameter trees in the JAX layout (``params_from_jax``,
   ``mln_params_from_numpy``, ``cg_params_from_numpy``,
   ``params_to_numpy``) and ``FlatParams``, the flat f32 master buffer.

@@ -36,15 +36,27 @@ and from CUDA events :meth:`DevicePrefetchIterator.copy_ms` (each recent
 batch's copies on the card) and :meth:`~DevicePrefetchIterator.ready_ms`
 (to the end of its casts).
 
-Not ported: sharding over a mesh (``mesh=``, A8) and the transient
-transfer policy (``transfer_retries``, ``quarantine``), which belongs to
-``util/resilience.py`` (A9).
+Transient transfer failures (JAX ``:372-386``, ``configure_retries``):
+``transfer_retries`` retries a batch's placement (staging and copies on
+the side stream) with exponential backoff and jitter; past the budget,
+``quarantine`` drops the batch (counted, logged) where the default
+re-raises. ``util.resilience``'s fault-tolerant fit sets a policy for its
+run and puts the prefetcher's own back after. At depth 0 in quarantine
+mode ``hasNext()`` places the next batch ahead, so a quarantined final
+batch ends the epoch. Retries and quarantines count in
+``dl4j_tpu_transfer_retries_total`` and
+``dl4j_tpu_transfer_quarantined_batches_total``; ``profiler.chaos``
+injects failures at the start of each placement.
+
+Not ported: sharding over a mesh (``mesh=``, A8).
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import queue
+import random
 import threading
 import time
 from typing import Optional, Sequence
@@ -62,6 +74,10 @@ from deeplearning4j_tpu_torch.datasets.record_reader_iterator import (
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.params import (numpy_to_tensor,
                                              numpy_to_tensor_narrowed)
+from deeplearning4j_tpu_torch.profiler import chaos as _chaos
+from deeplearning4j_tpu_torch.profiler import telemetry as _telemetry
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 #: recent batches whose copy events :meth:`DevicePrefetchIterator.copy_ms`
 #: reads
@@ -369,6 +385,8 @@ class DevicePrefetchIterator(DataSetIterator):
       asked for.
     - ``dtype``: the features' dtype on the device (cast there after the
       copy); labels and masks keep theirs.
+    - ``transfer_retries``, ``transfer_backoff``, ``quarantine``: the
+      transient-failure policy (module docstring; default fail-fast).
 
     ``shutdown()`` (or leaving a ``with`` block) stops and joins both
     threads; ``reset()`` reopens. An exception in either thread is raised
@@ -393,14 +411,17 @@ class DevicePrefetchIterator(DataSetIterator):
         if mesh is not None:
             raise not_ported("DevicePrefetchIterator(mesh=...) (sharded "
                              "batches)", "A8")
-        if transfer_retries or quarantine:
-            raise not_ported("DevicePrefetchIterator(transfer_retries=..., "
-                             "quarantine=...) (util/resilience.py)", "A9")
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
         self.underlying = underlying
         self.depth = int(depth)
         self.device = resolve_device(device)
+        self._transfer_retries = max(int(transfer_retries), 0)
+        self._transfer_backoff = float(transfer_backoff)
+        self._quarantine = bool(quarantine)
+        #: depth 0, quarantine mode: (batch, position after it) placed
+        #: ahead by hasNext(), which absorbs quarantined batches
+        self._peek0 = None
         self._dtype = dtype
         self._last_state = None
         self._tagged: Optional[_StateTaggingIterator] = None
@@ -485,6 +506,10 @@ class DevicePrefetchIterator(DataSetIterator):
     # ------------------------------------------------------- placement
     def _prepare(self, ds):
         """The policy, then the copies: ``(placed batch, issue time)``."""
+        monkey = _chaos.active()
+        if monkey is not None:
+            # here, so that every retry rolls again
+            monkey.maybe_fail_transfer()
         tag = getattr(ds, "_iter_state", None)
         ds = self.policy.apply(ds)
         arrays, n_features, rebuild = _batch_arrays(ds)
@@ -555,6 +580,52 @@ class DevicePrefetchIterator(DataSetIterator):
         self._copy_events.append((start, copied, end))
         return out, end
 
+    def configure_retries(self, retries: int, backoff: float = 0.05,
+                          quarantine: bool = True) -> None:
+        """Set the transient-transfer policy (the fault-tolerant fit's
+        seam)."""
+        self._transfer_retries = max(int(retries), 0)
+        self._transfer_backoff = float(backoff)
+        self._quarantine = bool(quarantine)
+
+    def _prepare_with_retry(self, ds, stop=None):
+        """:meth:`_prepare` under the transient-failure policy: up to
+        ``transfer_retries`` retries with exponential backoff and jitter,
+        then quarantine (None: the batch is dropped, counted and logged)
+        or the error. With no retries and no quarantine it is
+        :meth:`_prepare` alone."""
+        if self._transfer_retries == 0 and not self._quarantine:
+            return self._prepare(ds)
+        attempts = 0
+        while True:
+            try:
+                return self._prepare(ds)
+            except Exception as e:
+                attempts += 1
+                if attempts > self._transfer_retries:
+                    if not self._quarantine:
+                        raise
+                    if _telemetry.enabled():
+                        _telemetry.MetricsRegistry.get_default().counter(
+                            _telemetry.TRANSFER_QUARANTINES,
+                            "batches dropped after exhausting transfer "
+                            "retries (poison-batch quarantine)").inc()
+                    log.warning(
+                        "DevicePrefetch: quarantining a batch after %d "
+                        "failed transfer attempts (%s: %s) — training "
+                        "continues on the next batch",
+                        attempts, type(e).__name__, e)
+                    return None
+                if stop is not None and stop.is_set():
+                    raise   # tearing down: no sleeping through it
+                if _telemetry.enabled():
+                    _telemetry.MetricsRegistry.get_default().counter(
+                        _telemetry.TRANSFER_RETRIES,
+                        "transient host->device transfer retries").inc()
+                delay = self._transfer_backoff * (2 ** (attempts - 1))
+                delay += random.uniform(0, self._transfer_backoff)
+                time.sleep(min(delay, 2.0))
+
     def _hand_over(self, ds):
         """Order the consumer's stream after ``ds``'s copies, and mark its
         tensors as used there."""
@@ -598,7 +669,9 @@ class DevicePrefetchIterator(DataSetIterator):
                 if index is not None:
                     torch.cuda.set_device(index)
                 while not stop.is_set() and host.hasNext():
-                    item = self._prepare(host.next())
+                    item = self._prepare_with_retry(host.next(), stop=stop)
+                    if item is None:
+                        continue   # a quarantined batch
                     while not stop.is_set():
                         try:
                             q.put(item, timeout=0.1)
@@ -661,6 +734,7 @@ class DevicePrefetchIterator(DataSetIterator):
 
     # ------------------------------------------------------- iteration
     def reset(self):
+        self._peek0 = None
         if self._tagged is not None and self._tagged._skip_next_reset:
             # an explicit reset() after set_state() asks for the next
             # epoch from the restored counter: let it reach the iterator
@@ -686,7 +760,22 @@ class DevicePrefetchIterator(DataSetIterator):
 
     def hasNext(self) -> bool:
         if self.depth == 0:
-            return self.underlying.hasNext()
+            if self._peek0 is not None:
+                return True
+            if not self._quarantine:
+                return self.underlying.hasNext()
+            # quarantine mode answers through the placement: a quarantined
+            # final batch must not turn a True into a StopIteration
+            while self.underlying.hasNext():
+                item = self._prepare_with_retry(self.underlying.next())
+                if item is not None:
+                    try:
+                        st = self.underlying.get_state()
+                    except Exception:
+                        st = None
+                    self._peek0 = (item[0], st)
+                    return True
+            return False
         self._ensure_started()
         if self._exhausted:
             return False
@@ -708,7 +797,15 @@ class DevicePrefetchIterator(DataSetIterator):
 
     def next(self):
         if self.depth == 0:
-            ds, _ = self._prepare(self.underlying.next())
+            if self._peek0 is None and not self._quarantine:
+                ds, _ = self._prepare_with_retry(self.underlying.next())
+                return self._hand_over(ds)
+            if not self.hasNext():   # fills _peek0, past quarantined
+                raise StopIteration  # batches
+            ds, st = self._peek0
+            self._peek0 = None
+            if st is not None:
+                self._last_state = st
             return self._hand_over(ds)
         if not self.hasNext():
             raise StopIteration
@@ -725,6 +822,16 @@ class DevicePrefetchIterator(DataSetIterator):
         lookahead's): restoring it produces every prefetched batch that
         was not consumed, and none twice."""
         if self.depth == 0:
+            if self._peek0 is not None or (self._quarantine
+                                           and self._last_state is not None):
+                # a batch placed ahead: the underlying iterator is one
+                # batch past the consumer
+                if self._last_state is None:
+                    raise RuntimeError(
+                        "DevicePrefetchIterator.get_state: no batch "
+                        "consumed since the last reset; the position is "
+                        "the epoch's start")
+                return {"underlying": self._last_state}
             return {"underlying": self.underlying.get_state()}
         if self._tagged is None:
             raise NotImplementedError(
@@ -740,6 +847,7 @@ class DevicePrefetchIterator(DataSetIterator):
         under_state = (state.get("underlying", state)
                        if isinstance(state, dict) else state)
         if self.depth == 0:
+            self._peek0 = None
             self.underlying.set_state(under_state)
             self._last_state = under_state
             return
@@ -774,10 +882,6 @@ class DevicePrefetchIterator(DataSetIterator):
 
     def asyncSupported(self) -> bool:
         return False  # already asynchronous
-
-    def configure_retries(self, *args, **kwargs) -> None:
-        raise not_ported("DevicePrefetchIterator.configure_retries "
-                         "(util/resilience.py)", "A9")
 
 
 class DevicePrefetchMultiIterator(DevicePrefetchIterator,

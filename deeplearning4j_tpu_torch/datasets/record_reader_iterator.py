@@ -129,7 +129,7 @@ class AsyncDataSetIterator(DataSetIterator):
 
 def _record_reader_stand_in(name: str):
     def __init__(self, *args, **kwargs):
-        raise not_ported(f"{name} (it reads datavec records, A10)", "A9")
+        raise not_ported(f"{name} (it reads datavec records)", "A10")
 
     return type(name, (DataSetIterator,), {
         "__init__": __init__,

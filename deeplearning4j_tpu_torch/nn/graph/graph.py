@@ -34,11 +34,12 @@ policy's), the loss heads and normalization layers f32 islands, the
 recurrent carries of ``rnnTimeStep`` in the layer's compute dtype, the
 outputs of ``output``, ``rnnTimeStep`` and ``backpropGradient`` and the
 external errors in the output dtype, and under ``mixed_float16`` the
-loss-scaled step with its skip-step guard. Not ported yet, and raising
-``NotImplementedError`` with the ROADMAP item: the health monitor and
-fault tolerance (A9). ``fit`` over an iterator takes
-a batch already on the device in the input dtype without a copy, and
-records each ``next()``'s wait in ``_last_etl_ms``.
+loss-scaled step with its skip-step guard, the fault-tolerant fit
+(``fit(fault_tolerance=..., auto_resume=...)``, ``util.resilience``) and
+the model-health monitor (``setHealthMonitor``), with the step's phases,
+memory watermarks and health hooks of ``MultiLayerNetwork``. ``fit`` over
+an iterator takes a batch already on the device in the input dtype
+without a copy, and records each ``next()``'s wait in ``_last_etl_ms``.
 
 Parameters, layer state and updater state are dicts keyed by node name
 in the JAX layout, so ``params.cg_params_from_numpy`` and
@@ -47,6 +48,7 @@ in the JAX layout, so ``params.cg_params_from_numpy`` and
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -68,10 +70,13 @@ from deeplearning4j_tpu_torch.nn.graph.vertices import (FrozenVertex,
                                                         LayerVertex)
 from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
 from deeplearning4j_tpu_torch.nn.multilayer.network import (
-    _not_ported, as_device_tensor, eval_mask, external_gradients,
-    fit_epochs, grads_of, merged, normalize_gradients, pretrain_loss,
-    trainable_leaves, weight_penalty, with_weight_noise)
+    as_device_tensor, eval_mask, external_gradients, fit_epochs, grads_of,
+    merged, normalize_gradients, pretrain_loss, trainable_leaves,
+    weight_penalty, with_weight_noise)
 from deeplearning4j_tpu_torch.params import tree_leaves, tree_map, tree_map2
+from deeplearning4j_tpu_torch.profiler import flight_recorder as _flight
+from deeplearning4j_tpu_torch.profiler import model_health as _model_health
+from deeplearning4j_tpu_torch.profiler import telemetry as _telemetry
 
 
 def _label(vertex) -> str:
@@ -118,6 +123,8 @@ class ComputationGraph:
         self._last_batch_size = 0
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._rnn_batch = 0
+        #: the model-health monitor (profiler/model_health.py), or None
+        self._health = None
 
     # ------------------------------------------------------------------
     def init(self) -> "ComputationGraph":
@@ -274,16 +281,19 @@ class ComputationGraph:
         return acts, new_states
 
     def _loss(self, params_map, states_map, inputs, labels_map, generator,
-              masks_map=None, fmasks_map=None):
+              masks_map=None, fmasks_map=None, collect_acts=False):
         """Training-mode forward to every output's loss head: ``(loss,
         (new_states, data_loss))``, the losses summed in f32 and
         ``loss`` with the l1/l2 terms of the weights. A features mask acts
         as in :meth:`_forward_all`, the pooling masked only while the
-        time axis still lines up."""
+        time axis still lines up. With ``collect_acts`` (a monitored step)
+        the aux ends in the per-vertex non-finite flags, ``conf.nodes``
+        order: each vertex's output, a loss head's loss value."""
         masks_map = masks_map or {}
         outputs = self.conf.network_outputs
         acts, fmask, branch = self._masked_inputs(inputs, fmasks_map)
         new_states: Dict[str, dict] = {}
+        act_bad = [] if collect_acts else None
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for node in self.conf.nodes:
             v, name = node.vertex, node.name
@@ -298,20 +308,28 @@ class ComputationGraph:
                         and xs[0].shape[1] == fmask.shape[1]:
                     acts[name], new_states[name] = v.layer.apply_masked(
                         p, states_map[name], xs[0], fmask, True, generator)
+                    flagged = acts[name]
                 elif name in outputs and isinstance(v, LayerVertex) \
                         and hasattr(v.layer, "loss_value"):
-                    total = total + v.layer.loss_value(
+                    lv = v.layer.loss_value(
                         p, states_map[name], xs[0], labels_map[name],
                         masks_map.get(name))
+                    total = total + lv
                     new_states[name] = states_map[name]
                     acts[name] = xs[0]
+                    flagged = lv
                 else:
                     acts[name], new_states[name] = v.apply(
                         p, states_map[name], xs, True, generator)
+                    flagged = acts[name]
+                if collect_acts:
+                    act_bad.append(_model_health.act_flag(flagged))
         reg = weight_penalty(
             ((n.vertex.layer, params_map[n.name]) for n in self.conf.nodes
              if isinstance(n.vertex, LayerVertex)),
             torch.zeros((), dtype=torch.float32, device=self.device))
+        if collect_acts:
+            return total + reg, (new_states, total, act_bad)
         return total + reg, (new_states, total)
 
     def _clip(self, grads: Dict[str, dict]) -> Dict[str, dict]:
@@ -323,23 +341,27 @@ class ComputationGraph:
     def _train_step(self, inputs, labels, masks, fmasks=None):
         """One update: forward, gradients of every parameter that is not
         frozen, clipping, updater; under loss scaling the skip-step guard.
-        Returns the data loss, detached."""
+        Returns ``(data loss, detached; health)``, ``health`` the on-card
+        health dict of a monitored step (None without a monitor)."""
+        monitored = self._health is not None
         leaves = trainable_leaves(self.params_map, self._frozen)
 
         def loss_fn(pm):
             return self._loss(merged(pm, self.params_map, self._frozen),
                               self.states_map, inputs, labels,
-                              self._generator, masks, fmasks)
+                              self._generator, masks, fmasks,
+                              collect_acts=monitored)
 
         ls = self._loss_scale_state
         if ls is not None:
-            (_, (new_states, data_loss)), grads, finite = \
-                _precision.scaled_value_and_grad(loss_fn, ls, leaves)
+            (_, aux), grads, finite = _precision.scaled_value_and_grad(
+                loss_fn, ls, leaves)
         else:
             with torch.enable_grad():
-                loss, (new_states, data_loss) = loss_fn(leaves)
+                loss, aux = loss_fn(leaves)
                 grads = grads_of(loss, leaves)
             del loss
+        new_states, data_loss = aux[:2]
         del leaves
         with torch.no_grad(), record_function("dl4j::updater"):
             new_params, new_opt = self._apply_updates(self._clip(grads))
@@ -350,9 +372,16 @@ class ComputationGraph:
                     [(new_params, self.params_map),
                      (new_opt, self.opt_states),
                      (new_states, self.states_map)])
+            health = None
+            if monitored:
+                health = _model_health.device_stats(
+                    [n.name for n in self.conf.nodes], grads, new_params,
+                    self.params_map, aux[2],
+                    handled=None if ls is None else torch.logical_not(finite),
+                    device=self.device)
         self.params_map, self.opt_states = new_params, new_opt
         self.states_map = new_states
-        return data_loss.detach()
+        return data_loss.detach(), health
 
     def _node(self, name: str):
         return self._nodes[name]
@@ -398,8 +427,10 @@ class ComputationGraph:
         can reset)."""
         self._check_init()
         if fault_tolerance is not None or auto_resume is not None:
-            raise _not_ported("fit(fault_tolerance=..., auto_resume=...)",
-                              "A9")
+            from deeplearning4j_tpu_torch.util import resilience
+
+            return resilience.run_fit(self, fault_tolerance, data, labels,
+                                      epochs, auto_resume=auto_resume)
         if isinstance(data, MultiDataSetIterator):
             if epochs > 1 and not data.resetSupported():
                 raise ValueError("epochs > 1 requires a resettable "
@@ -440,6 +471,9 @@ class ComputationGraph:
     def _fit_batch(self, xs: Sequence, ys: Sequence, label_masks=None,
                    feature_masks=None):
         outputs = self.conf.network_outputs
+        if all(torch.is_tensor(x) and x.device == self.device
+               and x.dtype == self._input_dtype for x in xs):
+            _telemetry.record_on_device_batch("cg")
         inputs = self._inputs(xs)
         if len(ys) != len(outputs):
             raise ValueError(f"got {len(ys)} label arrays for "
@@ -455,14 +489,39 @@ class ComputationGraph:
             masks = {n: self._tensor(m) for n, m in zip(outputs, label_masks)
                      if m is not None}
         fmasks = self._validate_fmasks(feature_masks, inputs)
-        self._score = self._train_step(inputs, labels, masks, fmasks)
+        hm = self._health
+        t_step = time.perf_counter()
+        if hm is None:
+            self._score, health = self._train_step(inputs, labels, masks,
+                                                   fmasks)
+        else:
+            sig = _model_health.step_signature(
+                *inputs.values(), *labels.values(), *masks.values(),
+                *fmasks.values())
+            if hm.wants_flops("cg_step", sig):
+                with _model_health.counting_flops() as box:
+                    self._score, health = self._train_step(
+                        inputs, labels, masks, fmasks)
+                hm.record_flops("cg_step", sig, box["flops"])
+            else:
+                self._score, health = self._train_step(inputs, labels, masks,
+                                                       fmasks)
+            hm.charge_flops("cg_step", sig)
+        _telemetry.record_phase("device_step", t_step)
         self._iteration += 1
+        self._last_batch_size = int(next(iter(inputs.values())).shape[0])
+        _flight.record_step("cg", self._iteration, t_step)
+        _telemetry.sample_device_memory(self.device)
+        if hm is not None:
+            hm.on_step(self, health, site="cg", jit_site="cg_step")
         if self._loss_scale_state is not None:
             self._ls_seen = _precision.record_loss_scale(
                 "cg", self._loss_scale_state, self._ls_seen)
-        self._last_batch_size = int(next(iter(inputs.values())).shape[0])
-        for l in self._listeners:
-            l.iterationDone(self, self._iteration, self._epoch)
+        if self._listeners:
+            t_l = time.perf_counter()
+            for l in self._listeners:
+                l.iterationDone(self, self._iteration, self._epoch)
+            _telemetry.record_phase("listener_host", t_l)
 
     # ------------------------------------------------------------------
     def output(self, *xs, feature_masks=None):
@@ -807,10 +866,14 @@ class ComputationGraph:
         return "\n".join(lines)
 
     # ------------------------------------------------------------------
-    # not ported
-    # ------------------------------------------------------------------
-    def setHealthMonitor(self, monitor):
-        raise _not_ported("the model-health monitor", "A9")
+    def setHealthMonitor(self, monitor) -> "ComputationGraph":
+        """Attach (or with None, detach) a
+        :class:`~deeplearning4j_tpu_torch.profiler.model_health.HealthMonitor`."""
+        self._health = monitor
+        return self
+
+    def getHealthMonitor(self):
+        return self._health
 
 
 __all__ = ["ComputationGraph"]

@@ -23,9 +23,10 @@ tags between image and dense layers
 constraints (after each update), frozen layers (``nn.transferlearning``:
 their parameters left out of the gradient and the updater), layerwise
 pretraining (``pretrainLayer``, ``pretrain``,
-``reconstructionLogProbability``) and ``summary``. Not ported yet, and
-raising ``NotImplementedError`` with the ROADMAP item: the health monitor
-and fault tolerance (A9).
+``reconstructionLogProbability``) and ``summary``, the fault-tolerant fit
+(``fit(fault_tolerance=..., auto_resume=...)``, which hands the loop to
+``util.resilience.run_fit``) and the model-health monitor
+(``setHealthMonitor``, ``profiler.model_health``).
 
 Under a mixed policy (``conf.precision``) the parameters and the updater
 state are the f32 masters (``_dtype``); inputs are staged in the compute
@@ -43,7 +44,16 @@ count advances either way, as in the JAX step.
 ``fit`` over an iterator takes each batch as it comes: one already on the
 device in the input dtype (a ``DevicePrefetchIterator``'s) goes into the
 step without a copy, and nothing on the way reads a value back from the
-card; ``_last_etl_ms`` is the time the last ``next()`` blocked.
+card; ``_last_etl_ms`` is the time the last ``next()`` blocked. Each step
+records its phases in ``profiler.telemetry`` (``etl_wait``,
+``device_step``, ``listener_host``: host time, the step's dispatch, not
+its time on the card) and samples the card's allocator watermarks.
+
+With a health monitor attached, a step also flags each layer's forward
+output for NaN and Inf (``collect_acts``) and reduces its gradients,
+parameters and update on the card (``model_health.device_stats``); the
+monitor reads them back every ``frequency`` steps. Without one, a step
+runs none of it.
 
 Parameters are a list of per-layer dicts of tensors in the JAX layout, so
 ``params.mln_params_from_numpy`` and ``util.model_serializer`` carry a
@@ -58,7 +68,6 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.common import not_ported as _not_ported
 from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.learning.schedules import uses_epoch_schedule
@@ -73,6 +82,9 @@ from deeplearning4j_tpu_torch.nn.masking import validate_features_mask
 from deeplearning4j_tpu_torch.ops.transforms import jax_abs
 from deeplearning4j_tpu_torch.params import (tree_leaves, tree_map, tree_map2,
                                              tree_unflatten)
+from deeplearning4j_tpu_torch.profiler import flight_recorder as _flight
+from deeplearning4j_tpu_torch.profiler import model_health as _model_health
+from deeplearning4j_tpu_torch.profiler import telemetry as _telemetry
 
 #: param keys subject to l1/l2 (weights, not biases)
 _REGULARIZED_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
@@ -89,8 +101,9 @@ def eval_mask(ds):
 
 def fit_epochs(model, iterator, epochs: int, step):
     """``epochs`` passes of ``step(batch)`` over ``iterator``, each wait
-    in its ``next()`` in ``model._last_etl_ms``, each pass ending in the
-    epoch count and the listeners' ``onEpochEnd``."""
+    in its ``next()`` in ``model._last_etl_ms`` and the ``etl_wait``
+    phase, each pass ending in the epoch count and the listeners'
+    ``onEpochEnd``."""
     for _ in range(epochs):
         it = iter(iterator)
         while True:
@@ -100,6 +113,7 @@ def fit_epochs(model, iterator, epochs: int, step):
             except StopIteration:
                 break
             model._last_etl_ms = (time.perf_counter() - t0) * 1e3
+            _telemetry.record_phase("etl_wait", t0)
             step(batch)
         model._epoch += 1
         for l in model._listeners:
@@ -278,6 +292,8 @@ class MultiLayerNetwork:
         self._listeners: List[Any] = []
         self._last_etl_ms: Optional[float] = None
         self._last_batch_size = 0
+        #: the model-health monitor (profiler/model_health.py), or None
+        self._health = None
 
     # ------------------------------------------------------------------
     # initialization
@@ -391,15 +407,18 @@ class MultiLayerNetwork:
         return apply_preprocessor(tag, a) if tag else a
 
     def _loss_carries(self, params_list, states_list, carries, x, y, mask,
-                      generator, fmask=None):
+                      generator, fmask=None, collect_acts=False):
         """Training-mode forward to the loss head, threading recurrent
         carries when given (truncated BPTT). Returns ``(loss, (new_states,
-        data_loss, new_carries))``; ``loss`` adds the l1/l2 terms."""
+        data_loss, new_carries))``; ``loss`` adds the l1/l2 terms. With
+        ``collect_acts`` (a monitored step) the aux ends in the per-layer
+        non-finite flags: each layer's output, the head's loss value."""
         conf = self.conf
         a = x
         if fmask is not None:
             a = a * fmask[..., None].to(a.dtype)
         new_states, new_carries = [], []
+        act_bad = [] if collect_acts else None
         for i, layer in enumerate(conf.layers[:-1]):
             a = self._cast_a(self._preprocess(i, a), i)
             p = self._cast_p(params_list[i], i)
@@ -408,6 +427,8 @@ class MultiLayerNetwork:
                                            generator)
                 new_states.append(ns)
                 new_carries.append(None)
+                if collect_acts:
+                    act_bad.append(_model_health.act_flag(a))
                 continue
             p = with_weight_noise(layer, p, generator)
             if carries is not None and layer.is_recurrent:
@@ -418,6 +439,8 @@ class MultiLayerNetwork:
                 c = None
             new_states.append(ns)
             new_carries.append(c)
+            if collect_acts:
+                act_bad.append(_model_health.act_flag(a))
         new_carries.append(None)        # the loss head is never recurrent
         last = conf.layers[-1]
         if not hasattr(last, "loss_value"):
@@ -432,6 +455,10 @@ class MultiLayerNetwork:
         new_states.append(states_list[-1])
         reg = weight_penalty(zip(conf.layers, params_list), torch.zeros(
             (), dtype=data_loss.dtype, device=data_loss.device))
+        if collect_acts:
+            act_bad.append(_model_health.act_flag(data_loss))
+            return data_loss + reg, (new_states, data_loss, new_carries,
+                                     act_bad)
         return data_loss + reg, (new_states, data_loss, new_carries)
 
     def _clip_grads(self, grads_list):
@@ -471,25 +498,31 @@ class MultiLayerNetwork:
     def _train_step(self, x, y, mask, fmask, carries):
         """One update: forward, gradients of every parameter that is not
         frozen, clipping, updater; under loss scaling the skip-step guard.
-        Returns ``(data_loss, new_carries)``, both detached."""
+        Returns ``(data_loss, new_carries, health)``, the first two
+        detached, ``health`` the on-card health dict of a monitored step
+        (None without a monitor)."""
+        monitored = self._health is not None
         leaves = trainable_leaves(self.params_list, self._frozen)
 
         def loss_fn(pl):
             return self._loss_carries(
                 merged(pl, self.params_list, self._frozen), self.states_list,
-                carries, x, y, mask, self._generator, fmask)
+                carries, x, y, mask, self._generator, fmask,
+                collect_acts=monitored)
 
         ls = self._loss_scale_state
         if ls is not None:
             # carries are not guarded: they are activations, and the
             # next minibatch resets them
-            (_, (new_states, data_loss, new_carries)), grads, finite = \
-                _precision.scaled_value_and_grad(loss_fn, ls, leaves)
+            (_, aux), grads, finite = _precision.scaled_value_and_grad(
+                loss_fn, ls, leaves)
         else:
             with torch.enable_grad():
-                loss, (new_states, data_loss, new_carries) = loss_fn(leaves)
+                loss, aux = loss_fn(leaves)
                 grads = grads_of(loss, leaves)
+        new_states, data_loss, new_carries = aux[:3]
         del leaves
+        raw_grads = grads
         grads = self._clip_grads(grads)
         with torch.no_grad():
             new_params, new_opt = self._apply_updates(
@@ -501,12 +534,42 @@ class MultiLayerNetwork:
                     [(new_params, self.params_list),
                      (new_opt, self.opt_states),
                      (new_states, self.states_list)])
+            health = None
+            if monitored:
+                # after the guard: a skipped step reads update ratio 0,
+                # and the handled bit keeps it from reading as sickness
+                health = _model_health.device_stats(
+                    range(len(self.conf.layers)), raw_grads, new_params,
+                    self.params_list, aux[3],
+                    handled=None if ls is None else torch.logical_not(finite),
+                    device=self.device)
         self.params_list, self.opt_states = new_params, new_opt
         self.states_list = new_states
         # an LSTM's carry is (h, c), a SimpleRnn's h alone
         detached = [None if c is None else c.detach() if torch.is_tensor(c)
                     else tuple(t.detach() for t in c) for c in new_carries]
-        return data_loss.detach(), detached
+        return data_loss.detach(), detached, health
+
+    def _monitored_step(self, site: str, x, y, mask, fmask, carries):
+        """:meth:`_train_step` timed as the ``device_step`` phase; under a
+        health monitor the first step of each input signature runs under
+        :func:`~deeplearning4j_tpu_torch.profiler.model_health.counting_flops`
+        and every step is charged its count."""
+        hm = self._health
+        t_step = time.perf_counter()
+        if hm is None:
+            out = self._train_step(x, y, mask, fmask, carries)
+        else:
+            sig = _model_health.step_signature(x, y, mask, fmask)
+            if hm.wants_flops(site, sig):
+                with _model_health.counting_flops() as box:
+                    out = self._train_step(x, y, mask, fmask, carries)
+                hm.record_flops(site, sig, box["flops"])
+            else:
+                out = self._train_step(x, y, mask, fmask, carries)
+            hm.charge_flops(site, sig)
+        _telemetry.record_phase("device_step", t_step)
+        return out + (t_step,)
 
     # ------------------------------------------------------------------
     # training
@@ -516,11 +579,16 @@ class MultiLayerNetwork:
         """Train on arrays ``fit(x, y)`` or a ``DataSet`` (``epochs``
         passes over the one batch), or on a ``DataSetIterator``
         (``epochs`` passes, each ending in the listeners'
-        ``onEpochEnd``)."""
+        ``onEpochEnd``). A ``FaultTolerance`` policy, or an
+        ``auto_resume`` directory, runs the guarded loop of
+        ``util.resilience`` instead (preemption bundles, auto-resume,
+        divergence rollback, the watchdog, transfer retries)."""
         self._check_init()
         if fault_tolerance is not None or auto_resume is not None:
-            raise _not_ported("fit(fault_tolerance=..., auto_resume=...)",
-                              "A9")
+            from deeplearning4j_tpu_torch.util import resilience
+
+            return resilience.run_fit(self, fault_tolerance, data, labels,
+                                      epochs, auto_resume=auto_resume)
         if isinstance(data, DataSetIterator):
             return fit_epochs(self, data, epochs, lambda ds: self._fit_batch(
                 ds.features, ds.labels, ds.labels_mask, ds.features_mask))
@@ -541,6 +609,9 @@ class MultiLayerNetwork:
         return self
 
     def _fit_batch(self, x, y, mask, features_mask=None):
+        if torch.is_tensor(x) and x.device == self.device \
+                and x.dtype == self._input_dtype:
+            _telemetry.record_on_device_batch("mln")
         x = self._tensor(x, self._input_dtype)
         y = self._tensor(y)
         fm = validate_features_mask(features_mask, x)
@@ -558,18 +629,29 @@ class MultiLayerNetwork:
                     "features masks with truncated BPTT are not supported "
                     "yet; use standard BPTT")
             return self._fit_tbptt(x, y, m, k)
-        self._score, _ = self._train_step(x, y, m, fm, None)
-        self._after_step(x)
+        self._score, _, health, t_step = self._monitored_step(
+            "mln_step", x, y, m, fm, None)
+        self._after_step(x, health, "mln_step", t_step)
 
-    def _after_step(self, x) -> None:
-        """Count the update (a skipped one too) and tell the listeners."""
+    def _after_step(self, x, health, site: str, t_step: float) -> None:
+        """Count the update (a skipped one too), record it (flight
+        recorder, memory watermarks, the health monitor, the loss-scale
+        series) and tell the listeners."""
         self._iteration += 1
         self._last_batch_size = int(x.shape[0])
+        _flight.record_step(site.replace("_step", ""), self._iteration,
+                            t_step, etl_ms=self._last_etl_ms)
+        _telemetry.sample_device_memory(self.device)
+        if self._health is not None:
+            self._health.on_step(self, health, site="mln", jit_site=site)
         if self._loss_scale_state is not None:
             self._ls_seen = _precision.record_loss_scale(
                 "mln", self._loss_scale_state, self._ls_seen)
-        for l in self._listeners:
-            l.iterationDone(self, self._iteration, self._epoch)
+        if self._listeners:
+            t_l = time.perf_counter()
+            for l in self._listeners:
+                l.iterationDone(self, self._iteration, self._epoch)
+            _telemetry.record_phase("listener_host", t_l)
 
     def _fit_tbptt(self, x, y, mask, k: int):
         """Truncated BPTT: segments of ``k`` timesteps, one update per
@@ -592,9 +674,10 @@ class MultiLayerNetwork:
                 "standard BPTT") from None
         for t0 in range(0, t, k):
             mc = mask[:, t0:t0 + k] if mask is not None else None
-            self._score, carries = self._train_step(
-                x[:, t0:t0 + k], y[:, t0:t0 + k], mc, None, carries)
-            self._after_step(x)
+            self._score, carries, health, t_step = self._monitored_step(
+                "mln_tbptt_step", x[:, t0:t0 + k], y[:, t0:t0 + k], mc, None,
+                carries)
+            self._after_step(x, health, "mln_tbptt_step", t_step)
 
     # ------------------------------------------------------------------
     # layerwise unsupervised pretraining
@@ -908,8 +991,14 @@ class MultiLayerNetwork:
     def getListeners(self):
         return list(self._listeners)
 
-    def setHealthMonitor(self, monitor):
-        raise _not_ported("the model-health monitor", "A9")
+    def setHealthMonitor(self, monitor) -> "MultiLayerNetwork":
+        """Attach (or with None, detach) a
+        :class:`~deeplearning4j_tpu_torch.profiler.model_health.HealthMonitor`."""
+        self._health = monitor
+        return self
+
+    def getHealthMonitor(self):
+        return self._health
 
     def getIterationCount(self) -> int:
         return self._iteration

@@ -21,12 +21,14 @@ with a non-finite gradient is skipped: :func:`select` keeps the old
 parameters, updater state and layer state with ``torch.where`` on the
 device (no value is read back), while the scale halves; after
 ``growth_interval`` clean steps it doubles. The loss-scale state is four
-device tensors (:func:`init_loss_scale`), so the step never syncs with
-the host.
+device tensors (:func:`init_loss_scale`), so the step itself never syncs
+with the host.
 
-The port has no telemetry registry yet (ROADMAP A9):
-:func:`record_cast_count` and :func:`record_loss_scale` keep the JAX
-signatures and behave as the JAX functions do with telemetry off.
+:func:`record_cast_count` and :func:`record_loss_scale` write the four
+series of ``profiler.telemetry`` by site (``mln``, ``cg``): the scale
+gauge, the overflow and skipped-step counters (one read-back a
+mixed_float16 step, as in the JAX package; none with telemetry off) and
+the cast-count gauge.
 
 int8 (``DecodeEngine(quantization="int8")``): decode re-reads every
 weight for one token per slot, so the decode step keeps its matmul
@@ -54,8 +56,7 @@ import torch
 from deeplearning4j_tpu_torch.common.serde import serializable
 from deeplearning4j_tpu_torch.ndarray.dtypes import DataType
 
-#: the metric names of the JAX package's telemetry (profiler/telemetry.py),
-#: kept for the registry that ROADMAP A9 brings
+#: the metric names of profiler/telemetry.py that this module writes
 LOSS_SCALE = "dl4j_tpu_loss_scale"
 LOSS_SCALE_OVERFLOWS = "dl4j_tpu_loss_scale_overflows_total"
 LOSS_SCALE_SKIPPED_STEPS = "dl4j_tpu_loss_scale_skipped_steps_total"
@@ -341,18 +342,46 @@ def guard_scaled_step(policy: PrecisionPolicy, ls_state, finite,
 
 
 def record_cast_count(site: str, n: int) -> None:
-    """The per-step cast-count gauge of the JAX package; without a
-    telemetry registry in the port (ROADMAP A9) it records nothing."""
-    return None
+    """The per-step cast-count gauge (``dl4j_tpu_precision_casts_per_step``
+    by site), set when a network is initialised."""
+    from deeplearning4j_tpu_torch.profiler import telemetry
+
+    if not telemetry.enabled():
+        return
+    telemetry.MetricsRegistry.get_default().gauge(
+        PRECISION_CASTS,
+        "param leaves cast param_dtype->compute_dtype per compiled step"
+    ).set(n, site=site)
 
 
 def record_loss_scale(site: str, ls_state,
                       seen: Tuple[int, int]) -> Tuple[int, int]:
-    """The loss-scale gauge and counters of the JAX package; without a
-    telemetry registry in the port (ROADMAP A9) it records nothing, reads
-    nothing back from the card and returns ``seen``, as the JAX function
-    does with telemetry off."""
-    return seen
+    """The loss-scale state into telemetry: the ``dl4j_tpu_loss_scale``
+    gauge, and the overflow and skipped-step counters by their increase
+    since ``seen``. One read-back of the three values (mixed_float16
+    steps only); returns the new ``seen``. With telemetry off it reads
+    nothing and returns ``seen``."""
+    from deeplearning4j_tpu_torch.profiler import telemetry
+
+    if not telemetry.enabled() or ls_state is None:
+        return seen
+    scale, of, sk = torch.stack([
+        ls_state["scale"].to(torch.float64),
+        ls_state["overflows"].to(torch.float64),
+        ls_state["skipped_steps"].to(torch.float64)]).cpu().tolist()
+    of, sk = int(of), int(sk)
+    reg = telemetry.MetricsRegistry.get_default()
+    reg.gauge(LOSS_SCALE, "current dynamic loss scale").set(
+        scale, site=site)
+    if of > seen[0]:
+        reg.counter(LOSS_SCALE_OVERFLOWS,
+                    "gradient overflows detected (non-finite grads)"
+                    ).inc(of - seen[0], site=site)
+    if sk > seen[1]:
+        reg.counter(LOSS_SCALE_SKIPPED_STEPS,
+                    "training steps skipped (params held) on overflow"
+                    ).inc(sk - seen[1], site=site)
+    return (of, sk)
 
 
 def loss_scale_context(ls_state) -> str:

@@ -223,6 +223,7 @@ def conv_bn_stats_kernel(x, w, taps: int, route: str | None = None):
         launches_1x1 += 1
     else:
         launches_3x3 += 1
+    native.count_flops(2 * rows * h * wd * cin * cout * taps)
     return y.to(out_dtype), mean, var
 
 

@@ -261,6 +261,8 @@ def flash_attention_fwd(q, k, v, mask=None, causal: bool = False
             stream)
     _raise_on(lib, err, "forward")
     fwd_launches += 1
+    # q k^T and p v, as torch.utils.flop_counter counts attention
+    native.count_flops(4 * n * h * tq * k.shape[2] * hd)
     return _from_kernel(out, hd, q.dtype), stats
 
 
@@ -308,6 +310,8 @@ def flash_attention_bwd(q, k, v, out, dout, stats, mask=None,
             int(causal), stream)
     _raise_on(lib, err, "backward")
     bwd_launches += 1
+    # q k^T again, dp, dv, dq and dk
+    native.count_flops(10 * n * h * tq * k.shape[2] * hd)
     return tuple(_from_kernel(t, hd, dtype) for t in (dq, dk, dv))
 
 

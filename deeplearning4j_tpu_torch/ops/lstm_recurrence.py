@@ -168,6 +168,17 @@ def lstm_recurrence_backward_reference(x_proj, w_hh, h0, c0, ys, cs, dys,
             dc.to(c0.dtype))
 
 
+def kernel_flops(steps: int, n: int, hidden: int,
+                 backward: bool = False) -> int:
+    """The matrix-product FLOPs of one launch: the recurrent product
+    ``[N, H] @ [H, 4H]`` at each of T steps, ``2 * T * N * H * 4H``; the
+    backward twice that (it recomputes the gates from ``h_{t-1}``, then
+    forms ``da @ w_hh^T``). The backward's weight gradient is a
+    ``torch.matmul`` after the kernel, which ``torch.utils.flop_counter``
+    counts itself."""
+    return (16 if backward else 8) * steps * n * hidden * hidden
+
+
 def bf16_split3(x):
     """``x`` (f32) as three bf16 terms ``hi + mid + lo``, each the bf16
     rounding of what the terms before it leave (every difference is exact
@@ -356,6 +367,7 @@ def lstm_recurrence_fwd(x_proj, w_hh, h0, c0, collect_cell: bool = False,
             _ptr(state), steps, n, hidden, plan, stream)
     _raise_on(lib, err, f"forward ({route} route)")
     fwd_launches += 1
+    native.count_flops(kernel_flops(steps, n, hidden))
     fwd_cluster_launches += route == "cluster"
     fwd_wide_launches += route == "wide"
     last_plan = tuple(plan)
@@ -416,6 +428,7 @@ def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dhT=None,
             hidden, plan, stream)
     _raise_on(lib, err, f"backward ({route} route)")
     bwd_launches += 1
+    native.count_flops(kernel_flops(steps, n, hidden, backward=True))
     bwd_cluster_launches += route == "cluster"
     bwd_wide_launches += route == "wide"
     last_plan = tuple(plan)

@@ -37,7 +37,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 build_logs: Dict[str, Dict[str, object]] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+#: matrix-product FLOPs (2 * M * N * K per product) of the hand kernels
+#: launched in this process: each wrapper adds its launch's analytic count
+#: where it launches (:func:`count_flops`), the part of a step that
+#: ``torch.utils.flop_counter`` cannot see (the kernels launch through
+#: ``ctypes``)
+kernel_flops = 0
 _lock = threading.Lock()
+
+
+def count_flops(n: int) -> None:
+    """Add one launch's matrix-product FLOPs to :data:`kernel_flops`."""
+    global kernel_flops
+    kernel_flops += int(n)
 
 
 def nvcc() -> str:

@@ -5,7 +5,7 @@ Contract: ``iterationDone(model, iteration, epoch)`` after every step and
 ``onEpochEnd(model)`` after every epoch of ``fit`` over an iterator,
 called on the host. A listener that reads ``model.score()`` waits for the
 card there; the others do not touch the device. ``TelemetryListener``
-raises: ``profiler/telemetry.py`` is not ported.
+writes into ``profiler.telemetry``'s registry.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import re
 import time
 from typing import Callable, List, Optional
 
-from deeplearning4j_tpu_torch.common import not_ported
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -172,11 +171,36 @@ class CheckpointListener(TrainingListener):
 
 
 class TelemetryListener(TrainingListener):
-    """Stand-in: the telemetry registry (``profiler/telemetry.py``) is not
-    ported."""
+    """Training progress into the process-wide telemetry registry
+    (``profiler/telemetry.py``): an iteration counter, and every
+    ``frequency`` iterations the score and epoch gauges and a sample of
+    the card's memory watermarks (``score()`` reads the loss back, hence
+    the frequency); an epoch counter at each epoch's end."""
 
     def __init__(self, frequency: int = 10):
-        raise not_ported("TelemetryListener (profiler/telemetry.py)", "A9")
+        self.n = max(1, frequency)
+
+    def iterationDone(self, model, iteration, epoch):
+        from deeplearning4j_tpu_torch.profiler import telemetry
+
+        if not telemetry.enabled():
+            return   # the kill switch: no writes and no score() read-back
+        reg = telemetry.MetricsRegistry.get_default()
+        reg.counter("dl4j_tpu_iterations_total",
+                    "training iterations completed").inc()
+        if iteration % self.n == 0:
+            reg.gauge("dl4j_tpu_score", "last minibatch loss").set(
+                float(model.score()))
+            reg.gauge("dl4j_tpu_epoch", "current epoch").set(epoch)
+            telemetry.sample_device_memory(getattr(model, "device", None))
+
+    def onEpochEnd(self, model):
+        from deeplearning4j_tpu_torch.profiler import telemetry
+
+        if not telemetry.enabled():
+            return
+        telemetry.MetricsRegistry.get_default().counter(
+            "dl4j_tpu_epochs_total", "training epochs completed").inc()
 
 
 class EvaluativeListener(TrainingListener):

@@ -317,6 +317,15 @@ class ModelSerializer:
                 zf.writestr("normalizer.json", json.dumps(info))
 
     @staticmethod
+    def loadInto(model, path: str, load_updater: bool = True):
+        """The archive's parameters, layer state, counters, loss-scale
+        state and (with ``load_updater``) updater state into an
+        initialised ``model`` of the same architecture, on its device: the
+        auto-resume path, which goes on training the caller's instance."""
+        with zipfile.ZipFile(path) as zf:
+            return _load_members(model, zf, load_updater, model.device)
+
+    @staticmethod
     def restoreNormalizer(path: str):
         """The normalizer saved with the model, or None."""
         from deeplearning4j_tpu_torch.datasets.normalizers import (

@@ -373,5 +373,5 @@ def test_record_readers_raise_with_their_roadmap_item():
     for cls in (RecordReaderDataSetIterator,
                 SequenceRecordReaderDataSetIterator,
                 RecordReaderMultiDataSetIterator):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A10"):
             cls(object(), 4)

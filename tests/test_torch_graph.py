@@ -551,11 +551,16 @@ def test_unported_parts_raise_with_their_roadmap_item():
     # rnnTimeStep, backpropGradient and features masks are ported: they
     # run in tests/test_torch_rnn_features.py and
     # tests/test_torch_external_errors.py
-    for call, item in ((lambda: g.setHealthMonitor(object()), "A9"),
-                       (lambda: g.fit(x, y, fault_tolerance=object()), "A9"),
-                       (lambda: g.fit(x, y, auto_resume=object()), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # the health monitor and the fault-tolerant fit are ported
+    # (tests/test_torch_model_health.py, tests/test_torch_resilience.py)
+    from deeplearning4j_tpu_torch.profiler.model_health import HealthMonitor
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+    hm = HealthMonitor(frequency=1)
+    assert g.setHealthMonitor(hm) is g and g.getHealthMonitor() is hm
+    it0 = g.getIterationCount()
+    g.fit(x, y, fault_tolerance=FaultTolerance(divergence_window=0))
+    assert g.getIterationCount() == it0 + 1 and hm.fetches == 1
+    assert g.setHealthMonitor(None).getHealthMonitor() is None
     # pretraining is ported (tests/test_torch_pretrain.py): a graph
     # without a pretrainable vertex pretrains nothing, as JAX's does
     before = g.params()

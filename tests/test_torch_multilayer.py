@@ -351,12 +351,16 @@ def test_unported_parts_raise_with_their_roadmap_item():
     net = TextGenerationLSTM(vocab_size=VOCAB, hidden=HIDDEN).init(
         device="cpu")
     x, y = _char_batch(0)
-    for call, item in ((lambda: net.setHealthMonitor(object()), "A9"),
-                       (lambda: net.fit(x, y, fault_tolerance=object()),
-                        "A9"),
-                       (lambda: net.fit(x, y, auto_resume=object()), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # the health monitor and the fault-tolerant fit are ported
+    # (tests/test_torch_model_health.py, tests/test_torch_resilience.py)
+    from deeplearning4j_tpu_torch.profiler.model_health import HealthMonitor
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+    hm = HealthMonitor(frequency=1)
+    assert net.setHealthMonitor(hm) is net and net.getHealthMonitor() is hm
+    it0 = net.getIterationCount()
+    net.fit(x, y, fault_tolerance=FaultTolerance(divergence_window=0))
+    assert net.getIterationCount() == it0 + 1 and hm.fetches == 1
+    assert net.setHealthMonitor(None).getHealthMonitor() is None
     # pretraining is ported (tests/test_torch_pretrain.py): a network
     # without a pretrainable layer pretrains nothing, as JAX's does, and
     # names the layer it cannot pretrain

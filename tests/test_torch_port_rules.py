@@ -43,6 +43,17 @@ def _imports(path):
             yield node.module
 
 
+def test_the_scan_covers_the_profiler_and_resilience():
+    """The import scans below read every module of the port, the
+    ``profiler/`` subpackage and ``util/resilience.py`` among them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for name in ("telemetry", "flops", "flight_recorder", "chaos",
+                 "model_health"):
+        assert os.path.join("profiler", name + ".py") in rel, name
+    assert os.path.join("util", "resilience.py") in rel
+    assert os.path.join("util", "sharded_checkpoint.py") in rel
+
+
 def test_prefix_trap_is_not_matched():
     assert not _forbidden("deeplearning4j_tpu_torch")
     assert not _forbidden("deeplearning4j_tpu_torch.ops.native")
@@ -316,3 +327,26 @@ def test_training_loop_entry_points_refuse_the_cpu_unless_asked(
     ModelSerializer.writeModel(net, path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ModelSerializer.restore(path)
+    # the fault-tolerant fit and the health monitor run where the network
+    # is: its bundle restores onto the CPU network, the memory sampler
+    # reads no card
+    from deeplearning4j_tpu_torch.profiler import telemetry
+    from deeplearning4j_tpu_torch.profiler.model_health import HealthMonitor
+    from deeplearning4j_tpu_torch.util.resilience import FaultTolerance
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LeNet(num_classes=3, in_shape=(12, 12, 1)).init().setHealthMonitor(
+            HealthMonitor())
+    hm = HealthMonitor(frequency=1, mfu=False)
+    net.setHealthMonitor(hm)
+    ck = str(tmp_path / "ck")
+    policy = FaultTolerance(checkpoint_dir=ck, divergence_window=2)
+    policy.request_preemption()
+    net.fit(ArrayDataSetIterator(x, y, 3), epochs=2, fault_tolerance=policy)
+    assert hm.fetches == 1 and hm.last["nonfinite_first_layer"] == -1
+    fresh = LeNet(num_classes=3, in_shape=(12, 12, 1)).init(device="cpu")
+    fresh.fit(ArrayDataSetIterator(x, y, 3), epochs=2, auto_resume=ck)
+    assert fresh.getIterationCount() == net.getIterationCount() + 3
+    assert {t.device for p in fresh.params_list for t in p.values()} == {
+        torch.device("cpu")}
+    assert telemetry.sample_device_memory(fresh.device) == {}

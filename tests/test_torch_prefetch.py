@@ -9,7 +9,7 @@ device_prefetch`` against the JAX package's ``DevicePrefetchIterator`` and
   the rows, a char-LSTM for time buckets: the labels-mask scale cancels
   the padded divisor);
 - an exception in the underlying iterator is raised by the consumer's
-  ``next()``; ``mesh=`` raises naming A8, the retry policy naming A9;
+  ``next()``; ``mesh=`` raises naming A8, the retry policy is accepted;
   no thread outlives ``shutdown()`` (``test_torch_port_rules.py`` checks
   that without a card it refuses to run unless given ``device="cpu"``).
 
@@ -212,9 +212,11 @@ def test_unported_options_raise_and_threads_end():
     base = ArrayDataSetIterator(x, y, 4)
     with pytest.raises(NotImplementedError, match="A8"):
         DevicePrefetchIterator(base, mesh=object(), device="cpu")
+    # the retry policy is ported (tests/test_torch_resilience.py)
     for kw in (dict(transfer_retries=2), dict(quarantine=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            DevicePrefetchIterator(base, device="cpu", **kw)
+        with DevicePrefetchIterator(base, device="cpu", **kw) as it:
+            assert (it._transfer_retries, it._quarantine) == (
+                kw.get("transfer_retries", 0), kw.get("quarantine", False))
     with pytest.raises(ValueError, match="depth"):
         DevicePrefetchIterator(base, depth=-1, device="cpu")
     with DevicePrefetchIterator(base, device="cpu") as it:

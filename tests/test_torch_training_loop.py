@@ -440,8 +440,17 @@ def test_listeners_report_and_unported_ones_raise():
     assert [i for i, _ in evl.history] == [2, 4, 6]
     assert any(s.startswith("Score at iteration 3") for s in lines)
     assert any("ETA" in s for s in lines)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TelemetryListener()
+    # the telemetry listener is ported: it counts into the registry
+    from deeplearning4j_tpu_torch.profiler import telemetry
+    tl = TelemetryListener(frequency=2)
+    before = telemetry.MetricsRegistry.get_default().counter(
+        "dl4j_tpu_iterations_total").total()
+    net.setListeners(tl)
+    net.fit(IrisDataSetIterator(batch=25), epochs=1)
+    reg = telemetry.MetricsRegistry.get_default()
+    assert reg.counter("dl4j_tpu_iterations_total").total() - before == 6
+    assert reg.gauge("dl4j_tpu_score").total() == pytest.approx(
+        float(net.score()))
 
 
 def _iris_net():
