@@ -407,6 +407,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    quarantined; (g) a chaos hang past a 0.5 s ``step_deadline``: one
    stall with its stack dump; (h) the Chrome trace exported to a temp
    directory and parsed. The phase's B5 launches are added to B5's rows.
+24. SameDiff by name: (a) BERT-base MLM (12 layers, d 768, 12 heads, FFN
+   3,072, vocab 30,522, max_len 512; f32, dropout off) as a SameDiff
+   graph built through the public API only (``bert_mlm_graph``: the
+   embeddings, post-LN blocks, ``flash_attention`` by name with a key
+   mask, ``top_k`` + ``take_along_axis`` capacity, the tied head), at
+   batch 128 x 128 with rows padded at random lengths in 64-128 and 20
+   masked positions a row; its forward loss against
+   ``TransformerEncoder.encode`` + ``mlm_head_loss`` on the same numpy
+   tree (1e-4 relative), its gradients (cosine >= 0.999 per parameter),
+   5 ``fit`` steps of Adam(1e-4) with finite losses and B1 launched 12 +
+   12 times a step (counts set to 0 before the fit), one more profiled
+   step (idle share), ``save`` with the updater state, ``load`` on the
+   card and one more step equal to the same step in memory; the
+   encoder's own f32 flash step as a yardstick; (b) a counted
+   ``whileLoop`` carrying float state trained by ``fit``, ``ifCond`` and
+   ``case_graph``, each equal to the CPU's (1e-5), a dynamic loop whose
+   ``fit`` raises JAX's documented error, and the host's ms per loop
+   iteration and per branch; (c) ``flash_attention``,
+   ``fused_adam_master_update`` (BERT-base's flat size) and
+   ``paged_attention`` by name, once each against their plain versions,
+   each counter up by one; (d) every name the slice registers
+   (``tools/op_cases.py``) once on CUDA tensors against the CPU (1e-4 of
+   max(1, |x|), integers exact, every result on the card), and NDArray
+   ``get`` / ``put`` / TAD on a card array. Phase 24's ``fit`` launches
+   of B1 are added to B1's rows.
 
 The peak rates that the bounds and the MFU divide by come from the
 port's ``profiler/flops.py`` (its row for the card's name).
@@ -424,8 +449,8 @@ lstm-train TAG`` phase 9, ``python3 chip_smoke.py training-loop``
 phase 17, ``python3 chip_smoke.py seq2seq`` phase 18, ``python3
 chip_smoke.py precision`` phase 19, ``python3 chip_smoke.py vision``
 phase 20, ``python3 chip_smoke.py transfer`` phase 21 and ``python3
-chip_smoke.py layers`` phase 22 and ``python3 chip_smoke.py
-resilience`` phase 23.
+chip_smoke.py layers`` phase 22, ``python3 chip_smoke.py
+resilience`` phase 23 and ``python3 chip_smoke.py samediff`` phase 24.
 """
 
 from __future__ import annotations
@@ -8217,6 +8242,585 @@ def resilience_export(tmp: str) -> None:
                       f" ms (host dispatch)")
 
 
+# ------------------------------------------------- phase 24: SameDiff by name
+#: (a): BASELINE.md's BERT row, batch 128 x 128, rows padded at random
+#: lengths in [64, 128], 20 masked positions a row, masked_capacity 20
+SD_BATCH, SD_SEQ, SD_MIN_LEN, SD_MASKED, SD_CAPACITY = 128, 128, 64, 20, 20
+SD_FIT_STEPS = 5
+#: the graph's forward loss against TransformerEncoder's, relative; the
+#: per-parameter cosine of their gradients
+SD_LOSS_RTOL, SD_GRAD_COS = 1e-4, 0.999
+#: (b) card against CPU; (d) the sweep's card against CPU, relative to
+#: max(1, |CPU|)
+SD_CF_TOL, SD_SWEEP_TOL = 1e-5, 1e-4
+SD_FEEDS = ("ids", "type_ids", "key_mask", "labels", "mask_pos")
+
+
+def bert_mlm_graph(sd, tree, cfg, seq: int, capacity: int):
+    """BERT MLM as a SameDiff graph through the public API only
+    (``placeholder``, ``var``, ``constant``, ``sd.nn`` / ``sd.math``,
+    ``invoke_op``), op by op as ``TransformerEncoder.encode`` with type
+    ids and a key mask, then ``mlm_head_loss``: the token, position and
+    type embeddings and ``emb_ln``; post-LN blocks with the tanh GELU and
+    attention by name (``flash_attention``, key mask); ``masked_capacity``
+    as ``top_k`` + ``take_along_axis``; the tied head,
+    ``reduce_logsumexp`` and the masked mean. Works on either package's
+    SameDiff (the API is the same); variables are named by their path in
+    ``tree`` (``layers.3.wqkv``). Returns the loss variable."""
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    ph = {n: sd.placeholder(n, shape=(None, seq), dtype=dt) for n, dt in
+          zip(SD_FEEDS, ("int32", "int32", "float32", "int32", "float32"))}
+
+    def ln(x, p, name):
+        g = sd.var(f"{name}.gamma", p["gamma"])
+        b = sd.var(f"{name}.beta", p["beta"])
+        return sd.nn.layer_norm(x, g, b, eps=cfg.eps)
+
+    tok = sd.var("tok_emb", tree["tok_emb"])
+    pos = sd.var("pos_emb", tree["pos_emb"])
+    typ = sd.var("type_emb", tree["type_emb"])
+    where = sd.constant("positions", np.arange(seq, dtype=np.int32))
+    x = (sd.nn.embedding_lookup(tok, ph["ids"])
+         + sd.math.gather(pos, where, axis=0)
+         + sd.nn.embedding_lookup(typ, ph["type_ids"]))
+    x = ln(x, tree["emb_ln"], "emb_ln")
+    for i, lp in enumerate(tree["layers"]):
+        def w(k, lp=lp, i=i):
+            return sd.var(f"layers.{i}.{k}", lp[k])
+
+        qkv = sd.nn.xw_plus_b(x, w("wqkv"), w("bqkv"))
+        q, k, v = sd.invoke_op("split", [qkv], n_out=3, name=f"qkv{i}",
+                               num_splits=3, axis=-1)
+        q, k, v = (sd.nn.permute(t.reshape(-1, seq, h, hd),
+                                 axes=[0, 2, 1, 3]) for t in (q, k, v))
+        ctx = sd.nn.flash_attention(q, k, v, ph["key_mask"], causal=False,
+                                    name=f"attention{i}")
+        ctx = sd.nn.permute(ctx, axes=[0, 2, 1, 3]).reshape(-1, seq, d)
+        x = ln(x + sd.nn.xw_plus_b(ctx, w("wo"), w("bo")), lp["ln1"],
+               f"layers.{i}.ln1")
+        hmid = sd.nn.gelu(sd.nn.xw_plus_b(x, w("w1"), w("b1")))
+        x = ln(x + sd.nn.xw_plus_b(hmid, w("w2"), w("b2")), lp["ln2"],
+               f"layers.{i}.ln2")
+    _, idx = sd.invoke_op("top_k", [ph["mask_pos"]], n_out=2,
+                          name="capacity", k=capacity)
+    hid = sd.nn.take_along_axis(x, sd.math.expand_dims(idx, axis=2), axis=1)
+    lab = sd.nn.take_along_axis(ph["labels"], idx, axis=1)
+    mpos = sd.nn.take_along_axis(ph["mask_pos"], idx, axis=1)
+    logits = sd.math.matmul(hid, tok, transpose_b=True) \
+        + sd.var("mlm_bias", tree["mlm_bias"])
+    lse = sd.math.reduce_logsumexp(logits, dimensions=[-1])
+    picked = sd.nn.take_along_axis(logits, sd.math.expand_dims(lab, axis=2),
+                                   axis=2)
+    per_tok = sd.math.squeeze(picked, axis=2) - lse
+    denom = sd.math.maximum(mpos.sum(), 1.0)
+    loss = -(per_tok * mpos).sum() / denom
+    loss.rename("loss")
+    sd.setLossVariables(loss)
+    return loss
+
+
+def sd_mlm_batch(vocab: int, batch: int, seq: int, masked: int,
+                 min_len: int, seed: int) -> dict:
+    """A padded MLM batch from a numpy seed: row lengths in [min_len,
+    seq], ids and labels random below ``vocab`` (ids 0 past a row's end),
+    two segments a row (type ids 0 then 1), ``masked`` masked positions
+    inside each row."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min_len, seq + 1, batch)
+    ar = np.arange(seq)[None, :]
+    real = ar < lens[:, None]
+    cut = rng.integers(1, min_len, batch)
+    ids = np.where(real, rng.integers(1, vocab, (batch, seq)), 0)
+    mask_pos = np.zeros((batch, seq), np.float32)
+    for r in range(batch):
+        mask_pos[r, rng.choice(lens[r], masked, replace=False)] = 1.0
+    return {"ids": ids.astype(np.int32),
+            "type_ids": ((ar >= cut[:, None]) & real).astype(np.int32),
+            "key_mask": real.astype(np.float32),
+            "labels": rng.integers(0, vocab, (batch, seq)).astype(np.int32),
+            "mask_pos": mask_pos}
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den > 0 else float(a.equal(b))
+
+
+def _leaf_names(tree, prefix="") -> dict:
+    """``{"layers.3.wqkv": tensor}`` over a parameter tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_names(v, f"{prefix}{k}."))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_leaf_names(v, f"{prefix}{i}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+class _StepClock:
+    """A fit listener: the host's clock at each iteration's end (``fit``
+    reads each step's loss back, so the card is done by then)."""
+
+    def __init__(self):
+        self.stamps = [time.perf_counter()]
+
+    def iterationDone(self, sd, iteration, epoch):
+        self.stamps.append(time.perf_counter())
+
+    def ms(self) -> list:
+        return [(b - a) * 1e3 for a, b in zip(self.stamps, self.stamps[1:])]
+
+
+def phase_samediff(smi: str, rows) -> None:
+    """Phase 24: SameDiff by name on the card, (a)-(d); (a)'s B1 launches
+    go to B1's rows."""
+    t0 = time.perf_counter()
+    fwd, bwd = samediff_bert(smi)
+    parts = [time.perf_counter()]
+    samediff_control_flow(smi)
+    parts.append(time.perf_counter())
+    samediff_kernels_by_name()
+    parts.append(time.perf_counter())
+    samediff_sweep()
+    parts.append(time.perf_counter())
+    say("samediff", "seconds by part: (a) {:.1f}, (b) {:.1f}, (c) {:.1f}, "
+                    "(d) {:.1f}".format(parts[0] - t0, *(
+                        b - a for a, b in zip(parts, parts[1:]))))
+    rows["flash_attention_fwd"]["launches"] = \
+        rows["flash_attention_fwd"].get("launches", 0) + fwd
+    rows["flash_attention_bwd"]["launches"] = \
+        rows["flash_attention_bwd"].get("launches", 0) + bwd
+    say("samediff", f"B1 launches in phase 24: forward {fwd}, backward "
+                    f"{bwd} (added to B1's rows); "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+
+def samediff_bert(smi: str) -> tuple:
+    """(a) BERT-base MLM as a SameDiff graph, trained by ``fit``."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerEncoder, bert_base, init_params_numpy)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.params import (FlatParams,
+                                                 params_from_jax)
+
+    cfg = dataclasses.replace(bert_base(), compute_dtype="float32",
+                              dropout=0.0)
+    tree = init_params_numpy(cfg, seed=0)
+    batch = sd_mlm_batch(cfg.vocab_size, SD_BATCH, SD_SEQ, SD_MASKED,
+                         SD_MIN_LEN, seed=24)
+    t0 = time.perf_counter()
+    sd = SameDiff.create(device=DEVICE)
+    loss = bert_mlm_graph(sd, tree, cfg, SD_SEQ, SD_CAPACITY)
+    n_par = sum(int(a.numel()) for n, a in sd._arrays.items()
+                if n in sd.trainable_names())
+    check(n_par == BERT_BASE_PARAMS, f"the graph holds {n_par} parameters")
+    say("samediff", f"(a) BERT-base MLM graph: {len(sd._ops)} ops, "
+                    f"{len(sd.trainable_names())} variables, {n_par} "
+                    f"parameters, f32, dropout off; batch {SD_BATCH} x "
+                    f"{SD_SEQ}, lengths {SD_MIN_LEN}-{SD_SEQ}, {SD_MASKED} "
+                    f"masked a row; built in "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+    # the reference: TransformerEncoder(f32, flash) on the same tree
+    enc = TransformerEncoder(cfg, attn_impl="flash")
+    params = params_from_jax(tree, device=DEVICE)
+    leaves = _leaf_names(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    hidden = enc.encode(params, dev["ids"], type_ids=dev["type_ids"],
+                        mask=dev["key_mask"])
+    want = enc.mlm_head_loss(params, hidden, dev["labels"], dev["mask_pos"],
+                             SD_CAPACITY)
+    want_g = dict(zip(leaves, torch.autograd.grad(want,
+                                                  list(leaves.values()))))
+    want = float(want.detach())
+    del hidden, params
+
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    got = float(sd.outputSingle(batch, loss))
+    f1 = fa.fwd_launches
+    rel = abs(got - want) / abs(want)
+    say("samediff", f"(a) forward loss: graph {got:.7f}, TransformerEncoder"
+                    f" {want:.7f}, relative {rel:.3e} (tolerance "
+                    f"{SD_LOSS_RTOL:g}); ln(vocab) "
+                    f"{math.log(cfg.vocab_size):.4f}")
+    check(rel <= SD_LOSS_RTOL, f"graph loss {got} against {want}")
+    check(f1 - f0 == cfg.n_layers and fa.bwd_launches == b0,
+          f"forward launched B1 {f1 - f0} / {fa.bwd_launches - b0} times")
+    grads = sd.calculateGradients(batch)
+    check(fa.fwd_launches - f1 == cfg.n_layers
+          and fa.bwd_launches - b0 == cfg.n_layers,
+          f"gradients launched B1 fwd {fa.fwd_launches - f1}, bwd "
+          f"{fa.bwd_launches - b0}")
+    cos = {n: _cosine(grads[n], want_g[n]) for n in want_g}
+    worst = min(cos, key=cos.get)
+    say("samediff", f"(a) gradients of {len(cos)} parameters: cosine >= "
+                    f"{cos[worst]:.6f} (worst {worst}; tolerance "
+                    f"{SD_GRAD_COS})")
+    check(cos[worst] >= SD_GRAD_COS, f"gradient cosine {cos[worst]} at "
+                                     f"{worst}")
+    del grads, want_g, leaves
+
+    say("samediff", f"(a) reference, forward and gradients checked at "
+                    f"{time.perf_counter() - t0:.1f} s")
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(1e-4), data_set_feature_mapping=list(SD_FEEDS)))
+    ds = DataSet([batch[k] for k in SD_FEEDS], None)
+    clock = _StepClock()
+    reset_train_counts()            # the main path's counts start at 0
+    hist = sd.fit([ds] * SD_FIT_STEPS, listeners=[clock])
+    fwd, bwd = fa.fwd_launches, fa.bwd_launches
+    losses = hist.lossCurve()
+    check(len(losses) == SD_FIT_STEPS
+          and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check((fwd, bwd) == (cfg.n_layers * SD_FIT_STEPS,
+                         cfg.n_layers * SD_FIT_STEPS),
+          f"fit launched B1 fwd {fwd}, bwd {bwd} over {SD_FIT_STEPS} steps")
+    step_ms = sorted(clock.ms()[1:])[len(clock.ms()[1:]) // 2]
+    say("samediff", f"(a) fit, {SD_FIT_STEPS} steps of Adam(1e-4): losses "
+                    + " ".join(f"{x:.5f}" for x in losses)
+                    + f"; step ms {' '.join(f'{x:.2f}' for x in clock.ms())}"
+                    f" (median of 2-{SD_FIT_STEPS} {step_ms:.2f} ms, "
+                    f"{SD_BATCH * SD_SEQ / step_ms * 1e3:.1f} tokens/s); B1 "
+                    f"fwd {fwd}, bwd {bwd}; {smi}")
+
+    def one_step():
+        sd.fit(ds)
+
+    busy = device_profile("samediff", "one more fit step", one_step,
+                          ("flash_",))
+    if busy:
+        say("samediff", f"(a) device busy {busy:.2f} ms in one fit step "
+                        f"against {step_ms:.2f} ms a step: idle about "
+                        f"{1 - busy / step_ms:.3f}")
+
+    # save with the updater state, load on the card, one more step each
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_samediff.")
+    try:
+        path = os.path.join(tmp, "bert.sdz")
+        t1 = time.perf_counter()
+        sd.save(path)
+        loaded = SameDiff.load(path, device=DEVICE)
+        say("samediff", f"(a) save + load: {os.path.getsize(path)} B in "
+                        f"{time.perf_counter() - t1:.2f} s")
+        a = sd.fit(ds).lossCurve()[0]
+        b = loaded.fit(ds).lossCurve()[0]
+        say("samediff", f"(a) the step after the save: in memory {a!r}, "
+                        f"loaded {b!r}")
+        check(a == b, f"loaded step loss {b!r} != in-memory {a!r}")
+        check(loaded._iteration == sd._iteration,
+              f"iterations {loaded._iteration} / {sd._iteration}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the counts of the whole run since the reset: the fit, the profiled
+    # step and the two steps after the save, each step 12 + 12
+    fwd, bwd = fa.fwd_launches, fa.bwd_launches
+    steps = SD_FIT_STEPS + 3
+    check((fwd, bwd) == (cfg.n_layers * steps, cfg.n_layers * steps),
+          f"{steps} steps launched B1 fwd {fwd}, bwd {bwd}")
+    del sd, loaded
+    torch.cuda.empty_cache()
+
+    # the yardstick: TransformerEncoder's own f32 flash step (no key mask,
+    # no type ids; B2 for the update)
+    flat = FlatParams(params_from_jax(tree, device=DEVICE))
+    upd = Adam(1e-4)
+    opt = upd.init_state(flat.master)
+    step = enc.make_train_step(upd, masked_capacity=SD_CAPACITY)
+    args = (dev["ids"].long(), dev["labels"].long(), dev["mask_pos"])
+    step(flat, opt, 0, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(1, SD_FIT_STEPS + 1):
+        step(flat, opt, i, *args)
+    torch.cuda.synchronize()
+    y_ms = (time.perf_counter() - t1) * 1e3 / SD_FIT_STEPS
+    busy = device_profile("samediff", "one TransformerEncoder step",
+                          lambda: step(flat, opt, 99, *args), ("flash_",))
+    say("samediff", f"(a) yardstick TransformerEncoder f32 flash step: "
+                    f"{y_ms:.2f} ms ({SD_BATCH * SD_SEQ / y_ms * 1e3:.1f} "
+                    f"tokens/s)" + (f", idle about {1 - busy / y_ms:.3f}"
+                                    if busy else "") + f"; {smi}")
+    del flat, opt
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def _cf_graphs(device):
+    """(b)'s three graphs on ``device``: a counted loop carrying float
+    state under a training config, a dynamic loop, and a branch and a
+    case."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.tools.op_cases import subgraph
+
+    rs = np.random.default_rng(7)
+    counted = SameDiff.create(device=device)
+    x = counted.placeholder("x", shape=(None, 16))
+    y = counted.placeholder("y", shape=(None, 16))
+    w = counted.var("w", (rs.normal(size=(16, 16)) * 0.3).astype(np.float32))
+    w2 = counted.var("w2", (rs.normal(size=(16, 16)) * 0.3)
+                     .astype(np.float32))
+    i0 = counted.constant("i0", np.int32(0))
+    _, h, _ = counted.whileLoop(
+        [i0, x @ w, w2],
+        cond_fn=lambda s, i, h, m: s._op(
+            "lt", [i.name, s.constant("n", np.int32(4)).name]),
+        body_fn=lambda s, i, h, m: [
+            s._op("add", [i.name, s.constant("one", np.int32(1)).name]),
+            s.nn.tanh(h @ m), m])
+    counted.setLossVariables(counted.math.square(h - y).mean())
+    counted.setTrainingConfig(TrainingConfig(
+        updater=Adam(1e-2), data_set_feature_mapping=["x"],
+        data_set_label_mapping=["y"]))
+
+    dynamic = SameDiff.create(device=device)
+    a0 = dynamic.placeholder("a0", shape=(2,))
+    wd = dynamic.var("w", np.asarray([1.0, 1.0], np.float32))
+    (out,) = (dynamic.whileLoop(
+        [dynamic._op("mul", [a0.name, wd.name])],
+        cond_fn=lambda s, a: s._op(
+            "lt", [s._op("reduce_sum", [a.name]).name,
+                   s.constant("b", np.float32(40.0)).name]),
+        body_fn=lambda s, a: [s._op(
+            "mul", [a.name, s.constant("two", np.float32(2.0)).name])]),)
+    dynamic.setLossVariables(dynamic._op("reduce_sum", [out.name]))
+    dynamic.setTrainingConfig(TrainingConfig(
+        updater=Adam(1e-2), data_set_feature_mapping=["a0"]))
+
+    branch = SameDiff.create(device=device)
+    xb = branch.placeholder("x", shape=(None, 16))
+    p = branch.placeholder("p", shape=())
+    k = branch.placeholder("k", shape=(), dtype="int32")
+    wb = branch.var("w", (rs.normal(size=(16, 16)) * 0.3).astype(np.float32))
+    branch.ifCond(p, [xb, wb], lambda s, a, m: s.nn.relu(a @ m),
+                  lambda s, a, m: s.nn.sigmoid(a @ m), name="if")
+    branch.invoke_op("case_graph", [k, xb], name="case", branches=[
+        subgraph(lambda s, a: a * 2.0, 1),
+        subgraph(lambda s, a: s.nn.tanh(a), 1),
+        subgraph(lambda s, a: a - 1.0, 1)])
+    return counted, dynamic, branch
+
+
+def samediff_control_flow(smi: str) -> None:
+    """(b) the three control-flow graphs on the card against the CPU, and
+    the host's cost per loop iteration and per branch."""
+    from deeplearning4j_tpu_torch.autodiff import control_flow as cf
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rs = np.random.default_rng(8)
+    x = rs.normal(size=(64, 16)).astype(np.float32)
+    y = rs.normal(size=(64, 16)).astype(np.float32)
+    card, cpu = _cf_graphs(DEVICE), _cf_graphs("cpu")
+    check(next(n for n in card[0]._ops if n.op_name == "while_loop")
+          .attrs["max_trip_count"] == 4, "the counted loop's trip count")
+    ds = DataSet(x, y)
+    lc = card[0].fit([ds] * 3).lossCurve()
+    lp = cpu[0].fit([ds] * 3).lossCurve()
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lc, lp))
+    perr = max(float((card[0]._arrays[n].cpu() - cpu[0]._arrays[n]).abs()
+                     .max()) for n in ("w", "w2"))
+    say("samediff", f"(b) counted loop (4 trips, float state), 3 fit steps:"
+                    f" card {' '.join(f'{v:.6f}' for v in lc)}, CPU "
+                    f"{' '.join(f'{v:.6f}' for v in lp)}; loss err "
+                    f"{err:.2e}, parameters {perr:.2e} (tolerance "
+                    f"{SD_CF_TOL:g})")
+    check(err <= SD_CF_TOL and perr <= SD_CF_TOL, "counted loop card/CPU")
+    for g in (card[1], cpu[1]):
+        try:
+            g.fit(DataSet(np.ones(2, np.float32), None))
+        except ValueError as e:
+            check("inference-only" in str(e), f"dynamic loop: {e}")
+        else:
+            check(False, "fit through a dynamic loop did not raise")
+    dyn = card[1].outputSingle({"a0": np.ones(2, np.float32)}, "whileLoop")
+    check(dyn.device.type == "cuda" and dyn.tolist() == [32.0, 32.0],
+          f"dynamic loop forward {dyn}")
+    say("samediff", "(b) dynamic loop: forward [32, 32] on the card; fit "
+                    "raises JAX's documented error on the card and CPU")
+    for pred in (True, False):
+        for idx in (0, 1, 5, -1):
+            feeds = {"x": x, "p": np.asarray(pred), "k": np.int32(idx)}
+            got = card[2].output(feeds, ["if", "case"])
+            want = cpu[2].output(feeds, ["if", "case"])
+            for n in ("if", "case"):
+                e = float((got[n].cpu() - want[n]).abs().max())
+                check(got[n].device.type == "cuda" and e <= SD_CF_TOL,
+                      f"{n} pred {pred} index {idx}: {e:.2e}")
+    say("samediff", f"(b) ifCond and case_graph (indices 0, 1, 5, -1) equal "
+                    f"the CPU's within {SD_CF_TOL:g}")
+
+    # the host's cost: a 200-trip loop of one add, and a branch of one op
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    long_loop = SameDiff.create(device=DEVICE)
+    i0 = long_loop.placeholder("i0", shape=())
+    long_loop.whileLoop([i0], cond_fn=lambda s, i: i < 200.0,
+                        body_fn=lambda s, i: [i + 1.0], name="loop")
+    feeds = {"i0": np.float32(0.0)}
+    long_loop.output(feeds, ["loop"])
+    torch.cuda.synchronize()
+    r0, t0 = cf.host_reads, time.perf_counter()
+    for _ in range(5):
+        long_loop.output(feeds, ["loop"])
+    loop_ms = (time.perf_counter() - t0) * 1e3 / 5
+    reads = (cf.host_reads - r0) / 5
+    feeds = {"x": x, "p": np.asarray(True), "k": np.int32(0)}
+    card[2].output(feeds, ["if"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        card[2].output(feeds, ["if"])
+    branch_ms = (time.perf_counter() - t0) * 1e3 / 50
+    say("samediff", f"(b) host cost: {loop_ms / reads:.4f} ms per loop "
+                    f"iteration ({reads:.0f} condition reads a 200-trip "
+                    f"loop, {loop_ms:.2f} ms), {branch_ms:.4f} ms per ifCond "
+                    f"output (one predicate read, one matmul + relu); "
+                    f"{smi}")
+
+
+def samediff_kernels_by_name() -> None:
+    """(c) the three kernel ops by name, each once on the card against
+    its plain version; each launch counter rises by one."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+    from deeplearning4j_tpu_torch.ops.registry import get_op
+    from deeplearning4j_tpu_torch.tools import attention_probe as ap
+
+    q, k, v, m = flash_case(4, SD_SEQ, torch.float32, "padded", seed=24)
+    f0 = fa.fwd_launches
+    got = get_op("flash_attention")(q, k, v, m, impl="pallas")
+    err = float((got - flash_plain(q, k, v, m, False)).abs().max())
+    check(fa.fwd_launches == f0 + 1 and err <= 1e-5,
+          f"flash_attention by name: launches {fa.fwd_launches - f0}, "
+          f"err {err:.2e}")
+
+    upd = Adam(3e-4)
+    master, mm, vv, grad = adam_case(BERT_BASE_PARAMS, 0, seed=24)
+    # the op's own global norm, so that both take the same scalars
+    norm = torch.sqrt(torch.sum(grad ** 2))
+    sc = fu.adam_update_scalars(upd, 300, clip_norm=0.5, grad_norm=norm)
+    want = fu.adam_update_reference(master, mm, vv, grad, sc[0], sc[1],
+                                    upd.beta1, upd.beta2, upd.epsilon)
+    a0 = fu.launches
+    out = get_op("fused_adam_master_update")(master, mm, vv, grad, 300, upd,
+                                             clip_norm=0.5, grad_norm=norm,
+                                             mode="pallas")
+    aerr = max(float((a - b).abs().max()) for a, b in zip(out, want))
+    # phase 5's tolerance: 1e-7 + 1e-6 |want|
+    worst = max(float((a - b).abs().sub(1e-6 * b.abs()).max())
+                for a, b in zip(out, want))
+    check(fu.launches == a0 + 1 and worst <= 1e-7,
+          f"fused_adam_master_update by name: launches "
+          f"{fu.launches - a0}, err {aerr:.2e}")
+    del master, mm, vv, grad, want, out
+
+    qp, kv, tables, qbase = ap.kernel_case(1, "bf16", seed=24)
+    p0 = pa.launches
+    pout = get_op("paged_attention")(qp, kv, LAYERS // 2, tables, qbase,
+                                     mode="pallas")
+    pwant = pa.paged_attention_reference(qp.float(), f32_tree(kv),
+                                         LAYERS // 2, tables, qbase)
+    perr = float((pout.float() - pwant).abs().max())
+    check(pa.launches == p0 + 1 and perr <= KIND_TOL["bf16"],
+          f"paged_attention by name: launches {pa.launches - p0}, err "
+          f"{perr:.2e}")
+    torch.cuda.empty_cache()
+    say("samediff", f"(c) by name, one launch each: flash_attention "
+                    f"(N=4, T={SD_SEQ}, f32, key mask) err {err:.2e}; "
+                    f"fused_adam_master_update (n={BERT_BASE_PARAMS}) err "
+                    f"{aerr:.2e}; paged_attention (decode N={SLOTS}, bf16) "
+                    f"err {perr:.2e}")
+
+
+def samediff_sweep() -> None:
+    """(d) every name of the slice once on CUDA tensors against the CPU
+    (``tools/op_cases.py``), and NDArray get / put / TAD on a card
+    array."""
+    from deeplearning4j_tpu_torch.ndarray import NDArray, NDArrayIndex
+    from deeplearning4j_tpu_torch.ops.jax_rules import on_device
+    from deeplearning4j_tpu_torch.ops.registry import get_op
+    from deeplearning4j_tpu_torch.tools import op_cases as oc
+
+    t0 = time.perf_counter()
+    worst, worst_name = 0.0, ""
+    cases = oc.cases(0)
+    took = {}
+    for name, (args, kwargs, kind) in sorted(cases.items()):
+        took[name] = time.perf_counter()
+        outs = {}
+        for dev in ("cpu", DEVICE):
+            with on_device(dev):
+                res = get_op(name)(*(oc.to_port(a, dev) for a in args),
+                                   **{k: oc.to_port(v, dev)
+                                      for k, v in kwargs.items()})
+            outs[dev] = oc.flat_outputs(res)
+        torch.cuda.synchronize()
+        check(len(outs["cpu"]) == len(outs[DEVICE]), f"{name}: outputs")
+        for c, g in zip(outs["cpu"], outs[DEVICE]):
+            check(g.device.type == "cuda", f"{name}: a result on {g.device}")
+            check(g.dtype == c.dtype and g.shape == c.shape,
+                  f"{name}: {g.dtype} {tuple(g.shape)} against the CPU's "
+                  f"{c.dtype} {tuple(c.shape)}")
+            if kind == "random":
+                check(bool(torch.isfinite(g.float()).all())
+                      == bool(torch.isfinite(c.float()).all()),
+                      f"{name}: finite pattern")
+                continue
+            cn, gn = oc.as_numpy(c), oc.as_numpy(g)
+            check(np.array_equal(np.isnan(cn), np.isnan(gn)),
+                  f"{name}: NaNs differ")
+            ok = ~np.isnan(cn)
+            if cn.dtype.kind in "biu":
+                check(np.array_equal(cn, gn), f"{name}: integers differ")
+                continue
+            gk, ck = gn[ok].astype(np.float64), cn[ok].astype(np.float64)
+            with np.errstate(invalid="ignore"):   # inf - inf where equal
+                err = float(np.where(gk == ck, 0.0, np.abs(gk - ck) / np.maximum(
+                    1.0, np.abs(ck))).max()) if ok.any() else 0.0
+            if err > worst:
+                worst, worst_name = err, name
+            check(err <= SD_SWEEP_TOL, f"{name}: card against CPU {err:.2e}")
+        took[name] = time.perf_counter() - took[name]
+    slow = sorted(took, key=took.get, reverse=True)[:6]
+    say("samediff", "(d) slowest names (s, CPU and card, first calls): "
+                    + ", ".join(f"{n} {took[n]:.2f}" for n in slow))
+    a = NDArray(torch.arange(24.0, device=DEVICE).reshape(2, 3, 4))
+    c = NDArray(torch.arange(24.0).reshape(2, 3, 4))
+    for arr in (a, c):
+        view = arr.get(NDArrayIndex.point(1), NDArrayIndex.interval(0, 2),
+                       NDArrayIndex.all())
+        before = view.toNumpy().copy()
+        arr.put([NDArrayIndex.point(1), NDArrayIndex.all(),
+                 NDArrayIndex.indices(0, 3)], 7.0)
+        arr.putScalar(0, -1.0)
+        check(np.array_equal(view.toNumpy(), before), "a get view changed")
+    check(np.array_equal(a.toNumpy(), c.toNumpy())
+          and a.torch.device.type == "cuda", "NDArray put on the card")
+    check(np.array_equal(a.tensorAlongDimension(2, 1).toNumpy(),
+                         c.tensorAlongDimension(2, 1).toNumpy()), "TAD")
+    say("samediff", f"(d) {len(cases)} names on the card equal the CPU "
+                    f"(worst {worst:.2e} at {worst_name}, tolerance "
+                    f"{SD_SWEEP_TOL:g} of max(1, |x|); integers exact; no "
+                    f"result left on the host); NDArray get / put / TAD on "
+                    f"a card array equal the CPU's; "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+
 def _first(out):
     return out[0] if isinstance(out, list) else out
 
@@ -8304,6 +8908,13 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_resilience(phase_device(), defaultdict(dict))
         return 0
+    if argv[:1] == ["samediff"]:
+        # phase 24 alone, of the port found from the current directory
+        from collections import defaultdict
+
+        sys.path.insert(0, os.getcwd())
+        phase_samediff(phase_device(), defaultdict(dict))
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -8339,6 +8950,7 @@ def main(argv) -> int:
     phase_transfer(smi)
     phase_layers(smi, rows)
     phase_resilience(smi, rows)
+    phase_samediff(smi, rows)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -7,17 +7,15 @@ walks the ops that the requested outputs need, eagerly, calling each op
 from the port's registry by name; ``calculateGradients`` runs the same
 walk under torch autograd with the requested variables as leaves. Where
 the JAX side traces the walk into one XLA program, the port runs it op by
-op on the graph's device (``device=None`` means the CUDA card).
+op on the graph's device (``device=None`` means the CUDA card); ops that
+take no tensor make their results there too (``ops/jax_rules.py``).
 
-Ported: ``VariableType``, ``OpNode``, ``SDVariable`` (operators,
-reductions, ``eval``, ``getArr``, ``setArray``, ``gradient``), the op
-namespaces (``sd.math``, ``sd.nn``, ``sd.loss``, ...), and on
-``SameDiff`` the variable factories, ``_op`` / ``invoke_op``, the
-accessors, ``set_array``, ``convertConstantsToVariables``,
-``setLossVariables``, ``output``, ``outputSingle``,
-``calculateGradients``, ``grad``, ``summary``, ``save`` and ``load``
-(``autodiff/serde.py``). Control flow, training and export raise
-``NotImplementedError`` naming the ROADMAP item.
+Ported: all of it but ``to_stablehlo``, which lowers the graph to XLA's
+StableHLO text and has no counterpart in the port (ROADMAP A10, the
+tail). Control flow (``ifCond``, ``whileLoop``) is in
+``autodiff/control_flow.py``, training (``setTrainingConfig``, ``fit``,
+``evaluate``) in ``autodiff/training.py``, save and load with the
+training configuration and the updater state in ``autodiff/serde.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +28,8 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ndarray.dtypes import DataType
-from deeplearning4j_tpu_torch.ndarray.ndarray import _unwrap
+from deeplearning4j_tpu_torch.ndarray.ndarray import _unwrap, to_numpy
+from deeplearning4j_tpu_torch.ops.jax_rules import on_device
 from deeplearning4j_tpu_torch.ops.registry import get_op
 from deeplearning4j_tpu_torch.params import numpy_to_tensor_narrowed
 
@@ -45,7 +44,7 @@ class VariableType(enum.Enum):
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to deeplearning4j_tpu_torch yet "
-        f"(ROADMAP.md A10)")
+        f"(ROADMAP.md A10, the tail)")
 
 
 def dtype_name(t: torch.Tensor) -> str:
@@ -303,8 +302,9 @@ class SameDiff:
         self.random = _OpNamespace(self)
         self.linalg = _OpNamespace(self)
         self.bitwise = _OpNamespace(self)
-        # what a loaded graph carried for training; written back by save()
-        self._training_config: Optional[dict] = None
+        # training state (set by setTrainingConfig and fit)
+        self.training_config = None
+        self._updater_state = None
         self._iteration = 0
         self._epoch = 0
 
@@ -457,6 +457,7 @@ class SameDiff:
         for v in resolved:
             v.vtype = VariableType.VARIABLE
         self._trainable_order = None
+        self._updater_state = None  # its slots no longer match
 
     def setLossVariables(self, *names) -> None:
         self._loss_variables = [
@@ -491,14 +492,15 @@ class SameDiff:
              env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Walk the pruned ops over ``env`` (variables and feeds)."""
         env = dict(env)
-        for node in self._prune(outputs):
-            res = get_op(node.op_name)(*(env[i] for i in node.inputs),
-                                       **node.attrs)
-            if len(node.outputs) == 1:
-                env[node.outputs[0]] = res
-            else:
-                for on, r in zip(node.outputs, res):
-                    env[on] = r
+        with on_device(self.device):
+            for node in self._prune(outputs):
+                res = get_op(node.op_name)(*(env[i] for i in node.inputs),
+                                           **node.attrs)
+                if len(node.outputs) == 1:
+                    env[node.outputs[0]] = res
+                else:
+                    for on, r in zip(node.outputs, res):
+                        env[on] = r
         return {o: env[o] for o in outputs}
 
     def _feeds(self, feeds: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -538,25 +540,43 @@ class SameDiff:
         ``wrt`` (default: every VARIABLE), by torch autograd over the
         eager walk. A variable the loss does not reach gets zeros, as
         ``jax.grad`` gives it. A gradient that would cross a forward-only
-        op raises."""
+        op raises; one that reaches a dynamically-terminated while_loop
+        raises JAX's documented error."""
         wrt_names = list(wrt) if wrt is not None else self.trainable_names()
-        loss = self._loss_name()
+        self._loss_name()
         feeds = self._feeds(feeds)
         leaves = {n: self._arrays[n].detach().requires_grad_(True)
                   for n in wrt_names}
-        with torch.enable_grad():
-            outs = self._run(tuple(self._loss_variables),
-                             {**self._arrays, **leaves, **feeds})
-            total = outs[loss]
-            for extra in self._loss_variables[1:]:
-                total = total + outs[extra]
-            total = total.sum()
-            found = torch.autograd.grad(total, list(leaves.values()),
-                                        allow_unused=True)
-        grads = {n: (torch.zeros_like(leaf) if g is None else g)
-                 for (n, leaf), g in zip(leaves.items(), found)}
+        total = self._total_loss({**self._arrays, **leaves, **feeds})
+        grads = self._grads(total, leaves)
         self._last_grads = dict(grads)
         return grads
+
+    def _total_loss(self, env: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The sum of every loss variable's elements, with autograd on."""
+        with torch.enable_grad():
+            outs = self._run(tuple(self._loss_variables), env)
+            total = outs[self._loss_variables[0]]
+            for extra in self._loss_variables[1:]:
+                total = total + outs[extra]
+            return total.sum()
+
+    def _grads(self, total, leaves: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """d total / d leaves (zeros where the loss does not reach)."""
+        from deeplearning4j_tpu_torch.autodiff.control_flow import (
+            DynamicLoopGradient, rewrap_nondiff_loop_error)
+
+        if not total.requires_grad:     # no leaf reaches the loss
+            return {n: torch.zeros_like(leaf) for n, leaf in leaves.items()}
+        try:
+            found = torch.autograd.grad(total, list(leaves.values()),
+                                        allow_unused=True)
+        except DynamicLoopGradient as e:
+            rewrap_nondiff_loop_error(
+                e, self._prune(tuple(self._loss_variables)))
+        return {n: (torch.zeros_like(leaf) if g is None else g)
+                for (n, leaf), g in zip(leaves.items(), found)}
 
     def createGradFunction(self) -> None:
         """Reference API parity: gradients are taken on demand, so this
@@ -566,41 +586,116 @@ class SameDiff:
     def grad(self, var_name: str) -> Optional[torch.Tensor]:
         return self._last_grads.get(var_name)
 
-    # ------------------------------------------------- waiting (ROADMAP A10)
-    def ifCond(self, *args, **kwargs):
-        raise _not_ported("SameDiff.ifCond")
+    # ---------------------------------------------------------- control flow
+    def _trace_subgraph(self, build_fn: Callable,
+                        n_args: int) -> Tuple["SameDiff", List[str]]:
+        """Trace ``build_fn(sub, *placeholders)`` into a child graph."""
+        from deeplearning4j_tpu_torch.autodiff.control_flow import ARG_PREFIX
 
-    def whileLoop(self, *args, **kwargs):
-        raise _not_ported("SameDiff.whileLoop")
+        sub = SameDiff(device=self.device)
+        phs = [sub.placeholder(f"{ARG_PREFIX}{i}") for i in range(n_args)]
+        outs = build_fn(sub, *phs)
+        if isinstance(outs, SDVariable):
+            outs = [outs]
+        return sub, [o.name for o in outs]
 
+    def ifCond(self, pred: "SDVariable", inputs: Sequence["SDVariable"],
+               true_fn: Callable, false_fn: Callable,
+               name: Optional[str] = None):
+        """Conditional over two sub-graphs (reference: SameDiff#ifCond):
+        ``true_fn`` / ``false_fn`` are ``lambda sub, *args: out(s)``
+        functions that build a child graph. The predicate is read on the host
+        and only the branch it selects runs."""
+        from deeplearning4j_tpu_torch.autodiff.control_flow import (
+            subgraph_to_dict)
+
+        inputs = list(inputs)
+        sub_t, t_outs = self._trace_subgraph(true_fn, len(inputs))
+        sub_f, f_outs = self._trace_subgraph(false_fn, len(inputs))
+        if len(t_outs) != len(f_outs):
+            raise ValueError(
+                f"branch arity mismatch: {len(t_outs)} vs {len(f_outs)}")
+        return self._op(
+            "if_cond", [pred.name] + [v.name for v in inputs],
+            n_out=len(t_outs), name=name or "ifCond",
+            true_graph=subgraph_to_dict(sub_t, t_outs, len(inputs)),
+            false_graph=subgraph_to_dict(sub_f, f_outs, len(inputs)))
+
+    def whileLoop(self, loop_vars: Sequence["SDVariable"],
+                  cond_fn: Callable, body_fn: Callable,
+                  name: Optional[str] = None):
+        """While loop over sub-graphs (reference: SameDiff#whileLoop):
+        ``cond_fn`` returns a scalar boolean, ``body_fn`` the new loop
+        variables (loop-invariant shapes and dtypes). The node carries
+        ``max_trip_count``, derived here from the constant inits as JAX
+        derives it: a bounded loop trains, a dynamic one is
+        inference-only (``autodiff/control_flow.py``)."""
+        from deeplearning4j_tpu_torch.autodiff.control_flow import (
+            derive_trip_count, subgraph_to_dict)
+
+        loop_vars = list(loop_vars)
+        sub_c, c_outs = self._trace_subgraph(cond_fn, len(loop_vars))
+        if len(c_outs) != 1:
+            raise ValueError("while condition must produce one scalar")
+        sub_b, b_outs = self._trace_subgraph(body_fn, len(loop_vars))
+        if len(b_outs) != len(loop_vars):
+            raise ValueError(
+                f"while body returns {len(b_outs)} vars for "
+                f"{len(loop_vars)} loop vars")
+        cond_graph = subgraph_to_dict(sub_c, c_outs, len(loop_vars))
+        body_graph = subgraph_to_dict(sub_b, b_outs, len(loop_vars))
+        init_consts = [
+            to_numpy(self._arrays[v.name])
+            if v.vtype is VariableType.CONSTANT else None
+            for v in loop_vars]
+        return self._op(
+            "while_loop", [v.name for v in loop_vars],
+            n_out=len(loop_vars), name=name or "whileLoop",
+            cond_graph=cond_graph, body_graph=body_graph,
+            max_trip_count=derive_trip_count(cond_graph, body_graph,
+                                             init_consts))
+
+    # ------------------------------------------------------------- training
     def setTrainingConfig(self, cfg) -> None:
-        raise _not_ported("SameDiff.setTrainingConfig")
+        self.training_config = cfg
 
-    def fit(self, *args, **kwargs):
-        raise _not_ported("SameDiff.fit")
+    def fit(self, data, epochs: int = 1, validation_data=None,
+            listeners: Sequence[Any] = ()):
+        """Train on ``data`` (a DataSet, an iterator or a list of them):
+        ``autodiff/training.py``. Returns a ``History``."""
+        from deeplearning4j_tpu_torch.autodiff.training import fit as _fit
 
-    def evaluate(self, *args, **kwargs):
-        raise _not_ported("SameDiff.evaluate")
+        return _fit(self, data, epochs=epochs,
+                    validation_data=validation_data, listeners=listeners)
+
+    def evaluate(self, iterator, output_name: str, evaluation=None):
+        """Reference: SameDiff#evaluate(DataSetIterator, outputVariable,
+        Evaluation)."""
+        from deeplearning4j_tpu_torch.autodiff.training import (
+            evaluate as _ev)
+
+        return _ev(self, iterator, output_name, evaluation)
 
     def to_stablehlo(self, *args, **kwargs):
         raise _not_ported("SameDiff.to_stablehlo")
 
     # ----------------------------------------------------------------- serde
     def save(self, path, save_updater_state: bool = True) -> None:
-        """The JAX side's zip (``graph.json`` + ``arrays.npz``). The port
-        has no updater state yet, so ``save_updater_state`` writes
-        nothing more."""
+        """The JAX side's zip: ``graph.json`` (with the tagged training
+        configuration), ``arrays.npz`` and, after ``fit``,
+        ``updater_state.npz``."""
         from deeplearning4j_tpu_torch.autodiff.serde import save
 
-        save(self, path)
+        save(self, path, save_updater_state=save_updater_state)
 
     @staticmethod
     def load(path, load_updater_state: bool = True, device=None) -> "SameDiff":
-        """A graph from the zip either package wrote, on ``device``. An
-        archive's updater state is not read (``fit`` is not ported)."""
+        """A graph from the zip either package wrote, on ``device``; the
+        updater state resumes training exactly."""
         from deeplearning4j_tpu_torch.autodiff.serde import load
 
-        return load(path, device=device)
+        return load(path, load_updater_state=load_updater_state,
+                    device=device)
 
     def summary(self) -> str:
         lines = [f"{'name':<24}{'type':<14}{'op':<20}inputs"]

@@ -242,6 +242,14 @@ class TransformerEncoder:
         ``masked_capacity=K`` only the K largest mask flags of each row
         are projected to the vocabulary (ties to the lowest index)."""
         hidden = self.encode(params, ids, train=train, generator=generator)
+        return self.mlm_head_loss(params, hidden, labels, mask_positions,
+                                  masked_capacity)
+
+    def mlm_head_loss(self, params, hidden, labels, mask_positions,
+                      masked_capacity: Optional[int] = None):
+        """The MLM head and loss of :meth:`mlm_loss` on an encoder output
+        ``hidden`` ``[N, T, D]`` (one that :meth:`encode` made with type
+        ids or a key mask, say)."""
         labels = labels.long()
         if masked_capacity is not None:
             kcap = int(masked_capacity)

@@ -1,11 +1,14 @@
 """NDArray, the eager array type: counterpart of
 ``deeplearning4j_tpu/ndarray/ndarray.py``, over a ``torch.Tensor``.
 
-Ported: the accessors and conversions (:44-140), arithmetic and ``mmul``
-(:242-330) and the reductions (:333-350). The in-place (``...i``) methods
-rebind the wrapped tensor to a new value, as the JAX side rebinds its
-immutable array, so a dtype promotion behaves alike in both packages.
-Indexing, ``put``, TADs, comparisons and the rest wait (ROADMAP A10).
+Ported: every method but the JAX array hooks (``jax``,
+``__jax_array__``; ``torch`` is the port's escape hatch). The mutating
+methods (the ``...i`` arithmetic, ``assign``, ``put``, ``putScalar``,
+``putRow``, ``putColumn``, ``__setitem__``) rebind the wrapped tensor to
+a new value, as the JAX side rebinds its immutable array: a ``put``
+writes into a copy, so a view taken earlier with ``get`` (a torch view
+of the old tensor) never changes, as a JAX array taken earlier never
+does; and a dtype promotion behaves alike in both packages.
 """
 
 from __future__ import annotations
@@ -161,6 +164,116 @@ class NDArray:
     def swapAxes(self, a: int, b: int) -> "NDArray":
         return NDArray(torch.swapaxes(self._buf, a, b))
 
+    # ------------------------------------------- mutation by rebinding
+    def _index(self, idx):
+        """An index for the wrapped tensor: NDArrays and numpy arrays as
+        tensors, tuples taken piece by piece."""
+        if isinstance(idx, tuple):
+            return tuple(self._index(i) for i in idx)
+        idx = _unwrap(idx)
+        if isinstance(idx, np.ndarray):
+            return torch.from_numpy(idx)
+        if isinstance(idx, list):
+            return torch.tensor(idx)
+        return idx
+
+    def _set(self, idx, value) -> "NDArray":
+        """``buf.at[idx].set(value)``: a copy written and rebound."""
+        new = self._buf.clone()
+        v = self._o(value)
+        new[self._index(idx)] = v.to(new.dtype) if isinstance(
+            v, torch.Tensor) else v
+        self._buf = new
+        return self
+
+    def assign(self, other) -> "NDArray":
+        v = self._o(other)
+        v = torch.as_tensor(v, dtype=self._buf.dtype, device=self._buf.device)
+        self._buf = torch.broadcast_to(v.to(self._buf.dtype),
+                                       self._buf.shape).clone()
+        return self
+
+    def putScalar(self, idx, value) -> "NDArray":
+        if isinstance(idx, int):
+            idx = np.unravel_index(idx, self._buf.shape)
+        return self._set(tuple(int(i) for i in idx), value)
+
+    def put(self, *args) -> "NDArray":
+        """``put(idx, value)`` with ``idx`` a raw index or a list/tuple of
+        INDArrayIndex (reference: INDArray#put(INDArrayIndex[], ...))."""
+        from deeplearning4j_tpu_torch.ndarray.indexing import (
+            INDArrayIndex, resolve_indices)
+
+        if len(args) < 2:
+            raise TypeError(
+                "put(idx..., value) needs at least an index and a value")
+        *idxs, value = args
+        if len(idxs) == 1 and not isinstance(idxs[0], INDArrayIndex):
+            idx = idxs[0]
+            if isinstance(idx, (list, tuple)) and idx and \
+                    isinstance(idx[0], INDArrayIndex):
+                idx = resolve_indices(idx)
+        else:
+            idx = resolve_indices(idxs)
+        return self._set(idx, value)
+
+    # -- indexing (reference: INDArray#get with NDArrayIndex) ----------
+    def get(self, *idxs) -> "NDArray":
+        from deeplearning4j_tpu_torch.ndarray.indexing import resolve_indices
+
+        return NDArray(self._buf[self._index(resolve_indices(idxs))])
+
+    def getRow(self, i: int) -> "NDArray":
+        return NDArray(self._buf[i])
+
+    def getRows(self, *rows: int) -> "NDArray":
+        return NDArray(self._buf[torch.tensor(rows)])
+
+    def getColumn(self, i: int) -> "NDArray":
+        return NDArray(self._buf[:, i])
+
+    def getColumns(self, *cols: int) -> "NDArray":
+        return NDArray(self._buf[:, torch.tensor(cols)])
+
+    def putRow(self, i: int, row) -> "NDArray":
+        return self._set(i, row)
+
+    def putColumn(self, i: int, col) -> "NDArray":
+        return self._set((slice(None), i), col)
+
+    def slice(self, i: int, dim: int = 0) -> "NDArray":
+        """The ``i``-th sub-array along ``dim`` (reference:
+        INDArray#slice)."""
+        return NDArray(torch.select(self._buf, dim, i))
+
+    def tensorAlongDimension(self, index: int, *dims: int) -> "NDArray":
+        """TAD (reference: INDArray#tensorAlongDimension): the
+        ``index``-th sub-tensor spanning ``dims``, the other axes taken in
+        C order."""
+        nd = self._buf.dim()
+        dset = {d % nd for d in dims}
+        other = [d for d in range(nd) if d not in dset]
+        moved = torch.movedim(self._buf, other, list(range(len(other))))
+        flat = moved.reshape((-1,) + tuple(moved.shape[len(other):]))
+        return NDArray(flat[index])
+
+    def tensorsAlongDimension(self, *dims: int) -> int:
+        nd = self._buf.dim()
+        dset = {d % nd for d in dims}
+        n = 1
+        for d in range(nd):
+            if d not in dset:
+                n *= self._buf.shape[d]
+        return n
+
+    def getDouble(self, *idx) -> float:
+        if len(idx) == 1 and isinstance(idx[0], int) and self._buf.dim() != 1:
+            idx = np.unravel_index(idx[0], self._buf.shape)
+        return float(self._buf[tuple(int(i) for i in idx)])
+
+    def getInt(self, *idx) -> int:
+        return int(self.getDouble(*idx))
+
     # ----------------------------------------------------------- arithmetic
     def add(self, other) -> "NDArray":
         return NDArray(self._buf + self._o(other))
@@ -292,6 +405,63 @@ class NDArray:
                         dim=(dims if dims else None), correction=ddof)
         return NDArray(out) if dims else float(out)
 
+    def var(self, *dims, ddof: int = 1):
+        out = torch.var(jax_float_input(self._buf),
+                        dim=(dims if dims else None), correction=ddof)
+        return NDArray(out) if dims else float(out)
+
+    # scalar reductions (reference: INDArray#sumNumber etc.)
+    def sumNumber(self) -> float:
+        return float(torch.sum(self._buf))
+
+    def meanNumber(self) -> float:
+        return float(torch.mean(jax_float_input(self._buf)))
+
+    def maxNumber(self) -> float:
+        return float(torch.max(self._buf))
+
+    def minNumber(self) -> float:
+        return float(torch.min(self._buf))
+
+    def prodNumber(self) -> float:
+        return float(torch.prod(self._buf))
+
+    def stdNumber(self, bias_corrected: bool = True) -> float:
+        return float(torch.std(jax_float_input(self._buf),
+                               correction=1 if bias_corrected else 0))
+
+    def varNumber(self, bias_corrected: bool = True) -> float:
+        return float(torch.var(jax_float_input(self._buf),
+                               correction=1 if bias_corrected else 0))
+
+    def argMax(self, *dims):
+        if not dims:
+            return int(torch.argmax(self._buf))
+        return NDArray(torch.argmax(self._buf, dim=dims[0]).to(torch.int32))
+
+    def argMin(self, *dims):
+        if not dims:
+            return int(torch.argmin(self._buf))
+        return NDArray(torch.argmin(self._buf, dim=dims[0]).to(torch.int32))
+
+    def cumsum(self, axis=None) -> "NDArray":
+        x = self._buf.reshape(-1) if axis is None else self._buf
+        out = torch.cumsum(x, dim=0 if axis is None else axis)
+        return NDArray(jax_int_result(out, x))
+
+    def norm1(self, *dims):
+        r = self._reduce(torch.sum, dims, x=torch.abs(self._buf))
+        return r if dims else r.item()
+
+    def norm2(self, *dims):
+        r = self._reduce(torch.sum, dims, x=self._buf * self._buf)
+        r = NDArray(torch.sqrt(jax_float_input(r._buf)))
+        return r if dims else r.item()
+
+    def normMax(self, *dims):
+        r = self._reduce(torch.amax, dims, x=torch.abs(self._buf))
+        return r if dims else r.item()
+
     def item(self):
         v = self._buf
         if v.dtype == torch.bool:
@@ -300,7 +470,50 @@ class NDArray:
             return int(v)
         return float(v)
 
+    # ------------------------------------------------------------ comparisons
+    def gt(self, other) -> "NDArray":
+        return NDArray(self._buf > self._o(other))
+
+    def gte(self, other) -> "NDArray":
+        return NDArray(self._buf >= self._o(other))
+
+    def lt(self, other) -> "NDArray":
+        return NDArray(self._buf < self._o(other))
+
+    def lte(self, other) -> "NDArray":
+        return NDArray(self._buf <= self._o(other))
+
+    def eq(self, other) -> "NDArray":
+        return NDArray(self._buf == self._o(other))
+
+    def neq(self, other) -> "NDArray":
+        return NDArray(self._buf != self._o(other))
+
+    def equalsWithEps(self, other, eps: float = 1e-5) -> bool:
+        o = self._o(other)
+        if not isinstance(o, torch.Tensor):
+            o = torch.as_tensor(o, device=self._buf.device)
+        if tuple(o.shape) != tuple(self._buf.shape):
+            return False
+        return bool(torch.all(torch.abs(self._buf - o) <= eps))
+
+    def equals(self, other) -> bool:
+        return self.equalsWithEps(other, 1e-5)
+
     # -------------------------------------------------------- python protocol
+    def __getitem__(self, idx) -> "NDArray":
+        return NDArray(self._buf[self._index(idx)])
+
+    def __setitem__(self, idx, value):
+        self._set(idx, value)
+
+    def __iter__(self):
+        for i in range(self._buf.shape[0]):
+            yield NDArray(self._buf[i])
+
+    def __bool__(self):
+        return bool(self._buf)
+
     def __add__(self, other):
         return self.add(other)
 

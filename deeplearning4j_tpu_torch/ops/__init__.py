@@ -5,10 +5,12 @@ inside the functions that launch them."""
 
 from deeplearning4j_tpu_torch.ops.registry import get_op, list_ops, register_op
 from deeplearning4j_tpu_torch.ops import (  # noqa: F401 (register)
-    transforms, nn, conv_bn_stats, residual_tail,
+    transforms, nn, random, reduce, shape, extra_indexing, flash_attention,
+    conv_bn_stats, residual_tail, fused_update, paged_attention,
 )
-# the graph engine's math ops (reduce_sum with ``dimensions=``, cast, ...);
-# nothing in that chain imports the ops package itself, only ops.registry
+# the graph engine's math ops (reduce_sum with ``dimensions=``, cast, ...)
+# and control flow; nothing in that chain imports the ops package itself
 from deeplearning4j_tpu_torch.autodiff import ops_math as _ops_math  # noqa: F401,E402
+from deeplearning4j_tpu_torch.autodiff import control_flow as _control_flow  # noqa: F401,E402
 
 __all__ = ["get_op", "list_ops", "register_op"]

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import native
+from deeplearning4j_tpu_torch.ops.registry import register_op
 
 _NEG_INF = -1e30  # large but finite: a fully masked row stays NaN-free
 
@@ -333,9 +334,21 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def attention(q, k, v, mask=None, causal: bool = False):
-    """Flash attention: :func:`blockwise_attention` on CPU tensors, the
-    CUDA kernels (forward and backward) on CUDA tensors."""
+#: the values of JAX's ``impl`` attribute (flash_attention.py:281-319)
+IMPLS = ("auto", "xla", "library", "pallas", "blockwise")
+
+
+@register_op("flash_attention")
+def attention(q, k, v, mask=None, causal: bool = False, impl: str = "auto"):
+    """Flash attention by name: :func:`blockwise_attention` on CPU
+    tensors, the CUDA kernels (forward and backward) on CUDA tensors.
+
+    ``impl`` is JAX's choice of path. It is validated as JAX validates it
+    (a value outside :data:`IMPLS` raises ``ValueError``), and every
+    valid value takes the same dispatch: B1 runs on the card whatever
+    ``impl`` says, and there is no other path to take."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, mask, causal=causal)
     if q.device.type == "cuda":

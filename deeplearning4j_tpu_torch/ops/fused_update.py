@@ -31,6 +31,7 @@ import torch
 
 from deeplearning4j_tpu_torch.learning.updaters import Adam
 from deeplearning4j_tpu_torch.ops import native
+from deeplearning4j_tpu_torch.ops.registry import register_op
 
 #: kernel launches since the last reset; incremented only where
 #: :func:`fused_adam_update` launches the CUDA kernel
@@ -169,11 +170,21 @@ def require_adam(updater) -> None:
             f"{type(updater).__name__}")
 
 
+#: the values of JAX's ``mode`` (``fused_update_mode``)
+MODES = (None, "pallas", "interpret", "xla")
+
+
+@register_op("fused_adam_master_update")
 def fused_master_update(master, m, v, grad, step, updater: Adam,
-                        inv_scale=None, clip_norm=None, grad_norm=None):
+                        inv_scale=None, clip_norm=None, grad_norm=None,
+                        mode=None):
     """Scalars and segment update in one call (fused_update_pallas.py
-    :186-204), in place. Raises ``TypeError`` on any updater but
-    :class:`Adam`."""
+    :186-212), in place; registered by JAX's name. Raises ``TypeError``
+    on any updater but :class:`Adam`. ``mode`` is JAX's choice of path,
+    validated against :data:`MODES`; every valid value takes the same
+    dispatch (B2 on CUDA tensors, the plain version on CPU tensors)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown fused-update mode {mode!r}")
     require_adam(updater)
     if clip_norm is not None and grad_norm is None:
         grad_norm = torch.sqrt(torch.sum(grad.to(torch.float32) ** 2))

@@ -1,36 +1,26 @@
-"""Neural-net ops the layer framework calls: counterpart of the part of
-``deeplearning4j_tpu/ops/nn.py`` that the ported layers reach.
+"""Neural-net ops: counterpart of ``deeplearning4j_tpu/ops/nn.py``, every
+name it registers, under its JAX name with its parameters and defaults
+(``lstm_layer`` takes JAX's ``impl`` and runs B5 for "scan" and
+"pallas" alike; ``dropout`` takes a ``torch.Generator`` or a seed as
+``rng``).
 
-Ported: :func:`conv2d` (``:36-79``), :func:`depthwise_conv2d`
-(``:117-134``), :func:`separable_conv2d` (``:137-142``),
-:func:`upsampling2d` (``:173-176``), the four pools (``:198-253``),
-:func:`global_avg_pool` (``:370-373``), :func:`batch_norm` (``:383-387``),
-:func:`batch_norm_train` with its shifted one-pass statistics
-(``:390-428``), :func:`batch_norm_relu_train` with its two-pass backward
-(``:431-531``; both through ``ops.batch_norm``), :func:`layer_norm`
-(``:534-541``), :func:`local_response_normalization` (``:544-555``),
-:func:`lstm_layer`
-(``:592-651``), :func:`simple_rnn_layer` (``:709-722``),
-:func:`dot_product_attention` (``:981-997``) and :func:`dropout`
-(``:558-564``); every one but the last four and the three image ops of
-the vision zoo (``depthwise_conv2d``, ``separable_conv2d``,
-``upsampling2d``, called by their layers) is registered under its JAX
-name. The simple RNN and the attention are plain PyTorch: no Pallas
-kernel computes them in the reference.
+The layer framework calls them directly: the convolutions (``conv2d``,
+``conv1d``, ``conv3d``, ``deconv2d``, ``depthwise_conv2d``,
+``separable_conv2d``), ``upsampling2d``, ``im2col``, the 1D, 2D and 3D
+pools, the locally connected layers, the norms (:func:`batch_norm_train`
+with its shifted one-pass statistics and :func:`batch_norm_relu_train`
+with its two-pass backward, both through ``ops.batch_norm``), the
+recurrent layers (:func:`lstm_layer` on B5, :func:`gru_layer` and
+:func:`simple_rnn_layer` as plain loops over T, as ``lax.scan`` is) and
+the attention. Copies of ``ops/declarable_tail.py``'s :func:`deconv3d`
+and :func:`upsampling3d` (``:284-296``) stay unregistered until that file
+is ported (ROADMAP A10.1b). The ONNX recurrences (``onnx_lstm_seq``,
+``onnx_gru_seq``, ``onnx_rnn_seq``) are plain loops; ``ctc_loss`` is the
+library's CTC (``optax.ctc_loss`` in the reference). No Pallas kernel
+computes any of these but the LSTM recurrence.
 
-The rest of the layer framework's ops, called by their layers and not
-registered by name (ROADMAP A10): :func:`conv1d` (``:82-95``),
-:func:`conv3d` (``:98-113``), :func:`deconv2d` (``:145-168``),
-:func:`im2col` (``:179-193``), the 1D pools (``:256-297``), the 3D pools
-(``:300-331``), :func:`locally_connected2d` and
-:func:`locally_connected1d` (``:334-369``), :func:`gru_layer`
-(``:654-681``) and :func:`multi_head_dot_product_attention`
-(``:998-1019``), with copies of ``ops/declarable_tail.py``'s
-:func:`deconv3d` and :func:`upsampling3d` (``:284-296``). No Pallas
-kernel computes any of them in the reference: the GRU is a plain loop
-over T as ``lax.scan`` is, the attention plain as
-:func:`dot_product_attention` is. Layouts stay the JAX package's, so a parameter tree from the JAX
-side loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
+Layouts stay the JAX package's, so a parameter tree from the JAX side
+loads unchanged: images NHWC ``[N, H, W, C]``, conv weights HWIO
 ``[kh, kw, C_in, C_out]``; ``x`` ``[N, T, in]``, ``w_ih`` ``[in, 4H]``,
 ``w_hh`` ``[H, 4H]``, ``b`` ``[4H]`` with gates i, f, g, o.
 
@@ -51,7 +41,6 @@ give float32.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +48,8 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.ops import batch_norm as bn
 from deeplearning4j_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 from deeplearning4j_tpu_torch.ops.registry import register_op
-from deeplearning4j_tpu_torch.ops.transforms import jax_abs
+from deeplearning4j_tpu_torch.ops.transforms import (jax_abs, jax_clip, relu6,
+                                                     softplus)
 
 
 # ---------------------------------------------------------- convolution
@@ -146,6 +136,7 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
     return out
 
 
+@register_op("depthwise_conv2d")
 def depthwise_conv2d(x, w, b=None, strides=(1, 1), padding="SAME",
                      dilation=(1, 1)):
     """Depthwise convolution, NHWC x ``[kh, kw, C_in, mult]`` -> NHWC
@@ -158,6 +149,7 @@ def depthwise_conv2d(x, w, b=None, strides=(1, 1), padding="SAME",
                   dilation, groups=c_in)
 
 
+@register_op("separable_conv2d")
 def separable_conv2d(x, depth_w, point_w, b=None, strides=(1, 1),
                      padding="SAME", dilation=(1, 1)):
     """:func:`depthwise_conv2d` by ``depth_w`` ``[kh, kw, C_in, mult]`` at
@@ -167,6 +159,7 @@ def separable_conv2d(x, depth_w, point_w, b=None, strides=(1, 1),
     return conv2d(out, point_w, b, (1, 1), "SAME")
 
 
+@register_op("upsampling2d")
 def upsampling2d(x, scale=2):
     """Nearest-neighbour upsampling of NHWC ``x``: each pixel repeated
     ``scale`` times along H, then along W (``jnp.repeat`` twice), as one
@@ -336,21 +329,34 @@ def local_response_normalization(x, depth_radius=5, bias=1.0, alpha=1.0,
     return x / torch.pow(bias + alpha * acc, beta)
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+@register_op("dropout")
+def dropout(x, rate: float, rng, deterministic: bool = False):
     """Inverted dropout: each entry is kept with probability ``1 - rate``
-    and scaled by ``1 / (1 - rate)``. The draws come from ``generator``
-    (the same distribution as ``jax.random.bernoulli``, not the same
-    bits)."""
-    if rate == 0.0:
+    and scaled by ``1 / (1 - rate)``; ``deterministic`` or a rate of 0
+    returns ``x``. The draws come from ``rng``, a ``torch.Generator`` or
+    an integer seed where JAX takes a key, or None for torch's default
+    generator (the same distribution as
+    ``jax.random.bernoulli``, not the same bits)."""
+    if deterministic or rate == 0.0:
         return x
+    from deeplearning4j_tpu_torch.ops.random import generator_on
+
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = torch.rand(x.shape, generator=generator_on(rng, x.device),
+                   device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
 
-def lstm_layer(x, w_ih, w_hh, b, h0=None, c0=None, reverse: bool = False):
+@register_op("lstm_layer")
+def lstm_layer(x, w_ih, w_hh, b, h0=None, c0=None, reverse: bool = False,
+               impl: str = "scan"):
     """LSTM over time: ``(outputs [N, T, H], (hT, cT))``.
+
+    ``impl`` is JAX's choice between its scan and its Pallas kernel; the
+    port validates it as JAX does (anything but "scan" or "pallas"
+    raises) and takes the same path for both: B5's hand kernels on CUDA
+    tensors, their plain versions on CPU tensors.
 
     One input projection for all timesteps, ``x @ w_ih + b`` as a single
     ``[T*N, in] @ [in, 4H]`` product (a library matmul: the JAX layer
@@ -360,6 +366,8 @@ def lstm_layer(x, w_ih, w_hh, b, h0=None, c0=None, reverse: bool = False):
     (the hand kernels on the card, the plain versions on the CPU).
     ``reverse`` runs the recurrence from the last timestep to the first
     and returns the outputs in input order."""
+    if impl not in ("scan", "pallas"):
+        raise ValueError(f"lstm_layer impl={impl!r}: 'scan' or 'pallas'")
     n, t, _ = x.shape
     hidden = w_hh.shape[0]
     if h0 is None:
@@ -376,6 +384,7 @@ def lstm_layer(x, w_ih, w_hh, b, h0=None, c0=None, reverse: bool = False):
     return ys.transpose(0, 1), (hT, cT)
 
 
+@register_op("simple_rnn_layer")
 def simple_rnn_layer(x, w_ih, w_hh, b, h0=None, activation=torch.tanh):
     """Elman RNN over time: ``(outputs [N, T, H], hT)`` with
     ``h_t = activation(x_t @ w_ih + b + h_{t-1} @ w_hh)``; the input
@@ -392,6 +401,7 @@ def simple_rnn_layer(x, w_ih, w_hh, b, h0=None, activation=torch.tanh):
     return torch.stack(ys, dim=1), h
 
 
+@register_op("dot_product_attention")
 def dot_product_attention(q, k, v, mask=None, scale=None):
     """Scaled dot-product attention: ``q`` ``[..., Tq, d]``, ``k``
     ``[..., Tk, d]``, ``v`` ``[..., Tk, dv]``; ``mask`` broadcastable to
@@ -476,6 +486,7 @@ def _conv_cl(x, w, b, strides, pads, dilation):
     return out if b is None else out + b
 
 
+@register_op("conv1d")
 def conv1d(x, w, b=None, stride=1, padding="SAME", dilation=1):
     """1D convolution, NWC ``[N, T, C_in]`` x WIO ``[k, C_in, C_out]`` ->
     NWC; ``padding`` "SAME", "VALID" or an int a side."""
@@ -483,6 +494,7 @@ def conv1d(x, w, b=None, stride=1, padding="SAME", dilation=1):
     return _conv_cl(x, w, b, (stride,), pads, (dilation,))
 
 
+@register_op("conv3d")
 def conv3d(x, w, b=None, strides=(1, 1, 1), padding="SAME",
            dilation=(1, 1, 1)):
     """3D convolution, NDHWC x DHWIO ``[kd, kh, kw, C_in, C_out]`` ->
@@ -534,6 +546,7 @@ def _conv_transpose_cl(x, w, strides, padding):
                           for k, (lo, hi) in zip(ks, pads)])
 
 
+@register_op("deconv2d")
 def deconv2d(x, w, b=None, strides=(2, 2), padding="SAME"):
     """Transposed convolution, NHWC x ``[kh, kw, C_in, C_out]``: "SAME" or
     "VALID" as ``lax.conv_transpose`` pads them, or an integer padding
@@ -564,6 +577,7 @@ def upsampling3d(x, scale=2):
         n, d, s0, h, s1, w, s2, c).reshape(n, d * s0, h * s1, w * s2, c)
 
 
+@register_op("im2col")
 def im2col(x, kernel, strides=(1, 1), padding="VALID"):
     """Patches of NHWC ``x``: ``[N, oh, ow, C * kh * kw]``, the feature
     axis channel-major ``(C, kh, kw)`` as
@@ -575,6 +589,7 @@ def im2col(x, kernel, strides=(1, 1), padding="VALID"):
     return p.reshape(p.shape[0], p.shape[1], p.shape[2], -1)
 
 
+@register_op("locally_connected2d")
 def locally_connected2d(x, w, b=None, kernel=(2, 2), strides=(1, 1),
                         padding="VALID"):
     """Unshared-weight convolution: ``w`` ``[oh * ow, C * kh * kw,
@@ -587,6 +602,7 @@ def locally_connected2d(x, w, b=None, kernel=(2, 2), strides=(1, 1),
     return out if b is None else out + b
 
 
+@register_op("locally_connected1d")
 def locally_connected1d(x, w, b=None, kernel=2, stride=1, padding="VALID"):
     """1D unshared-weight convolution of ``[N, T, F]``: ``w`` ``[oT, F * k,
     C_out]`` over channel-major ``(F, k)`` patches; ``b`` ``[oT, C_out]``
@@ -645,22 +661,26 @@ def _avg_cl(x, k, s, padding):
     return summed / _sum_cl(ones, k, s, pads)
 
 
+@register_op("maxpool1d")
 def maxpool1d(x, kernel=2, stride=None, padding="VALID"):
     """Max pooling over the T axis of ``[N, T, F]``."""
     k, s = _pool_nd(kernel, stride, 1)
     return _max_cl(x, k, s, _pool_pads(padding, x, k, s)[1])
 
 
+@register_op("avgpool1d")
 def avgpool1d(x, kernel=2, stride=None, padding="VALID"):
     k, s = _pool_nd(kernel, stride, 1)
     return _avg_cl(x, k, s, padding)
 
 
+@register_op("sumpool1d")
 def sumpool1d(x, kernel=2, stride=None, padding="VALID"):
     k, s = _pool_nd(kernel, stride, 1)
     return _sum_cl(x, k, s, _pool_pads(padding, x, k, s)[1])
 
 
+@register_op("pnormpool1d")
 def pnormpool1d(x, kernel=2, stride=None, padding="VALID", p=2):
     """``(sum over the window of |x|^p)^(1/p)``, ``|x|`` with ``jnp.abs``'s
     slope 1 at 0."""
@@ -669,12 +689,14 @@ def pnormpool1d(x, kernel=2, stride=None, padding="VALID", p=2):
     return summed ** (1.0 / p)
 
 
+@register_op("maxpool3d")
 def maxpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
     """Max pooling over NDHWC."""
     k, s = _pool_nd(kernel, strides, 3)
     return _max_cl(x, k, s, _pool_pads(padding, x, k, s)[1])
 
 
+@register_op("avgpool3d")
 def avgpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
     """Average pooling over NDHWC, over the real cells of a padded
     window."""
@@ -683,6 +705,7 @@ def avgpool3d(x, kernel=(2, 2, 2), strides=None, padding="VALID"):
 
 
 # -------------------------------------------------------- GRU, attention
+@register_op("gru_layer")
 def gru_layer(x, w_ih, w_hh, b, h0=None, rb=None):
     """GRU over time: ``(outputs [N, T, H], hT)``; ``w_ih`` ``[in, 3H]``,
     ``w_hh`` ``[H, 3H]``, ``b`` ``[3H]``, gates r, z, n in that order, the
@@ -709,6 +732,7 @@ def gru_layer(x, w_ih, w_hh, b, h0=None, rb=None):
     return torch.stack(ys, dim=1), h
 
 
+@register_op("multi_head_dot_product_attention")
 def multi_head_dot_product_attention(x_q, x_kv, wq, wk, wv, wo, mask=None,
                                      num_heads=None):
     """Multi-head attention: ``x_q`` ``[N, Tq, D]``, ``x_kv`` ``[N, Tk,
@@ -728,3 +752,373 @@ def multi_head_dot_product_attention(x_q, x_kv, wq, wk, wv, wo, mask=None,
     out = dot_product_attention(split(x_q @ wq), split(x_kv @ wk),
                                 split(x_kv @ wv), mask)
     return out.transpose(1, 2).reshape(n, tq, proj) @ wo
+
+
+# ------------------------------------------------ the rest of the names
+@register_op("global_max_pool")
+def global_max_pool(x, spatial_axes=(1, 2)):
+    return torch.amax(x, dim=tuple(spatial_axes))
+
+
+@register_op("xw_plus_b")
+def xw_plus_b(x, w, b):
+    return x @ w + b
+
+
+@register_op("embedding_lookup")
+def embedding_lookup(table, ids):
+    """``jnp.take(table, ids, axis=0)``: an id out of range gives a row of
+    the fill value (NaN for a float table), never a device assert."""
+    from deeplearning4j_tpu_torch.ops.jax_rules import take_fill
+
+    return take_fill(table, ids, 0)
+
+
+@register_op("one_hot")
+def one_hot(ids, depth, dtype="float32", on_value=1.0, off_value=0.0,
+            axis=-1):
+    """``jax.nn.one_hot``: an id out of ``[0, depth)`` gives a row of
+    ``off_value``."""
+    from deeplearning4j_tpu_torch.ops.jax_rules import torch_dtype
+
+    dt = torch_dtype(dtype)
+    hot = (ids.unsqueeze(-1) == torch.arange(int(depth), device=ids.device))
+    if axis != -1:
+        hot = torch.movedim(hot, -1, axis)
+    hot = hot.to(dt)
+    if on_value == 1.0 and off_value == 0.0:
+        return hot
+    return off_value + hot * (on_value - off_value)
+
+
+@register_op("lstm_seq")
+def lstm_seq(x, w_ih, w_hh, b, h0=None, c0=None, reverse=False):
+    """:func:`lstm_layer` with a flat ``(ys, hT, cT)`` return."""
+    ys, (hT, cT) = lstm_layer(x, w_ih, w_hh, b, h0=h0, c0=c0,
+                              reverse=reverse)
+    return ys, hT, cT
+
+
+@register_op("gru_seq")
+def gru_seq(x, w_ih, w_hh, b, rb, h0=None, reverse=False):
+    """:func:`gru_layer` with ``rb`` positional and a ``reverse`` flag."""
+    if reverse:
+        x = torch.flip(x, (1,))
+    ys, hT = gru_layer(x, w_ih, w_hh, b, h0=h0, rb=rb)
+    if reverse:
+        ys = torch.flip(ys, (1,))
+    return ys, hT
+
+
+# ----------------------------------------- ONNX-semantics recurrent ops
+def _onnx_act(spec):
+    """An ONNX activation ``(name, alpha, beta)`` as a function."""
+    name, alpha, beta = spec
+    n = name.lower()
+    if n == "sigmoid":
+        return torch.sigmoid
+    if n == "tanh":
+        return torch.tanh
+    if n == "relu":
+        return torch.relu
+    if n == "leakyrelu":
+        a = 0.01 if alpha is None else alpha
+        return lambda v: torch.where(v >= 0, v, a * v)
+    if n == "hardsigmoid":
+        a = 0.2 if alpha is None else alpha
+        c = 0.5 if beta is None else beta
+        return lambda v: jax_clip(a * v + c, 0.0, 1.0)
+    if n == "elu":
+        a = 1.0 if alpha is None else alpha
+        return lambda v: torch.where(v > 0, v, a * (torch.exp(v) - 1.0))
+    if n == "softsign":
+        return lambda v: v / (torch.abs(v) + 1)
+    if n == "softplus":
+        return lambda v: torch.logaddexp(v, torch.zeros_like(v))
+    if n == "affine":
+        a = 1.0 if alpha is None else alpha
+        c = 0.0 if beta is None else beta
+        return lambda v: a * v + c
+    if n == "thresholdedrelu":
+        a = 1.0 if alpha is None else alpha
+        return lambda v: torch.where(v > a, v, torch.zeros_like(v))
+    raise ValueError(f"unsupported RNN activation {name!r}")
+
+
+def _rev_seq(x, lens):
+    from deeplearning4j_tpu_torch.ops.shape import reverse_sequence
+
+    return reverse_sequence(x, lens, seq_axis=1, batch_axis=0)
+
+
+def _maybe_clip(v, clip):
+    return jax_clip(v, -clip, clip) if clip else v
+
+
+def _onnx_scan(x, lens, reverse, x_proj, step, carry):
+    """The ONNX recurrences' loop: ``step(carry, xp_t) -> (carry, y)``
+    over T; with ``lens``, rows at ``t >= len`` emit 0 and freeze their
+    carry; ``reverse`` runs each row over its own prefix reversed."""
+    t = x_proj.shape[1]
+    ys = []
+    for s in range(t):
+        new, y = step(carry, x_proj[:, s])
+        if lens is not None:
+            valid = (s < lens)[:, None]
+            y = torch.where(valid, y, torch.zeros_like(y))
+            new = tuple(torch.where(valid, a, b) for a, b in zip(new, carry))
+        carry = new
+        ys.append(y)
+    ys = torch.stack(ys, dim=1)
+    if reverse:
+        ys = _rev_seq(ys, lens) if lens is not None else torch.flip(ys, (1,))
+    return ys, carry
+
+
+def _onnx_prep(x, w_ih, b, reverse, lens, gates):
+    n, t, _ = x.shape
+    if reverse:
+        x = _rev_seq(x, lens) if lens is not None else torch.flip(x, (1,))
+    return (x.reshape(n * t, -1) @ w_ih + b).reshape(n, t, gates)
+
+
+@register_op("onnx_lstm_seq")
+def onnx_lstm_seq(x, w_ih, w_hh, b, *rest, has_state=False,
+                  has_lens=False, has_peep=False, reverse=False,
+                  cell_clip=0.0, input_forget=False, acts=None):
+    """ONNX LSTM for one direction (gates i, f, g, o): ``rest`` holds h0
+    and c0 if ``has_state``, seq_lens if ``has_lens``, peepholes ``[3,
+    H]`` (i, f, o) if ``has_peep``. Returns ``(ys, hT, cT)``. A plain
+    loop over T, as JAX's is a ``lax.scan``."""
+    n = x.shape[0]
+    hidden = w_hh.shape[0]
+    k = 0
+    if has_state:
+        h0, c0 = rest[0], rest[1]
+        k = 2
+    else:
+        h0 = torch.zeros((n, hidden), dtype=x.dtype, device=x.device)
+        c0 = torch.zeros((n, hidden), dtype=x.dtype, device=x.device)
+    lens = rest[k].to(torch.int32) if has_lens else None
+    k += int(has_lens)
+    peep = rest[k] if has_peep else None
+    f_act, g_act, h_act = [_onnx_act(a) for a in (
+        acts or (("sigmoid", None, None), ("tanh", None, None),
+                 ("tanh", None, None)))]
+    x_proj = _onnx_prep(x, w_ih, b, reverse, lens, 4 * hidden)
+
+    def step(carry, xp):
+        h, c = carry
+        gi, gf, gg, go = (xp + h @ w_hh).chunk(4, dim=-1)
+        if peep is not None:
+            gi = gi + peep[0] * c
+            gf = gf + peep[1] * c
+        i = f_act(_maybe_clip(gi, cell_clip))
+        f = (1.0 - i) if input_forget else f_act(_maybe_clip(gf, cell_clip))
+        g = g_act(_maybe_clip(gg, cell_clip))
+        c2 = f * c + i * g
+        if peep is not None:
+            go = go + peep[2] * c2
+        h2 = f_act(_maybe_clip(go, cell_clip)) * h_act(c2)
+        return (h2, c2), h2
+
+    ys, (hT, cT) = _onnx_scan(x, lens, reverse, x_proj, step, (h0, c0))
+    return ys, hT, cT
+
+
+@register_op("onnx_gru_seq")
+def onnx_gru_seq(x, w_ih, w_hh, wb, rb, *rest, has_state=False,
+                 has_lens=False, reverse=False,
+                 linear_before_reset=True, cell_clip=0.0, acts=None):
+    """ONNX GRU for one direction (gates r, z, n): ``rest`` holds h0 if
+    ``has_state``, then seq_lens if ``has_lens``. ``linear_before_reset``
+    True is torch's form ``n = g(xn + r (h Rn + rbn))``, False ONNX's
+    default ``n = g(xn + (r h) Rn + rbn)``. Returns ``(ys, hT)``."""
+    n = x.shape[0]
+    hidden = w_hh.shape[0]
+    k = 0
+    if has_state:
+        h0 = rest[0]
+        k = 1
+    else:
+        h0 = torch.zeros((n, hidden), dtype=x.dtype, device=x.device)
+    lens = rest[k].to(torch.int32) if has_lens else None
+    f_act, g_act = [_onnx_act(a) for a in (
+        acts or (("sigmoid", None, None), ("tanh", None, None)))]
+    x_proj = _onnx_prep(x, w_ih, wb, reverse, lens, 3 * hidden)
+
+    def step(carry, xp):
+        (h,) = carry
+        xr, xz, xn = xp.chunk(3, dim=-1)
+        if linear_before_reset:
+            hr, hz, hn = (h @ w_hh + rb).chunk(3, dim=-1)
+        else:
+            hr, hz = (h @ w_hh[:, :2 * hidden] + rb[:2 * hidden]).chunk(
+                2, dim=-1)
+        r = f_act(_maybe_clip(xr + hr, cell_clip))
+        z = f_act(_maybe_clip(xz + hz, cell_clip))
+        if linear_before_reset:
+            n_pre = xn + r * hn
+        else:
+            n_pre = xn + (r * h) @ w_hh[:, 2 * hidden:] + rb[2 * hidden:]
+        h2 = (1.0 - z) * g_act(_maybe_clip(n_pre, cell_clip)) + z * h
+        return (h2,), h2
+
+    ys, (hT,) = _onnx_scan(x, lens, reverse, x_proj, step, (h0,))
+    return ys, hT
+
+
+@register_op("onnx_rnn_seq")
+def onnx_rnn_seq(x, w_ih, w_hh, b, *rest, has_state=False,
+                 has_lens=False, reverse=False, cell_clip=0.0,
+                 acts=None):
+    """ONNX vanilla RNN for one direction: ``h = f(x W + h R + b)``, the
+    same ``rest`` convention as the GRU. Returns ``(ys, hT)``."""
+    n = x.shape[0]
+    hidden = w_hh.shape[0]
+    k = 0
+    if has_state:
+        h0 = rest[0]
+        k = 1
+    else:
+        h0 = torch.zeros((n, hidden), dtype=x.dtype, device=x.device)
+    lens = rest[k].to(torch.int32) if has_lens else None
+    f_act = _onnx_act(acts[0] if acts else ("tanh", None, None))
+    x_proj = _onnx_prep(x, w_ih, b, reverse, lens, hidden)
+
+    def step(carry, xp):
+        h2 = f_act(_maybe_clip(xp + carry[0] @ w_hh, cell_clip))
+        return (h2,), h2
+
+    ys, (hT,) = _onnx_scan(x, lens, reverse, x_proj, step, (h0,))
+    return ys, hT
+
+
+# ------------------------------------------------ losses-adjacent ops
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+@register_op("softmax_cross_entropy")
+def softmax_cross_entropy(logits, labels, axis=-1):
+    """Per-example cross entropy with probabilistic labels."""
+    return -torch.sum(labels * torch.log_softmax(logits, dim=axis), dim=axis)
+
+
+@register_op("sigmoid_cross_entropy")
+def sigmoid_cross_entropy(logits, labels):
+    return (torch.maximum(logits, _zero(logits)) - logits * labels
+            + torch.log1p(torch.exp(-jax_abs(logits))))
+
+
+@register_op("log_loss")
+def log_loss(probs, labels, eps=1e-7):
+    p = jax_clip(probs, eps, 1 - eps)
+    return -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
+
+
+# ------------------------------- activation / normalization long tail
+@register_op("celu")
+def celu(x, alpha=1.0):
+    """``jax.nn.celu``: ``max(x, 0) + alpha expm1(min(x, 0) / alpha)``."""
+    z = _zero(x)
+    return torch.maximum(x, z) + alpha * torch.expm1(torch.minimum(x, z)
+                                                     / alpha)
+
+
+@register_op("glu")
+def glu(x, axis=-1):
+    a, b = x.chunk(2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+@register_op("log_sigmoid")
+def log_sigmoid(x):
+    """``-softplus(-x)``, as ``jax.nn.log_sigmoid``."""
+    return -softplus(-x)
+
+
+@register_op("hard_swish")
+def hard_swish(x):
+    """``x * relu6(x + 3) / 6``, as ``jax.nn.hard_swish``."""
+    return x * relu6(x + 3.0) / 6.0
+
+
+@register_op("group_norm")
+def group_norm(x, gamma, beta, num_groups, eps=1e-5):
+    """Channel-last group norm; statistics per (sample, group)."""
+    c = x.shape[-1]
+    xs = x.reshape(x.shape[:-1] + (num_groups, c // num_groups))
+    ax = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+    m = torch.mean(xs, dim=ax, keepdim=True)
+    v = torch.var(xs, dim=ax, keepdim=True, correction=0)
+    xs = (xs - m) * torch.rsqrt(v + eps)
+    return xs.reshape(x.shape) * gamma + beta
+
+
+@register_op("instance_norm")
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """Per-sample, per-channel norm over the spatial axes (NHWC)."""
+    ax = tuple(range(1, x.dim() - 1))
+    m = torch.mean(x, dim=ax, keepdim=True)
+    v = torch.var(x, dim=ax, keepdim=True, correction=0)
+    return (x - m) * torch.rsqrt(v + eps) * gamma + beta
+
+
+@register_op("rms_norm")
+def rms_norm(x, gamma, eps=1e-6):
+    ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * gamma
+
+
+# ----------------------------------------------------- loss long tail
+@register_op("huber_loss")
+def huber_loss(labels, predictions, delta=1.0):
+    err = jax_abs(predictions - labels)
+    quad = torch.minimum(err, torch.tensor(delta, dtype=err.dtype,
+                                           device=err.device))
+    return 0.5 * quad * quad + delta * (err - quad)
+
+
+@register_op("hinge_loss")
+def hinge_loss(labels, logits):
+    """Labels in {0, 1} taken as {-1, 1}."""
+    all_ones = 2.0 * labels - 1.0
+    v = 1.0 - all_ones * logits
+    return torch.maximum(_zero(v), v)
+
+
+@register_op("kl_divergence")
+def kl_divergence(p, q, axis=-1, eps=1e-12):
+    return torch.sum(p * (torch.log(p + eps) - torch.log(q + eps)), dim=axis)
+
+
+@register_op("poisson_nll_loss")
+def poisson_nll_loss(targets, log_input):
+    return torch.exp(log_input) - targets * log_input
+
+
+@register_op("mean_pairwise_squared_error")
+def mean_pairwise_squared_error(labels, predictions):
+    """The mean squared difference over ordered element pairs of each
+    sample: ``n (n - 1)`` pairs."""
+    d = (predictions - labels).reshape(labels.shape[0], -1)
+    n = d.shape[-1]
+    s1 = torch.sum(d, dim=-1)
+    s2 = torch.sum(d * d, dim=-1)
+    return 2.0 * (n * s2 - s1 * s1) / (n * max(n - 1, 1))
+
+
+@register_op("ctc_loss")
+def ctc_loss(log_probs, labels, logit_lengths, label_lengths, blank=0):
+    """Per-sequence CTC loss, as ``optax.ctc_loss`` computes it from the
+    JAX op's arguments: ``log_probs`` ``[B, T, C]`` are taken as logits
+    (normalised again, which leaves log-probabilities as they are),
+    ``labels`` ``[B, L]``, the lengths ``[B]``. The library's CTC forward
+    (``F.ctc_loss``), a dynamic program outside any kernel in both
+    packages."""
+    lp = torch.log_softmax(log_probs.to(torch.float32), dim=-1)
+    return F.ctc_loss(lp.transpose(0, 1), labels.to(torch.int64),
+                      logit_lengths.to(torch.int64),
+                      label_lengths.to(torch.int64), blank=int(blank),
+                      reduction="none", zero_infinity=False)

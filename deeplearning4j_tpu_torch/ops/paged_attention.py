@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from deeplearning4j_tpu_torch.ops import native
+from deeplearning4j_tpu_torch.ops.registry import register_op
 
 #: kernel launches since the last reset; incremented only where
 #: :func:`paged_attention_kernel` launches the CUDA kernel (one per call)
@@ -317,3 +318,16 @@ def paged_attention(q, kv, layer: int, tables, qbase):
     if q.device.type == "cuda":
         return paged_attention_kernel(q, kv, layer, tables, qbase)
     raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+
+
+@register_op("paged_attention")
+def _op(q, kv, layer, tables, qbase, mode=None):
+    """:func:`paged_attention` by JAX's name. ``mode`` is JAX's choice of
+    path: a value other than None, "pallas", "interpret" or "xla" raises
+    ``ValueError`` as in JAX, and every valid value takes the same
+    dispatch (B6 on CUDA tensors, the plain version on CPU tensors)."""
+    if mode not in (None, "xla", "pallas", "interpret"):
+        raise ValueError(
+            f"unknown paged-attention mode {mode!r} (expected 'pallas',"
+            " 'interpret' or 'xla')")
+    return paged_attention(q, kv, int(layer), tables, qbase)

@@ -1,14 +1,9 @@
-"""Elementwise transforms: counterpart of the activation part of
-``deeplearning4j_tpu/ops/transforms.py``, each under its JAX name in the
-port's own registry, each the formula of the JAX function (``jax.nn``'s
-where the JAX op calls it): ``sigmoid`` (:19), ``tanh`` (:24), ``relu``
-(:29), ``relu6`` (:34), ``leakyrelu`` (:39), ``elu`` (:44), ``selu``
-(:49), ``gelu`` (:54, the tanh approximation, ``jax.nn.gelu``'s
-default), ``softplus`` (:59), ``softsign`` (:64), ``swish`` (:69),
-``mish`` (:74), ``hardsigmoid`` (:79), ``hardtanh`` (:84), ``softmax``
-(:89), ``cube`` (:159), ``rationaltanh`` (:256), ``recttanh`` (:262) and
-``thresholdedrelu`` (:267); and, unregistered, ``PReLULayer``'s
-:func:`prelu` (:273-274). The rest of the file waits (ROADMAP A10)."""
+"""Elementwise transforms: counterpart of
+``deeplearning4j_tpu/ops/transforms.py``, every name it registers, each
+the formula of the JAX function (``jax.nn``'s where the JAX op calls it),
+with JAX's parameter names and defaults. Where torch differentiates a
+kink otherwise than JAX (``jnp.abs`` at 0, ``jnp.clip`` at a bound),
+:func:`jax_abs` and :func:`jax_clip` take JAX's slope."""
 
 from __future__ import annotations
 
@@ -147,7 +142,190 @@ def thresholded_relu(x, theta=1.0):
     return torch.where(x > theta, x, torch.zeros_like(x))
 
 
+@register_op("prelu")
 def prelu(x, alpha):
     """``x`` where ``x >= 0``, else ``alpha * x`` (``jnp.where``: at ``x =
     0`` the gradient goes to ``x``)."""
     return torch.where(x >= 0, x, alpha * x)
+
+
+def _f(x):
+    """Integers and booleans as float32, as ``jnp``'s float functions take
+    them."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+@register_op("log_softmax")
+def log_softmax(x, axis=-1):
+    return torch.log_softmax(_f(x), dim=axis)
+
+
+@register_op("exp")
+def exp(x):
+    return torch.exp(x)
+
+
+@register_op("log")
+def log(x):
+    return torch.log(x)
+
+
+@register_op("log1p")
+def log1p(x):
+    return torch.log1p(x)
+
+
+@register_op("sqrt")
+def sqrt(x):
+    return torch.sqrt(x)
+
+
+@register_op("rsqrt")
+def rsqrt(x):
+    return torch.rsqrt(_f(x))
+
+
+@register_op("abs")
+def abs_(x):
+    return jax_abs(x) if x.is_floating_point() else torch.abs(x)
+
+
+@register_op("sign")
+def sign(x):
+    return torch.sign(x)
+
+
+@register_op("floor")
+def floor(x):
+    return torch.floor(x)
+
+
+@register_op("ceil")
+def ceil(x):
+    return torch.ceil(x)
+
+
+@register_op("round")
+def round_(x):
+    """Half to even, as ``jnp.round``."""
+    return torch.round(x)
+
+
+@register_op("pow")
+def pow_(x, p):
+    return torch.pow(x, p)
+
+
+@register_op("square")
+def square(x):
+    return torch.square(x)
+
+
+@register_op("reciprocal")
+def reciprocal(x):
+    return 1.0 / x
+
+
+@register_op("sin")
+def sin(x):
+    return torch.sin(x)
+
+
+@register_op("cos")
+def cos(x):
+    return torch.cos(x)
+
+
+@register_op("tan")
+def tan(x):
+    return torch.tan(x)
+
+
+@register_op("asin")
+def asin(x):
+    return torch.asin(x)
+
+
+@register_op("acos")
+def acos(x):
+    return torch.acos(x)
+
+
+@register_op("atan")
+def atan(x):
+    return torch.atan(x)
+
+
+@register_op("atan2")
+def atan2(y, x):
+    return torch.atan2(y, x)
+
+
+@register_op("sinh")
+def sinh(x):
+    return torch.sinh(x)
+
+
+@register_op("cosh")
+def cosh(x):
+    return torch.cosh(x)
+
+
+@register_op("erf")
+def erf(x):
+    return torch.erf(_f(x))
+
+
+def _bound(v, x):
+    return v.to(x.dtype) if isinstance(v, torch.Tensor) else \
+        torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+@register_op("clip_by_value")
+def clip_by_value(x, lo, hi):
+    """``jnp.clip``: ``min(max(x, lo), hi)`` with JAX's split slope at a
+    tie."""
+    return torch.minimum(torch.maximum(x, _bound(lo, x)), _bound(hi, x))
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(x, clip_norm, axis=None):
+    if axis is None:
+        n = torch.sqrt(torch.sum(x * x))
+    else:
+        n = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
+    scale = torch.where(n > clip_norm, clip_norm / torch.clamp(n, min=1e-12),
+                        torch.ones_like(n))
+    return x * scale
+
+
+@register_op("max_pairwise")
+def max_pairwise(x, y):
+    return torch.maximum(x, y)
+
+
+@register_op("min_pairwise")
+def min_pairwise(x, y):
+    return torch.minimum(x, y)
+
+
+@register_op("isnan")
+def isnan(x):
+    return torch.isnan(x)
+
+
+@register_op("isinf")
+def isinf(x):
+    return torch.isinf(x)
+
+
+@register_op("step")
+def step(x):
+    return (x > 0).to(x.dtype)
+
+
+@register_op("standardize")
+def standardize(x, axis=-1, eps=1e-5):
+    m = torch.mean(x, dim=axis, keepdim=True)
+    v = torch.var(x, dim=axis, keepdim=True, correction=0)
+    return (x - m) / torch.sqrt(v + eps)

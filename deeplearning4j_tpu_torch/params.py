@@ -22,20 +22,22 @@ import torch
 from deeplearning4j_tpu_torch.device import resolve_device
 
 
-def _leaves(tree):
+def _leaves(tree, sort_keys=False):
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k in (sorted(tree) if sort_keys else tree):
+            yield from _leaves(tree[k], sort_keys)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _leaves(v)
-    else:
+            yield from _leaves(v, sort_keys)
+    elif not (sort_keys and tree is None):
         yield tree
 
 
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict/list tree, in its iteration order."""
-    return list(_leaves(tree))
+def tree_leaves(tree, sort_keys: bool = False) -> list:
+    """The leaves of a nested dict/list tree, in its iteration order; with
+    ``sort_keys``, in ``jax.tree_util.tree_flatten``'s order (dict keys
+    sorted, None an empty subtree)."""
+    return list(_leaves(tree, sort_keys))
 
 
 def tree_map(fn, tree):
@@ -56,11 +58,23 @@ def tree_map2(fn, a, b):
     return fn(a, b)
 
 
-def tree_unflatten(like, leaves):
+def tree_unflatten(like, leaves, sort_keys: bool = False):
     """A tree of ``like``'s structure holding ``leaves`` in
-    :func:`tree_leaves` order."""
+    :func:`tree_leaves` order (with ``sort_keys``, in that order and with
+    ``like``'s None subtrees kept)."""
     it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
+    if not sort_keys:
+        return tree_map(lambda _: next(it), like)
+
+    def fill(t):
+        if isinstance(t, dict):
+            filled = {k: fill(t[k]) for k in sorted(t)}
+            return {k: filled[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(fill(v) for v in t)
+        return None if t is None else next(it)
+
+    return fill(like)
 
 
 def params_from_jax(np_tree, device=None,

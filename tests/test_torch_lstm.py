@@ -248,7 +248,7 @@ def test_dropout_scales_kept_entries():
     kept = y != 0
     assert torch.all(y[kept] == 1 / 0.75)
     assert 0.7 < float(kept.float().mean()) < 0.8
-    assert tnn.dropout(x, 0.0) is x
+    assert tnn.dropout(x, 0.0, None) is x
 
 
 def test_plain_bf16_carries_state_in_f32():

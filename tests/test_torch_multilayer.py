@@ -144,12 +144,16 @@ def test_unported_layer_class_is_named(layer):
 
 
 def test_unported_tag_is_named():
-    """A JAX tag the port still lacks (``TrainingConfig`` of
-    ``autodiff/``, A10) raises ``NotImplementedError`` naming it."""
+    """A tag the port does not register raises ``NotImplementedError``
+    naming it. The port now registers every JAX tag (``TrainingConfig``,
+    the last, came with ``autodiff/training.py``), so the tag here is one
+    no package registers."""
     from deeplearning4j_tpu_torch.common import serde
 
-    with pytest.raises(NotImplementedError, match="TrainingConfig"):
-        serde.from_json('{"@class": "TrainingConfig"}')
+    with pytest.raises(NotImplementedError, match="NoSuchConfig"):
+        serde.from_json('{"@class": "NoSuchConfig"}')
+    assert type(serde.from_json('{"@class": "TrainingConfig"}')).__name__ \
+        == "TrainingConfig"
 
 
 # ------------------------------------------------------------- serializer

@@ -350,3 +350,56 @@ def test_training_loop_entry_points_refuse_the_cpu_unless_asked(
     assert {t.device for p in fresh.params_list for t in p.values()} == {
         torch.device("cpu")}
     assert telemetry.sample_device_memory(fresh.device) == {}
+
+
+def test_samediff_slice_entry_points_refuse_the_cpu_unless_asked(
+        monkeypatch, tmp_path):
+    """The by-name slice: a graph for ``fit``, ``evaluate`` or control
+    flow, the new ``Nd4j`` factories and the ops that take no tensor land
+    on the card unless the caller names the CPU (a graph on the CPU names
+    it for its ops); on the CPU they run and launch no kernel."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops.registry import get_op
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (SameDiff.create, lambda: Nd4j.eye(2),
+                 lambda: Nd4j.arange(3), lambda: Nd4j.valueArrayOf(2, 1.0),
+                 lambda: Nd4j.randint(0, 3, (2,)),
+                 lambda: get_op("range")(0, 3),
+                 lambda: get_op("random_normal")(0, (2,)),
+                 lambda: get_op("fill")((2,), 1.0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    sd = SameDiff.create(device="cpu")
+    x = sd.placeholder("x", shape=(None, 2))
+    y = sd.placeholder("y", shape=(None, 2))
+    w = sd.var("w", np.eye(2, dtype=np.float32))
+    p = sd.placeholder("p", shape=())
+    h = sd.ifCond(p, [x @ w], lambda s, a: a * 2.0, lambda s, a: a)
+    i0 = sd.constant("i0", np.int32(0))
+    _, h2 = sd.whileLoop([i0, h], lambda s, i, a: i < 2,
+                         lambda s, i, a: [i + 1, s.nn.tanh(a)])
+    out = sd.nn.softmax(h2 + sd.math.range(0, 2, dtype="float32"),
+                        name="out")
+    sd.setLossVariables(sd.math.square(out - y).mean())
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Sgd(0.1), data_set_feature_mapping=["x", "p"],
+        data_set_label_mapping=["y"]))
+    xs = np.ones((4, 2), np.float32)
+    ys = np.eye(2, dtype=np.float32)[[0, 1, 0, 1]]
+    before = (fa.fwd_launches, fa.bwd_launches)
+    hist = sd.fit(DataSet([xs, np.asarray(True)], ys), epochs=2)
+    assert len(hist.lossCurve()) == 2
+    assert sd._arrays["w"].device == torch.device("cpu")
+    ev = sd.evaluate([DataSet([xs, np.asarray(False)], ys)], "out")
+    assert ev.accuracy() >= 0.0
+    path = str(tmp_path / "g.sdz")
+    sd.save(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SameDiff.load(path)
+    assert SameDiff.load(path, device="cpu")._updater_state == ()  # Sgd
+    assert (fa.fwd_launches, fa.bwd_launches) == before
