@@ -432,6 +432,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    max(1, |x|), integers exact, every result on the card), and NDArray
    ``get`` / ``put`` / TAD on a card array. Phase 24's ``fit`` launches
    of B1 are added to B1's rows.
+25. TensorFlow import (BASELINE config 4, BERT-base via SameDiff TF
+   import): (a) the committed frozen ``TFBertForMaskedLM(BertConfig())``
+   graph (``tools/make_tf_fixture.py``: 3,053 nodes at ``[None, 128]``,
+   its 89 large constants emptied) with its weights seeded back by
+   ``graphdef_wire.seeded_consts`` (the whole ~439 MB GraphDef), parsed
+   and imported by ``TFGraphMapper.importGraph`` on the card (seconds,
+   nodes, ops); (b) ``output()`` at 2 x 128, f32, TF32 off, against TF's
+   stored golden (``logits[:, :4, :8]`` and row sums, rtol 2e-3 / atol
+   2e-4) and against the same graph imported and run on the CPU in this
+   process (1e-4 of the largest |logit|); (c) the float constants of rank
+   >= 2 promoted, per-token cross-entropy over the vocabulary, 5
+   ``SameDiff.fit`` steps of Adam at batch 32 x 128 with finite, falling
+   losses, the median step, tokens/s, one more profiled step (device
+   kernels, aten operations, idle share). No hand kernel is on this path:
+   every kernel counter must stay as it was. The phase must finish
+   within 90 s.
 
 The peak rates that the bounds and the MFU divide by come from the
 port's ``profiler/flops.py`` (its row for the card's name).
@@ -450,7 +466,8 @@ phase 17, ``python3 chip_smoke.py seq2seq`` phase 18, ``python3
 chip_smoke.py precision`` phase 19, ``python3 chip_smoke.py vision``
 phase 20, ``python3 chip_smoke.py transfer`` phase 21 and ``python3
 chip_smoke.py layers`` phase 22, ``python3 chip_smoke.py
-resilience`` phase 23 and ``python3 chip_smoke.py samediff`` phase 24.
+resilience`` phase 23, ``python3 chip_smoke.py samediff`` phase 24 and
+``python3 chip_smoke.py tfimport`` phase 25.
 """
 
 from __future__ import annotations
@@ -8821,6 +8838,182 @@ def samediff_sweep() -> None:
                     f"{time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------- phase 25: TF import
+#: (b): logits against TF's stored golden at the tolerance of JAX's
+#: test_full_bert_base_golden (rtol, atol); the card against the CPU,
+#: relative to the CPU's largest |logit|
+TF_GOLDEN_TOL = (2e-3, 2e-4)
+TF_CPU_RTOL = 1e-4
+#: (c): BASELINE config 4, BERT-base via SameDiff TF import: batch 32 x
+#: 128, 5 fit steps of Adam
+TF_FIT_BATCH, TF_FIT_STEPS, TF_FIT_LR = 32, 5, 1e-4
+TF_NODES = 3053
+TF_PHASE_S = 90.0
+
+
+def hand_kernel_counts() -> dict:
+    """Every hand kernel's launch counter, by name."""
+    from deeplearning4j_tpu_torch.ops import batch_norm as bn
+    from deeplearning4j_tpu_torch.ops import conv_bn_stats as cb
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.ops import lstm_recurrence as lr
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+    from deeplearning4j_tpu_torch.ops import residual_tail as rt
+
+    return {"paged_attention": pa.launches, "flash_fwd": fa.fwd_launches,
+            "flash_bwd": fa.bwd_launches, "fused_adam": fu.launches,
+            "lstm_fwd": lr.fwd_launches, "lstm_bwd": lr.bwd_launches,
+            "conv_1x1": cb.launches_1x1, "conv_3x3": cb.launches_3x3,
+            "residual_tail": rt.launches, "bn_stats": bn.stats_launches,
+            "bn_apply": bn.apply_launches, "bn_bwd": bn.bwd_launches}
+
+
+def phase_tfimport(smi: str) -> None:
+    """Phase 25: the TensorFlow importer on BASELINE config 4, BERT-base
+    via SameDiff TF import, at full width: (a) the whole frozen graph
+    (``tools/make_tf_fixture.py``'s fixture with its weights seeded back)
+    imported on the card; (b) its logits against TF's stored golden and
+    against the same graph imported and run on the CPU; (c) fine-tuned by
+    ``SameDiff.fit``. No hand kernel is on this path (JAX's importer maps
+    the graph to plain registry ops): the kernel counters must not move."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.autodiff.samediff import VariableType
+    from deeplearning4j_tpu_torch.datasets.multi_dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+        OpMappingRegistry, TFGraphMapper, cf_import, graphdef_wire as gw)
+    from deeplearning4j_tpu_torch.tools import make_tf_fixture as mf
+
+    t0 = time.perf_counter()
+    small, golden = mf.load_fixture()
+    full = gw.seeded_consts(small, int(golden["seed"]))
+    t_seed = time.perf_counter() - t0
+    check(len(full) == int(golden["whole_bytes"]),
+          f"the seeded graph is {len(full)} B, the fixture's "
+          f"{int(golden['whole_bytes'])}")
+    t1 = time.perf_counter()
+    gd = gw.parse_graph_def(full)
+    t_parse = time.perf_counter() - t1
+    mapped = sum(1 for n in gd.node if OpMappingRegistry.has(n.op)
+                 or n.op in cf_import.WALKER_OPS)
+    check(len(gd.node) == TF_NODES, f"{len(gd.node)} nodes")
+    before = hand_kernel_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sd = TFGraphMapper.importGraph(gd, device=DEVICE)
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t1
+    on_card = sum(a.numel() * a.element_size() for a in sd._arrays.values())
+    say("tfimport", f"(a) BERT-base frozen graph: {len(full)} B whole "
+                    f"(fixture {len(small)} B, seeded in {t_seed:.2f} s), "
+                    f"parsed in {t_parse:.2f} s: {len(gd.node)} nodes, "
+                    f"{mapped} through the mappers; imported on the card in "
+                    f"{t_import:.2f} s: {len(sd._ops)} ops, "
+                    f"{len(sd._arrays)} constants, {on_card} B on the card")
+
+    ins = [str(n) for n in golden["inputs"]]
+    out = str(golden["output"])
+    feeds = dict(zip(ins, (golden["ids"], golden["mask"],
+                           golden["type_ids"])))
+    logits = sd.output(feeds, [out])[out]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = sd.output(feeds, [out])[out]
+    torch.cuda.synchronize()
+    out_ms = (time.perf_counter() - t1) * 1e3
+    check(logits.is_cuda and tuple(logits.shape) == (2, mf.SEQ, 30522)
+          and bool(torch.isfinite(logits).all()),
+          f"logits {tuple(logits.shape)} on {logits.device}")
+    got = logits.cpu().numpy()
+    head, sums = got[:, :4, :8], got.sum(-1, dtype=np.float64)
+    e_head = float(np.abs(head - golden["logits_head"]).max())
+    e_sums = float(np.abs(sums - golden["row_sums"]).max())
+    rt_, at_ = TF_GOLDEN_TOL
+    ok_head = np.allclose(head, golden["logits_head"], rtol=rt_, atol=at_)
+    ok_sums = np.allclose(sums, golden["row_sums"], rtol=rt_, atol=at_)
+    say("tfimport", f"(b) output 2 x {mf.SEQ}, f32, TF32 off: {out_ms:.1f} "
+                    f"ms; against TF's golden: logits[:, :4, :8] max |err| "
+                    f"{e_head:.3e}, row sums max |err| {e_sums:.3e} (of "
+                    f"|sum| up to {float(np.abs(golden['row_sums']).max()):.1f}"
+                    f"; rtol {rt_:g}, atol {at_:g})")
+    check(ok_head and ok_sums, "logits disagree with TF's golden")
+    t1 = time.perf_counter()
+    cpu = TFGraphMapper.importGraph(gd, device="cpu")
+    want = cpu.output(feeds, [out])[out].numpy()
+    del cpu
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    say("tfimport", f"(b) the same graph imported and run on the CPU in "
+                    f"{time.perf_counter() - t1:.1f} s: card against CPU "
+                    f"max |diff| / max |CPU| {rel:.3e} (tolerance "
+                    f"{TF_CPU_RTOL:g})")
+    check(rel <= TF_CPU_RTOL, f"card against CPU {rel}")
+    del gd, full, logits
+
+    names = [v.name for v in sd.variables()
+             if v.vtype is VariableType.CONSTANT and v.name in sd._arrays
+             and sd._arrays[v.name].dim() >= 2
+             and sd._arrays[v.name].is_floating_point()]
+    sd.convertConstantsToVariables(*names)
+    n_par = sum(int(sd._arrays[n].numel()) for n in names)
+    vocab = 30522
+    y = sd.placeholder("y_ids", shape=(None, mf.SEQ))
+    oh = sd.math.one_hot(y, depth=vocab)
+    logp = sd.nn.log_softmax(sd.getVariable(out))
+    loss = -(oh * logp).sum(-1).mean()
+    sd.setLossVariables(loss.name)
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(TF_FIT_LR), data_set_feature_mapping=ins,
+        data_set_label_mapping=["y_ids"]))
+    rng = np.random.default_rng(25)
+    batch = [rng.integers(0, vocab, (TF_FIT_BATCH, mf.SEQ)).astype(np.int32),
+             np.ones((TF_FIT_BATCH, mf.SEQ), np.int32),
+             np.zeros((TF_FIT_BATCH, mf.SEQ), np.int32)]
+    targets = rng.integers(0, vocab, (TF_FIT_BATCH, mf.SEQ)).astype(np.int32)
+    mds = MultiDataSet(batch, [targets])
+    clock = _StepClock()
+    hist = sd.fit([mds] * TF_FIT_STEPS, listeners=[clock])
+    losses = hist.lossCurve()
+    check(len(losses) == TF_FIT_STEPS
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"losses {losses}")
+    steps = clock.ms()
+    step_ms = sorted(steps[1:])[len(steps[1:]) // 2]
+    tokens = TF_FIT_BATCH * mf.SEQ
+    say("tfimport", f"(c) fine-tune: {len(names)} float constants of rank "
+                    f">= 2 promoted ({n_par} parameters), per-token "
+                    f"cross-entropy over {vocab}, Adam({TF_FIT_LR:g}), batch "
+                    f"{TF_FIT_BATCH} x {mf.SEQ}, f32: losses "
+                    + " ".join(f"{x:.5f}" for x in losses)
+                    + f"; step ms {' '.join(f'{x:.2f}' for x in steps)} "
+                    f"(median of 2-{TF_FIT_STEPS} {step_ms:.2f} ms, "
+                    f"{tokens / step_ms * 1e3:.1f} tokens/s); {smi}")
+
+    def one_step():
+        sd.fit(mds)
+
+    prof = {}
+    busy = device_profile("tfimport", "(c) one more fit step", one_step, (),
+                          out=prof)
+    kernels = sum(r[3] for r in prof.get("all", ()))
+    aten = profiled_ops(one_step)
+    if busy:
+        say("tfimport", f"(c) a step: {kernels} device kernels in the "
+                        f"profiler's window, {sum(aten.values())} aten "
+                        f"operations ({len(aten)} kinds) on the host; device "
+                        f"busy {busy:.2f} ms against {step_ms:.2f} ms a step:"
+                        f" idle about {1 - busy / step_ms:.3f}; {smi}")
+    after = hand_kernel_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    check(not moved, f"hand kernels launched on the import path: {moved}")
+    del sd, hist
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    say("tfimport", f"no hand kernel on this path (counters unchanged); "
+                    f"phase 25 took {secs:.1f} s (budget {TF_PHASE_S:g} s)")
+    check(secs <= TF_PHASE_S, f"phase 25 took {secs:.1f} s")
+
+
 def _first(out):
     return out[0] if isinstance(out, list) else out
 
@@ -8915,6 +9108,11 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_samediff(phase_device(), defaultdict(dict))
         return 0
+    if argv[:1] == ["tfimport"]:
+        # phase 25 alone, of the port found from the current directory
+        sys.path.insert(0, os.getcwd())
+        phase_tfimport(phase_device())
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -8951,6 +9149,7 @@ def main(argv) -> int:
     phase_layers(smi, rows)
     phase_resilience(smi, rows)
     phase_samediff(smi, rows)
+    phase_tfimport(smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -335,6 +335,159 @@ def cases(seed: int = 0) -> Dict[str, Tuple[tuple, dict, str]]:
     return c
 
 
+
+def tf_cases(seed: int = 0) -> Dict[str, Tuple[tuple, dict, str]]:
+    """One call for each of the 112 names the TensorFlow-import slice
+    registers (ROADMAP A10.2): ``ops/tf_compat.py``, ``tensor_array.py``,
+    ``bitwise.py``, ``extra_math.py``, ``linalg.py`` and the six names of
+    ``declarable_tail.py``; the same ``(args, kwargs, kind)`` form as
+    :func:`cases`."""
+    r = np.random.default_rng(seed + 22)
+
+    def n(*shape, scale=1.0):
+        return (r.normal(size=shape) * scale).astype(np.float32)
+
+    def u(lo, hi, *shape):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    def i32(v):
+        return np.asarray(v, np.int32)
+
+    X, Y, P = n(4, 6), n(4, 6), u(0.1, 0.9, 4, 6)
+    INTS = i32(r.integers(-300, 300, (4, 6)))
+    SH = i32(r.integers(0, 40, (4, 6)))
+    SQ = n(4, 4)
+    SPD = (SQ @ SQ.T + 4 * np.eye(4)).astype(np.float32)
+    XN = X.copy()
+    XN[0, :2] = np.nan
+    XN[3, :] = np.nan
+    c = {}
+
+    def add(name, *args, kind="exact", **kw):
+        c[name] = (args, kw, kind)
+
+    # ------------------------------------------------------ tf_compat
+    add("tf_strided_slice", n(5, 6, 3), begin=[1, -1, 0, 0],
+        end=[5, 0, 0, 2], strides=[2, -2, 1, 1], begin_mask=0, end_mask=0,
+        shrink_axis_mask=0b0100, new_axis_mask=0b1000)
+    add("tf_strided_slice_dyn", n(5, 6, 3), i32([3, -2, 0]),
+        begin=[None, 1, None], end=[None, 4, None], begin_mask=0b100,
+        end_mask=0b100, shrink_axis_mask=0b001)
+    add("tf_fill", shape=[2, 3], value=1.5)
+    add("erfc", X)
+    # --------------------------------------------------- tensor_array
+    add("tensorarray_reserve", size=4, elem_shape=[2, 3], dtype="float32")
+    add("tensorarray_write", np.zeros((4, 6), np.float32), i32(-1), X[0])
+    add("tensorarray_scatter", np.zeros((5, 6), np.float32), i32([3, 0, 9]),
+        X[:3].copy())
+    add("tensorarray_size", np.zeros((7, 2), np.float32))
+    # -------------------------------------------------------- bitwise
+    add("bitwise_and", INTS, SH)
+    add("bitwise_or", INTS, SH)
+    add("bitwise_xor", INTS, SH)
+    add("bitwise_not", INTS)
+    add("shift_left", INTS, SH)
+    add("shift_right", INTS, SH)
+    add("cyclic_shift_left", INTS, 5)
+    add("cyclic_shift_right", INTS, 37)
+    add("toggle_bits", INTS)
+    add("bits_hamming_distance", INTS, SH)
+    add("bitcast", X, "int32")
+    add("equals", INTS % 3, SH % 3)
+    add("not_equals", INTS % 3, SH % 3)
+    add("greater", X, Y)
+    add("greater_equal", INTS % 3, SH % 3)
+    add("less", X, Y)
+    add("less_equal", INTS % 3, SH % 3)
+    add("is_close", X, X + n(4, 6, scale=1e-5), rtol=1e-5, atol=1e-5)
+    add("floormod", X * 5, Y)
+    add("truncatediv", INTS, i32(r.integers(1, 9, (4, 6))) * np.where(
+        SH > 20, 1, -1).astype(np.int32))
+    add("divide_no_nan", X, np.where(Y > 0, Y, 0).astype(np.float32))
+    # ----------------------------------------------------- extra_math
+    for name, arg in (("asinh", X), ("acosh", 1.0 + P * 3),
+                      ("atanh", u(-0.9, 0.9, 4, 6)), ("expm1", X),
+                      ("rint", np.round(X * 4) / 2), ("trunc", X * 3),
+                      ("cbrt", X * 8), ("erfinv", u(-0.95, 0.95, 4, 6)),
+                      ("lgamma", P * 5), ("digamma", P * 5),
+                      ("sinc", X), ("deg2rad", X * 90),
+                      ("rad2deg", X), ("log_cosh", X * 10),
+                      ("cummax", X), ("cummin", X)):
+        add(name, arg)
+    add("polygamma", np.ones((4, 6), np.float32), P * 3)
+    add("igamma", P * 2, P * 3)
+    add("igammac", P * 2, P * 3)
+    add("betainc", P * 3, (1 - P) * 2 + 0.3, u(0.05, 0.95, 4, 6))
+    add("nan_to_num", np.asarray([1.0, np.nan, np.inf, -np.inf], np.float32),
+        nan=-1.0)
+    add("softmin", X, axis=0)
+    add("logaddexp", X, Y)
+    add("logaddexp2", X, Y)
+    add("hypot", X, Y)
+    add("heaviside", np.round(X), np.float32(0.5))
+    add("copysign", X, Y)
+    add("fmod", X * 5, Y)
+    add("xdivy", np.where(X > 0, X, 0).astype(np.float32), P)
+    add("xlogy", np.where(X > 0, X, 0).astype(np.float32), P)
+    add("xlog1py", np.where(X > 0, X, 0).astype(np.float32), P)
+    add("lerp", X, Y, P)
+    add("addcmul", X, Y, P, value=0.5)
+    add("addcdiv", X, Y, P, value=0.5)
+    add("polyval", [np.float32(2.0), np.float32(-1.0), np.float32(0.5)], X)
+    add("absolute_difference", X, Y)
+    add("nanmean", XN, dimensions=[1])
+    add("nansum", XN, dimensions=[0, 1], keep_dims=True)
+    add("nanmax", XN, dimensions=[1])
+    add("nanmin", XN)
+    add("percentile", X, np.asarray([10.0, 50.0, 95.0], np.float32),
+        dimensions=[1], interpolation="midpoint")
+    add("median", X, dimensions=[0, 1], keep_dims=True)
+    add("quantile", X, np.float32(0.3), dimensions=[0])
+    add("diff", X, n=2, axis=1)
+    add("trapz", X, dx=0.5, axis=0)
+    add("einsum", n(2, 3, 4), n(2, 4, 5), equation="bij,bjk->bik")
+    # --------------------------------------------------------- linalg
+    add("batched_gemm", n(2, 3, 4), n(2, 4, 5), alpha=2.0, beta=0.5,
+        c=n(2, 3, 5))
+    add("tensormmul", n(3, 4, 5), n(4, 5, 2), [1, 2], [0, 1])
+    add("outer", X[0].copy(), Y[1].copy())
+    add("cholesky", SPD)
+    add("qr", n(5, 3))
+    add("svd", n(5, 3), compute_uv=False)
+    add("eigh", SPD)
+    add("solve", SPD, n(4, 2))
+    add("triangular_solve", np.tril(SPD), n(4, 2), lower=True, adjoint=True)
+    add("lstsq", n(6, 3), n(6, 2))
+    add("lu", SPD)
+    add("matrix_inverse", SPD)
+    add("pinv", n(5, 3))
+    add("matrix_determinant", SPD)
+    add("log_matrix_determinant", SQ)
+    add("matrix_band_part", n(5, 6), 1, 2)
+    add("tri", 3, m=5, k=1)
+    add("triu", X, k=1)
+    add("tril", X, k=-1)
+    add("cross", n(5, 3), n(5, 3))
+    add("kron", n(2, 3), n(3, 2))
+    add("norm_fro", X)
+    add("l2_normalize", X, axis=0)
+    add("slogdet", SQ)
+    add("matrix_power", SQ, 3)
+    add("matrix_rank", np.outer(X[0], Y[0]).astype(np.float32))
+    add("eigvalsh", SPD)
+    add("expm", SQ * 0.3)
+    add("cond_number", SPD)
+    add("multi_dot", [n(3, 4), n(4, 5), n(5, 2)])
+    add("adjoint", X)
+    # ------------------------------------------------- declarable_tail
+    add("l2_loss", X)
+    add("sparse_softmax_cross_entropy", X, i32([0, 5, 2, 7]))
+    add("invert_permutation", i32([2, 0, 3, 1, 4]))
+    add("space_to_batch_nd", n(2, 4, 6, 3), [2, 3], [[0, 2], [1, 2]])
+    add("batch_to_space_nd", n(12, 3, 3, 2), [2, 3], [[1, 0], [0, 2]])
+    add("zeta", P * 3 + 1.5, P + 0.5)
+    return c
+
 def to_port(a: Any, device, seed: int = 0):
     """A case argument for the port on ``device``: numpy arrays as tensors
     (64-bit narrowed), containers element by element, :data:`RNG` as

@@ -1,6 +1,9 @@
 """PyTorch port, ground rules: ``deeplearning4j_tpu_torch`` and
-``chip_smoke.py`` never import JAX or the JAX package, and the port's
-entry points run on the CPU only when the caller asks for it.
+``chip_smoke.py`` never import JAX or the JAX package, nor
+``tensorflow``, ``google.protobuf``, ``transformers`` or ``onnx`` (the
+model importers read their formats themselves; the one exception is
+``tools/make_tf_fixture.py``, which makes the TF fixture with TF), and
+the port's entry points run on the CPU only when the caller asks for it.
 
 The name ``deeplearning4j_tpu_torch`` starts with ``deeplearning4j_tpu``,
 so every check below matches the JAX package by its exact name or its
@@ -19,10 +22,18 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deeplearning4j_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+#: the frameworks whose formats the importers read without them
+FOREIGN = ("tensorflow", "google.protobuf", "transformers", "onnx")
+#: the one module that may import them (inside its main())
+FIXTURE_TOOL = os.path.join(PKG, "tools", "make_tf_fixture.py")
 
 
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _foreign(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FOREIGN)
 
 
 def _port_sources():
@@ -70,6 +81,25 @@ def test_no_jax_import_in_source(path):
 
 
 @pytest.mark.parametrize("path", [p for p in _port_sources()
+                                  if p != FIXTURE_TOOL],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_tensorflow_protobuf_transformers_or_onnx_import(path):
+    bad = [m for m in _imports(path) if _foreign(m)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_foreign_scan_matches_names_exactly():
+    assert _foreign("tensorflow.python.framework") and _foreign("onnx")
+    assert _foreign("google.protobuf.message") and _foreign("transformers")
+    assert not _foreign("google") and not _foreign("torch.onnx")
+    assert not _foreign("onnx_compat") and not _foreign("tensorflow_io_x")
+    assert FIXTURE_TOOL in _port_sources()
+    assert [m for m in _imports(FIXTURE_TOOL) if _foreign(m)] == [
+        "tensorflow", "transformers", "tensorflow.python.framework"
+        ".convert_to_constants"]
+
+
+@pytest.mark.parametrize("path", [p for p in _port_sources()
                                   if p.startswith(PKG + os.sep)],
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_package_never_imports_chip_smoke(path):
@@ -93,7 +123,8 @@ def test_ast_scan_sees_every_import_form(tmp_path):
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter imports every module of the port and
     ``chip_smoke.py`` (its imports; main() runs only as a script), then
-    checks ``sys.modules``."""
+    checks ``sys.modules`` for JAX, the JAX package and the frameworks of
+    :data:`FOREIGN`."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
@@ -103,7 +134,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r}))
+             if any(m == f or m.startswith(f + ".")
+                    for f in {FORBIDDEN + FOREIGN!r}))
 print(len(names), bad)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -43,7 +43,9 @@ PRIOR = {
     "reduce_norm2", "reduce_std", "reduce_sum", "relu", "relu6", "reshape",
     "rsub", "selu", "sigmoid", "softmax", "softplus", "softsign", "sub",
     "sumpool2d", "swish", "tanh", "thresholdedrelu", "transpose"}
-NEW = sorted(set(port_ops.list_ops()) - PRIOR)
+#: the names of the TensorFlow-import slice (tests/test_torch_tf_ops.py)
+LATER = set(oc.tf_cases(0))
+NEW = sorted(set(port_ops.list_ops()) - PRIOR - LATER)
 CASES = oc.cases(0)
 LOOSE = {"ctc_loss", "conv1d", "conv3d", "deconv2d", "depthwise_conv2d",
          "separable_conv2d", "locally_connected1d", "locally_connected2d",
@@ -189,7 +191,7 @@ def _run_both(name):
 
 
 def test_the_slice_registers_233_names_beside_the_57():
-    assert len(port_ops.list_ops()) == 290
+    assert len(port_ops.list_ops()) == 290 + len(LATER)
     assert len(NEW) == 233
     assert set(CASES) == set(NEW)
 
