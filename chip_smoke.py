@@ -448,6 +448,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernels, aten operations, idle share). No hand kernel is on this path:
    every kernel counter must stay as it was. The phase must finish
    within 90 s.
+26. ONNX import (a full-width ResNet-50: torchvision's architecture, 1,000
+   classes, 224 x 224): (a) the whole model (175 nodes, 267 initializers,
+   ~102.4 MB: ``tools/make_onnx_fixture.py``'s fixture with its
+   initializers filled by ``onnx_proto.seeded_initializers``) imported by
+   ``OnnxImport.importGraph`` on the card (seconds, nodes, ops, bytes
+   uploaded); (b) ``output()`` at 2 x 3 x 224 x 224, f32, TF32 off,
+   against torch's stored golden (logits and row sums, rtol 1e-3 / atol
+   1e-3) and against the same model imported and run on the CPU in this
+   process (1e-4 of the largest |logit|); (c) the float initializers of
+   rank >= 2 promoted, softmax cross-entropy over the 1,000 logits, 5
+   ``SameDiff.fit`` steps of Adam(1e-4) at batch 32 with finite, falling
+   losses, the median step, images/s, one more profiled step (device
+   kernels, aten operations, idle share, the share of device time in the
+   NCHW<->NHWC brackets' layout copies). No hand kernel is on this path:
+   every kernel counter must stay as it was. The phase must finish within
+   60 s.
 
 The peak rates that the bounds and the MFU divide by come from the
 port's ``profiler/flops.py`` (its row for the card's name).
@@ -467,7 +483,8 @@ chip_smoke.py precision`` phase 19, ``python3 chip_smoke.py vision``
 phase 20, ``python3 chip_smoke.py transfer`` phase 21 and ``python3
 chip_smoke.py layers`` phase 22, ``python3 chip_smoke.py
 resilience`` phase 23, ``python3 chip_smoke.py samediff`` phase 24 and
-``python3 chip_smoke.py tfimport`` phase 25.
+``python3 chip_smoke.py tfimport`` phase 25 and ``python3 chip_smoke.py
+onnximport`` phase 26.
 """
 
 from __future__ import annotations
@@ -9014,6 +9031,199 @@ def phase_tfimport(smi: str) -> None:
     check(secs <= TF_PHASE_S, f"phase 25 took {secs:.1f} s")
 
 
+# ------------------------------------------------ phase 26: ONNX import
+#: (b): logits against torch's stored golden (rtol, atol), and the card
+#: against the CPU relative to the CPU's largest |logit|
+ONNX_GOLDEN_TOL = (1e-3, 1e-3)
+ONNX_CPU_RTOL = 1e-4
+#: (c): the promoted ResNet-50 fine-tuned at batch 32 x 224 x 224, 5
+#: steps of Adam
+ONNX_FIT_BATCH, ONNX_FIT_STEPS, ONNX_FIT_LR = 32, 5, 1e-4
+ONNX_HW, ONNX_CLASSES = 224, 1000
+ONNX_NODES, ONNX_INITIALIZERS = 175, 267
+ONNX_PHASE_S = 60.0
+#: the kernels that move data from one layout to another: cuDNN's
+#: conversions (launched inside the convolutions), and the copies of a
+#: strided tensor
+LAYOUT_OPS = ("aten::contiguous", "aten::clone", "PermuteBackward")
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
+def onnx_group(chain) -> str:
+    """The group of a kernel in phase 26's profile: the batch's copy to
+    the card (and any cast), the NCHW<->NHWC brackets' copies
+    ("transpose": a clone or contiguous call, or a permute's backward),
+    the convolutions and the head's matmuls, the updater, or the rest
+    (the decomposed batch norm, ReLU, residual adds, pools, the loss)."""
+    text = " | ".join(chain)
+    if "aten::_to_copy" in text:
+        return "upload/cast"
+    if any(k in text for k in LAYOUT_OPS):
+        return "transpose"
+    if "onvolution" in text or "aten::mm" in text or "aten::addmm" in text \
+            or "MmBackward" in text:
+        return "conv/matmul"
+    if "apply_updater" in text or "_foreach" in text:
+        return "updater"
+    return "elementwise/pool/loss"
+
+
+def phase_onnximport(smi: str) -> None:
+    """Phase 26: the ONNX importer on a full-width ResNet-50 (torchvision's
+    architecture, 1,000 classes, 224 x 224): (a) the whole model
+    (``tools/make_onnx_fixture.py``'s fixture with its initializers seeded
+    back by ``onnx_proto.seeded_initializers``) imported on the card; (b)
+    its logits against torch's stored golden and against the same model
+    imported and run on the CPU; (c) the rank >= 2 initializers promoted
+    and fine-tuned by ``SameDiff.fit``. No hand kernel is on this path
+    (JAX's importer maps the graph to plain registry ops): the kernel
+    counters must not move."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.onnx import (
+        OnnxImport, decode_model, onnx_proto)
+    from deeplearning4j_tpu_torch.tools import make_onnx_fixture as mf
+
+    t0 = time.perf_counter()
+    small, golden = mf.load_fixture()
+    full = onnx_proto.seeded_model(small, int(golden["seed"]))
+    t_seed = time.perf_counter() - t0
+    check(len(full) == int(golden["whole_bytes"]),
+          f"the seeded model is {len(full)} B, the fixture's "
+          f"{int(golden['whole_bytes'])}")
+    t1 = time.perf_counter()
+    model = decode_model(full)
+    t_parse = time.perf_counter() - t1
+    g = model.graph
+    check(len(g.nodes) == ONNX_NODES
+          and len(g.initializers) == ONNX_INITIALIZERS,
+          f"{len(g.nodes)} nodes, {len(g.initializers)} initializers")
+    before = hand_kernel_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sd = OnnxImport.importGraph(model, device=DEVICE)
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t1
+    on_card = sum(a.numel() * a.element_size() for a in sd._arrays.values())
+    ops = {}
+    for op in sd._ops:
+        ops[op.op_name] = ops.get(op.op_name, 0) + 1
+    say("onnximport", f"(a) ResNet-50 ONNX model: {len(full)} B whole "
+                      f"(fixture {len(small)} B, seeded in {t_seed:.2f} s), "
+                      f"decoded in {t_parse:.2f} s: opset "
+                      f"{model.opset_version}, {len(g.nodes)} nodes, "
+                      f"{len(g.initializers)} initializers; imported on the "
+                      f"card in {t_import:.2f} s: {len(sd._ops)} ops ("
+                      + ", ".join(f"{k} {v}" for k, v in sorted(
+                          ops.items(), key=lambda kv: -kv[1])[:8])
+                      + f"), {len(sd._arrays)} constants, {on_card} B "
+                        f"uploaded")
+
+    inp, out = str(golden["input"]), str(golden["output"])
+    x = mf.golden_input(int(golden["seed"]))
+    logits = sd.output({inp: x}, [out])[out]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = sd.output({inp: x}, [out])[out]
+    torch.cuda.synchronize()
+    out_ms = (time.perf_counter() - t1) * 1e3
+    check(logits.is_cuda and tuple(logits.shape) == (mf.BATCH, ONNX_CLASSES)
+          and bool(torch.isfinite(logits).all()),
+          f"logits {tuple(logits.shape)} on {logits.device}")
+    got = logits.cpu().numpy()
+    sums = got.sum(-1, dtype=np.float64)
+    e_log = float(np.abs(got - golden["logits"]).max())
+    e_sums = float(np.abs(sums - golden["row_sums"]).max())
+    rt_, at_ = ONNX_GOLDEN_TOL
+    ok = np.allclose(got, golden["logits"], rtol=rt_, atol=at_) and \
+        np.allclose(sums, golden["row_sums"], rtol=rt_, atol=at_)
+    say("onnximport", f"(b) output {mf.BATCH} x 3 x {mf.HW} x {mf.HW}, f32, "
+                      f"TF32 off: {out_ms:.1f} ms; against torch's golden: "
+                      f"logits max |err| {e_log:.3e} (of |logit| up to "
+                      f"{float(np.abs(golden['logits']).max()):.1f}), row "
+                      f"sums max |err| {e_sums:.3e} (rtol {rt_:g}, atol "
+                      f"{at_:g})")
+    check(ok, "logits disagree with torch's golden")
+    t1 = time.perf_counter()
+    cpu = OnnxImport.importGraph(model, device="cpu")
+    want = cpu.output({inp: x}, [out])[out].numpy()
+    del cpu
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    say("onnximport", f"(b) the same model imported and run on the CPU in "
+                      f"{time.perf_counter() - t1:.1f} s: card against CPU "
+                      f"max |diff| / max |CPU| {rel:.3e} (tolerance "
+                      f"{ONNX_CPU_RTOL:g})")
+    check(rel <= ONNX_CPU_RTOL, f"card against CPU {rel}")
+    del model, full, logits
+
+    names = [t.name for t in g.initializers
+             if len(t.dims) >= 2 and t.data_type in onnx_proto.FLOAT_TYPES]
+    sd.convertConstantsToVariables(*names)
+    n_par = sum(int(sd._arrays[n].numel()) for n in names)
+    y = sd.placeholder("labels", shape=(None,))
+    oh = sd.math.one_hot(y, depth=ONNX_CLASSES)
+    logp = sd.nn.log_softmax(sd.getVariable(out))
+    loss = -(oh * logp).sum(-1).mean()
+    sd.setLossVariables(loss.name)
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(ONNX_FIT_LR), data_set_feature_mapping=[inp],
+        data_set_label_mapping=["labels"]))
+    rng = np.random.default_rng(26)
+    images = rng.standard_normal((ONNX_FIT_BATCH, 3, ONNX_HW, ONNX_HW),
+                                 dtype=np.float32)
+    labels = rng.integers(0, ONNX_CLASSES, ONNX_FIT_BATCH).astype(np.int32)
+    ds = DataSet(images, labels)
+    clock = _StepClock()
+    hist = sd.fit([ds] * ONNX_FIT_STEPS, listeners=[clock])
+    losses = hist.lossCurve()
+    check(len(losses) == ONNX_FIT_STEPS
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0], f"losses {losses}")
+    steps = clock.ms()
+    step_ms = sorted(steps[1:])[len(steps[1:]) // 2]
+    say("onnximport", f"(c) fine-tune: {len(names)} float initializers of "
+                      f"rank >= 2 promoted ({n_par} parameters), softmax "
+                      f"cross-entropy over {ONNX_CLASSES}, "
+                      f"Adam({ONNX_FIT_LR:g}), batch {ONNX_FIT_BATCH} x 3 x "
+                      f"{ONNX_HW} x {ONNX_HW}, f32, TF32 off: losses "
+                      + " ".join(f"{v:.4f}" for v in losses)
+                      + f"; step ms {' '.join(f'{v:.2f}' for v in steps)} "
+                      f"(median of 2-{ONNX_FIT_STEPS} {step_ms:.2f} ms, "
+                      f"{ONNX_FIT_BATCH / step_ms * 1e3:.1f} images/s); "
+                      f"{smi}")
+
+    def one_step():
+        sd.fit(ds)
+
+    prof = {}
+    busy = device_profile("onnximport", "(c) one more fit step", one_step,
+                          LAYOUT_KERNELS, group=onnx_group, out=prof)
+    aten = profiled_ops(one_step)
+    if busy:
+        kernels = sum(r[3] for r in prof["all"])
+        moved = sum(r[1] for r in prof["all"] if r[2] == "transpose"
+                    or any(k in r[0] for k in LAYOUT_KERNELS)) / 1e3
+        say("onnximport", f"(c) a step: {kernels} device kernels in the "
+                          f"profiler's window, {sum(aten.values())} aten "
+                          f"operations ({len(aten)} kinds) on the host; "
+                          f"device busy {busy:.2f} ms against {step_ms:.2f} "
+                          f"ms a step: idle about {1 - busy / step_ms:.3f}; "
+                          f"the transposes' layout copies (their copies "
+                          f"and cuDNN's conversions) {moved:.2f} ms, "
+                          f"{moved / busy:.3f} of device time; {smi}")
+    after = hand_kernel_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    check(not moved, f"hand kernels launched on the import path: {moved}")
+    del sd, hist
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    say("onnximport", f"no hand kernel on this path (counters unchanged); "
+                      f"phase 26 took {secs:.1f} s (budget "
+                      f"{ONNX_PHASE_S:g} s)")
+    check(secs <= ONNX_PHASE_S, f"phase 26 took {secs:.1f} s")
+
+
 def _first(out):
     return out[0] if isinstance(out, list) else out
 
@@ -9113,6 +9323,11 @@ def main(argv) -> int:
         sys.path.insert(0, os.getcwd())
         phase_tfimport(phase_device())
         return 0
+    if argv[:1] == ["onnximport"]:
+        # phase 26 alone, of the port found from the current directory
+        sys.path.insert(0, os.getcwd())
+        phase_onnximport(phase_device())
+        return 0
     if not os.path.isdir(os.path.join(PKG, "csrc")):
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({PKG})", file=sys.stderr)
@@ -9150,6 +9365,7 @@ def main(argv) -> int:
     phase_resilience(smi, rows)
     phase_samediff(smi, rows)
     phase_tfimport(smi)
+    phase_onnximport(smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import torch
 
-from deeplearning4j_tpu_torch.ndarray.dtypes import DataType
 from deeplearning4j_tpu_torch.ndarray.ndarray import (jax_float_input,
                                                       jax_int_result)
 from deeplearning4j_tpu_torch.ops import jax_rules as jr
@@ -95,7 +94,9 @@ def identity(x):
 
 @register_op("cast")
 def cast(x, dtype):
-    return x.to(DataType.from_any(dtype).torch)
+    """``x.astype(dtype)``: a 64-bit type narrows, as JAX without x64
+    makes it (:func:`jax_rules.torch_dtype`)."""
+    return x.to(jr.torch_dtype(dtype))
 
 
 # ---------------------------------------------------------------- reduce

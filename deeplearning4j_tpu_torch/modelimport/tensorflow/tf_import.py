@@ -12,9 +12,10 @@ own: the GraphDef comes from ``graphdef_wire`` (no protobuf package); an
 abstract value is an :class:`Aval` (shape, torch dtype) where JAX has a
 ``jax.ShapeDtypeStruct``; and the two-probe shape folding runs each
 emitted op on ``device="meta"`` tensors where JAX calls
-``jax.eval_shape`` (:meth:`_Walker._propagate_avals`). An op that needs
-a value on the host (``.item()``) fails there and drops the aval, as a
-JAX op that needs a concrete value fails ``eval_shape``. Control-flow
+``jax.eval_shape`` (:meth:`_Walker._propagate_avals`, through
+``modelimport/_shapes.py``, which the ONNX importer shares). An op that
+needs a value on the host (``.item()``) fails there and drops the aval,
+as a JAX op that needs a concrete value fails ``eval_shape``. Control-flow
 ops are probed by their sub-graphs (a loop keeps its variables' avals,
 a branch takes its first sub-graph's), as JAX traces them.
 
@@ -24,14 +25,14 @@ on the card with no card raises (``device.resolve_device``).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
-    Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff, SDVariable
 from deeplearning4j_tpu_torch.modelimport import trace as mapper_trace
+from deeplearning4j_tpu_torch.modelimport._shapes import Aval, eval_shape
 from deeplearning4j_tpu_torch.modelimport.tensorflow import graphdef_wire
 from deeplearning4j_tpu_torch.modelimport.tensorflow.graphdef_wire import (
     TFImportError,
@@ -47,14 +48,6 @@ _DTYPE_MAP = {
 
 def _dtype_name(enum_val: int) -> str:
     return _DTYPE_MAP.get(int(enum_val), "float32")
-
-
-class Aval(NamedTuple):
-    """An abstract value: a shape and a torch dtype (JAX's
-    ``jax.ShapeDtypeStruct``)."""
-
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def _is_int_dtype(dt: torch.dtype) -> bool:
@@ -954,8 +947,8 @@ class _PartialEval:
     these through its own shape inference; here each node's value is
     evaluated as an int64 array with DYN marking unknown dims. Shapes
     come from TWO-PROBE abstract evaluation: the importer propagates
-    meta-device shapes (``_eval_shape``) with every unknown (None) placeholder dim
-    set to 2 in one probe and 3 in the other — a dim whose two probe
+    meta-device shapes (``_shapes.eval_shape``) with every unknown (None)
+    placeholder dim set to 2 in one probe and 3 in the other — a dim whose two probe
     values agree is static, one that differs is DYN. A folded value with
     no DYN is a plain constant; Reshape accepts exactly one DYN as -1.
     """
@@ -1113,47 +1106,6 @@ class _PartialEval:
 
 
 # ----------------------------------------------------------------- import
-_META = torch.device("meta")
-
-
-def _meta_tensor(a: Aval) -> torch.Tensor:
-    return torch.empty(a.shape, dtype=a.dtype, device=_META)
-
-
-def _avals_of(out) -> List[Aval]:
-    outs = list(out) if isinstance(out, (list, tuple)) else [out]
-    res = []
-    for o in outs:
-        if not isinstance(o, torch.Tensor):
-            raise TypeError(f"op output of type {type(o).__name__}")
-        res.append(Aval(tuple(o.shape), o.dtype))
-    return res
-
-
-def _eval_shape(op_name: str, fn, ins: List[Aval], attrs) -> List[Aval]:
-    """The avals of one op's outputs, from a run on meta tensors (JAX's
-    ``jax.eval_shape``). The control-flow ops, which read a predicate or
-    condition on the host when they run, are probed through their
-    sub-graphs: a loop's outputs keep its variables' avals, a branch op
-    takes its first branch's."""
-    from deeplearning4j_tpu_torch.autodiff.control_flow import subgraph_fn
-    from deeplearning4j_tpu_torch.ops.jax_rules import on_device
-
-    if op_name == "while_loop":
-        return list(ins)
-    with on_device(_META), torch.no_grad():
-        args = [_meta_tensor(a) for a in ins]
-        if op_name == "if_cond":
-            return _avals_of(subgraph_fn(attrs["true_graph"], _META)(
-                *args[1:]))
-        if op_name == "case_graph":
-            return _avals_of(subgraph_fn(attrs["branches"][0], _META)(
-                *args[1:]))
-        if op_name == "call_graph":
-            return _avals_of(subgraph_fn(attrs["graph"], _META)(*args))
-        return _avals_of(fn(*args, **attrs))
-
-
 class _Walker:
     """One import scope: the top-level GraphDef, a FunctionDef body, or
     a control-flow sub-graph. TF1 frames are reconstructed at import
@@ -1222,7 +1174,7 @@ class _Walker:
                     pair = None
                     break
                 try:
-                    out = _eval_shape(opnode.op_name, fn, ins, opnode.attrs)
+                    out = eval_shape(opnode.op_name, fn, ins, opnode.attrs)
                 except Exception:       # noqa: BLE001 (no aval, as JAX)
                     pair = None
                     break

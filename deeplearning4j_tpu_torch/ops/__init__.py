@@ -8,6 +8,7 @@ from deeplearning4j_tpu_torch.ops import (  # noqa: F401 (register)
     transforms, nn, random, reduce, shape, extra_indexing, flash_attention,
     conv_bn_stats, residual_tail, fused_update, paged_attention,
     tf_compat, tensor_array, bitwise, extra_math, linalg, declarable_tail,
+    onnx_compat, image, compression,
 )
 # the graph engine's math ops (reduce_sum with ``dimensions=``, cast, ...)
 # and control flow; nothing in that chain imports the ops package itself

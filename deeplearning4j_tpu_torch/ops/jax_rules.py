@@ -84,14 +84,34 @@ def index_tensor(idx, device) -> torch.Tensor:
     return as_tensor(idx, device).to(torch.int64)
 
 
+#: what JAX without x64 makes of a 64-bit type
+NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
+          torch.uint64: torch.uint32, torch.complex128: torch.complex64}
+
+
+@contextlib.contextmanager
+def x64():
+    """JAX's ``jax.enable_x64()`` inside this block: :func:`torch_dtype`
+    keeps 64-bit types (the ONNX importer folds its integer constants
+    so)."""
+    prev = getattr(_local, "x64", False)
+    _local.x64 = True
+    try:
+        yield
+    finally:
+        _local.x64 = prev
+
+
 def torch_dtype(dtype) -> Optional[torch.dtype]:
     """A JAX-side dtype spelling (string, numpy or torch dtype, DataType)
-    as a torch dtype; 64-bit types narrow, as JAX makes them."""
+    as a torch dtype; 64-bit types narrow, as JAX makes them, but inside
+    :func:`x64`."""
     if dtype is None:
         return None
     dt = DataType.from_any(dtype).torch
-    return {torch.float64: torch.float32, torch.int64: torch.int32}.get(dt,
-                                                                       dt)
+    if getattr(_local, "x64", False):
+        return dt
+    return NARROW.get(dt, dt)
 
 
 def int32(t: torch.Tensor) -> torch.Tensor:

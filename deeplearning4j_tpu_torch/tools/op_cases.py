@@ -488,6 +488,94 @@ def tf_cases(seed: int = 0) -> Dict[str, Tuple[tuple, dict, str]]:
     add("zeta", P * 3 + 1.5, P + 0.5)
     return c
 
+
+def onnx_cases(seed: int = 0) -> Dict[str, Tuple[tuple, dict, str]]:
+    """One call for each of the 40 names the ONNX-import slice registers
+    (ROADMAP A10.2): ``ops/onnx_compat.py``, ``image.py`` and
+    ``compression.py``; the same ``(args, kwargs, kind)`` form as
+    :func:`cases`. Ties (hardmax, top-k, non-max suppression), exact
+    halves for the quantizer's rounding, and slice ends past the axis are
+    in on purpose."""
+    r = np.random.default_rng(seed + 23)
+
+    def n(*shape, scale=1.0):
+        return (r.normal(size=shape) * scale).astype(np.float32)
+
+    def u(lo, hi, *shape):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    def i32(v):
+        return np.asarray(v, np.int32)
+
+    X = n(4, 6)
+    IMG = u(0, 1, 2, 8, 8, 3)
+    c = {}
+
+    def add(name, *args, kind="exact", **kw):
+        c[name] = (args, kw, kind)
+
+    big = 2 ** 63 - 1
+    # ----------------------------------------------------- onnx_compat
+    add("onnx_reshape", X, shape=[0, 3, -1])
+    add("onnx_flatten", IMG, axis=2)
+    add("onnx_slice", n(5, 6, 3), starts=[1, 5, -2], ends=[big, -big, 9],
+        axes=[0, 1, -1], steps=[2, -2, 1])
+    add("hardmax", np.round(X * 0.7), axis=0)
+    add("shrink", X, lambd=0.5, bias=0.2)
+    add("mean_variance_norm", n(2, 3, 5, 5))
+    halves = (np.arange(-12, 12, dtype=np.float32) * 0.25).reshape(2, 3, 4)
+    add("quantize_linear", halves * 40, np.asarray([0.5, 2.0, 1.0],
+                                                   np.float32),
+        np.asarray([3, -2, 0], np.int8), axis=1, qmin=-128, qmax=127)
+    add("dequantize_linear", np.asarray(r.integers(-128, 128, (2, 3, 4)),
+                                        np.int8),
+        np.asarray([0.5, 0.25, 2.0], np.float32),
+        np.asarray([1, -3, 0], np.int8), axis=1)
+    add("grid_sample", n(2, 5, 6, 3), u(-1.2, 1.2, 2, 4, 7, 2))
+    # ----------------------------------------------------------- image
+    add("resize_bilinear", IMG, [13, 5])
+    add("resize_nearest_neighbor", IMG, [5, 13])
+    add("resize_bicubic", IMG, [11, 6])
+    add("resize_area", IMG, [3, 5])
+    add("crop_and_resize", IMG, np.asarray(
+        [[0.1, 0.2, 0.8, 0.9], [0.0, 0.0, 1.0, 1.0],
+         [-0.1, 0.3, 0.5, 1.2]], np.float32), i32([1, 0, 1]), (4, 5))
+    add("extract_image_patches", IMG, (3, 2), (2, 1), rates=(1, 2),
+        padding="SAME")
+    add("image_flip_left_right", IMG)
+    add("image_flip_up_down", IMG)
+    add("adjust_brightness", IMG, 0.1)
+    add("adjust_contrast", IMG, 1.5)
+    add("adjust_saturation", IMG, 0.6)
+    add("adjust_hue", IMG, 0.3)
+    add("rgb_to_hsv", IMG)
+    add("hsv_to_rgb", u(0, 1, 2, 8, 8, 3))
+    add("rgb_to_grayscale", IMG)
+    add("rgb_to_yuv", IMG)
+    add("yuv_to_rgb", IMG)
+    lo = u(0, 6, 10, 2)
+    boxes = np.concatenate([lo, lo + u(1, 4, 10, 2)], 1)[:, [0, 1, 2, 3]]
+    scores = u(0, 1, 10)
+    scores[7] = scores[2]
+    add("non_max_suppression", boxes, scores, 6, iou_threshold=0.4,
+        score_threshold=0.1)
+    add("central_crop", u(0, 1, 2, 9, 8, 3), 0.5)
+    add("per_image_standardization", IMG)
+    add("image_gradients", IMG)
+    add("sobel_edges", IMG)
+    add("pad_to_bounding_box", IMG, 1, 2, 12, 11)
+    add("crop_to_bounding_box", IMG, 1, 2, 5, 4)
+    add("adjust_gamma", IMG, gamma=2.2, gain=1.1)
+    add("image_translate", IMG, 2, -3)
+    # ----------------------------------------------------- compression
+    add("encode_threshold", X, 0.5)
+    add("decode_threshold", np.asarray(r.integers(-1, 2, (4, 6)), np.int8),
+        0.5)
+    add("encode_topk", np.round(n(40) * 2) / 2, 7)
+    add("decode_topk", i32([3, 0, 9, 3, -2, 40]), n(6), 12)
+    add("adaptive_threshold", X, target_sparsity=0.1, current_threshold=0.5)
+    return c
+
 def to_port(a: Any, device, seed: int = 0):
     """A case argument for the port on ``device``: numpy arrays as tensors
     (64-bit narrowed), containers element by element, :data:`RNG` as

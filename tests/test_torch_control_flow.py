@@ -490,7 +490,7 @@ def test_op_validation_forward_grad_and_attrs():
             "add", args=[np.ones(2, np.float32), np.ones(2, np.float32)],
             expected=lambda a, b: a * 5, grad_check=False, device="cpu"))
     rep = OpValidation.coverage_report()
-    assert rep["total"] == 402 and "matmul" in rep["validated"]
+    assert rep["total"] == 442 and "matmul" in rep["validated"]
     assert "add" not in rep["validated"]
     OpValidation.mark_validated("add")
     assert "add" in OpValidation.coverage_report()["validated"]

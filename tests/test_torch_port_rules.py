@@ -1,9 +1,12 @@
 """PyTorch port, ground rules: ``deeplearning4j_tpu_torch`` and
 ``chip_smoke.py`` never import JAX or the JAX package, nor
-``tensorflow``, ``google.protobuf``, ``transformers`` or ``onnx`` (the
-model importers read their formats themselves; the one exception is
-``tools/make_tf_fixture.py``, which makes the TF fixture with TF), and
-the port's entry points run on the CPU only when the caller asks for it.
+``tensorflow``, ``google.protobuf``, ``transformers``, ``onnx``,
+``onnxruntime`` or ``torch.onnx`` (the model importers read their
+formats themselves; the exceptions are the fixture tools:
+``tools/make_tf_fixture.py`` makes the TF fixture with TF and
+``tools/make_onnx_fixture.py`` the ONNX one with ``torch.onnx``, each
+inside a function), and the port's entry points run on the CPU only when
+the caller asks for it.
 
 The name ``deeplearning4j_tpu_torch`` starts with ``deeplearning4j_tpu``,
 so every check below matches the JAX package by its exact name or its
@@ -23,9 +26,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deeplearning4j_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
 #: the frameworks whose formats the importers read without them
-FOREIGN = ("tensorflow", "google.protobuf", "transformers", "onnx")
-#: the one module that may import them (inside its main())
+FOREIGN = ("tensorflow", "google.protobuf", "transformers", "onnx",
+           "onnxruntime", "torch.onnx")
+#: the modules that may import some of them (inside a function)
 FIXTURE_TOOL = os.path.join(PKG, "tools", "make_tf_fixture.py")
+ONNX_FIXTURE_TOOL = os.path.join(PKG, "tools", "make_onnx_fixture.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -44,10 +49,11 @@ def _port_sources():
     return sorted(out)
 
 
-def _imports(path):
+def _imports(path, top_level_only=False):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
+    nodes = tree.body if top_level_only else ast.walk(tree)
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -81,7 +87,8 @@ def test_no_jax_import_in_source(path):
 
 
 @pytest.mark.parametrize("path", [p for p in _port_sources()
-                                  if p != FIXTURE_TOOL],
+                                  if p not in (FIXTURE_TOOL,
+                                               ONNX_FIXTURE_TOOL)],
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_tensorflow_protobuf_transformers_or_onnx_import(path):
     bad = [m for m in _imports(path) if _foreign(m)]
@@ -91,12 +98,25 @@ def test_no_tensorflow_protobuf_transformers_or_onnx_import(path):
 def test_foreign_scan_matches_names_exactly():
     assert _foreign("tensorflow.python.framework") and _foreign("onnx")
     assert _foreign("google.protobuf.message") and _foreign("transformers")
-    assert not _foreign("google") and not _foreign("torch.onnx")
+    assert _foreign("torch.onnx") and _foreign("onnxruntime")
+    assert _foreign("torch.onnx._internal.torchscript_exporter")
+    assert not _foreign("google") and not _foreign("torch")
+    assert not _foreign("torch._C._onnx") and not _foreign("torch.onnx_x")
     assert not _foreign("onnx_compat") and not _foreign("tensorflow_io_x")
     assert FIXTURE_TOOL in _port_sources()
     assert [m for m in _imports(FIXTURE_TOOL) if _foreign(m)] == [
         "tensorflow", "transformers", "tensorflow.python.framework"
         ".convert_to_constants"]
+
+
+def test_only_the_onnx_fixture_tool_imports_torch_onnx_in_a_function():
+    """``tools/make_onnx_fixture.py`` imports ``torch.onnx``'s exporter
+    shim inside ``main()`` and nothing foreign at its top level."""
+    assert ONNX_FIXTURE_TOOL in _port_sources()
+    assert [m for m in _imports(ONNX_FIXTURE_TOOL) if _foreign(m)] == [
+        "torch.onnx._internal.torchscript_exporter"]
+    assert not [m for m in _imports(ONNX_FIXTURE_TOOL, top_level_only=True)
+                if _foreign(m)]
 
 
 @pytest.mark.parametrize("path", [p for p in _port_sources()

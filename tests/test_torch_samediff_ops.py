@@ -43,8 +43,9 @@ PRIOR = {
     "reduce_norm2", "reduce_std", "reduce_sum", "relu", "relu6", "reshape",
     "rsub", "selu", "sigmoid", "softmax", "softplus", "softsign", "sub",
     "sumpool2d", "swish", "tanh", "thresholdedrelu", "transpose"}
-#: the names of the TensorFlow-import slice (tests/test_torch_tf_ops.py)
-LATER = set(oc.tf_cases(0))
+#: the names of the TensorFlow- and ONNX-import slices
+#: (tests/test_torch_tf_ops.py, tests/test_torch_onnx_ops.py)
+LATER = set(oc.tf_cases(0)) | set(oc.onnx_cases(0))
 NEW = sorted(set(port_ops.list_ops()) - PRIOR - LATER)
 CASES = oc.cases(0)
 LOOSE = {"ctc_loss", "conv1d", "conv3d", "deconv2d", "depthwise_conv2d",
